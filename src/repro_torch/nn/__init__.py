@@ -1,0 +1,8 @@
+from repro_torch.nn.spec import (  # noqa: F401
+    ParamShape,
+    count_params,
+    from_jax_params,
+    init_params,
+    lm_shapes,
+    padded_vocab,
+)
