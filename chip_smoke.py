@@ -7,12 +7,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 
 1. device   — a CUDA card is required; prints the card's name and power
               limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
-2. build    — builds every kernel of the serving path from the sources in
-              this checkout with nvcc for sm_90a (one nvcc per source, all
-              started together) and prints the build seconds.
-3. check    — holds each kernel against its plain PyTorch version at the
-              serving path's bf16 shapes and edge cases, atol = rtol = 2e-2
-              (the reference's own bf16 kernel tolerance).
+2. build    — builds every kernel (serving and training paths) from the
+              sources in this checkout with nvcc for sm_90a (one nvcc per
+              source, all started together) and prints the build seconds.
+3. check    — holds each kernel against its plain PyTorch version at its
+              path's shapes and edge cases, atol = rtol = 2e-2 (the
+              reference's own bf16 kernel tolerance).
 4. timing   — per kernel: its time, the plain version's, a PyTorch library
               call's as a yardstick, and the bound (the larger of bytes over
               3.35 TB/s and flops over 989 TFLOP/s bf16).
@@ -20,16 +20,30 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
               must finish with its budget, the dropped fraction must be
-              exactly 0.0, and each kernel's launch count must equal layers x
-              engine steps.  Then one mixed step's forward runs twice, through
-              the kernels and through the plain versions, and the logits and
-              greedy tokens are compared.
-6. report   — a {"kernels": [...]} line, the card line, and as the last line
+              exactly 0.0, and each serving kernel's launch count must equal
+              layers x engine steps.  Then one mixed step's forward runs
+              twice, through the kernels and through the plain versions, and
+              the logits and greedy tokens are compared.
+6. train    — m6-base at full width trains through the train CLI's own
+              setup (``repro_torch.launch.train``): 8 steps of top-1 routing
+              with capacity 1.25 through the grouped-FFN kernel (``pallas``),
+              then 4 steps of 4 top-1 expert prototyping.  Every loss and grad
+              norm must be finite, the dropped fraction in [0, 1), and the
+              grouped-FFN kernel launched layers x steps x 2 times (forward
+              and the remat recompute in the backward), the other kernels
+              not at all.  Then a profiled pair of steps (device busy share),
+              one step's loss and gradients through the kernels against the
+              plain versions (routing near-ties reported), a dropless step
+              whose expert weights must get the plain path's gradient, and
+              ``lm_apply(use_flash=True)`` against ``use_flash=False`` on the
+              train batch (the flash kernel launched once per layer).
+7. report   — a {"kernels": [...]} line, the card line, and as the last line
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -140,6 +154,13 @@ def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None):
 # Bounds (least time the card could take for the same work)
 # ---------------------------------------------------------------------------
 
+def roofline(nbytes: float, flops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the flops over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def attention_bound(q, kp, tables, lengths):
     N, Hq, D = q.shape
     Hkv = kp.shape[1]
@@ -148,8 +169,7 @@ def attention_bound(q, kp, tables, lengths):
               + 2 * live * Hkv * D * kp.element_size()      # K and V of live positions
               + tables.numel() * 4 + lengths.numel() * 4)
     flops = 4.0 * Hq * D * live
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, (
-        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations")
+    return roofline(nbytes, flops)
 
 
 def ffn_bound(xs, be, weights, rag, bx):
@@ -167,8 +187,53 @@ def ffn_bound(xs, be, weights, rag, bx):
     nbytes = (2 * live * M * xs.element_size() + used * 4
               + experts * mats * M * I * w_up.element_size())
     flops = 2.0 * live * M * I * mats
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, (
-        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations")
+    return roofline(nbytes, flops)
+
+
+def moe_ffn_bound(x, w_up, w_gate):
+    """Every expert's buffer is computed, so every expert's weights are
+    read: x read and y written once, the weights once, 2 flops per
+    multiply-add of the two (three if gated) matmuls."""
+    E, X, M = x.shape
+    I = w_up.shape[2]
+    mats = 3 if w_gate is not None else 2
+    nbytes = 2 * x.numel() * x.element_size() + mats * w_up.numel() * w_up.element_size()
+    flops = 2.0 * E * X * M * I * mats
+    return roofline(nbytes, flops)
+
+
+def flash_bound(q, k, causal):
+    """q, k, v read and o written once; QK^T and PV over the (causal: lower
+    triangle including the diagonal) score entries."""
+    B, S, Hq, D = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4.0 * B * Hq * D * pairs
+    return roofline(nbytes, flops)
+
+
+def moe_case(E, X, M, I, seed, act="gelu", dtype=None):
+    """(E, X, M) capacity buffers and expert weights at 0.02 init scale."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(dtype)
+
+    x = torch.randn((E, X, M), generator=g, device="cuda").to(dtype)
+    gated = act in ("swiglu", "geglu")
+    return x, w(E, M, I), w(E, M, I) if gated else None, w(E, I, M)
+
+
+def flash_case(B, S, Hq, Hkv, D, seed, dtype=None):
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype)
+                 for h in (Hq, Hkv, Hkv))
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +285,48 @@ def phase_check(torch):
     xs, be, wsw, _, bx = ffn_case(40, 8, 256, 512, seed=60, act="swiglu")
     check_close("ragged_ffn swiglu", rffn.ragged_ffn(xs, be, *wsw, "swiglu", block_x=bx),
                 ragged_ffn_ref(xs, be, *wsw, "swiglu"))
+    errs.update(check_training_kernels(torch))
     return errs, weights
+
+
+def check_training_kernels(torch):
+    """The grouped-FFN kernel at the training path's capacity buffers (top-1:
+    X = 45, 4 top-1: X = 180) and the reference's edge cases; the flash
+    kernel at the m6 training shape and at non-power-of-two S, Hkv = 1,
+    non-causal and f32."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_ffn import ops as mf
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+
+    errs = {"moe_ffn": 0.0, "flash_attention": 0.0}
+    for X in (45, 180):
+        case = moe_case(32, X, 1024, 4096, seed=90 + X)
+        out = mf.moe_ffn(*case, "gelu")
+        torch.cuda.synchronize()
+        errs["moe_ffn"] = max(errs["moe_ffn"], check_close(
+            f"moe_ffn E=32 X={X}", out, moe_ffn_ref(*case, "gelu")))
+        del case, out
+    for E, X, M, I, act, dt in ((1, 100, 64, 40, "swiglu", torch.float32),
+                                (2, 100, 64, 96, "gelu", torch.bfloat16),
+                                (3, 13, 128, 44, "relu", torch.float32)):   # I % 8 != 0
+        case = moe_case(E, X, M, I, seed=E + X + I, act=act, dtype=dt)
+        check_close(f"moe_ffn E={E} X={X} I={I} {act} {str(dt)[6:]}",
+                    mf.moe_ffn(*case, act), moe_ffn_ref(*case, act))
+    for B, S, Hq, Hkv, D, causal, dt in ((8, 144, 16, 16, 64, True, torch.bfloat16),
+                                         (2, 80, 4, 1, 128, False, torch.float32),
+                                         (1, 96, 8, 1, 16, True, torch.float32),
+                                         (2, 96, 4, 2, 32, False, torch.bfloat16)):
+        q, k, v = flash_case(B, S, Hq, Hkv, D, seed=S + D)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                          f"{'causal' if causal else 'full'} {str(dt)[6:]}",
+                          out, attention_ref(q, k, v, causal))
+        if S == 144:
+            errs["flash_attention"] = err
+    return errs
 
 
 def time_attention(torch, lens, seed):
@@ -284,6 +390,55 @@ def time_ffn(torch, n, seed, weights):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def time_moe_ffn(torch, X, seed):
+    """Kernel, plain and bf16 torch.bmm times for one grouped FFN call on
+    the capacity buffers of one m6-base layer (E = 32, M = 1024,
+    I = 4096, gelu): the weights are 537 MB, far above the 50 MB L2, so
+    every launch reads them cold."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.moe_ffn import ops as mf
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+
+    x, w_up, _, w_down = moe_case(32, X, 1024, 4096, seed=seed)
+    k_ms = cuda_ms(lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), reps=10)
+    p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, None, w_down, "gelu"), reps=5)
+    lib_ms = cuda_ms(lambda: torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"),
+                                       w_down), reps=10)
+    bound, by = moe_ffn_bound(x, w_up, None)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def time_flash(torch, B, S, H, D, seed):
+    """Kernel, plain and SDPA times for one causal attention call at the
+    m6 training shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = flash_case(B, S, H, H, D, seed=seed)
+    k_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    p_ms = cuda_ms(lambda: attention_ref(q, k, v, True))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
+    bound, by = flash_bound(q, k, True)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_timing_training(torch):
+    """The training kernels at the training path's shapes: the grouped FFN
+    at X = 45 (top-1, the JSON line) and X = 180 (4 top-1), flash at B = 8,
+    S = 144, H = 16, D = 64."""
+    out = {"moe_ffn": time_moe_ffn(torch, 45, seed=100),
+           "moe_ffn X=180": time_moe_ffn(torch, 180, seed=101),
+           "flash_attention": time_flash(torch, 8, 144, 16, 64, seed=102)}
+    for name, r in out.items():
+        log(f"  train {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return out
+
+
 def phase_timing(torch, ffn_weights):
     """Both kernels at the decode step's shapes (8 rows: the JSON line) and
     at the mixed step's (8 decode rows + a 32-row prefill chunk)."""
@@ -312,11 +467,18 @@ def plain_versions():
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
+    import repro_torch.kernels.flash_attention as fa_pkg
+    import repro_torch.kernels.moe_ffn as mf_pkg
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+
     def plain_ffn(x, be, up, gate, down, activation="swiglu", block_x=128):
         return ragged_ffn_ref(x, be, up, gate, down, activation)
 
     with mock.patch.object(pda, "paged_decode_attention", paged_decode_attention_ref), \
-            mock.patch.object(rffn, "ragged_ffn", plain_ffn):
+            mock.patch.object(rffn, "ragged_ffn", plain_ffn), \
+            mock.patch.object(mf_pkg, "moe_ffn", moe_ffn_ref), \
+            mock.patch.object(fa_pkg, "flash_attention", attention_ref):
         yield
 
 
@@ -432,12 +594,14 @@ def recorded_routing(store: list):
     from repro_torch.core import moe
 
     real = moe.route
+    import torch
 
     def route(x, router_w, cfg, capacity, ctx=None):
         plan = real(x, router_w, cfg, capacity, ctx=ctx)
-        top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
-        store.append((plan.expert_index[..., 0].reshape(-1).clone(),
-                      (top2[..., 0] - top2[..., 1]).reshape(-1).clone()))
+        with torch.no_grad():
+            top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
+            store.append((plan.expert_index[..., 0].reshape(-1).clone(),
+                          (top2[..., 0] - top2[..., 1]).reshape(-1).clone()))
         return plan
 
     with mock.patch.object(moe, "route", route):
@@ -521,6 +685,279 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
         f"/{len(live_rows)} live rows")
 
 
+TRAIN_ARGS = ["--arch", "m6-base", "--moe-impl", "pallas", "--batch", "8", "--seq", "144",
+              "--log-every", "1"]
+
+
+def train_run(torch, extra, steps):
+    """``repro_torch.launch.train.main`` itself for ``steps`` steps, logging
+    every step (each log syncs, so each step_time_s is a whole step)."""
+    from repro_torch.launch.train import main as train_main
+
+    logs = train_main(TRAIN_ARGS + ["--steps", str(steps)] + extra)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for m in logs:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"step {m['step']}: loss {m['loss']}, grad norm {m['grad_norm']}")
+        if not 0.0 <= m["moe_dropped_fraction"] < 1.0:
+            raise AssertionError(f"step {m['step']}: dropped fraction {m['moe_dropped_fraction']}")
+    return logs
+
+
+def train_setup(argv):
+    """(cfg, state, step_fn, pipeline) exactly as the train CLI builds them."""
+    from repro_torch.launch.train import build_parser, setup
+
+    cfg, _, step_fn, state, pipeline = setup(build_parser().parse_args(argv))
+    return cfg, state, step_fn, pipeline
+
+
+def phase_train(torch):
+    """m6-base training through the train CLI; returns (launches, e2e)."""
+    from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_ffn import ops as mf
+
+    log("phase 6: m6-base training, 8 top-1 steps then 4 steps of 4 top-1 prototyping")
+    counters = {"moe_ffn": mf.moe_ffn, "flash_attention": fa.flash_attention,
+                "ragged_ffn": rffn.ragged_ffn, "paged_decode_attention": pda.paged_decode_attention}
+    e2e, launches = {}, {}
+    for label, extra, steps in (("top-1", [], 8), ("4 top-1", ["--routing", "prototype", "--k", "4"], 4)):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        logs = train_run(torch, extra, steps)
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = 5 * steps * 2        # layers x steps x (forward + remat recompute)
+        if got["moe_ffn"] != want or any(got[n] for n in got if n != "moe_ffn"):
+            raise AssertionError(f"{label}: launches {got}, expected moe_ffn = 5 layers x "
+                                 f"{steps} steps x 2 = {want} and no other kernel")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        steady = logs[1:]                           # step 0 carries first-call set-up
+        step_ms = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+        e2e[label] = dict(
+            mean_step_ms=step_ms, tokens_per_s=8 * 144 / (step_ms / 1e3),
+            first_step_ms=logs[0]["step_time_s"] * 1e3,
+            losses=[m["loss"] for m in logs], grad_norms=[m["grad_norm"] for m in logs],
+            dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"  {label}: {steps} steps, moe_ffn launches {got['moe_ffn']} = 5 layers x {steps} "
+            f"steps x 2 (forward + remat recompute); mean step {step_ms:.1f} ms over steps "
+            f"1-{steps - 1} (host clock, synced), {e2e[label]['tokens_per_s']:.0f} tokens/s, "
+            f"first step {e2e[label]['first_step_ms']:.0f} ms, peak memory "
+            f"{e2e[label]['peak_memory_gb']:.1f} GB")
+        log(f"    losses {[round(x, 4) for x in e2e[label]['losses']]}, dropped fraction "
+            f"{[round(x, 4) for x in e2e[label]['dropped_fraction']]}")
+
+    from repro_torch.launch.train import device_batch
+
+    cfg, state, step_fn, pipeline = train_setup(TRAIN_ARGS + ["--steps", "8"])
+    batch = device_batch(pipeline.batch_at(0), "cuda")
+    e2e["top-1"].update(profile_train_steps(torch, state, step_fn, batch))
+    e2e["kernels_vs_plain"] = compare_train_step(torch, cfg, state.params, batch)
+    e2e["flash"] = compare_flash_forward(torch, cfg, state.params, batch, fa)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    e2e["dropless"] = dropless_gradient_step(torch, rffn, TRAIN_ARGS + DROPLESS_ARGS)
+    return launches, e2e
+
+
+def profile_train_steps(torch, state, step_fn, batch, n_steps=2):
+    """torch.profiler over ``n_steps`` train steps after one warm step:
+    device busy share and the kernels that take the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(float(e.self_device_time_total) for e in kernels)
+    if busy_us <= 0.0:
+        log("  profiler: no device time recorded; device busy share not measured")
+        return {"device_busy_share": None}
+    log(f"  profiler over {n_steps} train steps: device busy {busy_us / 1e3:.2f} ms of "
+        f"{wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; kernels and copies)")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
+    return {"device_busy_share": busy_us / wall_us, "profiled_steps": n_steps,
+            "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3}
+
+
+def _flip_report(routes_k, routes_p, layers, seq_len, label):
+    """Routing flips between two forwards over (batch x seq_len) tokens, per
+    layer (the forward's route calls only: the remat recompute appends
+    more), each reported with its router-logit margin.  A flip must be a
+    near-tie (margin < FLIP_MARGIN) unless an earlier layer's flip
+    reached the token through causal attention (a flipped token moves the
+    later tokens of its sequence).  Returns (flips, affected token ids)."""
+    flips, affected = [], set()
+    for layer, ((ek, mk), (ep, _)) in enumerate(zip(routes_k[:layers], routes_p[:layers])):
+        reached = set(affected)
+        for r in torch_nonzero(ek != ep):
+            margin = float(mk[r])
+            flips.append((layer, r, margin))
+            log(f"  routing near-tie ({label}): layer {layer}, token {r}: expert {int(ek[r])} "
+                f"(kernels) vs {int(ep[r])} (plain), router-logit margin {margin:.3g}")
+            if r not in reached and margin > FLIP_MARGIN:
+                raise AssertionError(f"{label}: routing flipped at margin {margin} > {FLIP_MARGIN}")
+            affected.update(range(r, (r // seq_len + 1) * seq_len))
+    return flips, affected
+
+
+def torch_nonzero(mask):
+    return mask.nonzero().flatten().tolist()
+
+
+def sync(torch, t) -> bool:
+    """Wait for the card if ``t`` lives on it; True there.  (The compare
+    phases below also run on the CPU at smoke size, as a rehearsal.)"""
+    if t.is_cuda:
+        torch.cuda.synchronize()
+    return t.is_cuda
+
+
+def compare_train_step(torch, cfg, params, batch):
+    """One step's loss and gradients through the kernels, then through the
+    plain versions, from the same params and batch.  The two differ in f32
+    summation order before bf16 roundings, which can flip a top-1 routing
+    near-tie; each flip is reported with its margin and must be a near-tie.
+    Loss within 1e-3 + 10 / tokens per flipped token (a token's CE moves by
+    about log V at most when its expert changes); the global gradient norm
+    within 2e-2 relative; every leaf's gradient cosine to the plain one
+    >= 0.99 (>= 0.9 with flips)."""
+    from repro_torch.nn import flat_params
+    from repro_torch.train.trainer import make_loss_fn
+
+    loss_fn = make_loss_fn(cfg)
+    flat = flat_params(params)
+
+    def loss_and_grads(routes):
+        with recorded_routing(routes):
+            loss, _ = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        return float(loss.detach()), grads
+
+    rk, rp = [], []
+    lk, gk = loss_and_grads(rk)
+    with plain_versions():
+        lp, gp = loss_and_grads(rp)
+    sync(torch, batch["tokens"])
+    seq = batch["tokens"].shape[1] + batch["patch_embeds"].shape[1]
+    flips, _ = _flip_report(rk, rp, cfg.num_layers, seq, "train step")
+    tokens = batch["labels"].numel()
+    loss_tol = 1e-3 + 10.0 * len({r for _, r, _ in flips}) / tokens
+    nk = math.sqrt(sum(float(g.float().square().sum()) for g in gk))
+    np_ = math.sqrt(sum(float(g.float().square().sum()) for g in gp))
+    cos = {name: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for name, a, b in zip(flat, gk, gp) if float(b.float().abs().max()) > 0}
+    worst = min(cos, key=cos.get)
+    log(f"  train step kernels vs plain: loss {lk:.6f} vs {lp:.6f} (|diff| {abs(lk - lp):.3g}, "
+        f"tolerance {loss_tol:.3g}); grad norm {nk:.5f} vs {np_:.5f}; lowest leaf gradient "
+        f"cosine {cos[worst]:.6f} ({worst}); {len(flips)} routing flips")
+    if not all(math.isfinite(v) for v in (lk, lp, nk, np_)):
+        raise AssertionError("train step: non-finite loss or gradient norm")
+    if abs(lk - lp) > loss_tol:
+        raise AssertionError(f"train step loss differs: {lk} vs {lp}")
+    if abs(nk - np_) > 2e-2 * np_:
+        raise AssertionError(f"train step grad norm differs: {nk} vs {np_}")
+    if cos[worst] < (0.9 if flips else 0.99):
+        raise AssertionError(f"train step gradient of {worst}: cosine {cos[worst]}")
+    return dict(loss=lk, plain_loss=lp, grad_norm=nk, plain_grad_norm=np_,
+                min_grad_cosine=cos[worst], routing_flips=len(flips))
+
+
+def compare_flash_forward(torch, cfg, params, batch, fa):
+    """``lm_apply(use_flash=True)`` against ``use_flash=False`` on the train
+    batch: logits within 2e-2 + 2e-2 |logit| on tokens untouched by a
+    routing near-tie; the flash kernel launched once per layer."""
+    from repro_torch.models.transformer import lm_apply
+
+    def run(use_flash, routes):
+        with torch.no_grad(), recorded_routing(routes):
+            return lm_apply(params, batch["tokens"], cfg, use_flash=use_flash,
+                            extra_embeds=batch["patch_embeds"])[0]
+
+    rf, rr = [], []
+    fa.flash_attention.launches = 0
+    lf = run(True, rf)
+    n = fa.flash_attention.launches
+    lr = run(False, rr)
+    if sync(torch, lf) and n != cfg.num_layers:
+        raise AssertionError(f"flash_attention: {n} launches in one forward, expected "
+                             f"{cfg.num_layers} (one per layer)")
+    B, S = lf.shape[:2]
+    flips, affected = _flip_report(rf, rr, cfg.num_layers, S, "flash forward")
+    hit = torch.zeros(B * S, dtype=torch.bool, device=lf.device)
+    hit[sorted(affected)] = True
+    V = cfg.vocab_size
+    a, b = lf.reshape(B * S, -1)[~hit, :V].float(), lr.reshape(B * S, -1)[~hit, :V].float()
+    diff = float((a - b).abs().max())
+    log(f"  lm_apply use_flash=True vs False: {n} flash launches (one per layer); max abs "
+        f"logit diff {diff:.4g} on {int((~hit).sum())} of {B * S} tokens (tolerance "
+        f"{TOL} + {TOL} x |logit|, logit scale {float(b.abs().max()):.3g}); "
+        f"{len(flips)} routing flips")
+    if ((a - b).abs() > TOL + TOL * b.abs()).any():
+        raise AssertionError(f"flash forward logits differ beyond tolerance: {diff}")
+    return dict(max_abs_logit_diff=diff, launches=n, routing_flips=len(flips))
+
+
+DROPLESS_ARGS = ["--steps", "1", "--batch", "2", "--moe-impl", "dropless",
+                 "--capacity-factor", "none"]
+
+
+def dropless_gradient_step(torch, rffn, argv):
+    """One dropless (--moe-impl dropless --capacity-factor none) loss and
+    gradient through the ragged-FFN kernel and through its plain version:
+    the expert weights' gradients must be nonzero and agree (cosine >=
+    0.99, norm within 2e-2)."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.nn import flat_params
+    from repro_torch.train.trainer import make_loss_fn
+
+    cfg, state, _, pipeline = train_setup(argv)
+    device = state.params["embed"]["table"].device
+    batch = device_batch(pipeline.batch_at(0), device)
+    loss_fn = make_loss_fn(cfg)
+    flat = flat_params(state.params)
+    names = ["blocks/ffn/up", "blocks/ffn/down", "blocks/ffn/router"]
+
+    def grads():
+        loss, _ = loss_fn(state.params, batch)
+        return torch.autograd.grad(loss, [flat[n] for n in names])
+
+    rffn.ragged_ffn.launches = 0
+    gk = grads()
+    n = rffn.ragged_ffn.launches
+    with plain_versions():
+        gp = grads()
+    on_card = sync(torch, gp[0])
+    out = {"ragged_ffn_launches": n}
+    for name, a, b in zip(names, gk, gp):
+        na, nb = float(a.float().norm()), float(b.float().norm())
+        cos = float(torch.nn.functional.cosine_similarity(a.float().flatten(),
+                                                          b.float().flatten(), dim=0))
+        out[name] = dict(norm=na, plain_norm=nb, cosine=cos)
+        log(f"  dropless step {name} gradient: norm {na:.5g} (kernel) vs {nb:.5g} (plain), "
+            f"cosine {cos:.6f}")
+        if na == 0.0 or abs(na - nb) > 2e-2 * nb or cos < 0.99:
+            raise AssertionError(f"dropless step: {name} gradient {na} vs {nb}, cosine {cos}")
+    if on_card and n != 2 * cfg.num_layers:
+        raise AssertionError(f"dropless step: ragged_ffn launched {n} times, expected "
+                             f"2 x {cfg.num_layers} (forward + remat recompute)")
+    log(f"  dropless step: ragged_ffn launched {n} times (forward + remat recompute)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -560,24 +997,39 @@ def main() -> int:
     errs, ffn_weights = phase_check(torch)
     timing, timing_mixed = phase_timing(torch, ffn_weights)
     del ffn_weights
+    timing.update(phase_timing_training(torch))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     launches, e2e = phase_serve(torch)
+    serve_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_launches, train = phase_train(torch)
+    train_s = time.perf_counter() - t0
+    log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/decode_attention/kernel.py:143"),
+            "src/repro/kernels/decode_attention/kernel.py:143", launches),
         "ragged_ffn": ("src/repro_torch/kernels/moe_dropless/csrc/ragged_ffn.cu",
-                       "src/repro/kernels/moe_dropless/kernel.py:80"),
+                       "src/repro/kernels/moe_dropless/kernel.py:80", launches),
+        "moe_ffn": ("src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu",
+                    "src/repro/kernels/moe_ffn/kernel.py:72", train_launches),
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:66",
+                            {"flash_attention": train["flash"]["launches"]}),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, counts) in sources.items():
         t = timing[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": errs[name],
+                        "launches": counts[name], "max_abs_err": errs[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    print(json.dumps({"serve": e2e, "build_s": build_s, "mixed_step_kernels": timing_mixed}))
+    print(json.dumps({"serve": e2e, "train": train, "build_s": build_s, "serve_s": serve_s,
+                      "train_s": train_s, "mixed_step_kernels": timing_mixed,
+                      "moe_ffn_x180": timing["moe_ffn X=180"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -82,6 +82,15 @@ class MoEConfig:
             return self.num_prototypes * self.prototype_top_k
         return self.top_k
 
+    @property
+    def experts_per_prototype(self) -> int:
+        if self.routing != "prototype":
+            return self.num_experts
+        if self.num_experts % self.num_prototypes:
+            raise ValueError(f"num_experts={self.num_experts} not divisible by "
+                             f"num_prototypes={self.num_prototypes}")
+        return self.num_experts // self.num_prototypes
+
     def capacity(self, tokens_per_shard: int) -> int:
         """Per-expert capacity C = k*T/N*gamma (Eq. 2); T when dropless."""
         if self.capacity_factor is None:
@@ -146,6 +155,24 @@ class ModelConfig:
 
     def replace_moe(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, moe=dataclasses.replace(self.moe, **kw))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and step settings (``repro.configs.base.TrainConfig``).
+    The port implements ``optimizer="adamw"``, ``grad_compression="none"``
+    and no ZeRO sharding; ``zero1`` is carried for parity and unused on
+    one device."""
+
+    learning_rate: float = 8e-5      # paper: AdamW 8e-5
+    optimizer: str = "adamw"         # adamw | adafactor (adafactor not ported)
+    warmup_steps: int = 500          # paper Table 5
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 1.0
+    zero1: bool = True
+    grad_compression: str = "none"   # none | bf16 | int8 (only none ported)
+    microbatches: int = 1            # grad accumulation
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

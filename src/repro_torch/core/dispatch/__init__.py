@@ -1,6 +1,7 @@
 """MoE execution backends (``repro.core.dispatch``).  ``MoEConfig.impl``
-is a key into this registry; the port registers ``dropless``, the
-capacity-free sorted ragged grouped GEMM that serving uses."""
+is a key into this registry; the port registers ``dropless`` (the
+capacity-free ragged grouped GEMM that serving uses) and the capacity
+backends ``einsum``, ``gather`` and ``pallas`` that training uses."""
 from __future__ import annotations
 
 from typing import Dict, Tuple, Type
@@ -8,7 +9,7 @@ from typing import Dict, Tuple, Type
 _REGISTRY: Dict[str, object] = {}
 
 # The reference's other backends: valid in a config, not ported.
-UNPORTED = ("alltoall", "einsum", "gather", "pallas")
+UNPORTED = ("alltoall",)
 
 
 def register_dispatcher(cls: Type) -> Type:
@@ -35,4 +36,4 @@ def available_dispatchers() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from repro_torch.core.dispatch import dropless  # noqa: E402,F401
+from repro_torch.core.dispatch import dropless, einsum, gather, pallas  # noqa: E402,F401

@@ -21,6 +21,17 @@ def gate_entropy(gate: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return ent.mean()
 
 
+def empty_aux(num_experts: int = 0, device=None) -> dict:
+    """The aux dict a dense layer contributes (shape-uniform with an MoE
+    layer's, so per-layer stacking works)."""
+    def zero(shape=()):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {"moe_aux_loss": zero(), "moe_z_loss": zero(), "moe_cv": zero(),
+            "moe_dropped_fraction": zero(), "moe_expert_tokens": zero((num_experts,)),
+            "moe_gate_entropy": zero(), "moe_routed_choices": zero()}
+
+
 def load_entropy(expert_loads) -> float:
     """Entropy (nats) of the normalised expert-load distribution."""
     loads = np.asarray(expert_loads, np.float64)

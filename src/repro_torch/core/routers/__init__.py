@@ -1,5 +1,6 @@
 """Router registry (``repro.core.routers``).  The port registers
-``topk`` only; ``MoEConfig.routing`` is a key into this registry."""
+``topk`` and ``prototype``; ``MoEConfig.routing`` is a key into this
+registry."""
 from __future__ import annotations
 
 from typing import Dict, Tuple, Type
@@ -9,7 +10,7 @@ from repro_torch.core.routers.base import Router, RoutingPlan  # noqa: F401
 _REGISTRY: Dict[str, Router] = {}
 
 # The reference's other routers: valid in a config, not ported.
-UNPORTED = ("expert_choice", "hash", "prototype")
+UNPORTED = ("expert_choice", "hash")
 
 
 def register_router(cls: Type) -> Type:
@@ -36,4 +37,4 @@ def available_routers() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from repro_torch.core.routers import topk  # noqa: E402,F401
+from repro_torch.core.routers import prototype, topk  # noqa: E402,F401

@@ -1,5 +1,6 @@
-"""The ``RoutingPlan`` index view and its ragged (sorted, block-padded)
-execution layout, as in ``repro.core.routers.base``.
+"""The ``RoutingPlan`` index view, its dense ``combine`` view and its
+ragged (sorted, block-padded) execution layout, as in
+``repro.core.routers.base``.
 
 A plan holds, for every token, K expert choices as four ``(G, T, K)``
 tensors: ``expert_index``, ``slot_index`` (position in the expert's
@@ -49,6 +50,26 @@ class RoutingPlan:
     @property
     def masked_gate(self) -> torch.Tensor:
         return torch.where(self.valid, self.gate, torch.zeros_like(self.gate))
+
+    @property
+    def combine(self) -> torch.Tensor:
+        """Dense (G, T, E, C) combine view: gate * one_hot(e) * one_hot(c),
+        scattered from the index view; only the einsum path builds it."""
+        G, T, K = self.expert_index.shape
+        E, C = self.num_experts, self.capacity
+        dev = self.expert_index.device
+        g = torch.arange(G, device=dev)[:, None, None].expand(G, T, K)
+        t = torch.arange(T, device=dev)[None, :, None].expand(G, T, K)
+        e = torch.clamp(self.expert_index, 0, E - 1).long()
+        # overflowed choices land on a sentinel column that is sliced away
+        c = torch.where(self.valid, self.slot_index,
+                        torch.full_like(self.slot_index, C)).long()
+        values = self.masked_gate.to(self.combine_dtype)
+        dense = torch.zeros((G, T, E, C + 1), dtype=values.dtype, device=dev)
+        # The reference adds (`.at[].add`); a token's K choices name distinct
+        # experts, so every (g, t, e, c) target is written at most once
+        # outside the sentinel column, and a plain write gives the same view.
+        return dense.index_put((g, t, e, c), values)[..., :C]
 
     def ragged(self, block_rows: int = 128) -> RaggedView:
         return self._ragged_index_view(block_rows)

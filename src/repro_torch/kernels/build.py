@@ -1,16 +1,17 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel is one ``.cu`` file under ``kernels/*/csrc/`` with a plain C
-interface (no PyTorch headers, so a build takes seconds).  It compiles for
-Hopper only::
+interface (no PyTorch headers, so a build takes seconds); device code
+shared by several kernels sits in headers under ``kernels/csrc/``.  It
+compiles for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
+         -Xcompiler -fPIC -Xptxas -v -I kernels/csrc -o <lib>.so <source>.cu
 
 into ``build/repro_torch_kernels/`` at the repository root, keyed by a hash
-of the source and the flags, so an edited source rebuilds and an unchanged
-one loads from the cache.  ``ptxas``'s register/shared-memory report is
-kept beside each library (``<lib>.log``).  Nothing here runs at import:
+of the source, the shared headers and the flags, so an edited source
+rebuilds and an unchanged one loads from the cache.  ``ptxas``'s
+register/shared-memory report is kept beside each library (``<lib>.log``).  Nothing here runs at import:
 the first wrapper call on a CUDA tensor builds what it needs, and
 :func:`build` starts several sources' ``nvcc`` at once.
 """
@@ -31,7 +32,11 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = {
     "paged_decode_attention": _HERE / "decode_attention" / "csrc" / "paged_decode_attention.cu",
     "ragged_ffn": _HERE / "moe_dropless" / "csrc" / "ragged_ffn.cu",
+    "moe_ffn": _HERE / "moe_ffn" / "csrc" / "moe_ffn.cu",
+    "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
 }
+# headers shared by several sources (``#include "<name>.cuh"``)
+INCLUDE_DIR = _HERE / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,8 +56,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Cache key: the source, every shared header, and the flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -71,7 +79,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         with open(lib.with_suffix(".log"), "w") as log:
             procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(SOURCES[name])],
                 stdout=log, stderr=subprocess.STDOUT), tmp, lib)
     failed = []
     for name, (proc, tmp, lib) in procs.items():

@@ -3,11 +3,14 @@
 
 ``pick_block_rows`` and ``padded_rows`` are kept bit-exact with the
 reference: the sorted, block-padded row layout is part of the contract
-the routing tests compare.  On CPU tensors :func:`ragged_ffn` runs the
-plain version in ``ref.py``; on CUDA tensors it launches
+the routing tests compare.  :func:`ragged_ffn` is a
+``torch.autograd.Function``, as the reference's ``custom_vjp``: its
+forward runs the plain version in ``ref.py`` on CPU tensors and launches
 ``csrc/ragged_ffn.cu`` (two grouped passes with an f32 scratch for the
-intermediate) on the current stream or raises.  ``ragged_ffn.launches``
-counts its calls that launched the kernel.
+intermediate) on CUDA tensors, on the current stream, or raises; its
+backward is autograd through ``ref.py`` (``block_expert`` gets no
+gradient).  ``ragged_ffn.launches`` counts its calls that launched the
+kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import act_code, ref_vjp
 from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -39,14 +43,6 @@ def padded_rows(n_choices: int, num_experts: int, block_rows: int) -> int:
     """Static row count of the sorted+padded ragged buffer."""
     n = n_choices + num_experts * (block_rows - 1)
     return -(-n // block_rows) * block_rows
-
-
-def _act_code(activation: str, gated: bool) -> int:
-    # the reference's mapping: gated -> silu for "swiglu", else gelu;
-    # ungated -> gelu for "gelu", else relu
-    if gated:
-        return 3 if activation == "swiglu" else 4
-    return 1 if activation == "gelu" else 2
 
 
 def _lib():
@@ -79,6 +75,46 @@ def _check(x, block_expert, w_up, w_gate, w_down, block_x):
             raise ValueError(f"ragged_ffn: {name} must be contiguous")
 
 
+def _launch(x, block_expert, w_up, w_gate, w_down, activation, block_x):
+    if x.device.type != "cuda":
+        raise ValueError(f"ragged_ffn: no kernel for device {x.device}")
+    _check(x, block_expert, w_up, w_gate, w_down, block_x)
+    N, M = x.shape
+    I = w_up.shape[2]
+    h = torch.empty((N, I), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(),
+                 w_gate.data_ptr() if w_gate is not None else None, w_down.data_ptr(),
+                 block_expert.data_ptr(), h.data_ptr(), y.data_ptr(),
+                 N, M, I, block_x, act_code(activation, w_gate is not None), stream)
+    if err:
+        raise RuntimeError(f"ragged_ffn kernel launch failed: cudaError {err}")
+    ragged_ffn.launches += 1
+    return y
+
+
+class _RaggedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, block_expert, w_up, w_gate, w_down, activation, block_x):
+        ctx.activation = activation
+        ctx.save_for_backward(x, block_expert, w_up, w_gate, w_down)
+        if x.device.type == "cpu":
+            return ragged_ffn_ref(x, block_expert, w_up, w_gate, w_down, activation)
+        return _launch(x, block_expert, w_up, w_gate, w_down, activation, block_x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, be, w_up, w_gate, w_down = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        dx, _, dup, dgate, ddown = ref_vjp(
+            lambda *a: ragged_ffn_ref(*a, ctx.activation),
+            (x, be, w_up, w_gate, w_down), (needs[0], False) + needs[2:], grad)
+        return dx, None, dup, dgate, ddown, None, None
+
+
 def ragged_ffn(x: torch.Tensor, block_expert: torch.Tensor, w_up: torch.Tensor,
                w_gate: Optional[torch.Tensor], w_down: torch.Tensor,
                activation: str = "swiglu", block_x: int = 128) -> torch.Tensor:
@@ -89,25 +125,7 @@ def ragged_ffn(x: torch.Tensor, block_expert: torch.Tensor, w_up: torch.Tensor,
     if N % block_x or block_expert.shape != (N // block_x,):
         raise ValueError(f"ragged_ffn: N={N}, block_x={block_x}, "
                          f"block_expert {tuple(block_expert.shape)}")
-    if x.device.type == "cpu":
-        return ragged_ffn_ref(x, block_expert, w_up, w_gate, w_down, activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"ragged_ffn: no kernel for device {x.device}")
-    _check(x, block_expert, w_up, w_gate, w_down, block_x)
-    I = w_up.shape[2]
-    h = torch.empty((N, I), dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(),
-                 w_gate.data_ptr() if w_gate is not None else None, w_down.data_ptr(),
-                 block_expert.data_ptr(), h.data_ptr(), y.data_ptr(),
-                 N, M, I, block_x, _act_code(activation, w_gate is not None), stream)
-    if err:
-        raise RuntimeError(f"ragged_ffn kernel launch failed: cudaError {err}")
-    ragged_ffn.launches += 1
-    return y
+    return _RaggedFFN.apply(x, block_expert, w_up, w_gate, w_down, activation, block_x)
 
 
 ragged_ffn.launches = 0

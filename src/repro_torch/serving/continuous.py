@@ -46,7 +46,7 @@ from repro_torch.core.routers import get_router
 from repro_torch.kernels.decode_attention import paged_update_attention
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _project_qkv
-from repro_torch.models.transformer import _is_moe_layer
+from repro_torch.models.transformer import _is_moe_layer, unstack_layers
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_cache import PagedKVCache, make_kv_cache
 from repro_torch.serving.request import Request, RequestState, Status
@@ -60,13 +60,6 @@ _ROW_FIELDS = ("tokens", "ctx_ids", "positions", "lengths", "wb", "wo")  # sent 
 # ---------------------------------------------------------------------------
 # Paged transformer forward (one mixed prefill/decode step)
 # ---------------------------------------------------------------------------
-
-def layer_params(params, layer: int):
-    """Layer ``layer``'s slice of the stacked ``(L, ...)`` block params (views)."""
-    if isinstance(params, dict):
-        return {k: layer_params(v, layer) for k, v in params.items()}
-    return params[layer]
-
 
 def _layer_telemetry(aux, num_experts: int, device) -> dict:
     if aux is None:
@@ -212,7 +205,7 @@ class ContinuousEngine:
             raise ValueError(f"params on {table.device}, engine on {self.device}")
         self.cfg = cfg
         self.params = params
-        self.layers = [layer_params(params["blocks"], i) for i in range(cfg.num_layers)]
+        self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.serve = serve
         self.steps = 0
         self.check_invariants = check_invariants

@@ -9,15 +9,22 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels.decode_attention import paged_update_attention as j_update
 from repro.kernels.decode_attention.ref import paged_decode_attention_ref as j_pda_ref
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.moe_dropless.kernel import ragged_ffn_kernel
 from repro.kernels.moe_dropless.ops import padded_rows as j_padded_rows
 from repro.kernels.moe_dropless.ops import pick_block_rows as j_pick
+from repro.kernels.moe_dropless.ops import ragged_ffn as j_ragged_ffn
 from repro.kernels.moe_dropless.ref import ragged_ffn_ref as j_ragged_ref
+from repro.kernels.moe_ffn.ops import moe_ffn as j_moe_ffn
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import ops as pda_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_dropless import ops as rffn_ops
+from repro_torch.kernels.moe_ffn import ops as moe_ops
 
 TOL = 2e-5
 
@@ -186,7 +193,8 @@ def test_build_keys_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("ops,name", [(pda_ops, "paged_decode_attention"),
-                                      (rffn_ops, "ragged_ffn")])
+                                      (rffn_ops, "ragged_ffn"), (moe_ops, "moe_ffn"),
+                                      (flash_ops, "flash_attention")])
 def test_ctypes_signature_matches_c_source(ops, name):
     """The wrapper's ctypes argtypes mirror the extern "C" signature:
     ints for ints, pointers for pointers and the stream."""
@@ -198,3 +206,138 @@ def test_ctypes_signature_matches_c_source(ops, name):
     params = [p.strip() for p in sig.split(",")]
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert ops._ARGTYPES == kinds
+
+
+def _grad_case(shapes, seed, dt, scale=0.1):
+    """numpy f32 arrays for ``shapes`` (those after the first times
+    ``scale``), and their JAX and torch casts to ``dt``."""
+    rng = np.random.default_rng(seed)
+    arrs = [None if sh is None else (rng.standard_normal(sh) * (1 if i == 0 else scale)
+                                     ).astype(np.float32) for i, sh in enumerate(shapes)]
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dt == "bfloat16" else (jnp.float32, torch.float32)
+    j = [None if a is None else jnp.asarray(a).astype(jdt) for a in arrs]
+    t = [None if a is None else torch.from_numpy(a).to(tdt) for a in arrs]
+    return j, t
+
+
+def _grad_tol(a, dt):
+    """Gradients: 1e-4 of the largest entry in f32 (the reference's own
+    backend-equivalence tolerance), 2e-2 of it in bf16."""
+    return (2e-2 if dt == "bfloat16" else 1e-4) * max(float(np.abs(a).max()), 1e-9)
+
+
+# (E, X, M, I, act, dtype): the reference's tests/test_kernels.py MOE_CASES
+MOE_CASES = [
+    (4, 64, 32, 48, "swiglu", "float32"),
+    (2, 100, 64, 96, "gelu", "float32"),        # X not a multiple of 8
+    (3, 128, 128, 256, "swiglu", "bfloat16"),
+    (1, 8, 16, 512, "relu", "float32"),
+    (8, 32, 64, 64, "swiglu", "bfloat16"),
+    (2, 256, 32, 40, "gelu", "float32"),         # I not a power of two
+]
+
+
+@pytest.mark.parametrize("E,X,M,I,act,dt", MOE_CASES)
+def test_moe_ffn_matches_reference_kernel_and_vjp(E, X, M, I, act, dt):
+    """The wrapper's plain path against the reference's ``moe_ffn`` (its
+    Pallas kernel in interpret mode), forward at the reference's kernel
+    tolerance (f32 2e-5, bf16 2e-2), and the gradients of x and every
+    weight through the port's autograd Function against the reference's
+    ``custom_vjp``."""
+    gated = act == "swiglu"
+    (jx, ju, jg, jd), (tx, tu, tg, td) = _grad_case(
+        [(E, X, M), (E, M, I), (E, M, I) if gated else None, (E, I, M)], E * X + I, dt)
+    tol = 2e-2 if dt == "bfloat16" else TOL
+    want = j_moe_ffn(jx, ju, jg, jd, act)
+    leaves = [t.requires_grad_(True) for t in (tx, tu, tg, td) if t is not None]
+    got = moe_ops.moe_ffn(tx, tu, tg, td, act)
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    assert moe_ops.moe_ffn.launches == 0                 # CPU: no kernel
+
+    w = np.random.default_rng(1).standard_normal((E, X, M)).astype(np.float32)
+    jw = jnp.asarray(w).astype(jx.dtype)
+    argnums = (0, 1, 2, 3) if gated else (0, 1, 3)
+    jgrads = jax.grad(lambda *a: jnp.sum((j_moe_ffn(*a, act) * jw).astype(jnp.float32)),
+                      argnums=argnums)(jx, ju, jg, jd)
+    tgrads = torch.autograd.grad((got * torch.from_numpy(w).to(got.dtype)).float().sum(),
+                                 leaves)
+    for a, b in zip(jgrads, tgrads):
+        a = np.asarray(a, np.float32)
+        np.testing.assert_allclose(b.float().numpy(), a, atol=_grad_tol(a, dt), rtol=0)
+
+
+@pytest.mark.parametrize("E,NB,bx,M,I,act,dt", RAGGED_CASES)
+def test_ragged_ffn_gradients_match_reference_vjp(E, NB, bx, M, I, act, dt):
+    """The ragged FFN's autograd Function (its backward differentiates the
+    plain version) against the reference's ``custom_vjp``; block_expert
+    gets no gradient."""
+    gated = act == "swiglu"
+    (jx, ju, jg, jd), (tx, tu, tg, td) = _grad_case(
+        [(NB * bx, M), (E, M, I), (E, M, I) if gated else None, (E, I, M)], E + I, dt)
+    be = np.random.default_rng(E).integers(0, E, NB).astype(np.int32)
+    w = np.random.default_rng(2).standard_normal((NB * bx, M)).astype(np.float32)
+    argnums = (0, 2, 3, 4) if gated else (0, 2, 4)
+    jgrads = jax.grad(
+        lambda x, b, u, g, d: jnp.sum((j_ragged_ffn(x, b, u, g, d, act, block_x=bx)
+                                       * jnp.asarray(w).astype(x.dtype)).astype(jnp.float32)),
+        argnums=argnums)(jx, jnp.asarray(be), ju, jg, jd)
+    leaves = [t.requires_grad_(True) for t in (tx, tu, tg, td) if t is not None]
+    y = rffn_ops.ragged_ffn(tx, torch.from_numpy(be), tu, tg, td, act, block_x=bx)
+    tgrads = torch.autograd.grad((y * torch.from_numpy(w).to(y.dtype)).float().sum(), leaves)
+    for a, b in zip(jgrads, tgrads):
+        a = np.asarray(a, np.float32)
+        np.testing.assert_allclose(b.float().numpy(), a, atol=_grad_tol(a, dt), rtol=0)
+
+
+# (B, S, Hq, Hkv, D, causal, dtype): the reference's FLASH_CASES
+FLASH_CASES = [
+    (2, 128, 4, 2, 32, True, "float32"),
+    (1, 96, 8, 8, 16, True, "float32"),
+    (2, 64, 4, 1, 64, False, "float32"),
+    (1, 256, 4, 2, 32, True, "bfloat16"),
+    (1, 80, 2, 2, 128, True, "float32"),         # S not a power of two
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,dt", FLASH_CASES)
+def test_flash_attention_matches_reference_kernel(B, S, Hq, Hkv, D, causal, dt):
+    """The wrapper's plain path against the reference's ``flash_attention``
+    (its Pallas kernel in interpret mode), at the reference's own flash
+    tolerance: f32 3e-5, bf16 3e-2 (``tests/test_kernels.py``)."""
+    (jq, jk, jv), (tq, tk, tv) = _grad_case(
+        [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], B * S + D, dt, scale=1.0)
+    want = j_flash(jq, jk, jv, causal=causal, block_q=64, block_kv=32)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=causal)
+    tol = 3e-2 if dt == "bfloat16" else 3e-5
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol)
+    assert flash_ops.flash_attention.launches == 0
+
+
+def test_flash_attention_refuses_gradients_and_checks_arguments():
+    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, k)
+    flash_ops._check(q, k, k)
+    with pytest.raises(ValueError, match="D in"):
+        flash_ops._check(torch.zeros(1, 8, 2, 24), torch.zeros(1, 8, 2, 24),
+                         torch.zeros(1, 8, 2, 24))
+    with pytest.raises(TypeError):
+        flash_ops._check(q, k.double(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops._check(q, k.transpose(1, 2).contiguous().transpose(1, 2), k)
+    with pytest.raises(ValueError, match="no kernel"), torch.no_grad():
+        flash_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+    x = torch.zeros(2, 45, 64, dtype=torch.bfloat16)
+    wu, wd = torch.zeros(2, 64, 40, dtype=torch.bfloat16), torch.zeros(2, 40, 64, dtype=torch.bfloat16)
+    moe_ops._check(x, wu, None, wd)                       # X = 45, I = 40: taken as they are
+    with pytest.raises(ValueError, match="do not fit"):
+        moe_ops._check(x, wu, None, wd[:, :, :32])
+    with pytest.raises(TypeError):
+        moe_ops._check(x.float(), wu, None, wd)
+    with pytest.raises(ValueError, match="no kernel"):
+        moe_ops.moe_ffn(x.to("meta"), wu.to("meta"), None, wd.to("meta"), "gelu")

@@ -113,11 +113,12 @@ def test_unported_router_and_dispatcher_raise_on_use():
     from repro_torch.core.dispatch import get_dispatcher
     from repro_torch.core.routers import get_router
 
-    TMoEConfig(num_experts=4, impl="einsum", routing="hash")   # valid config
+    TMoEConfig(num_experts=4, impl="alltoall", routing="hash")   # valid config
     with pytest.raises(NotImplementedError):
-        get_dispatcher("einsum")
-    with pytest.raises(NotImplementedError):
-        get_router("prototype")
+        get_dispatcher("alltoall")
+    for name in ("hash", "expert_choice"):
+        with pytest.raises(NotImplementedError):
+            get_router(name)
     with pytest.raises(ValueError, match="registered dispatchers"):
         TMoEConfig(num_experts=4, impl="nope")
     with pytest.raises(ValueError, match="dropless"):
