@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               source, all started together) and prints the build seconds.
 3. check    — holds each kernel against its plain PyTorch version at its
               path's shapes and edge cases, atol = rtol = 2e-2 (the
-              reference's own bf16 kernel tolerance).
+              reference's own bf16 kernel tolerance); length-0 rows of the
+              decode kernels must be exactly 0, and the int8/fp8 codes and
+              scales that quant_write_kv writes on the card must equal those
+              it writes on the CPU from the same inputs.
 4. timing   — per kernel: its time, the plain version's, a PyTorch library
               call's as a yardstick, and the bound (the larger of bytes over
               3.35 TB/s and flops over 989 TFLOP/s bf16).
@@ -37,7 +40,20 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               whose expert weights must get the plain path's gradient, and
               ``lm_apply(use_flash=True)`` against ``use_flash=False`` on the
               train batch (the flash kernel launched once per layer).
-7. report   — a {"kernels": [...]} line, the card line, and as the last line
+7. kv      — m6-base served over the quantized and prefix-cached paged KV
+              cache, same weights and ServeConfig defaults as phase 5:
+              (a) the 16-request trace under kv_quant int8 and fp8 (every
+              request finishes its budget, the quantized attention kernel
+              launched layers x steps times and the bf16 one never, dropped
+              fraction 0.0, conservation holds; token match against phase 5,
+              logit divergence of one replayed request through logit_tap, one
+              mixed step kernels-vs-plain); (b) equal-byte capacity, bf16
+              pools of 8 blocks against int8 pools of 15 (block bytes 327,680
+              and 164,480, peak running int8 / bf16 >= 1.3); (c) prefix
+              caching on a multi-tenant trace, off and on, under none and
+              int8 (cached-token ratio > 0 when on); (d) the dense-cache
+              decode kernel on the engine's pools against the paged kernel.
+8. report   — a {"kernels": [...]} line, the card line, and as the last line
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -122,6 +138,41 @@ def attention_case(N, Hq, Hkv, D, bs, MB, lengths, seed, dtype=None):
     return q, kp, vp, tables, lengths
 
 
+def quantize_pools(kp, vp, name):
+    """Per-(block, head) absmax int8/fp8 codes and f32 scales of two pools."""
+    from repro_torch.quant import get_kv_quant
+
+    pol = get_kv_quant(name)
+    out = []
+    for x in (kp, vp):
+        x = x.float()
+        s = x.abs().amax(dim=(2, 3)) / pol.qmax
+        out += [pol.encode(x / s.clamp_min(1e-30)[:, :, None, None]).contiguous(),
+                s.contiguous()]
+    return out                                  # k_codes, k_scales, v_codes, v_scales
+
+
+def quant_attention_case(N, Hq, Hkv, D, bs, MB, lengths, seed, name, dtype=None):
+    """``attention_case`` with its pools quantized: (q, k_codes, v_codes,
+    k_scales, v_scales, tables, lengths) in the wrapper's argument order."""
+    q, kp, vp, tables, lengths = attention_case(N, Hq, Hkv, D, bs, MB, lengths, seed, dtype)
+    kc, ks, vc, vs = quantize_pools(kp, vp, name)
+    return q, kc, vc, ks, vs, tables, lengths
+
+
+def dense_case(B, T, Hq, Hkv, D, lengths, seed, dtype=None, pad_t=0):
+    """q (B, Hq, D) and a dense (B, T, Hkv, D) cache; with ``pad_t`` the
+    cache is a T-long view of a longer buffer (strided along b)."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, T + pad_t, Hkv, D), generator=g, device="cuda").to(dtype)[:, :T]
+            for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
 def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None):
     """Expert-sorted rows exactly as the dropless dispatcher builds them
     from a top-1 plan over random router logits."""
@@ -170,6 +221,28 @@ def attention_bound(q, kp, tables, lengths):
               + tables.numel() * 4 + lengths.numel() * 4)
     flops = 4.0 * Hq * D * live
     return roofline(nbytes, flops)
+
+
+def quant_attention_bound(q, kc, tables, lengths):
+    """q read and out written once; the codes of the live positions and one
+    K and one V scale per live (block, head); the tables and lengths."""
+    N, Hq, D = q.shape
+    Hkv, bs = kc.shape[1], kc.shape[2]
+    live = float(lengths.sum())
+    blocks = float(((lengths + bs - 1) // bs).sum())
+    nbytes = (2 * q.numel() * q.element_size() + 2 * live * Hkv * D
+              + 2 * blocks * Hkv * 4 + tables.numel() * 4 + lengths.numel() * 4)
+    return roofline(nbytes, 4.0 * Hq * D * live)
+
+
+def dense_bound(q, k, lengths):
+    """q read and out written once, the valid K/V rows once, the lengths."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    live = float(lengths.clamp(max=k.shape[1]).sum())
+    nbytes = (2 * q.numel() * q.element_size() + 2 * live * Hkv * D * k.element_size()
+              + lengths.numel() * 4)
+    return roofline(nbytes, 4.0 * Hq * D * live)
 
 
 def ffn_bound(xs, be, weights, rag, bx):
@@ -286,6 +359,7 @@ def phase_check(torch):
     check_close("ragged_ffn swiglu", rffn.ragged_ffn(xs, be, *wsw, "swiglu", block_x=bx),
                 ragged_ffn_ref(xs, be, *wsw, "swiglu"))
     errs.update(check_training_kernels(torch))
+    errs.update(check_decode_kernels(torch))
     return errs, weights
 
 
@@ -327,6 +401,151 @@ def check_training_kernels(torch):
         if S == 144:
             errs["flash_attention"] = err
     return errs
+
+
+def check_decode_kernels(torch):
+    """The quantized paged kernel (int8 and fp8 codes) at the m6 serving
+    shape with bf16 q, and with f32 q at G = 2, 4 and 8 and D = 32 and 128;
+    the dense kernel at tests/test_kernels.py's DECODE_CASES shapes and the
+    m6 shape (read as a strided view); length-0 rows exactly 0 in both; and
+    quant_write_kv's codes and scales on the card against the CPU's."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref,
+        quantized_paged_decode_attention_ref,
+    )
+    from repro_torch.quant import get_kv_quant, quant_write_kv
+
+    errs = {"quantized_paged_decode_attention": 0.0, "decode_attention": 0.0}
+    m6_lens = [40, 0, 17, 256, 1, 100, 16, 63]
+    cases = [("int8", (8, 16, 16, 64, 16, 16, m6_lens), None),
+             ("fp8", (8, 16, 16, 64, 16, 16, m6_lens), None),
+             ("int8", (40, 16, 16, 64, 16, 16, list(range(17, 49)) + [0] * 8), None),
+             ("int8", (6, 16, 8, 64, 16, 16, [5, 0, 31, 33, 200, 256]), torch.float32),
+             ("fp8", (6, 16, 4, 64, 16, 16, [5, 0, 31, 33, 200, 256]), torch.float32),
+             ("fp8", (3, 16, 2, 128, 16, 8, [0, 77, 128]), torch.float32),
+             ("int8", (4, 4, 4, 32, 8, 8, [0, 9, 64, 3]), torch.float32)]
+    for i, (name, shape, dt) in enumerate(cases):
+        case = quant_attention_case(*shape, seed=200 + i, name=name, dtype=dt)
+        pol = get_kv_quant(name)
+        out = da.quantized_paged_decode_attention(*case, policy=pol)
+        torch.cuda.synchronize()
+        N, Hq, Hkv, D = shape[:4]
+        label = (f"quantized_paged_decode_attention {name} N={N} G={Hq // Hkv} D={D} "
+                 f"bs={shape[4]} {str(case[0].dtype)[6:]}")
+        err = check_close(label, out, quantized_paged_decode_attention_ref(*case, policy=pol))
+        if case[0].dtype == torch.bfloat16:
+            errs["quantized_paged_decode_attention"] = max(
+                errs["quantized_paged_decode_attention"], err)
+        if not (out[case[6] == 0] == 0).all():
+            raise AssertionError(f"{label}: a length-0 row is not exactly 0")
+
+    dense = [(2, 128, 8, 2, 32, torch.float32), (1, 96, 4, 4, 16, torch.float32),
+             (3, 256, 8, 1, 64, torch.bfloat16), (2, 80, 2, 2, 128, torch.float32),
+             (8, 256, 16, 16, 64, torch.bfloat16)]
+    for i, (B, T, Hq, Hkv, D, dt) in enumerate(dense):
+        g = torch.Generator().manual_seed(300 + i)
+        lens = torch.randint(1, T + 1, (B,), generator=g).tolist()
+        if B > 1:
+            lens[0], lens[-1] = 0, T
+        case = dense_case(B, T, Hq, Hkv, D, lens, seed=300 + i, dtype=dt,
+                          pad_t=44 if B == 8 else 0)
+        out = da.decode_attention(*case)
+        torch.cuda.synchronize()
+        label = f"decode_attention B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} {str(dt)[6:]}"
+        err = check_close(label, out, decode_attention_ref(*case))
+        if B == 8:
+            errs["decode_attention"] = err
+        if B > 1 and not (out[0] == 0).all():
+            raise AssertionError(f"{label}: the length-0 row is not exactly 0")
+
+    # quant_write_kv: engine-like writes (a 32-row chunk over three blocks,
+    # decode rows, masked rows into the garbage block) at m6 widths
+    g = torch.Generator().manual_seed(400)
+    P, Hkv, bs, D = 12, 16, 16, 64
+    for name in ("int8", "fp8"):
+        pol = get_kv_quant(name)
+        dev = [torch.zeros((P, Hkv, bs, D), dtype=torch.int8, device="cuda"),
+               torch.zeros((P, Hkv), device="cuda")]
+        cpu = [t.cpu() for t in dev]
+        for step in range(6):
+            wb = torch.tensor([step % 3] * 2 + [3 + step // 2, 4 + (step + 1) // 2, 11, 11],
+                              dtype=torch.int32)
+            wo = torch.tensor([(2 * step) % bs, (2 * step + 1) % bs, (5 * step) % bs,
+                               (3 * step + 1) % bs, 0, 0], dtype=torch.int32)
+            x = torch.randn((6, Hkv, D), generator=g) * (1 + 10 * step)
+            x[5] = x[4]                                  # masked rows carry one value
+            quant_write_kv(*dev, x.cuda(), wb.cuda(), wo.cuda(), policy=pol)
+            quant_write_kv(*cpu, x, wb, wo, policy=pol)
+        torch.cuda.synchronize()
+        if not (torch.equal(dev[0].cpu(), cpu[0])
+                and torch.equal(dev[1].cpu().view(torch.int32), cpu[1].view(torch.int32))):
+            raise AssertionError(f"quant_write_kv {name}: codes or scales on the card "
+                                 f"differ from the CPU's")
+        log(f"  quant_write_kv {name}: codes and scale bits on the card equal the CPU's "
+            f"after 6 steps")
+    return errs
+
+
+def time_quantized(torch, lens, seed, name="int8"):
+    """Kernel, plain and dequantize-then-SDPA times for one quantized paged
+    attention call at the m6 decode shape (16 rotating copies)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import quantized_paged_decode_attention_ref
+    from repro_torch.quant import get_kv_quant
+
+    pol = get_kv_quant(name)
+    copies = [quant_attention_case(len(lens), 16, 16, 64, 16, 16, lens, seed=seed + c,
+                                   name=name) for c in range(16)]
+    it = iter(range(1 << 30))
+
+    def nxt():
+        return copies[next(it) % len(copies)]
+
+    k_ms = cuda_ms(lambda: da.quantized_paged_decode_attention(*nxt(), policy=pol))
+    p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
+    q, kc, vc, ks, vs, tables, lengths = copies[0]
+    N, Hq, D = q.shape
+    Hkv, bs, MB = kc.shape[1], kc.shape[2], tables.shape[1]
+    tbl = tables.long()
+    mask = (torch.arange(MB * bs, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+
+    def dequant_sdpa():
+        k = (pol.decode(kc[tbl]) * ks[tbl][..., None, None]).to(q.dtype)
+        v = (pol.decode(vc[tbl]) * vs[tbl][..., None, None]).to(q.dtype)
+        k = k.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+        v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
+
+    lib_ms = cuda_ms(dequant_sdpa)
+    bound, by = quant_attention_bound(q, kc, tables, lengths)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def time_dense(torch, lens, seed, T=256):
+    """Kernel, plain and SDPA (length mask) times for one dense decode call
+    at the m6 shape, B = len(lens), 16 rotating copies."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    copies = [dense_case(len(lens), T, 16, 16, 64, lens, seed=seed + c) for c in range(16)]
+    it = iter(range(1 << 30))
+
+    def nxt():
+        return copies[next(it) % len(copies)]
+
+    k_ms = cuda_ms(lambda: da.decode_attention(*nxt()))
+    p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
+    q, k, v, lengths = copies[0]
+    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
+    bound, by = dense_bound(q, k, lengths)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
 def time_attention(torch, lens, seed):
@@ -440,8 +659,10 @@ def phase_timing_training(torch):
 
 
 def phase_timing(torch, ffn_weights):
-    """Both kernels at the decode step's shapes (8 rows: the JSON line) and
-    at the mixed step's (8 decode rows + a 32-row prefill chunk)."""
+    """The serving kernels at the decode step's shapes (8 rows: the JSON
+    line) and at the mixed step's (8 decode rows + a 32-row prefill chunk);
+    at the decode shape also the quantized kernel over fp8 codes and the
+    dense-cache kernel (8 sequences of a 256-position cache)."""
     log("phase 4: timing")
     decode_lens = [21, 56, 112, 9, 74, 33, 98, 47]
     mixed_lens = decode_lens + list(range(17, 49))        # chunk rows of one prompt
@@ -449,8 +670,13 @@ def phase_timing(torch, ffn_weights):
     out = {}
     for label, (lens, n) in shapes.items():
         out[label] = {"paged_decode_attention": time_attention(torch, lens, seed=70),
-                      "ragged_ffn": time_ffn(torch, n, seed=80, weights=ffn_weights)}
-        for name, r in out[label].items():
+                      "ragged_ffn": time_ffn(torch, n, seed=80, weights=ffn_weights),
+                      "quantized_paged_decode_attention": time_quantized(torch, lens, seed=90)}
+    out["decode (N=8)"]["quantized_paged_decode_attention fp8"] = time_quantized(
+        torch, decode_lens, seed=90, name="fp8")
+    out["decode (N=8)"]["decode_attention"] = time_dense(torch, decode_lens, seed=110)
+    for label, res in out.items():
+        for name, r in res.items():
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             log(f"  {label} {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"library {lib} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -463,7 +689,10 @@ def plain_versions():
     from unittest import mock
 
     from repro_torch.kernels.decode_attention import ops as pda
-    from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref,
+        quantized_paged_decode_attention_ref,
+    )
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
@@ -476,6 +705,8 @@ def plain_versions():
         return ragged_ffn_ref(x, be, up, gate, down, activation)
 
     with mock.patch.object(pda, "paged_decode_attention", paged_decode_attention_ref), \
+            mock.patch.object(pda, "quantized_paged_decode_attention",
+                              quantized_paged_decode_attention_ref), \
             mock.patch.object(rffn, "ragged_ffn", plain_ffn), \
             mock.patch.object(mf_pkg, "moe_ffn", moe_ffn_ref), \
             mock.patch.object(fa_pkg, "flash_attention", attention_ref):
@@ -537,7 +768,7 @@ def phase_serve(torch):
 
     e2e.update(profile_steps(torch, cfg, params, serve, requests))
     compare_mixed_step(torch, cfg, params, serve, requests)
-    return launches, e2e
+    return launches, e2e, out
 
 
 def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
@@ -632,12 +863,14 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
                 st.status.name == "DECODE" for st in eng.scheduler.running.values()):
             break
     sr = eng.build_rows()
-    kp0, vp0 = eng.cache.k_pool.clone(), eng.cache.v_pool.clone()
+    c = eng.cache
+    pools = [t for t in (c.k_pool, c.v_pool, c.k_scales, c.v_scales) if t is not None]
+    saved = [t.clone() for t in pools]
     route_k, route_p = [], []
     with recorded_routing(route_k):
         lk, _ = eng.forward_rows(sr.buffers)
-    eng.cache.k_pool.copy_(kp0)
-    eng.cache.v_pool.copy_(vp0)
+    for t, t0 in zip(pools, saved):
+        t.copy_(t0)
     with plain_versions(), recorded_routing(route_p):
         lp, _ = eng.forward_rows(sr.buffers)
     if device != "cpu":
@@ -681,8 +914,10 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
                 f"{' (downstream of a routing near-tie)' if r in affected else ''}")
             if r not in affected:
                 raise AssertionError(f"greedy argmax differs on row {r} (margin {margin})")
-    log(f"  greedy argmax agrees on {sum(int(ak[r] == ap[r]) for r in live_rows)}"
-        f"/{len(live_rows)} live rows")
+    agree = sum(int(ak[r] == ap[r]) for r in live_rows)
+    log(f"  greedy argmax agrees on {agree}/{len(live_rows)} live rows")
+    return dict(rows=len(live_rows), argmax_agree=agree, max_abs_logit_diff=diff,
+                rows_after_routing_flip=len(affected))
 
 
 TRAIN_ARGS = ["--arch", "m6-base", "--moe-impl", "pallas", "--batch", "8", "--seq", "144",
@@ -958,6 +1193,259 @@ def dropless_gradient_step(torch, rffn, argv):
     return out
 
 
+def token_match(base, other) -> float:
+    """Position-wise greedy token agreement over the requests both served."""
+    hit = tot = 0
+    for uid in base.keys() & other.keys():
+        a, b = base[uid], other[uid]
+        tot += max(len(a), len(b))
+        hit += sum(1 for x, y in zip(a, b) if x == y)
+    return hit / max(tot, 1)
+
+
+def serve_once(torch, cfg, params, serve, requests, device="cuda", **kw):
+    """One engine's run of ``requests``: (tokens, stats, engine, wall ms)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, params, serve, device=device, **kw)
+    table = params["embed"]["table"]
+    sync(torch, table)
+    t0 = time.perf_counter()
+    out, stats = eng.run(requests)
+    sync(torch, table)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for r in requests:
+        if len(out[r.uid]) != r.max_new_tokens:
+            raise AssertionError(f"request {r.uid}: {len(out[r.uid])} tokens, budget "
+                                 f"{r.max_new_tokens}")
+    eng.cache.check_conservation()
+    return out, stats, eng, wall_ms
+
+
+def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
+                       max_len=256, probe_lens=(24, 64)):
+    """Phase 7 (a): the trace under kv_quant int8 then fp8.  Launch counts
+    are reset once before the int8 run and read after the fp8 run; each run
+    must launch the quantized attention kernel layers x steps times and the
+    bf16 paged kernel never.  Returns (launches, report)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.serving.trace import latency_line
+
+    serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)))
+    on_card = torch.device(device).type == "cuda"
+    counters = {"quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
+                "paged_decode_attention": pda.paged_decode_attention,
+                "ragged_ffn": rffn.ragged_ffn}
+    for fn in counters.values():
+        fn.launches = 0
+    report, before = {}, {n: 0 for n in counters}
+    for name in ("int8", "fp8"):
+        out, stats, eng, wall_ms = serve_once(
+            torch, cfg, params, dataclasses.replace(serve, kv_quant=name), requests, device)
+        got = {n: fn.launches - before[n] for n, fn in counters.items()}
+        before = {n: fn.launches for n, fn in counters.items()}
+        steps = eng.steps
+        want = cfg.num_layers * steps
+        if on_card and (got["quantized_paged_decode_attention"] != want
+                        or got["ragged_ffn"] != want or got["paged_decode_attention"]):
+            raise AssertionError(f"kv_quant {name}: launches {got}, expected the quantized "
+                                 f"kernel and ragged_ffn {want} = layers x steps, the bf16 "
+                                 f"paged kernel 0")
+        if stats["moe_dropped_fraction"] != 0.0:
+            raise AssertionError(f"kv_quant {name}: dropped fraction "
+                                 f"{stats['moe_dropped_fraction']}")
+        match = token_match(base_tokens, out)
+        log(f"  kv_quant {name}: {latency_line(stats)}; {steps} steps, mean step "
+            f"{wall_ms / steps:.3f} ms (host clock); launches {got}; token match against "
+            f"phase 5 (bf16 pools) {match:.4f}; block bytes {eng.cache.block_bytes}")
+        report[name] = dict(tokens_per_s=stats["generated_tokens_per_s"],
+                            p50_ms=stats["p50_ms"], p95_ms=stats["p95_ms"],
+                            mean_step_ms=wall_ms / steps, steps=steps,
+                            token_match_vs_bf16=match, block_bytes=eng.cache.block_bytes)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if on_card:
+        log("  profile of int8 steps:")
+        report["profile_int8"] = profile_steps(torch, cfg, params,
+                                               dataclasses.replace(serve, kv_quant="int8"),
+                                               requests)
+    report["logit_divergence"] = logit_divergence(torch, cfg, params, serve, device,
+                                                  probe_lens)
+    report["kernels_vs_plain_int8"] = compare_mixed_step(
+        torch, cfg, params, dataclasses.replace(serve, kv_quant="int8"), requests, device)
+    return launches, report
+
+
+def logit_divergence(torch, cfg, params, serve, device="cuda", probe_lens=(24, 64)):
+    """One request (24-token prompt, 64 generated on the card) replayed alone under
+    none, int8 and fp8 through ``logit_tap``: the largest logit difference
+    against ``none`` over the rows both runs computed (matched by slot and
+    position), as benchmarks/serve_throughput.py measures it."""
+    import dataclasses
+
+    from repro_torch.serving.trace import synthetic_trace
+
+    plen, glen = probe_lens
+    probe = synthetic_trace(1, cfg.vocab_size, seed=3, qps=1e6, prompt_lens=(plen, plen),
+                            gen_lens=(glen,))
+    V = cfg.vocab_size
+    rows, outs = {}, {}
+    for name in ("none", "int8", "fp8"):
+        got = rows[name] = {}
+
+        def tap(lg, slots, pos, lens, got=got):
+            for i, n in enumerate(lens):
+                if n > 0:                       # length 0 = padding row
+                    got[int(slots[i]), int(pos[i])] = lg[i, :V].copy()
+
+        sv = dataclasses.replace(serve, max_slots=1, kv_quant=name,
+                                 max_len=probe[0].total_len)
+        outs[name] = serve_once(torch, cfg, params, sv, probe, device, logit_tap=tap)[0]
+    res = {}
+    for name in ("int8", "fp8"):
+        common = rows["none"].keys() & rows[name].keys()
+        div = max(float(abs(rows[name][k] - rows["none"][k]).max()) for k in common)
+        res[name] = dict(max_logit_divergence=div, rows=len(common),
+                         token_match=token_match(outs["none"], outs[name]))
+        log(f"  logit divergence {name} vs none over {len(common)} rows of one replayed "
+            f"request: {div:.4g} (token match {res[name]['token_match']:.4f})")
+    return res
+
+
+def capacity_runs(torch, cfg, params, device="cuda", blocks=(8, 15)):
+    """Phase 7 (b): one device byte budget, 8 bf16 blocks, spent on bf16
+    pools and on int8 pools (floor(8 * 327680 / 164480) = 15 blocks at
+    m6-base), over a block-starved trace; peak running int8 / bf16 must
+    reach 1.3, the reference benchmark's own assertion."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.trace import synthetic_trace
+
+    reqs = synthetic_trace(24, cfg.vocab_size, seed=0, qps=1e6, prompt_lens=(8, 16),
+                           gen_lens=(16, 24))
+    res, outs = {}, {}
+    for name, n in zip(("none", "int8"), blocks):
+        sv = ServeConfig(max_slots=8, kv_block_size=16, prefill_chunk=16, num_blocks=n,
+                         kv_quant=name, max_len=max(r.total_len for r in reqs))
+        outs[name], stats, eng, wall_ms = serve_once(torch, cfg, params, sv, reqs, device,
+                                                     check_invariants=True)
+        res[name] = dict(num_blocks=n, block_bytes=eng.cache.block_bytes,
+                         pool_bytes=n * eng.cache.block_bytes,
+                         peak_running=stats["peak_running"],
+                         tokens_per_s=stats["generated_tokens_per_s"])
+    res["peak_running_ratio"] = res["int8"]["peak_running"] / max(res["none"]["peak_running"], 1)
+    res["token_match"] = token_match(outs["none"], outs["int8"])
+    log(f"  capacity: bf16 {res['none']['num_blocks']} blocks x {res['none']['block_bytes']} B"
+        f" = {res['none']['pool_bytes']} B, peak running {res['none']['peak_running']:.0f}; "
+        f"int8 {res['int8']['num_blocks']} x {res['int8']['block_bytes']} B = "
+        f"{res['int8']['pool_bytes']} B, peak running {res['int8']['peak_running']:.0f}; "
+        f"ratio {res['peak_running_ratio']:.2f}; token match {res['token_match']:.4f}")
+    if res["peak_running_ratio"] < 1.3:
+        raise AssertionError(f"equal-byte int8 pools lift peak running only "
+                             f"{res['peak_running_ratio']:.2f}x (< 1.3)")
+    return res
+
+
+def prefix_runs(torch, cfg, params, device="cuda", system_prompt_len=48, max_len=256):
+    """Phase 7 (c): synthetic_multitenant(16, ...) (4 tenants, 48-token
+    system prompts), prefix cache off and on, under none and int8."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.trace import synthetic_multitenant
+
+    reqs = synthetic_multitenant(16, cfg.vocab_size, seed=0, num_tenants=4,
+                                 system_prompt_len=system_prompt_len)
+    res = {}
+    for name in ("none", "int8"):
+        outs = {}
+        for prefix in (False, True):
+            sv = ServeConfig(max_len=max(max_len, max(r.total_len for r in reqs)),
+                             kv_quant=name, prefix_cache=prefix)
+            outs[prefix], stats, eng, wall_ms = serve_once(torch, cfg, params, sv, reqs,
+                                                           device)
+            key = f"{name} prefix {'on' if prefix else 'off'}"
+            res[key] = dict(tokens_per_s=stats["generated_tokens_per_s"],
+                            p50_ms=stats["p50_ms"], p95_ms=stats["p95_ms"],
+                            steps=stats["steps"], mean_step_ms=wall_ms / eng.steps)
+            if prefix:
+                ratio = stats["cached_token_ratio"]
+                res[key].update(cached_token_ratio=ratio, cached_tokens=stats["cached_tokens"],
+                                **{k: eng.cache.stats[k] for k in
+                                   ("bound_blocks", "published_blocks", "evicted_blocks")})
+                if not ratio > 0:
+                    raise AssertionError(f"{key}: cached-token ratio {ratio}")
+            log(f"  multitenant {key}: {stats['generated_tokens_per_s']:.1f} tokens/s, "
+                f"{stats['steps']:.0f} steps, mean step {wall_ms / eng.steps:.3f} ms, p50 "
+                f"{stats['p50_ms']:.0f} ms, p95 {stats['p95_ms']:.0f} ms"
+                + (f", cached-token ratio {stats['cached_token_ratio']:.3f}" if prefix else ""))
+        res[f"{name} token_match_on_vs_off"] = token_match(outs[False], outs[True])
+        log(f"  multitenant {name}: token match prefix on vs off "
+            f"{res[f'{name} token_match_on_vs_off']:.4f}")
+    return res
+
+
+def dense_on_engine_pools(torch, cfg, params, requests, device="cuda", max_len=256,
+                          gen=64):
+    """Phase 7 (d): the dense-cache decode kernel (on no serving path of the
+    reference) over the engine's own K/V.  Eight requests are served until
+    they decode; the next step's decode rows are gathered from the bf16
+    pools into dense (B, T, Hkv, D) caches, and in every layer
+    ``decode_attention`` on them must agree with ``paged_decode_attention``
+    on the pools for the same q.  Returns the dense kernel's launches."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.request import Request, Status
+
+    serve = ServeConfig(max_len=max_len)
+    eng = ContinuousEngine(cfg, params, serve, device=device)
+    for r in requests[:8]:
+        eng.scheduler.add(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=gen))
+    while any(st.status is not Status.DECODE for st in eng.scheduler.running.values()) \
+            or len(eng.scheduler.running) < 8:
+        eng.step()
+    b = eng.build_rows().buffers
+    rows = [i for i in range(len(b["lengths"])) if b["lengths"][i] > 0]
+    tbl = torch.from_numpy(b["row_tables"][rows]).to(device)
+    lens = torch.from_numpy(b["lengths"][rows]).to(device)
+    B, MB, bs = len(rows), tbl.shape[1], eng.cache.block_size
+    g = torch.Generator(device=device).manual_seed(500)
+    da.decode_attention.launches = 0
+    err = 0.0
+    for layer in range(cfg.num_layers):
+        kp, vp = eng.cache.k_pool[layer], eng.cache.v_pool[layer]
+        Hkv, D = kp.shape[1], kp.shape[3]
+        q = torch.randn((B, cfg.num_heads, D), generator=g, device=device).to(kp.dtype)
+        dense = [p[tbl.long()].permute(0, 1, 3, 2, 4).reshape(B, MB * bs, Hkv, D)
+                 for p in (kp, vp)]
+        got = da.decode_attention(q, *dense, lens)
+        want = da.paged_decode_attention(q, kp, vp, tbl, lens)
+        sync(torch, got)
+        err = max(err, check_close(f"decode_attention vs paged, layer {layer} ({B} rows, "
+                                   f"lengths {lens.min().item()}-{lens.max().item()})",
+                                   got, want))
+    return dict(launches=da.decode_attention.launches, max_abs_err_vs_paged=err)
+
+
+def phase_kv(torch, base_tokens):
+    """Phase 7: m6-base over the quantized and prefix-cached KV cache."""
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.nn import init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    log("phase 7: m6-base over int8/fp8 and prefix-cached paged KV pools")
+    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    requests = synthetic_trace(16, cfg.vocab_size, seed=0)
+    launches, report = quant_serving_runs(torch, cfg, params, requests, base_tokens)
+    report["capacity"] = capacity_runs(torch, cfg, params)
+    report["prefix"] = prefix_runs(torch, cfg, params)
+    report["dense_on_engine_pools"] = dense_on_engine_pools(torch, cfg, params, requests)
+    launches["decode_attention"] = report["dense_on_engine_pools"]["launches"]
+    return launches, report
+
+
 def main() -> int:
     try:
         import torch
@@ -1000,13 +1488,17 @@ def main() -> int:
     timing.update(phase_timing_training(torch))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches, e2e = phase_serve(torch)
+    launches, e2e, base_tokens = phase_serve(torch)
     serve_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_launches, train = phase_train(torch)
     train_s = time.perf_counter() - t0
-    log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kv_launches, kv = phase_kv(torch, base_tokens)
+    kv_s = time.perf_counter() - t0
+    log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -1019,17 +1511,26 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:66",
                             {"flash_attention": train["flash"]["launches"]}),
+        "quantized_paged_decode_attention": (
+            "src/repro_torch/kernels/decode_attention/csrc/quantized_paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:226", kv_launches),
+        "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:63", kv_launches),
     }
     kernels = []
     for name, (src, replaces, counts) in sources.items():
+        if counts[name] <= 0:
+            raise AssertionError(f"{name}: launched no time on its path")
         t = timing[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[name], "max_abs_err": errs[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    print(json.dumps({"serve": e2e, "train": train, "build_s": build_s, "serve_s": serve_s,
-                      "train_s": train_s, "mixed_step_kernels": timing_mixed,
-                      "moe_ffn_x180": timing["moe_ffn X=180"]}))
+    print(json.dumps({"serve": e2e, "train": train, "kv": kv, "build_s": build_s,
+                      "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
+                      "mixed_step_kernels": timing_mixed,
+                      "moe_ffn_x180": timing["moe_ffn X=180"],
+                      "quantized_fp8": timing["quantized_paged_decode_attention fp8"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,6 +31,9 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 
 SOURCES = {
     "paged_decode_attention": _HERE / "decode_attention" / "csrc" / "paged_decode_attention.cu",
+    "quantized_paged_decode_attention": (_HERE / "decode_attention" / "csrc"
+                                         / "quantized_paged_decode_attention.cu"),
+    "decode_attention": _HERE / "decode_attention" / "csrc" / "decode_attention.cu",
     "ragged_ffn": _HERE / "moe_dropless" / "csrc" / "ragged_ffn.cu",
     "moe_ffn": _HERE / "moe_ffn" / "csrc" / "moe_ffn.cu",
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",

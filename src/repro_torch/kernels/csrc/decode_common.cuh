@@ -1,0 +1,203 @@
+// Device code shared by the decode attention kernels over a row-parallel
+// warp layout: quantized paged decode (quantized_paged_decode_attention.cu)
+// and dense decode (decode_attention.cu).
+//
+// Layout.  One CTA per (query row, kv head), kWarps warps, each keeping its
+// own online-softmax state (m, l, acc) for the G grouped query heads, merged
+// once through shared memory at the end.  Inside a warp, TPR = D / VEC
+// lanes share one K/V token row, each holding VEC contiguous dims, so one
+// pass of the warp reads RPW = 32 / TPR token rows with one vector load per
+// lane (16 bytes where the registers allow it: VEC * G <= 32 keeps q and acc
+// at 2 * G * VEC floats per lane).  A token's score is summed over its TPR
+// lanes with shuffles; the running max is warp-wide, so every lane rescales
+// by the same alpha, and the rows' partial l and acc are summed at the end.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace decode {
+
+constexpr int kWarps = 4;
+constexpr float kNegInf = -1e30f;
+
+// VEC elements per lane: 16 bytes of the element, at most 32 / G (registers)
+// and at most D.
+template <int ELEM_BYTES, int G, int D>
+__host__ __device__ constexpr int vec_elems() {
+  constexpr int by_bytes = 16 / ELEM_BYTES;
+  constexpr int by_regs = 32 / G;
+  constexpr int v = by_bytes < by_regs ? by_bytes : by_regs;
+  return v < D ? v : D;
+}
+
+// Element formats: how one 32-bit word of a vector load decodes to f32.
+struct FmtF32 {
+  using T = float;
+  static constexpr int kPerWord = 1;
+  __device__ static void dec(uint32_t w, float* o) { o[0] = __uint_as_float(w); }
+};
+struct FmtBF16 {
+  using T = __nv_bfloat16;
+  static constexpr int kPerWord = 2;
+  __device__ static void dec(uint32_t w, float* o) {
+    o[0] = __uint_as_float(w << 16);
+    o[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+// int8 codes (kv_quant="int8"): the integer value, exactly.
+struct FmtInt8 {
+  using T = int8_t;
+  static constexpr int kPerWord = 4;
+  __device__ static void dec(uint32_t w, float* o) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = (float)(int8_t)(w >> (8 * j));
+  }
+};
+// float8_e4m3fn bit patterns in int8 (kv_quant="fp8"): Hopper's native
+// e4m3x2 -> f16x2 conversion, exact, then f16 -> f32, exact.
+struct FmtFp8 {
+  using T = int8_t;
+  static constexpr int kPerWord = 4;
+  __device__ static void dec(uint32_t w, float* o) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+          (__nv_fp8x2_storage_t)((w >> (16 * j)) & 0xffffu), __NV_E4M3);
+      const float2 f = __half22float2(__half2(hr));
+      o[2 * j] = f.x;
+      o[2 * j + 1] = f.y;
+    }
+  }
+};
+
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = uint32_t; };
+
+// VEC consecutive elements at p (aligned to their byte count) -> f32.
+template <typename Fmt, int VEC>
+__device__ __forceinline__ void load_vec(const typename Fmt::T* p, float* out) {
+  constexpr int kBytes = VEC * (int)sizeof(typename Fmt::T);
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "vector load of 4, 8 or 16 bytes");
+  using R = typename Raw<kBytes>::type;
+  const R r = *reinterpret_cast<const R*>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+  for (int j = 0; j < kBytes / 4; ++j) Fmt::dec(w[j], out + j * Fmt::kPerWord);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
+
+// Per-lane online-softmax state over the lane's VEC dims.
+template <int G, int VEC>
+struct State {
+  float m[G], l[G], acc[G][VEC];
+
+  __device__ void init() {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[g][i] = 0.0f;
+    }
+  }
+
+  // One pass of the warp: this lane's token row has key dims kf (score
+  // multiplier k_mul) and value dims vf (multiplier v_mul); ``live`` is
+  // false past the length.  Every lane of the warp must call this.
+  template <int TPR>
+  __device__ void update(const float (&qr)[G][VEC], const float (&kf)[VEC], float k_mul,
+                         const float (&vf)[VEC], float v_mul, bool live) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s += qr[g][i] * kf[i];
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      s = live ? s * k_mul : kNegInf;
+      float mx = s;
+#pragma unroll
+      for (int o = TPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - mn);
+      const float p = live ? expf(s - mn) : 0.0f;
+      l[g] = l[g] * alpha + p;
+      const float pv = p * v_mul;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[g][i] = acc[g][i] * alpha + pv * vf[i];
+      m[g] = mn;
+    }
+  }
+};
+
+// Sum the warp's rows, merge the kWarps warps through shared memory and
+// write o[g * D + d] = acc / max(l, 1e-30).  Called by every thread once.
+template <typename TO, int G, int VEC, int TPR, int D>
+__device__ void merge_store(State<G, VEC>& st, TO* o) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = TPR; off < 32; off <<= 1) {
+      st.l[g] += __shfl_xor_sync(0xffffffffu, st.l[g], off);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        st.acc[g][i] += __shfl_xor_sync(0xffffffffu, st.acc[g][i], off);
+    }
+  }
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
+  __shared__ float sm_acc[kWarps][G][D];
+  if (lane < TPR) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (lane == 0) {
+        sm_m[warp][g] = st.m[g];
+        sm_l[warp][g] = st.l[g];
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sm_acc[warp][g][lane * VEC + i] = st.acc[g][i];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
+    const int g = e / D, d = e % D;
+    float mt = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w][g]);
+    float lt = 0.0f, at = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(sm_m[w][g] - mt);
+      lt += sm_l[w][g] * f;
+      at += sm_acc[w][g][d] * f;
+    }
+    from_f32(at / fmaxf(lt, 1e-30f), o + e);
+  }
+}
+
+// q (G, D) of this CTA, pre-scaled, into the lane's VEC dims.
+template <typename TQ, int G, int VEC, int D>
+__device__ __forceinline__ void load_q(const TQ* qp, int d0, float scale, float (&qr)[G][VEC]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qr[g][i] = to_f32(qp[g * D + d0 + i]) * scale;
+}
+
+template <typename TO>
+__device__ __forceinline__ void store_zero(TO* o, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) from_f32(0.0f, o + e);
+}
+
+}  // namespace decode

@@ -1,10 +1,14 @@
-"""Paged decode attention: the CUDA kernel's wrapper and the K/V write
+"""Decode attention: the CUDA kernels' wrappers and the K/V writes
 (``repro.kernels.decode_attention.ops``).
 
-On CPU tensors the wrapper runs the plain version in ``ref.py``; on CUDA
-tensors it launches ``csrc/paged_decode_attention.cu`` on the current
-stream or raises.  ``paged_decode_attention.launches`` counts the kernel
-launches (and nothing else).
+Three kernels, each beside its plain version in ``ref.py``:
+``paged_decode_attention`` (``csrc/paged_decode_attention.cu``),
+``quantized_paged_decode_attention`` over int8/fp8 code pools
+(``csrc/quantized_paged_decode_attention.cu``) and the dense-cache
+``decode_attention`` (``csrc/decode_attention.cu``).  On CPU tensors a
+wrapper runs the plain version; on CUDA tensors it launches its kernel on
+the current stream or raises.  Each wrapper's ``.launches`` counts its
+kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -13,22 +17,36 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+    quantized_paged_decode_attention_ref,
+)
+from repro_torch.quant.policy import quant_write_kv
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-# the C signature in csrc/: (dtype, pointers..., sizes..., stream)
+_L = ctypes.c_longlong
+_FMT_CODE = {"int8": 0, "fp8": 1}
+# the C signatures in csrc/: (codes..., pointers..., sizes..., strides..., stream)
 _ARGTYPES = [_C] + [_P] * 6 + [_C] * 6 + [_P]
+_QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 6 + [_P]
+_DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_P]
 
 
-def _lib():
-    lib = build.load("paged_decode_attention")
-    fn = lib.paged_decode_attention
+def _lib(name: str = "paged_decode_attention"):
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = {"paged_decode_attention": _ARGTYPES,
+                       "quantized_paged_decode_attention": _QUANT_ARGTYPES,
+                       "decode_attention": _DENSE_ARGTYPES}[name]
         fn.restype = _C
     return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths):
@@ -108,5 +126,147 @@ def paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
     return out, k_pool, v_pool
 
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref",
-           "paged_update_attention"]
+def _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, lengths, policy):
+    name = "quantized_paged_decode_attention"
+    dev = q.device
+    for what, t in (("k_pool", k_pool), ("v_pool", v_pool), ("k_scales", k_scales),
+                    ("v_scales", v_scales), ("block_tables", block_tables),
+                    ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name}: {what} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if policy.name not in _FMT_CODE:
+        raise ValueError(f"{name}: no kernel for kv_quant {policy.name!r}")
+    if q.dtype not in _DTYPE_CODE or not q.is_contiguous():
+        raise TypeError(f"{name}: q must be contiguous bf16 or f32, got {q.dtype}")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError(f"{name}: code pools must be int8")
+    if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables and lengths must be int32")
+    N, Hq, D = q.shape
+    P, Hkv, bs, Dk = k_pool.shape
+    if (v_pool.shape != k_pool.shape or Dk != D or k_scales.shape != (P, Hkv)
+            or v_scales.shape != (P, Hkv)):
+        raise ValueError(f"{name}: pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
+                         f"scales {tuple(k_scales.shape)}/{tuple(v_scales.shape)} "
+                         f"vs q {tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != N or lengths.shape != (N,):
+        raise ValueError(f"{name}: block_tables (N, MB), lengths (N,)")
+    if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (32, 64, 128):
+        raise ValueError(f"{name} kernel takes G in (1, 2, 4, 8) and D in (32, 64, 128); "
+                         f"got Hq={Hq}, Hkv={Hkv}, D={D}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: code pools must be 16-byte aligned (vector loads)")
+
+
+def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
+                                     block_tables, lengths, *, policy) -> torch.Tensor:
+    """:func:`paged_decode_attention` over int8 code pools: k_pool/v_pool
+    (P, Hkv, bs, D) codes, k_scales/v_scales (P, Hkv) float32 absmax scales
+    keyed by the same block ids, ``value = policy.decode(code) * scale``;
+    ``policy`` a quantized :class:`repro_torch.quant.KVQuantPolicy`.
+    Returns (N, Hq, D) in q's dtype; length-0 rows exactly 0."""
+    if q.device.type == "cpu":
+        return quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
+                                                    block_tables, lengths, policy=policy)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_paged_decode_attention: no kernel for device {q.device}")
+    _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, lengths, policy)
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    fn = _lib("quantized_paged_decode_attention")
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPE_CODE[q.dtype], _FMT_CODE[policy.name], q.data_ptr(),
+                 k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
+                 v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], _stream(q))
+    if err:
+        raise RuntimeError(f"quantized_paged_decode_attention kernel launch failed: "
+                           f"cudaError {err}")
+    quantized_paged_decode_attention.launches += 1
+    return out
+
+
+quantized_paged_decode_attention.launches = 0
+
+
+def quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales,
+                                     write_blocks, write_offsets, block_tables, lengths,
+                                     *, policy):
+    """Quantized :func:`paged_update_attention`: quantize-scatter this
+    step's K/V into the code pools, maintaining the per-block scales
+    (``repro_torch.quant.quant_write_kv``, in place), then attend through the
+    block tables with dequantization in the kernel.  Returns
+    ``(out, k_pool, v_pool, k_scales, v_scales)``."""
+    quant_write_kv(k_pool, k_scales, k, write_blocks, write_offsets, policy=policy)
+    quant_write_kv(v_pool, v_scales, v, write_blocks, write_offsets, policy=policy)
+    out = quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
+                                           block_tables, lengths, policy=policy)
+    return out, k_pool, v_pool, k_scales, v_scales
+
+
+def _check_dense(q, k, v, lengths):
+    dev = q.device
+    for what, t in (("k", k), ("v", v), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"decode_attention: {what} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention: q/k/v must share bf16 or f32, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError("decode_attention: lengths must be contiguous int32")
+    B, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"decode_attention: k/v {tuple(k.shape)}/{tuple(v.shape)} vs "
+                         f"q {tuple(q.shape)}; want (B, T, Hkv, D)")
+    Hkv = k.shape[2]
+    if lengths.shape != (B,):
+        raise ValueError("decode_attention: lengths (B,)")
+    if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (16, 32, 64, 128):
+        raise ValueError(f"decode_attention kernel takes G in (1, 2, 4, 8) and D in "
+                         f"(16, 32, 64, 128); got Hq={Hq}, Hkv={Hkv}, D={D}")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    es = q.element_size()
+    for what, t in (("k", k), ("v", v)):
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(st * es % 16 for st in t.stride()[:3])):
+            raise ValueError(f"decode_attention: {what} needs a contiguous last dim and "
+                             f"16-byte aligned rows (vector loads); strides {t.stride()}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode over a dense cache: q (B, Hq, D); k/v
+    (B, T, Hkv, D), read through their strides; lengths (B,) int32 valid
+    prefix (0 => output exactly 0).  Returns (B, Hq, D)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _check_dense(q, k, v, lengths)
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    fn = _lib("decode_attention")
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), B, T, Hkv, Hq // Hkv, D,
+                 *k.stride()[:3], *v.stride()[:3], _stream(q))
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+__all__ = ["decode_attention", "decode_attention_ref",
+           "paged_decode_attention", "paged_decode_attention_ref",
+           "paged_update_attention", "quantized_paged_decode_attention",
+           "quantized_paged_decode_attention_ref", "quantized_paged_update_attention"]

@@ -1,6 +1,6 @@
-"""Plain PyTorch version of paged decode attention
-(``repro.kernels.decode_attention.ref.paged_decode_attention_ref``).
-The CPU path of the wrapper and the yardstick the CUDA kernel is held to."""
+"""Plain PyTorch versions of decode attention
+(``repro.kernels.decode_attention.ref``): paged, quantized paged and dense.
+The CPU path of the wrappers and what the CUDA kernels are held to."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +29,52 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.einsum("nkgt,nktd->nkgd", probs, v.float())
     out = torch.where((lengths > 0)[:, None, None, None], out, torch.zeros_like(out))
     return out.reshape(N, Hq, D).to(q.dtype)
+
+
+def quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
+                                         block_tables, lengths, *, policy):
+    """:func:`paged_decode_attention_ref` over int8 code pools: the gathered
+    tiles are dequantized, ``policy.decode(code) * scale`` with the
+    (P, Hkv) float32 scales keyed by the same block ids, then attended in f32
+    (``repro.kernels.decode_attention.ref.quantized_paged_decode_attention_ref``)."""
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    G = Hq // Hkv
+    tbl = block_tables.long()
+    k = policy.decode(k_pool[tbl]) * k_scales[tbl][..., None, None]   # (N, MB, Hkv, bs, D)
+    v = policy.decode(v_pool[tbl]) * v_scales[tbl][..., None, None]
+    k = k.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    qg = q.reshape(N, Hkv, G, D).float()
+    scores = torch.einsum("nkgd,nktd->nkgt", qg, k) * (D ** -0.5)
+    valid = torch.arange(MB * bs, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("nkgt,nktd->nkgd", probs, v)
+    out = torch.where((lengths > 0)[:, None, None, None], out, torch.zeros_like(out))
+    return out.reshape(N, Hq, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode over a dense cache: q (B, Hq, D); k/v
+    (B, T, Hkv, D); lengths (B,).  Returns (B, Hq, D).
+
+    The reference's ``decode_attention_ref`` masks with -inf, so a length-0
+    row comes out NaN there, while its kernel gives exactly 0 (l = 0, so
+    acc / max(l, 1e-30) = 0).  This version follows the kernel: a finite
+    NEG_INF mask and length-0 rows exactly 0."""
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (D ** -0.5)
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v.float())
+    out = torch.where((lengths > 0)[:, None, None, None], out, torch.zeros_like(out))
+    return out.reshape(B, Hq, D).to(q.dtype)

@@ -10,10 +10,15 @@
       --engine continuous --moe-impl dropless --capacity-factor none \\
       --batch 3 --prompt-len 10 --gen 8 --max-len 32 --device cpu
 
+  # int8 KV pools with prefix caching over a multi-tenant trace
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base \\
+      --engine continuous --moe-impl dropless --capacity-factor none \\
+      --kv-quant int8 --prefix-cache --trace-kind multitenant --requests 16
+
 The flags are the reference's.  Those whose feature is not ported (the
-static engine, sampling temperature, speculative decoding, meshes, prefix
-caching, SLO scheduling, quantized KV, checkpoint loading, the device
-profiler, the multitenant/priority traces) raise NotImplementedError.
+static engine, sampling temperature, speculative decoding, meshes, SLO
+scheduling, checkpoint loading, the device profiler, the priority trace)
+raise NotImplementedError.
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``.
 """
 from __future__ import annotations
@@ -30,7 +35,12 @@ from repro_torch.kernels import build
 from repro_torch.nn import init_params
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.scheduler import available_policies
-from repro_torch.serving.trace import latency_line, load_trace, synthetic_trace
+from repro_torch.serving.trace import (
+    latency_line,
+    load_trace,
+    synthetic_multitenant,
+    synthetic_trace,
+)
 
 
 def parse_capacity_factor(value: str):
@@ -43,12 +53,10 @@ def _unported(args) -> list:
     checks = [
         (args.engine == "static", "--engine static"),
         (args.temperature > 0, "--temperature > 0"),
-        (args.trace_kind != "mixed", f"--trace-kind {args.trace_kind}"),
+        (args.trace_kind == "priority", "--trace-kind priority"),
         (args.mesh is not None, "--mesh"),
-        (args.prefix_cache, "--prefix-cache"),
         (args.slo_preempt or args.slo_shed or args.host_blocks is not None,
          "--slo-preempt/--slo-shed/--host-blocks"),
-        (args.kv_quant != "none", f"--kv-quant {args.kv_quant}"),
         (args.spec_drafter is not None or args.spec_draft is not None
          or args.spec_draft_ckpt is not None, "--spec-*"),
         (args.ckpt_dir is not None, "--ckpt-dir"),
@@ -83,9 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=0)
     ap.add_argument("--qps", type=float, default=50.0)
     ap.add_argument("--trace-kind", default="mixed",
-                    choices=["mixed", "multitenant", "priority"])
-    ap.add_argument("--tenants", type=int, default=4)
-    ap.add_argument("--system-prompt-len", type=int, default=48)
+                    choices=["mixed", "multitenant", "priority"],
+                    help="synthetic trace: mixed lengths, or multi-tenant shared "
+                         "system prompts (the workload --prefix-cache targets)")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="multitenant trace: distinct system prompts")
+    ap.add_argument("--system-prompt-len", type=int, default=48,
+                    help="multitenant trace: shared system-prompt length")
     ap.add_argument("--burst-qps", type=float, default=None)
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--kv-block", type=int, default=16)
@@ -93,11 +105,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--sched-policy", default="fcfs", choices=available_policies())
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-addressed block-level prefix caching: admission "
+                         "binds cached prompt-prefix blocks")
     ap.add_argument("--slo-preempt", action="store_true")
     ap.add_argument("--slo-shed", action="store_true")
     ap.add_argument("--host-blocks", type=int, default=None)
-    ap.add_argument("--kv-quant", default="none", choices=KV_QUANTS)
+    ap.add_argument("--kv-quant", default="none", choices=KV_QUANTS,
+                    help="KV pools: none (activation dtype), int8 or fp8 codes "
+                         "with per-(block, head) absmax scales")
     ap.add_argument("--spec-drafter", default=None)
     ap.add_argument("--spec-gamma", type=int, default=4)
     ap.add_argument("--spec-draft", default=None)
@@ -153,7 +169,7 @@ def main(argv=None):
         serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                             prefill_chunk=args.prefill_chunk,
                             max_len=max(args.max_len, max_len),
-                            sched_policy=args.sched_policy)
+                            sched_policy=args.sched_policy, kv_quant=args.kv_quant)
         engine = ContinuousEngine(cfg, params, serve, device=args.device, obs=obs)
         toks, stats = engine.generate(prompts, args.gen)
         _write_obs(engine, args)
@@ -163,17 +179,22 @@ def main(argv=None):
 
     if args.trace is not None:
         requests = load_trace(args.trace, cfg.vocab_size, seed=args.seed)
+    elif args.trace_kind == "multitenant":
+        requests = synthetic_multitenant(args.requests, cfg.vocab_size, seed=args.seed,
+                                         qps=args.qps, num_tenants=args.tenants,
+                                         system_prompt_len=args.system_prompt_len)
     else:
         requests = synthetic_trace(args.requests, cfg.vocab_size, seed=args.seed,
                                    qps=args.qps)
     longest = max(r.total_len for r in requests)
     print(f"serving {len(requests)} requests "
-          f"({'trace ' + args.trace if args.trace else 'synthetic mixed'}), "
+          f"({'trace ' + args.trace if args.trace else 'synthetic ' + args.trace_kind}), "
           f"engine={args.engine}")
     serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                         prefill_chunk=args.prefill_chunk,
                         max_len=max(args.max_len, longest),
-                        sched_policy=args.sched_policy)
+                        sched_policy=args.sched_policy, prefix_cache=args.prefix_cache,
+                        kv_quant=args.kv_quant)
     engine = ContinuousEngine(cfg, params, serve, device=args.device, obs=obs)
 
     def stream(st):
@@ -182,6 +203,12 @@ def main(argv=None):
 
     _, stats = engine.run(requests, on_finish=stream)
     _write_obs(engine, args)
+    if args.prefix_cache:
+        cs = engine.cache.stats
+        print(f"prefix cache: {stats['cached_tokens']:.0f}/{stats['prompt_tokens']:.0f} "
+              f"prompt tokens cached ({stats['cached_token_ratio']:.0%}), "
+              f"{cs['bound_blocks']} blocks bound shared, {cs['published_blocks']} "
+              f"published, {cs['cow_copies']} COW copies, {cs['evicted_blocks']} evicted")
     print(latency_line(stats))
     return stats
 

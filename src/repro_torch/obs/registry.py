@@ -76,6 +76,15 @@ class _Handle:
         self._metric.series[self._key] = (
             self._metric.series.get(self._key, 0.0) + v)
 
+    def set_to(self, v: float) -> None:
+        """Mirror an external monotonic total (the prefix cache's own
+        ``stats``) into this counter.  Rejects decreases."""
+        cur = self._metric.series.get(self._key, 0.0)
+        if v < cur:
+            raise ValueError(
+                f"counter {self._metric.name} cannot decrease ({cur} -> {v})")
+        self._metric.series[self._key] = float(v)
+
     # -- gauge --------------------------------------------------------------
 
     def set(self, v: float) -> None:

@@ -15,18 +15,21 @@ write coordinates.  K/V of every row are written into the pool *before*
 the attention read, so a chunk row sees its same-step predecessors —
 exact causal prefill — and prefill and decode share one kernel.  In every
 layer that read is the paged decode attention kernel
-(``repro_torch.kernels.decode_attention``), and in every MoE layer the
-expert FFN is the ragged grouped FFN kernel behind the dropless
-dispatcher (``repro_torch.kernels.moe_dropless``).
+(``repro_torch.kernels.decode_attention``) — its quantized variant over
+int8/fp8 code pools and their scale pools when ``ServeConfig.kv_quant`` is
+set — and in every MoE layer the expert FFN is the ragged grouped FFN
+kernel behind the dropless dispatcher (``repro_torch.kernels.moe_dropless``).
+With ``ServeConfig.prefix_cache`` admission binds cached prompt-prefix
+blocks and every step publishes the running slots' newly full blocks
+(``repro_torch.serving.prefix_cache``).
 
 Differences from the reference, by design of the port:
 
 * the KV pools are updated in place (the reference's jit donates them
   and adopts the returned pools);
 * PyTorch runs the step eagerly, so there is no compiled-variant census;
-* speculative decoding, meshes, quantized KV, prefix caching, SLO
-  scheduling, recurrent families and temperature > 0 are not ported and
-  raise NotImplementedError.
+* speculative decoding, meshes, SLO scheduling, recurrent families and
+  temperature > 0 are not ported and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,7 +46,10 @@ from repro_torch.core.dispatch import get_dispatcher
 from repro_torch.core.metrics import load_entropy
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.core.routers import get_router
-from repro_torch.kernels.decode_attention import paged_update_attention
+from repro_torch.kernels.decode_attention import (
+    paged_update_attention,
+    quantized_paged_update_attention,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _project_qkv
 from repro_torch.models.transformer import _is_moe_layer, unstack_layers
@@ -75,14 +81,21 @@ def _layer_telemetry(aux, num_experts: int, device) -> dict:
 
 
 def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths,
-                 row_tables, wb, wo, kp, vp, ctx):
+                 row_tables, wb, wo, kp, vp, ctx, ksc=None, vsc=None, policy=None):
     """One pre-norm block over the flat row batch ``x: (1, N, d)``; writes
-    this step's K/V into ``kp``/``vp`` in place before attending."""
+    this step's K/V into ``kp``/``vp`` in place before attending (quantized
+    into the code pools, with the scale pools ``ksc``/``vsc``, when
+    ``policy`` is set)."""
     N = x.shape[1]
     h = L.norm_apply(bp["ln_attn"], x, cfg)
     q, k, v = _project_qkv(bp["attn"], h, cfg, positions)        # (1, N, H*, D)
-    out, _, _ = paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
-                                       wb, wo, row_tables, lengths)
+    if policy is None:
+        out, _, _ = paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
+                                           wb, wo, row_tables, lengths)
+    else:
+        out = quantized_paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
+                                               ksc, vsc, wb, wo, row_tables, lengths,
+                                               policy=policy)[0]
     x = x + L.dense_apply(bp["attn"]["wo"], out.reshape(1, N, -1), cfg)
     h = L.norm_apply(bp["ln_ffn"], x, cfg)
     if moe_layer:
@@ -94,9 +107,13 @@ def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths
     return x + ffn_out, telem
 
 
-def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools):
+def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
+                  k_scales=None, v_scales=None, policy=None):
     """Flat-row forward: embed -> blocks -> float32 logits (N, V_pad), plus
-    the per-layer routing telemetry stacked ``(L, ...)`` ({} when dense)."""
+    the per-layer routing telemetry stacked ``(L, ...)`` ({} when dense).
+    ``policy`` (a quantized ``KVQuantPolicy``) switches the K/V write and
+    attention to the quantized ops over the (L, P, Hkv) scale pools."""
+    quantized = policy is not None
     tokens, positions = rows["tokens"].long(), rows["positions"].long()
     x = L.embedding_apply(params["embed"], tokens[None], cfg)    # (1, N, d)
     if cfg.pos_embed == "learned":
@@ -108,7 +125,9 @@ def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools):
         x, tl = _paged_block(
             bp, x, cfg, moe_layer=_is_moe_layer(cfg, i), positions=pos2,
             lengths=rows["lengths"], row_tables=rows["row_tables"], wb=rows["wb"],
-            wo=rows["wo"], kp=k_pools[i], vp=v_pools[i], ctx=ctx)
+            wo=rows["wo"], kp=k_pools[i], vp=v_pools[i], ctx=ctx,
+            ksc=k_scales[i] if quantized else None,
+            vsc=v_scales[i] if quantized else None, policy=policy)
         telems.append(tl)
     telem = ({} if cfg.moe.num_experts == 0
              else {k: torch.stack([t[k] for t in telems]) for k in telems[0]})
@@ -172,7 +191,8 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig = ServeConfig(),
                  *, temperature: float = 0.0, device="cuda",
-                 check_invariants: bool = False, obs: Optional[Observability] = None):
+                 check_invariants: bool = False, obs: Optional[Observability] = None,
+                 logit_tap: Optional[Callable] = None):
         if cfg.family not in _PAGED_FAMILIES:
             raise NotImplementedError(
                 f"continuous batching for family {cfg.family!r} is not ported "
@@ -188,8 +208,6 @@ class ContinuousEngine:
                             ("SLO scheduling (serve.slo)", serve.slo)):
             if value is not None:
                 raise NotImplementedError(f"{what} is not ported")
-        if serve.prefix_cache or serve.kv_quant != "none":
-            raise NotImplementedError("prefix caching and quantized KV are not ported")
         if cfg.moe.num_experts > 0:
             get_router(cfg.moe.routing)
             get_dispatcher(cfg.moe.impl)
@@ -210,6 +228,10 @@ class ContinuousEngine:
         self.steps = 0
         self.check_invariants = check_invariants
         self.obs = obs if obs is not None else Observability()
+        # read-only spy on each step's logits: called with host arrays
+        # (logits (N, V_pad) f32, slots, positions, lengths), length 0 marking
+        # a padding row
+        self._logit_tap = logit_tap
         self._moe_acc = None        # device-side telemetry accumulator
         self._moe_rows = 0
         self.cache = make_kv_cache(cfg, serve, device=self.device)
@@ -233,6 +255,9 @@ class ContinuousEngine:
             m.gauge("kv_reserved_blocks", shard=d).set(occ["reserved"])
             rows = occ["free"] + occ["live"] + occ["cached"] + 1
             m.gauge("kv_pool_bytes", shard=d).set(rows * occ["block_bytes"])
+        if self.serve.prefix_cache:
+            for k, v in self.cache.stats.items():
+                m.counter(f"prefix_{k}_total").set_to(v)
         self.obs.maybe_metrics_row(self.steps)
 
     # -- MoE routing telemetry: device-side sums, one host pull per run --------
@@ -342,14 +367,19 @@ class ContinuousEngine:
         dev = torch.from_numpy(flat).to(self.device)      # one host->device copy
         rows = {k: dev[i * N:(i + 1) * N] for i, k in enumerate(_ROW_FIELDS)}
         rows["row_tables"] = dev[len(_ROW_FIELDS) * N:].reshape(N, -1)
-        return _paged_logits(self.params, self.layers, self.cfg, rows,
-                             self.cache.k_pool, self.cache.v_pool)
+        cache = self.cache
+        return _paged_logits(self.params, self.layers, self.cfg, rows, cache.k_pool,
+                             cache.v_pool, cache.k_scales, cache.v_scales, cache.policy)
 
     def _paged_host_step(self, clock_ms: float) -> List[RequestState]:
         sr = self.build_rows()
         with self.obs.tracer.span("engine_step", kind=sr.kind, step=self.steps,
                                   rows=sr.num_rows, live_rows=sr.live):
             logits, telem = self.forward_rows(sr.buffers)
+            if self._logit_tap is not None:
+                b = sr.buffers
+                self._logit_tap(logits.cpu().numpy(), b["slots"], b["positions"],
+                                b["lengths"])
             # greedy: the first maximum, as jnp.argmax
             next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self._moe_accum(telem, sr.num_rows)
@@ -360,8 +390,23 @@ class ContinuousEngine:
                 pre.status = Status.DECODE
                 self.obs.request_phase(pre.request.uid, "decode", slot=pre.slot)
         finished = self._collect_samples(next_tok, sr.sample_rows, clock_ms)
+        self._commit_running()
         self._obs_step(sr.kind, sr.live, sr.num_rows)
         return finished
+
+    def _commit_running(self) -> None:
+        """Prefix caching: confirm every running slot's written tokens so
+        newly full blocks publish into the index while the request runs
+        (concurrent requests of one tenant then share them).  Finished
+        slots were committed by ``Scheduler.finish``."""
+        if not self.serve.prefix_cache:
+            return
+        bs, cache = self.cache.block_size, self.cache
+        for slot, st in self.scheduler.running.items():
+            stream = st.confirmed_tokens
+            written = st.prefill_pos if st.status is Status.PREFILL else stream.size
+            if written // bs > cache.committed_blocks(slot):
+                cache.commit(slot, stream[:written])
 
     def _collect_samples(self, next_tok: np.ndarray, sample_rows, clock_ms: float
                          ) -> List[RequestState]:
@@ -410,6 +455,12 @@ class ContinuousEngine:
                               sum(len(st.generated) for st in done))
         stats["steps"] = m.delta(mark, "engine_steps_total")
         stats["peak_running"] = m.get("serve_peak_running")
+        if self.serve.prefix_cache:
+            cached = m.delta(mark, "prefix_cached_tokens_total")
+            prompt = m.delta(mark, "prefix_prompt_tokens_total")
+            stats["cached_tokens"] = cached
+            stats["prompt_tokens"] = prompt
+            stats["cached_token_ratio"] = cached / max(prompt, 1)
         stats.update(self._moe_pull())
         return {st.request.uid: list(st.generated) for st in done}, stats
 

@@ -1,5 +1,4 @@
-"""Block-based paged KV cache (``repro.serving.kv_cache``): the plain,
-single-device cache only.
+"""Block-based paged KV cache (``repro.serving.kv_cache``), single device.
 
 K/V live in a shared pool of fixed-size blocks::
 
@@ -14,6 +13,11 @@ position ``p`` of a slot to ``(table[slot, p // bs], p % bs)``.  Blocks are
 slot can never find the free list empty.  The pools are device tensors
 the engine's step updates in place; the allocator and table are host
 Python/numpy, exactly as in the reference.
+
+:func:`make_kv_cache` composes the variants as the reference does: prefix
+caching (``repro_torch.serving.prefix_cache``) and the int8/fp8 pools
+(``repro_torch.quant.kv_cache``), each on or off.  The sharded cache is not
+ported.
 """
 from __future__ import annotations
 
@@ -68,6 +72,13 @@ class BlockAllocator:
 class PagedKVCache:
     """Device block pools + host block table for one model."""
 
+    # the quantization policy and per-block scale pools: None here; the
+    # quantized variants hold int8 codes and (L, P, Hkv) float32 absmax
+    # scales indexed by the same block ids
+    policy = None
+    k_scales = None
+    v_scales = None
+
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, device="cuda"):
         self.cfg = cfg
         self.serve = serve
@@ -75,15 +86,19 @@ class PagedKVCache:
         self.num_blocks = serve.resolved_num_blocks
         self.garbage_block = self.num_blocks          # index P-1, never allocated
         self.allocator = BlockAllocator(self.num_blocks)
-        shape = (cfg.num_layers, self.num_blocks + 1, cfg.num_kv_heads,
-                 self.block_size, cfg.resolved_head_dim)
-        self.k_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
-        self.v_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
+        self._alloc_pools(cfg, device)
         self.block_table = np.full((serve.max_slots, serve.blocks_per_slot),
                                    self.garbage_block, dtype=np.int32)
         self._slot_blocks: Dict[int, List[int]] = {}
         self._slot_reserved: Dict[int, int] = {}
         self.reserved_total = 0
+
+    def _alloc_pools(self, cfg: ModelConfig, device) -> None:
+        """The device pools; the quantized variants override this."""
+        shape = (cfg.num_layers, self.num_blocks + 1, cfg.num_kv_heads,
+                 self.block_size, cfg.resolved_head_dim)
+        self.k_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
+        self.v_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
 
     @property
     def block_bytes(self) -> int:
@@ -100,15 +115,18 @@ class PagedKVCache:
     def max_request_blocks(self) -> int:
         return self.num_blocks
 
-    def can_allocate_slot(self, total_len: int) -> bool:
+    def can_allocate_slot(self, total_len: int, prompt=None) -> bool:
+        """Unreserved room for the worst-case footprint?  ``prompt`` is
+        ignored here; the prefix-caching cache charges only the unshared
+        part."""
         return self.reserved_total + self.blocks_needed(total_len) <= self.num_blocks
 
     def row_table(self, slot: int) -> np.ndarray:
         return self.block_table[slot]
 
-    def allocate_slot(self, slot: int, total_len: int) -> int:
+    def allocate_slot(self, slot: int, total_len: int, prompt=None) -> int:
         """Reserve ``slot``'s worst-case footprint; returns the prompt
-        tokens already backed by cached KV (always 0: no prefix caching)."""
+        tokens already backed by cached KV (always 0 here)."""
         if slot in self._slot_reserved:
             raise RuntimeError(f"slot {slot} already allocated")
         need = self.blocks_needed(total_len)
@@ -121,6 +139,10 @@ class PagedKVCache:
         self._slot_blocks[slot] = []
         self.block_table[slot, :] = self.garbage_block
         return 0
+
+    def commit(self, slot: int, tokens) -> None:
+        """Confirm the tokens behind ``slot``'s written positions: a no-op
+        without prefix caching."""
 
     def free_slot(self, slot: int) -> None:
         blocks = self._slot_blocks.pop(slot)
@@ -171,10 +193,23 @@ class PagedKVCache:
 
 
 def make_kv_cache(cfg: ModelConfig, serve: ServeConfig, device="cuda") -> PagedKVCache:
-    """The plain paged cache.  Sharded, prefix-caching and quantized
-    caches are not ported."""
-    if serve.mesh is not None or serve.prefix_cache or serve.kv_quant != "none":
-        raise NotImplementedError(
-            "only the plain paged KV cache is ported (no mesh, prefix cache "
-            "or kv_quant)")
+    """The cache variant ``serve`` asks for: prefix caching when
+    ``serve.prefix_cache``, int8/fp8 pools when ``serve.kv_quant != "none"``,
+    all four combinations (``repro.serving.kv_cache.make_kv_cache`` without
+    the mesh, which is not ported)."""
+    if serve.mesh is not None:
+        raise NotImplementedError("the sharded (mesh) KV cache is not ported")
+    quantized = serve.kv_quant != "none"
+    if serve.prefix_cache:
+        if quantized:
+            from repro_torch.quant.kv_cache import QuantizedPrefixCachingKVCache
+
+            return QuantizedPrefixCachingKVCache(cfg, serve, device=device)
+        from repro_torch.serving.prefix_cache import PrefixCachingKVCache
+
+        return PrefixCachingKVCache(cfg, serve, device=device)
+    if quantized:
+        from repro_torch.quant.kv_cache import QuantizedPagedKVCache
+
+        return QuantizedPagedKVCache(cfg, serve, device=device)
     return PagedKVCache(cfg, serve, device=device)

@@ -75,7 +75,7 @@ class RequestState:
     slot: int = -1
     status: Status = Status.QUEUED
     prefill_pos: int = 0             # context tokens already ingested
-    cached_tokens: int = 0           # prompt tokens served from a prefix cache (0 here)
+    cached_tokens: int = 0           # prompt tokens served from the prefix cache
     generated: List[int] = dataclasses.field(default_factory=list)
     admitted_ms: float = 0.0
     admit_seq: int = -1              # admission order (the prefilling tiebreak)

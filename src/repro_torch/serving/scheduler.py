@@ -132,7 +132,8 @@ class Scheduler:
     def _fits(self, st: RequestState) -> bool:
         if self.kv_cache is None:
             return True
-        return self.kv_cache.can_allocate_slot(st.request.total_len)
+        return self.kv_cache.can_allocate_slot(st.request.total_len,
+                                               prompt=st.request.prompt)
 
     def admit(self, clock_ms: float) -> List[RequestState]:
         """Admit arrived requests under the policy while slots (and
@@ -146,7 +147,10 @@ class Scheduler:
             slot = self.free_slots.pop()
             st.cached_tokens = 0
             if self.kv_cache is not None:
-                st.cached_tokens = self.kv_cache.allocate_slot(slot, st.request.total_len)
+                # prefix caching binds the matched prompt-prefix blocks, so
+                # prefill resumes at the first uncached token
+                st.cached_tokens = self.kv_cache.allocate_slot(
+                    slot, st.request.total_len, prompt=st.request.prompt)
             st.status = Status.PREFILL
             st.prefill_pos = st.cached_tokens
             st.slot = slot
@@ -166,12 +170,18 @@ class Scheduler:
         del self.running[st.slot]
         self.free_slots.append(st.slot)
         if self.kv_cache is not None:
+            # confirm the written context (prompt + every fed-back sample)
+            # so the slot's full blocks are published before they are
+            # released: they land on the cached-free list, matchable
+            self.kv_cache.commit(st.slot, st.confirmed_tokens)
             self.kv_cache.free_slot(st.slot)
         st.status = Status.FINISHED
         st.finished_ms = clock_ms
         m = self.obs.metrics
         m.counter("sched_finished_total").inc()
         m.counter("generated_tokens_total").inc(len(st.generated))
+        m.counter("prefix_cached_tokens_total").inc(st.cached_tokens)
+        m.counter("prefix_prompt_tokens_total").inc(st.request.prompt_len)
         m.histogram("request_latency_ms").observe(st.latency_ms())
         self.obs.request_finished(st.request.uid)
 

@@ -1,5 +1,6 @@
 """Request traces (``repro.serving.trace``): JSONL loading, synthetic
-Poisson generation and the shared latency summary.
+Poisson generation (mixed lengths, and multi-tenant shared system prompts)
+and the shared latency summary.
 
 Trace format (one JSON object per line)::
 
@@ -53,6 +54,36 @@ def synthetic_trace(num_requests: int, vocab_size: int, *, seed: int = 0,
         g = int(rng.choice(gen_lens))
         reqs.append(Request(
             uid=uid, prompt=_prompt_tokens(uid, p, vocab_size, seed),
+            max_new_tokens=g, arrival_ms=float(arrivals[uid])))
+    return reqs
+
+
+def synthetic_multitenant(num_requests: int, vocab_size: int, *, seed: int = 0,
+                          qps: float = 50.0, num_tenants: int = 4,
+                          system_prompt_len: int = 48,
+                          suffix_lens: Tuple[int, int] = (2, 12),
+                          gen_lens: Tuple[int, ...] = (4, 8, 16)) -> List[Request]:
+    """Poisson arrivals where request ``uid`` belongs to tenant
+    ``uid % num_tenants`` and opens with that tenant's fixed
+    ``system_prompt_len``-token system prompt, then a short suffix: the
+    workload prefix caching targets.  System prompts are deterministic in
+    ``(seed, tenant)`` and suffixes in ``(seed, uid)``, so the same
+    arguments give byte-identical prompts, the reference's."""
+    if num_tenants < 1:
+        raise ValueError("synthetic_multitenant: num_tenants must be >= 1")
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1000.0 / qps, size=num_requests))
+    # tenant system prompts: uid-space disjoint from the per-request suffixes
+    systems = [_prompt_tokens(10**9 + t, system_prompt_len, vocab_size, seed)
+               for t in range(num_tenants)]
+    reqs = []
+    for uid in range(num_requests):
+        s = int(rng.integers(suffix_lens[0], suffix_lens[1] + 1))
+        g = int(rng.choice(gen_lens))
+        reqs.append(Request(
+            uid=uid,
+            prompt=np.concatenate([systems[uid % num_tenants],
+                                   _prompt_tokens(uid, s, vocab_size, seed)]),
             max_new_tokens=g, arrival_ms=float(arrivals[uid])))
     return reqs
 

@@ -22,6 +22,7 @@ from repro.serving.kv_cache import BlockAllocator as JBlockAllocator
 from repro.serving.kv_cache import PagedKVCache as JPagedKVCache
 from repro_torch.configs import m6 as tm6
 from repro_torch.configs.base import ServeConfig as TServeConfig
+from repro_torch.configs.base import SLOConfig
 from repro_torch.nn import from_jax_params, lm_shapes
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.serving.kv_cache import BlockAllocator as TBlockAllocator
@@ -143,7 +144,7 @@ def test_learned_positions_past_table_raise():
 
 @pytest.mark.parametrize("kw", [
     dict(temperature=0.7),
-    dict(serve=TServeConfig(prefix_cache=True)),
+    dict(serve=TServeConfig(max_len=32, slo=SLOConfig())),
 ])
 def test_unported_options_raise(kw):
     _, tcfg = _cfgs()
