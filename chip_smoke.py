@@ -9,16 +9,25 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
 2. build    — builds every kernel (serving and training paths) from the
               sources in this checkout with nvcc for sm_90a (one nvcc per
-              source, all started together) and prints the build seconds.
+              source, all started together) and prints the build seconds,
+              registers and spills; the grouped FFN's tensor-core kernels
+              must hold HGMMA instructions in their SASS (cuobjdump; logged
+              as not checked where the toolkit lacks it).
 3. check    — holds each kernel against its plain PyTorch version at its
               path's shapes and edge cases, atol = rtol = 2e-2 (the
               reference's own bf16 kernel tolerance); length-0 rows of the
               decode kernels must be exactly 0, and the int8/fp8 codes and
               scales that quant_write_kv writes on the card must equal those
-              it writes on the CPU from the same inputs.
+              it writes on the CPU from the same inputs.  The grouped FFN
+              (moe_ffn, ragged_ffn) must take the route its shape and type
+              select (tc_launches): the m6 shapes the tensor cores, where
+              it is also held within one bf16 ulp of the split-h plain
+              version (h as bf16 hi + lo, the route's own numerics).
 4. timing   — per kernel: its time, the plain version's, a PyTorch library
               call's as a yardstick, and the bound (the larger of bytes over
-              3.35 TB/s and flops over 989 TFLOP/s bf16).
+              3.35 TB/s and flops over 989 TFLOP/s bf16); for the grouped
+              FFN also its CUDA-core route's time and each pass's device
+              time (torch.profiler).
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -33,8 +42,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               then 4 steps of 4 top-1 expert prototyping.  Every loss and grad
               norm must be finite, the dropped fraction in [0, 1), and the
               grouped-FFN kernel launched layers x steps x 2 times (forward
-              and the remat recompute in the backward), the other kernels
-              not at all.  Then a profiled pair of steps (device busy share),
+              and the remat recompute in the backward), all on the tensor
+              cores, the other kernels not at all; then the same runs with
+              the grouped FFN on its CUDA-core route, for their step times.
+              Then a profiled pair of steps (device busy share),
               one step's loss and gradients through the kernels against the
               plain versions (routing near-ties reported), a dropless step
               whose expert weights must get the plain path's gradient, and
@@ -69,9 +80,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-2                      # bf16 kernel tolerance (atol = rtol)
+# the tensor-core grouped FFN against its split-h plain version: the two
+# differ only in how their f32 sums are taken (order, and the tensor cores'
+# accumulation) before y is rounded to bf16 once, so an element may differ
+# by one bf16 ulp (at most 2^-7 of its value) where the sums straddle a
+# rounding boundary, plus an f32 summation slack
+SPLIT_ATOL, SPLIT_RTOL = 1e-5, 2.0 ** -7
 FLIP_MARGIN = 2e-2              # router-logit gap a bf16 rounding can close
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16
+GROUPED_FFN_SM90 = "src/repro_torch/kernels/csrc/grouped_ffn_sm90.cuh"
 
 
 def log(msg: str) -> None:
@@ -101,19 +119,109 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_close(name: str, got, want) -> float:
+def check_close(name: str, got, want, atol: float = TOL, rtol: float = TOL) -> float:
     import torch
 
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output has non-finite values")
     err = (got - want).abs()
-    bad = err > TOL + TOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, max abs err "
                              f"{float(err.max()):.4g}")
-    log(f"  {name}: max abs err {float(err.max()):.3g} (atol=rtol={TOL})")
+    tol = f"atol=rtol={atol}" if atol == rtol else f"atol={atol:g}, rtol={rtol:g}"
+    log(f"  {name}: max abs err {float(err.max()):.3g} ({tol})")
     return float(err.max())
+
+
+def on_cuda_cores(ops, fn):
+    """``fn`` with the grouped-FFN wrapper module ``ops`` held to its
+    CUDA-core route (the device code before the tensor-core one), to time
+    or compare that route at shapes that would take the tensor cores."""
+    from unittest import mock
+
+    def run(*args):
+        with mock.patch.object(ops, "tensor_core_route", lambda *a: False):
+            return fn(*args)
+
+    return run
+
+
+def check_grouped_ffn(name, wrapper, call, args, ref, split_ref, tensor_cores,
+                      cuda_core_call=None):
+    """One grouped-FFN wrapper call ``call(*args)``: the route it took (the
+    ``wrapper``'s ``tc_launches`` counter), its output against the plain
+    version at TOL and, on the tensor-core route, against the split-h plain
+    version at SPLIT_ATOL / SPLIT_RTOL; with ``cuda_core_call``, the share
+    of outputs that differ from the plain version on each route, on the
+    same inputs.  Returns (max abs err against the plain version, against
+    the split one or None)."""
+    import torch
+
+    before = wrapper.tc_launches
+    out = call(*args)
+    torch.cuda.synchronize()
+    took = wrapper.tc_launches - before
+    if took != int(tensor_cores):
+        raise AssertionError(f"{name}: took the {'tensor-core' if took else 'CUDA-core'} route, "
+                             f"expected the other")
+    route = "tensor cores" if took else "CUDA cores"
+    want = ref(*args)
+    err = check_close(f"{name} [{route}] vs plain", out, want)
+    if cuda_core_call is not None:
+        cc = cuda_core_call(*args)
+        log(f"    outputs differing from the plain version: "
+            f"{float((out != want).float().mean()):.5f} on this route, "
+            f"{float((cc != want).float().mean()):.5f} on the CUDA-core route (max abs err "
+            f"{float((cc.float() - want.float()).abs().max()):.3g})")
+    if not tensor_cores:
+        return err, None
+    want = split_ref(*args)
+    split = check_close(f"{name} [{route}] vs split-h plain", out, want,
+                        atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
+    log(f"    {float((out == want).float().mean()):.4f} of the elements bit-equal to the "
+        f"split-h plain version")
+    return err, split
+
+
+def ptxas_functions(report: str, pattern: str) -> dict:
+    """{mangled kernel name: (registers, spill-store bytes)} from a ptxas -v
+    report, for the kernels whose name holds ``pattern``."""
+    out = {}
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if pattern not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out[name] = (int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0)
+    return out
+
+
+def check_sass(build) -> None:
+    """Every tensor-core grouped-FFN kernel (``tc_pass_kernel``) of the two
+    FFN libraries must hold HGMMA (wgmma) instructions in its SASS; without
+    cuobjdump on the machine this is logged as not checked."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("  SASS HGMMA check: not checked (no cuobjdump)")
+        return
+    for name in ("moe_ffn", "ragged_ffn"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts = {}
+        for block in sass.split("Function : ")[1:]:
+            fn = block.split(None, 1)[0]
+            if "tc_pass_kernel" in fn:
+                counts[fn] = block.count("HGMMA")
+        if not counts or min(counts.values()) == 0:
+            raise AssertionError(f"{name}: tensor-core kernels without HGMMA in their SASS: "
+                                 f"{[f for f, n in counts.items() if n == 0] or 'none found'}")
+        log(f"  SASS HGMMA check, {name}: {len(counts)} tensor-core kernels, "
+            f"{min(counts.values())}-{max(counts.values())} HGMMA instructions each")
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +425,10 @@ def phase_check(torch):
     from repro_torch.kernels.decode_attention import ops as pda
     from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
     from repro_torch.kernels.moe_dropless import ops as rffn
-    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
 
     log("phase 3: kernels against their plain versions")
-    errs = {"paged_decode_attention": 0.0, "ragged_ffn": 0.0}
+    errs = {"paged_decode_attention": 0.0, "ragged_ffn": 0.0, "ragged_ffn split": 0.0}
     rng_lengths = [[40, 0, 17, 256, 1, 100, 16, 63],                       # N = 8
                    [37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51, 52,
                     53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64, 65, 66, 67, 68,
@@ -342,22 +450,30 @@ def phase_check(torch):
         check_close(f"paged_decode_attention {name}", out,
                     paged_decode_attention_ref(*case))
 
+    def ragged(name, xs, be, weights, act, bx, tensor_cores=True, both=False):
+        return check_grouped_ffn(
+            f"ragged_ffn {name}", rffn.ragged_ffn,
+            lambda *a: rffn.ragged_ffn(*a, act, block_x=bx), (xs, be, *weights),
+            lambda *a: ragged_ffn_ref(*a, act), lambda *a: ragged_ffn_split_ref(*a, act),
+            tensor_cores,
+            on_cuda_cores(rffn, lambda *a: rffn.ragged_ffn(*a, act, block_x=bx)) if both
+            else None)
+
     weights = None
     for n in (8, 40):                               # decode and mixed steps, bx = 8
         xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=30 + n, weights=weights)
-        out = rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
-        torch.cuda.synchronize()
         used = int(rag.expert_offsets[0, -1]) // bx
         log(f"  ragged_ffn n={n}: R={xs.shape[0]} rows, bx={bx}, "
             f"{used} expert blocks + {be.numel() - used} trailing padding blocks")
-        errs["ragged_ffn"] = max(errs["ragged_ffn"], check_close(
-            f"ragged_ffn n={n}", out, ragged_ffn_ref(xs, be, *weights, "gelu")))
+        err, split = ragged(f"n={n}", xs, be, weights, "gelu", bx, both=True)
+        errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+        errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
     xs, be, w128, _, bx = ffn_case(300, 8, 512, 1024, seed=50, bx=128)   # bx = 128
-    check_close("ragged_ffn bx=128", rffn.ragged_ffn(xs, be, *w128, "gelu", block_x=bx),
-                ragged_ffn_ref(xs, be, *w128, "gelu"))
+    ragged("bx=128", xs, be, w128, "gelu", bx)
     xs, be, wsw, _, bx = ffn_case(40, 8, 256, 512, seed=60, act="swiglu")
-    check_close("ragged_ffn swiglu", rffn.ragged_ffn(xs, be, *wsw, "swiglu", block_x=bx),
-                ragged_ffn_ref(xs, be, *wsw, "swiglu"))
+    ragged("swiglu", xs, be, wsw, "swiglu", bx)
+    ragged("swiglu f32", xs.float(), be, [w.float() for w in wsw], "swiglu", bx,
+           tensor_cores=False)
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
     return errs, weights
@@ -371,22 +487,33 @@ def check_training_kernels(torch):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.moe_ffn import ops as mf
-    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
 
-    errs = {"moe_ffn": 0.0, "flash_attention": 0.0}
+    def moe(name, case, act, tensor_cores=True, both=False):
+        return check_grouped_ffn(
+            f"moe_ffn {name}", mf.moe_ffn, lambda *a: mf.moe_ffn(*a, act), case,
+            lambda *a: moe_ffn_ref(*a, act), lambda *a: moe_ffn_split_ref(*a, act), tensor_cores,
+            on_cuda_cores(mf, lambda *a: mf.moe_ffn(*a, act)) if both else None)
+
+    errs = {"moe_ffn": 0.0, "moe_ffn split": 0.0, "flash_attention": 0.0}
     for X in (45, 180):
         case = moe_case(32, X, 1024, 4096, seed=90 + X)
-        out = mf.moe_ffn(*case, "gelu")
-        torch.cuda.synchronize()
-        errs["moe_ffn"] = max(errs["moe_ffn"], check_close(
-            f"moe_ffn E=32 X={X}", out, moe_ffn_ref(*case, "gelu")))
-        del case, out
-    for E, X, M, I, act, dt in ((1, 100, 64, 40, "swiglu", torch.float32),
-                                (2, 100, 64, 96, "gelu", torch.bfloat16),
-                                (3, 13, 128, 44, "relu", torch.float32)):   # I % 8 != 0
+        err, split = moe(f"E=32 X={X}", case, "gelu", both=True)
+        errs["moe_ffn"] = max(errs["moe_ffn"], err)
+        errs["moe_ffn split"] = max(errs["moe_ffn split"], split)
+        del case
+    # the CUDA-core route (f32; I % 8 != 0 in bf16 and f32) and the
+    # tensor-core route's tiles (one N = 128 tile of X = 100; two of 192;
+    # three gated tiles of 128; one gated tile of 128 under geglu)
+    for E, X, M, I, act, dt, tc in ((1, 100, 64, 40, "swiglu", torch.float32, False),
+                                    (2, 100, 64, 96, "gelu", torch.bfloat16, True),
+                                    (3, 13, 128, 44, "relu", torch.float32, False),
+                                    (3, 13, 128, 44, "relu", torch.bfloat16, False),
+                                    (2, 300, 64, 128, "gelu", torch.bfloat16, True),
+                                    (4, 300, 256, 512, "swiglu", torch.bfloat16, True),
+                                    (3, 128, 128, 256, "geglu", torch.bfloat16, True)):
         case = moe_case(E, X, M, I, seed=E + X + I, act=act, dtype=dt)
-        check_close(f"moe_ffn E={E} X={X} I={I} {act} {str(dt)[6:]}",
-                    mf.moe_ffn(*case, act), moe_ffn_ref(*case, act))
+        moe(f"E={E} X={X} M={M} I={I} {act} {str(dt)[6:]}", case, act, tc)
     for B, S, Hq, Hkv, D, causal, dt in ((8, 144, 16, 16, 64, True, torch.bfloat16),
                                          (2, 80, 4, 1, 128, False, torch.float32),
                                          (1, 96, 8, 1, 16, True, torch.float32),
@@ -577,6 +704,27 @@ def time_attention(torch, lens, seed):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def pass_ms(torch, fn, reps: int = 10) -> dict:
+    """Device time of each pass of the tensor-core grouped FFN in one call
+    of ``fn`` (torch.profiler): {"up": ms, "down": ms}, from the kernels
+    ``tc_pass_kernel<N, KIND>`` (KIND 0, 1: the up pass; 2: the down pass)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"up": 0.0, "down": 0.0}
+    for e in prof.key_averages():
+        m = re.search(r"tc_pass_kernel<\d+, (\d)>", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out["down" if m.group(1) == "2" else "up"] += e.self_device_time_total / 1e3 / reps
+    return out
+
+
 def time_ffn(torch, n, seed, weights):
     """Kernel, plain and grouped_mm times for one ragged FFN call at the
     dispatcher's layout for ``n`` routed choices over 32 experts."""
@@ -587,6 +735,8 @@ def time_ffn(torch, n, seed, weights):
 
     xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights)
     k_ms = cuda_ms(lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx))
+    cc_ms = cuda_ms(on_cuda_cores(rffn, lambda: rffn.ragged_ffn(xs, be, *weights, "gelu",
+                                                                block_x=bx)))
     p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
     lib_ms = None
     offs = rag.expert_offsets[0, 1:].contiguous()
@@ -606,7 +756,10 @@ def time_ffn(torch, n, seed, weights):
         log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
     bound, by = ffn_bound(xs, be, weights, rag, bx)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                cuda_core_ms=cc_ms,
+                pass_ms=pass_ms(torch, lambda: rffn.ragged_ffn(xs, be, *weights, "gelu",
+                                                                block_x=bx)))
 
 
 def time_moe_ffn(torch, X, seed):
@@ -621,11 +774,14 @@ def time_moe_ffn(torch, X, seed):
 
     x, w_up, _, w_down = moe_case(32, X, 1024, 4096, seed=seed)
     k_ms = cuda_ms(lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), reps=10)
+    cc_ms = cuda_ms(on_cuda_cores(mf, lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu")), reps=5)
     p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, None, w_down, "gelu"), reps=5)
     lib_ms = cuda_ms(lambda: torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"),
                                        w_down), reps=10)
     bound, by = moe_ffn_bound(x, w_up, None)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                cuda_core_ms=cc_ms,
+                pass_ms=pass_ms(torch, lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu")))
 
 
 def time_flash(torch, B, S, H, D, seed):
@@ -653,7 +809,9 @@ def phase_timing_training(torch):
            "moe_ffn X=180": time_moe_ffn(torch, 180, seed=101),
            "flash_attention": time_flash(torch, 8, 144, 16, 64, seed=102)}
     for name, r in out.items():
-        log(f"  train {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        cc = (f", CUDA-core route {r['cuda_core_ms']:.4f} ms, passes {r['pass_ms']['up']:.4f} "
+              f"+ {r['pass_ms']['down']:.4f} ms" if "cuda_core_ms" in r else "")
+        log(f"  train {name}: kernel {r['ms']:.4f} ms{cc}, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return out
 
@@ -678,7 +836,10 @@ def phase_timing(torch, ffn_weights):
     for label, res in out.items():
         for name, r in res.items():
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            log(f"  {label} {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            cc = (f", CUDA-core route {r['cuda_core_ms']:.4f} ms, passes "
+                  f"{r['pass_ms']['up']:.4f} + {r['pass_ms']['down']:.4f} ms"
+                  if "cuda_core_ms" in r else "")
+            log(f"  {label} {name}: kernel {r['ms']:.4f} ms{cc}, plain {r['plain_ms']:.4f} ms, "
                 f"library {lib} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return out["decode (N=8)"], out["mixed (N=40)"]
 
@@ -739,7 +900,7 @@ def phase_serve(torch):
 
     engine = ContinuousEngine(cfg, params, serve, device="cuda")
     pda.paged_decode_attention.launches = 0
-    rffn.ragged_ffn.launches = 0
+    rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, stats = engine.run(requests)
@@ -747,6 +908,9 @@ def phase_serve(torch):
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
                 "ragged_ffn": rffn.ragged_ffn.launches}
+    if rffn.ragged_ffn.tc_launches != launches["ragged_ffn"]:
+        raise AssertionError(f"ragged_ffn: {rffn.ragged_ffn.tc_launches} of "
+                             f"{launches['ragged_ffn']} launches on the tensor-core route")
 
     steps = engine.steps
     for r in requests:
@@ -817,9 +981,10 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
 
 @contextmanager
 def recorded_routing(store: list):
-    """Record, per MoE layer, each row's top-1 expert and its router-logit
+    """Record, per MoE layer, each row's top-1 expert, its router-logit
     margin over the runner-up (what a bf16 perturbation must overcome to
-    flip the routing)."""
+    flip the routing) and which of its choices fit their expert's capacity
+    (``valid``, (rows, k))."""
     from unittest import mock
 
     from repro_torch.core import moe
@@ -832,7 +997,8 @@ def recorded_routing(store: list):
         with torch.no_grad():
             top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
             store.append((plan.expert_index[..., 0].reshape(-1).clone(),
-                          (top2[..., 0] - top2[..., 1]).reshape(-1).clone()))
+                          (top2[..., 0] - top2[..., 1]).reshape(-1).clone(),
+                          plan.valid.reshape(-1, plan.valid.shape[-1]).clone()))
         return plan
 
     with mock.patch.object(moe, "route", route):
@@ -845,7 +1011,10 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
     summation order before each bf16 rounding, but a bf16 difference can
     flip a top-1 routing decision whose router logits are nearly tied,
     and a flipped row (and the later rows of its slot, which attend to
-    its K/V) then legitimately differs.  So: every routing flip is
+    its K/V) then legitimately differs; over quantized pools so does every
+    row of its slot from the start of its KV block on, since writing the
+    row's K/V sets the whole block's scale and re-encodes the block's
+    codes (``quant_write_kv``).  So: every routing flip is
     reported with its margin and must be a near-tie (margin < FLIP_MARGIN
     on the row's first flip); rows untouched by a flip must agree within
     TOL + TOL * |logit|; greedy argmax must agree on them, and any row
@@ -880,8 +1049,9 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
 
     b = sr.buffers
     live_rows = [r for r in range(sr.num_rows) if b["lengths"][r] > 0]
+    block = c.block_size if c.k_scales is not None else 1   # the span a K/V write rescales
     affected = set()
-    for layer, ((ek, mk), (ep, _)) in enumerate(zip(route_k, route_p)):
+    for layer, ((ek, mk, _), (ep, _, _)) in enumerate(zip(route_k, route_p)):
         for r in torch.nonzero(ek != ep).flatten().tolist():
             if b["lengths"][r] == 0:
                 continue                        # masked row: output discarded
@@ -892,8 +1062,9 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
                 f"{int(ep[r])} (plain), router-logit margin {margin:.3g}")
             if first and margin > FLIP_MARGIN:
                 raise AssertionError(f"routing flipped at margin {margin} > {FLIP_MARGIN}")
+            start = b["positions"][r] - b["positions"][r] % block
             affected.update(q for q in live_rows if b["slots"][q] == b["slots"][r]
-                            and b["positions"][q] >= b["positions"][r])
+                            and b["positions"][q] >= start)
     clean = [r for r in live_rows if r not in affected]
     V = cfg.vocab_size
     lk_c, lp_c = lk[clean, :V], lp[clean, :V]
@@ -959,9 +1130,11 @@ def phase_train(torch):
     counters = {"moe_ffn": mf.moe_ffn, "flash_attention": fa.flash_attention,
                 "ragged_ffn": rffn.ragged_ffn, "paged_decode_attention": pda.paged_decode_attention}
     e2e, launches = {}, {}
-    for label, extra, steps in (("top-1", [], 8), ("4 top-1", ["--routing", "prototype", "--k", "4"], 4)):
+    runs = (("top-1", [], 8), ("4 top-1", ["--routing", "prototype", "--k", "4"], 4))
+    for label, extra, steps in runs:
         for fn in counters.values():
             fn.launches = 0
+        mf.moe_ffn.tc_launches = 0
         torch.cuda.reset_peak_memory_stats()
         logs = train_run(torch, extra, steps)
         got = {name: fn.launches for name, fn in counters.items()}
@@ -969,6 +1142,9 @@ def phase_train(torch):
         if got["moe_ffn"] != want or any(got[n] for n in got if n != "moe_ffn"):
             raise AssertionError(f"{label}: launches {got}, expected moe_ffn = 5 layers x "
                                  f"{steps} steps x 2 = {want} and no other kernel")
+        if mf.moe_ffn.tc_launches != want:
+            raise AssertionError(f"{label}: {mf.moe_ffn.tc_launches} of {want} moe_ffn launches "
+                                 f"on the tensor-core route")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
         steady = logs[1:]                           # step 0 carries first-call set-up
@@ -980,12 +1156,15 @@ def phase_train(torch):
             dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         log(f"  {label}: {steps} steps, moe_ffn launches {got['moe_ffn']} = 5 layers x {steps} "
-            f"steps x 2 (forward + remat recompute); mean step {step_ms:.1f} ms over steps "
-            f"1-{steps - 1} (host clock, synced), {e2e[label]['tokens_per_s']:.0f} tokens/s, "
-            f"first step {e2e[label]['first_step_ms']:.0f} ms, peak memory "
+            f"steps x 2 (forward + remat recompute), all on the tensor-core route; mean step "
+            f"{step_ms:.1f} ms over steps 1-{steps - 1} (host clock, synced), "
+            f"{e2e[label]['tokens_per_s']:.0f} tokens/s, first step "
+            f"{e2e[label]['first_step_ms']:.0f} ms, peak memory "
             f"{e2e[label]['peak_memory_gb']:.1f} GB")
         log(f"    losses {[round(x, 4) for x in e2e[label]['losses']]}, dropped fraction "
             f"{[round(x, 4) for x in e2e[label]['dropped_fraction']]}")
+
+    e2e["cuda_core_route"] = train_on_cuda_cores(torch, mf, runs)
 
     from repro_torch.launch.train import device_batch
 
@@ -998,6 +1177,23 @@ def phase_train(torch):
     torch.cuda.empty_cache()
     e2e["dropless"] = dropless_gradient_step(torch, rffn, TRAIN_ARGS + DROPLESS_ARGS)
     return launches, e2e
+
+
+def train_on_cuda_cores(torch, mf, runs) -> dict:
+    """The same training runs with the grouped FFN on its CUDA-core route
+    (the device code before the tensor-core one), in the same call as the
+    runs on the tensor cores: {label: mean step ms over steps 1 on}."""
+    out = {}
+    for label, extra, steps in runs:
+        before = mf.moe_ffn.tc_launches
+        logs = on_cuda_cores(mf, train_run)(torch, extra, steps)
+        if mf.moe_ffn.tc_launches != before:
+            raise AssertionError(f"{label}: the CUDA-core run launched the tensor cores")
+        steady = logs[1:]
+        out[label] = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+        log(f"  {label} with the grouped FFN on its CUDA-core route: mean step "
+            f"{out[label]:.1f} ms over steps 1-{steps - 1} (host clock, synced)")
+    return out
 
 
 def profile_train_steps(torch, state, step_fn, batch, n_steps=2):
@@ -1033,17 +1229,33 @@ def _flip_report(routes_k, routes_p, layers, seq_len, label):
     more), each reported with its router-logit margin.  A flip must be a
     near-tie (margin < FLIP_MARGIN) unless an earlier layer's flip
     reached the token through causal attention (a flipped token moves the
-    later tokens of its sequence).  Returns (flips, affected token ids)."""
+    later tokens of its sequence).  Under an expert capacity a flip also
+    moves the later tokens of the two experts' queues, so a token whose
+    choice fits its expert's capacity in one forward and not in the other
+    is reported too, and is affected like a flipped token; such a shift
+    without any flip in its layer fails.  Returns (flips, affected token
+    ids)."""
     flips, affected = [], set()
-    for layer, ((ek, mk), (ep, _)) in enumerate(zip(routes_k[:layers], routes_p[:layers])):
+    for layer, ((ek, mk, vk), (ep, _, vp)) in enumerate(zip(routes_k[:layers],
+                                                          routes_p[:layers])):
         reached = set(affected)
-        for r in torch_nonzero(ek != ep):
+        flipped = torch_nonzero(ek != ep)
+        for r in flipped:
             margin = float(mk[r])
             flips.append((layer, r, margin))
             log(f"  routing near-tie ({label}): layer {layer}, token {r}: expert {int(ek[r])} "
                 f"(kernels) vs {int(ep[r])} (plain), router-logit margin {margin:.3g}")
             if r not in reached and margin > FLIP_MARGIN:
                 raise AssertionError(f"{label}: routing flipped at margin {margin} > {FLIP_MARGIN}")
+            affected.update(range(r, (r // seq_len + 1) * seq_len))
+        shifted = [r for r in torch_nonzero((vk != vp).any(-1)) if r not in set(flipped)]
+        if shifted and not flipped:
+            raise AssertionError(f"{label}: layer {layer}: {len(shifted)} tokens kept or dropped "
+                                 f"at capacity differently with no routing flip")
+        for r in shifted:
+            log(f"  capacity shift ({label}): layer {layer}, token {r}: expert {int(ek[r])} "
+                f"{'keeps' if bool(vk[r].all()) else 'drops'} it (kernels), "
+                f"{'keeps' if bool(vp[r].all()) else 'drops'} it (plain)")
             affected.update(range(r, (r // seq_len + 1) * seq_len))
     return flips, affected
 
@@ -1170,9 +1382,9 @@ def dropless_gradient_step(torch, rffn, argv):
         loss, _ = loss_fn(state.params, batch)
         return torch.autograd.grad(loss, [flat[n] for n in names])
 
-    rffn.ragged_ffn.launches = 0
+    rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = 0
     gk = grads()
-    n = rffn.ragged_ffn.launches
+    n, n_tc = rffn.ragged_ffn.launches, rffn.ragged_ffn.tc_launches
     with plain_versions():
         gp = grads()
     on_card = sync(torch, gp[0])
@@ -1189,7 +1401,8 @@ def dropless_gradient_step(torch, rffn, argv):
     if on_card and n != 2 * cfg.num_layers:
         raise AssertionError(f"dropless step: ragged_ffn launched {n} times, expected "
                              f"2 x {cfg.num_layers} (forward + remat recompute)")
-    log(f"  dropless step: ragged_ffn launched {n} times (forward + remat recompute)")
+    log(f"  dropless step: ragged_ffn launched {n} times (forward + remat recompute), "
+        f"{n_tc} on the tensor-core route")
     return out
 
 
@@ -1242,6 +1455,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
                 "ragged_ffn": rffn.ragged_ffn}
     for fn in counters.values():
         fn.launches = 0
+    rffn.ragged_ffn.tc_launches = 0
     report, before = {}, {n: 0 for n in counters}
     for name in ("int8", "fp8"):
         out, stats, eng, wall_ms = serve_once(
@@ -1267,6 +1481,10 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
                             mean_step_ms=wall_ms / steps, steps=steps,
                             token_match_vs_bf16=match, block_bytes=eng.cache.block_bytes)
     launches = {n: fn.launches for n, fn in counters.items()}
+    if on_card and rffn.ragged_ffn.tc_launches != launches["ragged_ffn"]:
+        raise AssertionError(f"kv_quant: {rffn.ragged_ffn.tc_launches} of "
+                             f"{launches['ragged_ffn']} ragged_ffn launches on the tensor-core "
+                             f"route")
     if on_card:
         log("  profile of int8 steps:")
         report["profile_int8"] = profile_steps(torch, cfg, params,
@@ -1481,6 +1699,15 @@ def main() -> int:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", rep)]
         log(f"  {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores up to {max(spills)} bytes (ptxas -v)")
+        tc = ptxas_functions(rep, "tc_pass_kernel")
+        if tc:
+            log(f"    tensor-core kernels: {len(tc)}, registers "
+                f"{min(r for r, _ in tc.values())}-{max(r for r, _ in tc.values())}, spill "
+                f"stores up to {max(sp for _, sp in tc.values())} bytes")
+        for line in rep.splitlines():
+            if "wgmma" in line.lower() and "warning" in line.lower():
+                log(f"    ptxas: {line.strip()[:200]}")
+    check_sass(build)
 
     errs, ffn_weights = phase_check(torch)
     timing, timing_mixed = phase_timing(torch, ffn_weights)
@@ -1504,10 +1731,9 @@ def main() -> int:
         "paged_decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/paged_decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:143", launches),
-        "ragged_ffn": ("src/repro_torch/kernels/moe_dropless/csrc/ragged_ffn.cu",
-                       "src/repro/kernels/moe_dropless/kernel.py:80", launches),
-        "moe_ffn": ("src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu",
-                    "src/repro/kernels/moe_ffn/kernel.py:72", train_launches),
+        "ragged_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_dropless/kernel.py:80",
+                       launches),
+        "moe_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_ffn/kernel.py:72", train_launches),
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:66",
                             {"flash_attention": train["flash"]["launches"]}),
@@ -1522,10 +1748,15 @@ def main() -> int:
         if counts[name] <= 0:
             raise AssertionError(f"{name}: launched no time on its path")
         t = timing[name]
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": errs[name],
-                        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": counts[name], "max_abs_err": errs[name],
+                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if src == GROUPED_FFN_SM90:       # the grouped FFN's tensor-core route
+            entry.update(device_code="tensor cores (wgmma, TMA), bf16 h hi + lo",
+                         entry_point=f"{name}_tc", max_abs_err_split_h=errs[f"{name} split"],
+                         cuda_core_ms=t["cuda_core_ms"])
+        kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "build_s": build_s,
                       "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "mixed_step_kernels": timing_mixed,

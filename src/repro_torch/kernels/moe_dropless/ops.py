@@ -6,11 +6,15 @@ reference: the sorted, block-padded row layout is part of the contract
 the routing tests compare.  :func:`ragged_ffn` is a
 ``torch.autograd.Function``, as the reference's ``custom_vjp``: its
 forward runs the plain version in ``ref.py`` on CPU tensors and launches
-``csrc/ragged_ffn.cu`` (two grouped passes with an f32 scratch for the
-intermediate) on CUDA tensors, on the current stream, or raises; its
-backward is autograd through ``ref.py`` (``block_expert`` gets no
-gradient).  ``ragged_ffn.launches`` counts its calls that launched the
-kernel.
+``csrc/ragged_ffn.cu`` (two grouped passes, h in device memory) on CUDA
+tensors, on the current stream, or raises; its backward is autograd
+through ``ref.py`` (``block_expert`` gets no gradient).  Two routes
+(``common.tensor_core_route``): bf16 launches ``ragged_ffn_tc`` (wgmma,
+``kernels/csrc/grouped_ffn_sm90.cuh``, one block of bx rows as the N
+columns of a tile; h as bf16 hi + lo planes), f32 ``ragged_ffn`` (CUDA
+cores, ``kernels/csrc/grouped_ffn.cuh``; h in f32).
+``ragged_ffn.launches`` counts its calls that launched a kernel,
+``ragged_ffn.tc_launches`` those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import act_code, ref_vjp
+from repro_torch.kernels.common import act_code, ref_vjp, tensor_core_route, tile_rows
 from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -28,6 +32,7 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 # the C signature in csrc/: (dtype, pointers..., sizes..., stream)
 _ARGTYPES = [_C] + [_P] * 7 + [_C] * 5 + [_P]
+_TC_ARGTYPES = [_P] * 7 + [_C] * 8 + [_P]
 
 
 def pick_block_rows(n_choices: int, num_experts: int, max_block: int = 128) -> int:
@@ -45,10 +50,10 @@ def padded_rows(n_choices: int, num_experts: int, block_rows: int) -> int:
     return -(-n // block_rows) * block_rows
 
 
-def _lib():
-    fn = build.load("ragged_ffn").ragged_ffn
+def _lib(entry: str = "ragged_ffn"):
+    fn = getattr(build.load("ragged_ffn"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _TC_ARGTYPES if entry == "ragged_ffn_tc" else _ARGTYPES
         fn.restype = _C
     return fn
 
@@ -67,9 +72,15 @@ def _check(x, block_expert, w_up, w_gate, w_down, block_x):
     if Mw != M or w_down.shape != (E, I, M) or (w_gate is not None and w_gate.shape != w_up.shape):
         raise ValueError(f"ragged_ffn: weights {tuple(w_up.shape)}/{tuple(w_down.shape)} "
                          f"do not fit x {tuple(x.shape)}")
-    if block_x % 8 or M % 8 or I % 8 or N // 8 > 65535:
-        raise ValueError(f"ragged_ffn kernel needs block_x, M, I multiples of 8 and "
-                         f"N <= 524280; got block_x={block_x}, M={M}, I={I}, N={N}")
+    if block_x % 8 or M % 8 or I % 8:
+        raise ValueError(f"ragged_ffn kernel needs block_x, M, I multiples of 8; got "
+                         f"block_x={block_x}, M={M}, I={I}")
+    if tensor_core_route(x.dtype, M, I):
+        if N // block_x * tile_rows(block_x, w_gate is not None)[1] > 65535:
+            raise ValueError(f"ragged_ffn tensor-core kernel takes at most 65535 row tiles; "
+                             f"got N={N}, block_x={block_x}")
+    elif N // 8 > 65535:
+        raise ValueError(f"ragged_ffn CUDA-core kernel takes N <= 524280; got N={N}")
     for name, t in ws + [("x", x), ("block_expert", block_expert)]:
         if not t.is_contiguous():
             raise ValueError(f"ragged_ffn: {name} must be contiguous")
@@ -80,19 +91,28 @@ def _launch(x, block_expert, w_up, w_gate, w_down, activation, block_x):
         raise ValueError(f"ragged_ffn: no kernel for device {x.device}")
     _check(x, block_expert, w_up, w_gate, w_down, block_x)
     N, M = x.shape
-    I = w_up.shape[2]
-    h = torch.empty((N, I), dtype=torch.float32, device=x.device)
+    E, _, I = w_up.shape
+    tensor_cores = tensor_core_route(x.dtype, M, I)
+    act = act_code(activation, w_gate is not None)
+    gate = w_gate.data_ptr() if w_gate is not None else None
     y = torch.empty_like(x)
-    fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(),
-                 w_gate.data_ptr() if w_gate is not None else None, w_down.data_ptr(),
-                 block_expert.data_ptr(), h.data_ptr(), y.data_ptr(),
-                 N, M, I, block_x, act_code(activation, w_gate is not None), stream)
+        if tensor_cores:
+            n, tiles = tile_rows(block_x, w_gate is not None)
+            h = torch.empty((2, N, I), dtype=torch.bfloat16, device=x.device)   # hi, lo
+            err = _lib("ragged_ffn_tc")(
+                x.data_ptr(), w_up.data_ptr(), gate, w_down.data_ptr(), block_expert.data_ptr(),
+                h.data_ptr(), y.data_ptr(), N, M, I, E, block_x, act, n, tiles, stream)
+        else:
+            h = torch.empty((N, I), dtype=torch.float32, device=x.device)
+            err = _lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(), gate,
+                         w_down.data_ptr(), block_expert.data_ptr(), h.data_ptr(), y.data_ptr(),
+                         N, M, I, block_x, act, stream)
     if err:
         raise RuntimeError(f"ragged_ffn kernel launch failed: cudaError {err}")
     ragged_ffn.launches += 1
+    ragged_ffn.tc_launches += bool(tensor_cores)
     return y
 
 
@@ -129,5 +149,6 @@ def ragged_ffn(x: torch.Tensor, block_expert: torch.Tensor, w_up: torch.Tensor,
 
 
 ragged_ffn.launches = 0
+ragged_ffn.tc_launches = 0
 
 __all__ = ["ragged_ffn", "ragged_ffn_ref", "pick_block_rows", "padded_rows"]

@@ -5,9 +5,13 @@
 ``custom_vjp``: its forward runs the plain version in ``ref.py`` on CPU
 tensors and launches ``csrc/moe_ffn.cu`` on CUDA tensors, on the current
 stream, or raises; its backward is autograd through ``ref.py`` (the TPU
-kernel has no backward kernel either).  The kernel masks each expert's
-last 8-row chunk, so X needs no padding (the reference pads rows to its
-block); any I.  ``moe_ffn.launches`` counts the kernel launches.
+kernel has no backward kernel either).  Two routes
+(``common.tensor_core_route``): bf16 with M and I multiples of 8 launches
+``moe_ffn_tc`` (wgmma, ``kernels/csrc/grouped_ffn_sm90.cuh``; h as bf16
+hi + lo planes), the rest ``moe_ffn`` (CUDA cores,
+``kernels/csrc/grouped_ffn.cuh``; h in f32).  Neither pads X.
+``moe_ffn.launches`` counts the kernel launches, ``moe_ffn.tc_launches``
+those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import act_code, ref_vjp
+from repro_torch.kernels.common import act_code, ref_vjp, tensor_core_route, tile_rows
 from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -25,12 +29,13 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 # the C signature in csrc/: (dtype, pointers..., sizes..., stream)
 _ARGTYPES = [_C] + [_P] * 6 + [_C] * 5 + [_P]
+_TC_ARGTYPES = [_P] * 6 + [_C] * 7 + [_P]
 
 
-def _lib():
-    fn = build.load("moe_ffn").moe_ffn
+def _lib(entry: str = "moe_ffn"):
+    fn = getattr(build.load("moe_ffn"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _TC_ARGTYPES if entry == "moe_ffn_tc" else _ARGTYPES
         fn.restype = _C
     return fn
 
@@ -48,8 +53,14 @@ def _check(x, w_up, w_gate, w_down):
             or (w_gate is not None and w_gate.shape != w_up.shape)):
         raise ValueError(f"moe_ffn: weights {tuple(w_up.shape)}/{tuple(w_down.shape)} "
                          f"do not fit x {tuple(x.shape)}")
-    if E * -(-X // 8) > 65535:
-        raise ValueError(f"moe_ffn kernel takes E * ceil(X / 8) <= 65535; got E={E}, X={X}")
+    if tensor_core_route(x.dtype, M, I):
+        tiles = tile_rows(X, w_gate is not None)[1]
+        if E * tiles > 65535:
+            raise ValueError(f"moe_ffn tensor-core kernel takes E * tiles <= 65535; got E={E}, "
+                             f"X={X} ({tiles} tiles)")
+    elif E * -(-X // 8) > 65535:
+        raise ValueError(f"moe_ffn CUDA-core kernel takes E * ceil(X / 8) <= 65535; got E={E}, "
+                         f"X={X}")
     for name, t in ws + [("x", x)]:
         if not t.is_contiguous():
             raise ValueError(f"moe_ffn: {name} must be contiguous")
@@ -61,18 +72,26 @@ def _launch(x, w_up, w_gate, w_down, activation):
     _check(x, w_up, w_gate, w_down)
     E, X, M = x.shape
     I = w_up.shape[-1]
-    h = torch.empty((E * X, I), dtype=torch.float32, device=x.device)
+    tensor_cores = tensor_core_route(x.dtype, M, I)
+    act = act_code(activation, w_gate is not None)
+    gate = w_gate.data_ptr() if w_gate is not None else None
     y = torch.empty_like(x)
-    fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(),
-                 w_gate.data_ptr() if w_gate is not None else None, w_down.data_ptr(),
-                 h.data_ptr(), y.data_ptr(), E, X, M, I,
-                 act_code(activation, w_gate is not None), stream)
+        if tensor_cores:
+            n, tiles = tile_rows(X, w_gate is not None)
+            h = torch.empty((2, E * X, I), dtype=torch.bfloat16, device=x.device)  # hi, lo
+            err = _lib("moe_ffn_tc")(x.data_ptr(), w_up.data_ptr(), gate, w_down.data_ptr(),
+                                     h.data_ptr(), y.data_ptr(), E, X, M, I, act, n, tiles,
+                                     stream)
+        else:
+            h = torch.empty((E * X, I), dtype=torch.float32, device=x.device)
+            err = _lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(), gate,
+                         w_down.data_ptr(), h.data_ptr(), y.data_ptr(), E, X, M, I, act, stream)
     if err:
         raise RuntimeError(f"moe_ffn kernel launch failed: cudaError {err}")
     moe_ffn.launches += 1
+    moe_ffn.tc_launches += bool(tensor_cores)
     return y
 
 
@@ -100,5 +119,6 @@ def moe_ffn(x: torch.Tensor, w_up: torch.Tensor, w_gate: Optional[torch.Tensor],
 
 
 moe_ffn.launches = 0
+moe_ffn.tc_launches = 0
 
 __all__ = ["moe_ffn", "moe_ffn_ref"]

@@ -20,11 +20,13 @@ from repro.kernels.moe_dropless.ops import pick_block_rows as j_pick
 from repro.kernels.moe_dropless.ops import ragged_ffn as j_ragged_ffn
 from repro.kernels.moe_dropless.ref import ragged_ffn_ref as j_ragged_ref
 from repro.kernels.moe_ffn.ops import moe_ffn as j_moe_ffn
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.decode_attention import ops as pda_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_dropless import ops as rffn_ops
+from repro_torch.kernels.moe_dropless import ref as rag_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
+from repro_torch.kernels.moe_ffn import ref as moe_ref
 
 TOL = 2e-5
 
@@ -194,18 +196,21 @@ def test_build_keys_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("ops,name", [(pda_ops, "paged_decode_attention"),
                                       (rffn_ops, "ragged_ffn"), (moe_ops, "moe_ffn"),
-                                      (flash_ops, "flash_attention")])
+                                      (flash_ops, "flash_attention"),
+                                      (rffn_ops, "ragged_ffn_tc"), (moe_ops, "moe_ffn_tc")])
 def test_ctypes_signature_matches_c_source(ops, name):
     """The wrapper's ctypes argtypes mirror the extern "C" signature:
-    ints for ints, pointers for pointers and the stream."""
+    ints for ints, pointers for pointers and the stream.  ``*_tc`` is the
+    tensor-core entry point of the same library."""
     import ctypes
     import re
 
-    src = build.SOURCES[name].read_text()
+    tc = name.endswith("_tc")
+    src = build.SOURCES[name.removesuffix("_tc")].read_text()
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
     params = [p.strip() for p in sig.split(",")]
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    assert ops._ARGTYPES == kinds
+    assert (ops._TC_ARGTYPES if tc else ops._ARGTYPES) == kinds
 
 
 def _grad_case(shapes, seed, dt, scale=0.1):
@@ -341,3 +346,107 @@ def test_flash_attention_refuses_gradients_and_checks_arguments():
         moe_ops._check(x.float(), wu, None, wd)
     with pytest.raises(ValueError, match="no kernel"):
         moe_ops.moe_ffn(x.to("meta"), wu.to("meta"), None, wd.to("meta"), "gelu")
+
+
+# (kind, E, rows, M, I, act, dtype, route): rows is X for "moe" and the block
+# rows bx for "ragged"; route is None for the CUDA-core device code, else
+# the (n, tiles) wgmma tiles of each group.
+ROUTE_CASES = (
+    [("moe", E, X, M, I, act, dt, None if dt != "bfloat16" else want)
+     for (E, X, M, I, act, dt), want in zip(MOE_CASES, [None, None, (128, 1), None, (32, 1), None])]
+    + [("ragged", E, bx, M, I, act, dt, None if dt != "bfloat16" else (8, 1))
+       for E, NB, bx, M, I, act, dt in RAGGED_CASES]
+    + [("moe", 32, 45, 1024, 4096, "gelu", "bfloat16", (48, 1)),       # m6 top-1, C = 45
+       ("moe", 32, 180, 1024, 4096, "gelu", "bfloat16", (192, 1)),     # m6 4 top-1, C = 180
+       ("ragged", 32, rffn_ops.pick_block_rows(8, 32), 1024, 4096, "gelu", "bfloat16", (8, 1)),
+       ("ragged", 32, rffn_ops.pick_block_rows(40, 32), 1024, 4096, "gelu", "bfloat16", (8, 1)),
+       ("moe", 2, 100, 64, 96, "gelu", "bfloat16", (128, 1)),
+       ("moe", 3, 13, 128, 44, "relu", "bfloat16", None),               # I % 8: rows unaligned
+       ("moe", 2, 300, 64, 128, "gelu", "bfloat16", (192, 2)),
+       ("moe", 4, 300, 64, 128, "swiglu", "bfloat16", (128, 3)),
+       ("ragged", 8, 128, 512, 1024, "swiglu", "bfloat16", (128, 1)),
+       ("ragged", 8, 256, 64, 64, "gelu", "bfloat16", (128, 2))]
+)
+
+
+@pytest.mark.parametrize("kind,E,rows,M,I,act,dt,want", ROUTE_CASES)
+def test_grouped_ffn_route_and_tile_rows(kind, E, rows, M, I, act, dt, want):
+    """Which device code each shape takes (f32 and widths that are not
+    multiples of 8 the CUDA cores, bf16 otherwise the tensor cores, every
+    m6 shape among them) and the wgmma tile width N chosen for each group;
+    the wrappers' argument checks accept the shape."""
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    gated = act == "swiglu"
+    assert common.tensor_core_route(tdt, M, I) == (want is not None)
+    if want is not None:
+        n, tiles = common.tile_rows(rows, gated)
+        assert (n, tiles) == want
+        assert n in common.TC_TILE_ROWS and n % 8 == 0 and n * tiles >= rows
+        assert n <= (128 if gated else 192)
+    wu = torch.zeros(E, M, I, dtype=tdt)
+    wd = torch.zeros(E, I, M, dtype=tdt)
+    wg = wu if gated else None
+    if kind == "moe":
+        moe_ops._check(torch.zeros(E, rows, M, dtype=tdt), wu, wg, wd)
+    elif M % 8 == 0 and I % 8 == 0:
+        rffn_ops._check(torch.zeros(2 * rows, M, dtype=tdt), torch.zeros(2, dtype=torch.int32),
+                        wu, wg, wd, rows)
+
+
+def _split_case(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [None if sh is None else (rng.standard_normal(sh) * (1 if i == 0 else 0.1)
+                                     ).astype(np.float32) for i, sh in enumerate(shapes)]
+
+
+def _t(a, dt=torch.float32):
+    return None if a is None else torch.from_numpy(a).to(dt)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("E,X,M,I,act,dt", MOE_CASES)
+def test_moe_ffn_split_h_plain_version(E, X, M, I, act, dt):
+    """The tensor-core route's numerics (h as bf16 hi + lo): within 1e-5 of
+    max |y| of the f32 plain version (hi + lo keeps about 16 bits), and on
+    the bf16 cases within the reference's bf16 kernel tolerance (2e-2 of
+    max |y|) of the reference's ``moe_ffn`` (its Pallas kernel in interpret
+    mode)."""
+    x, wu, wg, wd = _split_case([(E, X, M), (E, M, I), (E, M, I) if act == "swiglu" else None,
+                                 (E, I, M)], E * X + I)
+    want = moe_ref.moe_ffn_ref(_t(x), _t(wu), _t(wg), _t(wd), act).numpy()
+    got = moe_ref.moe_ffn_split_ref(_t(x), _t(wu), _t(wg), _t(wd), act).numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0)
+    if dt == "bfloat16":
+        bf = torch.bfloat16
+        ref = np.asarray(j_moe_ffn(_j(x), _j(wu), _j(wg), _j(wd), act), np.float32)
+        split = moe_ref.moe_ffn_split_ref(_t(x, bf), _t(wu, bf), _t(wg, bf), _t(wd, bf), act)
+        np.testing.assert_allclose(split.float().numpy(), ref,
+                                   atol=2e-2 * float(np.abs(ref).max()), rtol=0)
+
+
+@pytest.mark.parametrize("E,NB,bx,M,I,act,dt", RAGGED_CASES)
+def test_ragged_ffn_split_h_plain_version(E, NB, bx, M, I, act, dt):
+    """As the capacity-buffer test, for the ragged layout against the
+    reference's ``ragged_ffn_kernel`` in interpret mode."""
+    x, wu, wg, wd = _split_case([(NB * bx, M), (E, M, I), (E, M, I) if act == "swiglu" else None,
+                                 (E, I, M)], E * NB + I)
+    be = np.random.default_rng(E).integers(0, E, NB).astype(np.int32)
+    tbe = torch.from_numpy(be)
+    want = rag_ref.ragged_ffn_ref(_t(x), tbe, _t(wu), _t(wg), _t(wd), act).numpy()
+    got = rag_ref.ragged_ffn_split_ref(_t(x), tbe, _t(wu), _t(wg), _t(wd), act).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * float(np.abs(want).max()), rtol=0)
+    if dt == "bfloat16":
+        bf = torch.bfloat16
+        bi = I
+        while bi > 1 and I % bi:
+            bi //= 2
+        ref = np.asarray(ragged_ffn_kernel(_j(x), jnp.asarray(be), _j(wu), _j(wg), _j(wd), act,
+                                           block_x=bx, block_i=bi, interpret=True), np.float32)
+        split = rag_ref.ragged_ffn_split_ref(_t(x, bf), tbe, _t(wu, bf), _t(wg, bf), _t(wd, bf),
+                                             act)
+        np.testing.assert_allclose(split.float().numpy(), ref,
+                                   atol=2e-2 * float(np.abs(ref).max()), rtol=0)
