@@ -10,24 +10,30 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 2. build    — builds every kernel (serving and training paths) from the
               sources in this checkout with nvcc for sm_90a (one nvcc per
               source, all started together) and prints the build seconds,
-              registers and spills; the grouped FFN's tensor-core kernels
-              must hold HGMMA instructions in their SASS (cuobjdump; logged
-              as not checked where the toolkit lacks it).
+              registers and spills; the tensor-core kernels (the grouped
+              FFN's, flash attention's) must not spill and must hold HGMMA
+              instructions in their SASS (cuobjdump; logged as not checked
+              where the toolkit lacks it).
 3. check    — holds each kernel against its plain PyTorch version at its
               path's shapes and edge cases, atol = rtol = 2e-2 (the
               reference's own bf16 kernel tolerance); length-0 rows of the
               decode kernels must be exactly 0, and the int8/fp8 codes and
               scales that quant_write_kv writes on the card must equal those
               it writes on the CPU from the same inputs.  The grouped FFN
-              (moe_ffn, ragged_ffn) must take the route its shape and type
-              select (tc_launches): the m6 shapes the tensor cores, where
-              it is also held within one bf16 ulp of the split-h plain
-              version (h as bf16 hi + lo, the route's own numerics).
-4. timing   — per kernel: its time, the plain version's, a PyTorch library
-              call's as a yardstick, and the bound (the larger of bytes over
-              3.35 TB/s and flops over 989 TFLOP/s bf16); for the grouped
-              FFN also its CUDA-core route's time and each pass's device
-              time (torch.profiler).
+              (moe_ffn, ragged_ffn) and flash attention must take the route
+              their shape and type select (tc_launches): the m6 shapes the
+              tensor cores, where each is also held within one bf16 ulp of
+              the plain version of that route's numerics (split-h: h as bf16
+              hi + lo; split-P: P as bf16 hi + lo).
+4. timing   — per kernel: its time by CUDA events over back-to-back calls
+              (for a kernel of a few microseconds, the host's launch rate)
+              and its device time (torch.profiler: every kernel one call
+              launches), the plain version's time, a PyTorch library call's
+              as a yardstick (events and device time), and the bound (the
+              larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s
+              bf16); for the grouped FFN and flash also their CUDA-core
+              route's time, for the FFN each pass's device time; flash at
+              both m6 training lengths, S = 144 and 256.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -50,7 +56,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               plain versions (routing near-ties reported), a dropless step
               whose expert weights must get the plain path's gradient, and
               ``lm_apply(use_flash=True)`` against ``use_flash=False`` on the
-              train batch (the flash kernel launched once per layer).
+              train batch (the flash kernel launched once per layer, every
+              launch on its tensor-core route).
 7. kv      — m6-base served over the quantized and prefix-cached paged KV
               cache, same weights and ServeConfig defaults as phase 5:
               (a) the 16-request trace under kv_quant int8 and fp8 (every
@@ -90,6 +97,7 @@ FLIP_MARGIN = 2e-2              # router-logit gap a bf16 rounding can close
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16
 GROUPED_FFN_SM90 = "src/repro_torch/kernels/csrc/grouped_ffn_sm90.cuh"
+FLASH_SM90 = "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh"
 
 
 def log(msg: str) -> None:
@@ -119,6 +127,30 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_kernels(fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn`` after one warm call:
+    the CUDA events (kernels, copies, memsets) of ``key_averages()``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time of one call of ``fn``: the summed CUDA time of everything
+    it launches, from torch.profiler, over ``reps`` calls; None (not
+    measured) if the profiler recorded no device time."""
+    total = sum(e.self_device_time_total for e in profiled_kernels(fn, reps))
+    return total / 1e3 / reps if total > 0 else None
+
+
 def check_close(name: str, got, want, atol: float = TOL, rtol: float = TOL) -> float:
     import torch
 
@@ -135,28 +167,30 @@ def check_close(name: str, got, want, atol: float = TOL, rtol: float = TOL) -> f
     return float(err.max())
 
 
-def on_cuda_cores(ops, fn):
-    """``fn`` with the grouped-FFN wrapper module ``ops`` held to its
-    CUDA-core route (the device code before the tensor-core one), to time
-    or compare that route at shapes that would take the tensor cores."""
+def on_cuda_cores(ops, fn, route="tensor_core_route"):
+    """``fn`` with the kernel wrapper module ``ops`` held to its CUDA-core
+    route (the device code before the tensor-core one; ``route`` is the
+    module's route function), to time or compare that route at shapes that
+    would take the tensor cores."""
     from unittest import mock
 
     def run(*args):
-        with mock.patch.object(ops, "tensor_core_route", lambda *a: False):
+        with mock.patch.object(ops, route, lambda *a: False):
             return fn(*args)
 
     return run
 
 
-def check_grouped_ffn(name, wrapper, call, args, ref, split_ref, tensor_cores,
-                      cuda_core_call=None):
-    """One grouped-FFN wrapper call ``call(*args)``: the route it took (the
-    ``wrapper``'s ``tc_launches`` counter), its output against the plain
-    version at TOL and, on the tensor-core route, against the split-h plain
-    version at SPLIT_ATOL / SPLIT_RTOL; with ``cuda_core_call``, the share
-    of outputs that differ from the plain version on each route, on the
-    same inputs.  Returns (max abs err against the plain version, against
-    the split one or None)."""
+def check_routed(name, wrapper, call, args, ref, split_ref, tensor_cores,
+                 cuda_core_call=None, split="split-h"):
+    """One call ``call(*args)`` of a wrapper with a tensor-core route (the
+    grouped FFN, flash attention): the route it took (the ``wrapper``'s
+    ``tc_launches`` counter), its output against the plain version at TOL
+    and, on the tensor-core route, against the plain version of that
+    route's numerics (``split_ref``) at SPLIT_ATOL / SPLIT_RTOL; with
+    ``cuda_core_call``, the share of outputs that differ from the plain
+    version on each route, on the same inputs.  Returns (max abs err
+    against the plain version, against the split one or None)."""
     import torch
 
     before = wrapper.tc_launches
@@ -178,11 +212,11 @@ def check_grouped_ffn(name, wrapper, call, args, ref, split_ref, tensor_cores,
     if not tensor_cores:
         return err, None
     want = split_ref(*args)
-    split = check_close(f"{name} [{route}] vs split-h plain", out, want,
-                        atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
+    err_split = check_close(f"{name} [{route}] vs {split} plain", out, want,
+                            atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
     log(f"    {float((out == want).float().mean()):.4f} of the elements bit-equal to the "
-        f"split-h plain version")
-    return err, split
+        f"{split} plain version")
+    return err, err_split
 
 
 def ptxas_functions(report: str, pattern: str) -> dict:
@@ -199,23 +233,29 @@ def ptxas_functions(report: str, pattern: str) -> dict:
     return out
 
 
+# the tensor-core kernels of each library (a pattern of their mangled names)
+TC_KERNELS = {"moe_ffn": "tc_pass_kernel", "ragged_ffn": "tc_pass_kernel",
+              "flash_attention": "flash_tc_kernel"}
+
+
 def check_sass(build) -> None:
-    """Every tensor-core grouped-FFN kernel (``tc_pass_kernel``) of the two
-    FFN libraries must hold HGMMA (wgmma) instructions in its SASS; without
-    cuobjdump on the machine this is logged as not checked."""
+    """Every tensor-core kernel (TC_KERNELS: the grouped FFN's
+    ``tc_pass_kernel`` in the two FFN libraries, ``flash_tc_kernel``) must
+    hold HGMMA (wgmma) instructions in its SASS; without cuobjdump on the
+    machine this is logged as not checked."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("  SASS HGMMA check: not checked (no cuobjdump)")
         return
-    for name in ("moe_ffn", "ragged_ffn"):
+    for name, pattern in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts = {}
         for block in sass.split("Function : ")[1:]:
             fn = block.split(None, 1)[0]
-            if "tc_pass_kernel" in fn:
+            if pattern in fn:
                 counts[fn] = block.count("HGMMA")
         if not counts or min(counts.values()) == 0:
             raise AssertionError(f"{name}: tensor-core kernels without HGMMA in their SASS: "
@@ -451,7 +491,7 @@ def phase_check(torch):
                     paged_decode_attention_ref(*case))
 
     def ragged(name, xs, be, weights, act, bx, tensor_cores=True, both=False):
-        return check_grouped_ffn(
+        return check_routed(
             f"ragged_ffn {name}", rffn.ragged_ffn,
             lambda *a: rffn.ragged_ffn(*a, act, block_x=bx), (xs, be, *weights),
             lambda *a: ragged_ffn_ref(*a, act), lambda *a: ragged_ffn_split_ref(*a, act),
@@ -482,20 +522,23 @@ def phase_check(torch):
 def check_training_kernels(torch):
     """The grouped-FFN kernel at the training path's capacity buffers (top-1:
     X = 45, 4 top-1: X = 180) and the reference's edge cases; the flash
-    kernel at the m6 training shape and at non-power-of-two S, Hkv = 1,
-    non-causal and f32."""
+    kernel at the m6 training shapes (S = 144, 256) and at non-power-of-two
+    and ragged S, S = 1, Hkv < Hq, non-causal and f32, each on the route
+    its type and width select, the tensor-core route also within one bf16
+    ulp of its plain version (P as bf16 hi + lo)."""
+    from repro_torch.kernels.common import flash_tensor_core_route
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref, attention_split_ref
     from repro_torch.kernels.moe_ffn import ops as mf
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
 
     def moe(name, case, act, tensor_cores=True, both=False):
-        return check_grouped_ffn(
+        return check_routed(
             f"moe_ffn {name}", mf.moe_ffn, lambda *a: mf.moe_ffn(*a, act), case,
             lambda *a: moe_ffn_ref(*a, act), lambda *a: moe_ffn_split_ref(*a, act), tensor_cores,
             on_cuda_cores(mf, lambda *a: mf.moe_ffn(*a, act)) if both else None)
 
-    errs = {"moe_ffn": 0.0, "moe_ffn split": 0.0, "flash_attention": 0.0}
+    errs = {"moe_ffn": 0.0, "moe_ffn split": 0.0}
     for X in (45, 180):
         case = moe_case(32, X, 1024, 4096, seed=90 + X)
         err, split = moe(f"E=32 X={X}", case, "gelu", both=True)
@@ -514,19 +557,33 @@ def check_training_kernels(torch):
                                     (3, 128, 128, 256, "geglu", torch.bfloat16, True)):
         case = moe_case(E, X, M, I, seed=E + X + I, act=act, dtype=dt)
         moe(f"E={E} X={X} M={M} I={I} {act} {str(dt)[6:]}", case, act, tc)
+    # flash: the m6 training shape (both routes compared), the CUDA-core
+    # route (f32; D = 16, 32), and the tensor-core route's edges: D = 128
+    # with Hkv < Hq, S = 1, a ragged S = 17, the longest m6 S = 256
     for B, S, Hq, Hkv, D, causal, dt in ((8, 144, 16, 16, 64, True, torch.bfloat16),
                                          (2, 80, 4, 1, 128, False, torch.float32),
                                          (1, 96, 8, 1, 16, True, torch.float32),
-                                         (2, 96, 4, 2, 32, False, torch.bfloat16)):
+                                         (2, 96, 4, 2, 32, False, torch.bfloat16),
+                                         (2, 80, 8, 2, 128, False, torch.bfloat16),
+                                         (2, 1, 4, 2, 64, True, torch.bfloat16),
+                                         (2, 17, 4, 4, 64, False, torch.bfloat16),
+                                         (8, 256, 16, 16, 64, True, torch.bfloat16)):
         q, k, v = flash_case(B, S, Hq, Hkv, D, seed=S + D)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
-        out = fa.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = check_close(f"flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-                          f"{'causal' if causal else 'full'} {str(dt)[6:]}",
-                          out, attention_ref(q, k, v, causal))
+        tc = flash_tensor_core_route(dt, D)
+
+        def flash(q, k, v, causal=causal):
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        err, split = check_routed(
+            f"flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"{'causal' if causal else 'full'} {str(dt)[6:]}", fa.flash_attention, flash,
+            (q, k, v), lambda *a: attention_ref(*a, causal),
+            lambda *a: attention_split_ref(*a, causal), tc,
+            on_cuda_cores(fa, flash, "flash_tensor_core_route") if S == 144 else None,
+            split="split-P")
         if S == 144:
-            errs["flash_attention"] = err
+            errs["flash_attention"], errs["flash_attention split"] = err, split
     return errs
 
 
@@ -631,7 +688,10 @@ def time_quantized(torch, lens, seed, name="int8"):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    k_ms = cuda_ms(lambda: da.quantized_paged_decode_attention(*nxt(), policy=pol))
+    def kern():
+        return da.quantized_paged_decode_attention(*nxt(), policy=pol)
+
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
     q, kc, vc, ks, vs, tables, lengths = copies[0]
     N, Hq, D = q.shape
@@ -646,9 +706,10 @@ def time_quantized(torch, lens, seed, name="int8"):
         v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
         return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
 
-    lib_ms = cuda_ms(dequant_sdpa)
+    lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa)
     bound, by = quant_attention_bound(q, kc, tables, lengths)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
 
 
 def time_dense(torch, lens, seed, T=256):
@@ -665,14 +726,21 @@ def time_dense(torch, lens, seed, T=256):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    k_ms = cuda_ms(lambda: da.decode_attention(*nxt()))
+    def kern():
+        return da.decode_attention(*nxt())
+
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
     q, k, v, lengths = copies[0]
     mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask)
+
     bound, by = dense_bound(q, k, lengths)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
+                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by)
 
 
 def time_attention(torch, lens, seed):
@@ -690,7 +758,10 @@ def time_attention(torch, lens, seed):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    k_ms = cuda_ms(lambda: pda.paged_decode_attention(*nxt()))
+    def kern():
+        return pda.paged_decode_attention(*nxt())
+
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: paged_decode_attention_ref(*nxt()))
     q, kp, vp, tables, lengths = copies[0]
     N, Hq, D = q.shape
@@ -698,29 +769,23 @@ def time_attention(torch, lens, seed):
     kk = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
     vv = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
     mask = (torch.arange(MB * bs, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None, :], kk, vv,
-                                                             attn_mask=mask))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
+
     bound, by = attention_bound(q, kp, tables, lengths)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
+                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by)
 
 
 def pass_ms(torch, fn, reps: int = 10) -> dict:
     """Device time of each pass of the tensor-core grouped FFN in one call
     of ``fn`` (torch.profiler): {"up": ms, "down": ms}, from the kernels
     ``tc_pass_kernel<N, KIND>`` (KIND 0, 1: the up pass; 2: the down pass)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {"up": 0.0, "down": 0.0}
-    for e in prof.key_averages():
+    for e in profiled_kernels(fn, reps):
         m = re.search(r"tc_pass_kernel<\d+, (\d)>", e.key)
-        if e.device_type == DeviceType.CUDA and m:
+        if m:
             out["down" if m.group(1) == "2" else "up"] += e.self_device_time_total / 1e3 / reps
     return out
 
@@ -734,11 +799,14 @@ def time_ffn(torch, n, seed, weights):
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
     xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights)
-    k_ms = cuda_ms(lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx))
-    cc_ms = cuda_ms(on_cuda_cores(rffn, lambda: rffn.ragged_ffn(xs, be, *weights, "gelu",
-                                                                block_x=bx)))
+
+    def kern():
+        return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
+
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
+    cc_ms = cuda_ms(on_cuda_cores(rffn, kern))
     p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
-    lib_ms = None
+    lib_ms = lib_dev = None
     offs = rag.expert_offsets[0, 1:].contiguous()
     w_up, _, w_down = weights
     try:
@@ -749,17 +817,16 @@ def time_ffn(torch, n, seed, weights):
         live = int(offs[-1])
         ref = ragged_ffn_ref(xs, be, *weights, "gelu")
         if (grouped()[:live].float() - ref[:live].float()).abs().max() <= TOL * 4:
-            lib_ms = cuda_ms(grouped)
+            lib_ms, lib_dev = cuda_ms(grouped), device_ms(grouped)
         else:
             log("  grouped_mm yardstick disagrees with the plain version: not timed")
     except (RuntimeError, TypeError, ValueError) as exc:
         log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
     bound, by = ffn_bound(xs, be, weights, rag, bx)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                cuda_core_ms=cc_ms,
-                pass_ms=pass_ms(torch, lambda: rffn.ragged_ffn(xs, be, *weights, "gelu",
-                                                                block_x=bx)))
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by, cuda_core_ms=cc_ms,
+                pass_ms=pass_ms(torch, kern))
 
 
 def time_moe_ffn(torch, X, seed):
@@ -773,47 +840,103 @@ def time_moe_ffn(torch, X, seed):
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 
     x, w_up, _, w_down = moe_case(32, X, 1024, 4096, seed=seed)
-    k_ms = cuda_ms(lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), reps=10)
-    cc_ms = cuda_ms(on_cuda_cores(mf, lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu")), reps=5)
+    def kern():
+        return mf.moe_ffn(x, w_up, None, w_down, "gelu")
+
+    def bmm():
+        return torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"), w_down)
+
+    k_ms = cuda_ms(kern, reps=10)
+    cc_ms = cuda_ms(on_cuda_cores(mf, kern), reps=5)
     p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, None, w_down, "gelu"), reps=5)
-    lib_ms = cuda_ms(lambda: torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"),
-                                       w_down), reps=10)
+    lib_ms = cuda_ms(bmm, reps=10)
     bound, by = moe_ffn_bound(x, w_up, None)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                cuda_core_ms=cc_ms,
-                pass_ms=pass_ms(torch, lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu")))
+    return dict(ms=k_ms, device_ms=device_ms(kern, reps=10), plain_ms=p_ms, library_ms=lib_ms,
+                library_device_ms=device_ms(bmm, reps=10), bound_ms=bound, bound_by=by,
+                cuda_core_ms=cc_ms, pass_ms=pass_ms(torch, kern))
 
 
-def time_flash(torch, B, S, H, D, seed):
-    """Kernel, plain and SDPA times for one causal attention call at the
-    m6 training shape."""
+def time_flash(torch, B, S, H, D, seed, copies=16):
+    """One causal attention call at an m6 training shape, all in this call:
+    the tensor-core kernel (the wrapper's route), the CUDA-core kernel, the
+    plain version and SDPA, each by CUDA events over back-to-back calls and
+    (but the plain version) by the profiler's device time.  The calls
+    rotate over ``copies`` sets of inputs (16 x 7.1 MB at S = 144, more
+    than the 50 MB L2), so each reads its inputs from device memory, as
+    the bound counts them; the kernel's and SDPA's device times on one set
+    read again and again (from L2) are kept beside them as ``warm``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    q, k, v = flash_case(B, S, H, H, D, seed=seed)
-    k_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    p_ms = cuda_ms(lambda: attention_ref(q, k, v, True))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
-    bound, by = flash_bound(q, k, True)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    sets = [flash_case(B, S, H, H, D, seed=seed + c) for c in range(copies)]
+    it = iter(range(1 << 30))
+
+    def nxt():
+        return sets[next(it) % copies]
+
+    def kern(qkv=None):
+        q, k, v = qkv or nxt()
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def sdpa(qkv=None):
+        q, k, v = qkv or nxt()
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True)
+
+    cc = on_cuda_cores(fa, kern, "flash_tensor_core_route")
+    out = dict(ms=cuda_ms(kern), device_ms=device_ms(kern), cuda_core_ms=cuda_ms(cc),
+               cuda_core_device_ms=device_ms(cc),
+               plain_ms=cuda_ms(lambda: attention_ref(*nxt(), True)),
+               library_ms=cuda_ms(sdpa), library_device_ms=device_ms(sdpa),
+               warm_device_ms=device_ms(lambda: kern(sets[0])),
+               library_warm_device_ms=device_ms(lambda: sdpa(sets[0])))
+    kernels = sorted(profiled_kernels(sdpa, 4), key=lambda e: -e.self_device_time_total)
+    log(f"  SDPA at S={S} launches: " + "; ".join(
+        f"{e.key[:90]} ({e.self_device_time_total / 4e3:.5f} ms)" for e in kernels))
+    out["bound_ms"], out["bound_by"] = flash_bound(*sets[0][:2], True)
+    return out
 
 
 def phase_timing_training(torch):
     """The training kernels at the training path's shapes: the grouped FFN
     at X = 45 (top-1, the JSON line) and X = 180 (4 top-1), flash at B = 8,
-    S = 144, H = 16, D = 64."""
+    H = 16, D = 64, S = 144 (the JSON line) and S = 256 (the learned
+    positions' limit)."""
     out = {"moe_ffn": time_moe_ffn(torch, 45, seed=100),
            "moe_ffn X=180": time_moe_ffn(torch, 180, seed=101),
-           "flash_attention": time_flash(torch, 8, 144, 16, 64, seed=102)}
+           "flash_attention": time_flash(torch, 8, 144, 16, 64, seed=102),
+           "flash_attention S=256": time_flash(torch, 8, 256, 16, 64, seed=103)}
     for name, r in out.items():
-        cc = (f", CUDA-core route {r['cuda_core_ms']:.4f} ms, passes {r['pass_ms']['up']:.4f} "
-              f"+ {r['pass_ms']['down']:.4f} ms" if "cuda_core_ms" in r else "")
-        log(f"  train {name}: kernel {r['ms']:.4f} ms{cc}, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        log(f"  train {name}: {timing_line(r)}")
+        if "warm_device_ms" in r:
+            log(f"    inputs read again from L2 (warm): kernel {r['warm_device_ms']:.5f} ms, "
+                f"library {r['library_warm_device_ms']:.5f} ms (device)")
     return out
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.5f}"
+
+
+def timing_line(r) -> str:
+    """A kernel's times: CUDA events over back-to-back calls (which at a
+    few microseconds a call read the host's launch rate) and the
+    profiler's device time, for the kernel, its CUDA-core route where it
+    has one, the plain version and the library call, and the bound."""
+    cc = ""
+    if "cuda_core_ms" in r:
+        cc = f", CUDA-core route {r['cuda_core_ms']:.4f} ms"
+        if "cuda_core_device_ms" in r:
+            cc += f" (device {fmt_ms(r['cuda_core_device_ms'])})"
+    if "pass_ms" in r:
+        cc += f", passes {r['pass_ms']['up']:.4f} + {r['pass_ms']['down']:.4f} ms (device)"
+    lib = "null" if r["library_ms"] is None else (f"{r['library_ms']:.4f} ms (device "
+                                                  f"{fmt_ms(r['library_device_ms'])})")
+    return (f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}){cc}, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
 
 
 def phase_timing(torch, ffn_weights):
@@ -835,12 +958,7 @@ def phase_timing(torch, ffn_weights):
     out["decode (N=8)"]["decode_attention"] = time_dense(torch, decode_lens, seed=110)
     for label, res in out.items():
         for name, r in res.items():
-            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            cc = (f", CUDA-core route {r['cuda_core_ms']:.4f} ms, passes "
-                  f"{r['pass_ms']['up']:.4f} + {r['pass_ms']['down']:.4f} ms"
-                  if "cuda_core_ms" in r else "")
-            log(f"  {label} {name}: kernel {r['ms']:.4f} ms{cc}, plain {r['plain_ms']:.4f} ms, "
-                f"library {lib} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            log(f"  {label} {name}: {timing_line(r)}")
     return out["decode (N=8)"], out["mixed (N=40)"]
 
 
@@ -1326,7 +1444,8 @@ def compare_train_step(torch, cfg, params, batch):
 def compare_flash_forward(torch, cfg, params, batch, fa):
     """``lm_apply(use_flash=True)`` against ``use_flash=False`` on the train
     batch: logits within 2e-2 + 2e-2 |logit| on tokens untouched by a
-    routing near-tie; the flash kernel launched once per layer."""
+    routing near-tie; the flash kernel launched once per layer, on the
+    card every launch on its tensor-core route."""
     from repro_torch.models.transformer import lm_apply
 
     def run(use_flash, routes):
@@ -1335,13 +1454,14 @@ def compare_flash_forward(torch, cfg, params, batch, fa):
                             extra_embeds=batch["patch_embeds"])[0]
 
     rf, rr = [], []
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     lf = run(True, rf)
-    n = fa.flash_attention.launches
+    n, n_tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
     lr = run(False, rr)
-    if sync(torch, lf) and n != cfg.num_layers:
-        raise AssertionError(f"flash_attention: {n} launches in one forward, expected "
-                             f"{cfg.num_layers} (one per layer)")
+    if sync(torch, lf) and not n == n_tc == cfg.num_layers:
+        raise AssertionError(f"flash_attention: {n} launches in one forward ({n_tc} on the "
+                             f"tensor-core route), expected {cfg.num_layers} (one per layer, "
+                             f"all on the tensor cores)")
     B, S = lf.shape[:2]
     flips, affected = _flip_report(rf, rr, cfg.num_layers, S, "flash forward")
     hit = torch.zeros(B * S, dtype=torch.bool, device=lf.device)
@@ -1349,13 +1469,14 @@ def compare_flash_forward(torch, cfg, params, batch, fa):
     V = cfg.vocab_size
     a, b = lf.reshape(B * S, -1)[~hit, :V].float(), lr.reshape(B * S, -1)[~hit, :V].float()
     diff = float((a - b).abs().max())
-    log(f"  lm_apply use_flash=True vs False: {n} flash launches (one per layer); max abs "
+    log(f"  lm_apply use_flash=True vs False: {n} flash launches (one per layer, {n_tc} on the "
+        f"tensor cores); max abs "
         f"logit diff {diff:.4g} on {int((~hit).sum())} of {B * S} tokens (tolerance "
         f"{TOL} + {TOL} x |logit|, logit scale {float(b.abs().max()):.3g}); "
         f"{len(flips)} routing flips")
     if ((a - b).abs() > TOL + TOL * b.abs()).any():
         raise AssertionError(f"flash forward logits differ beyond tolerance: {diff}")
-    return dict(max_abs_logit_diff=diff, launches=n, routing_flips=len(flips))
+    return dict(max_abs_logit_diff=diff, launches=n, tc_launches=n_tc, routing_flips=len(flips))
 
 
 DROPLESS_ARGS = ["--steps", "1", "--batch", "2", "--moe-impl", "dropless",
@@ -1699,11 +1820,17 @@ def main() -> int:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", rep)]
         log(f"  {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores up to {max(spills)} bytes (ptxas -v)")
-        tc = ptxas_functions(rep, "tc_pass_kernel")
+        tc = ptxas_functions(rep, TC_KERNELS.get(name, "-"))
         if tc:
             log(f"    tensor-core kernels: {len(tc)}, registers "
                 f"{min(r for r, _ in tc.values())}-{max(r for r, _ in tc.values())}, spill "
                 f"stores up to {max(sp for _, sp in tc.values())} bytes")
+            spilled = [f for f, (_, sp) in tc.items() if sp]
+            if spilled:
+                raise AssertionError(f"{name}: tensor-core kernels spill: {spilled}")
+        if name == "flash_attention":
+            for fn, (regs, sp) in sorted(tc.items()):
+                log(f"      {fn}: {regs} registers, {sp} bytes spill stores")
         for line in rep.splitlines():
             if "wgmma" in line.lower() and "warning" in line.lower():
                 log(f"    ptxas: {line.strip()[:200]}")
@@ -1734,8 +1861,7 @@ def main() -> int:
         "ragged_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_dropless/kernel.py:80",
                        launches),
         "moe_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_ffn/kernel.py:72", train_launches),
-        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:66",
+        "flash_attention": (FLASH_SM90, "src/repro/kernels/flash_attention/kernel.py:66",
                             {"flash_attention": train["flash"]["launches"]}),
         "quantized_paged_decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/quantized_paged_decode_attention.cu",
@@ -1751,16 +1877,25 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": counts[name], "max_abs_err": errs[name],
                  "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                 "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"]}
         if src == GROUPED_FFN_SM90:       # the grouped FFN's tensor-core route
             entry.update(device_code="tensor cores (wgmma, TMA), bf16 h hi + lo",
                          entry_point=f"{name}_tc", max_abs_err_split_h=errs[f"{name} split"],
                          cuda_core_ms=t["cuda_core_ms"])
+        if src == FLASH_SM90:             # flash attention's tensor-core route
+            entry.update(device_code="tensor cores (wgmma, TMA), P from registers as bf16 hi + lo",
+                         entry_point="flash_attention_tc",
+                         max_abs_err_split_p=errs["flash_attention split"],
+                         tc_launches=train["flash"]["tc_launches"],
+                         cuda_core_ms=t["cuda_core_ms"],
+                         cuda_core_device_ms=t["cuda_core_device_ms"])
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "build_s": build_s,
                       "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
+                      "flash_attention_s256": timing["flash_attention S=256"],
                       "quantized_fp8": timing["quantized_paged_decode_attention fp8"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)

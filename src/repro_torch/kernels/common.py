@@ -1,6 +1,6 @@
 """Helpers shared by the kernel wrappers: the activation codes of the
-grouped-FFN sources, the grouped FFN's route by shape and type, and the
-backward of a kernel without a backward kernel."""
+grouped-FFN sources, the grouped FFN's and flash attention's routes by
+shape and type, and the backward of a kernel without a backward kernel."""
 from __future__ import annotations
 
 from typing import Callable, Sequence, Tuple
@@ -26,6 +26,14 @@ def tensor_core_route(dtype: torch.dtype, M: int, I: int) -> bool:
     widths multiples of 8 so that every row is 16-byte aligned for TMA.
     f32 and other widths take the CUDA-core code (``grouped_ffn.cuh``)."""
     return dtype == torch.bfloat16 and M % 8 == 0 and I % 8 == 0
+
+
+def flash_tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """Whether flash attention takes the tensor-core device code
+    (``flash_attention_sm90.cuh``, entry point ``flash_attention_tc``):
+    bf16 with a head width of one or two 64-column TMA boxes.  f32, and
+    D in (16, 32), take the CUDA-core kernel."""
+    return dtype == torch.bfloat16 and D in (64, 128)
 
 
 def tile_rows(rows: int, gated: bool) -> Tuple[int, int]:

@@ -56,9 +56,12 @@
 #include <stdint.h>
 
 #include "grouped_ffn.cuh"
+#include "sm90.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace grouped_ffn_sm90 {
+
+using namespace sm90;   // mbarriers, TMA, descriptors, tensor maps; Wgmma<N>
 
 constexpr int kBK = 64;                        // reduction depth of a stage: one 128-byte row
 constexpr int kBC = 128;                       // output columns per CTA
@@ -79,94 +82,6 @@ struct Tile {
   static constexpr int kSmem = kStages * kStage + 1024;   // + the 1024-byte alignment
   static_assert(kStages >= 2, "a stage ring needs two stages");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed; trap (a launch
-// failure the wrapper reports) rather than hang if it never does
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// box (c0, c1, c2) of a 3-D tensor map into shared memory; completes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// the same with an L2 eviction policy (the weights: read once, evict first,
-// so that the token rows other CTAs read again stay in L2)
-__device__ __forceinline__ void tma_load_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int c0, int c1, int c2, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "l"(policy)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle layout
-// (1024-byte atoms of 8 rows of 128 bytes): both byte offsets 1024, the
-// stride from one 8-row atom to the next along the rows (K for the
-// MN-major weight tile, N for the K-major token tile; the other offset is
-// unused, as a wgmma reads one 128-byte atom across).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving accumulator reads across the async wgmmas
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __device__ __forceinline__ float activate(int act, float u, float g) {
   using namespace grouped_ffn;
@@ -288,47 +203,8 @@ tc_pass_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and launches
+// Host side: launches
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled is a driver API: reached through the runtime's
-// entry-point query, so the libraries need no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// a bf16 (d2, d1, d0) array, d0 contiguous (d0 % 8 == 0: 16-byte strides),
-// read in boxes of (1, box1, 64) with the 128-byte swizzle; out of bounds
-// reads as 0
-inline bool map3d(EncodeTiledFn encode, CUtensorMap* m, const void* base, uint64_t d0,
-                  uint64_t d1, uint64_t d2, uint32_t box1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {64, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
 
 template <int N, int KIND>
 cudaError_t launch_pass(const CUtensorMap& w, const CUtensorMap& wg, const CUtensorMap& b,

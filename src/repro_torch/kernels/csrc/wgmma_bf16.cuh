@@ -1,7 +1,7 @@
-// Hopper warpgroup matrix multiply (wgmma) for grouped_ffn_sm90.cuh: one
-// specialisation per token-tile width N, since N is an immediate of the
-// instruction and the m64nNk16 form lists its N/2 f32 accumulator registers
-// one by one.
+// Hopper warpgroup matrix multiply (wgmma), bf16 inputs and f32
+// accumulators, for the tensor-core kernels: one specialisation per width N,
+// since N is an immediate of the instruction and the m64nNk16 form lists its
+// N/2 f32 accumulator registers one by one.
 //
 // Wgmma<N>::mma(d, a, b) issues, for one warpgroup,
 //   d (64 x N, f32) += A (64 x 16, bf16) * B (16 x N, bf16)
@@ -12,11 +12,22 @@
 // is always 1: the caller zeroes d first.  Thread t of the warpgroup holds,
 // for register i, row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and
 // column 8 (i / 4) + 2 (t % 4) + i % 2.
+//
+// Wgmma<64> also has the two forms attention needs:
+//   mma_kk(d, a, b): A and B both K-major in shared memory (imm-trans-a =
+//     imm-trans-b = 0), as Q (query rows of D contiguous) times K^T (key
+//     rows of D contiguous);
+//   mma_rs(d, a, b): A from registers, four 32-bit registers of bf16 pairs
+//     laid out as the accumulator registers 0-7 of a 64 x 16 tile (register
+//     j holds the pair of accumulator registers 2j, 2j + 1, lower column in
+//     the low half), and B MN-major in shared memory (imm-trans-b = 1), as
+//     P times V (key rows of D contiguous).  The A registers are read
+//     asynchronously: they must not change until the wgmma has completed.
 #pragma once
 
 #include <stdint.h>
 
-namespace grouped_ffn_sm90 {
+namespace sm90 {
 
 template <int N> struct Wgmma;
 
@@ -85,6 +96,35 @@ template <> struct Wgmma<64> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(1));
+  }
+
+  static __device__ __forceinline__ void mma_kk(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+
+  static __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 
@@ -157,4 +197,4 @@ template <> struct Wgmma<192> {
   }
 };
 
-}  // namespace grouped_ffn_sm90
+}  // namespace sm90

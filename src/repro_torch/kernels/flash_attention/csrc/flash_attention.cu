@@ -5,6 +5,13 @@
 //           sequential and the running max, denominator and accumulator in
 //           VMEM scratch).
 //
+// Two entry points, one route each (kernels/common.py
+// flash_tensor_core_route):
+// - flash_attention_tc (bf16 with D in 64, 128, which every m6 shape is):
+//   TMA and wgmma with P from registers; device code in
+//   kernels/csrc/flash_attention_sm90.cuh.
+// - flash_attention (f32, and D in 16, 32): the CUDA-core kernel below.
+//
 // What it computes: causal or full GQA attention in the public (B, S, H, D)
 // layout, query head h reading kv head h / (Hq / Hkv):
 //   o[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h/G] * D^-0.5) @ v[b, t, h/G]
@@ -13,11 +20,11 @@
 //
 // What bounds it on this card: at the m6-base training shape (B = 8,
 // S = 144, H = 16, D = 64, causal) a call moves 4 x 2.4 MB (q, k, v, o in
-// bf16) and does ~0.2 GFLOP: bytes, about 3 us at 3.35 TB/s.  At that size
-// the launch and the serial key loop dominate.
+// bf16) and does ~0.34 GFLOP: bytes, about 3 us at 3.35 TB/s.
 //
-// Design: one CTA of 128 threads per (query tile, head, batch) with a loop
-// over KV tiles of 32 keys in place of the TPU grid's sequential axis.
+// The CUDA-core kernel: one CTA of 128 threads per (query tile, head,
+// batch) with a loop over KV tiles of 32 keys in place of the TPU grid's
+// sequential axis.
 // TPR = max(1, D/32) threads share a query row, each holding D/TPR of its
 // dims of q (pre-scaled, as the TPU kernel scales q) and of the f32
 // accumulator in registers; the row's dot product is summed across them with
@@ -33,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -146,4 +155,12 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
   if (dtype == 0) return (int)run<__nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, D, causal, st);
   if (dtype == 1) return (int)run<float>(q, k, v, o, B, S, Hq, Hkv, D, causal, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16 q/o (B, S, Hq, D), k/v (B, S, Hkv, D),
+// contiguous and 16-byte aligned; D in (64, 128); Hq % Hkv == 0.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, void* o, int B,
+                                  int S, int Hq, int Hkv, int D, int causal, void* stream) {
+  return (int)flash_sm90::run(q, k, v, o, B, S, Hq, Hkv, D, causal, (cudaStream_t)stream);
 }

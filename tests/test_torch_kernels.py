@@ -23,6 +23,7 @@ from repro.kernels.moe_ffn.ops import moe_ffn as j_moe_ffn
 from repro_torch.kernels import build, common
 from repro_torch.kernels.decode_attention import ops as pda_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.moe_dropless import ops as rffn_ops
 from repro_torch.kernels.moe_dropless import ref as rag_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -197,7 +198,8 @@ def test_build_keys_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):
 @pytest.mark.parametrize("ops,name", [(pda_ops, "paged_decode_attention"),
                                       (rffn_ops, "ragged_ffn"), (moe_ops, "moe_ffn"),
                                       (flash_ops, "flash_attention"),
-                                      (rffn_ops, "ragged_ffn_tc"), (moe_ops, "moe_ffn_tc")])
+                                      (rffn_ops, "ragged_ffn_tc"), (moe_ops, "moe_ffn_tc"),
+                                      (flash_ops, "flash_attention_tc")])
 def test_ctypes_signature_matches_c_source(ops, name):
     """The wrapper's ctypes argtypes mirror the extern "C" signature:
     ints for ints, pointers for pointers and the stream.  ``*_tc`` is the
@@ -450,3 +452,70 @@ def test_ragged_ffn_split_h_plain_version(E, NB, bx, M, I, act, dt):
                                              act)
         np.testing.assert_allclose(split.float().numpy(), ref,
                                    atol=2e-2 * float(np.abs(ref).max()), rtol=0)
+
+
+# the m6 training shapes (B = 8, S = 144 and the learned-position limit 256,
+# H = 16, D = 64, causal, bf16) and the card's further flash checks (D = 128
+# with Hkv < Hq, S = 1, S = 17): every one takes the tensor cores
+FLASH_M6_CASES = [(8, 144, 16, 16, 64, True, "bfloat16"), (8, 256, 16, 16, 64, True, "bfloat16")]
+FLASH_CHIP_CASES = [(2, 80, 8, 2, 128, False, "bfloat16"), (2, 1, 4, 2, 64, True, "bfloat16"),
+                    (2, 17, 4, 4, 64, False, "bfloat16")]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,dt",
+                         FLASH_CASES + FLASH_M6_CASES + FLASH_CHIP_CASES)
+def test_flash_attention_route(B, S, Hq, Hkv, D, causal, dt):
+    """Which device code each shape takes (bf16 with D in 64, 128 the
+    tensor cores, every m6 shape among them; f32 and D in 16, 32 the CUDA
+    cores), and the wrapper's argument checks accept the shape."""
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    want = dt == "bfloat16" and D in (64, 128)
+    assert common.flash_tensor_core_route(tdt, D) == want
+    assert want or (B, S, Hq, Hkv, D, causal, dt) in FLASH_CASES
+    q = torch.zeros(B, S, Hq, D, dtype=tdt)
+    k = torch.zeros(B, S, Hkv, D, dtype=tdt)
+    flash_ops._check(q, k, k.clone())
+
+
+def test_flash_attention_tensor_core_route_needs_aligned_tensors():
+    """The tensor-core kernel reads q, k, v through TMA, which takes
+    16-byte-aligned addresses: a misaligned tensor raises (it does not
+    switch routes); the CUDA-core route takes it."""
+    def view(dt, shape, offset):
+        n = int(np.prod(shape))
+        return torch.zeros(n + offset, dtype=dt)[offset:].view(shape)
+
+    shape = (1, 8, 2, 64)
+    q = view(torch.bfloat16, shape, 0)
+    flash_ops._check(q, q.clone(), q.clone())
+    for name, args in (("q", (view(torch.bfloat16, shape, 1), q, q)),
+                       ("k", (q, view(torch.bfloat16, shape, 4), q)),
+                       ("v", (q, q, view(torch.bfloat16, shape, 7)))):
+        with pytest.raises(ValueError, match=f"{name} is not 16-byte aligned"):
+            flash_ops._check(*args)
+    f = view(torch.float32, shape, 1)
+    flash_ops._check(f, f.clone(), f.clone())                # f32: the CUDA cores
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,dt",
+                         FLASH_CASES + [(2, 144, 16, 16, 64, True, "bfloat16")])
+def test_flash_attention_split_plain_version(B, S, Hq, Hkv, D, causal, dt):
+    """The tensor-core route's numerics (``attention_split_ref``: an online
+    softmax over 64-key tiles in base 2, P as bf16 hi + lo): against the
+    reference's ``flash_attention`` (its Pallas kernel in interpret mode)
+    at the reference's flash tolerance (f32 3e-5, bf16 3e-2); and, on the
+    same inputs in f32, within 2^-16 max |v| + 1e-6 of the f32
+    ``attention_ref`` (the lo plane leaves p an error of at most 2^-16 |p|,
+    and the output is a convex combination of v's rows; 1e-6 for the f32
+    sums)."""
+    (jq, jk, jv), (tq, tk, tv) = _grad_case(
+        [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], B * S + D, dt, scale=1.0)
+    want = np.asarray(j_flash(jq, jk, jv, causal=causal, block_q=64, block_kv=32), np.float32)
+    got = flash_ref.attention_split_ref(tq, tk, tv, causal)
+    tol = 3e-2 if dt == "bfloat16" else 3e-5
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
+    f32 = [t.float() for t in (tq, tk, tv)]
+    split = flash_ref.attention_split_ref(*f32, causal).numpy()
+    plain = flash_ref.attention_ref(*f32, causal).numpy()
+    np.testing.assert_allclose(split, plain,
+                               atol=2.0 ** -16 * float(f32[2].abs().max()) + 1e-6, rtol=0)
