@@ -10,8 +10,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 2. build    — builds every kernel (serving and training paths) from the
               sources in this checkout with nvcc for sm_90a (one nvcc per
               source, all started together) and prints the build seconds,
-              registers and spills; the tensor-core kernels (the grouped
-              FFN's, flash attention's) must not spill and must hold HGMMA
+              registers and spills; the paged decode kernels and the
+              tensor-core kernels (the grouped FFN's, flash attention's) must
+              not spill, the latter must hold HGMMA
               instructions in their SASS (cuobjdump; logged as not checked
               where the toolkit lacks it).
 3. check    — holds each kernel against its plain PyTorch version at its
@@ -24,7 +25,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               their shape and type select (tc_launches): the m6 shapes the
               tensor cores, where each is also held within one bf16 ulp of
               the plain version of that route's numerics (split-h: h as bf16
-              hi + lo; split-P: P as bf16 hi + lo).
+              hi + lo; split-P: P as bf16 hi + lo).  The paged kernels also
+              at every cluster split (1, 2, 4, 8) forced, with a ring of
+              stages that wraps (a 1000-token row), f32 at G = 2, 4, 8 and
+              D = 32, 128, and a garbage block of 1e4 past every length.
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -33,7 +37,11 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s
               bf16); for the grouped FFN and flash also their CUDA-core
               route's time, for the FFN each pass's device time; flash at
-              both m6 training lengths, S = 144 and 256.
+              both m6 training lengths, S = 144 and 256; the paged kernels
+              (bf16 and int8) at 8 rows x 256 positions and at the decode
+              step for their chosen split and each split forced, with the
+              splits and stages beside each time; then the FFN, flash and
+              dense kernels measured again on the same inputs.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -42,7 +50,11 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               layers x engine steps.  Then one mixed step's forward runs
               twice, through the kernels and through the plain versions, and
               the logits and greedy tokens are compared.
-6. train    — m6-base at full width trains through the train CLI's own
+6. train    — first, AdamW's update of m6-shaped leaves at steps 1-4 and the
+              trainer's 3-way microbatch average must be bit-equal on the
+              card to the CPU's (true divisions; the share a Python-number
+              divisor would move is reported).  Then m6-base at full width
+              trains through the train CLI's own
               setup (``repro_torch.launch.train``): 8 steps of top-1 routing
               with capacity 1.25 through the grouped-FFN kernel (``pallas``),
               then 4 steps of 4 top-1 expert prototyping.  Every loss and grad
@@ -98,6 +110,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16
 GROUPED_FFN_SM90 = "src/repro_torch/kernels/csrc/grouped_ffn_sm90.cuh"
 FLASH_SM90 = "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh"
+PAGED_SM90 = "src/repro_torch/kernels/csrc/paged_decode_sm90.cuh"
 
 
 def log(msg: str) -> None:
@@ -143,12 +156,15 @@ def profiled_kernels(fn, reps: int):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, sessions: int = 3):
     """Device time of one call of ``fn``: the summed CUDA time of everything
-    it launches, from torch.profiler, over ``reps`` calls; None (not
-    measured) if the profiler recorded no device time."""
-    total = sum(e.self_device_time_total for e in profiled_kernels(fn, reps))
-    return total / 1e3 / reps if total > 0 else None
+    it launches, from torch.profiler, over ``reps`` calls, the median of
+    ``sessions`` profiler sessions (a session now and then records only
+    part of the calls' kernels, or none); None (not measured) if no
+    session recorded device time."""
+    totals = sorted(t for t in (sum(e.self_device_time_total for e in profiled_kernels(fn, reps))
+                                for _ in range(sessions)) if t > 0)
+    return totals[len(totals) // 2] / 1e3 / reps if totals else None
 
 
 def check_close(name: str, got, want, atol: float = TOL, rtol: float = TOL) -> float:
@@ -516,7 +532,77 @@ def phase_check(torch):
            tensor_cores=False)
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
+    check_paged_design(torch)
     return errs, weights
+
+
+def check_paged_design(torch):
+    """The paged kernels' cases of their Hopper design (bulk copies into a
+    ring of stages, a split over a thread-block cluster), for the bf16/f32
+    kernel and the int8/fp8 one, each against its plain version at TOL with
+    length-0 rows exactly 0: every splits in (1, 2, 4, 8) forced at the m6
+    serving shape; a ring that wraps (bs 16, MB 64, a 1000-token row) at
+    splits 1 and 2; f32 at G in (2, 4, 8) and D in
+    (32, 128); and a garbage block (the table's entry past each length)
+    filled with 1e4 / -1e4, which must not reach the output; one-position
+    blocks, whose passes span more blocks than the ring holds."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref,
+        quantized_paged_decode_attention_ref,
+    )
+    from repro_torch.quant import get_kv_quant
+
+    def run(label, case, fmt=None, splits=None):
+        if fmt is None:
+            out = da.paged_decode_attention(*case, splits=splits)
+            want = paged_decode_attention_ref(*case)
+            plan = da.launch_plan(case[0], case[1], case[3], splits)
+        else:
+            pol = get_kv_quant(fmt)
+            out = da.quantized_paged_decode_attention(*case, policy=pol, splits=splits)
+            want = quantized_paged_decode_attention_ref(*case, policy=pol)
+            plan = da.launch_plan(case[0], case[1], case[5], splits)
+        torch.cuda.synchronize()
+        N, Hq, D = case[0].shape
+        Hkv, bs = case[1].shape[1], case[1].shape[2]
+        name = (f"{'paged' if fmt is None else fmt} {label} N={N} G={Hq // Hkv} D={D} bs={bs} "
+                f"MB={case[-2].shape[1]} {str(case[0].dtype)[6:]} splits={plan[0]} "
+                f"stages={plan[1]}")
+        check_close(name, out, want)
+        if not (out[case[-1] == 0] == 0).all():
+            raise AssertionError(f"{name}: a length-0 row is not exactly 0")
+
+    m6_lens = [40, 0, 17, 256, 1, 100, 16, 63]
+    for splits in (1, 2, 4, 8):
+        run("forced", attention_case(8, 16, 16, 64, 16, 16, m6_lens, seed=500), splits=splits)
+        for fmt in ("int8", "fp8"):
+            run("forced", quant_attention_case(8, 16, 16, 64, 16, 16, m6_lens, seed=501,
+                                               name=fmt), fmt, splits=splits)
+    wrap_lens = [1000, 0, 37]
+    for splits in (1, 2):
+        run("ring wraps", attention_case(3, 16, 16, 64, 16, 64, wrap_lens, seed=510),
+            splits=splits)
+        run("ring wraps", quant_attention_case(3, 16, 16, 64, 16, 64, wrap_lens, seed=511,
+                                               name="int8"), "int8", splits=splits)
+    # one-position blocks: a pass spans more blocks than the ring holds
+    run("bs=1 ring wraps", attention_case(2, 4, 4, 32, 1, 64, [64, 37], seed=512))
+    run("bs=1 ring wraps", quant_attention_case(2, 4, 4, 32, 1, 64, [64, 37], seed=513,
+                                                name="int8"), "int8")
+    lens = [5, 0, 31, 33, 200]
+    for i, (Hq, Hkv, D) in enumerate(((16, 8, 32), (16, 4, 128), (16, 2, 128), (8, 1, 32))):
+        run("f32", attention_case(5, Hq, Hkv, D, 16, 16, lens, seed=520 + i,
+                                  dtype=torch.float32))
+        run("f32", quant_attention_case(5, Hq, Hkv, D, 16, 16, lens, seed=530 + i,
+                                        name=("int8", "fp8")[i % 2], dtype=torch.float32),
+            ("int8", "fp8")[i % 2])
+    q, kp, vp, tables, lengths = attention_case(8, 16, 16, 64, 16, 16, m6_lens, seed=540)
+    kp[-1], vp[-1] = 1e4, -1e4                    # the garbage block: every table's tail
+    run("garbage block", (q, kp, vp, tables, lengths))
+    q, kc, vc, ks, vs, tables, lengths = quant_attention_case(8, 16, 16, 64, 16, 16, m6_lens,
+                                                              seed=541, name="int8")
+    kc[-1], vc[-1], ks[-1], vs[-1] = 127, -127, 1e4, 1e4
+    run("garbage block", (q, kc, vc, ks, vs, tables, lengths), "int8")
 
 
 def check_training_kernels(torch):
@@ -688,8 +774,8 @@ def time_quantized(torch, lens, seed, name="int8"):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    def kern():
-        return da.quantized_paged_decode_attention(*nxt(), policy=pol)
+    def kern():                                   # the engine passes its longest row
+        return da.quantized_paged_decode_attention(*nxt(), policy=pol, max_length=max(lens))
 
     k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
@@ -709,7 +795,8 @@ def time_quantized(torch, lens, seed, name="int8"):
     lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa)
     bound, by = quant_attention_bound(q, kc, tables, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+                plan=da.launch_plan(q, kc, tables, max_length=max(lens)))
 
 
 def time_dense(torch, lens, seed, T=256):
@@ -758,8 +845,8 @@ def time_attention(torch, lens, seed):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    def kern():
-        return pda.paged_decode_attention(*nxt())
+    def kern():                                   # the engine passes its longest row
+        return pda.paged_decode_attention(*nxt(), max_length=max(lens))
 
     k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: paged_decode_attention_ref(*nxt()))
@@ -773,9 +860,57 @@ def time_attention(torch, lens, seed):
     def sdpa():
         return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
 
+    kernels = sorted(profiled_kernels(sdpa, 4), key=lambda e: -e.self_device_time_total)
+    log(f"  SDPA at N={N} launches: " + "; ".join(
+        f"{e.key[:90]} ({e.self_device_time_total / 4e3:.5f} ms)" for e in kernels))
     bound, by = attention_bound(q, kp, tables, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
-                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by)
+                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by,
+                plan=pda.launch_plan(q, kp, tables, max_length=max(lens)))
+
+
+def time_splits(torch, decode_lens, seed=120):
+    """Device time of the paged (bf16) and int8 kernels at 8 rows of 256
+    positions and at the decode step's lengths, for the wrapper's own
+    splits (given the longest length, as the engine gives it) and for each
+    of (1, 2, 4, 8) forced, over 16 rotating copies, with the splits and
+    stages of each launch: {label: {kernel: [(splits, stages, chosen,
+    device ms), ...]}}."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.quant import get_kv_quant
+
+    pol = get_kv_quant("int8")
+    out = {}
+    for label, lens in (("8 rows x 256 positions", [256] * 8), ("decode (N=8)", decode_lens)):
+        bf = [attention_case(8, 16, 16, 64, 16, 16, lens, seed=seed + c) for c in range(16)]
+        i8 = [quant_attention_case(8, 16, 16, 64, 16, 16, lens, seed=seed + c, name="int8")
+              for c in range(16)]
+        longest = max(lens)                       # as the engine passes it
+        kernels = {"paged_decode_attention": (
+                       bf, lambda c, s: da.paged_decode_attention(*c, splits=s,
+                                                                  max_length=longest), 3),
+                   "quantized_paged_decode_attention int8": (
+                       i8, lambda c, s: da.quantized_paged_decode_attention(
+                           *c, policy=pol, splits=s, max_length=longest), 5)}
+        out[label] = {}
+        for name, (copies, call, tbl) in kernels.items():
+            rows = []
+            for forced in (None, 1, 2, 4, 8):
+                it = iter(range(1 << 30))
+
+                def fn():
+                    return call(copies[next(it) % 16], forced)
+
+                cuda_ms(fn, reps=100)                 # warm, as phase 4's other timings
+                ms = device_ms(fn)
+                splits, stages = da.launch_plan(copies[0][0], copies[0][1], copies[0][tbl],
+                                                forced, longest)
+                rows.append((splits, stages, forced is None, ms))
+                log(f"  {label} {name}: splits {splits}{' (chosen)' if forced is None else ''}"
+                    f", stages {stages}: device {fmt_ms(ms)} ms")
+            out[label][name] = rows
+        del bf, i8
+    return out
 
 
 def pass_ms(torch, fn, reps: int = 10) -> dict:
@@ -911,8 +1046,8 @@ def phase_timing_training(torch):
     for name, r in out.items():
         log(f"  train {name}: {timing_line(r)}")
         if "warm_device_ms" in r:
-            log(f"    inputs read again from L2 (warm): kernel {r['warm_device_ms']:.5f} ms, "
-                f"library {r['library_warm_device_ms']:.5f} ms (device)")
+            log(f"    inputs read again from L2 (warm): kernel {fmt_ms(r['warm_device_ms'])} ms, "
+                f"library {fmt_ms(r['library_warm_device_ms'])} ms (device)")
     return out
 
 
@@ -932,6 +1067,8 @@ def timing_line(r) -> str:
             cc += f" (device {fmt_ms(r['cuda_core_device_ms'])})"
     if "pass_ms" in r:
         cc += f", passes {r['pass_ms']['up']:.4f} + {r['pass_ms']['down']:.4f} ms (device)"
+    if "plan" in r:
+        cc += f", splits {r['plan'][0]}, stages {r['plan'][1]}"
     lib = "null" if r["library_ms"] is None else (f"{r['library_ms']:.4f} ms (device "
                                                   f"{fmt_ms(r['library_device_ms'])})")
     return (f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}){cc}, plain "
@@ -959,7 +1096,42 @@ def phase_timing(torch, ffn_weights):
     for label, res in out.items():
         for name, r in res.items():
             log(f"  {label} {name}: {timing_line(r)}")
+    out["decode (N=8)"]["splits"] = time_splits(torch, decode_lens)
     return out["decode (N=8)"], out["mixed (N=40)"]
+
+
+def remeasure(torch, timing, ffn_weights):
+    """The device times of the kernels this PR's shared-header change could
+    move (the ragged and grouped FFN and flash include sm90.cuh) and of
+    the dense decode kernel, measured again on the same inputs as phase 4's
+    first measurement: {name: (first, again, again / first)}."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_ffn import ops as mf
+
+    xs, be, weights, _, bx = ffn_case(8, 32, 1024, 4096, seed=80, weights=ffn_weights)
+    x, w_up, _, w_down = moe_case(32, 45, 1024, 4096, seed=100)
+    sets = [flash_case(8, 144, 16, 16, 64, seed=102 + c) for c in range(16)]
+    dense = [dense_case(8, 256, 16, 16, 64, [21, 56, 112, 9, 74, 33, 98, 47], seed=110 + c)
+             for c in range(16)]
+    it = iter(range(1 << 30))
+    calls = {
+        "ragged_ffn": (lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx), 20),
+        "moe_ffn": (lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), 10),
+        "flash_attention": (lambda: fa.flash_attention(*sets[next(it) % 16], causal=True), 20),
+        "decode_attention": (lambda: da.decode_attention(*dense[next(it) % 16]), 20),
+    }
+    out = {}
+    for name, (fn, reps) in calls.items():
+        cuda_ms(fn, reps=reps)                        # warm, as in phase 4
+        ms = device_ms(fn, reps=reps)
+        first = timing[name]["device_ms"]
+        ratio = ms / first if ms and first else None
+        out[name] = (first, ms, ratio)
+        log(f"  re-measure {name}: device {fmt_ms(first)} ms in phase 4, {fmt_ms(ms)} ms again"
+            f" ({'not measured' if ratio is None else f'{ratio:.4f}x'})")
+    return out
 
 
 @contextmanager
@@ -983,9 +1155,14 @@ def plain_versions():
     def plain_ffn(x, be, up, gate, down, activation="swiglu", block_x=128):
         return ragged_ffn_ref(x, be, up, gate, down, activation)
 
-    with mock.patch.object(pda, "paged_decode_attention", paged_decode_attention_ref), \
-            mock.patch.object(pda, "quantized_paged_decode_attention",
-                              quantized_paged_decode_attention_ref), \
+    def plain_paged(*args, max_length=None):
+        return paged_decode_attention_ref(*args)
+
+    def plain_quantized(*args, policy, max_length=None):
+        return quantized_paged_decode_attention_ref(*args, policy=policy)
+
+    with mock.patch.object(pda, "paged_decode_attention", plain_paged), \
+            mock.patch.object(pda, "quantized_paged_decode_attention", plain_quantized), \
             mock.patch.object(rffn, "ragged_ffn", plain_ffn), \
             mock.patch.object(mf_pkg, "moe_ffn", moe_ffn_ref), \
             mock.patch.object(fa_pkg, "flash_attention", attention_ref):
@@ -1245,6 +1422,7 @@ def phase_train(torch):
     from repro_torch.kernels.moe_ffn import ops as mf
 
     log("phase 6: m6-base training, 8 top-1 steps then 4 steps of 4 top-1 prototyping")
+    adamw_report = check_adamw(torch)
     counters = {"moe_ffn": mf.moe_ffn, "flash_attention": fa.flash_attention,
                 "ragged_ffn": rffn.ragged_ffn, "paged_decode_attention": pda.paged_decode_attention}
     e2e, launches = {}, {}
@@ -1294,7 +1472,75 @@ def phase_train(torch):
     del state, step_fn
     torch.cuda.empty_cache()
     e2e["dropless"] = dropless_gradient_step(torch, rffn, TRAIN_ARGS + DROPLESS_ARGS)
+    e2e["adamw_on_card"] = adamw_report
     return launches, e2e
+
+
+def check_adamw(torch):
+    """The AdamW update of m6-shaped leaves (four f32 training leaves and a
+    bf16 expert matrix) on the card at steps 1-4, and the trainer's 3-way
+    microbatch average, bit-equal (int32 / int16 views) to the same on the
+    CPU from the same inputs.  Beside them, the share of elements that a
+    Python-number divisor moves on the card (PyTorch multiplies by its
+    reciprocal there; the CPU divides): the fault the 0-dim device
+    divisors of ``optim/adamw.py`` and ``train/trainer.py`` repair."""
+    import numpy as np
+
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.optim.schedules import warmup_constant
+    from repro_torch.train.trainer import microbatch_mean
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+    def same(a, b):
+        return torch.equal(bits(a.cpu()), bits(b))
+
+    leaves = {"blocks/attn/wq/kernel": ((5, 1024, 1024), torch.float32),
+              "blocks/ffn/router": ((5, 1024, 32), torch.float32),
+              "blocks/ln_attn/scale": ((5, 1024), torch.float32),
+              "pos_embed": ((256, 1024), torch.float32),
+              "blocks/ffn/up, one expert": ((1024, 4096), torch.bfloat16)}
+    g = torch.Generator().manual_seed(600)
+    opt = adamw(warmup_constant(1e-3, 2))
+    cpu_p = {k: (torch.randn(s, generator=g) * 0.02).to(dt) for k, (s, dt) in leaves.items()}
+    dev_p = {k: v.cuda() for k, v in cpu_p.items()}
+    cpu_s, dev_s = opt.init(cpu_p), opt.init(dev_p)
+    by_number = []
+    for step in range(4):
+        grads = {k: torch.randn(s, generator=g) * 1e-2 for k, (s, _) in leaves.items()}
+        cpu_u, cpu_s = opt.update(grads, cpu_s, cpu_p, step)
+        dev_u, dev_s = opt.update({k: v.cuda() for k, v in grads.items()}, dev_s, dev_p, step)
+        torch.cuda.synchronize()
+        for k in leaves:
+            for what, a, b in (("update", dev_u[k], cpu_u[k]), ("mu", dev_s["mu"][k],
+                               cpu_s["mu"][k]), ("nu", dev_s["nu"][k], cpu_s["nu"][k])):
+                if not same(a, b):
+                    raise AssertionError(f"AdamW step {step + 1} {k}: {what} on the card "
+                                         f"differs from the CPU's")
+        c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step + 1))
+        mu = cpu_s["mu"]["blocks/attn/wq/kernel"]
+        moved = bits((mu.cuda() / c1).cpu()) != bits(mu / torch.full((), c1))
+        by_number.append(float(moved.float().mean()))
+        for k in leaves:
+            for p, u in ((cpu_p[k], cpu_u[k]), (dev_p[k], dev_u[k])):
+                p.copy_(p.float() + u.float())
+    sums = {k: torch.randn(s, generator=g) * 3.0 for k, (s, _) in leaves.items()}
+    cpu_mean = microbatch_mean(sums, 3)
+    dev_mean = microbatch_mean({k: v.cuda() for k, v in sums.items()}, 3)
+    torch.cuda.synchronize()
+    if not all(same(dev_mean[k], cpu_mean[k]) for k in leaves):
+        raise AssertionError("the 3-way microbatch average on the card differs from the CPU's")
+    s = sums["blocks/attn/wq/kernel"]
+    mean_moved = float((bits((s.cuda() / 3).cpu()) != bits(cpu_mean["blocks/attn/wq/kernel"])
+                        ).float().mean())
+    log(f"  AdamW on the card: updates, mu and nu of {len(leaves)} m6-shaped leaves bit-equal "
+        f"to the CPU's at steps 1-4, and the 3-way microbatch average; with a Python-number "
+        f"divisor (the repaired form) mu / c1 would differ in "
+        f"{', '.join(f'{x:.4f}' for x in by_number)} of the elements at steps 1-4, and the "
+        f"average in {mean_moved:.4f}")
+    return dict(bit_equal_steps=4, python_number_divisor_moved=by_number,
+                microbatch_mean_python_number_moved=mean_moved)
 
 
 def train_on_cuda_cores(torch, mf, runs) -> dict:
@@ -1831,6 +2077,9 @@ def main() -> int:
         if name == "flash_attention":
             for fn, (regs, sp) in sorted(tc.items()):
                 log(f"      {fn}: {regs} registers, {sp} bytes spill stores")
+        spilled = [f for f, (_, sp) in ptxas_functions(rep, "paged_decode_kernel").items() if sp]
+        if spilled:
+            raise AssertionError(f"{name}: paged decode kernels spill: {spilled}")
         for line in rep.splitlines():
             if "wgmma" in line.lower() and "warning" in line.lower():
                 log(f"    ptxas: {line.strip()[:200]}")
@@ -1838,8 +2087,9 @@ def main() -> int:
 
     errs, ffn_weights = phase_check(torch)
     timing, timing_mixed = phase_timing(torch, ffn_weights)
-    del ffn_weights
     timing.update(phase_timing_training(torch))
+    again = remeasure(torch, timing, ffn_weights)
+    del ffn_weights
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches, e2e, base_tokens = phase_serve(torch)
@@ -1890,13 +2140,18 @@ def main() -> int:
                          tc_launches=train["flash"]["tc_launches"],
                          cuda_core_ms=t["cuda_core_ms"],
                          cuda_core_device_ms=t["cuda_core_device_ms"])
+        if "plan" in t:                   # the paged kernels' bulk copies and cluster split
+            entry.update(device_code="bulk copies of whole KV tiles into a ring of stages, "
+                                     "split over a thread-block cluster",
+                         header=PAGED_SM90, splits=t["plan"][0], stages=t["plan"][1])
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "build_s": build_s,
                       "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],
-                      "quantized_fp8": timing["quantized_paged_decode_attention fp8"]}))
+                      "quantized_fp8": timing["quantized_paged_decode_attention fp8"],
+                      "paged_splits": timing["splits"], "remeasure": again}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

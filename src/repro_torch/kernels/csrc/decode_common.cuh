@@ -1,6 +1,11 @@
 // Device code shared by the decode attention kernels over a row-parallel
-// warp layout: quantized paged decode (quantized_paged_decode_attention.cu)
-// and dense decode (decode_attention.cu).
+// warp layout: the bf16 / f32 element formats, vector loads, q loads and
+// the online softmax state serve both paged kernels (through
+// paged_decode_sm90.cuh, which reads the K/V rows from shared memory and
+// holds the int8 / e4m3 code formats) and dense decode (decode_attention.cu,
+// from global memory); the warp merge merge_store serves dense decode, the
+// paged kernels merge as it does in their own header and then across a
+// cluster.
 //
 // Layout.  One CTA per (query row, kv head), kWarps warps, each keeping its
 // own online-softmax state (m, l, acc) for the G grouped query heads, merged
@@ -15,8 +20,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -49,32 +52,6 @@ struct FmtBF16 {
     o[1] = __uint_as_float(w & 0xffff0000u);
   }
 };
-// int8 codes (kv_quant="int8"): the integer value, exactly.
-struct FmtInt8 {
-  using T = int8_t;
-  static constexpr int kPerWord = 4;
-  __device__ static void dec(uint32_t w, float* o) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = (float)(int8_t)(w >> (8 * j));
-  }
-};
-// float8_e4m3fn bit patterns in int8 (kv_quant="fp8"): Hopper's native
-// e4m3x2 -> f16x2 conversion, exact, then f16 -> f32, exact.
-struct FmtFp8 {
-  using T = int8_t;
-  static constexpr int kPerWord = 4;
-  __device__ static void dec(uint32_t w, float* o) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
-          (__nv_fp8x2_storage_t)((w >> (16 * j)) & 0xffffu), __NV_E4M3);
-      const float2 f = __half22float2(__half2(hr));
-      o[2 * j] = f.x;
-      o[2 * j + 1] = f.y;
-    }
-  }
-};
-
 template <int BYTES> struct Raw;
 template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };

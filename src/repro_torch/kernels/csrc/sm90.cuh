@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (grouped_ffn_sm90.cuh, flash_attention_sm90.cuh): mbarriers, TMA loads and
-// stores, the 128-byte-swizzle wgmma descriptor, wgmma fences, and the host's
-// tensor maps.  The wgmma instructions themselves are in wgmma_bf16.cuh.
+// (grouped_ffn_sm90.cuh, flash_attention_sm90.cuh) and the paged decode
+// kernels (paged_decode_sm90.cuh): mbarriers, TMA loads and stores, 1-D bulk
+// copies, the 128-byte-swizzle wgmma descriptor, wgmma fences, and the
+// host's tensor maps.  The wgmma instructions themselves are in
+// wgmma_bf16.cuh.
 #pragma once
 
 #include <cuda.h>
@@ -46,6 +48,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (spins == (1u << 26)) __trap();
   }
+}
+
+// `bytes` contiguous bytes of global memory into shared memory by the copy
+// engine, without a tensor map (both addresses 16-byte aligned, `bytes` a
+// multiple of 16); completes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // box (c0, c1, c2) of a 3-D tensor map into shared memory; completes on bar

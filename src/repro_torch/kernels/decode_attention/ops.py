@@ -9,10 +9,18 @@ Three kernels, each beside its plain version in ``ref.py``:
 wrapper runs the plain version; on CUDA tensors it launches its kernel on
 the current stream or raises.  Each wrapper's ``.launches`` counts its
 kernel launches (and nothing else).
+
+The two paged kernels share one design (``kernels/csrc/paged_decode_sm90.cuh``):
+bulk copies of whole (block, kv head) tiles into a ring of ``stages`` in
+shared memory, and a split of each row's blocks over a thread-block
+cluster of ``splits`` CTAs; :func:`split_plan` picks both from the shapes
+and the longest length the host knows (the lengths stay on the card).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,9 +38,107 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _FMT_CODE = {"int8": 0, "fp8": 1}
 # the C signatures in csrc/: (codes..., pointers..., sizes..., strides..., stream)
-_ARGTYPES = [_C] + [_P] * 6 + [_C] * 6 + [_P]
-_QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 6 + [_P]
+_ARGTYPES = [_C] + [_P] * 6 + [_C] * 8 + [_P]
+_QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 8 + [_P]
 _DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_P]
+
+SPLITS = (1, 2, 4, 8)         # cluster sizes the paged kernels take (8: the portable limit)
+MIN_SPLIT_PASSES = 2          # a split must keep at least this many passes of the loop
+SPLIT_CTAS_PER_SM = 4         # splitting stops at this many CTAs an SM
+STAGE_BUDGET = 64 * 1024      # bytes of K/V tiles a CTA keeps in flight, at most
+MAX_STAGES = 32               # one thread a stage, eight in each of the four warps
+MAX_STAGE_BYTES = 160 * 1024  # one stage (K and V tiles) fits beside the merges (<= 50 KB)
+SMEM_PER_SM = 228 * 1024      # an H100 SM's shared memory, 1 KB of it reserved per CTA
+
+
+def _stage_bytes(bs: int, D: int, elem_bytes: int) -> int:
+    """Shared memory of one stage: a K and a V tile, their two mbarriers
+    and two scales (as ``paged_decode_sm90.cuh::smem_bytes`` counts them)."""
+    return 2 * bs * D * elem_bytes + 2 * 8 + 2 * 4
+
+
+def _merge_bytes(G: int, D: int, splits: int) -> int:
+    """The kernel's shared memory beside its stages: the warps' states
+    (static), the cluster merge's barrier and, with a split, one (m, l,
+    acc) slot per rank (``smem_bytes``)."""
+    return 4 * G * (D + 2) * 4 + 8 + (splits * G * (D + 2) * 4 if splits > 1 else 0)
+
+
+def _check_tile(name: str, bs: int, D: int, elem_bytes: int) -> None:
+    tile = bs * D * elem_bytes
+    if tile % 16 or _stage_bytes(bs, D, elem_bytes) > MAX_STAGE_BYTES:
+        raise ValueError(f"{name}: a (block, head) tile of bs={bs} x D={D} x {elem_bytes} B "
+                         f"= {tile} B; the bulk copies take multiples of 16 B, two tiles a "
+                         f"stage within {MAX_STAGE_BYTES} B")
+
+
+def _rows_per_pass(D: int, G: int, elem_bytes: int) -> int:
+    """Token rows the kernel's 4 warps read in one pass: two a lane
+    (``paged_decode_sm90.cuh::kRowsPerLane``), D / VEC lanes a row, VEC
+    elements a lane (``decode_common.cuh``)."""
+    vec = min(16 // elem_bytes, 32 // G, D)
+    return 2 * 4 * (32 // (D // vec))
+
+
+def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: int,
+               sm_count: int, splits: Optional[int] = None,
+               max_length: Optional[int] = None) -> Tuple[int, int]:
+    """``(splits, stages)`` of one paged decode launch, from shapes and what
+    the host knows: the lengths live on the card and are not read, so the
+    longest row is ``max_length`` when the caller knows it (the serving
+    engine does) and the table's width, MB blocks, otherwise.
+
+    ``splits``: 1 unless the N x Hkv CTAs leave the card short of work;
+    then the largest of (2, 4, 8) that keeps N x Hkv x splits within
+    ``SPLIT_CTAS_PER_SM`` CTAs an SM and leaves every split of the longest
+    row at least ``MIN_SPLIT_PASSES`` passes of the kernel's loop (below
+    that, the cluster's merge costs more than the split saves).
+    ``stages``: the longest row's blocks in a split, as far as the bytes
+    allow: at most ``STAGE_BUDGET``, and no more than lets every CTA of
+    the launch be resident at once (a second wave would cost a second
+    round trip); at most ``MAX_STAGES`` (a longer row wraps the ring).  A
+    given ``splits`` is taken as it is.  Raises ValueError for a tile the
+    copy engine refuses (not a multiple of 16 bytes) or that does not
+    fit."""
+    _check_tile("paged decode", bs, D, elem_bytes)
+    rows = _rows_per_pass(D, G, elem_bytes)
+    longest = MB if max_length is None else max(1, min(MB, -(-max_length // bs)))
+    if splits is None:
+        splits = 1
+        while (splits < SPLITS[-1] and N * Hkv * (splits * 2) <= SPLIT_CTAS_PER_SM * sm_count
+               and -(-longest // (splits * 2)) * bs >= MIN_SPLIT_PASSES * rows):
+            splits *= 2
+    elif splits not in SPLITS:
+        raise ValueError(f"paged decode: splits {splits} not in {SPLITS}")
+    per_sm = -(-N * Hkv * splits // sm_count)
+    resident = ((SMEM_PER_SM // per_sm - 1024 - _merge_bytes(G, D, splits))
+                // _stage_bytes(bs, D, elem_bytes))
+    stages = min(-(-longest // splits), MAX_STAGES,
+                 max(1, min(STAGE_BUDGET // (2 * bs * D * elem_bytes), resident)))
+    return splits, stages
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor,
+                splits: Optional[int] = None,
+                max_length: Optional[int] = None) -> Tuple[int, int]:
+    """:func:`split_plan` for a paged kernel's CUDA arguments (the card's
+    SM count from its properties)."""
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    return split_plan(N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], k_pool.element_size(),
+                      _sm_count(q.device.index), splits, max_length)
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned (bulk copies, vector "
+                             f"loads)")
 
 
 def _lib(name: str = "paged_decode_attention"):
@@ -74,13 +180,20 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
                     ("block_tables", block_tables), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be contiguous")
+    _check_aligned("paged_decode_attention", q=q, k_pool=k_pool, v_pool=v_pool)
+    _check_tile("paged_decode_attention", k_pool.shape[2], D, k_pool.element_size())
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                           block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                           block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                           splits: Optional[int] = None,
+                           max_length: Optional[int] = None) -> torch.Tensor:
     """q: (N, Hq, D) one query per row; k_pool/v_pool: (P, Hkv, bs, D);
     block_tables: (N, MB) int32 pool block ids; lengths: (N,) int32 valid
-    context per row (0 => output 0).  Returns (N, Hq, D)."""
+    context per row (0 => output 0).  Returns (N, Hq, D).  ``splits``
+    forces the kernel's cluster split (default: :func:`split_plan`'s);
+    ``max_length``, the longest of ``lengths`` where the caller knows it
+    on the host, informs that plan and nothing else."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type != "cuda":
@@ -88,13 +201,13 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     _check(q, k_pool, v_pool, block_tables, lengths)
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
+    splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
     out = torch.empty_like(q)
     fn = _lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], stream)
+                 N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], splits, stages, _stream(q))
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
     paged_decode_attention.launches += 1
@@ -105,7 +218,7 @@ paged_decode_attention.launches = 0
 
 
 def paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
-                           block_tables, lengths):
+                           block_tables, lengths, max_length: Optional[int] = None):
     """One serving step's K/V write, then paged attention over it.
 
     The write is plain PyTorch and **in place**: ``k_pool[wb, :, wo] = k``
@@ -116,13 +229,14 @@ def paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
     offset 0, which no row reads under a nonzero length, so the order in
     which those duplicate writes land does not matter.
 
-    q: (N, Hq, D); k/v: (N, Hkv, D); pools: (P, Hkv, bs, D).
-    Returns ``(out, k_pool, v_pool)``.
+    q: (N, Hq, D); k/v: (N, Hkv, D); pools: (P, Hkv, bs, D); ``max_length``
+    as :func:`paged_decode_attention`'s.  Returns ``(out, k_pool, v_pool)``.
     """
     wb, wo = write_blocks.long(), write_offsets.long()
     k_pool[wb, :, wo] = k.to(k_pool.dtype)
     v_pool[wb, :, wo] = v.to(v_pool.dtype)
-    out = paged_decode_attention(q, k_pool, v_pool, block_tables, lengths)
+    out = paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                                 max_length=max_length)
     return out, k_pool, v_pool
 
 
@@ -158,17 +272,20 @@ def _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, length
     if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (32, 64, 128):
         raise ValueError(f"{name} kernel takes G in (1, 2, 4, 8) and D in (32, 64, 128); "
                          f"got Hq={Hq}, Hkv={Hkv}, D={D}")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError(f"{name}: code pools must be 16-byte aligned (vector loads)")
+    _check_aligned(name, q=q, k_pool=k_pool, v_pool=v_pool)
+    _check_tile(name, bs, D, 1)
 
 
 def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
-                                     block_tables, lengths, *, policy) -> torch.Tensor:
+                                     block_tables, lengths, *, policy,
+                                     splits: Optional[int] = None,
+                                     max_length: Optional[int] = None) -> torch.Tensor:
     """:func:`paged_decode_attention` over int8 code pools: k_pool/v_pool
     (P, Hkv, bs, D) codes, k_scales/v_scales (P, Hkv) float32 absmax scales
     keyed by the same block ids, ``value = policy.decode(code) * scale``;
     ``policy`` a quantized :class:`repro_torch.quant.KVQuantPolicy`.
-    Returns (N, Hq, D) in q's dtype; length-0 rows exactly 0."""
+    Returns (N, Hq, D) in q's dtype; length-0 rows exactly 0.  ``splits``
+    and ``max_length`` as :func:`paged_decode_attention`'s."""
     if q.device.type == "cpu":
         return quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
                                                     block_tables, lengths, policy=policy)
@@ -177,13 +294,15 @@ def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
     _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, lengths, policy)
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
+    splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
     out = torch.empty_like(q)
     fn = _lib("quantized_paged_decode_attention")
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], _FMT_CODE[policy.name], q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
                  v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], _stream(q))
+                 out.data_ptr(), N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], splits,
+                 stages, _stream(q))
     if err:
         raise RuntimeError(f"quantized_paged_decode_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -196,7 +315,7 @@ quantized_paged_decode_attention.launches = 0
 
 def quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales,
                                      write_blocks, write_offsets, block_tables, lengths,
-                                     *, policy):
+                                     *, policy, max_length: Optional[int] = None):
     """Quantized :func:`paged_update_attention`: quantize-scatter this
     step's K/V into the code pools, maintaining the per-block scales
     (``repro_torch.quant.quant_write_kv``, in place), then attend through the
@@ -205,7 +324,8 @@ def quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales
     quant_write_kv(k_pool, k_scales, k, write_blocks, write_offsets, policy=policy)
     quant_write_kv(v_pool, v_scales, v, write_blocks, write_offsets, policy=policy)
     out = quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
-                                           block_tables, lengths, policy=policy)
+                                           block_tables, lengths, policy=policy,
+                                           max_length=max_length)
     return out, k_pool, v_pool, k_scales, v_scales
 
 

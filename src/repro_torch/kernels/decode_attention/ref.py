@@ -1,6 +1,8 @@
 """Plain PyTorch versions of decode attention
 (``repro.kernels.decode_attention.ref``): paged, quantized paged and dense.
-The CPU path of the wrappers and what the CUDA kernels are held to."""
+The CPU path of the wrappers and what the CUDA kernels are held to; the
+``*_split_ref`` versions compute the paged kernels' split over a
+thread-block cluster and its merge."""
 from __future__ import annotations
 
 import torch
@@ -78,3 +80,60 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", probs, v.float())
     out = torch.where((lengths > 0)[:, None, None, None], out, torch.zeros_like(out))
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                 bs: int, splits: int) -> torch.Tensor:
+    """Attention of qg (N, Hkv, G, D) over the gathered f32 context k/v
+    (N, Hkv, T, D), computed as the paged kernels' cluster computes it:
+    split r takes the row's blocks r, r + splits, r + 2 splits, ... and
+    reduces its live positions to (m, l, acc) (m = -1e30, l = acc = 0 when
+    it has none); the states merge in split order,
+    ``out = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30)``
+    with M the largest m_r, so a length-0 row comes out exactly 0."""
+    N, Hkv, T, D = k.shape
+    scores = torch.einsum("nkgd,nktd->nkgt", qg, k) * (D ** -0.5)
+    pos = torch.arange(T, device=k.device)
+    valid = pos[None, :] < lengths[:, None]                         # (N, T)
+    states = []
+    for r in range(splits):
+        mine = (valid & ((pos // bs) % splits == r)[None, :])[:, None, None, :]
+        s = torch.where(mine, scores, torch.full_like(scores, NEG_INF))
+        m = s.amax(dim=-1)                                          # (N, Hkv, G)
+        p = torch.where(mine, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        states.append((m, p.sum(dim=-1), torch.einsum("nkgt,nktd->nkgd", p, v)))
+    top = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    l_sum = sum(l * torch.exp(m - top) for m, l, _ in states)
+    acc = sum(a * torch.exp(m - top)[..., None] for m, _, a in states)
+    return acc / torch.clamp(l_sum, min=1e-30)[..., None]
+
+
+def paged_decode_attention_split_ref(q, k_pool, v_pool, block_tables, lengths,
+                                     splits: int) -> torch.Tensor:
+    """:func:`paged_decode_attention_ref` computed through the kernel's
+    split over ``splits`` CTAs and their merge (``_split_merge``)."""
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    tbl = block_tables.long()
+    k = k_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D).float()
+    v = v_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D).float()
+    out = _split_merge(q.reshape(N, Hkv, Hq // Hkv, D).float(), k, v, lengths, bs, splits)
+    return out.reshape(N, Hq, D).to(q.dtype)
+
+
+def quantized_paged_decode_attention_split_ref(q, k_pool, v_pool, k_scales, v_scales,
+                                               block_tables, lengths, splits: int, *,
+                                               policy) -> torch.Tensor:
+    """:func:`quantized_paged_decode_attention_ref` computed through the
+    kernel's split over ``splits`` CTAs and their merge."""
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    tbl = block_tables.long()
+    k = policy.decode(k_pool[tbl]) * k_scales[tbl][..., None, None]
+    v = policy.decode(v_pool[tbl]) * v_scales[tbl][..., None, None]
+    k = k.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    out = _split_merge(q.reshape(N, Hkv, Hq // Hkv, D).float(), k, v, lengths, bs, splits)
+    return out.reshape(N, Hq, D).to(q.dtype)

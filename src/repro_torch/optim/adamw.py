@@ -13,6 +13,16 @@ import torch
 from repro_torch.optim.api import Optimizer
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded f32 sqrt, in place, as the reference's.  On the
+    card ``sqrt_`` is one; PyTorch's vectorized CPU sqrt is not (it moves
+    about 0.6 % of f32 inputs by an ulp), so there the root is taken in
+    f64, whose rounding to f32 is then the correctly rounded f32 root."""
+    if x.device.type == "cpu":
+        return x.copy_(x.double().sqrt_())
+    return x.sqrt_()
+
+
 def adamw(schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
     def init(params: Dict[str, torch.Tensor]):
@@ -29,14 +39,23 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         # the bias corrections in f32, as the reference computes them
         c1 = float(np.float32(1) - np.float32(b1) ** step1)
         c2 = float(np.float32(1) - np.float32(b2) ** step1)
+        # ... and divided by truly, as the reference's mu / c1: PyTorch on the
+        # card multiplies by the reciprocal when the divisor is a Python
+        # number, so the divisors are 0-dim tensors on the leaves' device,
+        # made once an update
+        divisors = {}
         updates = {}
         for k, g in grads.items():
             mu, nu, p = state["mu"][k], state["nu"][k], params[k]
+            if mu.device not in divisors:
+                divisors[mu.device] = [torch.full((), c, dtype=torch.float32, device=mu.device)
+                                       for c in (c1, c2)]
+            c1_t, c2_t = divisors[mu.device]
             g32 = g.float()
             mu.mul_(b1).add_(g32 * (1 - b1))
             nu.mul_(b2).add_(g32.square() * (1 - b2))
-            denom = (nu / c2).sqrt_().add_(eps)
-            u = (mu / c1).div_(denom).add_(p.float() * weight_decay).mul_(-lr)
+            denom = _sqrt(nu / c2_t).add_(eps)
+            u = (mu / c1_t).div_(denom).add_(p.float() * weight_decay).mul_(-lr)
             updates[k] = u.to(p.dtype)
         return updates, state
 

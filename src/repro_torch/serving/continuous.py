@@ -81,21 +81,23 @@ def _layer_telemetry(aux, num_experts: int, device) -> dict:
 
 
 def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths,
-                 row_tables, wb, wo, kp, vp, ctx, ksc=None, vsc=None, policy=None):
+                 row_tables, wb, wo, kp, vp, ctx, ksc=None, vsc=None, policy=None,
+                 max_length=None):
     """One pre-norm block over the flat row batch ``x: (1, N, d)``; writes
     this step's K/V into ``kp``/``vp`` in place before attending (quantized
     into the code pools, with the scale pools ``ksc``/``vsc``, when
-    ``policy`` is set)."""
+    ``policy`` is set).  ``max_length``, the rows' longest context known on
+    the host, only informs the attention kernel's launch plan."""
     N = x.shape[1]
     h = L.norm_apply(bp["ln_attn"], x, cfg)
     q, k, v = _project_qkv(bp["attn"], h, cfg, positions)        # (1, N, H*, D)
     if policy is None:
         out, _, _ = paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
-                                           wb, wo, row_tables, lengths)
+                                           wb, wo, row_tables, lengths, max_length)
     else:
         out = quantized_paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
                                                ksc, vsc, wb, wo, row_tables, lengths,
-                                               policy=policy)[0]
+                                               policy=policy, max_length=max_length)[0]
     x = x + L.dense_apply(bp["attn"]["wo"], out.reshape(1, N, -1), cfg)
     h = L.norm_apply(bp["ln_ffn"], x, cfg)
     if moe_layer:
@@ -108,7 +110,7 @@ def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths
 
 
 def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
-                  k_scales=None, v_scales=None, policy=None):
+                  k_scales=None, v_scales=None, policy=None, max_length=None):
     """Flat-row forward: embed -> blocks -> float32 logits (N, V_pad), plus
     the per-layer routing telemetry stacked ``(L, ...)`` ({} when dense).
     ``policy`` (a quantized ``KVQuantPolicy``) switches the K/V write and
@@ -127,7 +129,7 @@ def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
             lengths=rows["lengths"], row_tables=rows["row_tables"], wb=rows["wb"],
             wo=rows["wo"], kp=k_pools[i], vp=v_pools[i], ctx=ctx,
             ksc=k_scales[i] if quantized else None,
-            vsc=v_scales[i] if quantized else None, policy=policy)
+            vsc=v_scales[i] if quantized else None, policy=policy, max_length=max_length)
         telems.append(tl)
     telem = ({} if cfg.moe.num_experts == 0
              else {k: torch.stack([t[k] for t in telems]) for k in telems[0]})
@@ -369,7 +371,8 @@ class ContinuousEngine:
         rows["row_tables"] = dev[len(_ROW_FIELDS) * N:].reshape(N, -1)
         cache = self.cache
         return _paged_logits(self.params, self.layers, self.cfg, rows, cache.k_pool,
-                             cache.v_pool, cache.k_scales, cache.v_scales, cache.policy)
+                             cache.v_pool, cache.k_scales, cache.v_scales, cache.policy,
+                             max_length=int(buffers["lengths"].max()))
 
     def _paged_host_step(self, clock_ms: float) -> List[RequestState]:
         sr = self.build_rows()

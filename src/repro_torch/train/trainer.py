@@ -44,6 +44,20 @@ def _split_microbatches(batch: Dict, n: int):
              for k, v in batch.items()} for i in range(n)]
 
 
+def microbatch_mean(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
+    """Each sum over ``n`` microbatches divided by ``n`` truly, as the
+    reference's ``g / tc.microbatches``: PyTorch on the card multiplies by
+    the reciprocal when the divisor is a Python number, so the divisor is
+    a 0-dim f32 tensor on each sum's device, made once a call."""
+    divisors: Dict[torch.device, torch.Tensor] = {}
+    out = {}
+    for k, t in sums.items():
+        if t.device not in divisors:
+            divisors[t.device] = torch.full((), n, dtype=torch.float32, device=t.device)
+        out[k] = t / divisors[t.device]
+    return out
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer) -> Callable:
     loss_fn = make_loss_fn(cfg)
     if tc.grad_compression != "none":
@@ -64,8 +78,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer) -> 
                     grads[k] = grads[k] + g
                 msum = {"loss": msum["loss"] + loss.detach(),
                         "ce": msum["ce"] + metrics["ce"].detach()}
-            grads = {k: g / tc.microbatches for k, g in grads.items()}
-            metrics = {k: v / tc.microbatches for k, v in msum.items()}
+            grads = microbatch_mean(grads, tc.microbatches)
+            metrics = microbatch_mean(msum, tc.microbatches)
         else:
             loss, metrics = loss_fn(state.params, batch, ctx)
             grads = _grads(loss, flat)

@@ -12,6 +12,7 @@ import torch
 import jax
 
 from repro.kernels.decode_attention import paged_update_attention as j_update
+from repro.kernels.decode_attention.kernel import paged_decode_attention_kernel as j_pda_kernel
 from repro.kernels.decode_attention.ref import paged_decode_attention_ref as j_pda_ref
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.moe_dropless.kernel import ragged_ffn_kernel
@@ -22,6 +23,7 @@ from repro.kernels.moe_dropless.ref import ragged_ffn_ref as j_ragged_ref
 from repro.kernels.moe_ffn.ops import moe_ffn as j_moe_ffn
 from repro_torch.kernels import build, common
 from repro_torch.kernels.decode_attention import ops as pda_ops
+from repro_torch.kernels.decode_attention import ref as pda_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.moe_dropless import ops as rffn_ops
@@ -519,3 +521,109 @@ def test_flash_attention_split_plain_version(B, S, Hq, Hkv, D, causal, dt):
     plain = flash_ref.attention_ref(*f32, causal).numpy()
     np.testing.assert_allclose(split, plain,
                                atol=2.0 ** -16 * float(f32[2].abs().max()) + 1e-6, rtol=0)
+
+
+# (N, Hkv, G, D, bs, MB, element bytes, forced splits, longest length known on
+# the host) -> (splits, stages) on a 132-SM H100
+SPLIT_PLANS = [
+    ((8, 16, 1, 64, 16, 16, 2, None, 112), (2, 4)),    # the m6 decode step as the engine runs it
+    ((8, 16, 1, 64, 16, 16, 1, None, 112), (1, 7)),    # ... int8 / fp8: one pass covers 4 blocks
+    ((8, 16, 1, 64, 16, 16, 2, None, 256), (4, 4)),    # 8 rows x 256 positions
+    ((8, 16, 1, 64, 16, 16, 1, None, 256), (2, 8)),
+    ((8, 16, 1, 64, 16, 16, 2, None, None), (4, 4)),   # no length known: the table's width
+    ((40, 16, 1, 64, 16, 16, 2, None, 112), (1, 7)),   # the mixed step: 640 CTAs, no split
+    ((8, 16, 1, 64, 16, 16, 2, None, 10), (1, 1)),     # one block: nothing to split
+    ((8, 16, 1, 64, 16, 16, 2, 1, None), (1, 16)),     # forced: every block of a row in flight
+    ((8, 16, 1, 64, 16, 16, 2, 8, None), (8, 2)),
+    ((3, 16, 1, 64, 16, 64, 2, 1, None), (1, 16)),     # 64 blocks, 16 stages: the ring wraps
+    ((5, 2, 8, 128, 16, 16, 4, None, None), (8, 2)),   # f32, G = 8, D = 128
+    ((1, 1, 1, 32, 1, 64, 1, None, None), (1, 32)),    # one-position blocks: 32 stages
+    ((1000, 16, 1, 64, 16, 16, 2, None, None), (1, 1)),  # many waves: the ring shrinks
+]
+
+
+@pytest.mark.parametrize("shape,want", SPLIT_PLANS)
+def test_split_plan_per_shape(shape, want):
+    """The paged kernels' cluster split and ring depth, from shapes and the
+    host's longest length: a split only while the CTAs leave the card
+    short of work and every split of the longest row keeps at least
+    MIN_SPLIT_PASSES passes of the kernel's loop; stages cover a split's
+    share of the longest row within the byte budget and the SM's shared
+    memory for every CTA at once."""
+    *dims, forced, longest = shape
+    splits, stages = pda_ops.split_plan(*dims, sm_count=132, splits=forced,
+                                        max_length=longest)
+    assert (splits, stages) == want
+    N, Hkv, G, D, bs, MB, eb = dims
+    blocks = MB if longest is None else -(-longest // bs)
+    assert 1 <= stages <= min(pda_ops.MAX_STAGES, -(-blocks // splits))
+    assert 2 * bs * D * eb * stages <= pda_ops.STAGE_BUDGET or stages == 1
+    if forced is None and splits > 1:
+        rows = -(-blocks // splits) * bs
+        assert rows >= pda_ops.MIN_SPLIT_PASSES * pda_ops._rows_per_pass(D, G, eb)
+
+
+def test_split_plan_refuses_tiles_and_splits_it_cannot_take():
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pda_ops.split_plan(1, 1, 1, 20, 3, 4, 2, sm_count=132)       # 120-byte tile
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pda_ops.split_plan(1, 1, 1, 128, 1024, 4, 4, sm_count=132)   # 512 KB tile
+    with pytest.raises(ValueError, match="splits"):
+        pda_ops.split_plan(8, 16, 1, 64, 16, 16, 2, sm_count=132, splits=3)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_paged_split_plain_version(splits):
+    """The kernel's split over ``splits`` CTAs (split r takes blocks r,
+    r + splits, ...) and its merge, in plain PyTorch: against the
+    reference's Pallas kernel in interpret mode and the unsplit plain
+    version, f32 at 2e-5, on rows with more blocks than splits, fewer
+    (some splits empty), lengths ending mid-block and on a boundary, and a
+    length-0 row, which must come out exactly 0."""
+    lengths = [0, 61, 5, 17, 16, 1, 64]
+    q, kp, vp, tbl, lens = _paged_case(7, 2, 2, 16, 4, 16, lengths, seed=40 + splits)
+    want = np.asarray(j_pda_kernel(jnp.asarray(q.reshape(7, 2, 2, 16)), jnp.asarray(kp),
+                                   jnp.asarray(vp), jnp.asarray(tbl), jnp.asarray(lens),
+                                   interpret=True)).reshape(7, 4, 16)
+    args = list(map(torch.from_numpy, (q, kp, vp, tbl, lens)))
+    got = pda_ref.paged_decode_attention_split_ref(*args, splits)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got.numpy(), pda_ref.paged_decode_attention_ref(*args).numpy(),
+                               atol=TOL, rtol=TOL)
+    assert (got[0] == 0).all()
+
+
+def test_paged_kernels_refuse_misaligned_tensors_and_tiles():
+    """What the bulk copies cannot take raises before a launch: a q or pool
+    not 16-byte aligned, a tile the copy engine refuses (both kernels)."""
+    from repro_torch.quant import get_kv_quant
+
+    def view(dt, shape, offset):
+        n = int(np.prod(shape))
+        return torch.zeros(n + offset, dtype=dt)[offset:].view(shape)
+
+    bf = torch.bfloat16
+    q, pool = view(bf, (4, 16, 64), 0), view(bf, (9, 4, 16, 64), 0)
+    tbl, lens = torch.zeros(4, 3, dtype=torch.int32), torch.zeros(4, dtype=torch.int32)
+    pda_ops._check(q, pool, pool, tbl, lens)
+    for name, args in (("q", (view(bf, (4, 16, 64), 1), pool, pool)),
+                       ("k_pool", (q, view(bf, (9, 4, 16, 64), 4), pool)),
+                       ("v_pool", (q, pool, view(bf, (9, 4, 16, 64), 2)))):
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+            pda_ops._check(*args, tbl, lens)
+    big = torch.zeros(2, 1, 1024, 128)                                # 512 KB tiles
+    with pytest.raises(ValueError, match="tile"):
+        pda_ops._check(torch.zeros(4, 1, 128), big, big, tbl, lens)
+
+    int8 = get_kv_quant("int8")
+    codes, sc = view(torch.int8, (9, 4, 16, 64), 0), torch.zeros(9, 4)
+    pda_ops._check_quantized(q, codes, codes, sc, sc, tbl, lens, int8)
+    for name, args in (("q", (view(bf, (4, 16, 64), 3), codes, codes)),
+                       ("k_pool", (q, view(torch.int8, (9, 4, 16, 64), 8), codes)),
+                       ("v_pool", (q, codes, view(torch.int8, (9, 4, 16, 64), 1)))):
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+            pda_ops._check_quantized(*args, sc, sc, tbl, lens, int8)
+    big8 = torch.zeros(2, 1, 4096, 32, dtype=torch.int8)               # two 128 KB tiles a stage
+    with pytest.raises(ValueError, match="tile"):
+        pda_ops._check_quantized(torch.zeros(4, 1, 32), big8, big8, torch.zeros(2, 1),
+                                 torch.zeros(2, 1), tbl, lens, int8)

@@ -169,6 +169,38 @@ def test_quantized_attention_matches_reference_kernel(name):
     assert da_ops.quantized_paged_decode_attention.launches == 0   # CPU: no kernel
 
 
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", POLICIES)
+def test_quantized_split_plain_version(name, splits):
+    """The quantized kernel's split over ``splits`` CTAs and its merge, in
+    plain PyTorch: against the reference's quantized Pallas kernel in
+    interpret mode and the unsplit plain version at 2e-5, over rows with
+    more and fewer blocks than splits and a length-0 row (exactly 0)."""
+    from repro_torch.kernels.decode_attention.ref import (
+        quantized_paged_decode_attention_ref,
+        quantized_paged_decode_attention_split_ref,
+    )
+
+    N, H, G, D, bs, MB = 5, 2, 2, 8, 4, 8
+    P = N * MB + 1
+    kc, ks, vc, vs = _quant_pools(name, P, H, bs, D, seed=20 + splits)
+    rng = np.random.default_rng(21 + splits)
+    q = rng.standard_normal((N, H, G, D)).astype(np.float32)
+    tbl = rng.permutation(N * MB).reshape(N, MB).astype(np.int32)
+    lens = np.asarray([29, 0, 4, 32, 9], np.int32)
+    tbl[np.arange(MB)[None, :] * bs >= lens[:, None]] = P - 1          # garbage past the length
+    want = np.asarray(quantized_paged_decode_attention_kernel(
+        *map(jnp.asarray, (q, kc, vc, ks, vs, tbl, lens)), decode=j_policy(name).decode,
+        interpret=True)).reshape(N, H * G, D)
+    args = list(map(torch.from_numpy, (q.reshape(N, H * G, D), kc, vc, ks, vs, tbl, lens)))
+    got = quantized_paged_decode_attention_split_ref(*args, splits, policy=t_policy(name))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        got.numpy(), quantized_paged_decode_attention_ref(*args, policy=t_policy(name)).numpy(),
+        atol=2e-5, rtol=2e-5)
+    assert (got[1] == 0).all()
+
+
 def test_quantized_update_attention_matches_reference():
     """Quantize-scatter then attend: pools, scales and outputs as the
     reference's ``quantized_paged_update_attention``."""
