@@ -10,7 +10,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 2. build    — builds every kernel (serving and training paths) from the
               sources in this checkout with nvcc for sm_90a (one nvcc per
               source, all started together) and prints the build seconds,
-              registers and spills; the paged decode kernels and the
+              registers and spills; the three decode kernels
+              (decode_sm90.cuh's decode_kernel in each library) and the
               tensor-core kernels (the grouped FFN's, flash attention's) must
               not spill, the latter must hold HGMMA
               instructions in their SASS (cuobjdump; logged as not checked
@@ -28,7 +29,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               hi + lo; split-P: P as bf16 hi + lo).  The paged kernels also
               at every cluster split (1, 2, 4, 8) forced, with a ring of
               stages that wraps (a 1000-token row), f32 at G = 2, 4, 8 and
-              D = 32, 128, and a garbage block of 1e4 past every length.
+              D = 32, 128, and a garbage block of 1e4 past every length;
+              the dense kernel likewise (every split forced, a wrapping
+              ring, f32 at G = 2-8 and D = 32, 128, bf16 at D = 16, and
+              cache rows of 1e4 past every length).
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -38,10 +42,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               bf16); for the grouped FFN and flash also their CUDA-core
               route's time, for the FFN each pass's device time; flash at
               both m6 training lengths, S = 144 and 256; the paged kernels
-              (bf16 and int8) at 8 rows x 256 positions and at the decode
-              step for their chosen split and each split forced, with the
-              splits and stages beside each time; then the FFN, flash and
-              dense kernels measured again on the same inputs.
+              (bf16 and int8) and the dense kernel at 8 rows x 256
+              positions and at the decode step for their chosen split and
+              each split forced, with the splits and stages beside each
+              time and SDPA's device time beside the dense kernel's; then
+              the FFN, flash and dense kernels measured again on the same
+              inputs.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -83,7 +89,21 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               caching on a multi-tenant trace, off and on, under none and
               int8 (cached-token ratio > 0 when on); (d) the dense-cache
               decode kernel on the engine's pools against the paged kernel.
-8. report   — a {"kernels": [...]} line, the card line, and as the last line
+8. ckpt     — checkpoints and restarts at m6-base's widths cut to 2 layers
+              (567.4 M parameters, 6.81 GB a training checkpoint) through
+              the train CLI's loop, in a temporary directory under build/
+              removed at the end (the free space is checked first): two
+              straight 4-step runs; a run with --ckpt-every 2 and a failure
+              injected before step 3, which run_with_restarts resumes from
+              step 2 (the step-2 checkpoint must restore bit-equal to the
+              state it was taken from, and the final params differ from a
+              straight run's by no more than the two straight runs
+              differ); the 16-request trace served from
+              restore_params_latest must give the greedy tokens of an engine
+              built from the trained params; the serving tree's bf16
+              checkpoint must round-trip bit-equal; save seconds, GB/s and
+              save_async's snapshot seconds are printed.
+9. report   — a {"kernels": [...]} line, the card line, and as the last line
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -110,7 +130,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16
 GROUPED_FFN_SM90 = "src/repro_torch/kernels/csrc/grouped_ffn_sm90.cuh"
 FLASH_SM90 = "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh"
-PAGED_SM90 = "src/repro_torch/kernels/csrc/paged_decode_sm90.cuh"
+DECODE_SM90 = "src/repro_torch/kernels/csrc/decode_sm90.cuh"
+# the decode kernels' device code (decode_sm90.cuh): a pattern of its mangled
+# names, in each of the three decode libraries
+DECODE_KERNEL = "decode_sm9013decode_kernel"
+DECODE_LIBS = ("paged_decode_attention", "quantized_paged_decode_attention", "decode_attention")
 
 
 def log(msg: str) -> None:
@@ -533,6 +557,7 @@ def phase_check(torch):
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
     check_paged_design(torch)
+    check_dense_design(torch)
     return errs, weights
 
 
@@ -603,6 +628,52 @@ def check_paged_design(torch):
                                                               seed=541, name="int8")
     kc[-1], vc[-1], ks[-1], vs[-1] = 127, -127, 1e4, 1e4
     run("garbage block", (q, kc, vc, ks, vs, tables, lengths), "int8")
+
+
+def check_dense_design(torch):
+    """The dense kernel's cases of its Hopper design (TMA boxes of a tensor
+    map into a ring of stages, the first pass's issued before the length
+    is read; a split over a thread-block cluster), against its plain version at TOL with
+    length-0 rows exactly 0: every splits in (1, 2, 4, 8) forced at the m6
+    shape (plan from T and from the longest length); a ring that wraps (a
+    1000-position row of a 1024-position cache) at splits 1 and 2; f32 at
+    G in (2, 4, 8) and D in (32, 128), and bf16 at D = 16; cache rows past
+    every length filled with 1e4 / -1e4, which must not reach the output
+    (the kernel fetches its first pass's tiles whatever the length)."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    def run(label, case, splits=None, max_length=None):
+        q, k = case[0], case[1]
+        out = da.decode_attention(*case, splits=splits, max_length=max_length)
+        torch.cuda.synchronize()
+        B, Hq, D = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        plan = da.dense_plan(B, Hkv, Hq // Hkv, D, T, q.element_size(),
+                             da._sm_count(q.device.index), splits, max_length)
+        name = (f"dense {label} B={B} T={T} G={Hq // Hkv} D={D} {str(q.dtype)[6:]} "
+                f"splits={plan[0]} stages={plan[1]}")
+        check_close(name, out, decode_attention_ref(*case))
+        if not (out[case[3] == 0] == 0).all():
+            raise AssertionError(f"{name}: a length-0 row is not exactly 0")
+
+    m6_lens = [40, 0, 17, 256, 1, 100, 16, 63]
+    for splits in (1, 2, 4, 8):
+        run("forced", dense_case(8, 256, 16, 16, 64, m6_lens, seed=600), splits=splits)
+        run("forced, longest known", dense_case(8, 256, 16, 16, 64, m6_lens, seed=601),
+            splits=splits, max_length=max(m6_lens))
+    for splits in (1, 2):
+        run("ring wraps", dense_case(3, 1024, 16, 16, 64, [1000, 0, 37], seed=610),
+            splits=splits)
+    lens = [5, 0, 31, 33, 200]
+    for i, (Hq, Hkv, D) in enumerate(((16, 8, 32), (16, 4, 128), (16, 2, 128), (8, 1, 32))):
+        run("f32", dense_case(5, 208, Hq, Hkv, D, lens, seed=620 + i, dtype=torch.float32))
+    run("D=16", dense_case(5, 208, 16, 4, 16, lens, seed=630))
+    q, k, v, lengths = dense_case(8, 256, 16, 16, 64, m6_lens, seed=640)
+    past = torch.arange(256, device="cuda")[None, :] >= lengths[:, None]   # (B, T)
+    k[past], v[past] = 1e4, -1e4
+    for splits in (None, 1, 4):
+        run("1e4 past the lengths", (q, k, v, lengths), splits=splits)
 
 
 def check_training_kernels(torch):
@@ -799,11 +870,22 @@ def time_quantized(torch, lens, seed, name="int8"):
                 plan=da.launch_plan(q, kc, tables, max_length=max(lens)))
 
 
-def time_dense(torch, lens, seed, T=256):
-    """Kernel, plain and SDPA (length mask) times for one dense decode call
-    at the m6 shape, B = len(lens), 16 rotating copies."""
+def dense_sdpa(q, k, v, lengths):
+    """SDPA with a length mask over the dense cache read in place (its
+    (B, Hkv, T, D) view): the library call for dense decode."""
+    import torch
     import torch.nn.functional as F
 
+    T = k.shape[1]
+    mask = (torch.arange(T, device=k.device)[None, :] < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None, :], k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask)
+
+
+def time_dense(torch, lens, seed, T=256):
+    """Kernel, plain and SDPA (length mask) times for one dense decode call
+    at the m6 shape, B = len(lens), 16 rotating copies; the caller knows
+    the longest length, as a decode step's host does."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -814,20 +896,17 @@ def time_dense(torch, lens, seed, T=256):
         return copies[next(it) % len(copies)]
 
     def kern():
-        return da.decode_attention(*nxt())
+        return da.decode_attention(*nxt(), max_length=max(lens))
 
     k_ms, k_dev = cuda_ms(kern), device_ms(kern)
     p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
     q, k, v, lengths = copies[0]
-    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q[:, :, None, :], k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask)
-
+    sdpa = dense_sdpa(q, k, v, lengths)
     bound, by = dense_bound(q, k, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
-                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by)
+                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by,
+                plan=da.dense_plan(len(lens), 16, 1, 64, T, 2, da._sm_count(0),
+                                   max_length=max(lens)))
 
 
 def time_attention(torch, lens, seed):
@@ -870,30 +949,38 @@ def time_attention(torch, lens, seed):
 
 
 def time_splits(torch, decode_lens, seed=120):
-    """Device time of the paged (bf16) and int8 kernels at 8 rows of 256
-    positions and at the decode step's lengths, for the wrapper's own
+    """Device time of the paged (bf16), int8 and dense kernels at 8 rows of
+    256 positions and at the decode step's lengths, for the wrapper's own
     splits (given the longest length, as the engine gives it) and for each
     of (1, 2, 4, 8) forced, over 16 rotating copies, with the splits and
-    stages of each launch: {label: {kernel: [(splits, stages, chosen,
-    device ms), ...]}}."""
+    stages of each launch, and SDPA's device time on the dense cache beside
+    the dense kernel's: {label: {kernel: [(splits, stages, chosen, device
+    ms), ...], "decode_attention sdpa": ms, "decode_attention bound": ms}}."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.quant import get_kv_quant
 
     pol = get_kv_quant("int8")
+    sms = da._sm_count(0)
     out = {}
     for label, lens in (("8 rows x 256 positions", [256] * 8), ("decode (N=8)", decode_lens)):
         bf = [attention_case(8, 16, 16, 64, 16, 16, lens, seed=seed + c) for c in range(16)]
         i8 = [quant_attention_case(8, 16, 16, 64, 16, 16, lens, seed=seed + c, name="int8")
               for c in range(16)]
+        dn = [dense_case(8, 256, 16, 16, 64, lens, seed=seed + c) for c in range(16)]
         longest = max(lens)                       # as the engine passes it
         kernels = {"paged_decode_attention": (
                        bf, lambda c, s: da.paged_decode_attention(*c, splits=s,
-                                                                  max_length=longest), 3),
+                                                                  max_length=longest),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[3], s, longest)),
                    "quantized_paged_decode_attention int8": (
                        i8, lambda c, s: da.quantized_paged_decode_attention(
-                           *c, policy=pol, splits=s, max_length=longest), 5)}
+                           *c, policy=pol, splits=s, max_length=longest),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[5], s, longest)),
+                   "decode_attention": (
+                       dn, lambda c, s: da.decode_attention(*c, splits=s, max_length=longest),
+                       lambda c, s: da.dense_plan(8, 16, 1, 64, 256, 2, sms, s, longest))}
         out[label] = {}
-        for name, (copies, call, tbl) in kernels.items():
+        for name, (copies, call, plan) in kernels.items():
             rows = []
             for forced in (None, 1, 2, 4, 8):
                 it = iter(range(1 << 30))
@@ -903,13 +990,19 @@ def time_splits(torch, decode_lens, seed=120):
 
                 cuda_ms(fn, reps=100)                 # warm, as phase 4's other timings
                 ms = device_ms(fn)
-                splits, stages = da.launch_plan(copies[0][0], copies[0][1], copies[0][tbl],
-                                                forced, longest)
+                splits, stages = plan(copies[0], forced)
                 rows.append((splits, stages, forced is None, ms))
                 log(f"  {label} {name}: splits {splits}{' (chosen)' if forced is None else ''}"
                     f", stages {stages}: device {fmt_ms(ms)} ms")
             out[label][name] = rows
-        del bf, i8
+        sdpa = dense_sdpa(*dn[0])
+        cuda_ms(sdpa, reps=100)
+        out[label]["decode_attention sdpa"] = device_ms(sdpa)
+        out[label]["decode_attention bound"] = dense_bound(dn[0][0], dn[0][1], dn[0][3])[0]
+        log(f"  {label} decode_attention: SDPA (length mask) device "
+            f"{fmt_ms(out[label]['decode_attention sdpa'])} ms, bound "
+            f"{out[label]['decode_attention bound']:.5f} ms")
+        del bf, i8, dn
     return out
 
 
@@ -1120,7 +1213,8 @@ def remeasure(torch, timing, ffn_weights):
         "ragged_ffn": (lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx), 20),
         "moe_ffn": (lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), 10),
         "flash_attention": (lambda: fa.flash_attention(*sets[next(it) % 16], causal=True), 20),
-        "decode_attention": (lambda: da.decode_attention(*dense[next(it) % 16]), 20),
+        "decode_attention": (lambda: da.decode_attention(*dense[next(it) % 16],
+                                                         max_length=112), 20),
     }
     out = {}
     for name, (fn, reps) in calls.items():
@@ -2031,6 +2125,225 @@ def phase_kv(torch, base_tokens):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: checkpoints and restarts
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 2                 # m6-base's widths at 2 layers: 567.4 M parameters
+
+
+def bits(torch, t):
+    """A tensor's bit patterns (an integer view), for bit-equality."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def map_tensors(torch, tree, fn):
+    """``tree`` (NamedTuples, dicts) with each tensor replaced by ``fn(t)``
+    and every other leaf kept: ``torch.zeros_like`` makes a restore
+    template no saved value can hide in, a clone a snapshot."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(torch, v, fn) for v in tree))
+    if isinstance(tree, dict):
+        return {k: map_tensors(torch, v, fn) for k, v in tree.items()}
+    return fn(tree.detach()) if isinstance(tree, torch.Tensor) else tree
+
+
+def unequal_leaves(torch, a, b) -> list:
+    """Keys of the leaves where two trees of one structure differ in any
+    bit (tensors) or value (ints)."""
+    from repro_torch.checkpoint import leaves
+
+    return [k for (k, x), (_, y) in zip(leaves(a), leaves(b))
+            if not (torch.equal(bits(torch, x), bits(torch, y))
+                    if isinstance(x, torch.Tensor) else x == y)]
+
+
+def max_param_diff(torch, a, b) -> float:
+    """The largest |a - b| over two param trees' leaves (0.0: equal)."""
+    from repro_torch.nn import flat_params
+
+    fb = flat_params(b)
+    with torch.no_grad():
+        return max(float((t.float() - fb[k].float()).abs().max())
+                   for k, t in flat_params(a).items())
+
+
+def serving_tree(torch, cfg, trained):
+    """The serving tree (``lm_shapes(cfg)``'s storage dtypes) of trained
+    params, built in-process: each leaf cast as ``from_jax_params`` casts."""
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.nn import lm_shapes
+
+    def cast(shapes, tree):
+        if isinstance(shapes, dict):
+            return {k: cast(v, tree[k]) for k, v in shapes.items()}
+        return tree.detach().to(torch_dtype(shapes.dtype))
+
+    return cast(lm_shapes(cfg), trained)
+
+
+def tree_bytes(torch, tree) -> int:
+    from repro_torch.checkpoint import leaves
+
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def checkpoint_phase(torch, argv, device="cuda", layers=CKPT_LAYERS, requests=None,
+                     max_len=256, root=None):
+    """Phase 8, on a temporary directory under ``root`` (default the
+    checkout's gitignored ``build/``) that is removed at its end.  The train
+    CLI's loop (``repro_torch.launch.train.run``, the config cut to
+    ``layers`` layers): 4 steps straight, twice (is the card's step
+    bit-reproducible?); then 4 steps with ``--ckpt-every 2`` and a failure
+    injected before step 3, so that ``run_with_restarts`` resumes from the
+    checkpoint of step 2.  Gates: the step-2 checkpoint restores bit-equal
+    to the state the loop held when it was taken; the resumed final params
+    differ from a straight run's by no more than the two straight runs
+    differ from each other; ``requests`` (default the 16-request trace)
+    served from ``restore_params_latest`` give the greedy tokens of an
+    engine built in-process from the trained params; the serving tree's
+    bf16 params-only checkpoint round-trips bit-equal.  Measures a
+    synchronous ``save`` of the final training state (seconds, GB/s) and
+    ``save_async``'s snapshot.  Fails before writing if the disk lacks the
+    bytes."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.checkpoint import Checkpointer, leaves
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.nn import count_params, init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    build_full = train_mod.build
+
+    def build_cut(args):
+        return build_full(args).replace(num_layers=layers)
+
+    parse = train_mod.build_parser().parse_args
+    base = argv + ["--steps", "4", "--device", device]
+    cfg = build_cut(parse(base))
+    n_params = count_params(cfg)
+    ckpt_bytes = 12 * n_params + 4                 # f32 masters, mu and nu; the step
+    root = Path(root or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    need = 2 * ckpt_bytes + 4 * n_params + (1 << 30)   # two kept, the serving tree, slack
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"phase 8 needs {need} bytes free under {root}; {free} are")
+    log(f"  m6-base widths at {layers} layers: {n_params} parameters, a training checkpoint "
+        f"{ckpt_bytes / 1e9:.2f} GB; {free / 1e9:.1f} GB free under {root}")
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt-", dir=root))
+    out = {"layers": layers, "parameters": n_params, "checkpoint_bytes": ckpt_bytes}
+    try:
+        with mock.patch.object(train_mod, "build", build_cut):
+            straight = []
+            for i in range(2):
+                t0 = time.perf_counter()
+                _, st = train_mod.run(parse(base))
+                sync(torch, st.params["embed"]["table"])
+                straight.append(st.params)
+                log(f"  straight run {i + 1}: 4 steps, {time.perf_counter() - t0:.1f} s")
+                del st
+            d_straight = max_param_diff(torch, straight[0], straight[1])
+            del straight[1]
+            log(f"  two straight runs: largest parameter difference {d_straight:g} "
+                f"({'bit-reproducible' if d_straight == 0 else 'not bit-reproducible'})")
+
+            snapshot, failed = {}, []
+
+            def probe(step, state):
+                if step == 2 and not snapshot:      # what the step-2 checkpoint holds
+                    snapshot["state"] = map_tensors(torch, state, torch.clone)
+                if step == 3 and not failed:
+                    failed.append(step)
+                    raise RuntimeError("injected failure before step 3")
+
+            ckpt_dir = tmp / "train"
+            t0 = time.perf_counter()
+            logs, resumed = train_mod.run(
+                parse(base + ["--ckpt-dir", str(ckpt_dir), "--ckpt-every", "2",
+                              "--max-restarts", "1"]), on_step=probe)
+            sync(torch, resumed.params["embed"]["table"])
+            run_s = time.perf_counter() - t0
+        steps = [m["step"] for m in logs]
+        if failed != [3] or steps != [0, 1, 2, 2, 3] or resumed.step != 4:
+            raise AssertionError(f"restart: failures {failed}, logged steps {steps}, final "
+                                 f"step {resumed.step}; want [3], [0, 1, 2, 2, 3], 4")
+        ck = Checkpointer(str(ckpt_dir))
+        if ck.all_steps() != [2, 4]:
+            raise AssertionError(f"checkpoints {ck.all_steps()}, want [2, 4]")
+        back = ck.restore(2, map_tensors(torch, resumed, torch.zeros_like))
+        diff = unequal_leaves(torch, snapshot["state"], back)
+        if diff:
+            raise AssertionError(f"step-2 checkpoint: leaves not bit-equal to the state it "
+                                 f"was taken from: {diff[:5]}")
+        del back, snapshot
+        d_resume = max_param_diff(torch, straight[0], resumed.params)
+        log(f"  resumed run ({run_s:.1f} s; a failure before step 3, restarted from the "
+            f"step-2 checkpoint, which restores bit-equal): largest parameter difference "
+            f"from a straight run {d_resume:g} (two straight runs: {d_straight:g})")
+        if d_resume > d_straight:
+            raise AssertionError(f"resumed params differ by {d_resume:g} from a straight run's, "
+                                 f"more than two straight runs differ ({d_straight:g})")
+        out.update(straight_runs_max_diff=d_straight, resumed_max_diff=d_resume)
+
+        # a training checkpoint's save times (the final state: masters, mu, nu, step)
+        nbytes = tree_bytes(torch, resumed) + 4
+        ck_t = Checkpointer(str(tmp / "timing"), keep=1)
+        t0 = time.perf_counter()
+        ck_t.save_async(1, resumed)
+        snapshot_s = time.perf_counter() - t0
+        ck_t.wait()
+        async_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck_t.save(2, resumed)
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(tmp / "timing")
+        log(f"  save of a training checkpoint ({nbytes / 1e9:.2f} GB): {save_s:.2f} s, "
+            f"{nbytes / save_s / 1e9:.2f} GB/s; save_async's snapshot (device to host) "
+            f"{snapshot_s:.2f} s, its files written {async_s:.2f} s after the call")
+        out.update(save_s=save_s, save_gb_per_s=nbytes / save_s / 1e9,
+                   save_async_snapshot_s=snapshot_s, save_async_written_s=async_s)
+
+        # serving: from the checkpoint, and from the trained params in-process
+        scfg = cfg.replace_moe(impl="dropless", capacity_factor=None)
+        requests = requests or synthetic_trace(16, scfg.vocab_size, seed=0)
+        serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)))
+        params, step = ck.restore_params_latest(init_params(scfg, seed=1, device=device))
+        got, _, _, _ = serve_once(torch, scfg, params, serve, requests, device=device)
+        want, _, _, _ = serve_once(torch, scfg, serving_tree(torch, scfg, resumed.params),
+                                   serve, requests, device=device)
+        del resumed, straight
+        same = sum(got[r.uid] == want[r.uid] for r in requests)
+        if step != 4 or same != len(requests):
+            raise AssertionError(f"served from checkpoint step {step}: {same} of "
+                                 f"{len(requests)} requests' greedy tokens equal the "
+                                 f"in-process engine's")
+        log(f"  restored params-only from checkpoint step {step}: the {len(requests)} requests' "
+            f"greedy tokens equal those of an engine built from the trained params")
+        shutil.rmtree(ckpt_dir)
+
+        # the serving tree (bf16 matmul weights) as a params-only checkpoint
+        ck_s = Checkpointer(str(tmp / "serve"))
+        ck_s.save(1, params)
+        back = ck_s.restore(1, map_tensors(torch, params, torch.zeros_like))
+        n_bf16 = sum(t.dtype == torch.bfloat16 for _, t in leaves(params))
+        diff = unequal_leaves(torch, params, back)
+        if diff or (scfg.dtype == "bfloat16" and n_bf16 == 0):
+            raise AssertionError(f"serving tree round trip: {n_bf16} bf16 leaves; not "
+                                 f"bit-equal: {diff[:5]}")
+        log(f"  the serving tree ({n_bf16} bf16 of {len(leaves(params))} leaves, "
+            f"{tree_bytes(torch, params) / 1e9:.2f} GB) round-trips bit-equal")
+        out.update(served_requests=len(requests), serving_tree_bf16_leaves=n_bf16)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2077,9 +2390,15 @@ def main() -> int:
         if name == "flash_attention":
             for fn, (regs, sp) in sorted(tc.items()):
                 log(f"      {fn}: {regs} registers, {sp} bytes spill stores")
-        spilled = [f for f, (_, sp) in ptxas_functions(rep, "paged_decode_kernel").items() if sp]
-        if spilled:
-            raise AssertionError(f"{name}: paged decode kernels spill: {spilled}")
+        if name in DECODE_LIBS:
+            fns = ptxas_functions(rep, DECODE_KERNEL)
+            if not fns:
+                raise AssertionError(f"{name}: no {DECODE_KERNEL} in its ptxas report")
+            spilled = [f for f, (_, sp) in fns.items() if sp]
+            if spilled:
+                raise AssertionError(f"{name}: decode kernels spill: {spilled}")
+            log(f"    decode kernels: {len(fns)}, registers {min(r for r, _ in fns.values())}-"
+                f"{max(r for r, _ in fns.values())}, no spill stores")
         for line in rep.splitlines():
             if "wgmma" in line.lower() and "warning" in line.lower():
                 log(f"    ptxas: {line.strip()[:200]}")
@@ -2102,7 +2421,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kv_launches, kv = phase_kv(torch, base_tokens)
     kv_s = time.perf_counter() - t0
-    log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s")
+    torch.cuda.empty_cache()
+    log("phase 8: checkpoints and restarts, m6-base widths at 2 layers")
+    t0 = time.perf_counter()
+    ckpt = checkpoint_phase(torch, TRAIN_ARGS)
+    ckpt_s = time.perf_counter() - t0
+    log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
+        f"checkpoint phase {ckpt_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -2140,13 +2465,17 @@ def main() -> int:
                          tc_launches=train["flash"]["tc_launches"],
                          cuda_core_ms=t["cuda_core_ms"],
                          cuda_core_device_ms=t["cuda_core_device_ms"])
-        if "plan" in t:                   # the paged kernels' bulk copies and cluster split
-            entry.update(device_code="bulk copies of whole KV tiles into a ring of stages, "
-                                     "split over a thread-block cluster",
-                         header=PAGED_SM90, splits=t["plan"][0], stages=t["plan"][1])
+        if "plan" in t:                   # the decode kernels' ring and cluster split
+            copies = ("TMA boxes of a tensor map, the first pass's issued before the length "
+                      "is read"
+                      if name == "decode_attention" else "bulk copies of whole KV tiles")
+            entry.update(device_code=f"{copies}, into a ring of stages, split over a "
+                                     f"thread-block cluster",
+                         header=DECODE_SM90, splits=t["plan"][0], stages=t["plan"][1])
         kernels.append(entry)
-    print(json.dumps({"serve": e2e, "train": train, "kv": kv, "build_s": build_s,
-                      "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
+    print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
+                      "build_s": build_s, "serve_s": serve_s, "train_s": train_s,
+                      "kv_s": kv_s, "checkpoint_s": ckpt_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

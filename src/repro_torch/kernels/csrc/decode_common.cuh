@@ -1,11 +1,7 @@
-// Device code shared by the decode attention kernels over a row-parallel
-// warp layout: the bf16 / f32 element formats, vector loads, q loads and
-// the online softmax state serve both paged kernels (through
-// paged_decode_sm90.cuh, which reads the K/V rows from shared memory and
-// holds the int8 / e4m3 code formats) and dense decode (decode_attention.cu,
-// from global memory); the warp merge merge_store serves dense decode, the
-// paged kernels merge as it does in their own header and then across a
-// cluster.
+// Device code shared by the decode attention kernels (through
+// decode_sm90.cuh, which reads the K/V rows from shared memory and holds the
+// int8 / e4m3 code formats): the bf16 / f32 element formats, vector loads,
+// q loads and the online-softmax state of the row-parallel warp layout.
 //
 // Layout.  One CTA per (query row, kv head), kWarps warps, each keeping its
 // own online-softmax state (m, l, acc) for the G grouped query heads, merged
@@ -88,80 +84,7 @@ struct State {
       for (int i = 0; i < VEC; ++i) acc[g][i] = 0.0f;
     }
   }
-
-  // One pass of the warp: this lane's token row has key dims kf (score
-  // multiplier k_mul) and value dims vf (multiplier v_mul); ``live`` is
-  // false past the length.  Every lane of the warp must call this.
-  template <int TPR>
-  __device__ void update(const float (&qr)[G][VEC], const float (&kf)[VEC], float k_mul,
-                         const float (&vf)[VEC], float v_mul, bool live) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) s += qr[g][i] * kf[i];
-#pragma unroll
-      for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      s = live ? s * k_mul : kNegInf;
-      float mx = s;
-#pragma unroll
-      for (int o = TPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float mn = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - mn);
-      const float p = live ? expf(s - mn) : 0.0f;
-      l[g] = l[g] * alpha + p;
-      const float pv = p * v_mul;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[g][i] = acc[g][i] * alpha + pv * vf[i];
-      m[g] = mn;
-    }
-  }
 };
-
-// Sum the warp's rows, merge the kWarps warps through shared memory and
-// write o[g * D + d] = acc / max(l, 1e-30).  Called by every thread once.
-template <typename TO, int G, int VEC, int TPR, int D>
-__device__ void merge_store(State<G, VEC>& st, TO* o) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int off = TPR; off < 32; off <<= 1) {
-      st.l[g] += __shfl_xor_sync(0xffffffffu, st.l[g], off);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        st.acc[g][i] += __shfl_xor_sync(0xffffffffu, st.acc[g][i], off);
-    }
-  }
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
-  if (lane < TPR) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (lane == 0) {
-        sm_m[warp][g] = st.m[g];
-        sm_l[warp][g] = st.l[g];
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[warp][g][lane * VEC + i] = st.acc[g][i];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    const int g = e / D, d = e % D;
-    float mt = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w][g]);
-    float lt = 0.0f, at = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - mt);
-      lt += sm_l[w][g] * f;
-      at += sm_acc[w][g][d] * f;
-    }
-    from_f32(at / fmaxf(lt, 1e-30f), o + e);
-  }
-}
 
 // q (G, D) of this CTA, pre-scaled, into the lane's VEC dims.
 template <typename TQ, int G, int VEC, int D>

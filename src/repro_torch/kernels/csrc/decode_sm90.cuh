@@ -1,52 +1,67 @@
-// Paged decode attention on Hopper (sm_90a): the device code of both paged
-// decode kernels, paged_decode_attention.cu (bf16 / f32 pools) and
+// Decode attention on Hopper (sm_90a): the device code of the three decode
+// kernels, paged_decode_attention.cu (bf16 / f32 pools),
 // quantized_paged_decode_attention.cu (int8 / e4m3 codes with one f32 scale
-// per (block, kv head)).
+// per (block, kv head)) and decode_attention.cu (a dense (B, T, Hkv, D)
+// cache).
 //
 // What it computes: one query per row i and kv head h, G grouped query
-// heads, over positions [0, lengths[i]) of the row's context read through
-// its block table:
+// heads, over positions [0, lengths[i]) of the row's context:
 //   out[i, h, g] = softmax(q[i, h, g] . K^T * D^-0.5) V,
-//   K[p] = dec(k_pool[tables[i, p / bs], h, p % bs]) * k_scale (1 unscaled)
+// paged: K[p] = dec(k_pool[tables[i, p / bs], h, p % bs]) * k_scale (1 unscaled);
+// dense: K[p] = k[i, p, h].
 // A row of length 0 writes exactly 0; positions past the length are neither
 // read nor weighted (the finite NEG_INF mask of the TPU kernels).
 //
 // What bounds it at decode sizes: latency, not bytes.  The m6 decode step
 // (8 rows of 21-112 positions, 16 kv heads of 64) moves 1.84 MB of K/V,
-// 0.56 us at 3.35 TB/s; a kernel that waits on its loads block by block
-// pays one dependent DRAM round trip (about a microsecond) per block.
+// 0.56 us at 3.35 TB/s; a kernel that waits on its loads tile by tile pays
+// one dependent DRAM round trip (about a microsecond) per tile.
 //
-// Design: pay one round trip a CTA, not one a block.
-// - Copies.  A (block, kv head) tile of the (P, Hkv, bs, D) pool is one
-//   contiguous run of bs * D elements, so one 1-D bulk copy
-//   (cp.async.bulk, sm90::bulk_load) moves it into shared memory, completing
-//   on an mbarrier.  Stage s has a thread of its own (lane s / 4 of warp
-//   s % 4: the copy instructions of one warp issue one after another),
-//   which reads the split's s-th table entry beside the row's length, then
-//   initialises the stage's barriers and puts that block's K and V tiles in
-//   flight, on barriers of their own, so the scores start before V lands;
-//   in the quantized kernel the same thread stores the block's two scales
+// Design: pay one round trip a CTA, not one a tile.  The context is read
+// in tiles of `bs` positions of one kv head; the two layouts differ only in
+// where tile j is and how it is copied (the Tiles policies below):
+// - Paged (PagedTiles): a (block, kv head) tile of the (P, Hkv, bs, D) pool
+//   is one contiguous run of bs * D elements, moved by one 1-D bulk copy
+//   (cp.async.bulk, sm90::bulk_load); its address comes from the block
+//   table, read beside the row's length, so the copies wait for both.  In
+//   the quantized kernel the issuing thread stores the block's two scales
 //   next to the codes and arrives on the barriers once they are there.
-//   `stages` tiles of each fit the shared memory the wrapper gives
-//   (ops.py::split_plan); a longer context wraps the ring, refilling a
-//   stage once the CTA has read its block (a pass then reads no block
-//   past those in flight).
+// - Dense (DenseTiles): the positions of one (row, kv head) sit at a fixed
+//   stride in the (B, T, Hkv, D) cache, so a tile is a box (D, 1, bs, 1) of
+//   a 4-D tensor map over (D, Hkv, T, B) built from the tensors' strides,
+//   moved by one TMA load (sm90::tma_load_4d).  Its address needs nothing
+//   but the tile's index, so the tiles of the first pass are issued at
+//   kernel entry, beside the length's load, and the rest of the ring once
+//   the length is known: the first pass waits one round trip where the
+//   paged kernel's waits two.  (Issuing the whole ring at entry measured
+//   slower: every row shorter than the plan's longest then fetches tiles
+//   it never reads.)  Boxes past T are clipped by the copy engine; tiles
+//   issued past the length are waited for (a CTA must not exit with a copy
+//   in flight) and never read.
+// - The ring.  Stage s has a thread of its own (lane s / 4 of warp s % 4:
+//   the copy instructions of one warp issue one after another), which
+//   initialises the stage's barriers and puts the split's s-th K and V
+//   tiles in flight, on barriers of their own, so the scores start before
+//   V lands.  `stages` tiles of each fit the shared memory the wrapper
+//   gives (ops.py::split_plan); a longer context wraps the ring, refilling
+//   a stage once the CTA has read its tile (a pass then reads no tile past
+//   those in flight).
 // - Compute from shared memory, in decode_common.cuh's row-parallel layout:
 //   TPR lanes a token row, 16-byte vector reads, a warp-wide online
 //   softmax, the f32 decode of bf16 / f32 / int8 / e4m3 (int8 by byte
 //   permutes, not the quarter-rate int-to-float conversion).  The 4 warps
-//   share each arrived block (different token rows), each lane taking two
+//   share each arrived tile (different token rows), each lane taking two
 //   rows a pass so that their shuffles and exponentials overlap (with one
 //   CTA of 4 warps an SM at the m6 decode step nothing else hides their
-//   latency), then merge as the dense kernel merges them.
-// - Split over the KV blocks on a thread-block cluster (flash-decoding in
-//   one launch).  With `splits` S > 1 the grid is (S, Hkv, N) in clusters
-//   of (S, 1, 1); CTA r takes the row's blocks r, r + S, r + 2S, ... (their
-//   table entries are known before the length) and reduces them to (m, l,
-//   acc); it writes that state into its slot in rank 0's shared memory
-//   (distributed shared memory), arrives once on rank 0's merge barrier and
-//   leaves; rank 0 merges the S slots in rank order and writes.  No
-//   workspace, no atomics, no second kernel, and only rank 0 waits.
+//   latency), then merge through shared memory.
+// - Split over the tiles on a thread-block cluster (flash-decoding in one
+//   launch).  With `splits` S > 1 the grid is (S, Hkv, N) in clusters of
+//   (S, 1, 1); CTA r takes the row's tiles r, r + S, r + 2S, ... and
+//   reduces them to (m, l, acc); it writes that state into its slot in
+//   rank 0's shared memory (distributed shared memory), arrives once on
+//   rank 0's merge barrier and leaves; rank 0 merges the S slots in rank
+//   order and writes.  No workspace, no atomics, no second kernel, and only
+//   rank 0 waits.
 // All math is f32, the softmax in base 2 (q pre-scaled by D^-0.5 log2 e);
 // one query per (row, head) is a GEMV, so the CUDA cores, not wgmma's
 // 64-row tiles, do it.
@@ -59,26 +74,13 @@
 #include "decode_common.cuh"
 #include "sm90.cuh"
 
-namespace paged {
+namespace decode_sm90 {
 
 using namespace decode;
 namespace cg = cooperative_groups;
 
 constexpr int kMaxStages = 32;   // one thread (lane s / 4 of warp s % 4) a stage
 constexpr int kRowsPerLane = 2;  // token rows a lane takes in one pass
-
-// The launch's arguments (pointers, sizes, the split and the ring depth).
-struct Args {
-  const void* q;
-  const void* k_pool;
-  const void* v_pool;
-  const float* k_scales;   // (P, Hkv), quantized kernel only
-  const float* v_scales;
-  const int32_t* tables;   // (N, MB)
-  const int32_t* lengths;  // (N,)
-  void* out;
-  int N, Hkv, G, D, bs, MB, splits, stages;
-};
 
 // int8 codes (kv_quant="int8"): the integer value, exactly, without the
 // quarter-rate int-to-float conversion: the code's byte plus 128 becomes the
@@ -229,23 +231,16 @@ struct Ring {
   int tile, stages;
   uint32_t tile_bytes;
 
-  // block j of the split, (block, kv head) tile bh of the pools, into stage
-  // j % stages; the quantized kernel's two scales are loaded here and
-  // stored, with the barriers' second arrivals, by publish once needed
-  __device__ __forceinline__ void issue(int j, size_t bh, const E* k_pool, const E* v_pool,
-                                        const float* k_scales, const float* v_scales,
-                                        float& ks, float& vs) const {
+  // the barriers of tile j's stage, each armed for one tile's bytes
+  __device__ __forceinline__ int arm(int j) const {
     const int s = j % stages;
     sm90::mbar_expect_tx(&full_k[s], tile_bytes);
-    sm90::bulk_load(k_tiles + (size_t)s * tile, k_pool + bh * tile, tile_bytes, &full_k[s]);
     sm90::mbar_expect_tx(&full_v[s], tile_bytes);
-    sm90::bulk_load(v_tiles + (size_t)s * tile, v_pool + bh * tile, tile_bytes, &full_v[s]);
-    if constexpr (kScaled) {
-      ks = k_scales[bh];
-      vs = v_scales[bh];
-    }
+    return s;
   }
 
+  // the quantized kernel's scales of tile j, stored with the barriers'
+  // second arrivals once needed
   __device__ __forceinline__ void publish(int j, float ks, float vs) const {
     if constexpr (kScaled) {
       const int s = j % stages;
@@ -257,16 +252,77 @@ struct Ring {
   }
 };
 
+// Where tile j of a row is and how it is copied, for the paged layout: the
+// (block, kv head) tile tables[i, j] of the (P, Hkv, bs, D) pools.
+template <typename E, bool kScaled_>
+struct PagedTiles {
+  static constexpr bool kScaled = kScaled_;
+  static constexpr bool kEarly = false;   // the copies need the table, read beside the length
+  static constexpr bool kD16 = false;     // D in (32, 64, 128)
+  static constexpr int kAlign = 16;       // shared-memory alignment of a tile (bulk copies)
+  const E* k_pool;
+  const E* v_pool;
+  const float* k_scales;   // (P, Hkv), quantized kernel only
+  const float* v_scales;
+  const int32_t* tables;   // (N, MB)
+  int bs, MB;
+  int tiles;               // MB: a row's tiles
+  int capacity;            // MB * bs: positions a row can hold
+
+  // the pool block of row i's tile j (any j < MB)
+  __device__ __forceinline__ int block(int i, int j) const { return tables[(size_t)i * MB + j]; }
+
+  __device__ __forceinline__ void issue(const Ring<E, kScaled>& ring, int j, int blk, int i, int h,
+                                        int Hkv, float& ks, float& vs) const {
+    const size_t bh = (size_t)blk * Hkv + h;
+    const int s = ring.arm(j);
+    sm90::bulk_load(ring.k_tiles + (size_t)s * ring.tile, k_pool + bh * ring.tile,
+                    ring.tile_bytes, &ring.full_k[s]);
+    sm90::bulk_load(ring.v_tiles + (size_t)s * ring.tile, v_pool + bh * ring.tile,
+                    ring.tile_bytes, &ring.full_v[s]);
+    if constexpr (kScaled) {
+      ks = k_scales[bh];
+      vs = v_scales[bh];
+    }
+  }
+};
+
+// The dense layout: tile j of row i and kv head h is the box (D, 1, bs, 1)
+// at (0, h, j * bs, i) of the tensor maps over (D, Hkv, T, B); rows past T
+// are clipped (read as 0, never weighted).
+template <typename E>
+struct DenseTiles {
+  static constexpr bool kScaled = false;
+  static constexpr bool kEarly = true;    // every copy is known before the length
+  static constexpr bool kD16 = true;      // D in (16, 32, 64, 128)
+  static constexpr int kAlign = 128;      // shared-memory alignment of a tile (TMA boxes)
+  CUtensorMap k_map;
+  CUtensorMap v_map;
+  int bs;
+  int tiles;               // ceil(T / bs)
+  int capacity;            // T
+
+  __device__ __forceinline__ int block(int, int j) const { return j; }
+
+  __device__ __forceinline__ void issue(const Ring<E, false>& ring, int j, int blk, int i, int h,
+                                        int, float&, float&) const {
+    const int s = ring.arm(j);
+    sm90::tma_load_4d(ring.k_tiles + (size_t)s * ring.tile, &k_map, &ring.full_k[s], 0, h,
+                      blk * bs, i);
+    sm90::tma_load_4d(ring.v_tiles + (size_t)s * ring.tile, &v_map, &ring.full_v[s], 0, h,
+                      blk * bs, i);
+  }
+};
+
 // (launch bounds of one CTA an SM: without the minimum, ptxas held some
 // instantiations to 64 or 96 registers and spilled)
-template <typename TQ, typename Fmt, bool kScaled, int G, int D>
+template <typename TQ, typename Fmt, typename Tiles, int G, int D>
 __global__ void __launch_bounds__(kWarps * 32, 1)
-paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict__ k_pool,
-                    const typename Fmt::T* __restrict__ v_pool,
-                    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
-                    const int32_t* __restrict__ tables, const int32_t* __restrict__ lengths,
-                    TQ* __restrict__ out, int Hkv, int bs, int MB, int stages, float scale) {
+decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
+              const int32_t* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int stages,
+              float scale) {
   using E = typename Fmt::T;
+  constexpr bool kScaled = Tiles::kScaled;
   constexpr int VEC = vec_elems<(int)sizeof(E), G, D>();
   constexpr int TPR = D / VEC;          // lanes per token row
   constexpr int RPW = 32 / TPR;         // token rows per warp pass
@@ -276,27 +332,18 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
   const int split = blockIdx.x, S = gridDim.x, h = blockIdx.y, i = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = lane / TPR, d0 = (lane % TPR) * VEC;
-  const int32_t* table = tables + (size_t)i * MB;
-  // stage s belongs to lane s / kWarps of warp s % kWarps, which reads the
-  // split's s-th table entry beside the length
-  const int my_stage = lane < kMaxStages / kWarps ? lane * kWarps + warp : kMaxStages;
-  const int first = split + my_stage * S;
-  const int first_blk = (my_stage < stages && first < MB) ? table[first] : 0;
-  const int length = lengths[i];
-  float qr[G][VEC];                     // in flight with the length and the table
-  load_q<TQ, G, VEC, D>(q + ((size_t)i * Hkv + h) * G * D, d0, scale, qr);
-  TQ* o = out + ((size_t)i * Hkv + h) * G * D;
-  if (length <= 0) {                    // the whole cluster leaves here
-    if (split == 0) store_zero(o, G * D);
-    return;
-  }
-  const int ctx = min(length, MB * bs);
-  const int nb = (ctx + bs - 1) / bs;
-  const int nj = nb > split ? (nb - split + S - 1) / S : 0;   // this split's blocks
+  const int bs = src.bs;
   const int tile = bs * D;
   const uint32_t tile_bytes = (uint32_t)(tile * sizeof(E));
 
-  extern __shared__ __align__(128) unsigned char smem[];
+  // the dynamic shared memory, aligned for the copies (the launch adds the
+  // slack); a TMA ring's tiles are multiples of 128 bytes (its entry checks)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if constexpr (Tiles::kAlign > 16) {
+    const uint32_t mis = sm90::smem_u32(smem_raw) & (Tiles::kAlign - 1);
+    smem += mis ? Tiles::kAlign - mis : 0;
+  }
   E* k_tiles = reinterpret_cast<E*>(smem);
   E* v_tiles = k_tiles + (size_t)stages * tile;
   uint64_t* full_k = reinterpret_cast<uint64_t*>(v_tiles + (size_t)stages * tile);
@@ -307,19 +354,62 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
   float* slots = v_mul + stages;       // rank 0: S slots of SLOT floats
   const Ring<E, kScaled> ring{k_tiles, v_tiles, full_k, full_v, k_mul, v_mul, tile, stages,
                               tile_bytes};
+
+  // stage s belongs to lane s / kWarps of warp s % kWarps, which puts the
+  // split's s-th tile in flight: at once where its place is known without
+  // the length (dense), else once the length and its table entry are read
+  const int my_stage = lane < kMaxStages / kWarps ? lane * kWarps + warp : kMaxStages;
+  const int first = split + my_stage * S;
+  const int first_blk =
+      (!Tiles::kEarly && my_stage < stages && first < src.tiles) ? src.block(i, first) : first;
+  const int length = lengths[i];
   float ks = 1.0f, vs = 1.0f;          // this thread's stage's scales (quantized kernel)
   // a stage's thread initialises its barriers and, without waiting for the
-  // rest of the CTA, issues the split's block into it; the CTA barrier
+  // rest of the CTA, issues the split's tile into it; the CTA barrier
   // after it orders every thread's waits after the inits
-  int issued = min(nj, stages);             // every stage when the ring wraps
-  if (my_stage < issued) {
-    sm90::mbar_init(&full_k[my_stage], kScaled ? 2 : 1);
-    sm90::mbar_init(&full_v[my_stage], kScaled ? 2 : 1);
-    if (my_stage == 0 && split == 0 && S > 1) sm90::mbar_init(merged, S - 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    ring.issue(my_stage, (size_t)first_blk * Hkv + h, k_pool, v_pool, k_scales, v_scales, ks,
-               vs);
+  auto start = [&](int lo, int hi) {
+    if (my_stage >= lo && my_stage < hi) {
+      sm90::mbar_init(&full_k[my_stage], kScaled ? 2 : 1);
+      sm90::mbar_init(&full_v[my_stage], kScaled ? 2 : 1);
+      if (my_stage == 0 && split == 0 && S > 1) sm90::mbar_init(merged, S - 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      src.issue(ring, my_stage, first_blk, i, h, Hkv, ks, vs);
+    }
+  };
+  // tiles put in flight before the length is known (dense): those of the
+  // first pass, within the cache and the ring.  More would be fetched for
+  // nothing by every row shorter than the plan's longest; fewer leave the
+  // first pass waiting on a second round trip.
+  int early = 0;
+  if constexpr (Tiles::kEarly) {
+    const int first_pass = (ROWS * R + bs - 1) / bs;
+    early = min(min(stages, first_pass), src.tiles > split ? (src.tiles - split + S - 1) / S : 0);
+    start(0, early);
   }
+  float qr[G][VEC];                     // in flight with the length (and the table)
+  load_q<TQ, G, VEC, D>(q + ((size_t)i * Hkv + h) * G * D, d0, scale, qr);
+  TQ* o = out + ((size_t)i * Hkv + h) * G * D;
+  const int ctx = min(length, src.capacity);
+  const int nb = ctx > 0 ? (ctx + bs - 1) / bs : 0;
+  const int nj = nb > split ? (nb - split + S - 1) / S : 0;   // this split's tiles
+  // a tile issued past the length is never read: its thread waits for it
+  // (no copy may be in flight when the CTA exits)
+  auto drain = [&]() {
+    if constexpr (Tiles::kEarly) {
+      if (my_stage < early && my_stage >= nj) {
+        sm90::mbar_wait(&full_k[my_stage], 0);
+        sm90::mbar_wait(&full_v[my_stage], 0);
+      }
+    }
+  };
+  if (length <= 0) {                    // the whole cluster leaves here
+    drain();
+    if (split == 0) store_zero(o, G * D);
+    return;
+  }
+  // the rest of the ring (every stage when it wraps), now that the length is known
+  int issued = max(early, min(nj, stages));
+  start(early, issued);
   __syncthreads();
   // rank 0's merge barrier is initialised (and fenced at cluster scope)
   // before any rank arrives on it: the cluster barrier's relaxed arrive
@@ -330,15 +420,15 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
   st.init();
   if (my_stage < issued) ring.publish(my_stage, ks, vs);   // before this thread waits on a barrier
 
-  // rows [0, rows_end) of the split's blocks are live: all bs of every
-  // block but the row's last, which ends at the length
+  // rows [0, rows_end) of the split's tiles are live: all bs of every
+  // tile but the row's last, which ends at the length
   const int last = split + (nj - 1) * S;
   const int rows_end = nj > 0 ? (nj - 1) * bs + min(bs, ctx - last * bs) : 0;
   const bool wrap = nj > stages;
   const float inv_bs = 1.0f / (float)bs;
   int consumed = 0;
   for (int r0 = 0; r0 < rows_end;) {
-    // a pass reads no block past those in flight (a wrapping ring with
+    // a pass reads no tile past those in flight (a wrapping ring with
     // fewer stages than a pass spans takes more, shorter passes)
     const int pass_end = min(min(r0 + ROWS * R, rows_end),
                              wrap ? (consumed + stages) * bs : rows_end);
@@ -381,14 +471,13 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
     accumulate<G, VEC, ROWS>(st, p, alpha, vf, vm);
     if (wrap) {                          // uniform over the CTA
       const int done = min(nj, pass_end / bs);
-      if (done > consumed) {             // every thread has read blocks < done
+      if (done > consumed) {             // every thread has read tiles < done
         __syncthreads();
         consumed = done;
         const int target = min(nj, consumed + stages);
         for (int jj = issued; jj < target; ++jj) {
           if (jj % stages == my_stage) {
-            ring.issue(jj, (size_t)table[split + jj * S] * Hkv + h, k_pool, v_pool, k_scales,
-                       v_scales, ks, vs);
+            src.issue(ring, jj, src.block(i, split + jj * S), i, h, Hkv, ks, vs);
             ring.publish(jj, ks, vs);
           }
         }
@@ -397,6 +486,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
     }
     r0 = pass_end;
   }
+  drain();
 
   // the warp's rows into one state (m is warp-wide already), then the
   // warps into this CTA's state
@@ -475,12 +565,22 @@ paged_decode_kernel(const TQ* __restrict__ q, const typename Fmt::T* __restrict_
   }
 }
 
+// The launch's arguments beside the layout: q, lengths, out, sizes, the
+// split and the ring's depth.
+struct Launch {
+  const void* q;
+  const int32_t* lengths;  // (N,)
+  void* out;
+  int N, Hkv, G, D, splits, stages;
+};
+
 // One launch of grid (splits, Hkv, N) in clusters of (splits, 1, 1).
-template <typename TQ, typename Fmt, bool kScaled, int G, int D>
-cudaError_t launch_gd(const Args& a, cudaStream_t stream) {
+template <typename TQ, typename Fmt, typename Tiles, int G, int D>
+cudaError_t launch_gd(const Tiles& src, const Launch& a, cudaStream_t stream) {
   using E = typename Fmt::T;
-  auto kernel = paged_decode_kernel<TQ, Fmt, kScaled, G, D>;
-  const size_t smem = smem_bytes<E>(a.bs, D, G, a.stages, a.splits);
+  auto kernel = decode_kernel<TQ, Fmt, Tiles, G, D>;
+  const size_t smem = smem_bytes<E>(src.bs, D, G, a.stages, a.splits) +
+                      (Tiles::kAlign > 16 ? Tiles::kAlign : 0);
   // past 48 KB of static and dynamic shared memory together a kernel must
   // opt in: once per instantiation, to all the block may have
   static bool opted_in = false;
@@ -510,38 +610,52 @@ cudaError_t launch_gd(const Args& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = a.splits > 1 ? 1 : 0;
   const float scale = 1.4426950408889634f / sqrtf((float)D);   // D^-0.5 log2(e)
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, (const TQ*)a.q, (const E*)a.k_pool, (const E*)a.v_pool, a.k_scales,
-      a.v_scales, a.tables, a.lengths, (TQ*)a.out, a.Hkv, a.bs, a.MB, a.stages, scale);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, src, (const TQ*)a.q, a.lengths,
+                                             (TQ*)a.out, a.Hkv, a.stages, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename TQ, typename Fmt, bool kScaled, int G>
-cudaError_t launch_g(const Args& a, cudaStream_t stream) {
+template <typename TQ, typename Fmt, typename Tiles, int G>
+cudaError_t launch_g(const Tiles& src, const Launch& a, cudaStream_t stream) {
   switch (a.D) {
-    case 32: return launch_gd<TQ, Fmt, kScaled, G, 32>(a, stream);
-    case 64: return launch_gd<TQ, Fmt, kScaled, G, 64>(a, stream);
-    case 128: return launch_gd<TQ, Fmt, kScaled, G, 128>(a, stream);
+    case 16:
+      if constexpr (Tiles::kD16) return launch_gd<TQ, Fmt, Tiles, G, 16>(src, a, stream);
+      return cudaErrorInvalidValue;
+    case 32: return launch_gd<TQ, Fmt, Tiles, G, 32>(src, a, stream);
+    case 64: return launch_gd<TQ, Fmt, Tiles, G, 64>(src, a, stream);
+    case 128: return launch_gd<TQ, Fmt, Tiles, G, 128>(src, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Checks what the kernel takes (the wrapper checks the same first) and
+// Checks what the kernel takes (the wrappers check the same first) and
 // launches on `stream`; N = 0 launches nothing.
-template <typename TQ, typename Fmt, bool kScaled>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename TQ, typename Fmt, typename Tiles>
+cudaError_t launch(const Tiles& src, const Launch& a, cudaStream_t stream) {
   if (a.N == 0) return cudaSuccess;
   const bool splits_ok = a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == 8;
-  if (!splits_ok || a.stages < 1 || a.stages > kMaxStages || a.bs < 1 || a.MB < 1 ||
-      (a.bs * a.D * sizeof(typename Fmt::T)) % 16)
+  if (!splits_ok || a.stages < 1 || a.stages > kMaxStages || src.bs < 1 || src.tiles < 1 ||
+      (src.bs * a.D * sizeof(typename Fmt::T)) % 16)
     return cudaErrorInvalidValue;
   switch (a.G) {
-    case 1: return launch_g<TQ, Fmt, kScaled, 1>(a, stream);
-    case 2: return launch_g<TQ, Fmt, kScaled, 2>(a, stream);
-    case 4: return launch_g<TQ, Fmt, kScaled, 4>(a, stream);
-    case 8: return launch_g<TQ, Fmt, kScaled, 8>(a, stream);
+    case 1: return launch_g<TQ, Fmt, Tiles, 1>(src, a, stream);
+    case 2: return launch_g<TQ, Fmt, Tiles, 2>(src, a, stream);
+    case 4: return launch_g<TQ, Fmt, Tiles, 4>(src, a, stream);
+    case 8: return launch_g<TQ, Fmt, Tiles, 8>(src, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace paged
+// The paged kernels' launch: pools, their scales (quantized kernel) and the
+// block tables (N, MB).
+template <typename TQ, typename Fmt, bool kScaled>
+cudaError_t launch_paged(const Launch& a, const void* k_pool, const void* v_pool,
+                         const float* k_scales, const float* v_scales, const int32_t* tables,
+                         int bs, int MB, cudaStream_t stream) {
+  using E = typename Fmt::T;
+  const PagedTiles<E, kScaled> src{(const E*)k_pool, (const E*)v_pool, k_scales, v_scales,
+                                   tables, bs, MB, MB, MB * bs};
+  return launch<TQ, Fmt>(src, a, stream);
+}
+
+}  // namespace decode_sm90

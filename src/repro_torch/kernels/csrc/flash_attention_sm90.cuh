@@ -305,8 +305,10 @@ inline cudaError_t run(const void* q, const void* k, const void* v, void* o, int
   const EncodeTiledFn encode = encode_fn();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv, mo;
-  if (!map4d(encode, &mq, q, D, Hq, S, B, kRows) || !map4d(encode, &mk, k, D, Hkv, S, B, kKeys) ||
-      !map4d(encode, &mv, v, D, Hkv, S, B, kKeys) || !map4d(encode, &mo, o, D, Hq, S, B, kRows))
+  if (!map4d(encode, &mq, kBF16, q, D, Hq, S, B, kRows) ||
+      !map4d(encode, &mk, kBF16, k, D, Hkv, S, B, kKeys) ||
+      !map4d(encode, &mv, kBF16, v, D, Hkv, S, B, kKeys) ||
+      !map4d(encode, &mo, kBF16, o, D, Hq, S, B, kRows))
     return cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   const int G = Hq / Hkv;

@@ -232,10 +232,12 @@ cudaError_t run_tiles(const void* x, const void* w_up, const void* w_gate, const
   __nv_bfloat16* hi = (__nv_bfloat16*)h;
   __nv_bfloat16* lo = hi + (size_t)groups * R * I;
   CUtensorMap mx, mup, mgate, mdown, mhi, mlo;
-  if (!map3d(encode, &mx, x, M, R, groups, N) || !map3d(encode, &mup, w_up, I, M, E, kBK) ||
-      !map3d(encode, &mgate, gated ? w_gate : w_up, I, M, E, kBK) ||
-      !map3d(encode, &mdown, w_down, M, I, E, kBK) || !map3d(encode, &mhi, hi, I, R, groups, N) ||
-      !map3d(encode, &mlo, lo, I, R, groups, N))
+  if (!map3d(encode, &mx, kBF16, x, M, R, groups, N) ||
+      !map3d(encode, &mup, kBF16, w_up, I, M, E, kBK) ||
+      !map3d(encode, &mgate, kBF16, gated ? w_gate : w_up, I, M, E, kBK) ||
+      !map3d(encode, &mdown, kBF16, w_down, M, I, E, kBK) ||
+      !map3d(encode, &mhi, kBF16, hi, I, R, groups, N) ||
+      !map3d(encode, &mlo, kBF16, lo, I, R, groups, N))
     return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (N <= 128) {

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (grouped_ffn_sm90.cuh, flash_attention_sm90.cuh) and the paged decode
-// kernels (paged_decode_sm90.cuh): mbarriers, TMA loads and stores, 1-D bulk
+// (grouped_ffn_sm90.cuh, flash_attention_sm90.cuh) and the decode kernels
+// (decode_sm90.cuh): mbarriers, TMA loads and stores, 1-D bulk
 // copies, the 128-byte-swizzle wgmma descriptor, wgmma fences, and the
 // host's tensor maps.  The wgmma instructions themselves are in
 // wgmma_bf16.cuh.
@@ -179,37 +179,56 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// a bf16 (d2, d1, d0) array, d0 contiguous (d0 % 8 == 0: 16-byte strides),
-// read in boxes of (1, box1, 64) with the 128-byte swizzle; out of bounds
-// reads as 0
-inline bool map3d(EncodeTiledFn encode, CUtensorMap* m, const void* base, uint64_t d0,
-                  uint64_t d1, uint64_t d2, uint32_t box1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {64, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+constexpr CUtensorMapDataType kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+
+// 2 for bf16 and f16, 4 for f32: the element types the maps below take
+inline uint32_t elem_bytes(CUtensorMapDataType type) {
+  return type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4u : 2u;
 }
 
-// a bf16 (d3, d2, d1, d0) array, d0 contiguous (d0 % 8 == 0), read and
-// written in boxes of (1, box2, 1, 64) with the 128-byte swizzle: box2 rows
-// of 128 bytes in shared memory.  Out of bounds reads as 0 and is not
-// written.  For the attention tensors (B, S, H, D): d0 = D, d1 = H, d2 = S,
-// d3 = B, so a box is 64 positions of one head, and positions past S never
-// reach the next batch's rows.
-inline bool map4d(EncodeTiledFn encode, CUtensorMap* m, const void* base, uint64_t d0,
-                  uint64_t d1, uint64_t d2, uint64_t d3, uint32_t box2) {
+// A rank-R array of `type` elements: dims innermost first, dims[0]
+// contiguous, byte strides of dims 1..R-1 (each a multiple of 16, the base
+// 16-byte aligned), read in boxes `box` (each at most 256; box[0] times the
+// element a multiple of 16 bytes).  Out of bounds reads as 0 and is not
+// written.  False where the driver refuses the layout.
+template <int R>
+inline bool map_tiled(EncodeTiledFn encode, CUtensorMap* m, CUtensorMapDataType type,
+                      const void* base, const cuuint64_t (&dims)[R],
+                      const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R],
+                      CUtensorMapSwizzle swizzle) {
+  cuuint32_t elem[R];
+  for (int i = 0; i < R; ++i) elem[i] = 1;
+  return encode(m, type, R, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a contiguous (d2, d1, d0) array of `type`, d0 a multiple of 16 bytes,
+// read in boxes of (1, box1, 128 bytes) with the 128-byte swizzle
+inline bool map3d(EncodeTiledFn encode, CUtensorMap* m, CUtensorMapDataType type,
+                  const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t box1) {
+  const uint32_t eb = elem_bytes(type);
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * eb, d0 * d1 * eb};
+  const cuuint32_t box[3] = {128 / eb, box1, 1};
+  return map_tiled<3>(encode, m, type, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a contiguous (d3, d2, d1, d0) array of `type`, d0 a multiple of 16 bytes,
+// read and written in boxes of (1, box2, 1, 128 bytes) with the 128-byte
+// swizzle: box2 rows of 128 bytes in shared memory.  For the attention
+// tensors (B, S, H, D): d0 = D, d1 = H, d2 = S, d3 = B, so a box is box2
+// positions of one head, and positions past S never reach the next batch's
+// rows.
+inline bool map4d(EncodeTiledFn encode, CUtensorMap* m, CUtensorMapDataType type,
+                  const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t d3,
+                  uint32_t box2) {
+  const uint32_t eb = elem_bytes(type);
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
-  const cuuint32_t box[4] = {64, 1, box2, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  const cuuint64_t strides[3] = {d0 * eb, d0 * d1 * eb, d0 * d1 * d2 * eb};
+  const cuuint32_t box[4] = {128 / eb, 1, box2, 1};
+  return map_tiled<4>(encode, m, type, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -1,133 +1,95 @@
 // Dense-cache decode attention for Hopper (sm_90a), plain C interface for
 // ctypes.
 //
-// Replaces: src/repro/kernels/decode_attention/kernel.py
+// Replaces: src/repro/kernels/decode_attention/kernel.py:63
 //           decode_attention_kernel (the Pallas TPU kernel, _kernel).
 //
 // What it computes: single-token GQA decode over a dense cache, one query
 // per sequence b, G grouped query heads per kv head h:
 //   out[b, h * G + g] = softmax(q[b, h * G + g] . K[b, :len, h]^T * D^-0.5) V[b, :len, h]
-// with q and out (B, Hq, D) and K/V (B, T, Hkv, D) read through their
-// strides (element strides of b, t and h; the last dim contiguous).  Keys
-// past lengths[b] are neither read nor weighted; a row of length 0 writes
-// exactly 0, as the TPU kernel's acc / max(l, 1e-30) with l = 0 does.
+// with q and out (B, Hq, D) contiguous and K/V (B, T, Hkv, D) read through
+// their strides (element strides of b, t and h; the last dim contiguous).
+// Keys past lengths[b] (and past T) are neither read into the result nor
+// weighted; a row of length 0 writes exactly 0, as the TPU kernel's
+// acc / max(l, 1e-30) with l = 0 does.
 //
-// What bounds it on this card: bytes.  A (sequence, head) streams
-// 2 * length * D * sizeof(T) bytes of K/V at ~4 * G * D flops a position.
+// What bounds it on this card: bytes in principle, 2 * length * D *
+// sizeof(T) of K/V a (sequence, head) at ~4 * G * D flops a position; at the
+// m6 decode step (8 sequences of 21-112 positions, 16 kv heads of 64, bf16)
+// that is 1.84 MB, 0.56 us at 3.35 TB/s, so in practice latency: the launch
+// and the dependent DRAM round trips.
 //
-// Design: the TPU kernel's (B, Hkv, T, D) blocking was its wrapper's
-// transpose for VMEM tiles; here the (B, T, Hkv, D) layout is read in place.
-// One CTA per (sequence, kv head), 4 warps interleaved over the valid
-// positions RPW tokens at a time, each warp with its own online softmax,
-// merged in shared memory; the lanes' vector loads and the merge are the
-// row-parallel layout of kernels/csrc/decode_common.cuh.  Any T: the loop
-// ends at min(length, T), so nothing is padded.
-#include "decode_common.cuh"
+// Design (kernels/csrc/decode_sm90.cuh, shared with the two paged kernels):
+// the TPU kernel's (B, Hkv, T, D) blocking was its wrapper's transpose for
+// VMEM tiles; here the (B, T, Hkv, D) layout is read in place, a tile of bs
+// positions of one (sequence, kv head) being one box (D, 1, bs, 1) of a 4-D
+// tensor map over (D, Hkv, T, B) that the host encodes per call from the
+// tensors' strides.  A tile's place needs only its index, so every CTA puts
+// the K and V tiles of its first pass in flight at entry, one thread a
+// stage, beside the load of its length, and the rest of its ring once the
+// length is known: one DRAM round trip before the first score, where the
+// paged kernels pay two (table, then tiles) and loads straight from global
+// memory pay one per pass.  Tiles past the length are waited for and never
+// read; boxes past T are clipped by the copy engine.
+// The 4 warps read the ring in shared memory in the row-parallel layout of
+// decode_common.cuh,
+// and with `splits` > 1 a thread-block cluster splits the tiles and rank 0
+// merges the softmax states.  The wrapper (ops.py::dense_plan) picks
+// `splits` and `stages`.
+#include "decode_sm90.cuh"
 
 namespace {
 
-using namespace decode;
-
-template <typename Fmt, int G, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const typename Fmt::T* __restrict__ q,
-                        const typename Fmt::T* __restrict__ k,
-                        const typename Fmt::T* __restrict__ v,
-                        const int32_t* __restrict__ lengths, typename Fmt::T* __restrict__ out,
-                        int T, int Hkv, long long kb, long long kt, long long kh, long long vb,
-                        long long vt, long long vh, float scale) {
+template <typename TQ, typename Fmt>
+cudaError_t run(CUtensorMapDataType type, const void* q, const void* k, const void* v,
+                const int32_t* lengths, void* out, int B, int T, int Hkv, int G, int D,
+                const long long* ks, const long long* vs, int bs, int splits, int stages,
+                cudaStream_t stream) {
   using E = typename Fmt::T;
-  constexpr int VEC = vec_elems<(int)sizeof(E), G, D>();
-  constexpr int TPR = D / VEC;        // lanes per token row
-  constexpr int RPW = 32 / TPR;       // token rows per warp pass
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = lane / TPR;
-  const int d0 = (lane % TPR) * VEC;
-  int length = lengths[b];
-  if (length > T) length = T;
-  const size_t qo = ((size_t)b * Hkv + h) * G * D;     // (B, Hq, D), Hq = Hkv * G
-  E* o = out + qo;
-  if (length <= 0) {
-    store_zero(o, G * D);
-    return;
-  }
-
-  float qr[G][VEC];
-  load_q<E, G, VEC, D>(q + qo, d0, scale, qr);
-  State<G, VEC> st;
-  st.init();
-
-  const E* kp = k + b * kb + h * kh + d0;
-  const E* vp = v + b * vb + h * vh + d0;
-  for (int t0 = warp * RPW; t0 < length; t0 += kWarps * RPW) {
-    const int t = t0 + row;
-    const bool live = t < length;
-    float kf[VEC], vf[VEC];
-    if (live) {
-      load_vec<Fmt, VEC>(kp + t * kt, kf);
-      load_vec<Fmt, VEC>(vp + t * vt, vf);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.0f;
-    }
-    st.template update<TPR>(qr, kf, 1.0f, vf, 1.0f, live);
-  }
-  merge_store<E, G, VEC, TPR, D>(st, o);
-}
-
-template <typename Fmt, int G>
-cudaError_t launch_g(const void* q, const void* k, const void* v, const int32_t* len, void* out,
-                     int B, int T, int Hkv, int D, const long long* ks, const long long* vs,
-                     cudaStream_t stream) {
-  using E = typename Fmt::T;
-  dim3 grid(B, Hkv), block(kWarps * 32);
-  const float scale = 1.0f / sqrtf((float)D);
-#define REPRO_DA_LAUNCH(DD)                                                             \
-  decode_attention_kernel<Fmt, G, DD><<<grid, block, 0, stream>>>(                      \
-      (const E*)q, (const E*)k, (const E*)v, len, (E*)out, T, Hkv, ks[0], ks[1], ks[2], \
-      vs[0], vs[1], vs[2], scale)
-  switch (D) {
-    case 16: REPRO_DA_LAUNCH(16); break;
-    case 32: REPRO_DA_LAUNCH(32); break;
-    case 64: REPRO_DA_LAUNCH(64); break;
-    case 128: REPRO_DA_LAUNCH(128); break;
-    default: return cudaErrorInvalidValue;
-  }
-#undef REPRO_DA_LAUNCH
-  return cudaGetLastError();
-}
-
-template <typename Fmt>
-cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* len, void* out,
-                   int B, int T, int Hkv, int G, int D, const long long* ks,
-                   const long long* vs, cudaStream_t stream) {
   if (B == 0) return cudaSuccess;
-  switch (G) {
-    case 1: return launch_g<Fmt, 1>(q, k, v, len, out, B, T, Hkv, D, ks, vs, stream);
-    case 2: return launch_g<Fmt, 2>(q, k, v, len, out, B, T, Hkv, D, ks, vs, stream);
-    case 4: return launch_g<Fmt, 4>(q, k, v, len, out, B, T, Hkv, D, ks, vs, stream);
-    case 8: return launch_g<Fmt, 8>(q, k, v, len, out, B, T, Hkv, D, ks, vs, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (T < 1 || bs < 1 || bs > 256 || D > 256 || bs * D * sizeof(E) % 128)
+    return cudaErrorInvalidValue;                        // TMA boxes, 128-byte aligned tiles
+  const sm90::EncodeTiledFn encode = sm90::encode_fn();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t eb = sizeof(E);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t k_strides[3] = {ks[2] * eb, ks[1] * eb, ks[0] * eb};   // h, t, b
+  const cuuint64_t v_strides[3] = {vs[2] * eb, vs[1] * eb, vs[0] * eb};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)bs, 1};
+  decode_sm90::DenseTiles<E> src;
+  if (!sm90::map_tiled<4>(encode, &src.k_map, type, k, dims, k_strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !sm90::map_tiled<4>(encode, &src.v_map, type, v, dims, v_strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;                        // a layout the copy engine refuses
+  src.bs = bs;
+  src.tiles = (T + bs - 1) / bs;
+  src.capacity = T;
+  const decode_sm90::Launch a{q, lengths, out, B, Hkv, G, D, splits, stages};
+  return decode_sm90::launch<TQ, Fmt>(src, a, stream);
 }
 
 }  // namespace
 
 // dtype (of q, k, v and out): 0 = bfloat16, 1 = float32.  k_strides and
-// v_strides: the (b, t, h) element strides.  Returns a cudaError_t.
+// v_strides: the (b, t, h) element strides (multiples of 16 bytes, the
+// base 16-byte aligned).  bs: positions a tile (bs * D * sizeof a multiple
+// of 128 bytes); splits in (1, 2, 4, 8), 1 <= stages <= 32.  Returns a
+// cudaError_t (cudaErrorInvalidValue where the tensor maps cannot be
+// encoded).
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, int B, int T, int Hkv, int G,
                                 int D, long long kb, long long kt, long long kh, long long vb,
-                                long long vt, long long vh, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+                                long long vt, long long vh, int bs, int splits, int stages,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
   const int32_t* len = (const int32_t*)lengths;
   const long long ks[3] = {kb, kt, kh}, vs[3] = {vb, vt, vh};
   if (dtype == 0)
-    return (int)launch<FmtBF16>(q, k, v, len, out, B, T, Hkv, G, D, ks, vs, s);
+    return (int)run<__nv_bfloat16, decode::FmtBF16>(sm90::kBF16, q, k, v, len, out, B, T, Hkv,
+                                                    G, D, ks, vs, bs, splits, stages, s);
   if (dtype == 1)
-    return (int)launch<FmtF32>(q, k, v, len, out, B, T, Hkv, G, D, ks, vs, s);
+    return (int)run<float, decode::FmtF32>(sm90::kF32, q, k, v, len, out, B, T, Hkv, G, D, ks,
+                                           vs, bs, splits, stages, s);
   return (int)cudaErrorInvalidValue;
 }

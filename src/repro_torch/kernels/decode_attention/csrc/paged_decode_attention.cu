@@ -15,15 +15,15 @@
 // (8 rows, at most 7 blocks of 16 positions a row) the K/V bytes take
 // 0.56 us at 3.35 TB/s, less than one dependent DRAM round trip per block.
 //
-// Design (kernels/csrc/paged_decode_sm90.cuh, shared with the quantized
-// kernel): one CTA per (row, kv head, split); one 1-D bulk copy a K or V
+// Design (kernels/csrc/decode_sm90.cuh, shared with the quantized
+// and dense kernels): one CTA per (row, kv head, split); one 1-D bulk copy a K or V
 // tile, every block of the split in flight at once on mbarriers, so a CTA
 // pays one round trip, not one a block; the 4 warps read each arrived tile
 // from shared memory in the row-parallel layout of decode_common.cuh; with
 // `splits` > 1 the row's blocks are split over a thread-block cluster and
 // rank 0 merges the CTAs' softmax states through distributed shared memory.
 // The wrapper (ops.py::split_plan) picks `splits` and the ring's `stages`.
-#include "paged_decode_sm90.cuh"
+#include "decode_sm90.cuh"
 
 // dtype (of q, the pools and out): 0 = bfloat16, 1 = float32.  splits in
 // (1, 2, 4, 8), 1 <= stages <= 32.  Returns a cudaError_t (0 = success).
@@ -32,10 +32,15 @@ extern "C" int paged_decode_attention(int dtype, const void* q, const void* k_po
                                       const void* lengths, void* out, int N, int Hkv,
                                       int G, int D, int bs, int MB, int splits, int stages,
                                       void* stream) {
-  const paged::Args a{q, k_pool, v_pool, nullptr, nullptr, (const int32_t*)tables,
-                      (const int32_t*)lengths, out, N, Hkv, G, D, bs, MB, splits, stages};
+  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages};
+  const int32_t* tbl = (const int32_t*)tables;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)paged::launch<__nv_bfloat16, decode::FmtBF16, false>(a, s);
-  if (dtype == 1) return (int)paged::launch<float, decode::FmtF32, false>(a, s);
+  using decode_sm90::launch_paged;
+  if (dtype == 0)
+    return (int)launch_paged<__nv_bfloat16, decode::FmtBF16, false>(
+        a, k_pool, v_pool, nullptr, nullptr, tbl, bs, MB, s);
+  if (dtype == 1)
+    return (int)launch_paged<float, decode::FmtF32, false>(a, k_pool, v_pool, nullptr, nullptr,
+                                                           tbl, bs, MB, s);
   return (int)cudaErrorInvalidValue;
 }

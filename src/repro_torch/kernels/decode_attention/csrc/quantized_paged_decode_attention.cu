@@ -19,14 +19,14 @@
 // bf16 kernel's bytes (0.29 us at the m6 decode step), far less than one
 // dependent DRAM round trip per block.
 //
-// Design: the bf16 kernel's (kernels/csrc/paged_decode_sm90.cuh): one 1-D
+// Design: the bf16 kernel's (kernels/csrc/decode_sm90.cuh): one 1-D
 // bulk copy a code tile, every block of the split in flight at once; the
 // lane that issues a block's copies also stores its two scales next to the
 // codes in shared memory before the block's barriers complete, and the
 // scales are folded into the score (s * k_scale) and the softmax weight of
 // V (p * v_scale), so the codes are dequantized to f32 in registers and
 // never written anywhere; `splits` > 1 merges over a thread-block cluster.
-#include "paged_decode_sm90.cuh"
+#include "decode_sm90.cuh"
 
 // dtype (of q and out): 0 = bfloat16, 1 = float32.  fmt (of the codes):
 // 0 = int8, 1 = float8_e4m3fn.  splits in (1, 2, 4, 8), 1 <= stages <= 32.
@@ -38,15 +38,22 @@ extern "C" int quantized_paged_decode_attention(int dtype, int fmt, const void* 
                                                 void* out, int N, int Hkv, int G, int D,
                                                 int bs, int MB, int splits, int stages,
                                                 void* stream) {
-  const paged::Args a{q, k_codes, v_codes, (const float*)k_scales, (const float*)v_scales,
-                      (const int32_t*)tables, (const int32_t*)lengths, out, N, Hkv, G, D, bs,
-                      MB, splits, stages};
+  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages};
+  const float* ks = (const float*)k_scales;
+  const float* vs = (const float*)v_scales;
+  const int32_t* tbl = (const int32_t*)tables;
   const cudaStream_t s = (cudaStream_t)stream;
-  using paged::FmtFp8;
-  using paged::FmtInt8;
-  if (dtype == 0 && fmt == 0) return (int)paged::launch<__nv_bfloat16, FmtInt8, true>(a, s);
-  if (dtype == 0 && fmt == 1) return (int)paged::launch<__nv_bfloat16, FmtFp8, true>(a, s);
-  if (dtype == 1 && fmt == 0) return (int)paged::launch<float, FmtInt8, true>(a, s);
-  if (dtype == 1 && fmt == 1) return (int)paged::launch<float, FmtFp8, true>(a, s);
+  using decode_sm90::FmtFp8;
+  using decode_sm90::FmtInt8;
+  using decode_sm90::launch_paged;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && fmt == 0)
+    return (int)launch_paged<bf16, FmtInt8, true>(a, k_codes, v_codes, ks, vs, tbl, bs, MB, s);
+  if (dtype == 0 && fmt == 1)
+    return (int)launch_paged<bf16, FmtFp8, true>(a, k_codes, v_codes, ks, vs, tbl, bs, MB, s);
+  if (dtype == 1 && fmt == 0)
+    return (int)launch_paged<float, FmtInt8, true>(a, k_codes, v_codes, ks, vs, tbl, bs, MB, s);
+  if (dtype == 1 && fmt == 1)
+    return (int)launch_paged<float, FmtFp8, true>(a, k_codes, v_codes, ks, vs, tbl, bs, MB, s);
   return (int)cudaErrorInvalidValue;
 }

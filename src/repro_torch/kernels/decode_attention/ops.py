@@ -10,11 +10,14 @@ wrapper runs the plain version; on CUDA tensors it launches its kernel on
 the current stream or raises.  Each wrapper's ``.launches`` counts its
 kernel launches (and nothing else).
 
-The two paged kernels share one design (``kernels/csrc/paged_decode_sm90.cuh``):
-bulk copies of whole (block, kv head) tiles into a ring of ``stages`` in
-shared memory, and a split of each row's blocks over a thread-block
-cluster of ``splits`` CTAs; :func:`split_plan` picks both from the shapes
-and the longest length the host knows (the lengths stay on the card).
+The three kernels share one design (``kernels/csrc/decode_sm90.cuh``):
+copies of whole tiles of one kv head into a ring of ``stages`` in shared
+memory (the paged kernels' blocks by 1-D bulk copies, the dense cache's
+tiles of ``DENSE_TILE_ROWS`` positions by TMA boxes of a tensor map), and a
+split of each row's tiles over a thread-block cluster of ``splits`` CTAs;
+:func:`split_plan` (:func:`dense_plan` for the dense cache) picks both from
+the shapes and the longest length the host knows (the lengths stay on the
+card).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ _FMT_CODE = {"int8": 0, "fp8": 1}
 # the C signatures in csrc/: (codes..., pointers..., sizes..., strides..., stream)
 _ARGTYPES = [_C] + [_P] * 6 + [_C] * 8 + [_P]
 _QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 8 + [_P]
-_DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_P]
+_DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_C] * 3 + [_P]
 
 SPLITS = (1, 2, 4, 8)         # cluster sizes the paged kernels take (8: the portable limit)
 MIN_SPLIT_PASSES = 2          # a split must keep at least this many passes of the loop
@@ -49,6 +52,8 @@ STAGE_BUDGET = 64 * 1024      # bytes of K/V tiles a CTA keeps in flight, at mos
 MAX_STAGES = 32               # one thread a stage, eight in each of the four warps
 MAX_STAGE_BYTES = 160 * 1024  # one stage (K and V tiles) fits beside the merges (<= 50 KB)
 SMEM_PER_SM = 228 * 1024      # an H100 SM's shared memory, 1 KB of it reserved per CTA
+DENSE_TILE_ROWS = 16          # positions of one dense-cache tile (a TMA box), as an engine block
+TMA_ALIGN = 128               # shared-memory alignment of a TMA box: the dense launch's slack
 
 
 def _stage_bytes(bs: int, D: int, elem_bytes: int) -> int:
@@ -57,11 +62,13 @@ def _stage_bytes(bs: int, D: int, elem_bytes: int) -> int:
     return 2 * bs * D * elem_bytes + 2 * 8 + 2 * 4
 
 
-def _merge_bytes(G: int, D: int, splits: int) -> int:
+def _merge_bytes(G: int, D: int, splits: int, slack: int = 0) -> int:
     """The kernel's shared memory beside its stages: the warps' states
     (static), the cluster merge's barrier and, with a split, one (m, l,
-    acc) slot per rank (``smem_bytes``)."""
-    return 4 * G * (D + 2) * 4 + 8 + (splits * G * (D + 2) * 4 if splits > 1 else 0)
+    acc) slot per rank (``smem_bytes``), plus the launch's alignment
+    ``slack``."""
+    return (4 * G * (D + 2) * 4 + 8 + (splits * G * (D + 2) * 4 if splits > 1 else 0)
+            + slack)
 
 
 def _check_tile(name: str, bs: int, D: int, elem_bytes: int) -> None:
@@ -82,7 +89,7 @@ def _rows_per_pass(D: int, G: int, elem_bytes: int) -> int:
 
 def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: int,
                sm_count: int, splits: Optional[int] = None,
-               max_length: Optional[int] = None) -> Tuple[int, int]:
+               max_length: Optional[int] = None, slack: int = 0) -> Tuple[int, int]:
     """``(splits, stages)`` of one paged decode launch, from shapes and what
     the host knows: the lengths live on the card and are not read, so the
     longest row is ``max_length`` when the caller knows it (the serving
@@ -97,9 +104,9 @@ def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: i
     allow: at most ``STAGE_BUDGET``, and no more than lets every CTA of
     the launch be resident at once (a second wave would cost a second
     round trip); at most ``MAX_STAGES`` (a longer row wraps the ring).  A
-    given ``splits`` is taken as it is.  Raises ValueError for a tile the
-    copy engine refuses (not a multiple of 16 bytes) or that does not
-    fit."""
+    given ``splits`` is taken as it is; ``slack`` is the shared memory
+    the launch adds for alignment.  Raises ValueError for a tile the copy
+    engine refuses (not a multiple of 16 bytes) or that does not fit."""
     _check_tile("paged decode", bs, D, elem_bytes)
     rows = _rows_per_pass(D, G, elem_bytes)
     longest = MB if max_length is None else max(1, min(MB, -(-max_length // bs)))
@@ -111,7 +118,7 @@ def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: i
     elif splits not in SPLITS:
         raise ValueError(f"paged decode: splits {splits} not in {SPLITS}")
     per_sm = -(-N * Hkv * splits // sm_count)
-    resident = ((SMEM_PER_SM // per_sm - 1024 - _merge_bytes(G, D, splits))
+    resident = ((SMEM_PER_SM // per_sm - 1024 - _merge_bytes(G, D, splits, slack))
                 // _stage_bytes(bs, D, elem_bytes))
     stages = min(-(-longest // splits), MAX_STAGES,
                  max(1, min(STAGE_BUDGET // (2 * bs * D * elem_bytes), resident)))
@@ -121,6 +128,20 @@ def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: i
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense_plan(B: int, Hkv: int, G: int, D: int, T: int, elem_bytes: int, sm_count: int,
+               splits: Optional[int] = None,
+               max_length: Optional[int] = None) -> Tuple[int, int]:
+    """``(splits, stages)`` of one dense decode launch: :func:`split_plan`
+    over tiles of ``DENSE_TILE_ROWS`` positions, ceil(T / tile) of them a
+    row, the longest row ``max_length`` where the caller knows it and T
+    otherwise.  The dense kernel issues the tiles of its first pass before
+    it reads the length (a row shorter than those fetches them and never
+    reads them), the rest of its ``stages`` after."""
+    rows = DENSE_TILE_ROWS
+    return split_plan(B, Hkv, G, D, rows, -(-T // rows), elem_bytes, sm_count, splits,
+                      max_length, slack=TMA_ALIGN)
 
 
 def launch_plan(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor,
@@ -346,6 +367,8 @@ def _check_dense(q, k, v, lengths):
     Hkv = k.shape[2]
     if lengths.shape != (B,):
         raise ValueError("decode_attention: lengths (B,)")
+    if k.shape[1] < 1:
+        raise ValueError("decode_attention: an empty cache (T = 0) has no tensor map")
     if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (16, 32, 64, 128):
         raise ValueError(f"decode_attention kernel takes G in (1, 2, 4, 8) and D in "
                          f"(16, 32, 64, 128); got Hq={Hq}, Hkv={Hkv}, D={D}")
@@ -354,16 +377,33 @@ def _check_dense(q, k, v, lengths):
     es = q.element_size()
     for what, t in (("k", k), ("v", v)):
         if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(st * es % 16 for st in t.stride()[:3])):
-            raise ValueError(f"decode_attention: {what} needs a contiguous last dim and "
-                             f"16-byte aligned rows (vector loads); strides {t.stride()}")
+                or any(st * es % 16 for st in _map_strides(t))):
+            raise ValueError(f"decode_attention: {what} needs a contiguous last dim, a "
+                             f"16-byte aligned base and strides of multiples of 16 bytes "
+                             f"(TMA tensor maps); strides {t.stride()}")
+
+
+def _map_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (b, t, h) element strides of a (B, T, Hkv, D) cache as its tensor
+    map takes them: a dim of extent 1 is never stepped, so its stride (any
+    number in PyTorch) becomes the extent of the dims inside it."""
+    B, T, Hkv, D = t.shape
+    sb, st, sh = t.stride()[:3]
+    sh = sh if Hkv > 1 else D
+    st = st if T > 1 else sh * Hkv
+    sb = sb if B > 1 else st * T
+    return sb, st, sh
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, splits: Optional[int] = None,
+                     max_length: Optional[int] = None) -> torch.Tensor:
     """Single-token GQA decode over a dense cache: q (B, Hq, D); k/v
     (B, T, Hkv, D), read through their strides; lengths (B,) int32 valid
-    prefix (0 => output exactly 0).  Returns (B, Hq, D)."""
+    prefix (0 => output exactly 0).  Returns (B, Hq, D).  ``splits``
+    forces the kernel's cluster split (default: :func:`dense_plan`'s);
+    ``max_length``, the longest of ``lengths`` where the caller knows it
+    on the host, informs that plan and nothing else."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -371,14 +411,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_dense(q, k, v, lengths)
     B, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    splits, stages = dense_plan(B, Hkv, Hq // Hkv, D, T, q.element_size(),
+                                _sm_count(q.device.index), splits, max_length)
     out = torch.empty_like(q)
     fn = _lib("decode_attention")
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(), B, T, Hkv, Hq // Hkv, D,
-                 *k.stride()[:3], *v.stride()[:3], _stream(q))
+                 *_map_strides(k), *_map_strides(v), DENSE_TILE_ROWS, splits, stages,
+                 _stream(q))
     if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err} (1: the "
+                           f"copy engine refused a tensor map, or an argument)")
     decode_attention.launches += 1
     return out
 
@@ -386,7 +430,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention.launches = 0
 
 
-__all__ = ["decode_attention", "decode_attention_ref",
+__all__ = ["decode_attention", "decode_attention_ref", "dense_plan",
            "paged_decode_attention", "paged_decode_attention_ref",
            "paged_update_attention", "quantized_paged_decode_attention",
            "quantized_paged_decode_attention_ref", "quantized_paged_update_attention"]

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of decode attention
 (``repro.kernels.decode_attention.ref``): paged, quantized paged and dense.
 The CPU path of the wrappers and what the CUDA kernels are held to; the
-``*_split_ref`` versions compute the paged kernels' split over a
-thread-block cluster and its merge."""
+``*_split_ref`` versions compute the kernels' split over a thread-block
+cluster and its merge."""
 from __future__ import annotations
 
 import torch
@@ -85,10 +85,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
                  bs: int, splits: int) -> torch.Tensor:
     """Attention of qg (N, Hkv, G, D) over the gathered f32 context k/v
-    (N, Hkv, T, D), computed as the paged kernels' cluster computes it:
-    split r takes the row's blocks r, r + splits, r + 2 splits, ... and
-    reduces its live positions to (m, l, acc) (m = -1e30, l = acc = 0 when
-    it has none); the states merge in split order,
+    (N, Hkv, T, D) in tiles of ``bs`` positions, computed as the kernels'
+    cluster computes it: split r takes the row's tiles r, r + splits,
+    r + 2 splits, ... and reduces its live positions to (m, l, acc)
+    (m = -1e30, l = acc = 0 when it has none); the states merge in split
+    order,
     ``out = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30)``
     with M the largest m_r, so a length-0 row comes out exactly 0."""
     N, Hkv, T, D = k.shape
@@ -106,6 +107,22 @@ def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: to
     l_sum = sum(l * torch.exp(m - top) for m, l, _ in states)
     acc = sum(a * torch.exp(m - top)[..., None] for m, _, a in states)
     return acc / torch.clamp(l_sum, min=1e-30)[..., None]
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lengths: torch.Tensor, splits: int,
+                               tile_rows: int = 16) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed through the dense kernel's
+    split over ``splits`` CTAs and their merge (``_split_merge``), over
+    tiles of ``tile_rows`` positions (``ops.DENSE_TILE_ROWS``); positions
+    past T do not exist, those past a length are not weighted."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    kk = k.permute(0, 2, 1, 3).float()                      # (B, Hkv, T, D)
+    vv = v.permute(0, 2, 1, 3).float()
+    out = _split_merge(q.reshape(B, Hkv, Hq // Hkv, D).float(), kk, vv, lengths, tile_rows,
+                       splits)
+    return out.reshape(B, Hq, D).to(q.dtype)
 
 
 def paged_decode_attention_split_ref(q, k_pool, v_pool, block_tables, lengths,

@@ -17,9 +17,12 @@
 
 The flags are the reference's.  Those whose feature is not ported (the
 static engine, sampling temperature, speculative decoding, meshes, SLO
-scheduling, checkpoint loading, the device profiler, the priority trace)
-raise NotImplementedError.
-Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``.
+scheduling, the device profiler, the priority trace) raise
+NotImplementedError.  Weights are random, drawn from a ``torch.Generator``
+seeded by ``--seed``, unless ``--ckpt-dir`` names checkpoints in the
+reference's format: then the latest one's params are served (a train
+checkpoint's ``.params`` leaves or a bare-params checkpoint's, cast to the
+serving tree's storage dtypes).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import time
 
 import numpy as np
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import KV_QUANTS, ServeConfig
 from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
 from repro_torch.core.dispatch import UNPORTED, available_dispatchers
@@ -59,7 +63,6 @@ def _unported(args) -> list:
          "--slo-preempt/--slo-shed/--host-blocks"),
         (args.spec_drafter is not None or args.spec_draft is not None
          or args.spec_draft_ckpt is not None, "--spec-*"),
-        (args.ckpt_dir is not None, "--ckpt-dir"),
         (args.profile_dir is not None, "--profile-dir"),
     ]
     return [flag for cond, flag in checks if cond]
@@ -154,6 +157,14 @@ def main(argv=None):
     if args.capacity_factor is not None and cfg.moe.num_experts:
         cfg = cfg.replace_moe(capacity_factor=parse_capacity_factor(args.capacity_factor))
     params = init_params(cfg, seed=args.seed, device=args.device)
+    if args.ckpt_dir:
+        # params-only restore: no optimizer state, no TrainState; the
+        # Checkpointer reads the params of a train checkpoint (or a
+        # bare-params one) into the serving tree
+        restored, step = Checkpointer(args.ckpt_dir).restore_params_latest(params)
+        if restored is not None:
+            params = restored
+            print(f"restored params-only from checkpoint step {step}")
     if params["embed"]["table"].is_cuda:
         # build the kernels now (all nvcc at once), not inside the first
         # served step, where the build time would land in every latency

@@ -8,36 +8,49 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch m6-base \\
       --moe-impl pallas --steps 8 --batch 8 --seq 144 --routing prototype --k 4
 
-  # smoke size on the CPU (the kernels' plain PyTorch versions run)
+  # smoke size on the CPU (the kernels' plain PyTorch versions run), with a
+  # checkpoint every 2 steps; run again with the same --ckpt-dir to resume
   PYTHONPATH=src python -m repro_torch.launch.train --arch m6-base --smoke \\
-      --moe-impl pallas --steps 4 --batch 4 --seq 36 --device cpu
+      --moe-impl pallas --steps 4 --batch 4 --seq 36 --device cpu \\
+      --ckpt-dir /tmp/ckpt --ckpt-every 2
 
 The flags are the reference's.  Those whose feature is not ported raise
-NotImplementedError: --ckpt-dir (and so restarts: --max-restarts), --data
-or --model above 1, --grad-compression other than none, --optimizer
-adafactor (m6-1t's default), --profile-dir, and routers or dispatchers
-the port does not register.  Weights are random, drawn from a
-``torch.Generator`` seeded by ``--seed``; the data is the reference's
-synthetic pipeline, so both packages read the same batches.
+NotImplementedError: --data or --model above 1, --grad-compression other
+than none, --optimizer adafactor (m6-1t's default), --profile-dir, and
+routers or dispatchers the port does not register.  Weights are random,
+drawn from a ``torch.Generator`` seeded by ``--seed``; the data is the
+reference's synthetic pipeline, so both packages read the same batches.
+
+Checkpoints (``--ckpt-dir``) are the reference's format
+(``repro_torch.checkpoint``), written asynchronously every
+``--ckpt-every`` steps and once at the end; a run starts from the latest
+one, and a step that raises restarts the loop from it, at most
+``--max-restarts`` times (``repro_torch.distributed.fault``).  A
+checkpoint is named by the steps it holds (its ``.step`` leaf), and the
+loop resumes at that leaf's step, so a resumed run takes the batches an
+unbroken one takes.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import dispatch, routers
 from repro_torch.data.pipeline import make_pipeline
+from repro_torch.distributed.fault import StepWatchdog, run_with_restarts
 from repro_torch.kernels import build as kernel_build
 from repro_torch.launch.serve import parse_capacity_factor
 from repro_torch.nn import init_params
 from repro_torch.obs import Observability
 from repro_torch.optim import make_optimizer, warmup_constant
-from repro_torch.train.state import init_train_state
+from repro_torch.train.state import TrainState, init_train_state
 from repro_torch.train.trainer import make_train_step
 
 
@@ -63,8 +76,6 @@ def build(args):
 def _unported(args, cfg, optimizer: str) -> list:
     """Flags set to something this port does not implement."""
     checks = [
-        (args.ckpt_dir is not None, "--ckpt-dir"),
-        (args.max_restarts is not None, "--max-restarts"),
         (args.data > 1 or args.model > 1, "--data/--model > 1"),
         (args.grad_compression != "none", f"--grad-compression {args.grad_compression}"),
         (optimizer == "adafactor", "--optimizer adafactor"),
@@ -104,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", default=1, type=int, help="data mesh axis")
     ap.add_argument("--model", default=1, type=int, help="model mesh axis")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-restarts", type=int, default=None)
+    ap.add_argument("--max-restarts", type=int, default=3)
     ap.add_argument("--trace-out", default=None,
                     help="write per-train-step spans here: Chrome-trace JSON "
                          "(Perfetto), or span JSONL for .jsonl paths")
@@ -118,8 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args):
-    """(cfg, tc, train_step, state, pipeline) as ``main`` builds them."""
+def parts(args):
+    """(cfg, tc, optimizer, train_step, pipeline) as ``main`` builds them."""
     cfg = build(args)
     optimizer = args.optimizer or ("adafactor" if cfg.name == "m6-1t" else "adamw")
     bad = _unported(args, cfg, optimizer)
@@ -134,19 +145,34 @@ def setup(args):
     )
     opt = make_optimizer(tc, warmup_constant(tc.learning_rate, tc.warmup_steps))
     step_fn = make_train_step(cfg, tc, opt)
-    params = init_params(cfg, seed=args.seed, device=args.device, train=True)
-    state = init_train_state(params, opt, tc.grad_compression)
     pipeline = make_pipeline(cfg, args.batch, args.seq, seed=args.seed)
-    return cfg, tc, step_fn, state, pipeline
+    return cfg, tc, opt, step_fn, pipeline
+
+
+def setup(args):
+    """(cfg, tc, train_step, state, pipeline) as ``main`` builds them, the
+    state the seed's."""
+    cfg, tc, opt, step_fn, pipeline = parts(args)
+    return cfg, tc, step_fn, fresh_state(cfg, tc, opt, args), pipeline
+
+
+def fresh_state(cfg, tc, opt, args):
+    """The initial train state: the seed's params (the training tree) and
+    a zero optimizer state."""
+    params = init_params(cfg, seed=args.seed, device=args.device, train=True)
+    return init_train_state(params, opt, tc.grad_compression)
 
 
 def device_batch(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    cfg, tc, step_fn, state, pipeline = setup(args)
+def run(args, on_step: Optional[Callable[[int, TrainState], None]] = None):
+    """Train as the flags say; returns (the logged steps, the final state).
+    ``on_step(step, state)`` is called before each step with the state that
+    step starts from (a test's probe and fault injection: an exception
+    there fails the loop as a failing step would)."""
+    cfg, tc, opt, step_fn, pipeline = parts(args)
     if torch.device(args.device).type == "cuda":
         # build the kernels now (all nvcc at once), not inside the first step
         t0 = time.perf_counter()
@@ -156,32 +182,66 @@ def main(argv=None):
     obs = Observability(tracing=args.trace_out is not None)
     if args.metrics_out:
         obs.metrics_every = max(args.log_every, 1)
-    reg = obs.metrics
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    watchdog = StepWatchdog()
     t_tokens = args.batch * args.seq
     logs = []
-    for step in range(args.steps):
-        t0 = time.time()
-        batch = device_batch(pipeline.batch_at(step), args.device)
-        with obs.tracer.span("train_step", cat="train", step=step, tokens=t_tokens):
-            state, metrics = step_fn(state, batch)
-        reg.counter("train_steps_total").inc()
-        reg.counter("train_tokens_total").inc(t_tokens)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            m = {k: float(v.float().mean()) for k, v in metrics.items()}
-            dt = time.time() - t0
-            m.update(step=step, step_time_s=round(dt, 3), tokens_per_s=round(t_tokens / dt, 1))
-            logs.append(m)
-            for key in ("loss", "ce", "moe_cv", "moe_dropped_fraction",
-                        "moe_aux_loss", "moe_z_loss"):
-                if key in m:
-                    reg.gauge(f"train_{key}").set(m[key])
-            reg.gauge("train_tokens_per_s").set(m["tokens_per_s"])
-            reg.histogram("train_step_ms").observe(dt * 1e3)
-            if args.metrics_out:
-                obs.metrics_row(step=step)
-            print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                  f"cv {m.get('moe_cv', 0):.3f} drop {m.get('moe_dropped_fraction', 0):.3f} "
-                  f"({m['tokens_per_s']:.0f} tok/s)", flush=True)
+    held = {}                                       # the final state
+
+    def resume_step():
+        if ckpt is None:
+            return 0
+        # a failure after save_async returned leaves that checkpoint's files
+        # being written; its snapshot was whole, so let the write finish
+        ckpt.wait()
+        latest = ckpt.latest_step()
+        return 0 if latest is None else latest
+
+    def loop(start: int) -> int:
+        # every attempt starts from a new state (a failed one may be half
+        # updated), which a checkpoint then overwrites leaf for leaf
+        st = fresh_state(cfg, tc, opt, args)
+        if ckpt is not None and start > 0:
+            st = ckpt.restore(start, st)
+        reg = obs.metrics
+        for step in range(st.step, args.steps):
+            if on_step is not None:
+                on_step(step, st)
+            t0 = time.time()
+            batch = device_batch(pipeline.batch_at(step), args.device)
+            with obs.tracer.span("train_step", cat="train", step=step, tokens=t_tokens):
+                st, metrics = step_fn(st, batch)
+            reg.counter("train_steps_total").inc()
+            reg.counter("train_tokens_total").inc(t_tokens)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                m = {k: float(v.float().mean()) for k, v in metrics.items()}
+                dt = time.time() - t0
+                watchdog.observe(dt)
+                m.update(step=step, step_time_s=round(dt, 3),
+                         tokens_per_s=round(t_tokens / dt, 1))
+                logs.append(m)
+                for key in ("loss", "ce", "moe_cv", "moe_dropped_fraction",
+                            "moe_aux_loss", "moe_z_loss"):
+                    if key in m:
+                        reg.gauge(f"train_{key}").set(m[key])
+                reg.gauge("train_tokens_per_s").set(m["tokens_per_s"])
+                reg.histogram("train_step_ms").observe(dt * 1e3)
+                if args.metrics_out:
+                    obs.metrics_row(step=step)
+                print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+                      f"cv {m.get('moe_cv', 0):.3f} drop "
+                      f"{m.get('moe_dropped_fraction', 0):.3f} "
+                      f"({m['tokens_per_s']:.0f} tok/s)", flush=True)
+            # named by the steps it holds: resuming at its .step is exact
+            if ckpt is not None and st.step < args.steps and st.step % args.ckpt_every == 0:
+                ckpt.save_async(st.step, st)
+        if ckpt is not None:
+            ckpt.wait()
+            ckpt.save(args.steps, st)
+        held["state"] = st
+        return args.steps
+
+    run_with_restarts(loop, resume_step, max_restarts=args.max_restarts)
 
     if args.trace_out:
         if args.trace_out.endswith(".jsonl"):
@@ -193,6 +253,11 @@ def main(argv=None):
     if args.log_file:
         with open(args.log_file, "w") as f:
             json.dump(logs, f, indent=1)
+    return logs, held["state"]
+
+
+def main(argv=None):
+    logs, _ = run(build_parser().parse_args(argv))
     return logs
 
 

@@ -255,6 +255,70 @@ def test_decode_attention_matches_reference(B, T, Hq, Hkv, D, dt):
     assert da_ops.decode_attention.launches == 0
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_decode_attention_split_plain_version(G, D, dt):
+    """The dense kernel's split over 1-4 CTAs and their merge, in plain
+    PyTorch (``decode_attention_split_ref``), against the reference's
+    Pallas kernel in interpret mode: lengths 0, 1, T and one that ends
+    inside a 16-position tile, T = 72 not a multiple of the tile.  A
+    length-0 row is exactly 0, as the reference's kernel gives it."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_split_ref
+
+    B, T, Hkv = 4, 72, 2
+    rng = np.random.default_rng(G * 1000 + D)
+    q = rng.standard_normal((B, Hkv * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    lengths = np.array([0, 1, T, 37], np.int32)
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    want = np.asarray(j_decode_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                         jnp.asarray(lengths), block_kv=16), np.float32)
+    assert (want[0] == 0).all()
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)] + [torch.from_numpy(lengths)]
+    assert da_ops.DENSE_TILE_ROWS == 16
+    for splits in (1, 2, 3, 4):
+        got = decode_attention_split_ref(*args, splits, tile_rows=da_ops.DENSE_TILE_ROWS)
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=2e-2)
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("shape,max_length,splits,want", [
+    ((8, 16, 1, 64, 256, 2), None, None, (4, 4)),     # m6 decode, plan from T
+    ((8, 16, 1, 64, 256, 2), 112, None, (2, 4)),      # ... from the longest length
+    ((8, 16, 1, 64, 256, 2), 256, 1, (1, 16)),        # 8 x 256, splits forced
+    ((8, 16, 1, 64, 256, 2), 256, 4, (4, 4)),
+    ((40, 16, 1, 64, 256, 2), None, None, (1, 10)),   # enough CTAs: no split
+    ((3, 16, 1, 64, 1024, 2), None, None, (8, 8)),    # a long cache: the ring wraps
+    ((1, 4, 4, 16, 96, 4), None, None, (1, 6)),       # f32, D = 16
+])
+def test_dense_plan_per_shape(shape, max_length, splits, want):
+    """``dense_plan``: ``split_plan`` over 16-position tiles of the dense
+    cache, for an H100's 132 SMs."""
+    assert da_ops.dense_plan(*shape, sm_count=132, splits=splits,
+                             max_length=max_length) == want
+
+
+def test_dense_wrapper_refuses_layouts_the_copy_engine_does_not_take():
+    """TMA takes a contiguous last dim, a 16-byte aligned base and strides
+    of multiples of 16 bytes, and no empty tensor: the wrapper raises
+    where it would not; a dim of extent 1 may have any stride."""
+    q = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
+    lens = torch.zeros(2, dtype=torch.int32)
+    odd = torch.zeros(2, 40, 3, 20, dtype=torch.bfloat16)[..., :16]      # 40-byte head stride
+    with pytest.raises(ValueError, match="16 bytes"):
+        da_ops._check_dense(q, odd[:, :, :2], odd[:, :, :2], lens)
+    with pytest.raises(ValueError, match="T = 0"):
+        empty = torch.zeros(2, 0, 2, 16, dtype=torch.bfloat16)
+        da_ops._check_dense(q, empty, empty, lens)
+    one = torch.zeros(1, 40, 2, 16, dtype=torch.bfloat16).as_strided((1, 40, 2, 16),
+                                                                      (7, 32, 16, 1))
+    da_ops._check_dense(q[:1], one, one, lens[:1])
+    assert da_ops._map_strides(one) == (40 * 32, 32, 16)
+
+
 def test_decode_attention_reads_strided_cache():
     """A (B, T, Hkv, D) view with gaps (a slice of a longer cache) gives
     what its contiguous copy gives."""

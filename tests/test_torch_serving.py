@@ -168,10 +168,12 @@ def test_cli_serves_on_cpu(capsys):
 
 
 def test_port_imports_without_jax():
-    """Every repro_torch module and chip_smoke.py import with jax blocked."""
+    """Every repro_torch module and chip_smoke.py import with jax and
+    ml_dtypes blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"

@@ -186,7 +186,7 @@ def test_cli_trains_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--ckpt-dir", "x"], "--ckpt-dir"),
+    (["--model", "2"], "--data/--model"),
     (["--optimizer", "adafactor"], "adafactor"),
     (["--grad-compression", "int8"], "--grad-compression"),
     (["--data", "2"], "--data/--model"),
