@@ -26,7 +26,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               their shape and type select (tc_launches): the m6 shapes the
               tensor cores, where each is also held within one bf16 ulp of
               the plain version of that route's numerics (split-h: h as bf16
-              hi + lo; split-P: P as bf16 hi + lo).  The paged kernels also
+              hi + lo; split-P: P as bf16 hi + lo); ragged_ffn at the decode
+              and mixed steps' rows and at phase 9's model drafter's forward
+              (2 routing groups of 1024 rows in one launch).  The paged kernels also
               at every cluster split (1, 2, 4, 8) forced, with a ring of
               stages that wraps (a 1000-token row), f32 at G = 2, 4, 8 and
               D = 32, 128, and a garbage block of 1e4 past every length;
@@ -103,7 +105,35 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               built from the trained params; the serving tree's bf16
               checkpoint must round-trip bit-equal; save seconds, GB/s and
               save_async's snapshot seconds are printed.
-9. report   — a {"kernels": [...]} line, the card line, and as the last line
+9. spec     — m6-base speculative and sampled serving, phase 5's weights
+              and trace, gamma 4: (a) greedy speculative decoding over bf16
+              pools with the ngram drafter, the model drafter (the target's
+              own weights) and a seeded random drafter registered here
+              (rejection and rollback at nearly every verify step); each
+              run must finish every budget, drop nothing, keep the cache's
+              conservation after every step, launch the paged kernel layers
+              x steps times and every ragged FFN on the tensor cores, run
+              verify steps (the model drafter one that accepts 2 or more
+              drafts), and give phase 5's tokens, a request differing first
+              only where a non-speculative run's top two logits are a
+              near-tie (logit_tap; reported with the gap); (b) ngram over
+              int8 pools, held to phase 7a's int8 tokens the same way;
+              (c) the sampler: its uniforms on the card equal to the CPU's,
+              its tokens over 4096 keys equal but at near-ties, a 20 000-key
+              frequency test within 0.015 of softmax(logits / T), and the
+              trace with every request at t = 0, greedy (the step-time
+              baseline), at T = 0.8 without speculation, with ngram and
+              with the model drafter, and at T = 0.05 with the model
+              drafter (drafts must be accepted, some verify step must emit
+              2 or more tokens), each run twice with one seed and identical;
+              (d) every run's tokens/s, mean step, p50/p95, verify steps,
+              acceptance and tokens a verify step beside phase 5's, and the
+              paged, int8 and ragged FFN kernels' times at the verify
+              step's shape (the FFN also at the model drafter's, which
+              phase 3 holds against its plain versions).  A profiler
+              session counts only when it recorded every launch and a time
+              no shorter than the bound (phase 4 and 9 alike).
+10. report  — a {"kernels": [...]} line, the card line, and as the last line
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -164,30 +194,78 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# launches of a spin kernel that open each profiler session: a session can
+# miss its first launches (seen on the card after serving runs: the first
+# 11 of a session's), and these absorb that loss
+PRELUDE_LAUNCHES = 40
+
+
+def open_session(torch) -> None:
+    """Launch the prelude of a profiler session and wait for it."""
+    for _ in range(PRELUDE_LAUNCHES):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """A session's CUDA events (kernels, copies, memsets), but the prelude's."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
 def profiled_kernels(fn, reps: int):
     """torch.profiler over ``reps`` calls of ``fn`` after one warm call:
-    the CUDA events (kernels, copies, memsets) of ``key_averages()``."""
+    the CUDA events (kernels, copies, memsets) of ``key_averages()``, but
+    the session's opening spin kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_session(torch)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return device_events(prof)
 
 
-def device_ms(fn, reps: int = 20, sessions: int = 3):
+def complete_sessions(fn, reps: int, sessions: int = 3, bound_ms=None):
+    """The CUDA events of up to ``sessions`` complete torch.profiler sessions
+    of ``reps`` calls of ``fn``, from at most 3 x ``sessions`` tries.  A
+    session now and then records only part of the calls' kernels, or none,
+    past what its opening launches absorb.  A session is complete when every kernel it recorded ran a multiple of
+    ``reps`` times, it recorded as many launches as the most any session
+    did, and its time a call is no less than ``bound_ms`` (the least the
+    card could take: a shorter reading is a partial record, not a fast
+    kernel).  What was discarded is logged."""
+    runs = []
+    for _ in range(3 * sessions):
+        ev = profiled_kernels(fn, reps)
+        runs.append((ev, sum(e.count for e in ev), all(e.count % reps == 0 for e in ev),
+                     sum(e.self_device_time_total for e in ev) / 1e3 / reps))
+        most = max(r[1] for r in runs)
+        good = [r for r in runs if r[1] == most and r[2] and r[3] > 0
+                and (bound_ms is None or r[3] >= bound_ms)]
+        if len(good) >= sessions:
+            break
+    if len(good) < len(runs):
+        log(f"    profiler: kept {len(good)} of {len(runs)} sessions; launches recorded "
+            f"{[r[1] for r in runs]} over {reps} calls, device ms a call "
+            f"{['%.5f' % r[3] for r in runs]}"
+            + ("" if bound_ms is None else f", bound {bound_ms:.5f}"))
+    return [r[0] for r in good]
+
+
+def device_ms(fn, reps: int = 20, sessions: int = 3, bound_ms=None):
     """Device time of one call of ``fn``: the summed CUDA time of everything
     it launches, from torch.profiler, over ``reps`` calls, the median of
-    ``sessions`` profiler sessions (a session now and then records only
-    part of the calls' kernels, or none); None (not measured) if no
-    session recorded device time."""
-    totals = sorted(t for t in (sum(e.self_device_time_total for e in profiled_kernels(fn, reps))
-                                for _ in range(sessions)) if t > 0)
+    the complete sessions (``complete_sessions``); None (not measured) if
+    no session was complete."""
+    totals = sorted(sum(e.self_device_time_total for e in ev)
+                    for ev in complete_sessions(fn, reps, sessions, bound_ms))
     return totals[len(totals) // 2] / 1e3 / reps if totals else None
 
 
@@ -361,9 +439,10 @@ def dense_case(B, T, Hq, Hkv, D, lengths, seed, dtype=None, pad_t=0):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None):
+def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups=1):
     """Expert-sorted rows exactly as the dropless dispatcher builds them
-    from a top-1 plan over random router logits."""
+    from a top-1 plan over random router logits, for ``groups`` routing
+    groups of ``n_choices`` each (one launch over all groups' rows)."""
     import torch
 
     from repro_torch.configs.base import MoEConfig
@@ -371,21 +450,21 @@ def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None):
     from repro_torch.kernels.moe_dropless.ops import pick_block_rows
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    logits = torch.randn((1, n_choices, E), generator=g, device="cuda")
+    logits = torch.randn((groups, n_choices, E), generator=g, device="cuda")
     plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0),
                      n_choices)
     bx = bx or pick_block_rows(n_choices, E)
     rag = plan.ragged(bx)
-    x = torch.randn((n_choices, M), generator=g, device="cuda").to(torch.bfloat16)
-    tok = torch.clamp(rag.token[0], min=0).long()
-    xs = x[tok].contiguous()
+    x = torch.randn((groups, n_choices, M), generator=g, device="cuda").to(torch.bfloat16)
+    tok = torch.clamp(rag.token, min=0).long()
+    xs = torch.cat([x[i][tok[i]] for i in range(groups)]).contiguous()
     if weights is None:
         def w(*shape):
             return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
 
         gated = act in ("swiglu", "geglu")
         weights = (w(E, M, I), w(E, M, I) if gated else None, w(E, I, M))
-    be = rag.block_expert[0].contiguous()
+    be = rag.block_expert.reshape(-1).contiguous()
     return xs, be, weights, rag, bx
 
 
@@ -438,12 +517,17 @@ def ffn_bound(xs, be, weights, rag, bx):
     the output written, and the weights of the routed experts.  Blocks
     past ``expert_offsets[E]`` are padding clipped to expert E-1, so they
     add neither rows nor an expert."""
+    import torch
+
     M = xs.shape[1]
     w_up, w_gate, w_down = weights
     I = w_up.shape[2]
-    used = int(rag.expert_offsets[0, -1]) // bx            # routed row blocks
-    experts = int(be[:used].unique().numel())               # distinct routed experts
-    live = int((rag.token[0] >= 0).sum())                   # real (token, choice) rows
+    G, nb = rag.block_expert.shape                          # groups, row blocks a group
+    blocks = torch.cat([g * nb + torch.arange(int(rag.expert_offsets[g, -1]) // bx,
+                                              device=be.device) for g in range(G)])
+    used = int(blocks.numel())                              # routed row blocks
+    experts = int(be[blocks].unique().numel())              # distinct routed experts
+    live = int((rag.token >= 0).sum())                      # real (token, choice) rows
     mats = 3 if w_gate is not None else 2
     nbytes = (2 * live * M * xs.element_size() + used * 4
               + experts * mats * M * I * w_up.element_size())
@@ -548,6 +632,14 @@ def phase_check(torch):
         err, split = ragged(f"n={n}", xs, be, weights, "gelu", bx, both=True)
         errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
         errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
+    # the model drafter's full forward: 2 routing groups of 8 x 128 tokens
+    # in one launch, the tile width the dispatcher picks for them
+    xs, be, _, rag, bx = ffn_case(1024, 32, 1024, 4096, seed=150, weights=weights, groups=2)
+    log(f"  ragged_ffn model drafter: R={xs.shape[0]} rows in 2 groups, bx={bx}")
+    err, split = ragged("model drafter", xs, be, weights, "gelu", bx)
+    errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+    errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
+    del xs, be, rag
     xs, be, w128, _, bx = ffn_case(300, 8, 512, 1024, seed=50, bx=128)   # bx = 128
     ragged("bx=128", xs, be, w128, "gelu", bx)
     xs, be, wsw, _, bx = ffn_case(40, 8, 256, 512, seed=60, act="swiglu")
@@ -848,9 +940,10 @@ def time_quantized(torch, lens, seed, name="int8"):
     def kern():                                   # the engine passes its longest row
         return da.quantized_paged_decode_attention(*nxt(), policy=pol, max_length=max(lens))
 
-    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
-    p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
     q, kc, vc, ks, vs, tables, lengths = copies[0]
+    bound, by = quant_attention_bound(q, kc, tables, lengths)
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
     N, Hq, D = q.shape
     Hkv, bs, MB = kc.shape[1], kc.shape[2], tables.shape[1]
     tbl = tables.long()
@@ -863,8 +956,7 @@ def time_quantized(torch, lens, seed, name="int8"):
         v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
         return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
 
-    lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa)
-    bound, by = quant_attention_bound(q, kc, tables, lengths)
+    lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa, bound_ms=bound)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
                 plan=da.launch_plan(q, kc, tables, max_length=max(lens)))
@@ -898,13 +990,13 @@ def time_dense(torch, lens, seed, T=256):
     def kern():
         return da.decode_attention(*nxt(), max_length=max(lens))
 
-    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
-    p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
     q, k, v, lengths = copies[0]
-    sdpa = dense_sdpa(q, k, v, lengths)
     bound, by = dense_bound(q, k, lengths)
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
+    sdpa = dense_sdpa(q, k, v, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
-                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by,
+                library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
                 plan=da.dense_plan(len(lens), 16, 1, 64, T, 2, da._sm_count(0),
                                    max_length=max(lens)))
 
@@ -927,9 +1019,10 @@ def time_attention(torch, lens, seed):
     def kern():                                   # the engine passes its longest row
         return pda.paged_decode_attention(*nxt(), max_length=max(lens))
 
-    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
-    p_ms = cuda_ms(lambda: paged_decode_attention_ref(*nxt()))
     q, kp, vp, tables, lengths = copies[0]
+    bound, by = attention_bound(q, kp, tables, lengths)
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    p_ms = cuda_ms(lambda: paged_decode_attention_ref(*nxt()))
     N, Hq, D = q.shape
     Hkv, bs, MB = kp.shape[1], kp.shape[2], tables.shape[1]
     kk = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
@@ -942,9 +1035,8 @@ def time_attention(torch, lens, seed):
     kernels = sorted(profiled_kernels(sdpa, 4), key=lambda e: -e.self_device_time_total)
     log(f"  SDPA at N={N} launches: " + "; ".join(
         f"{e.key[:90]} ({e.self_device_time_total / 4e3:.5f} ms)" for e in kernels))
-    bound, by = attention_bound(q, kp, tables, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
-                library_device_ms=device_ms(sdpa), bound_ms=bound, bound_by=by,
+                library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
                 plan=pda.launch_plan(q, kp, tables, max_length=max(lens)))
 
 
@@ -971,16 +1063,19 @@ def time_splits(torch, decode_lens, seed=120):
         kernels = {"paged_decode_attention": (
                        bf, lambda c, s: da.paged_decode_attention(*c, splits=s,
                                                                   max_length=longest),
-                       lambda c, s: da.launch_plan(c[0], c[1], c[3], s, longest)),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[3], s, longest),
+                       attention_bound(bf[0][0], bf[0][1], bf[0][3], bf[0][4])[0]),
                    "quantized_paged_decode_attention int8": (
                        i8, lambda c, s: da.quantized_paged_decode_attention(
                            *c, policy=pol, splits=s, max_length=longest),
-                       lambda c, s: da.launch_plan(c[0], c[1], c[5], s, longest)),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[5], s, longest),
+                       quant_attention_bound(i8[0][0], i8[0][1], i8[0][5], i8[0][6])[0]),
                    "decode_attention": (
                        dn, lambda c, s: da.decode_attention(*c, splits=s, max_length=longest),
-                       lambda c, s: da.dense_plan(8, 16, 1, 64, 256, 2, sms, s, longest))}
+                       lambda c, s: da.dense_plan(8, 16, 1, 64, 256, 2, sms, s, longest),
+                       dense_bound(dn[0][0], dn[0][1], dn[0][3])[0])}
         out[label] = {}
-        for name, (copies, call, plan) in kernels.items():
+        for name, (copies, call, plan, bound) in kernels.items():
             rows = []
             for forced in (None, 1, 2, 4, 8):
                 it = iter(range(1 << 30))
@@ -989,7 +1084,7 @@ def time_splits(torch, decode_lens, seed=120):
                     return call(copies[next(it) % 16], forced)
 
                 cuda_ms(fn, reps=100)                 # warm, as phase 4's other timings
-                ms = device_ms(fn)
+                ms = device_ms(fn, bound_ms=bound)
                 splits, stages = plan(copies[0], forced)
                 rows.append((splits, stages, forced is None, ms))
                 log(f"  {label} {name}: splits {splits}{' (chosen)' if forced is None else ''}"
@@ -997,8 +1092,9 @@ def time_splits(torch, decode_lens, seed=120):
             out[label][name] = rows
         sdpa = dense_sdpa(*dn[0])
         cuda_ms(sdpa, reps=100)
-        out[label]["decode_attention sdpa"] = device_ms(sdpa)
-        out[label]["decode_attention bound"] = dense_bound(dn[0][0], dn[0][1], dn[0][3])[0]
+        out[label]["decode_attention bound"] = kernels["decode_attention"][3]
+        out[label]["decode_attention sdpa"] = device_ms(
+            sdpa, bound_ms=out[label]["decode_attention bound"])
         log(f"  {label} decode_attention: SDPA (length mask) device "
             f"{fmt_ms(out[label]['decode_attention sdpa'])} ms, bound "
             f"{out[label]['decode_attention bound']:.5f} ms")
@@ -1006,38 +1102,50 @@ def time_splits(torch, decode_lens, seed=120):
     return out
 
 
-def pass_ms(torch, fn, reps: int = 10) -> dict:
+def pass_ms(torch, fn, reps: int = 10, bound_ms=None) -> dict:
     """Device time of each pass of the tensor-core grouped FFN in one call
-    of ``fn`` (torch.profiler): {"up": ms, "down": ms}, from the kernels
-    ``tc_pass_kernel<N, KIND>`` (KIND 0, 1: the up pass; 2: the down pass)."""
-    out = {"up": 0.0, "down": 0.0}
-    for e in profiled_kernels(fn, reps):
-        m = re.search(r"tc_pass_kernel<\d+, (\d)>", e.key)
-        if m:
-            out["down" if m.group(1) == "2" else "up"] += e.self_device_time_total / 1e3 / reps
-    return out
+    of ``fn`` (torch.profiler, the median of the complete sessions):
+    {"up": ms, "down": ms}, from the kernels ``tc_pass_kernel<N, KIND>``
+    (KIND 0, 1: the up pass; 2: the down pass); None where no session was
+    complete."""
+    per = []
+    for ev in complete_sessions(fn, reps, bound_ms=bound_ms):
+        out = {"up": 0.0, "down": 0.0}
+        for e in ev:
+            m = re.search(r"tc_pass_kernel<\d+, (\d)>", e.key)
+            if m:
+                out["down" if m.group(1) == "2" else "up"] += e.self_device_time_total / 1e3 / reps
+        per.append(out)
+    return {k: sorted(p[k] for p in per)[len(per) // 2] if per else None
+            for k in ("up", "down")}
 
 
-def time_ffn(torch, n, seed, weights):
+def time_ffn(torch, n, seed, weights, groups=1):
     """Kernel, plain and grouped_mm times for one ragged FFN call at the
-    dispatcher's layout for ``n`` routed choices over 32 experts."""
+    dispatcher's layout for ``n`` routed choices over 32 experts (in each
+    of ``groups`` routing groups)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
-    xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights)
+    xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights,
+                                        groups=groups)
 
     def kern():
         return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
 
-    k_ms, k_dev = cuda_ms(kern), device_ms(kern)
+    bound, by = ffn_bound(xs, be, weights, rag, bx)
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
     cc_ms = cuda_ms(on_cuda_cores(rffn, kern))
     p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
     lib_ms = lib_dev = None
     offs = rag.expert_offsets[0, 1:].contiguous()
     w_up, _, w_down = weights
     try:
+        if groups > 1:
+            raise ValueError(f"one set of expert offsets, the launch holds {groups} groups")
+
         def grouped():
             h = F.gelu(F.grouped_mm(xs, w_up, offs=offs), approximate="tanh")
             return F.grouped_mm(h, w_down, offs=offs)
@@ -1045,16 +1153,15 @@ def time_ffn(torch, n, seed, weights):
         live = int(offs[-1])
         ref = ragged_ffn_ref(xs, be, *weights, "gelu")
         if (grouped()[:live].float() - ref[:live].float()).abs().max() <= TOL * 4:
-            lib_ms, lib_dev = cuda_ms(grouped), device_ms(grouped)
+            lib_ms, lib_dev = cuda_ms(grouped), device_ms(grouped, bound_ms=bound)
         else:
             log("  grouped_mm yardstick disagrees with the plain version: not timed")
     except (RuntimeError, TypeError, ValueError) as exc:
         log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
-    bound, by = ffn_bound(xs, be, weights, rag, bx)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=bound, bound_by=by, cuda_core_ms=cc_ms,
-                pass_ms=pass_ms(torch, kern))
+                pass_ms=pass_ms(torch, kern, bound_ms=bound))
 
 
 def time_moe_ffn(torch, X, seed):
@@ -1079,9 +1186,10 @@ def time_moe_ffn(torch, X, seed):
     p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, None, w_down, "gelu"), reps=5)
     lib_ms = cuda_ms(bmm, reps=10)
     bound, by = moe_ffn_bound(x, w_up, None)
-    return dict(ms=k_ms, device_ms=device_ms(kern, reps=10), plain_ms=p_ms, library_ms=lib_ms,
-                library_device_ms=device_ms(bmm, reps=10), bound_ms=bound, bound_by=by,
-                cuda_core_ms=cc_ms, pass_ms=pass_ms(torch, kern))
+    return dict(ms=k_ms, device_ms=device_ms(kern, reps=10, bound_ms=bound), plain_ms=p_ms,
+                library_ms=lib_ms, library_device_ms=device_ms(bmm, reps=10, bound_ms=bound),
+                bound_ms=bound, bound_by=by, cuda_core_ms=cc_ms,
+                pass_ms=pass_ms(torch, kern, bound_ms=bound))
 
 
 def time_flash(torch, B, S, H, D, seed, copies=16):
@@ -1114,16 +1222,17 @@ def time_flash(torch, B, S, H, D, seed, copies=16):
                                               v.transpose(1, 2), is_causal=True)
 
     cc = on_cuda_cores(fa, kern, "flash_tensor_core_route")
-    out = dict(ms=cuda_ms(kern), device_ms=device_ms(kern), cuda_core_ms=cuda_ms(cc),
-               cuda_core_device_ms=device_ms(cc),
+    bound, by = flash_bound(*sets[0][:2], True)
+    out = dict(ms=cuda_ms(kern), device_ms=device_ms(kern, bound_ms=bound),
+               cuda_core_ms=cuda_ms(cc), cuda_core_device_ms=device_ms(cc, bound_ms=bound),
                plain_ms=cuda_ms(lambda: attention_ref(*nxt(), True)),
-               library_ms=cuda_ms(sdpa), library_device_ms=device_ms(sdpa),
+               library_ms=cuda_ms(sdpa), library_device_ms=device_ms(sdpa, bound_ms=bound),
                warm_device_ms=device_ms(lambda: kern(sets[0])),
                library_warm_device_ms=device_ms(lambda: sdpa(sets[0])))
     kernels = sorted(profiled_kernels(sdpa, 4), key=lambda e: -e.self_device_time_total)
     log(f"  SDPA at S={S} launches: " + "; ".join(
         f"{e.key[:90]} ({e.self_device_time_total / 4e3:.5f} ms)" for e in kernels))
-    out["bound_ms"], out["bound_by"] = flash_bound(*sets[0][:2], True)
+    out["bound_ms"], out["bound_by"] = bound, by
     return out
 
 
@@ -1159,7 +1268,8 @@ def timing_line(r) -> str:
         if "cuda_core_device_ms" in r:
             cc += f" (device {fmt_ms(r['cuda_core_device_ms'])})"
     if "pass_ms" in r:
-        cc += f", passes {r['pass_ms']['up']:.4f} + {r['pass_ms']['down']:.4f} ms (device)"
+        cc += (f", passes {fmt_ms(r['pass_ms']['up'])} + {fmt_ms(r['pass_ms']['down'])} ms "
+               f"(device)")
     if "plan" in r:
         cc += f", splits {r['plan'][0]}, stages {r['plan'][1]}"
     lib = "null" if r["library_ms"] is None else (f"{r['library_ms']:.4f} ms (device "
@@ -1219,7 +1329,7 @@ def remeasure(torch, timing, ffn_weights):
     out = {}
     for name, (fn, reps) in calls.items():
         cuda_ms(fn, reps=reps)                        # warm, as in phase 4
-        ms = device_ms(fn, reps=reps)
+        ms = device_ms(fn, reps=reps, bound_ms=timing[name]["bound_ms"])
         first = timing[name]["device_ms"]
         ratio = ms / first if ms and first else None
         out[name] = (first, ms, ratio)
@@ -1328,7 +1438,6 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
     """torch.profiler over engine steps of the trace's first 8 requests,
     all admitted at once: device busy share (kernel time over wall time)
     and the kernels that take the device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.continuous import ContinuousEngine
@@ -1342,6 +1451,7 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
         eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_session(torch)
         t0 = time.perf_counter()
         n = 0
         while n < n_steps and eng.scheduler.has_work():
@@ -1351,7 +1461,7 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device kernels (and copies) only: an aten op's own device time is that
     # of the kernels it launched, which are listed again as their own events.
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
 
     def dev_us(e):
         return float(e.self_device_time_total)
@@ -1657,18 +1767,18 @@ def train_on_cuda_cores(torch, mf, runs) -> dict:
 def profile_train_steps(torch, state, step_fn, batch, n_steps=2):
     """torch.profiler over ``n_steps`` train steps after one warm step:
     device busy share and the kernels that take the device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_session(torch)
         t0 = time.perf_counter()
         for _ in range(n_steps):
             state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_us = sum(float(e.self_device_time_total) for e in kernels)
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
@@ -1901,7 +2011,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
     """Phase 7 (a): the trace under kv_quant int8 then fp8.  Launch counts
     are reset once before the int8 run and read after the fp8 run; each run
     must launch the quantized attention kernel layers x steps times and the
-    bf16 paged kernel never.  Returns (launches, report)."""
+    bf16 paged kernel never.  Returns (launches, report, {kv_quant: tokens})."""
     import dataclasses
 
     from repro_torch.configs.base import ServeConfig
@@ -1917,7 +2027,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
     for fn in counters.values():
         fn.launches = 0
     rffn.ragged_ffn.tc_launches = 0
-    report, before = {}, {n: 0 for n in counters}
+    report, before, outs = {}, {n: 0 for n in counters}, {}
     for name in ("int8", "fp8"):
         out, stats, eng, wall_ms = serve_once(
             torch, cfg, params, dataclasses.replace(serve, kv_quant=name), requests, device)
@@ -1934,6 +2044,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
             raise AssertionError(f"kv_quant {name}: dropped fraction "
                                  f"{stats['moe_dropped_fraction']}")
         match = token_match(base_tokens, out)
+        outs[name] = out
         log(f"  kv_quant {name}: {latency_line(stats)}; {steps} steps, mean step "
             f"{wall_ms / steps:.3f} ms (host clock); launches {got}; token match against "
             f"phase 5 (bf16 pools) {match:.4f}; block bytes {eng.cache.block_bytes}")
@@ -1955,7 +2066,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
                                                   probe_lens)
     report["kernels_vs_plain_int8"] = compare_mixed_step(
         torch, cfg, params, dataclasses.replace(serve, kv_quant="int8"), requests, device)
-    return launches, report
+    return launches, report, outs
 
 
 def logit_divergence(torch, cfg, params, serve, device="cuda", probe_lens=(24, 64)):
@@ -2117,12 +2228,12 @@ def phase_kv(torch, base_tokens):
     cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
     params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
     requests = synthetic_trace(16, cfg.vocab_size, seed=0)
-    launches, report = quant_serving_runs(torch, cfg, params, requests, base_tokens)
+    launches, report, tokens = quant_serving_runs(torch, cfg, params, requests, base_tokens)
     report["capacity"] = capacity_runs(torch, cfg, params)
     report["prefix"] = prefix_runs(torch, cfg, params)
     report["dense_on_engine_pools"] = dense_on_engine_pools(torch, cfg, params, requests)
     launches["decode_attention"] = report["dense_on_engine_pools"]["launches"]
-    return launches, report
+    return launches, report, tokens
 
 
 # ---------------------------------------------------------------------------
@@ -2344,6 +2455,460 @@ def checkpoint_phase(torch, argv, device="cuda", layers=CKPT_LAYERS, requests=No
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: speculative and sampled serving
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+SAMPLE_T = 0.8
+SAMPLE_T_LOW = 0.05             # peaked enough that the model drafter's drafts are accepted
+RANDOM_DRAFTER = "chip-smoke-random"
+
+
+class RandomDrafter:
+    """Proposes ``max_tokens`` seeded random ids every round, so nearly every
+    draft is rejected and rolled back."""
+
+    name = RANDOM_DRAFTER
+
+    def __init__(self, spec, target_cfg, serve, *, seed=0, draft_model=None, device="cuda"):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed + 0xD4AF7)
+        self.vocab = target_cfg.vocab_size
+
+    def propose(self, items):
+        return [self.rng.integers(0, self.vocab, it.max_tokens).astype("int32") for it in items]
+
+
+def logit_tie(margin: float, top: float) -> bool:
+    """A top-two gap that two logits, each moved by the kernels-vs-plain
+    tolerance (TOL + TOL x |logit|), can close."""
+    return margin <= 2 * (TOL + TOL * abs(top))
+
+
+def tapped_margins(torch, cfg, params, serve, requests, device="cuda"):
+    """A non-speculative run with ``logit_tap``: ({uid: tokens}, {(uid,
+    position): (top-two logit gap, top logit)}) over every live row."""
+    import numpy as np
+
+    V = cfg.vocab_size
+    margins, holder = {}, []
+
+    def tap(lg, slots, pos, lens):
+        running = holder[0].scheduler.running
+        for i in np.flatnonzero(lens > 0):
+            top2 = np.partition(lg[i, :V], V - 2)[V - 2:]
+            margins[running[int(slots[i])].request.uid, int(pos[i])] = (
+                float(top2[1] - top2[0]), float(top2[1]))
+
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap)
+    holder.append(eng)
+    out, _ = eng.run(requests)
+    return out, margins
+
+
+def first_divergences(base, other, margins, requests, label):
+    """Requests whose tokens differ from ``base``: each must first differ
+    where the non-speculative run's top-two logits are a near-tie
+    (``logit_tie``); reported with the gap.  Returns [(uid, index, gap)]."""
+    plen = {r.uid: r.prompt_len for r in requests}
+    out = []
+    for uid in sorted(base):
+        a, b = base[uid], other[uid]
+        if a == b:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap, top = margins[uid, plen[uid] - 1 + p]
+        out.append((uid, p, gap))
+        log(f"  {label}: request {uid} first differs at generated token {p} ({a[p]} "
+            f"non-speculative, {b[p]} here): non-speculative top-two logit gap {gap:.4g} "
+            f"(top logit {top:.4g})")
+        if not logit_tie(gap, top):
+            raise AssertionError(f"{label}: request {uid} differs at token {p} where the top "
+                                 f"two logits are {gap} apart, not a near-tie")
+    return out
+
+
+@contextmanager
+def recorded_acceptance(store: list):
+    """Record every slot's (drafts, accepted drafts, emitted) of every
+    verify step."""
+    from unittest import mock
+
+    from repro_torch.serving import continuous
+
+    real_g, real_r = continuous.accept_greedy_ids, continuous.accept_rejection
+
+    def greedy(d, rows):
+        emitted, n = real_g(d, rows)
+        store.append((len(d), n, len(emitted)))
+        return emitted, n
+
+    def rejection(d, rows, t, rng):
+        emitted, n = real_r(d, rows, t, rng)
+        store.append((len(d), n, len(emitted)))
+        return emitted, n
+
+    with mock.patch.object(continuous, "accept_greedy_ids", greedy), \
+            mock.patch.object(continuous, "accept_rejection", rejection):
+        yield
+
+
+@contextmanager
+def recorded_ffn_shapes(store: dict):
+    """Count the dropless dispatcher's ragged FFN calls by (rows, block
+    rows).  The dispatcher's handle on the kernel module is swapped, not the
+    module's own ``ragged_ffn``, whose launch counters stay in place."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from repro_torch.core.dispatch import dropless
+
+    real = dropless.dropless_ops.ragged_ffn
+
+    def ffn(x, be, *args, block_x=128, **kw):
+        key = (int(x.shape[0]), int(block_x))
+        store[key] = store.get(key, 0) + 1
+        return real(x, be, *args, block_x=block_x, **kw)
+
+    with mock.patch.object(dropless, "dropless_ops", SimpleNamespace(ragged_ffn=ffn)):
+        yield
+
+
+def spec_run(torch, cfg, params, serve, requests, device, **kw):
+    """One speculative run with the kernels' launch counters reset just
+    before it and read just after: (tokens, stats, engine, wall ms,
+    launches, per-slot acceptances, ragged FFN shapes)."""
+    from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import ops as rffn
+
+    counters = {"paged_decode_attention": pda.paged_decode_attention,
+                "quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
+                "ragged_ffn": rffn.ragged_ffn}
+    for fn in counters.values():
+        fn.launches = 0
+    rffn.ragged_ffn.tc_launches = 0
+    accepts, shapes = [], {}
+    with recorded_acceptance(accepts), recorded_ffn_shapes(shapes):
+        out, stats, eng, wall_ms = serve_once(torch, cfg, params, serve, requests, device,
+                                              check_invariants=True, **kw)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    launches["ragged_ffn tensor cores"] = rffn.ragged_ffn.tc_launches
+    return out, stats, eng, wall_ms, launches, accepts, shapes
+
+
+def spec_report(stats, eng, wall_ms, accepts) -> dict:
+    return dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+                p95_ms=stats["p95_ms"], steps=eng.steps, mean_step_ms=wall_ms / eng.steps,
+                verify_steps=eng.spec_stats["verify_steps"],
+                spec_acceptance_rate=stats.get("acceptance_rate"),
+                spec_tokens_per_step=stats.get("spec_tokens_per_step"),
+                max_accepted_in_a_step=max((n for _, n, _ in accepts), default=0),
+                partial_acceptances=sum(0 < n < d for d, n, _ in accepts))
+
+
+def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, device="cuda",
+                      max_len=256, gamma=SPEC_GAMMA):
+    """Phase 9 (a) and (b): greedy speculative decoding with the ngram, model
+    (the target's own weights) and random drafters over bf16 pools, then
+    ngram over int8 pools; each held to the non-speculative tokens."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServeConfig, SpecConfig
+    from repro_torch.serving.speculative import available_drafters, register_drafter
+    from repro_torch.serving.trace import latency_line
+
+    if RANDOM_DRAFTER not in available_drafters():
+        register_drafter(RandomDrafter)
+    on_card = torch.device(device).type == "cuda"
+    serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)))
+    ref, margins = {}, {}
+    for kv, base in (("none", base_tokens), ("int8", int8_tokens)):
+        ref[kv], margins[kv] = tapped_margins(torch, cfg, params,
+                                              dataclasses.replace(serve, kv_quant=kv),
+                                              requests, device)
+        if ref[kv] != base:
+            raise AssertionError(f"kv_quant {kv}: a second non-speculative run gave other "
+                                 f"tokens than the first")
+    report = {}
+    for drafter, kv in (("ngram", "none"), ("model", "none"), (RANDOM_DRAFTER, "none"),
+                        ("ngram", "int8")):
+        label = f"{drafter} over {'bf16' if kv == 'none' else kv} pools"
+        sv = dataclasses.replace(serve, kv_quant=kv,
+                                 spec=SpecConfig(drafter=drafter, gamma=gamma))
+        dm = (cfg, params) if drafter == "model" else None
+        out, stats, eng, wall_ms, launches, accepts, shapes = spec_run(
+            torch, cfg, params, sv, requests, device, draft_model=dm)
+        want = cfg.num_layers * eng.steps
+        attn = "paged_decode_attention" if kv == "none" else "quantized_paged_decode_attention"
+        other = "quantized_paged_decode_attention" if kv == "none" else "paged_decode_attention"
+        if on_card and (launches[attn] != want or launches[other]):
+            raise AssertionError(f"{label}: launches {launches}, expected {attn} {want} = "
+                                 f"layers x steps and {other} 0")
+        if on_card and launches["ragged_ffn tensor cores"] != launches["ragged_ffn"]:
+            raise AssertionError(f"{label}: {launches['ragged_ffn tensor cores']} of "
+                                 f"{launches['ragged_ffn']} ragged_ffn launches on the "
+                                 f"tensor-core route")
+        if stats["moe_dropped_fraction"] != 0.0:
+            raise AssertionError(f"{label}: dropped fraction {stats['moe_dropped_fraction']}")
+        rep = spec_report(stats, eng, wall_ms, accepts)
+        if rep["verify_steps"] <= 0:
+            raise AssertionError(f"{label}: no verify step ran")
+        if drafter == "model" and rep["max_accepted_in_a_step"] < 2:
+            raise AssertionError(f"{label}: no verify step accepted 2 or more drafts")
+        rep["divergences"] = first_divergences(ref[kv], out, margins[kv], requests, label)
+        rep["token_match"] = token_match(ref[kv], out)
+        rep["launches"] = launches
+        rep["ragged_ffn_shapes"] = {f"{n} rows, bx {bx}": c for (n, bx), c in shapes.items()}
+        log(f"  {label}: {latency_line(stats)}; {eng.steps} steps ({rep['verify_steps']} "
+            f"verify), mean step {rep['mean_step_ms']:.3f} ms (host clock); acceptance "
+            f"{rep['spec_acceptance_rate']:.3f}, {rep['spec_tokens_per_step']:.3f} tokens a "
+            f"verify step, at most {rep['max_accepted_in_a_step']} drafts accepted in one "
+            f"step; token match {rep['token_match']:.4f}; launches {launches}; ragged FFN "
+            f"calls by shape {rep['ragged_ffn_shapes']}")
+        report[label] = rep
+    return report
+
+
+def sampler_checks(torch, device="cuda", T=SAMPLE_T, seed=5):
+    """Phase 9 (c), the sampler alone: over fixed f32 logits, the tokens
+    ``_sample_rows`` draws on ``device`` for 4096 (slot, position) keys
+    against the CPU's (the integer uniforms must be equal; a token may
+    differ only at a near-tie of the perturbed scores), and a 20 000-key
+    frequency test against softmax(logits / T) at atol 0.015, the
+    reference's own bound."""
+    import numpy as np
+
+    from repro_torch.serving.continuous import _row_uniforms, _sample_rows
+
+    rng = np.random.default_rng(21)
+    logits = (rng.standard_normal((4096, 1024)) * 2.0).astype(np.float32)
+    slots = rng.integers(0, 8, 4096)
+    pos = rng.permutation(4096)
+    lg_dev = torch.from_numpy(logits).to(device)
+    u_dev = _row_uniforms(seed, slots, pos, 1024, torch.device(device)).cpu()
+    u_cpu = _row_uniforms(seed, slots, pos, 1024, torch.device("cpu"))
+    if not torch.equal(u_dev, u_cpu):
+        raise AssertionError("the sampler's uniforms differ between the card and the CPU")
+    got = _sample_rows(lg_dev, slots, pos, T, seed).cpu()
+    want = _sample_rows(torch.from_numpy(logits), slots, pos, T, seed)
+    t = torch.tensor(T, dtype=torch.float32)
+    scores = (torch.from_numpy(logits) / t).double() - torch.log(-torch.log(u_cpu))
+    ties = 0
+    for r in torch.nonzero(got != want).flatten().tolist():
+        a, b = float(scores[r, got[r]]), float(scores[r, want[r]])
+        if abs(a - b) > 1e-9 * max(1.0, abs(b)):
+            raise AssertionError(f"sampled token differs from the CPU's at key {r}: scores "
+                                 f"{a} and {b} are no near-tie")
+        ties += 1
+    V = 6
+    probe = (rng.standard_normal((1, V)) * 2.0).astype(np.float32)
+    n = 20_000
+    keys = np.arange(n)
+    draws = _sample_rows(torch.from_numpy(np.repeat(probe, n, 0)).to(device), keys % 8,
+                         keys // 8, T, seed).cpu().numpy()
+    z = probe[0].astype(np.float64) / T
+    p = np.exp(z - z.max())
+    p /= p.sum()
+    freq = np.bincount(draws, minlength=V) / n
+    err = float(np.abs(freq - p).max())
+    log(f"  sampler: 4096 keys over 1024 logits, the card's tokens equal the CPU's on "
+        f"{4096 - ties} ({ties} near-tie differences); frequencies of {n} draws within "
+        f"{err:.4f} of softmax(logits / {T}) (bound 0.015)")
+    if err > 0.015:
+        raise AssertionError(f"sampled frequencies {err} off softmax(logits / T) (> 0.015)")
+    return dict(keys=4096, near_tie_differences=ties, frequency_max_err=err)
+
+
+def sampled_serving_runs(torch, cfg, params, requests, device="cuda", max_len=256,
+                         T=SAMPLE_T, T_low=SAMPLE_T_LOW, seed=7, gamma=SPEC_GAMMA):
+    """Phase 9 (c), served: the trace greedy (the step-time baseline), at
+    temperature T without speculation, with ngram and with the model
+    drafter (which always drafts, so its verify steps run the host's
+    rejection sampling), and at the low temperature ``T_low`` with the
+    model drafter, where drafts must be accepted (multi-token emissions of
+    ``accept_rejection``, rollback after a partial acceptance); each run
+    twice with one seed, the two runs must give the same tokens, every id
+    in the vocab.  Every request arrives at t = 0: admission then does not
+    hang on the host's clock, so each request gets the same slot in both
+    runs, and with it the same sampling keys (seed, slot, position)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServeConfig, SpecConfig
+    from repro_torch.serving.trace import latency_line
+
+    requests = [dataclasses.replace(r, arrival_ms=0.0) for r in requests]
+    serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)))
+    report = {}
+    for t, drafter in ((0.0, None), (T, None), (T, "ngram"), (T, "model"), (T_low, "model")):
+        label = (f"T = {t}, " if t else "greedy, ") + (drafter or "no speculation")
+        sv = serve if drafter is None else dataclasses.replace(
+            serve, spec=SpecConfig(drafter=drafter, gamma=gamma))
+        dm = (cfg, params) if drafter == "model" else None
+        runs = [spec_run(torch, cfg, params, sv, requests, device, temperature=t, seed=seed,
+                         draft_model=dm) for _ in range(2)]
+        (out, stats, eng, wall_ms, _, accepts, _), (again, *_) = runs
+        if out != again:
+            raise AssertionError(f"{label}: two runs with one seed gave other tokens")
+        bad = [tok for v in out.values() for tok in v if not 0 <= tok < cfg.vocab_size]
+        if bad:
+            raise AssertionError(f"{label}: sampled ids outside the vocab: {bad[:8]}")
+        if drafter == "model" and eng.spec_stats["verify_steps"] <= 0:
+            raise AssertionError(f"{label}: no verify step ran")
+        rep = spec_report(stats, eng, wall_ms, accepts) if drafter else dict(
+            tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+            p95_ms=stats["p95_ms"], steps=eng.steps, mean_step_ms=wall_ms / eng.steps)
+        if t == T_low and (eng.spec_stats["accepted"] <= 0
+                           or not any(e >= 2 for _, _, e in accepts)):
+            raise AssertionError(f"{label}: no draft accepted, or no verify step emitted 2 or "
+                                 f"more tokens ({eng.spec_stats})")
+        log(f"  {label}: {latency_line(stats)}; {eng.steps} steps, mean step "
+            f"{rep['mean_step_ms']:.3f} ms (host clock)"
+            + (f"; {rep['verify_steps']} verify steps, acceptance "
+               f"{rep['spec_acceptance_rate']:.3f}, {rep['spec_tokens_per_step']:.3f} tokens "
+               f"a verify step, {rep['partial_acceptances']} partial acceptances"
+               if drafter else "")
+            + "; the second run's tokens equal the first's")
+        report[label] = rep
+    return report
+
+
+def verify_attention_case(slot_lens, drafts, seed, name=None):
+    """The verify step's attention at m6 widths: 8 slots of context c, each
+    with its g + 1 rows of lengths c + 1 .. c + g + 1 sharing the slot's
+    block table, the other rows of its gamma + 1 length 0; bf16 pools, or
+    their int8 codes and scales (``name``).  (q, pools..., tables, lengths)
+    in the wrapper's order."""
+    import torch
+
+    W = SPEC_GAMMA + 1
+    q8, kp, vp, tables, _ = attention_case(len(slot_lens), 16, 16, 64, 16, 16,
+                                           [c + g + 1 for c, g in zip(slot_lens, drafts)],
+                                           seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.randn((len(slot_lens) * W, 16, 64), generator=g, device="cuda").to(q8.dtype)
+    lens = [c + j + 1 if j <= d else 0 for c, d in zip(slot_lens, drafts) for j in range(W)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tables = tables.repeat_interleave(W, 0).contiguous()
+    if name is None:
+        return q, kp, vp, tables, lengths
+    kc, ks, vc, vs = quantize_pools(kp, vp, name)
+    return q, kc, vc, ks, vs, tables, lengths
+
+
+def verify_attention_bound(q, pool, lengths, quantized):
+    """q read and out written once; each slot's K/V positions once (its
+    rows share them), with one K and one V scale per (block, head) when
+    quantized; the tables and lengths.  Flops over every row's length."""
+    N, Hq, D = q.shape
+    Hkv, bs = pool.shape[1], pool.shape[2]
+    W = SPEC_GAMMA + 1
+    per_slot = lengths.reshape(-1, W).amax(dim=1).float()
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * float(per_slot.sum()) * Hkv * D * pool.element_size()
+              + N * 16 * 4 + N * 4)
+    if quantized:
+        nbytes += 2 * float(((per_slot + bs - 1) // bs).sum()) * Hkv * 4
+    return roofline(nbytes, 4.0 * Hq * D * float(lengths.sum()))
+
+
+def time_verify_attention(torch, name=None, seed=130):
+    """Kernel, plain and library times of the paged (bf16) or quantized
+    (int8) kernel at the verify step's shape, 40 rows over 16 rotating
+    copies, after holding the kernel against its plain version (length-0
+    rows exactly 0)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref,
+        quantized_paged_decode_attention_ref,
+    )
+    from repro_torch.quant import get_kv_quant
+
+    slot_lens, drafts = [21, 56, 112, 9, 74, 33, 98, 47], [4, 4, 2, 0, 4, 1, 4, 3]
+    copies = [verify_attention_case(slot_lens, drafts, seed + c, name) for c in range(16)]
+    longest = max(c + d + 1 for c, d in zip(slot_lens, drafts))
+    if name is None:
+        def call(c):
+            return da.paged_decode_attention(*c, max_length=longest)
+
+        def plain(c):
+            return paged_decode_attention_ref(*c)
+    else:
+        pol = get_kv_quant(name)
+
+        def call(c):
+            return da.quantized_paged_decode_attention(*c, policy=pol, max_length=longest)
+
+        def plain(c):
+            return quantized_paged_decode_attention_ref(*c, policy=pol)
+
+    c0 = copies[0]
+    q, pool, tables, lengths = c0[0], c0[1], c0[-2], c0[-1]
+    got = call(c0)
+    err = check_close(f"verify shape, {'bf16' if name is None else name} pools", got, plain(c0))
+    if (got[lengths == 0] != 0).any():
+        raise AssertionError("verify shape: a length-0 row's output is not exactly 0")
+    bound, by = verify_attention_bound(q, pool, lengths, name is not None)
+    it = iter(range(1 << 30))
+    k_ms = cuda_ms(lambda: call(copies[next(it) % 16]))
+    k_dev = device_ms(lambda: call(copies[next(it) % 16]), bound_ms=bound)
+    p_ms = cuda_ms(lambda: plain(copies[next(it) % 16]))
+    N, Hq, D = q.shape
+    Hkv, bs, MB = pool.shape[1], pool.shape[2], tables.shape[1]
+    tbl = tables.long()
+    if name is None:
+        kk, vv = c0[1][tbl], c0[2][tbl]
+    else:
+        kk = (pol.decode(c0[1][tbl]) * c0[3][tbl][..., None, None]).to(q.dtype)
+        vv = (pol.decode(c0[2][tbl]) * c0[4][tbl][..., None, None]).to(q.dtype)
+    kk = kk.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    vv = vv.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
+    mask = (torch.arange(MB * bs, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
+
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
+                library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
+                max_abs_err=err, plan=da.launch_plan(q, pool, tables, max_length=longest))
+
+
+def phase_spec(torch, base_tokens, int8_tokens, e2e, kv):
+    """Phase 9: m6-base speculative and sampled serving, phase 5's weights
+    and trace."""
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.nn import init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    log("phase 9: m6-base speculative and sampled serving")
+    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    requests = synthetic_trace(16, cfg.vocab_size, seed=0)
+    report = {"greedy": spec_serving_runs(torch, cfg, params, requests, base_tokens,
+                                          int8_tokens)}
+    report["sampler"] = sampler_checks(torch)
+    report["sampled"] = sampled_serving_runs(torch, cfg, params, requests)
+    log(f"  phase 5 (no speculation, bf16 pools): {e2e['tokens_per_s']:.1f} tokens/s, mean "
+        f"step {e2e['mean_step_ms']:.3f} ms, p50 {e2e['p50_ms']:.0f} ms, p95 "
+        f"{e2e['p95_ms']:.0f} ms, {e2e['steps']} steps; phase 7 int8 "
+        f"{kv['int8']['tokens_per_s']:.1f} tokens/s, mean step "
+        f"{kv['int8']['mean_step_ms']:.3f} ms")
+    timing = {"paged_decode_attention": time_verify_attention(torch),
+              "quantized_paged_decode_attention": time_verify_attention(torch, "int8"),
+              "ragged_ffn": time_ffn(torch, 8 * (SPEC_GAMMA + 1), seed=140, weights=None)}
+    timing["ragged_ffn model drafter"] = time_ffn(torch, 1024, seed=150, weights=None,
+                                                  groups=2)
+    for name, r in timing.items():
+        log(f"  verify shape {name}: {timing_line(r)}")
+    report["timing"] = timing
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -2419,15 +2984,19 @@ def main() -> int:
     train_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    kv_launches, kv = phase_kv(torch, base_tokens)
+    kv_launches, kv, kv_tokens = phase_kv(torch, base_tokens)
     kv_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     log("phase 8: checkpoints and restarts, m6-base widths at 2 layers")
     t0 = time.perf_counter()
     ckpt = checkpoint_phase(torch, TRAIN_ARGS)
     ckpt_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = phase_spec(torch, base_tokens, kv_tokens["int8"], e2e, kv)
+    spec_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
-        f"checkpoint phase {ckpt_s:.1f} s")
+        f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -2472,10 +3041,18 @@ def main() -> int:
             entry.update(device_code=f"{copies}, into a ring of stages, split over a "
                                      f"thread-block cluster",
                          header=DECODE_SM90, splits=t["plan"][0], stages=t["plan"][1])
+        v = spec["timing"].get(name)
+        if v is not None:                 # phase 9: the verify step's shape
+            entry.update(verify_launches=sum(
+                r["launches"][name] for r in spec["greedy"].values()),
+                verify_ms=v["ms"], verify_device_ms=v["device_ms"],
+                verify_plain_ms=v["plain_ms"], verify_bound_ms=v["bound_ms"],
+                verify_library_device_ms=v["library_device_ms"])
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
-                      "build_s": build_s, "serve_s": serve_s, "train_s": train_s,
-                      "kv_s": kv_s, "checkpoint_s": ckpt_s,
+                      "spec": spec, "build_s": build_s, "serve_s": serve_s,
+                      "train_s": train_s, "kv_s": kv_s, "checkpoint_s": ckpt_s,
+                      "spec_s": spec_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

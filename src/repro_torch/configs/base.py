@@ -177,19 +177,33 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """Speculative decoding settings, carried for API parity only: the
-    port's engine raises NotImplementedError when one is set."""
+    """Speculative decoding (``repro_torch.serving.speculative``).
 
+    A drafter proposes up to ``gamma`` continuation tokens per decode slot;
+    the engine scores all ``gamma + 1`` positions in one verify step and
+    accepts a prefix of the drafts under the greedy or rejection-sampling
+    rule: temperature 0 stays token-identical to non-speculative decoding,
+    temperature > 0 keeps the target distribution.
+    """
+
+    # a key into the repro_torch.serving.speculative registry; built-ins
+    # "ngram" (prompt lookup in the slot's own context) and "model" (a
+    # draft model sharing the target's vocab)
     drafter: str = "ngram"
-    gamma: int = 4
-    draft: Optional[str] = None
-    max_ngram: int = 3
+    gamma: int = 4               # max draft tokens per slot per verify step
+    draft: Optional[str] = None  # registered config id of the model drafter's model
+    max_ngram: int = 3           # longest context suffix the ngram drafter matches
 
     def __post_init__(self):
         if self.gamma < 1:
             raise ValueError("SpecConfig.gamma must be >= 1")
         if self.max_ngram < 1:
             raise ValueError("SpecConfig.max_ngram must be >= 1")
+        # lazy: the drafter registry sits above configs, and plugins must
+        # be able to register before validation
+        from repro_torch.serving.speculative import get_drafter_cls
+
+        get_drafter_cls(self.drafter)
 
 
 @dataclasses.dataclass(frozen=True)

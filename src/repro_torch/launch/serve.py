@@ -15,14 +15,19 @@
       --engine continuous --moe-impl dropless --capacity-factor none \\
       --kv-quant int8 --prefix-cache --trace-kind multitenant --requests 16
 
+  # speculative decoding (ngram drafter, 4 drafts a step), then sampling at
+  # temperature 0.8 with it
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base \\
+      --engine continuous --moe-impl dropless --capacity-factor none \\
+      --spec-drafter ngram --spec-gamma 4 --requests 16 [--temperature 0.8]
+
 The flags are the reference's.  Those whose feature is not ported (the
-static engine, sampling temperature, speculative decoding, meshes, SLO
-scheduling, the device profiler, the priority trace) raise
-NotImplementedError.  Weights are random, drawn from a ``torch.Generator``
-seeded by ``--seed``, unless ``--ckpt-dir`` names checkpoints in the
-reference's format: then the latest one's params are served (a train
-checkpoint's ``.params`` leaves or a bare-params checkpoint's, cast to the
-serving tree's storage dtypes).
+static engine, meshes, SLO scheduling, the device profiler, the priority
+trace) raise NotImplementedError.  Weights are random, drawn from a
+``torch.Generator`` seeded by ``--seed``, unless ``--ckpt-dir`` names
+checkpoints in the reference's format: then the latest one's params are
+served (a train checkpoint's ``.params`` leaves or a bare-params
+checkpoint's, cast to the serving tree's storage dtypes).
 """
 from __future__ import annotations
 
@@ -32,13 +37,14 @@ import time
 import numpy as np
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs.base import KV_QUANTS, ServeConfig
+from repro_torch.configs.base import KV_QUANTS, ServeConfig, SpecConfig
 from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
 from repro_torch.core.dispatch import UNPORTED, available_dispatchers
 from repro_torch.kernels import build
 from repro_torch.nn import init_params
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.scheduler import available_policies
+from repro_torch.serving.speculative import available_drafters
 from repro_torch.serving.trace import (
     latency_line,
     load_trace,
@@ -56,13 +62,10 @@ def _unported(args) -> list:
     """Flags set to something this port does not implement."""
     checks = [
         (args.engine == "static", "--engine static"),
-        (args.temperature > 0, "--temperature > 0"),
         (args.trace_kind == "priority", "--trace-kind priority"),
         (args.mesh is not None, "--mesh"),
         (args.slo_preempt or args.slo_shed or args.host_blocks is not None,
          "--slo-preempt/--slo-shed/--host-blocks"),
-        (args.spec_drafter is not None or args.spec_draft is not None
-         or args.spec_draft_ckpt is not None, "--spec-*"),
         (args.profile_dir is not None, "--profile-dir"),
     ]
     return [flag for cond, flag in checks if cond]
@@ -79,6 +82,29 @@ def _write_obs(engine, args) -> None:
     if args.metrics_out:
         engine.obs.write_metrics_jsonl(args.metrics_out)
         print(f"metrics -> {args.metrics_out}")
+
+
+def draft_setup(args, params):
+    """(SpecConfig or None, draft_model or None) from the --spec-* flags.
+    ``--spec-draft-ckpt`` restores the draft model's params from the latest
+    checkpoint there (random, from ``--seed`` + 1, if it holds none)."""
+    if args.spec_drafter is None:
+        return None, None
+    spec = SpecConfig(drafter=args.spec_drafter, gamma=args.spec_gamma, draft=args.spec_draft)
+    if not args.spec_draft_ckpt:
+        return spec, None
+    if args.spec_drafter != "model":
+        raise SystemExit("--spec-draft-ckpt needs --spec-drafter model")
+    if args.spec_draft is None:
+        raise SystemExit("--spec-draft-ckpt needs --spec-draft")
+    dcfg = get_smoke_config(args.spec_draft) if args.smoke else get_config(args.spec_draft)
+    device = params["embed"]["table"].device
+    dparams = init_params(dcfg, seed=args.seed + 1, device=device)
+    restored, step = Checkpointer(args.spec_draft_ckpt).restore_params_latest(dparams)
+    if restored is not None:
+        dparams = restored
+        print(f"restored draft params from checkpoint step {step}")
+    return spec, (dcfg, dparams)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,10 +143,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", default="none", choices=KV_QUANTS,
                     help="KV pools: none (activation dtype), int8 or fp8 codes "
                          "with per-(block, head) absmax scales")
-    ap.add_argument("--spec-drafter", default=None)
-    ap.add_argument("--spec-gamma", type=int, default=4)
-    ap.add_argument("--spec-draft", default=None)
-    ap.add_argument("--spec-draft-ckpt", default=None)
+    ap.add_argument("--spec-drafter", default=None, choices=[None, *available_drafters()],
+                    help="enable speculative decoding with this drafter")
+    ap.add_argument("--spec-gamma", type=int, default=4,
+                    help="max draft tokens per slot per verify step")
+    ap.add_argument("--spec-draft", default=None, choices=[None, *ALL_IDS],
+                    help="draft model config id for --spec-drafter model (smoke-sized; "
+                         "must share the target vocab)")
+    ap.add_argument("--spec-draft-ckpt", default=None,
+                    help="checkpoint dir of the draft model's params (params-only restore; "
+                         "without it the draft model is random)")
     ap.add_argument("--moe-impl", default=None,
                     choices=[None, *available_dispatchers(), *UNPORTED])
     ap.add_argument("--capacity-factor", default=None,
@@ -165,6 +197,7 @@ def main(argv=None):
         if restored is not None:
             params = restored
             print(f"restored params-only from checkpoint step {step}")
+    spec, draft_model = draft_setup(args, params)
     if params["embed"]["table"].is_cuda:
         # build the kernels now (all nvcc at once), not inside the first
         # served step, where the build time would land in every latency
@@ -180,8 +213,11 @@ def main(argv=None):
         serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                             prefill_chunk=args.prefill_chunk,
                             max_len=max(args.max_len, max_len),
-                            sched_policy=args.sched_policy, kv_quant=args.kv_quant)
-        engine = ContinuousEngine(cfg, params, serve, device=args.device, obs=obs)
+                            spec=spec, sched_policy=args.sched_policy,
+                            kv_quant=args.kv_quant)
+        engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
+                                  seed=args.seed, device=args.device,
+                                  draft_model=draft_model, obs=obs)
         toks, stats = engine.generate(prompts, args.gen)
         _write_obs(engine, args)
         print("generated:", toks[:, :16])
@@ -204,9 +240,11 @@ def main(argv=None):
     serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                         prefill_chunk=args.prefill_chunk,
                         max_len=max(args.max_len, longest),
-                        sched_policy=args.sched_policy, prefix_cache=args.prefix_cache,
-                        kv_quant=args.kv_quant)
-    engine = ContinuousEngine(cfg, params, serve, device=args.device, obs=obs)
+                        spec=spec, sched_policy=args.sched_policy,
+                        prefix_cache=args.prefix_cache, kv_quant=args.kv_quant)
+    engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
+                              seed=args.seed, device=args.device, draft_model=draft_model,
+                              obs=obs)
 
     def stream(st):
         print(f"  req {st.request.uid}: {len(st.generated)} tokens, "
@@ -214,6 +252,9 @@ def main(argv=None):
 
     _, stats = engine.run(requests, on_finish=stream)
     _write_obs(engine, args)
+    if spec is not None:
+        print(f"speculative[{spec.drafter}]: acceptance {stats['acceptance_rate']:.2f}, "
+              f"{stats['spec_tokens_per_step']:.2f} tokens/verify-step")
     if args.prefix_cache:
         cs = engine.cache.stats
         print(f"prefix cache: {stats['cached_tokens']:.0f}/{stats['prompt_tokens']:.0f} "

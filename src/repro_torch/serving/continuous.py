@@ -23,13 +23,38 @@ With ``ServeConfig.prefix_cache`` admission binds cached prompt-prefix
 blocks and every step publishes the running slots' newly full blocks
 (``repro_torch.serving.prefix_cache``).
 
+**Speculative decoding** (``ServeConfig.spec``): when no request is
+prefilling, a drafter (``repro_torch.serving.speculative``) proposes up to
+``gamma`` tokens per slot and a *verify* step scores ``gamma + 1`` rows per
+slot, ``rows = max_slots * (gamma + 1)``: row ``slot * (gamma + 1) + j``
+feeds draft token ``j`` at absolute position ``c + j``, exactly a chunk row,
+so the verify step runs the same forward and the same kernels.  The
+acceptance rule (``speculative.accept``) emits the accepted draft prefix
+plus one token: at temperature 0 token-identical to non-speculative
+decoding (given batch-invariant routing, i.e. dropless MoE), at
+temperature > 0 distributed as the target.  Greedy verification ships the
+rows' argmax ids to the host, sampled verification the (N, V_pad) logits
+for the host's rejection sampling.  ``PagedKVCache.truncate_slot`` rewinds
+the rejected positions; a round with no draft anywhere runs the ordinary
+decode step instead.
+
+**Sampling at temperature > 0** draws on the device, one Gumbel-max draw
+per row over ``logits / T`` keyed by (engine seed, slot, absolute
+position): independent across slots and reproducible under slot reuse.
+The reference folds those keys into JAX's PRNG, which PyTorch cannot
+reproduce, so the port's draws match the reference in distribution only.
+Its uniforms come from an integer hash of (seed, slot, position, vocab
+index) in int64 tensor ops, so the CPU and the card draw the same integers
+and a sampled token differs between them only at a near-tie of the
+perturbed scores.
+
 Differences from the reference, by design of the port:
 
 * the KV pools are updated in place (the reference's jit donates them
   and adopts the returned pools);
 * PyTorch runs the step eagerly, so there is no compiled-variant census;
-* speculative decoding, meshes, SLO scheduling, recurrent families and
-  temperature > 0 are not ported and raise NotImplementedError.
+* meshes, SLO scheduling and recurrent families are not ported and raise
+  NotImplementedError.
 """
 from __future__ import annotations
 
@@ -57,6 +82,8 @@ from repro_torch.obs import Observability
 from repro_torch.serving.kv_cache import PagedKVCache, make_kv_cache
 from repro_torch.serving.request import Request, RequestState, Status
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.speculative.accept import accept_greedy_ids, accept_rejection
+from repro_torch.serving.speculative.base import DraftItem
 from repro_torch.serving.trace import latency_stats
 
 _PAGED_FAMILIES = ("decoder_lm", "vlm", "m6")
@@ -162,6 +189,51 @@ def _fill_row(b, cache: PagedKVCache, r: int, slot: int, token: int, pos: int) -
     b["row_tables"][r] = cache.row_table(slot)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for ``x`` in [0, 2**32), with ``c`` split into
+    16-bit halves so that no product leaves int64 (< 2**49)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijection of [0, 2**32) with full avalanche (the "lowbias32" integer
+    hash); ``x`` an int64 tensor or a Python int."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _row_uniforms(seed: int, slots, positions, V: int, device) -> torch.Tensor:
+    """(N, V) float64 uniforms in (0, 1), one per (seed, slot, position,
+    vocab index): a counter-based hash, the same integers on any device."""
+    slots = torch.as_tensor(np.asarray(slots), dtype=torch.int64, device=device)
+    positions = torch.as_tensor(np.asarray(positions), dtype=torch.int64, device=device)
+    row = _mix32(_mix32(_mix32(torch.full_like(slots, int(seed) & _M32)) ^ slots) ^ positions)
+    col = _mix32(torch.arange(V, dtype=torch.int64, device=device))
+    bits = _mix32(_mix32(row[:, None] ^ col[None, :]))
+    return (bits.double() + 0.5) * 2.0 ** -32
+
+
+def _sample_rows(logits, slots, positions, temperature: float, seed: int) -> torch.Tensor:
+    """Greedy: each row's first maximum, as ``jnp.argmax``.  ``temperature``
+    > 0: one Gumbel-max draw per row over ``logits / T`` (its padded vocab
+    columns, ``finfo.min``, stay unreachable), keyed by (seed, slot,
+    absolute position).  The division is by a 0-dim f32 tensor: on the card
+    a Python-number divisor goes through its reciprocal.  Returns (N,)
+    int32 on the logits' device."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    u = _row_uniforms(seed, slots, positions, logits.shape[-1], logits.device)
+    t = torch.tensor(temperature, dtype=torch.float32, device=logits.device)
+    scores = (logits.float() / t).double() - torch.log(-torch.log(u))
+    return scores.argmax(dim=-1).to(torch.int32)
+
+
 @dataclasses.dataclass
 class StepRows:
     """One step's host-side rows and the bookkeeping to apply after it."""
@@ -183,17 +255,21 @@ class StepRows:
 # ---------------------------------------------------------------------------
 
 class ContinuousEngine:
-    """Continuous-batching engine over a fixed slot pool, greedy sampling.
+    """Continuous-batching engine over a fixed slot pool.
 
-    Drive it with :meth:`run` (a trace of :class:`Request`, virtual clock,
-    per-request latencies) or :meth:`generate` (a batch of prompts, all
-    admitted at t=0).  ``params`` is the port's param tree
+    ``temperature`` is engine-level (0: greedy); ``seed`` keys the sampled
+    draws.  ``serve.spec`` switches on speculative decoding;
+    ``draft_model=(cfg, params)`` hands the ``model`` drafter an explicit
+    draft model.  Drive it with :meth:`run` (a trace of :class:`Request`,
+    virtual clock, per-request latencies) or :meth:`generate` (a batch of
+    prompts, all admitted at t=0).  ``params`` is the port's param tree
     (``repro_torch.nn``) on ``device``.
     """
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig = ServeConfig(),
-                 *, temperature: float = 0.0, device="cuda",
-                 check_invariants: bool = False, obs: Optional[Observability] = None,
+                 *, temperature: float = 0.0, seed: int = 0, device="cuda",
+                 draft_model: Optional[Tuple] = None, check_invariants: bool = False,
+                 obs: Optional[Observability] = None,
                  logit_tap: Optional[Callable] = None):
         if cfg.family not in _PAGED_FAMILIES:
             raise NotImplementedError(
@@ -203,10 +279,7 @@ class ContinuousEngine:
             raise NotImplementedError("paged decode attention does not implement logit softcap")
         if cfg.moe.moe_attention:
             raise NotImplementedError("moe_attention has no cached decode path")
-        if temperature > 0.0:
-            raise NotImplementedError("temperature > 0 sampling is not ported (greedy only)")
-        for what, value in (("speculative decoding (serve.spec)", serve.spec),
-                            ("mesh serving (serve.mesh)", serve.mesh),
+        for what, value in (("mesh serving (serve.mesh)", serve.mesh),
                             ("SLO scheduling (serve.slo)", serve.slo)):
             if value is not None:
                 raise NotImplementedError(f"{what} is not ported")
@@ -227,6 +300,8 @@ class ContinuousEngine:
         self.params = params
         self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.serve = serve
+        self.temperature = float(temperature)
+        self.seed = seed
         self.steps = 0
         self.check_invariants = check_invariants
         self.obs = obs if obs is not None else Observability()
@@ -239,8 +314,24 @@ class ContinuousEngine:
         self.cache = make_kv_cache(cfg, serve, device=self.device)
         self.scheduler = Scheduler(serve.max_slots, serve.max_len, self.cache,
                                    policy=serve.sched_policy, obs=self.obs)
+        self.spec = serve.spec
+        self.drafter = None
+        if self.spec is not None:
+            from repro_torch.serving.speculative import make_drafter
+
+            self.drafter = make_drafter(self.spec, cfg, serve, seed=seed,
+                                        draft_model=draft_model, device=self.device)
 
     # -- observability ------------------------------------------------------
+
+    @property
+    def spec_stats(self) -> Dict[str, int]:
+        """Dict view over the speculative-decoding counters."""
+        m = self.obs.metrics
+        return {"verify_steps": int(m.get("spec_verify_steps_total")),
+                "proposed": int(m.get("spec_proposed_total")),
+                "accepted": int(m.get("spec_accepted_total")),
+                "emitted": int(m.get("spec_emitted_total"))}
 
     def _obs_step(self, kind: str, live_rows: int, total_rows: int) -> None:
         m = self.obs.metrics
@@ -314,12 +405,17 @@ class ContinuousEngine:
     # -- one engine step ----------------------------------------------------
 
     def step(self, clock_ms: float = 0.0) -> List[RequestState]:
-        """Admit, run one mixed prefill/decode step, process samples.
-        Returns the requests that finished."""
+        """Admit, run one mixed prefill/decode (or speculative verify) step,
+        process samples.  Returns the requests that finished."""
         self.scheduler.admit(clock_ms)
         if not self.scheduler.running:
             return []
-        finished = self._paged_host_step(clock_ms)
+        # speculate only in decode-only steps: mid-prefill, the mixed step
+        # makes prompt progress and decode slots emit one token
+        if self.spec is not None and self.scheduler.prefilling is None:
+            finished = self._verify_host_step(clock_ms)
+        else:
+            finished = self._paged_host_step(clock_ms)
         self.steps += 1
         if self.check_invariants:
             self.scheduler.check_conservation()
@@ -379,12 +475,12 @@ class ContinuousEngine:
         with self.obs.tracer.span("engine_step", kind=sr.kind, step=self.steps,
                                   rows=sr.num_rows, live_rows=sr.live):
             logits, telem = self.forward_rows(sr.buffers)
+            b = sr.buffers
             if self._logit_tap is not None:
-                b = sr.buffers
                 self._logit_tap(logits.cpu().numpy(), b["slots"], b["positions"],
                                 b["lengths"])
-            # greedy: the first maximum, as jnp.argmax
-            next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            next_tok = _sample_rows(logits, b["slots"], b["positions"], self.temperature,
+                                    self.seed).cpu().numpy()
         self._moe_accum(telem, sr.num_rows)
         pre = sr.prefilling
         if pre is not None:
@@ -410,6 +506,91 @@ class ContinuousEngine:
             written = st.prefill_pos if st.status is Status.PREFILL else stream.size
             if written // bs > cache.committed_blocks(slot):
                 cache.commit(slot, stream[:written])
+
+    # -- speculative verify step --------------------------------------------
+
+    def _host_rng(self, slot: int, position: int) -> np.random.Generator:
+        """The generator of host-side acceptance sampling for (slot,
+        position), the reference's own (numpy, bit for bit)."""
+        return np.random.default_rng(
+            np.random.SeedSequence(entropy=[self.seed, slot, position]))
+
+    def _verify_host_step(self, clock_ms: float) -> List[RequestState]:
+        serve, cache, sched = self.serve, self.cache, self.scheduler
+        gamma = self.spec.gamma
+        W = gamma + 1
+        N = serve.max_slots * W
+        items: List[DraftItem] = []
+        for slot, st in sorted(sched.running.items()):
+            # remaining >= 1 in decode (a drained budget evicts); clamping the
+            # draft to it keeps every draft KV write below total_len, inside
+            # the admission reservation
+            remaining = st.request.max_new_tokens - len(st.generated)
+            context = np.concatenate([st.request.prompt,
+                                      np.asarray(st.generated, np.int32)]).astype(np.int32)
+            items.append(DraftItem(slot=slot, context=context,
+                                   max_tokens=min(gamma, remaining)))
+        drafts = [np.asarray(d, np.int32).reshape(-1)[:it.max_tokens]
+                  for it, d in zip(items, self.drafter.propose(items))]
+        if all(d.size == 0 for d in drafts):
+            # nothing to verify: an ordinary decode step costs 1/(gamma+1) of
+            # the rows for the same one token per slot
+            return self._paged_host_step(clock_ms)
+
+        b = _row_buffers(N, serve.blocks_per_slot, cache.garbage_block)
+        per_slot: Dict[int, Tuple[RequestState, np.ndarray, int]] = {}
+        for it, d in zip(items, drafts):
+            st = sched.running[it.slot]
+            c = st.context_len
+            cache.ensure_capacity(it.slot, c + d.size + 1)
+            for j, tok in enumerate([st.last_token, *d.tolist()]):
+                _fill_row(b, cache, it.slot * W + j, it.slot, tok, c + j)
+            per_slot[it.slot] = (st, d, c)
+        live = sum(int(d.size) + 1 for _, d, _ in per_slot.values())
+        with self.obs.tracer.span("engine_step", kind="verify", step=self.steps, rows=N,
+                                  live_rows=live):
+            logits, telem = self.forward_rows(b)
+            # greedy acceptance compares ids only: ship N int32 argmaxes, not
+            # the (N, V_pad) logits
+            scores = (logits.argmax(dim=-1).to(torch.int32)
+                      if self.temperature <= 0.0 else logits).cpu().numpy()
+        self._moe_accum(telem, N)
+
+        finished = []
+        m = self.obs.metrics
+        for slot, (st, d, c) in per_slot.items():
+            g = int(d.size)
+            rows = scores[slot * W: slot * W + g + 1]
+            if self.temperature <= 0.0:
+                emitted, n_acc = accept_greedy_ids(d, rows)
+            else:
+                emitted, n_acc = accept_rejection(
+                    d, rows, self.temperature,
+                    lambda j, slot=slot, c=c: self._host_rng(slot, c + j))
+            emitted = emitted[:st.request.max_new_tokens - len(st.generated)]
+            eos = st.request.eos_id
+            if eos is not None and eos in emitted:
+                emitted = emitted[:emitted.index(eos) + 1]
+            m.counter("spec_proposed_total").inc(g)
+            # accepted = draft tokens actually used: an EOS or budget cut can
+            # discard accepted drafts, which must not inflate the rate
+            m.counter("spec_accepted_total").inc(min(len(emitted), n_acc))
+            m.counter("spec_emitted_total").inc(len(emitted))
+            st.generated.extend(int(t) for t in emitted)
+            if st.first_token_ms is None:
+                st.first_token_ms = clock_ms
+            if st.done():
+                sched.finish(st, clock_ms)
+                finished.append(st)
+            else:
+                # positions [0, c + len(emitted)) stay written (row j wrote
+                # draft token j at c + j, which for every kept row is the
+                # fed-back token); the rejected rows' positions rewind
+                cache.truncate_slot(slot, c + len(emitted))
+        m.counter("spec_verify_steps_total").inc()
+        self._commit_running()
+        self._obs_step("verify", live, N)
+        return finished
 
     def _collect_samples(self, next_tok: np.ndarray, sample_rows, clock_ms: float
                          ) -> List[RequestState]:
@@ -464,12 +645,18 @@ class ContinuousEngine:
             stats["cached_tokens"] = cached
             stats["prompt_tokens"] = prompt
             stats["cached_token_ratio"] = cached / max(prompt, 1)
+        if self.spec is not None:
+            proposed = m.delta(mark, "spec_proposed_total")
+            stats["acceptance_rate"] = m.delta(mark, "spec_accepted_total") / max(proposed, 1)
+            stats["spec_tokens_per_step"] = (m.delta(mark, "spec_emitted_total")
+                                             / max(m.delta(mark, "spec_verify_steps_total"), 1))
         stats.update(self._moe_pull())
         return {st.request.uid: list(st.generated) for st in done}, stats
 
-    def generate(self, prompts, num_tokens: int):
+    def generate(self, prompts, num_tokens: int, seed: int = 0):
         """(B, S) prompts, all admitted at t=0, each generating
         ``num_tokens``.  Returns ((B, num_tokens) int32 numpy, stats)."""
+        del seed  # sampling keys are engine-level (seed, slot, position)
         prompts = np.asarray(prompts)
         reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=num_tokens)
                 for i in range(prompts.shape[0])]

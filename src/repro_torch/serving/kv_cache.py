@@ -163,6 +163,20 @@ class PagedKVCache:
             self.block_table[slot, len(held):need] = new
             held.extend(new)
 
+    def truncate_slot(self, slot: int, new_len: int) -> None:
+        """Speculative rollback: rewind ``slot`` so only positions
+        ``[0, new_len)`` count as written.  Blocks past the new length
+        (allocated for rejected draft positions) return to the free list;
+        the reservation stays (the request still runs and may grow back).
+        No data moves: the next write at a rewound position overwrites the
+        stale K/V, which the rows' lengths mask until then."""
+        keep = self.blocks_needed(new_len) if new_len > 0 else 0
+        held = self._slot_blocks[slot]
+        if keep < len(held):
+            self.allocator.free(held[keep:])
+            self.block_table[slot, keep:] = self.garbage_block
+            del held[keep:]
+
     def write_coords(self, slot: int, position: int) -> Tuple[int, int]:
         b, o = divmod(position, self.block_size)
         return int(self.block_table[slot, b]), o

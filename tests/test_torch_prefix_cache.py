@@ -260,7 +260,7 @@ def test_chip_smoke_kv_phase_runs_on_cpu(capsys):
                                   gen_lens=(4, 8))
     base, _, _, _ = chip_smoke.serve_once(torch, cfg, params, TServeConfig(max_len=64),
                                           reqs, "cpu")
-    _, report = chip_smoke.quant_serving_runs(torch, cfg, params, reqs, base, "cpu",
+    _, report, _ = chip_smoke.quant_serving_runs(torch, cfg, params, reqs, base, "cpu",
                                               max_len=64, probe_lens=(12, 16))
     assert report["int8"]["token_match_vs_bf16"] > 0.5
     assert report["kernels_vs_plain_int8"]["argmax_agree"] == report[

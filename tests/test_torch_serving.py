@@ -143,7 +143,7 @@ def test_learned_positions_past_table_raise():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(temperature=0.7),
+    dict(serve=TServeConfig(max_len=32, mesh=(("data", 1), ("expert", 1)))),
     dict(serve=TServeConfig(max_len=32, slo=SLOConfig())),
 ])
 def test_unported_options_raise(kw):
