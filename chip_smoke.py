@@ -133,7 +133,29 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               phase 3 holds against its plain versions).  A profiler
               session counts only when it recorded every launch and a time
               no shorter than the bound (phase 4 and 9 alike).
-10. report  — a {"kernels": [...]} line, the card line, and as the last line
+10. slo     — m6-base SLO scheduling, phase 5's weights, dropless MoE, the
+              reference benchmark's slo_sweep cell (4 slots, 16-token blocks
+              and chunks, 28 blocks, prefix cache on, synthetic_priority with
+              short HIGH requests against long NORMAL/LOW ones): (a) a
+              saturated fcfs run measures capacity, then 48 requests at 2x
+              overload under fcfs and priority_strict, edf and cache_aware
+              with preemption to a 56-block host pool, each with
+              conservation checked after every step: every budget finished,
+              dropped fraction 0.0, the paged kernel and the ragged FFN
+              launched layers x steps times (every FFN launch on the tensor
+              cores), every swap record released, priority_strict preempting
+              and restoring, and every policy's tokens equal to fcfs's, a
+              request differing first only at a near-tie of fcfs's top two
+              logits (every run taps its logits); (b) fcfs and
+              priority_strict over int8 pools, held the same way; (c)
+              swap_out, clobber, restore_slot of 7 blocks on the card over
+              bf16, int8 and fp8 pools, bit-equal, with the host time of a
+              swap-out and a restore per block; (d) priority_strict with
+              shedding on a trace of tight HIGH deadlines: some request shed,
+              none holding a slot, a block or a token.  Per-class p50/p95
+              and goodput, tokens/s against fcfs, the HIGH p95 ratio fcfs /
+              priority_strict, preemptions, swapped and restored blocks.
+11. report  — a {"kernels": [...]} line, the card line, and as the last line
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -624,7 +646,8 @@ def phase_check(torch):
             else None)
 
     weights = None
-    for n in (8, 40):                               # decode and mixed steps, bx = 8
+    # phase 5's decode and mixed steps (8, 40 rows) and phase 10's (4, 20), bx = 8
+    for n in (8, 40, 4, 20):
         xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=30 + n, weights=weights)
         used = int(rag.expert_offsets[0, -1]) // bx
         log(f"  ragged_ffn n={n}: R={xs.shape[0]} rows, bx={bx}, "
@@ -648,6 +671,8 @@ def phase_check(torch):
            tensor_cores=False)
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
+    for name, err in check_slo_step_kernels(torch).items():
+        errs[name] = max(errs[name], err)
     check_paged_design(torch)
     check_dense_design(torch)
     return errs, weights
@@ -917,6 +942,83 @@ def check_decode_kernels(torch):
                                  f"differ from the CPU's")
         log(f"  quant_write_kv {name}: codes and scale bits on the card equal the CPU's "
             f"after 6 steps")
+    return errs
+
+
+def slo_step_case(slot_lens, chunk, seed, name=None):
+    """Attention inputs of one phase 10 engine step at m6 widths (Hq = Hkv =
+    16, D = 64, 16-token blocks): a row per slot over a pool of the cell's
+    28 blocks and the garbage block (last), each slot's table 7 blocks wide
+    (the trace's longest request, 104 tokens), its entries past the slot's
+    context the garbage block; with ``chunk`` = (slot, start, n), the
+    step's 16 chunk rows after them, of lengths start + 1 .. start + n and
+    0 for the rest, sharing that slot's table.  bf16 pools, or their
+    int8/fp8 codes and scales (``name``); (q, pools..., tables, lengths)
+    in the wrapper's order."""
+    import torch
+
+    S, bs = SLO_SERVE["max_slots"], SLO_SERVE["kv_block_size"]
+    P, MB, Hkv, D = SLO_SERVE["num_blocks"] + 1, 7, 16, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp, vp = (torch.randn((P, Hkv, bs, D), generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    held, lens = list(slot_lens), list(slot_lens)
+    if chunk is not None:
+        s, start, n = chunk
+        held[s] = max(held[s], start + n)
+        lens += [start + j + 1 if j < n else 0 for j in range(SLO_SERVE["prefill_chunk"])]
+    perm = torch.randperm(P - 1, generator=g, device="cuda").reshape(S, MB).int()
+    used = (torch.arange(MB, device="cuda")[None, :] * bs
+            < torch.tensor(held, device="cuda")[:, None])
+    tables = torch.where(used, perm, torch.full_like(perm, P - 1))
+    if chunk is not None:
+        tables = torch.cat([tables, tables[s].expand(len(lens) - S, MB)])
+    q = torch.randn((len(lens), Hkv, D), generator=g, device="cuda").to(torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if name is None:
+        return q, kp, vp, tables.contiguous(), lengths
+    kc, ks, vc, vs = quantize_pools(kp, vp, name)
+    return q, kc, vc, ks, vs, tables.contiguous(), lengths
+
+
+def check_slo_step_kernels(torch):
+    """The paged kernel over bf16 pools and the quantized one over int8 and
+    fp8 pools at phase 10's step shapes (``slo_step_case``): 4-row decode
+    steps, one with an empty slot, and 20-row mixed steps (4 slot rows and
+    a 16-token chunk, one of them a partial first chunk), each with the
+    plan the engine's launch gets (``max_length``, the step's longest row),
+    against the plain version at TOL; length-0 rows exactly 0.  Returns
+    each kernel's max abs err."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref,
+        quantized_paged_decode_attention_ref,
+    )
+    from repro_torch.quant import get_kv_quant
+
+    steps = [([104, 1, 37, 80], None), ([0, 64, 16, 99], None),
+             ([73, 0, 104, 20], (1, 32, 16)), ([50, 90, 0, 3], (2, 0, 9))]
+    errs = {"paged_decode_attention": 0.0, "quantized_paged_decode_attention": 0.0}
+    for i, (slot_lens, chunk) in enumerate(steps):
+        for name in (None, "int8", "fp8"):
+            case = slo_step_case(slot_lens, chunk, seed=500 + i, name=name)
+            q, pool, tables, lengths = case[0], case[1], case[-2], case[-1]
+            longest = int(lengths.max())
+            plan = da.launch_plan(q, pool, tables, max_length=longest)
+            if name is None:
+                kernel = "paged_decode_attention"
+                out = da.paged_decode_attention(*case, max_length=longest)
+                want = paged_decode_attention_ref(*case)
+            else:
+                kernel, pol = "quantized_paged_decode_attention", get_kv_quant(name)
+                out = da.quantized_paged_decode_attention(*case, policy=pol, max_length=longest)
+                want = quantized_paged_decode_attention_ref(*case, policy=pol)
+            torch.cuda.synchronize()
+            label = (f"{kernel} {name or 'bf16'} phase 10 {'mixed' if chunk else 'decode'} "
+                     f"step N={q.shape[0]} longest {longest} (splits, stages) {plan}")
+            errs[kernel] = max(errs[kernel], check_close(label, out, want))
+            if not (out[lengths == 0] == 0).all():
+                raise AssertionError(f"{label}: a length-0 row is not exactly 0")
     return errs
 
 
@@ -2512,8 +2614,9 @@ def tapped_margins(torch, cfg, params, serve, requests, device="cuda"):
 
 def first_divergences(base, other, margins, requests, label):
     """Requests whose tokens differ from ``base``: each must first differ
-    where the non-speculative run's top-two logits are a near-tie
-    (``logit_tie``); reported with the gap.  Returns [(uid, index, gap)]."""
+    where the base run's top-two logits (``margins``, from its
+    ``logit_tap``) are a near-tie (``logit_tie``); reported with the gap.
+    Returns [(uid, index, gap)]."""
     plen = {r.uid: r.prompt_len for r in requests}
     out = []
     for uid in sorted(base):
@@ -2523,8 +2626,8 @@ def first_divergences(base, other, margins, requests, label):
         p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         gap, top = margins[uid, plen[uid] - 1 + p]
         out.append((uid, p, gap))
-        log(f"  {label}: request {uid} first differs at generated token {p} ({a[p]} "
-            f"non-speculative, {b[p]} here): non-speculative top-two logit gap {gap:.4g} "
+        log(f"  {label}: request {uid} first differs at generated token {p} ({a[p]} in "
+            f"the base run, {b[p]} here): the base run's top-two logit gap {gap:.4g} "
             f"(top logit {top:.4g})")
         if not logit_tie(gap, top):
             raise AssertionError(f"{label}: request {uid} differs at token {p} where the top "
@@ -2909,6 +3012,339 @@ def phase_spec(torch, base_tokens, int8_tokens, e2e, kv):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: SLO scheduling (priority, EDF and cache-aware admission,
+# preemption with KV swap-to-host, deadline shedding)
+# ---------------------------------------------------------------------------
+
+# the reference benchmark's slo_sweep cell (benchmarks/serve_throughput.py:
+# 226-257): short HIGH requests against long NORMAL/LOW ones, two tenants'
+# 16-token system prompts, 4 slots over 28 blocks (slots, not blocks, bind)
+SLO_TRACE = dict(prompt_lens=(8, 24), gen_lens=(16, 32, 64),
+                 class_weights=(0.125, 0.5, 0.375), burst_len=8, system_prompt_len=16,
+                 num_tenants=2)
+SLO_SERVE = dict(max_slots=4, kv_block_size=16, prefill_chunk=16, num_blocks=28,
+                 prefix_cache=True)
+SLO_HOST_BLOCKS = 56              # 2 x 28: several victims' working sets at once
+SLO_REQUESTS = 48                 # the reference's 128, cut to the phase's time
+# the reference's seed 0 puts 2 HIGH requests in its first 48 (0.125 x 48 =
+# 6 expected); seed 9 is the first whose 48 hold the class weights' expected
+# counts, 6 / 24 / 18
+SLO_SEED = 9
+SLO_POLICIES = ("fcfs", "priority_strict", "edf", "cache_aware")
+
+
+def slo_trace(n, vocab, seed, qps, burst_qps=None, **kw):
+    """``synthetic_priority`` with the slo_sweep cell's shapes."""
+    from repro_torch.serving.request import Priority
+    from repro_torch.serving.trace import synthetic_priority
+
+    args = dict(SLO_TRACE, gen_lens_by_class={Priority.HIGH: (4, 8)})
+    args.update(kw)
+    return synthetic_priority(n, vocab, seed=seed, qps=qps, burst_qps=burst_qps, **args)
+
+
+def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
+    """One run through ``ContinuousEngine.run`` with the serving kernels'
+    launch counters set to 0 just before it and read just after, conservation
+    checked after every step, and every live row's top-two logit gap recorded
+    through ``logit_tap`` (every run carries the same tap).  Gates: every
+    request that was not shed finishes its budget, dropped fraction 0.0, the
+    attention kernel of the pools launched layers x steps times (the other
+    never) and every ragged FFN launch on the tensor cores.  Returns (tokens,
+    stats, engine, wall ms, launches, margins, finished states); ``on_finish``
+    sees each finished or shed state as the engine hands it back."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.request import Status
+
+    V = cfg.vocab_size
+    margins, holder, done = {}, [], []
+
+    def tap(lg, slots, pos, lens):
+        running = holder[0].scheduler.running
+        rows = np.flatnonzero(lens > 0)
+        top2 = np.partition(lg[rows, :V], V - 2, axis=1)[:, V - 2:]
+        for i, (a, b) in zip(rows, top2):
+            margins[running[int(slots[i])].request.uid, int(pos[i])] = (float(b - a), float(b))
+
+    counters = {"paged_decode_attention": pda.paged_decode_attention,
+                "quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
+                "ragged_ffn": rffn.ragged_ffn}
+    eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap,
+                           check_invariants=True)
+    holder.append(eng)
+
+    def finished(st):
+        done.append(st)
+        if on_finish is not None:
+            on_finish(eng, st)
+
+    for fn in counters.values():
+        fn.launches = 0
+    rffn.ragged_ffn.tc_launches = 0
+    table = params["embed"]["table"]
+    sync(torch, table)
+    t0 = time.perf_counter()
+    out, stats = eng.run(requests, on_finish=finished)
+    on_card = sync(torch, table)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: fn.launches for n, fn in counters.items()}
+    launches["ragged_ffn tensor cores"] = rffn.ragged_ffn.tc_launches
+    shed = {st.request.uid for st in done if st.status is Status.SHED}
+    for r in requests:
+        want = 0 if r.uid in shed else r.max_new_tokens
+        if len(out[r.uid]) != want:
+            raise AssertionError(f"{label}: request {r.uid}: {len(out[r.uid])} tokens, "
+                                 f"expected {want}")
+    if stats["moe_dropped_fraction"] != 0.0:
+        raise AssertionError(f"{label}: dropped fraction {stats['moe_dropped_fraction']}")
+    want = cfg.num_layers * eng.steps
+    attn, other = (("paged_decode_attention", "quantized_paged_decode_attention")
+                   if serve.kv_quant == "none" else
+                   ("quantized_paged_decode_attention", "paged_decode_attention"))
+    if on_card and (launches[attn] != want or launches["ragged_ffn"] != want
+                    or launches[other]):
+        raise AssertionError(f"{label}: launches {launches}, expected {attn} and ragged_ffn "
+                             f"{want} = layers x steps, {other} 0")
+    if on_card and launches["ragged_ffn tensor cores"] != launches["ragged_ffn"]:
+        raise AssertionError(f"{label}: {launches['ragged_ffn tensor cores']} of "
+                             f"{launches['ragged_ffn']} ragged_ffn launches on the tensor-core "
+                             f"route")
+    swap = eng.scheduler.swap
+    if swap is not None and (swap.records or swap.used_host_blocks):
+        raise AssertionError(f"{label}: swap records left: {sorted(swap.records)}")
+    return out, stats, eng, wall_ms, launches, margins, done
+
+
+def slo_report(stats, eng, wall_ms) -> dict:
+    keys = ("generated_tokens_per_s", "p50_ms", "p95_ms", "goodput", "preemptions",
+            "restore_tokens", "recompute_tokens", "swapped_blocks", "restored_blocks",
+            "requests_shed", "peak_running")
+    rep = {k: stats[k] for k in keys if k in stats}
+    rep.update({k: v for k, v in stats.items() if k.split("_")[0] in ("high", "normal", "low")})
+    rep.update(steps=eng.steps, mean_step_ms=wall_ms / eng.steps)
+    return rep
+
+
+def slo_policy_runs(torch, cfg, params, device="cuda", n_requests=SLO_REQUESTS,
+                    n_calib=24, trace_kw=None):
+    """Phase 10 (a) and (b): capacity from a saturated fcfs run, then the
+    2x-overload trace under fcfs and the three SLO policies (with preemption
+    to a 56-block host pool) over bf16 pools, then fcfs and priority_strict
+    over int8 pools.  Each policy's tokens must equal its pools' fcfs run's,
+    a request differing first only at a near-tie of fcfs's top two logits;
+    priority_strict must preempt and restore."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig, SLOConfig
+    from repro_torch.serving.trace import latency_line, slo_class_line
+
+    trace_kw = trace_kw or {}
+    calib = slo_trace(n_calib, cfg.vocab_size, seed=1, qps=1e6, **trace_kw)
+    serve = ServeConfig(**SLO_SERVE, max_len=max(r.total_len for r in calib))
+    _, cstats, _, _, _, _, _ = slo_run(torch, cfg, params, serve, calib, device, "calibration")
+    cap = cstats["generated_tokens_per_s"]
+    mean_gen = float(np.mean([r.max_new_tokens for r in calib]))
+    # bursts alternate q and 3q every burst_len requests: the mean offered
+    # rate is 1.5q, so q = (4/3) x capacity gives 2x overload
+    qps = (4.0 / 3.0) * cap / mean_gen
+    requests = slo_trace(n_requests, cfg.vocab_size, seed=SLO_SEED, qps=qps,
+                         burst_qps=3 * qps, **trace_kw)
+    classes = {p: sum(int(r.priority) == i for r in requests)
+               for i, p in enumerate(("high", "normal", "low"))}
+    log(f"  capacity {cap:.1f} tokens/s (saturated fcfs, {n_calib} requests); trace: "
+        f"{n_requests} requests at {qps:.3f} / {3 * qps:.3f} qps (2x overload), {classes}")
+    serve = ServeConfig(**SLO_SERVE, max_len=max(r.total_len for r in requests))
+    report = {"trace": dict(requests=n_requests, qps=qps, burst_qps=3 * qps,
+                            capacity_tokens_per_s=cap, classes=classes)}
+    launches = {}
+    for kv in ("none", "int8"):
+        pools = "bf16" if kv == "none" else kv
+        base = margins = None
+        for name in SLO_POLICIES if kv == "none" else ("fcfs", "priority_strict"):
+            label = f"{name} over {pools} pools"
+            slo = None if name == "fcfs" else SLOConfig(preemption=True,
+                                                        host_blocks=SLO_HOST_BLOCKS)
+            sv = dataclasses.replace(serve, sched_policy=name, slo=slo, kv_quant=kv)
+            out, stats, eng, wall_ms, got, m, _ = slo_run(torch, cfg, params, sv, requests,
+                                                          device, label)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            rep = slo_report(stats, eng, wall_ms)
+            if name == "fcfs":
+                base, margins = out, m
+            else:
+                rep["divergences"] = first_divergences(base, out, margins, requests, label)
+                rep["token_match"] = token_match(base, out)
+                rep["tokens_per_s_vs_fcfs"] = (stats["generated_tokens_per_s"]
+                                               / report[f"fcfs over {pools} pools"]
+                                               ["generated_tokens_per_s"])
+            if name == "priority_strict" and (stats["preemptions"] <= 0
+                                              or stats["restore_tokens"] <= 0):
+                raise AssertionError(f"{label}: {stats['preemptions']} preemptions, "
+                                     f"{stats['restore_tokens']} tokens restored")
+            log(f"  {label}: {latency_line(stats)}; {eng.steps} steps, mean step "
+                f"{rep['mean_step_ms']:.3f} ms (host clock); launches {got}")
+            line = slo_class_line(stats)
+            if line:
+                log(f"    {line}")
+            report[label] = rep
+        strict = report[f"priority_strict over {pools} pools"]
+        fcfs = report[f"fcfs over {pools} pools"]
+        strict["high_p95_ratio_fcfs_over_strict"] = (fcfs["high_p95_ms"]
+                                                     / max(strict["high_p95_ms"], 1e-9))
+        log(f"  {pools} pools: HIGH p95 fcfs / priority_strict "
+            f"{strict['high_p95_ratio_fcfs_over_strict']:.3f}; tokens/s against fcfs: " + ", ".join(
+                f"{n} {report[f'{n} over {pools} pools']['tokens_per_s_vs_fcfs']:.3f}"
+                for n in SLO_POLICIES[1:] if f"{n} over {pools} pools" in report))
+    return report, launches
+
+
+def swap_roundtrips(torch, cfg, device="cuda", blocks=7, reps=5):
+    """Phase 10 (c): ``swap_out`` -> clobber -> ``restore_slot`` of one slot's
+    ``blocks`` KV blocks on the card for bf16, int8 and fp8 caches at the
+    model's widths: the restored codes or bf16 bits and the scale bits must
+    equal those swapped out.  Host time of a swap-out and of a restore per
+    block (synchronous copies; the median of ``reps``)."""
+    import statistics
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.kv_cache import make_kv_cache
+    from repro_torch.serving.slo.swap import SwapManager
+
+    bs = SLO_SERVE["kv_block_size"]
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    for kv in ("none", "int8", "fp8"):
+        serve = ServeConfig(max_slots=2, kv_block_size=bs, max_len=blocks * bs,
+                            num_blocks=2 * blocks, kv_quant=kv)
+        cache = make_kv_cache(cfg, serve, device=device)
+        pools = [cache.k_pool, cache.v_pool]
+        if kv == "none":
+            for p in pools:
+                p.copy_(torch.randn(p.shape, generator=gen).to(p.dtype))
+        else:
+            for p in pools:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=gen, dtype=torch.int8))
+            pools += [cache.k_scales, cache.v_scales]
+            for p in pools[2:]:
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+        swap = SwapManager(cache, host_blocks=blocks)
+        t_out, t_in = [], []
+        for rep in range(reps):
+            src, dst = rep % 2, 1 - rep % 2
+            cache.allocate_slot(src, blocks * bs)
+            cache.ensure_capacity(src, blocks * bs - bs // 2)       # the last block partial
+            held = list(cache._slot_blocks[src])
+            want = [p[:, held].clone() for p in pools]
+            sync(torch, cache.k_pool)
+            t0 = time.perf_counter()
+            rec = cache.swap_out(src, swap, uid=rep, total_len=blocks * bs,
+                                 context_len=blocks * bs - bs // 2)
+            sync(torch, cache.k_pool)
+            t_out.append((time.perf_counter() - t0) * 1e3)
+            for p in pools:
+                p.fill_(-1)
+            t0 = time.perf_counter()
+            resume = cache.restore_slot(dst, rec, swap)
+            sync(torch, cache.k_pool)
+            t_in.append((time.perf_counter() - t0) * 1e3)
+            swap.release(rec)
+            new = list(cache._slot_blocks[dst])
+            for p, w in zip(pools, want):
+                got = p[:, new]
+                if w.dtype == torch.bfloat16:
+                    got, w = got.view(torch.int16), w.view(torch.int16)
+                elif w.dtype == torch.float32:
+                    got, w = got.view(torch.int32), w.view(torch.int32)
+                if resume != rec.context_len or not torch.equal(got, w):
+                    raise AssertionError(f"swap round trip over {kv} pools: the restored "
+                                         f"blocks differ from those swapped out")
+            cache.free_slot(dst)
+            cache.check_conservation()
+            swap.check_conservation()
+        pools_name = "bf16" if kv == "none" else kv
+        out[pools_name] = dict(block_bytes=cache.block_bytes, blocks=blocks,
+                               swap_out_ms_per_block=statistics.median(t_out) / blocks,
+                               restore_ms_per_block=statistics.median(t_in) / blocks)
+        log(f"  swap round trip, {pools_name} pools ({blocks} blocks of {cache.block_bytes} "
+            f"bytes): bit-equal; host time a block: swap-out "
+            f"{out[pools_name]['swap_out_ms_per_block']:.4f} ms, restore "
+            f"{out[pools_name]['restore_ms_per_block']:.4f} ms (median of {reps})")
+    return out
+
+
+def shed_run(torch, cfg, params, qps, device="cuda", n_requests=24, trace_kw=None):
+    """Phase 10 (d): priority_strict with preemption and shedding on a trace
+    whose HIGH requests have a 20 ms + 5 ms-a-token deadline (half of the
+    requests HIGH): at least one request must be shed, a shed request must
+    hold no slot and no block and get no token, conservation must hold after
+    every step, and every other request must finish its budget."""
+    from repro_torch.configs.base import ServeConfig, SLOConfig
+    from repro_torch.serving.request import Priority, Status
+    from repro_torch.serving.trace import latency_line, slo_class_line
+
+    requests = slo_trace(n_requests, cfg.vocab_size, seed=3, qps=qps, burst_qps=3 * qps,
+                         class_weights=(0.5, 0.25, 0.25),
+                         deadline_budgets={Priority.HIGH: (20.0, 5.0),
+                                           Priority.NORMAL: (2000.0, 120.0)},
+                         **(trace_kw or {}))
+    serve = ServeConfig(**SLO_SERVE, max_len=max(r.total_len for r in requests),
+                        sched_policy="priority_strict",
+                        slo=SLOConfig(preemption=True, host_blocks=SLO_HOST_BLOCKS, shed=True))
+
+    def held(eng, st):
+        """A shed request, as the step hands it back: no slot, no token,
+        in neither queue (its blocks: the conservation check of the step)."""
+        sched = eng.scheduler
+        if st.status is Status.SHED and (
+                st.slot != -1 or st.generated or st.swap_record is not None
+                or any(w is st for w in sched.waiting)
+                or any(r is st for r in sched.running.values())):
+            raise AssertionError(f"shedding: shed request {st.request.uid} holds a slot, a "
+                                 f"record or tokens")
+
+    out, stats, eng, wall_ms, launches, _, done = slo_run(
+        torch, cfg, params, serve, requests, device, "shedding", on_finish=held)
+    shed = [st for st in done if st.status is Status.SHED]
+    cache = eng.cache
+    if not shed or stats["requests_shed"] != len(shed):
+        raise AssertionError(f"shedding: {len(shed)} shed, requests_shed "
+                             f"{stats['requests_shed']}")
+    if cache.allocator.live_count or cache.reserved_total:
+        raise AssertionError(f"shedding: {cache.allocator.live_count} blocks live, "
+                             f"{cache.reserved_total} reserved after the run")
+    log(f"  shedding: {len(shed)} of {n_requests} shed (uids "
+        f"{sorted(st.request.uid for st in shed)}); {latency_line(stats)}; "
+        f"{eng.steps} steps; launches {launches}")
+    log(f"    {slo_class_line(stats)}")
+    rep = slo_report(stats, eng, wall_ms)
+    rep["shed_uids"] = sorted(st.request.uid for st in shed)
+    return rep, launches
+
+
+def phase_slo(torch):
+    """Phase 10: m6-base SLO scheduling, phase 5's weights, dropless MoE."""
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.nn import init_params
+
+    log(f"phase 10: m6-base SLO scheduling ({card_line()})")
+    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    report, launches = slo_policy_runs(torch, cfg, params)
+    report["swap"] = swap_roundtrips(torch, cfg)
+    report["shedding"], shed_launches = shed_run(torch, cfg, params, report["trace"]["qps"])
+    for k, v in shed_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2995,8 +3431,13 @@ def main() -> int:
     t0 = time.perf_counter()
     spec = phase_spec(torch, base_tokens, kv_tokens["int8"], e2e, kv)
     spec_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    slo, slo_launches = phase_slo(torch)
+    slo_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
-        f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s")
+        f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
+        f"{slo_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -3048,11 +3489,15 @@ def main() -> int:
                 verify_ms=v["ms"], verify_device_ms=v["device_ms"],
                 verify_plain_ms=v["plain_ms"], verify_bound_ms=v["bound_ms"],
                 verify_library_device_ms=v["library_device_ms"])
+        if name in slo_launches:          # phase 10: the SLO runs
+            if slo_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 10")
+            entry["slo_launches"] = slo_launches[name]
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
-                      "spec": spec, "build_s": build_s, "serve_s": serve_s,
+                      "spec": spec, "slo": slo, "build_s": build_s, "serve_s": serve_s,
                       "train_s": train_s, "kv_s": kv_s, "checkpoint_s": ckpt_s,
-                      "spec_s": spec_s,
+                      "spec_s": spec_s, "slo_s": slo_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

@@ -15,8 +15,8 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-# KV-pool representations the reference knows; only "none" is ported
-# (the engine raises NotImplementedError for the quantized ones).
+# KV-pool representations: bf16 pools ("none") and int8/fp8 codes with
+# per-(block, head) scales, as in the reference.
 KV_QUANTS = ("none", "int8", "fp8")
 
 
@@ -208,13 +208,27 @@ class SpecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SLOConfig:
-    """SLO scheduling settings, carried for API parity only: the port's
-    engine raises NotImplementedError when one is set."""
+    """SLO-aware scheduling (``repro_torch.serving.slo``): preemption with
+    KV swap-to-host, and deadline shedding.  Attached to ``ServeConfig.slo``
+    it lets the scheduler evict a running lower-priority victim (its KV
+    blocks copied to a host pool; re-admission restores them and resumes at
+    the exact token) whenever a more urgent arrival cannot be admitted.
+    Pairs with the ``priority_strict`` / ``edf`` / ``cache_aware`` policies
+    but works under any."""
 
     preemption: bool = True
+    # host pool size in KV blocks; None mirrors the device pool
     host_blocks: Optional[int] = None
+    # after this many round trips a request is never a victim again, so
+    # sustained urgent load cannot livelock a long job
     max_preemptions: int = 8
+    # only waiting requests whose class value is <= this may evict running
+    # work (0: HIGH only); every class still jumps the queue under a
+    # priority-aware policy
     preempt_threshold: int = 0
+    # shed (finish with status "shed", no tokens) a queued request whose
+    # effective deadline is provably unmeetable at the measured decode
+    # rate; off by default (--slo-shed)
     shed: bool = False
 
     def __post_init__(self):

@@ -21,13 +21,20 @@
       --engine continuous --moe-impl dropless --capacity-factor none \\
       --spec-drafter ngram --spec-gamma 4 --requests 16 [--temperature 0.8]
 
+  # SLO scheduling over bursty mixed-priority traffic: strict priority
+  # classes, preemption with KV swap to a 56-block host pool (add
+  # --slo-shed to shed requests whose deadline is provably unmeetable)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base \\
+      --engine continuous --moe-impl dropless --capacity-factor none \\
+      --trace-kind priority --sched-policy priority_strict --slo-preempt \\
+      --host-blocks 56 --requests 32
+
 The flags are the reference's.  Those whose feature is not ported (the
-static engine, meshes, SLO scheduling, the device profiler, the priority
-trace) raise NotImplementedError.  Weights are random, drawn from a
-``torch.Generator`` seeded by ``--seed``, unless ``--ckpt-dir`` names
-checkpoints in the reference's format: then the latest one's params are
-served (a train checkpoint's ``.params`` leaves or a bare-params
-checkpoint's, cast to the serving tree's storage dtypes).
+static engine, meshes, the device profiler) raise NotImplementedError.
+Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``,
+unless ``--ckpt-dir`` names checkpoints in the reference's format: then the
+latest one's params are served (a train checkpoint's ``.params`` leaves or
+a bare-params checkpoint's, cast to the serving tree's storage dtypes).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import time
 import numpy as np
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs.base import KV_QUANTS, ServeConfig, SpecConfig
+from repro_torch.configs.base import KV_QUANTS, ServeConfig, SLOConfig, SpecConfig
 from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
 from repro_torch.core.dispatch import UNPORTED, available_dispatchers
 from repro_torch.kernels import build
@@ -48,7 +55,9 @@ from repro_torch.serving.speculative import available_drafters
 from repro_torch.serving.trace import (
     latency_line,
     load_trace,
+    slo_class_line,
     synthetic_multitenant,
+    synthetic_priority,
     synthetic_trace,
 )
 
@@ -62,10 +71,7 @@ def _unported(args) -> list:
     """Flags set to something this port does not implement."""
     checks = [
         (args.engine == "static", "--engine static"),
-        (args.trace_kind == "priority", "--trace-kind priority"),
         (args.mesh is not None, "--mesh"),
-        (args.slo_preempt or args.slo_shed or args.host_blocks is not None,
-         "--slo-preempt/--slo-shed/--host-blocks"),
         (args.profile_dir is not None, "--profile-dir"),
     ]
     return [flag for cond, flag in checks if cond]
@@ -121,25 +127,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--qps", type=float, default=50.0)
     ap.add_argument("--trace-kind", default="mixed",
                     choices=["mixed", "multitenant", "priority"],
-                    help="synthetic trace: mixed lengths, or multi-tenant shared "
-                         "system prompts (the workload --prefix-cache targets)")
+                    help="synthetic trace: mixed lengths, multi-tenant shared "
+                         "system prompts (the workload --prefix-cache targets), or "
+                         "bursty mixed-priority overload with deadlines (the workload "
+                         "--slo-preempt and the slo policies target)")
     ap.add_argument("--tenants", type=int, default=4,
-                    help="multitenant trace: distinct system prompts")
+                    help="multitenant/priority trace: distinct system prompts")
     ap.add_argument("--system-prompt-len", type=int, default=48,
                     help="multitenant trace: shared system-prompt length")
-    ap.add_argument("--burst-qps", type=float, default=None)
+    ap.add_argument("--burst-qps", type=float, default=None,
+                    help="priority trace: arrival rate during bursts (default 4x --qps)")
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--kv-block", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--sched-policy", default="fcfs", choices=available_policies())
+    ap.add_argument("--sched-policy", default="fcfs", choices=available_policies(),
+                    help="admission policy")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="content-addressed block-level prefix caching: admission "
                          "binds cached prompt-prefix blocks")
-    ap.add_argument("--slo-preempt", action="store_true")
-    ap.add_argument("--slo-shed", action="store_true")
-    ap.add_argument("--host-blocks", type=int, default=None)
+    ap.add_argument("--slo-preempt", action="store_true",
+                    help="SLO-aware preemption: a higher-priority arrival evicts a "
+                         "running lower-priority request, whose KV blocks swap to a "
+                         "host pool for a later restore")
+    ap.add_argument("--slo-shed", action="store_true",
+                    help="deadline-aware shedding: reject a queued request once its "
+                         "deadline is provably unmeetable at the measured decode rate")
+    ap.add_argument("--host-blocks", type=int, default=None,
+                    help="host swap pool size in KV blocks (default: the device pool's)")
     ap.add_argument("--kv-quant", default="none", choices=KV_QUANTS,
                     help="KV pools: none (activation dtype), int8 or fp8 codes "
                          "with per-(block, head) absmax scales")
@@ -230,6 +246,11 @@ def main(argv=None):
         requests = synthetic_multitenant(args.requests, cfg.vocab_size, seed=args.seed,
                                          qps=args.qps, num_tenants=args.tenants,
                                          system_prompt_len=args.system_prompt_len)
+    elif args.trace_kind == "priority":
+        requests = synthetic_priority(
+            args.requests, cfg.vocab_size, seed=args.seed, qps=args.qps,
+            burst_qps=args.burst_qps, num_tenants=args.tenants,
+            system_prompt_len=args.system_prompt_len if args.prefix_cache else 0)
     else:
         requests = synthetic_trace(args.requests, cfg.vocab_size, seed=args.seed,
                                    qps=args.qps)
@@ -237,11 +258,14 @@ def main(argv=None):
     print(f"serving {len(requests)} requests "
           f"({'trace ' + args.trace if args.trace else 'synthetic ' + args.trace_kind}), "
           f"engine={args.engine}")
+    slo = (SLOConfig(preemption=args.slo_preempt, host_blocks=args.host_blocks,
+                     shed=args.slo_shed)
+           if args.slo_preempt or args.slo_shed else None)
     serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                         prefill_chunk=args.prefill_chunk,
                         max_len=max(args.max_len, longest),
                         spec=spec, sched_policy=args.sched_policy,
-                        prefix_cache=args.prefix_cache, kv_quant=args.kv_quant)
+                        prefix_cache=args.prefix_cache, slo=slo, kv_quant=args.kv_quant)
     engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
                               seed=args.seed, device=args.device, draft_model=draft_model,
                               obs=obs)
@@ -261,6 +285,9 @@ def main(argv=None):
               f"prompt tokens cached ({stats['cached_token_ratio']:.0%}), "
               f"{cs['bound_blocks']} blocks bound shared, {cs['published_blocks']} "
               f"published, {cs['cow_copies']} COW copies, {cs['evicted_blocks']} evicted")
+    line = slo_class_line(stats)
+    if line:
+        print(line)
     print(latency_line(stats))
     return stats
 

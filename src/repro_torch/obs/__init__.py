@@ -4,13 +4,15 @@ together.
 
 :class:`Observability` is the bundle the serving stack threads around —
 one per :class:`~repro_torch.serving.continuous.ContinuousEngine`, shared
-with its :class:`~repro_torch.serving.scheduler.Scheduler` so both publish
-into the same registry and trace.  The registry is always on (a few dict
+with its :class:`~repro_torch.serving.scheduler.Scheduler` and
+:class:`~repro_torch.serving.slo.swap.SwapManager` so every component
+publishes into the same registry and trace.  The registry is always on (a few dict
 updates per engine step); the tracer is opt-in (``tracing=True`` /
 ``--trace-out``).
 
 Span taxonomy, metric names and labels: ``docs/observability.md`` (the
-port publishes the subset its engine has).
+port publishes the subset its engine has); :mod:`repro_torch.obs.validate`
+checks the files written.
 """
 from __future__ import annotations
 

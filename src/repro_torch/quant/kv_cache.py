@@ -5,7 +5,10 @@ pools ``(L, P, Hkv, bs, D)`` plus float32 absmax *scale* pools
 ``(L, P, Hkv)`` indexed by the same block table
 (``value = policy.decode(code) * scale``, :mod:`repro_torch.quant.policy`).
 Everything host-side is inherited unchanged; only pool allocation,
-copy-on-write and byte accounting know about the scales.
+copy-on-write and byte accounting know about the scales.  A preemption swap
+(:class:`~repro_torch.serving.slo.swap.SwapManager`) copies a block's codes
+and its scale rows verbatim both ways, so a restored block decodes exactly
+as it did before the swap: nothing is re-quantized in flight.
 """
 from __future__ import annotations
 

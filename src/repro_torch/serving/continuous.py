@@ -48,12 +48,20 @@ index) in int64 tensor ops, so the CPU and the card draw the same integers
 and a sampled token differs between them only at a near-tie of the
 perturbed scores.
 
+**SLO scheduling** (``ServeConfig.slo``): each step first lets the
+scheduler preempt lower-priority victims for an urgent arrival that cannot
+be admitted (their KV blocks swap to a host pool, ``serving.slo.swap``),
+then shed waiting requests whose deadline is provably unmeetable
+(``SLOConfig.shed``), then admit, restoring a preempted pick's blocks so it
+resumes at the exact token.  All of it happens between steps, never inside
+a forward; the restored blocks are read back by the same decode kernels.
+
 Differences from the reference, by design of the port:
 
 * the KV pools are updated in place (the reference's jit donates them
   and adopts the returned pools);
 * PyTorch runs the step eagerly, so there is no compiled-variant census;
-* meshes, SLO scheduling and recurrent families are not ported and raise
+* meshes and recurrent families are not ported and raise
   NotImplementedError.
 """
 from __future__ import annotations
@@ -84,7 +92,7 @@ from repro_torch.serving.request import Request, RequestState, Status
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.speculative.accept import accept_greedy_ids, accept_rejection
 from repro_torch.serving.speculative.base import DraftItem
-from repro_torch.serving.trace import latency_stats
+from repro_torch.serving.trace import latency_stats, slo_class_stats
 
 _PAGED_FAMILIES = ("decoder_lm", "vlm", "m6")
 _ROW_FIELDS = ("tokens", "ctx_ids", "positions", "lengths", "wb", "wo")  # sent to the device
@@ -279,10 +287,10 @@ class ContinuousEngine:
             raise NotImplementedError("paged decode attention does not implement logit softcap")
         if cfg.moe.moe_attention:
             raise NotImplementedError("moe_attention has no cached decode path")
-        for what, value in (("mesh serving (serve.mesh)", serve.mesh),
-                            ("SLO scheduling (serve.slo)", serve.slo)):
-            if value is not None:
-                raise NotImplementedError(f"{what} is not ported")
+        if serve.mesh is not None:
+            # (the reference also refuses serve.slo with a mesh: its swap
+            # assumes one device pool)
+            raise NotImplementedError("mesh serving (serve.mesh) is not ported")
         if cfg.moe.num_experts > 0:
             get_router(cfg.moe.routing)
             get_dispatcher(cfg.moe.impl)
@@ -313,7 +321,7 @@ class ContinuousEngine:
         self._moe_rows = 0
         self.cache = make_kv_cache(cfg, serve, device=self.device)
         self.scheduler = Scheduler(serve.max_slots, serve.max_len, self.cache,
-                                   policy=serve.sched_policy, obs=self.obs)
+                                   policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
         self.spec = serve.spec
         self.drafter = None
         if self.spec is not None:
@@ -405,11 +413,14 @@ class ContinuousEngine:
     # -- one engine step ----------------------------------------------------
 
     def step(self, clock_ms: float = 0.0) -> List[RequestState]:
-        """Admit, run one mixed prefill/decode (or speculative verify) step,
-        process samples.  Returns the requests that finished."""
+        """Preempt and shed (``serve.slo``), admit, run one mixed
+        prefill/decode (or speculative verify) step, process samples.
+        Returns the requests that finished, after the ones shed this step."""
+        self.scheduler.maybe_preempt(clock_ms)
+        shed = self.scheduler.shed_unmeetable(clock_ms)
         self.scheduler.admit(clock_ms)
         if not self.scheduler.running:
-            return []
+            return shed
         # speculate only in decode-only steps: mid-prefill, the mixed step
         # makes prompt progress and decode slots emit one token
         if self.spec is not None and self.scheduler.prefilling is None:
@@ -419,7 +430,7 @@ class ContinuousEngine:
         self.steps += 1
         if self.check_invariants:
             self.scheduler.check_conservation()
-        return finished
+        return shed + finished
 
     def build_rows(self) -> StepRows:
         """The next step's rows: every decoding slot's token, then the
@@ -627,18 +638,33 @@ class ContinuousEngine:
                 if nxt is not None and nxt > clock:
                     clock = nxt                      # idle: jump to next arrival
             finished = self.step(clock)
-            m.gauge("serve_peak_running").set_max(
-                len(self.scheduler.running) + len(finished))
+            # shed requests never ran: they do not count toward the peak
+            ran = sum(st.status is not Status.SHED for st in finished)
+            m.gauge("serve_peak_running").set_max(len(self.scheduler.running) + ran)
             for st in finished:
                 done.append(st)
                 if on_finish is not None:
                     on_finish(st)
         total_ms = max(clock, (time.perf_counter() - t0) * 1e3)
-        self.scheduler.check_conservation()
-        stats = latency_stats([st.latency_ms() for st in done], total_ms,
-                              sum(len(st.generated) for st in done))
+        sched = self.scheduler
+        sched.check_conservation()
+        # a shed request resolved without a token: kept out of the latency
+        # and goodput stats, so "met its deadline" means "was served by it"
+        served = [st for st in done if st.status is not Status.SHED]
+        stats = latency_stats([st.latency_ms() for st in served], total_ms,
+                              sum(len(st.generated) for st in served))
         stats["steps"] = m.delta(mark, "engine_steps_total")
         stats["peak_running"] = m.get("serve_peak_running")
+        stats.update(slo_class_stats(served))
+        if self.serve.slo is not None and self.serve.slo.shed:
+            stats["requests_shed"] = m.delta(mark, "requests_shed_total")
+        if sched.swap is not None:
+            for key, counter in (("preemptions", "sched_preemptions_total"),
+                                 ("restore_tokens", "sched_restore_tokens_total"),
+                                 ("recompute_tokens", "sched_recompute_tokens_total"),
+                                 ("swapped_blocks", "swap_swapped_blocks_total"),
+                                 ("restored_blocks", "swap_restored_blocks_total")):
+                stats[key] = m.delta(mark, counter)
         if self.serve.prefix_cache:
             cached = m.delta(mark, "prefix_cached_tokens_total")
             prompt = m.delta(mark, "prefix_prompt_tokens_total")

@@ -46,6 +46,9 @@ class BlockAllocator:
     def allocated_count(self) -> int:
         return len(self._allocated)
 
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
     def alloc(self, n: int) -> List[int]:
         if n > len(self._free):
             raise RuntimeError(
@@ -180,6 +183,44 @@ class PagedKVCache:
     def write_coords(self, slot: int, position: int) -> Tuple[int, int]:
         b, o = divmod(position, self.block_size)
         return int(self.block_table[slot, b]), o
+
+    # -- preemption swap hooks (repro_torch.serving.slo) ---------------------
+
+    def warm_prefix_tokens(self, prompt) -> int:
+        """Prompt tokens already backed by cached KV (the ``cache_aware``
+        admission signal): always 0 without prefix caching."""
+        return 0
+
+    def swap_footprint(self, slot: int) -> int:
+        """Host blocks a swap-out of ``slot`` would take (its owned blocks;
+        the prefix cache leaves out the bound shared ones)."""
+        return len(self._slot_blocks[slot])
+
+    def swap_out(self, slot: int, swap, *, uid: int, total_len: int, context_len: int):
+        """Copy ``slot``'s blocks into the host pool and release the slot
+        (blocks, reservation, table row).  Returns the
+        :class:`~repro_torch.serving.slo.swap.SwapRecord` restore needs."""
+        rec = swap.store(self, uid=uid, total_len=total_len, context_len=context_len,
+                         blocks=list(self._slot_blocks[slot]), skip=0, hashes=[])
+        self.free_slot(slot)
+        return rec
+
+    def can_restore(self, rec) -> bool:
+        """Admission gate of a preempted request: the reservation test of a
+        fresh request of the recorded worst-case footprint."""
+        return self.can_allocate_slot(rec.total_len)
+
+    def restore_slot(self, slot: int, rec, swap) -> int:
+        """Rebuild ``slot`` from a swap record: re-reserve the footprint,
+        allocate blocks for the recorded context and upload the host
+        copies.  Returns the resume position (the whole recorded context
+        here; the prefix cache may return less).  The caller releases the
+        record's host blocks afterwards."""
+        self.allocate_slot(slot, rec.total_len)
+        self.ensure_capacity(slot, rec.context_len)
+        held = self._slot_blocks[slot]
+        swap.load(self, [(rec.host_of[k], held[k]) for k in range(rec.num_blocks)])
+        return rec.context_len
 
     def check_conservation(self) -> None:
         self.allocator.check_conservation()

@@ -19,7 +19,9 @@ KV sharing (``repro.serving.prefix_cache``), single device.
   published block detaches the slot onto a copy made on the device.
 
 Host state (tables, refcounts, the index) matches the reference's field for
-field.  The swap hooks of SLO preemption are not ported and raise.
+field, through SLO preemption's swap hooks too: a swap-out records the
+bound prefix by chain hash and copies only the owned blocks, and a restore
+re-binds what is still published and uploads the rest.
 """
 from __future__ import annotations
 
@@ -384,13 +386,89 @@ class PrefixCachingKVCache(PagedKVCache):
                                f"rewrite published block {blk} behind the index")
         return blk, o
 
-    # -- SLO preemption hooks (not ported) -----------------------------------
+    # -- preemption swap hooks (repro_torch.serving.slo) ---------------------
 
-    def swap_out(self, slot, swap, *, uid, total_len, context_len):
-        raise NotImplementedError("KV swap-to-host preemption (SLO scheduling) is not ported")
+    def warm_prefix_tokens(self, prompt) -> int:
+        """Prompt tokens a fresh admission would serve from the index now
+        (no LRU touch: a policy probe, not a hit)."""
+        return len(self._match_prefix(prompt)[1]) * self.block_size
 
-    def restore_slot(self, slot, rec, swap):
-        raise NotImplementedError("KV swap-to-host preemption (SLO scheduling) is not ported")
+    def swap_footprint(self, slot: int) -> int:
+        # bound blocks are shared and re-bindable: never copied
+        return len(self._slot_blocks[slot]) - self._slot_bound[slot]
+
+    def swap_out(self, slot: int, swap, *, uid: int, total_len: int, context_len: int):
+        """Refcount-aware swap-out: copy only the slot's *owned* blocks to
+        the host; the bound shared prefix is recorded by chain hash alone
+        (restore re-binds whatever block then holds that content).
+        ``free_slot`` then drops the bindings: owned published blocks land
+        on the cached list, so an undisturbed pool restores them by re-bind
+        too, without the host copies."""
+        rec = swap.store(self, uid=uid, total_len=total_len, context_len=context_len,
+                         blocks=list(self._slot_blocks[slot]),
+                         skip=self._slot_bound[slot], hashes=list(self._slot_chain[slot]))
+        self.free_slot(slot)
+        return rec
+
+    def _match_record(self, rec) -> Tuple[List[bytes], List[int]]:
+        """The leading run of the record's chain still published in the
+        index (the re-bindable prefix; it stops at the first evicted hash)."""
+        hashes: List[bytes] = []
+        blocks: List[int] = []
+        for h in rec.hashes:
+            b = self.index.get(h)
+            if b is None:
+                break
+            hashes.append(h)
+            blocks.append(b)
+        return hashes, blocks
+
+    def can_restore(self, rec) -> bool:
+        return self._admission_room(rec.total_len, self._match_record(rec)[1])
+
+    def restore_slot(self, slot: int, rec, swap) -> int:
+        """Rebuild a preempted slot: re-bind the still-published prefix,
+        upload the host copies of the rest, republish the restored full
+        blocks.  If a *bound* (never copied) block's hash was evicted, all
+        past the hole is unusable, so restore stops there and the engine
+        recomputes the tail by resume-prefill; the host copies past the hole
+        go with the record.  Returns the resume position."""
+        if slot in self._slot_reserved:
+            raise RuntimeError(f"slot {slot} already allocated")
+        hashes, blocks = self._match_record(rec)
+        m = len(blocks)
+        # tail uploads exist for every k >= rec.skip; a hole before that
+        # (m < skip) leaves nothing usable past position m * block_size
+        n_tail = rec.num_blocks - m if m >= rec.skip else 0
+        if not self._admission_room(rec.total_len, blocks):
+            raise RuntimeError(
+                f"KV pool over-reserved: restore of request {rec.uid} into slot {slot} "
+                f"needs {self.blocks_needed(rec.total_len) - m} exclusive blocks")
+        for b in blocks:
+            self.allocator.touch(b)
+            self.allocator.bind(b)
+        self.stats["bound_blocks"] += m
+        self._slot_reserved[slot] = self.blocks_needed(rec.total_len) - m
+        self.reserved_total += self._slot_reserved[slot]
+        self._slot_blocks[slot] = list(blocks)
+        self._slot_bound[slot] = m
+        self._slot_chain[slot] = list(hashes)
+        self.block_table[slot, :] = self.garbage_block
+        if blocks:
+            self.block_table[slot, :m] = blocks
+        if n_tail == 0:
+            return min(m * self.block_size, rec.context_len)
+        new = self.allocator.alloc(n_tail, owner=slot)
+        self.block_table[slot, m:rec.num_blocks] = new
+        self._slot_blocks[slot].extend(new)
+        swap.load(self, [(rec.host_of[k], new[k - m]) for k in range(m, rec.num_blocks)])
+        # the uploaded *full* blocks hold the recorded chain content again:
+        # extend the slot's chain and republish (first writer wins)
+        for k in range(m, len(rec.hashes)):
+            self._slot_chain[slot].append(rec.hashes[k])
+            if self.index.put(rec.hashes[k], self._slot_blocks[slot][k]):
+                self.stats["published_blocks"] += 1
+        return rec.context_len
 
     # -- eviction -----------------------------------------------------------
 

@@ -3,11 +3,14 @@ of ``repro.serving.request`` the port's engine uses).
 
 A :class:`Request` is what a client submits: prompt tokens, a generation
 budget and an arrival time (milliseconds on the serving clock — 0 for
-"already here", or trace-driven Poisson arrivals), plus the priority and
-deadline a trace file may carry (kept as data; the port has no SLO
-scheduling).  A :class:`RequestState` is the scheduler's view of one
-admitted request: its decode slot, how far prefill has progressed, and
-what has been generated so far.
+"already here", or trace-driven Poisson arrivals), and for SLO-aware
+scheduling (``repro_torch.serving.slo``) a :class:`Priority` class plus an
+optional latency target: an absolute ``deadline_ms``, or a
+``slo_tokens_per_s`` rate the deadline is derived from.  A
+:class:`RequestState` is the scheduler's view of one admitted request: its
+decode slot, how far prefill has progressed, what has been generated so
+far, and (under preemption) the host-side swap record its KV blocks live
+in while it is off the device.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import numpy as np
 
 
 class Priority(enum.IntEnum):
-    """Request priority class: lower value = more urgent."""
+    """Request priority class: lower value = more urgent.  Policies and
+    victim selection compare the int values, so a plain ``int`` works
+    anywhere a Priority does."""
 
     HIGH = 0
     NORMAL = 1
@@ -28,9 +33,11 @@ class Priority(enum.IntEnum):
 
 class Status(enum.Enum):
     QUEUED = "queued"        # waiting for a slot / KV blocks
-    PREFILL = "prefill"      # admitted; prompt chunks being ingested
+    PREFILL = "prefill"      # admitted; prompt (or resume) chunks being ingested
     DECODE = "decode"        # one token per engine step
+    PREEMPTED = "preempted"  # evicted mid-flight; KV swapped to host, requeued
     FINISHED = "finished"    # evicted; slot and blocks returned
+    SHED = "shed"            # rejected at the door: deadline provably unmeetable
 
 
 @dataclasses.dataclass
@@ -40,8 +47,12 @@ class Request:
     max_new_tokens: int
     arrival_ms: float = 0.0
     eos_id: Optional[int] = None
+    # SLO model: a priority class, and at most one way of stating a latency
+    # target (an absolute completion deadline, or a sustained token rate
+    # the deadline is derived from)
     priority: Priority = Priority.NORMAL
     deadline_ms: Optional[float] = None
+    slo_tokens_per_s: Optional[float] = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, dtype=np.int32).reshape(-1)
@@ -58,6 +69,8 @@ class Request:
             raise ValueError(
                 f"request {self.uid}: unknown priority {self.priority!r}; "
                 f"expected one of {[p.name.lower() for p in Priority]}") from None
+        if self.slo_tokens_per_s is not None and self.slo_tokens_per_s <= 0:
+            raise ValueError(f"request {self.uid}: slo_tokens_per_s must be > 0")
 
     @property
     def prompt_len(self) -> int:
@@ -67,6 +80,17 @@ class Request:
     def total_len(self) -> int:
         """Upper bound on context positions this request can occupy."""
         return self.prompt_len + self.max_new_tokens
+
+    @property
+    def effective_deadline_ms(self) -> Optional[float]:
+        """The completion deadline the SLO implies: ``deadline_ms`` when
+        given, else arrival + the worst-case generation at
+        ``slo_tokens_per_s``, else None (no deadline)."""
+        if self.deadline_ms is not None:
+            return self.deadline_ms
+        if self.slo_tokens_per_s is not None:
+            return self.arrival_ms + 1e3 * self.max_new_tokens / self.slo_tokens_per_s
+        return None
 
 
 @dataclasses.dataclass
@@ -81,6 +105,8 @@ class RequestState:
     admit_seq: int = -1              # admission order (the prefilling tiebreak)
     first_token_ms: Optional[float] = None
     finished_ms: Optional[float] = None
+    preemptions: int = 0             # times this request was swapped out
+    swap_record: Optional[object] = None  # SwapRecord while PREEMPTED
 
     @property
     def last_token(self) -> int:
@@ -91,7 +117,8 @@ class RequestState:
     def confirmed_tokens(self) -> np.ndarray:
         """The prompt plus every generated token that has been fed back
         (all samples except the newest): the token stream behind every KV
-        position this request can have written."""
+        position this request can have written, and the prefill stream a
+        restored preempted request re-ingests (or re-binds)."""
         if self.generated:
             return np.concatenate(
                 [self.request.prompt, np.asarray(self.generated[:-1], np.int32)])
@@ -99,7 +126,9 @@ class RequestState:
 
     @property
     def prefill_target(self) -> int:
-        """Context length at which prefill completes and decode starts."""
+        """Context length at which prefill completes and decode starts: the
+        prompt length for a fresh request, the whole confirmed stream for a
+        preempted one resuming mid-decode."""
         return int(self.confirmed_tokens.size)
 
     @property
@@ -119,3 +148,16 @@ class RequestState:
         if self.finished_ms is None:
             return None
         return self.finished_ms - self.request.arrival_ms
+
+    def slack_ms(self, clock_ms: float) -> float:
+        """Time left until the effective deadline (+inf without one);
+        negative once it is missed."""
+        d = self.request.effective_deadline_ms
+        return float("inf") if d is None else d - clock_ms
+
+    def met_deadline(self) -> Optional[bool]:
+        """True/False once finished and a deadline exists, else None."""
+        d = self.request.effective_deadline_ms
+        if d is None or self.finished_ms is None:
+            return None
+        return self.finished_ms <= d

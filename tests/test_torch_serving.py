@@ -4,6 +4,7 @@ Inputs come from numpy seeds and go to both packages; the reference's
 params cross over through ``repro_torch.nn.from_jax_params``.  Tolerances
 are f32 (2e-5) unless stated.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,7 +23,6 @@ from repro.serving.kv_cache import BlockAllocator as JBlockAllocator
 from repro.serving.kv_cache import PagedKVCache as JPagedKVCache
 from repro_torch.configs import m6 as tm6
 from repro_torch.configs.base import ServeConfig as TServeConfig
-from repro_torch.configs.base import SLOConfig
 from repro_torch.nn import from_jax_params, lm_shapes
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.serving.kv_cache import BlockAllocator as TBlockAllocator
@@ -144,10 +144,13 @@ def test_learned_positions_past_table_raise():
 
 @pytest.mark.parametrize("kw", [
     dict(serve=TServeConfig(max_len=32, mesh=(("data", 1), ("expert", 1)))),
-    dict(serve=TServeConfig(max_len=32, slo=SLOConfig())),
+    # the reference serves recurrent families in recurrent slots; the port
+    # serves only the paged ones
+    dict(cfg=dict(family="xlstm")),
 ])
 def test_unported_options_raise(kw):
     _, tcfg = _cfgs()
+    tcfg = dataclasses.replace(tcfg, **kw.pop("cfg", {}))
     tp = {"embed": {"table": torch.zeros(1)}}
     serve = kw.pop("serve", TServeConfig(max_len=32))
     with pytest.raises(NotImplementedError):
@@ -165,6 +168,49 @@ def test_cli_serves_on_cpu(capsys):
     assert stats["moe_dropped_fraction"] == 0.0
     with pytest.raises(NotImplementedError, match="--engine static"):
         main(["--arch", "m6-base", "--smoke", "--device", "cpu"])
+
+
+def test_cli_serves_slo_priority_trace_on_cpu(capsys):
+    """The SLO serve CLI at smoke size: a 16-request priority trace under
+    priority_strict with preemption and shedding.  It runs on the wall
+    clock, so which requests are preempted or shed varies from run to run
+    (parity with the reference is held by the engine tests of
+    test_torch_slo_sched.py, which drive the clock); every request it does
+    not shed finishes its budget, and it prints the ``slo:`` line.  The
+    smoke config's learned positions end at 64, hence ``--max-len 64``."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.request import Status
+
+    done = []
+    real_run = serve.ContinuousEngine.run
+
+    def run(self, requests, on_finish=None):
+        def record(st):
+            done.append(st)
+            on_finish(st)
+        return real_run(self, requests, on_finish=record)
+
+    argv = ["--arch", "m6-base", "--smoke", "--device", "cpu", "--engine", "continuous",
+            "--moe-impl", "dropless", "--capacity-factor", "none", "--trace-kind", "priority",
+            "--sched-policy", "priority_strict", "--slo-preempt", "--slo-shed",
+            "--requests", "16", "--max-len", "64"]
+    from unittest import mock
+
+    with mock.patch.object(serve.ContinuousEngine, "run", run):
+        stats = serve.main(argv)
+    out = capsys.readouterr().out
+    assert "slo: high n=" in out and "preemptions" in out and "synthetic priority" in out
+    assert len(done) == 16
+    for st in done:
+        assert st.status in (Status.FINISHED, Status.SHED)
+        want = 0 if st.status is Status.SHED else st.request.max_new_tokens
+        assert len(st.generated) == want
+    assert stats["generated_tokens"] == sum(len(st.generated) for st in done)
+    assert stats["requests_shed"] == sum(st.status is Status.SHED for st in done)
+    assert stats["moe_dropped_fraction"] == 0.0
+    assert serve._unported(serve.build_parser().parse_args(argv)) == []
+    bad = serve.build_parser().parse_args(argv[:5] + ["--mesh", "2", "--profile-dir", "d"])
+    assert serve._unported(bad) == ["--engine static", "--mesh", "--profile-dir"]
 
 
 def test_port_imports_without_jax():
