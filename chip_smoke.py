@@ -34,7 +34,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               D = 32, 128, and a garbage block of 1e4 past every length;
               the dense kernel likewise (every split forced, a wrapping
               ring, f32 at G = 2-8 and D = 32, 128, bf16 at D = 16, and
-              cache rows of 1e4 past every length).
+              cache rows of 1e4 past every length).  Phase 11's shapes:
+              moe_ffn at X = 1 and 15 (a static decode step and prefill
+              at capacity 1.25), ragged_ffn at the static prefill's 384
+              rows and at expert choice's slot-major layout, and the dense
+              kernel at the static engine's caches (every row at one
+              length), also against its split-and-merge plain version.
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -49,7 +54,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               each split forced, with the splits and stages beside each
               time and SDPA's device time beside the dense kernel's; then
               the FFN, flash and dense kernels measured again on the same
-              inputs.
+              inputs; and phase 11's shapes (above), the dense kernel at
+              the static trace's cache and median decode length beside
+              SDPA's time and its bound.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -155,8 +162,28 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               none holding a slot, a block or a token.  Per-class p50/p95
               and goodput, tokens/s against fcfs, the HIGH p95 ratio fcfs /
               priority_strict, preemptions, swapped and restored blocks.
-11. report  — a {"kernels": [...]} line, the card line, and as the last line
-              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+11. static  — m6-base through the static lockstep engine
+              (repro_torch.serving.engine), phase 5's weights: (a) greedy
+              generate of an 8 x 48 batch, 16 tokens, against the
+              continuous engine's tokens (a row may differ only from a
+              near-tie of the continuous run's top two logits on), with
+              its decode tokens/s; (b) run_trace_static at batch 8 over
+              phase 5's trace, every budget met, tokens/s and p50/p95
+              beside phase 5's continuous run and the ratio continuous /
+              static; (c) on every static run, the dense decode kernel
+              launched layers x decode steps times and every FFN launch on
+              the tensor cores, nothing else, and one profiled generate
+              (device busy share, the kernels by device time); (d) the batch at
+              --moe-impl pallas, capacity 1.25, through moe_ffn; (e) hash
+              routing, static against continuous as in (a); (f) at 2
+              layers, 2 training steps each of hash (pallas) and
+              expert_choice (pallas, dropless) through the train CLI,
+              then one step's loss and gradients kernels against plain.
+12. report  — a {"kernels": [...]} line (decode_attention's launches and
+              times from the static engine's path; static_launches and
+              router_train_launches of phase 11), the card line, and as the
+              last line {"ok": true, "device": {"platform": "gpu", "kind":
+              ..., "count": 1}}.
 """
 from __future__ import annotations
 
@@ -461,21 +488,29 @@ def dense_case(B, T, Hq, Hkv, D, lengths, seed, dtype=None, pad_t=0):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups=1):
+def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups=1,
+             capacity=None):
     """Expert-sorted rows exactly as the dropless dispatcher builds them
     from a top-1 plan over random router logits, for ``groups`` routing
-    groups of ``n_choices`` each (one launch over all groups' rows)."""
+    groups of ``n_choices`` each (one launch over all groups' rows); with
+    ``capacity``, from an expert-choice plan over ``n_choices`` tokens
+    (its slot-major view: E segments of min(capacity, n_choices) rows)."""
     import torch
 
     from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.dispatch.dropless import plan_block_rows
+    from repro_torch.core.routers.expert_choice import expert_choice_plan
     from repro_torch.core.routers.topk import topk_plan
-    from repro_torch.kernels.moe_dropless.ops import pick_block_rows
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn((groups, n_choices, E), generator=g, device="cuda")
-    plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0),
-                     n_choices)
-    bx = bx or pick_block_rows(n_choices, E)
+    if capacity is None:
+        plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0),
+                         n_choices)
+    else:
+        plan = expert_choice_plan(logits, MoEConfig(num_experts=E, routing="expert_choice"),
+                                  capacity)
+    bx = bx or plan_block_rows(plan)
     rag = plan.ragged(bx)
     x = torch.randn((groups, n_choices, M), generator=g, device="cuda").to(torch.bfloat16)
     tok = torch.clamp(rag.token, min=0).long()
@@ -675,6 +710,8 @@ def phase_check(torch):
         errs[name] = max(errs[name], err)
     check_paged_design(torch)
     check_dense_design(torch)
+    for name, err in check_static_kernels(torch, weights).items():
+        errs[name] = max(errs[name], err)
     return errs, weights
 
 
@@ -1222,17 +1259,18 @@ def pass_ms(torch, fn, reps: int = 10, bound_ms=None) -> dict:
             for k in ("up", "down")}
 
 
-def time_ffn(torch, n, seed, weights, groups=1):
+def time_ffn(torch, n, seed, weights, groups=1, capacity=None):
     """Kernel, plain and grouped_mm times for one ragged FFN call at the
     dispatcher's layout for ``n`` routed choices over 32 experts (in each
-    of ``groups`` routing groups)."""
+    of ``groups`` routing groups; with ``capacity``, expert choice's
+    slot-major layout over ``n`` tokens)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
     xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights,
-                                        groups=groups)
+                                        groups=groups, capacity=capacity)
 
     def kern():
         return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
@@ -1405,6 +1443,84 @@ def phase_timing(torch, ffn_weights):
     return out["decode (N=8)"], out["mixed (N=40)"]
 
 
+def static_shapes():
+    """Phase 11's new kernel shapes: the dense cache of the static trace
+    run (T, and its median decode length, every row at it) and of the
+    equal-length batch."""
+    from repro_torch.serving.trace import synthetic_trace
+
+    T, lens = static_decode_shapes(synthetic_trace(16, 21128, seed=0))
+    return {"trace": (T, sorted(lens)[len(lens) // 2]),
+            "batch": (STATIC_PROMPT + STATIC_GEN + 1, STATIC_PROMPT + STATIC_GEN // 2)}
+
+
+def check_static_kernels(torch, weights):
+    """Phase 11's new shapes against the plain versions at TOL (and the
+    split ones): the grouped FFN at X = 1 (a static decode step of 8 rows
+    at capacity 1.25) and X = 15 (its 8 x 48 prefill), the ragged FFN at
+    the static prefill's 384 rows and at expert choice's slot-major layout
+    (1152 tokens at capacity 45: 32 full segments of 45 rows), and the
+    dense decode kernel at the static engine's caches with every row at one
+    length, against its plain and split-and-merge versions."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref,
+        decode_attention_split_ref,
+    )
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.kernels.moe_ffn import ops as mf
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
+
+    errs = {}
+
+    def keep(name, err, split):
+        errs[name] = max(errs.get(name, 0.0), err)
+        errs[f"{name} split"] = max(errs.get(f"{name} split", 0.0), split)
+
+    for X in (1, 15):
+        case = moe_case(32, X, 1024, 4096, seed=140 + X)
+        keep("moe_ffn", *check_routed(
+            f"moe_ffn static E=32 X={X}", mf.moe_ffn, lambda *a: mf.moe_ffn(*a, "gelu"), case,
+            lambda *a: moe_ffn_ref(*a, "gelu"), lambda *a: moe_ffn_split_ref(*a, "gelu"), True))
+    for label, n, capacity in (("static prefill", 384, None), ("expert choice", 1152, 45)):
+        xs, be, _, rag, bx = ffn_case(n, 32, 1024, 4096, seed=145, weights=weights,
+                                      capacity=capacity)
+        log(f"  ragged_ffn {label}: R={xs.shape[0]} rows, bx={bx}, "
+            f"{int((rag.token >= 0).sum())} routed")
+        keep("ragged_ffn", *check_routed(
+            f"ragged_ffn {label}", rffn.ragged_ffn,
+            lambda *a: rffn.ragged_ffn(*a, "gelu", block_x=bx), (xs, be, *weights),
+            lambda *a: ragged_ffn_ref(*a, "gelu"), lambda *a: ragged_ffn_split_ref(*a, "gelu"),
+            True))
+    for label, (T, length) in static_shapes().items():
+        case = dense_case(8, T, 16, 16, 64, [length] * 8, seed=150 + T)
+        out = da.decode_attention(*case, max_length=length)
+        torch.cuda.synchronize()
+        splits, stages = da.dense_plan(8, 16, 1, 64, T, 2, da._sm_count(0), max_length=length)
+        name = f"decode_attention static {label} B=8 T={T} length {length} splits={splits}"
+        err = check_close(name, out, decode_attention_ref(*case))
+        check_close(f"{name} vs split plain", out, decode_attention_split_ref(*case, splits))
+        errs["decode_attention"] = max(errs.get("decode_attention", 0.0), err)
+    return errs
+
+
+def phase_timing_static(torch, ffn_weights):
+    """Phase 11's kernel shapes: the grouped FFN at X = 1 and 15, the ragged
+    FFN at the static prefill and the expert-choice layout, the dense
+    kernel at the static trace's cache (its median decode length)."""
+    T, length = static_shapes()["trace"]
+    out = {"moe_ffn X=1": time_moe_ffn(torch, 1, seed=160),
+           "moe_ffn X=15": time_moe_ffn(torch, 15, seed=161),
+           "ragged_ffn static prefill": time_ffn(torch, 384, seed=162, weights=ffn_weights),
+           "ragged_ffn expert choice": time_ffn(torch, 1152, seed=163, weights=ffn_weights,
+                                                capacity=45),
+           "decode_attention static": time_dense(torch, [length] * 8, seed=164, T=T)}
+    for name, r in out.items():
+        log(f"  static {name}: {timing_line(r)}")
+    return out
+
+
 def remeasure(torch, timing, ffn_weights):
     """The device times of the kernels this PR's shared-header change could
     move (the ragged and grouped FFN and flash include sm90.cuh) and of
@@ -1447,12 +1563,14 @@ def plain_versions():
 
     from repro_torch.kernels.decode_attention import ops as pda
     from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref,
         paged_decode_attention_ref,
         quantized_paged_decode_attention_ref,
     )
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
+    import repro_torch.kernels.decode_attention as da_pkg
     import repro_torch.kernels.flash_attention as fa_pkg
     import repro_torch.kernels.moe_ffn as mf_pkg
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1467,8 +1585,12 @@ def plain_versions():
     def plain_quantized(*args, policy, max_length=None):
         return quantized_paged_decode_attention_ref(*args, policy=policy)
 
+    def plain_dense(*args, splits=None, max_length=None):
+        return decode_attention_ref(*args)
+
     with mock.patch.object(pda, "paged_decode_attention", plain_paged), \
             mock.patch.object(pda, "quantized_paged_decode_attention", plain_quantized), \
+            mock.patch.object(da_pkg, "decode_attention", plain_dense), \
             mock.patch.object(rffn, "ragged_ffn", plain_ffn), \
             mock.patch.object(mf_pkg, "moe_ffn", moe_ffn_ref), \
             mock.patch.object(fa_pkg, "flash_attention", attention_ref):
@@ -1580,12 +1702,68 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
             "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3}
 
 
+def profile_static(torch, cfg, params, prompts, gen):
+    """torch.profiler over one static ``generate`` (a prefill and gen - 1
+    decode steps): device busy share and the kernels that take the device
+    time, as ``profile_steps`` reads them for the continuous engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_session(torch)
+        t0 = time.perf_counter()
+        eng.generate(prompts, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_events(prof)
+
+    def dev_us(e):
+        return float(e.self_device_time_total)
+
+    busy_us = sum(dev_us(e) for e in kernels)
+    if busy_us <= 0.0:
+        log("  profiler: no device time recorded; device busy share not measured")
+        return {"device_busy_share": None}
+    log(f"  profiler over one static generate ({gen - 1} decode steps): device busy "
+        f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
+    return {"device_busy_share": busy_us / wall_us, "profiled_wall_ms": wall_us / 1e3,
+            "profiled_device_ms": busy_us / 1e3}
+
+
+def expert_choice_routes(x, router_w, plan):
+    """An expert-choice plan's routes, per token: the set of experts that
+    picked it (a bit mask over E <= 62 experts) and its log-score gap to the
+    far side of the nearest expert's selection boundary (the c-th and
+    (c+1)-th scores of that expert), which a perturbation must close to
+    move the token in or out."""
+    import torch
+
+    logs = torch.log_softmax(x.float() @ router_w.float(), dim=-1)     # (G, T, E)
+    G, T, E = logs.shape
+    c = plan.token_at_slot.shape[-1]
+    ranked = logs.transpose(1, 2).sort(dim=-1, descending=True).values  # (G, E, T)
+    last_in = ranked[..., c - 1][:, None, :]
+    first_out = (ranked[..., c] if c < T
+                 else torch.full_like(ranked[..., 0], -math.inf))[:, None, :]
+    picked = plan.valid
+    gap = torch.where(picked, logs - first_out, last_in - logs)
+    mask = (picked.long() << torch.arange(E, device=logs.device)).sum(dim=-1)
+    return mask.reshape(-1).clone(), gap.amin(dim=-1).reshape(-1).clone()
+
+
 @contextmanager
 def recorded_routing(store: list):
-    """Record, per MoE layer, each row's top-1 expert, its router-logit
-    margin over the runner-up (what a bf16 perturbation must overcome to
-    flip the routing) and which of its choices fit their expert's capacity
-    (``valid``, (rows, k))."""
+    """Record, per MoE layer, each row's route (its top-1 expert; under
+    expert choice the set of experts that picked it), the margin a bf16
+    perturbation must overcome to change it (the router-logit gap to the
+    runner-up; under expert choice ``expert_choice_routes``' gap; none
+    under hash routing) and which of its choices fit their expert's
+    capacity (``valid``, (rows, k))."""
     from unittest import mock
 
     from repro_torch.core import moe
@@ -1596,10 +1774,16 @@ def recorded_routing(store: list):
     def route(x, router_w, cfg, capacity, ctx=None):
         plan = real(x, router_w, cfg, capacity, ctx=ctx)
         with torch.no_grad():
-            top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
-            store.append((plan.expert_index[..., 0].reshape(-1).clone(),
-                          (top2[..., 0] - top2[..., 1]).reshape(-1).clone(),
-                          plan.valid.reshape(-1, plan.valid.shape[-1]).clone()))
+            valid = plan.valid.reshape(-1, plan.valid.shape[-1]).clone()
+            if plan.token_at_slot is not None:
+                store.append((*expert_choice_routes(x, router_w, plan), valid))
+            elif router_w is None:              # hash: no logits, nothing can flip
+                first = plan.expert_index[..., 0].reshape(-1).clone()
+                store.append((first, torch.full(first.shape, math.inf), valid))
+            else:
+                top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
+                store.append((plan.expert_index[..., 0].reshape(-1).clone(),
+                              (top2[..., 0] - top2[..., 1]).reshape(-1).clone(), valid))
         return plan
 
     with mock.patch.object(moe, "route", route):
@@ -1913,8 +2097,8 @@ def _flip_report(routes_k, routes_p, layers, seq_len, label):
         for r in flipped:
             margin = float(mk[r])
             flips.append((layer, r, margin))
-            log(f"  routing near-tie ({label}): layer {layer}, token {r}: expert {int(ek[r])} "
-                f"(kernels) vs {int(ep[r])} (plain), router-logit margin {margin:.3g}")
+            log(f"  routing near-tie ({label}): layer {layer}, token {r}: route {int(ek[r])} "
+                f"(kernels) vs {int(ep[r])} (plain), router margin {margin:.3g}")
             if r not in reached and margin > FLIP_MARGIN:
                 raise AssertionError(f"{label}: routing flipped at margin {margin} > {FLIP_MARGIN}")
             affected.update(range(r, (r // seq_len + 1) * seq_len))
@@ -3345,6 +3529,290 @@ def phase_slo(torch):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the static lockstep engine, the hash and expert-choice routers
+# ---------------------------------------------------------------------------
+
+STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 8, 48, 16   # the equal-length batch of (a)-(e)
+STATIC_SEED = 11
+STATIC_TRAIN_LAYERS = 2
+# (label, train CLI flags, the FFN kernel the run launches)
+STATIC_TRAIN_RUNS = (
+    ("hash, pallas", ["--routing", "hash", "--k", "1", "--moe-impl", "pallas"], "moe_ffn"),
+    ("expert_choice, pallas", ["--routing", "expert_choice", "--k", "1", "--moe-impl", "pallas"],
+     "moe_ffn"),
+    ("expert_choice, dropless",
+     ["--routing", "expert_choice", "--k", "1", "--moe-impl", "dropless"], "ragged_ffn"),
+)
+KERNEL_NAMES = ("decode_attention", "paged_decode_attention", "quantized_paged_decode_attention",
+                "ragged_ffn", "moe_ffn", "flash_attention")
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_ffn import ops as mf
+
+    return {"decode_attention": da.decode_attention,
+            "paged_decode_attention": da.paged_decode_attention,
+            "quantized_paged_decode_attention": da.quantized_paged_decode_attention,
+            "ragged_ffn": rffn.ragged_ffn, "moe_ffn": mf.moe_ffn,
+            "flash_attention": fa.flash_attention}
+
+
+@contextmanager
+def counted_launches(out: dict):
+    """Every kernel's launch counter (and tensor-core counter) set to 0 on
+    entry; on exit ``out`` holds each kernel's launches in between, and
+    ``"<name> tc"`` those on the tensor-core route."""
+    fns = kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
+    yield
+    for name, fn in fns.items():
+        out[name] = fn.launches
+        if hasattr(fn, "tc_launches"):
+            out[f"{name} tc"] = fn.tc_launches
+
+
+def expect_launches(label: str, got: dict, want: dict) -> None:
+    """Each kernel launched exactly ``want[name]`` times (0 if absent), and
+    every grouped-FFN launch on the tensor cores."""
+    launched = {n: got[n] for n in KERNEL_NAMES if got[n]}
+    if any(got[n] != want.get(n, 0) for n in KERNEL_NAMES):
+        raise AssertionError(f"{label}: launches {launched}, expected {want} and no other kernel")
+    for name in ("moe_ffn", "ragged_ffn"):
+        if got[f"{name} tc"] != got[name]:
+            raise AssertionError(f"{label}: {got[f'{name} tc']} of {got[name]} {name} launches "
+                                 f"on the tensor-core route")
+
+
+def static_decode_shapes(requests, batch=STATIC_BATCH):
+    """(cache length T, the attended length of every decode step) of
+    ``run_trace_static(requests, batch)``: FCFS groups, each decoding its
+    longest gen - 1 steps from its longest prompt."""
+    from repro_torch.serving.trace import static_max_len
+
+    order = sorted(requests, key=lambda r: (r.arrival_ms, r.uid))
+    lens = []
+    for i in range(0, len(order), batch):
+        group = order[i:i + batch]
+        S = max(r.prompt_len for r in group)
+        lens += [S + j + 1 for j in range(max(r.max_new_tokens for r in group) - 1)]
+    return static_max_len(requests), lens
+
+
+def without_router(params):
+    """A hash-routed model's param tree from a token-choice one: the same
+    leaves (views) without the router weight."""
+    blocks = dict(params["blocks"])
+    blocks["ffn"] = {k: v for k, v in blocks["ffn"].items() if k != "router"}
+    return {**params, "blocks": blocks}
+
+
+def static_generate(torch, cfg, params, prompts, gen):
+    """``ServingEngine.generate`` with the kernel counters at 0 before it:
+    (tokens, stats, launches, wall ms)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
+    table = params["embed"]["table"]
+    launches = {}
+    sync(torch, table)
+    with counted_launches(launches):
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompts, gen)
+        sync(torch, table)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return toks, stats, launches, wall_ms
+
+
+def static_parity(torch, cfg, params, prompts, gen, device, label):
+    """(a) and (e): the static engine's greedy tokens against the
+    continuous engine's on one equal-length batch; a row may differ only
+    from a near-tie of the continuous run's top two logits on.  On the
+    card the dense decode kernel must run layers x decode steps times and
+    the ragged FFN layers x (prefill + decode steps), all on the tensor
+    cores, and nothing else."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.request import Request
+
+    B, S = prompts.shape
+    L = cfg.num_layers
+    toks, stats, launches, wall_ms = static_generate(torch, cfg, params, prompts, gen)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or toks.shape != (B, gen):
+        raise AssertionError(f"{label}: tokens of shape {toks.shape} outside the vocabulary")
+    if params["embed"]["table"].is_cuda:
+        expect_launches(label, launches, {"decode_attention": L * (gen - 1),
+                                          "ragged_ffn": L * gen})
+    requests = [Request(uid=i, prompt=prompts[i], max_new_tokens=gen) for i in range(B)]
+    serve = ServeConfig(max_slots=B, max_len=S + gen + 1)
+    base, margins = tapped_margins(torch, cfg, params, serve, requests, device)
+    static = {i: toks[i].tolist() for i in range(B)}
+    div = first_divergences(base, static, margins, requests, f"{label} static vs continuous")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    log(f"  {label}: static generate of {B} x {S} prompts, {gen} tokens: {B - len(div)} of {B} "
+        f"rows equal to the continuous engine's; prefill {stats['prefill_s'] * 1e3:.2f} ms, "
+        f"decode {stats['decode_s'] * 1e3:.2f} ms ({stats['decode_tokens_per_s']:.1f} "
+        f"tokens/s), wall {wall_ms:.1f} ms; launches {shown}")
+    return dict(rows_equal=B - len(div), rows=B,
+                divergences=[dict(request=u, token=p, gap=g) for u, p, g in div],
+                prefill_ms=stats["prefill_s"] * 1e3, decode_ms=stats["decode_s"] * 1e3,
+                decode_tokens_per_s=stats["decode_tokens_per_s"], launches=shown), launches
+
+
+def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_BATCH):
+    """(b): ``run_trace_static`` over the trace at ``batch``; every budget
+    met, and on the card the dense kernel launched layers x decode steps
+    times; its tokens/s and p50/p95 beside the continuous run's
+    (``continuous``: tokens_per_s, p50_ms, p95_ms) and the ratio
+    continuous / static (the reference benchmark's speedup_tokens_per_s)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.trace import latency_line, run_trace_static
+
+    T, lens = static_decode_shapes(requests, batch)
+    groups = -(-len(requests) // batch)
+    eng = ServingEngine(cfg, params, max_len=T)
+    table = params["embed"]["table"]
+    launches = {}
+    sync(torch, table)
+    with counted_launches(launches):
+        out, stats = run_trace_static(eng, requests, batch)
+        sync(torch, table)
+    for r in requests:
+        if len(out[r.uid]) != r.max_new_tokens:
+            raise AssertionError(f"static trace: request {r.uid}: {len(out[r.uid])} tokens, "
+                                 f"budget {r.max_new_tokens}")
+    L = cfg.num_layers
+    if table.is_cuda:
+        expect_launches("static trace", launches, {"decode_attention": L * len(lens),
+                                                   "ragged_ffn": L * (len(lens) + groups)})
+    ratio = continuous["tokens_per_s"] / stats["generated_tokens_per_s"]
+    log(f"  static trace, batch {batch}: {latency_line(stats)}; cache T = {T}, {groups} groups, "
+        f"{len(lens)} decode steps; continuous {continuous['tokens_per_s']:.1f} tokens/s, p50 "
+        f"{continuous['p50_ms']:.0f} ms p95 {continuous['p95_ms']:.0f} ms: continuous / static "
+        f"{ratio:.3f}x tokens/s")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    return dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+                p95_ms=stats["p95_ms"], total_ms=stats["total_ms"], batch=batch, max_len=T,
+                decode_steps=len(lens), continuous_tokens_per_s=continuous["tokens_per_s"],
+                continuous_p50_ms=continuous["p50_ms"], continuous_p95_ms=continuous["p95_ms"],
+                speedup_tokens_per_s=ratio, launches=shown), launches
+
+
+def static_serving_runs(torch, cfg, params, requests, device, continuous,
+                        shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN)):
+    """(a)-(e) of phase 11 over ``cfg`` (dropless top-1) and its params:
+    returns (report, launches summed over the runs)."""
+    import numpy as np
+
+    B, S, gen = shape
+    L = cfg.num_layers
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    static_generate(torch, cfg, params, prompts, 2)      # warm-up: first cuBLAS calls
+    total, report = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    report["greedy"], got = static_parity(torch, cfg, params, prompts, gen, device, "dropless")
+    add(got)
+    if params["embed"]["table"].is_cuda:
+        report["greedy"].update(profile_static(torch, cfg, params, prompts, gen))
+    report["trace"], got = static_trace(torch, cfg, params, requests, device, continuous)
+    add(got)
+    cap = cfg.replace_moe(impl="pallas", capacity_factor=1.25)
+    toks, stats, got, _ = static_generate(torch, cap, params, prompts, gen)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("capacity 1.25: tokens outside the vocabulary")
+    if params["embed"]["table"].is_cuda:
+        expect_launches("capacity 1.25", got, {"decode_attention": L * (gen - 1),
+                                               "moe_ffn": L * gen})
+    log(f"  capacity 1.25 (pallas): {B} x {S} prompts, {gen} tokens, moe_ffn launches "
+        f"{got['moe_ffn']} ({got['moe_ffn tc']} on the tensor cores), decode "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s")
+    report["capacity"] = dict(moe_ffn_launches=got["moe_ffn"],
+                              decode_tokens_per_s=stats["decode_tokens_per_s"])
+    add(got)
+    report["hash"], got = static_parity(torch, cfg.replace_moe(routing="hash"),
+                                        without_router(params), prompts, gen, device, "hash")
+    add(got)
+    return report, total
+
+
+def router_train_runs(torch, argv, device, layers=STATIC_TRAIN_LAYERS):
+    """(f): for each of STATIC_TRAIN_RUNS, 2 steps through the train CLI at
+    ``layers`` layers (finite losses, dropped fraction in [0, 1); on the
+    card the run's FFN kernel launched layers x steps x 2, all on the
+    tensor cores, and nothing else), then one step's loss and gradients
+    through the kernels against the plain versions (``compare_train_step``,
+    routing near-ties reported).  Returns (report, launches)."""
+    from unittest import mock
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import device_batch
+
+    build_full = train_mod.build
+
+    def build_cut(args):
+        return build_full(args).replace(num_layers=layers)
+
+    report, total = {}, {}
+    with mock.patch.object(train_mod, "build", build_cut):
+        for label, extra, ffn in STATIC_TRAIN_RUNS:
+            args = argv + extra + ["--steps", "2", "--device", device]
+            launches = {}
+            with counted_launches(launches):
+                logs = train_mod.main(args)
+            for m in logs:
+                if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                        and 0.0 <= m["moe_dropped_fraction"] < 1.0):
+                    raise AssertionError(f"{label}: step {m['step']}: loss {m['loss']}, grad "
+                                         f"norm {m['grad_norm']}, dropped fraction "
+                                         f"{m['moe_dropped_fraction']}")
+            if device == "cuda":
+                expect_launches(label, launches, {ffn: layers * 2 * 2})
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            log(f"  train {label}, {layers} layers: losses "
+                f"{[round(m['loss'], 4) for m in logs]}, dropped fraction "
+                f"{[round(m['moe_dropped_fraction'], 4) for m in logs]}, {ffn} launches "
+                f"{launches[ffn]} (forward + remat recompute)")
+            cfg, state, _, pipeline = train_setup(args)
+            batch = device_batch(pipeline.batch_at(0), device)
+            cmp = compare_train_step(torch, cfg, state.params, batch)
+            del state
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            report[label] = dict(losses=[m["loss"] for m in logs],
+                                 dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
+                                 launches=launches[ffn], kernels_vs_plain=cmp)
+    return report, total
+
+
+def phase_static(torch, continuous):
+    """Phase 11: m6-base through the static engine (phase 5's weights,
+    trace and continuous numbers), then the two routers' training."""
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.nn import init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    log(f"phase 11: the static engine and the hash and expert-choice routers ({card_line()})")
+    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    requests = synthetic_trace(16, cfg.vocab_size, seed=0)      # phase 5's trace
+    report, launches = static_serving_runs(torch, cfg, params, requests, "cuda", continuous)
+    del params
+    torch.cuda.empty_cache()
+    report["train"], train_launches = router_train_runs(torch, TRAIN_ARGS, "cuda")
+    return report, launches, train_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3408,6 +3876,7 @@ def main() -> int:
     errs, ffn_weights = phase_check(torch)
     timing, timing_mixed = phase_timing(torch, ffn_weights)
     timing.update(phase_timing_training(torch))
+    timing.update(phase_timing_static(torch, ffn_weights))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -3435,9 +3904,13 @@ def main() -> int:
     t0 = time.perf_counter()
     slo, slo_launches = phase_slo(torch)
     slo_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    static, static_launches, router_launches = phase_static(torch, e2e)
+    static_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
-        f"{slo_s:.1f} s")
+        f"{slo_s:.1f} s, static phase {static_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -3452,13 +3925,18 @@ def main() -> int:
             "src/repro_torch/kernels/decode_attention/csrc/quantized_paged_decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:226", kv_launches),
         "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention/kernel.py:63", kv_launches),
+                             "src/repro/kernels/decode_attention/kernel.py:63", static_launches),
     }
+    # phase 11's shapes of the kernels that run there
+    static_timing = {"decode_attention": ["decode_attention static"],
+                     "moe_ffn": ["moe_ffn X=1", "moe_ffn X=15"],
+                     "ragged_ffn": ["ragged_ffn static prefill", "ragged_ffn expert choice"]}
     kernels = []
     for name, (src, replaces, counts) in sources.items():
         if counts[name] <= 0:
             raise AssertionError(f"{name}: launched no time on its path")
-        t = timing[name]
+        # the dense kernel's path is the static engine: its times at that shape
+        t = timing["decode_attention static" if name == "decode_attention" else name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": counts[name], "max_abs_err": errs[name],
                  "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3489,15 +3967,28 @@ def main() -> int:
                 verify_ms=v["ms"], verify_device_ms=v["device_ms"],
                 verify_plain_ms=v["plain_ms"], verify_bound_ms=v["bound_ms"],
                 verify_library_device_ms=v["library_device_ms"])
+        if name in static_timing:         # phase 11: the static engine and router training
+            entry["static_launches"] = static_launches[name]
+            if name != "decode_attention":
+                entry["router_train_launches"] = router_launches[name]
+            entry["static_shapes"] = {
+                label: {k: timing[label][k] for k in ("device_ms", "plain_ms", "bound_ms",
+                                                      "library_device_ms")}
+                for label in static_timing[name]}
+        if name == "decode_attention":   # phase 4's 8 x 256 cache and phase 7's engine pools
+            entry.update(t256_device_ms=timing[name]["device_ms"],
+                         t256_bound_ms=timing[name]["bound_ms"],
+                         engine_pool_launches=kv_launches[name])
         if name in slo_launches:          # phase 10: the SLO runs
             if slo_launches[name] <= 0:
                 raise AssertionError(f"{name}: launched no time in phase 10")
             entry["slo_launches"] = slo_launches[name]
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
-                      "spec": spec, "slo": slo, "build_s": build_s, "serve_s": serve_s,
-                      "train_s": train_s, "kv_s": kv_s, "checkpoint_s": ckpt_s,
-                      "spec_s": spec_s, "slo_s": slo_s,
+                      "spec": spec, "slo": slo, "static": static, "build_s": build_s,
+                      "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
+                      "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
+                      "static_s": static_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

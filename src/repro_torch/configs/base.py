@@ -50,13 +50,12 @@ class MoEConfig:
 
     def __post_init__(self):
         if self.num_experts > 0:
-            # Names the reference registers but the port does not (e.g. the
-            # default impl "einsum") are valid configs; using one raises
-            # NotImplementedError at get_router / get_dispatcher.
+            # A dispatcher the reference registers but the port does not
+            # (alltoall) is a valid config; using it raises
+            # NotImplementedError at get_dispatcher.
             from repro_torch.core import dispatch, routers
 
-            if self.routing not in routers.UNPORTED:
-                routers.get_router(self.routing)
+            routers.get_router(self.routing)
             supports_dropless = False
             if self.impl not in dispatch.UNPORTED:
                 supports_dropless = getattr(dispatch.get_dispatcher(self.impl),

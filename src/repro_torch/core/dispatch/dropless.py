@@ -12,7 +12,8 @@ as the reference's ``.at[gi, tok].add``.  On the card PyTorch sorts the
 indices and sums each token's terms in its own order, not the
 reference's; at top-1 each token row gets exactly one nonzero term
 (padding rows add gate-0 products into token 0), so the result does not
-depend on that order.
+depend on that order.  Under expert choice a token gets a term from
+each expert that picked it, summed in the card's order.
 """
 from __future__ import annotations
 
@@ -31,7 +32,10 @@ from repro_torch.kernels.moe_dropless.ops import pick_block_rows
 def plan_block_rows(plan: RoutingPlan, max_block: int = 128) -> int:
     """Row-block granularity for the plan's ragged view: scales down with
     the choice count so segment padding never dwarfs real rows."""
-    n = plan.expert_index.shape[1] * plan.expert_index.shape[2]
+    if plan.token_at_slot is not None:
+        n = plan.token_at_slot.shape[1] * plan.token_at_slot.shape[2]
+    else:
+        n = plan.expert_index.shape[1] * plan.expert_index.shape[2]
     return pick_block_rows(n, plan.num_experts, max_block)
 
 

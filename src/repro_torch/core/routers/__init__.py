@@ -1,6 +1,6 @@
-"""Router registry (``repro.core.routers``).  The port registers
-``topk`` and ``prototype``; ``MoEConfig.routing`` is a key into this
-registry."""
+"""Router registry (``repro.core.routers``): ``topk``, ``prototype``,
+``expert_choice`` and ``hash``, all four of the reference's routers;
+``MoEConfig.routing`` is a key into this registry."""
 from __future__ import annotations
 
 from typing import Dict, Tuple, Type
@@ -8,9 +8,6 @@ from typing import Dict, Tuple, Type
 from repro_torch.core.routers.base import Router, RoutingPlan  # noqa: F401
 
 _REGISTRY: Dict[str, Router] = {}
-
-# The reference's other routers: valid in a config, not ported.
-UNPORTED = ("expert_choice", "hash")
 
 
 def register_router(cls: Type) -> Type:
@@ -22,9 +19,6 @@ def register_router(cls: Type) -> Type:
 
 
 def get_router(name: str) -> Router:
-    if name in UNPORTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"routing {name!r} is not ported; ported: {', '.join(available_routers())}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -37,4 +31,4 @@ def available_routers() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from repro_torch.core.routers import prototype, topk  # noqa: E402,F401
+from repro_torch.core.routers import expert_choice, hashed, prototype, topk  # noqa: E402,F401

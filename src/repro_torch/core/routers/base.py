@@ -12,11 +12,16 @@ of ``block_rows``.  The layout is part of the contract with the reference
 follows ``_ragged_index_view`` step for step: a *stable* argsort, the
 ``R + 1`` parking row for invalid choices, and ``searchsorted(right)``
 for the block -> expert map, clipped to ``E - 1`` for trailing blocks.
+
+Expert-choice plans also carry the *slot-major* view, ``token_at_slot``
+and ``gate_at_slot`` of shape ``(G, E, Cs)``: the token in slot (e, c)
+(-1 = empty) and its combine weight.  The gather dispatch and the ragged
+view read it instead of the mostly invalid ``K = E`` index view.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,7 +30,7 @@ from repro_torch.core.metrics import dropped_fraction
 
 @dataclasses.dataclass(frozen=True)
 class RaggedView:
-    sort_order: torch.Tensor      # (G, R) int32 flat choice index t*K+k; -1 = empty
+    sort_order: torch.Tensor      # (G, R) int32 t*K+k (index view) or e*Cs+c (slot-major); -1 = empty
     token: torch.Tensor           # (G, R) int32 source token; -1 = empty
     gate: torch.Tensor            # (G, R) f32; 0 on empty rows
     expert_offsets: torch.Tensor  # (G, E+1) int32 block-aligned segment starts
@@ -46,6 +51,8 @@ class RoutingPlan:
     z_loss: torch.Tensor
     metrics: dict
     combine_dtype: torch.dtype = torch.float32
+    token_at_slot: Optional[torch.Tensor] = None   # (G, E, Cs) int32, -1 = empty
+    gate_at_slot: Optional[torch.Tensor] = None    # (G, E, Cs) f32
 
     @property
     def masked_gate(self) -> torch.Tensor:
@@ -72,6 +79,8 @@ class RoutingPlan:
         return dense.index_put((g, t, e, c), values)[..., :C]
 
     def ragged(self, block_rows: int = 128) -> RaggedView:
+        if self.token_at_slot is not None:
+            return self._ragged_slot_major(block_rows)
         return self._ragged_index_view(block_rows)
 
     def _ragged_index_view(self, bx: int) -> RaggedView:
@@ -110,6 +119,29 @@ class RoutingPlan:
         block_expert = torch.clamp(
             torch.searchsorted(offsets, starts_b, right=True) - 1, 0, E - 1).to(i32)
         return RaggedView(sort_order, token, gate, offsets.to(i32), block_expert, E, bx)
+
+    def _ragged_slot_major(self, bx: int) -> RaggedView:
+        """Slot-major plans are already expert-major: segment e is its
+        ``Cs`` slots, padded to a block multiple."""
+        G, E, Cs = self.token_at_slot.shape
+        dev = self.token_at_slot.device
+        i32 = torch.int32
+        Cp = -(-Cs // bx) * bx
+        filled = self.token_at_slot >= 0
+        gate = torch.where(filled, self.gate_at_slot,
+                           torch.zeros_like(self.gate_at_slot)).float()
+        so = torch.arange(E * Cs, dtype=i32, device=dev).reshape(1, E, Cs).expand(G, E, Cs)
+        so = torch.where(filled, so, torch.full_like(so, -1))
+
+        def padded(x, fill):
+            return torch.nn.functional.pad(x, (0, Cp - Cs), value=fill).reshape(G, E * Cp)
+
+        offsets = (torch.arange(E + 1, dtype=i32, device=dev) * Cp).expand(G, E + 1)
+        block_expert = ((torch.arange(E * Cp // bx, dtype=i32, device=dev) * bx) // Cp
+                        ).expand(G, E * Cp // bx)
+        return RaggedView(padded(so, -1), padded(self.token_at_slot, -1),
+                          padded(gate, 0.0), offsets.contiguous(),
+                          block_expert.contiguous(), E, bx)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +195,11 @@ class Router:
     """A routing strategy: parameter shape + plan construction."""
 
     name: str = "abstract"
+
+    def weight_shape(self, m, d_model: int) -> Optional[Tuple[int, ...]]:
+        """The router weight's shape (one layer's), or None for a
+        parameter-free router (the reference's ``param_spec``)."""
+        return (d_model, m.num_experts)
 
     def plan(self, x32: torch.Tensor, w: Optional[torch.Tensor], m, capacity: int,
              combine_dtype=torch.float32, ctx=None) -> RoutingPlan:

@@ -59,6 +59,9 @@ def prototype_plan(logits: torch.Tensor, cfg: MoEConfig, capacity: int,
 class PrototypeRouter(base.Router):
     name = "prototype"
 
+    def weight_shape(self, m: MoEConfig, d_model: int):
+        return (d_model, m.num_prototypes, m.experts_per_prototype)   # Fig. 8
+
     def plan(self, x32, w, m: MoEConfig, capacity: int,
              combine_dtype=torch.float32, ctx=None) -> RoutingPlan:
         return prototype_plan(prototype_logits(x32, w), m, capacity, combine_dtype)

@@ -1,6 +1,14 @@
-"""Serving entry point (``repro.launch.serve``), continuous batching on the card.
+"""Serving entry point (``repro.launch.serve``): static lockstep batching
+(the default) or continuous batching, on the card.
 
-  # the m6-base serving path: 16 synthetic requests, dropless MoE
+  # the reference's default: one static lockstep batch of 4 prompts
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base
+
+  # the static engine over a 16-request trace, FCFS groups of --batch
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base \\
+      --engine static --batch 8 --requests 16
+
+  # the m6-base continuous serving path: 16 synthetic requests, dropless MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --arch m6-base \\
       --engine continuous --moe-impl dropless --capacity-factor none --requests 16
 
@@ -29,8 +37,10 @@
       --trace-kind priority --sched-policy priority_strict --slo-preempt \\
       --host-blocks 56 --requests 32
 
-The flags are the reference's.  Those whose feature is not ported (the
-static engine, meshes, the device profiler) raise NotImplementedError.
+The flags are the reference's.  Those whose feature is not ported (meshes,
+the device profiler) raise NotImplementedError; as in the reference, the
+static engine takes no --mesh, --spec-drafter, --trace-out or
+--metrics-out.
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``,
 unless ``--ckpt-dir`` names checkpoints in the reference's format: then the
 latest one's params are served (a train checkpoint's ``.params`` leaves or
@@ -50,12 +60,15 @@ from repro_torch.core.dispatch import UNPORTED, available_dispatchers
 from repro_torch.kernels import build
 from repro_torch.nn import init_params
 from repro_torch.serving.continuous import ContinuousEngine
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import available_policies
 from repro_torch.serving.speculative import available_drafters
 from repro_torch.serving.trace import (
     latency_line,
     load_trace,
+    run_trace_static,
     slo_class_line,
+    static_max_len,
     synthetic_multitenant,
     synthetic_priority,
     synthetic_trace,
@@ -70,7 +83,6 @@ def parse_capacity_factor(value: str):
 def _unported(args) -> list:
     """Flags set to something this port does not implement."""
     checks = [
-        (args.engine == "static", "--engine static"),
         (args.mesh is not None, "--mesh"),
         (args.profile_dir is not None, "--profile-dir"),
     ]
@@ -187,6 +199,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.engine == "static":
+        for flag, value in (("--mesh", args.mesh), ("--spec-drafter", args.spec_drafter),
+                            ("--trace-out", args.trace_out),
+                            ("--metrics-out", args.metrics_out),
+                            ("--profile-dir", args.profile_dir)):
+            if value is not None:
+                raise SystemExit(f"{flag} needs --engine continuous")
     bad = _unported(args)
     if bad:
         raise NotImplementedError("not ported: " + ", ".join(bad))
@@ -226,6 +245,13 @@ def main(argv=None):
         max_len = args.prompt_len + args.gen + 1
         prompts = np.random.default_rng(1).integers(
             0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+        if args.engine == "static":
+            engine = ServingEngine(cfg, params, max_len=max_len)
+            toks, stats = engine.generate(prompts, args.gen, temperature=args.temperature,
+                                          seed=args.seed)
+            print("generated:", toks[:, :16])
+            print({k: round(float(v), 4) for k, v in stats.items()})
+            return stats
         serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                             prefill_chunk=args.prefill_chunk,
                             max_len=max(args.max_len, max_len),
@@ -258,6 +284,12 @@ def main(argv=None):
     print(f"serving {len(requests)} requests "
           f"({'trace ' + args.trace if args.trace else 'synthetic ' + args.trace_kind}), "
           f"engine={args.engine}")
+    if args.engine == "static":
+        engine = ServingEngine(cfg, params, max_len=static_max_len(requests))
+        _, stats = run_trace_static(engine, requests, args.batch,
+                                    temperature=args.temperature, seed=args.seed)
+        print(latency_line(stats))
+        return stats
     slo = (SLOConfig(preemption=args.slo_preempt, host_blocks=args.host_blocks,
                      shed=args.slo_shed)
            if args.slo_preempt or args.slo_shed else None)

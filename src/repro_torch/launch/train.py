@@ -17,7 +17,8 @@
 The flags are the reference's.  Those whose feature is not ported raise
 NotImplementedError: --data or --model above 1, --grad-compression other
 than none, --optimizer adafactor (m6-1t's default), --profile-dir, and
-routers or dispatchers the port does not register.  Weights are random,
+``--moe-impl alltoall``.  ``--routing`` takes all four of the reference's
+routers (topk, prototype, expert_choice, hash).  Weights are random,
 drawn from a ``torch.Generator`` seeded by ``--seed``; the data is the
 reference's synthetic pipeline, so both packages read the same batches.
 
@@ -80,8 +81,6 @@ def _unported(args, cfg, optimizer: str) -> list:
         (args.grad_compression != "none", f"--grad-compression {args.grad_compression}"),
         (optimizer == "adafactor", "--optimizer adafactor"),
         (args.profile_dir is not None, "--profile-dir"),
-        (cfg.moe.num_experts > 0 and cfg.moe.routing in routers.UNPORTED,
-         f"--routing {cfg.moe.routing}"),
         (cfg.moe.num_experts > 0 and cfg.moe.impl in dispatch.UNPORTED,
          f"--moe-impl {cfg.moe.impl}"),
     ]
@@ -98,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--optimizer", default=None, choices=[None, "adamw", "adafactor"])
     ap.add_argument("--routing", default=None,
-                    choices=[None, *routers.available_routers(), *routers.UNPORTED])
+                    choices=[None, *routers.available_routers()])
     ap.add_argument("--k", type=int, default=2)
     ap.add_argument("--capacity", default=None, choices=[None, "k", "one"])
     ap.add_argument("--capacity-factor", default=None,

@@ -1,13 +1,21 @@
-"""Multi-head attention with GQA, qk-norm and RoPE
-(``repro.models.attention``): the Q/K/V projection the serving engine
-shares, and full-sequence self-attention for training and the
-``lm_apply`` forward, with the flash kernel as an optional drop-in for
-it (``use_flash=True``).  The decode KV cache lives in
-``repro_torch.serving``; the chunked path is not ported (see
-:func:`_sdpa`)."""
+"""Multi-head attention with GQA, qk-norm, RoPE and a dense KV cache
+(``repro.models.attention``): the Q/K/V projection the serving engines
+share; full-sequence self-attention for training and ``lm_apply``, with
+the flash kernel as an optional drop-in (``use_flash=True``); and the
+cache branch the static engine runs.
+
+The cache (:class:`KVCache`) is ``(B, T, Hkv, D)`` in the activation
+dtype, written in place (the reference's jit donates it instead), so it
+must be made and used under ``torch.inference_mode()``; its ``length`` is
+a Python int, known on the host.  A prefill (S > 1) attends over the
+cache through the reference's masked ``_sdpa``, as the reference computes
+it outside Pallas; a decode step (S = 1) is the dense decode attention
+kernel (``repro_torch.kernels.decode_attention.decode_attention``) over
+the cache, every row at length ``length + 1``.  The chunked path is not
+ported (see :func:`_sdpa`)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -15,6 +23,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_apply, head_rmsnorm_apply, rope
 
 _CHUNK_THRESHOLD = 1 << 21  # S*T above this -> the reference's chunked path under "auto"
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor    # (B, T, Hkv, D); the model's caches stack layers first
+    v: torch.Tensor
+    length: int        # valid positions, the same for every row
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
@@ -72,16 +86,46 @@ def causal_mask(S: int, T: int, offset: int = 0, device=None) -> torch.Tensor:
 
 
 def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
-                    use_flash: bool = False) -> torch.Tensor:
-    """Full self-attention over x (B, S, d) -> (B, S, d): the reference's
-    ``attention_apply`` with ``cache=None`` (training and ``lm_apply``)."""
+                    cache: Optional[KVCache] = None, use_flash: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """x (B, S, d) -> (y (B, S, d), updated cache).  Without a cache: full
+    self-attention over x (training, ``lm_apply``).  With one: this step's
+    K/V are written at ``cache.length`` in place, then a prefill (S > 1)
+    attends over the cache masked to ``t <= length + s`` and a decode step
+    (S = 1) runs the dense decode kernel."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
-    if use_flash:
+    new_cache = None
+    if cache is not None:
+        idx = cache.length
+        cache.k[:, idx:idx + S] = k.to(cache.k.dtype)
+        cache.v[:, idx:idx + S] = v.to(cache.v.dtype)
+        new_cache = KVCache(cache.k, cache.v, idx + S)
+        if S == 1:
+            out = _decode_attention(q[:, 0].contiguous(), cache.k, cache.v, idx + 1, cfg)
+            out = out[:, None]
+        else:
+            T = cache.k.shape[1]
+            rows = torch.arange(S, device=x.device)[:, None] + idx
+            mask = (torch.arange(T, device=x.device)[None, :] <= rows)[None, None, None]
+            out = _sdpa(q, cache.k, cache.v, cfg, mask)
+    elif use_flash:
         from repro_torch.kernels.flash_attention import flash_attention
 
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     else:
         mask = causal_mask(S, S, device=x.device) if causal else None
         out = _sdpa(q, k, v, cfg, mask)
-    return dense_apply(params["wo"], out.reshape(B, S, -1), cfg)
+    return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), new_cache
+
+
+def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> torch.Tensor:
+    """One query per row over the first ``length`` positions of the dense
+    cache: the reference's ``_sdpa`` over mask ``t <= cache.length``, as the
+    dense decode kernel computes it.  The kernel has no logit softcap."""
+    if cfg.attn_logit_softcap > 0:
+        raise NotImplementedError("the dense decode attention kernel has no logit softcap")
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    lengths = torch.full((q.shape[0],), length, dtype=torch.int32, device=q.device)
+    return decode_attention(q, k_cache, v_cache, lengths, max_length=length)

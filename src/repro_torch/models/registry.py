@@ -1,7 +1,15 @@
 """Per-family model API (``repro.models.registry``).  The port has the
-decoder-LM family and the two that add prefix embeddings to it (vlm, m6),
-and of their API the training ``forward`` only; serving runs through
-``repro_torch.serving``."""
+decoder-LM family and the two that add prefix embeddings to it (vlm, m6):
+
+  forward(params, batch, cfg, ctx)             training forward; logits
+                                               align with batch["labels"]
+  init_state(cfg, batch, max_len, device)      empty dense KV caches
+  decode(params, tokens, state, cfg, ctx)      one-token serve step
+  prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state)
+
+The static engine (``repro_torch.serving.engine``) serves through
+``prefill`` and ``decode``; the continuous engine runs its own paged
+forward."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +22,9 @@ from repro_torch.models import transformer as TF
 @dataclasses.dataclass(frozen=True)
 class FamilyAPI:
     forward: Callable     # (params, batch, cfg, ctx) -> (logits, aux)
+    init_state: Callable  # (cfg, batch, max_len, device) -> state
+    decode: Callable      # (params, tokens, state, cfg, ctx) -> (logits, state)
+    prefill: Callable     # (params, batch, cfg, max_len, ctx) -> (logits, state)
 
 
 def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -26,7 +37,14 @@ def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
     return logits, aux
 
 
-DECODER_LM = FamilyAPI(forward=_lm_forward)
+def _lm_prefill(params, batch, cfg: ModelConfig, max_len: int, ctx=None):
+    logits, caches, _ = TF.prefill_apply(params, batch["tokens"], cfg, max_len=max_len,
+                                         ctx=ctx)
+    return logits, caches
+
+
+DECODER_LM = FamilyAPI(forward=_lm_forward, init_state=TF.init_caches,
+                       decode=TF.decode_apply, prefill=_lm_prefill)
 _FAMILIES = {"decoder_lm": DECODER_LM, "vlm": DECODER_LM, "m6": DECODER_LM}
 
 

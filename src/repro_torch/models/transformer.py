@@ -1,11 +1,17 @@
-"""Decoder-only transformer LM (``repro.models.transformer``): the
-full-sequence forward that training and evaluation use.
+"""Decoder-only transformer LM (``repro.models.transformer``), three
+entry points:
+
+* ``lm_apply``      — full-sequence forward (training, evaluation);
+* ``prefill_apply`` — full-sequence forward that also fills dense KV
+  caches (the static engine's prompt step);
+* ``decode_apply``  — one-token step against those caches.
 
 Layers are stacked ``(L, ...)`` as the reference stacks them under
 ``scan_layers``; a Python loop over layer slices stands in for
 ``lax.scan``, and ``cfg.remat`` recomputes each layer in the backward
 pass through ``torch.utils.checkpoint`` as ``jax.checkpoint`` does around
-the scan body.  Decoding runs in ``repro_torch.serving``.
+the scan body.  The caches are one :class:`~repro_torch.models.attention.KVCache`
+whose k/v stack the layers, ``(L, B, T, Hkv, D)``, written in place.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from repro_torch.core.context import MoEContext
 from repro_torch.core.metrics import empty_aux
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_apply
+from repro_torch.models.attention import KVCache, attention_apply
 
 
 def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -38,42 +44,69 @@ def unstack_layers(params, num_layers: int) -> list:
 
 
 def block_apply(params, x, cfg: ModelConfig, *, positions, moe_layer: bool,
-                use_flash: bool = False, ctx: Optional[MoEContext] = None):
-    """Pre-norm block. Returns (x, aux)."""
+                cache: Optional[KVCache] = None, use_flash: bool = False,
+                ctx: Optional[MoEContext] = None):
+    """Pre-norm block. Returns (x, aux, new_cache)."""
     h = L.norm_apply(params["ln_attn"], x, cfg)
-    x = x + attention_apply(params["attn"], h, cfg, positions=positions,
-                            use_flash=use_flash)
+    attn_out, new_cache = attention_apply(params["attn"], h, cfg, positions=positions,
+                                          cache=cache, use_flash=use_flash)
+    x = x + attn_out
     h = L.norm_apply(params["ln_ffn"], x, cfg)
     if moe_layer:
         ffn_out, aux = moe_ffn_apply(params["ffn"], h, cfg, ctx=ctx)
     else:
         ffn_out, aux = L.ffn_apply(params["ffn"], h, cfg), empty_aux(
             cfg.moe.num_experts, x.device)
-    return x + ffn_out, aux
+    return x + ffn_out, aux, new_cache
 
 
-def _run_blocks(params, x, cfg: ModelConfig, *, positions, use_flash: bool = False,
-                ctx: Optional[MoEContext] = None):
-    """All layers over the stacked block tree; returns (x, aux) with the
-    ``*_loss`` entries summed over layers and the others stacked (L, ...)."""
+def _run_blocks(params, x, cfg: ModelConfig, *, positions, caches: Optional[KVCache] = None,
+                use_flash: bool = False, ctx: Optional[MoEContext] = None):
+    """All layers over the stacked block tree; returns (x, aux, new_caches)
+    with the ``*_loss`` entries of aux summed over layers and the others
+    stacked (L, ...); new_caches is None without caches."""
+    if cfg.moe.num_experts > 0 and cfg.moe_layer_period != 1:
+        raise NotImplementedError("mixed dense/MoE layer stacks are not ported")
     moe_layer = _is_moe_layer(cfg, 0)
 
-    def body(h, bp):
+    def body(h, bp, cache=None):
         return block_apply(bp, h, cfg, positions=positions, moe_layer=moe_layer,
-                           use_flash=use_flash, ctx=ctx)
+                           cache=cache, use_flash=use_flash, ctx=ctx)
 
     auxes = []
-    for bp in unstack_layers(params["blocks"], cfg.num_layers):
-        if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(body, x, bp, use_reentrant=False)
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.num_layers)):
+        if caches is not None:
+            x, aux, _ = body(x, bp, caches_index(caches, i))
+        elif cfg.remat and torch.is_grad_enabled():
+            x, aux, _ = checkpoint(body, x, bp, use_reentrant=False)
         else:
-            x, aux = body(x, bp)
+            x, aux, _ = body(x, bp)
         auxes.append(aux)
     aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
     for k in aux:
         if k.endswith("_loss"):
             aux[k] = aux[k].sum()
-    return x, aux
+    if caches is not None:             # every layer wrote this step's positions in place
+        caches = KVCache(caches.k, caches.v, caches.length + x.shape[1])
+    return x, aux, caches
+
+
+def caches_index(caches: KVCache, i: int) -> KVCache:
+    """Layer ``i``'s view of the stacked caches."""
+    return KVCache(caches.k[i], caches.v[i], caches.length)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> KVCache:
+    """Zeroed caches of every layer in the activation dtype,
+    ``(L, B, T, Hkv, D)``, length 0."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    return L.unembed_apply(params.get("unembed", params["embed"]), x, cfg)
 
 
 def lm_apply(params, tokens, cfg: ModelConfig, *, positions=None, use_flash: bool = False,
@@ -85,8 +118,6 @@ def lm_apply(params, tokens, cfg: ModelConfig, *, positions=None, use_flash: boo
     image patches) prepended to the token embeddings; positions run over
     the prefix too, and the prefix rows' token ids read -1 in the MoE
     context."""
-    if cfg.moe.num_experts > 0 and cfg.moe_layer_period != 1:
-        raise NotImplementedError("mixed dense/MoE layer stacks are not ported")
     x = L.embedding_apply(params["embed"], tokens, cfg)
     prefix = 0
     if extra_embeds is not None:
@@ -98,7 +129,45 @@ def lm_apply(params, tokens, cfg: ModelConfig, *, positions=None, use_flash: boo
     ctx = (ctx or MoEContext()).with_tokens(tokens, positions, prefix_len=prefix)
     if cfg.pos_embed == "learned":
         x = x + params["pos_embed"][:S].to(x.dtype)[None]
-    x, aux = _run_blocks(params, x, cfg, positions=positions, use_flash=use_flash, ctx=ctx)
-    x = L.norm_apply(params["final_norm"], x, cfg)
-    logits = L.unembed_apply(params.get("unembed", params["embed"]), x, cfg)
-    return logits, aux
+    x, aux, _ = _run_blocks(params, x, cfg, positions=positions, use_flash=use_flash, ctx=ctx)
+    return _logits(params, x, cfg), aux
+
+
+def decode_apply(params, tokens, caches: KVCache, cfg: ModelConfig,
+                 ctx: Optional[MoEContext] = None):
+    """tokens: (B, 1) -> (logits (B, 1, V_pad), new_caches).  The MoE
+    context carries the current token ids and the *absolute* positions
+    (from the cache length), so identity and position routing agree
+    between prefill and decode; the learned positions come from the cache
+    length too."""
+    x = L.embedding_apply(params["embed"], tokens, cfg)
+    B, S, _ = x.shape
+    length = caches.length
+    positions = (length + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    ctx = (ctx or MoEContext()).with_tokens(tokens, positions)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"][length:length + S].to(x.dtype)[None]
+    x, _, new_caches = _run_blocks(params, x, cfg, positions=positions, caches=caches, ctx=ctx)
+    return _logits(params, x, cfg), new_caches
+
+
+def prefill_apply(params, tokens, cfg: ModelConfig, *, max_len: int,
+                  ctx: Optional[MoEContext] = None):
+    """Full forward over the prompt that fills fresh ``max_len`` caches;
+    returns (logits (B, S, V_pad), caches, aux).
+
+    It adds the learned positions of the prompt, as ``lm_apply`` and
+    ``decode_apply`` do.  The reference's ``prefill_apply`` omits them
+    (``repro/models/transformer.py:246-267``), so its static engine serves
+    a learned-position model (m6) different tokens than its continuous
+    engine; the port's prefill computes the prompt positions that its
+    decode steps continue from."""
+    caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+    x = L.embedding_apply(params["embed"], tokens, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    ctx = (ctx or MoEContext()).with_tokens(tokens, positions)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"][:S].to(x.dtype)[None]
+    x, aux, caches = _run_blocks(params, x, cfg, positions=positions, caches=caches, ctx=ctx)
+    return _logits(params, x, cfg), caches, aux

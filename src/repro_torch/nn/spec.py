@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core.routers import get_router
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,16 +82,11 @@ def _block(cfg: ModelConfig, wdt: str, L: int) -> Dict:
     m = cfg.moe
     if m.num_experts > 0:
         E = m.num_experts
-        if m.routing == "topk":
-            router = lead + (d, E)
-        elif m.routing == "prototype":      # (d_model, Z, F), Fig. 8
-            router = lead + (d, m.num_prototypes, m.experts_per_prototype)
-        else:
-            raise NotImplementedError(
-                f"routing {m.routing!r} is not ported (topk and prototype only)")
         ffn = {"up": ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal"),
-               "down": ParamShape(lead + (E, cfg.d_ff, d), wdt, "normal"),
-               "router": ParamShape(router, "float32", "normal")}
+               "down": ParamShape(lead + (E, cfg.d_ff, d), wdt, "normal")}
+        router = get_router(m.routing).weight_shape(m, d)
+        if router is not None:          # the hash router has no weight
+            ffn["router"] = ParamShape(lead + router, "float32", "normal")
         if gated:
             ffn["gate"] = ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal")
     else:

@@ -79,6 +79,7 @@ from repro_torch.core.dispatch import get_dispatcher
 from repro_torch.core.metrics import load_entropy
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.core.routers import get_router
+from repro_torch.core.routers.hashed import _M32, _mix32
 from repro_torch.kernels.decode_attention import (
     paged_update_attention,
     quantized_paged_update_attention,
@@ -195,25 +196,6 @@ def _fill_row(b, cache: PagedKVCache, r: int, slot: int, token: int, pos: int) -
     b["slots"][r] = slot
     b["wb"][r], b["wo"][r] = cache.write_coords(slot, pos)
     b["row_tables"][r] = cache.row_table(slot)
-
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """``(x * c) mod 2**32`` for ``x`` in [0, 2**32), with ``c`` split into
-    16-bit halves so that no product leaves int64 (< 2**49)."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """A bijection of [0, 2**32) with full avalanche (the "lowbias32" integer
-    hash); ``x`` an int64 tensor or a Python int."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
 
 
 def _row_uniforms(seed: int, slots, positions, V: int, device) -> torch.Tensor:

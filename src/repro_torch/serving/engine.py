@@ -1,0 +1,100 @@
+"""The static lockstep serving engine (``repro.serving.engine.ServingEngine``):
+one prefill of the whole batch into dense KV caches, then one decode step
+a token for every row at once, greedy or sampled.
+
+It is the baseline the continuous engine is measured against and the
+oracle of the greedy parity tests.  Every decode step runs, in every
+layer, the dense decode attention kernel over the caches
+(``repro_torch.kernels.decode_attention.decode_attention``), with every
+row at the cache's length, which the engine knows on the host; the
+expert FFN is the dispatcher's (``MoEConfig.impl``: the ragged FFN kernel
+under ``dropless``, the grouped FFN kernel under ``pallas``).  The caches
+are written in place under ``torch.inference_mode()``.
+
+Sampling at temperature > 0 is the continuous engine's Gumbel-max over
+an integer hash, keyed by (seed, row, absolute position), so the CPU and
+the card draw the same integers.  The reference draws from JAX's PRNG
+instead, which PyTorch cannot reproduce: parity at T > 0 is in
+distribution only.
+
+Differences from the reference, by design of the port:
+
+* a ``max_len`` past the learned position table is refused at
+  construction, and a ``generate`` whose prompt and tokens do not fit
+  ``max_len`` is refused (the reference clamps both silently);
+* the recurrent families' token-by-token prompt path is not ported (no
+  such family is), nor a logit softcap (the dense decode kernel has none).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.context import MoEContext
+from repro_torch.models.registry import get_family
+from repro_torch.serving.continuous import _sample_rows
+
+
+class ServingEngine:
+    """``params`` is the port's param tree (``repro_torch.nn``); the engine
+    runs on its device."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int):
+        self.fam = get_family(cfg)
+        if cfg.attn_logit_softcap > 0:
+            raise NotImplementedError("the dense decode attention kernel has no logit softcap")
+        if cfg.pos_embed == "learned" and max_len > cfg.max_seq_len:
+            raise ValueError(f"static engine max_len {max_len} exceeds the learned "
+                             f"position table ({cfg.max_seq_len} positions)")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.device = params["embed"]["table"].device
+        # serving-side MoE context: the family fills in token ids and the
+        # absolute positions, so identity and position routing agree
+        # between prefill and decode
+        self.ctx = MoEContext(is_training=False)
+
+    def _sample(self, logits, position: int, temperature: float, seed: int) -> torch.Tensor:
+        """(B, 1) int token per row from the last position's f32 logits."""
+        last = logits[:, -1, :].float()
+        B = last.shape[0]
+        tok = _sample_rows(last, np.arange(B), np.full(B, position), temperature, seed)
+        return tok.long()[:, None]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, prompts, num_tokens: int, temperature: float = 0.0, seed: int = 0):
+        """prompts: (B, S) ints.  Returns ((B, num_tokens) int32 numpy, stats)."""
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
+        B, S = prompts.shape
+        if S + num_tokens - 1 > self.max_len:
+            raise ValueError(f"prompt {S} + {num_tokens} tokens exceed max_len {self.max_len}")
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, state = self.fam.prefill(self.params, {"tokens": prompts}, self.cfg,
+                                             max_len=self.max_len, ctx=self.ctx)
+            tok = self._sample(logits, S - 1, temperature, seed)
+            self._sync()
+            t_prefill = time.perf_counter() - t0
+            out = [tok]
+            n_decode = max(num_tokens - 1, 0)
+            t0 = time.perf_counter()
+            for i in range(n_decode):
+                logits, state = self.fam.decode(self.params, tok, state, self.cfg, ctx=self.ctx)
+                tok = self._sample(logits, S + i, temperature, seed)
+                out.append(tok)
+            toks = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+            t_decode = time.perf_counter() - t0
+        stats = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            # num_tokens == 1 runs no decode step: 0.0, not 0 over a timer's noise
+            "decode_tokens_per_s": n_decode * B / max(t_decode, 1e-9) if n_decode else 0.0,
+        }
+        return toks, stats

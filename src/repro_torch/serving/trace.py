@@ -1,7 +1,7 @@
 """Request traces (``repro.serving.trace``): JSONL loading and saving,
 synthetic Poisson generation (mixed lengths, multi-tenant shared system
-prompts, bursty mixed-priority overload), the shared latency summary and the
-per-priority-class SLO summary.
+prompts, bursty mixed-priority overload), the static engine's trace runner,
+the shared latency summary and the per-priority-class SLO summary.
 
 Trace format (one JSON object per line)::
 
@@ -16,6 +16,7 @@ with numpy, so the same trace gives the same tokens as the reference.
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -233,6 +234,45 @@ def slo_class_line(stats: Dict[str, float]) -> str:
                      f"(swapped {stats.get('swapped_blocks', 0):.0f} blocks, "
                      f"restored {stats.get('restore_tokens', 0):.0f} tokens)")
     return "slo: " + " | ".join(parts) if parts else ""
+
+
+def run_trace_static(engine, requests: List[Request], batch: int, *,
+                     temperature: float = 0.0, seed: int = 0
+                     ) -> Tuple[Dict[int, List[int]], Dict[str, float]]:
+    """Serve a trace with the lockstep engine
+    (:class:`repro_torch.serving.engine.ServingEngine`): FCFS groups of
+    ``batch``, prompts right-padded with token 0 to the group's longest,
+    every request generating the group's *longest* ``gen_len`` (lockstep
+    batching cannot stop a row early: the waste the continuous engine
+    removes).  Only each request's first ``gen_len`` tokens count.  Latency
+    clock: wall time since the call, fast-forwarded to a group's last
+    arrival when the server is idle."""
+    need = static_max_len(requests)
+    if engine.max_len < need:
+        raise ValueError(f"static engine max_len {engine.max_len} < worst-case group "
+                         f"prompt+gen {need}")
+    t0 = time.perf_counter()
+    clock = 0.0
+    out: Dict[int, List[int]] = {}
+    lats: List[float] = []
+    order = sorted(requests, key=lambda r: (r.arrival_ms, r.uid))
+    useful = 0
+    for i in range(0, len(order), batch):
+        group = order[i:i + batch]
+        clock = max(clock, (time.perf_counter() - t0) * 1e3,
+                    max(r.arrival_ms for r in group))
+        S = max(r.prompt_len for r in group)
+        gen = max(r.max_new_tokens for r in group)
+        prompts = np.zeros((len(group), S), np.int32)
+        for j, r in enumerate(group):
+            prompts[j, :r.prompt_len] = r.prompt            # right-padded
+        toks, _ = engine.generate(prompts, gen, temperature=temperature, seed=seed)
+        clock = max(clock, (time.perf_counter() - t0) * 1e3)
+        for j, r in enumerate(group):
+            out[r.uid] = toks[j, :r.max_new_tokens].tolist()
+            useful += r.max_new_tokens
+            lats.append(clock - r.arrival_ms)
+    return out, latency_stats(lats, clock, useful)
 
 
 def latency_line(stats: Dict[str, float]) -> str:

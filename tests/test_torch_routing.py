@@ -116,9 +116,10 @@ def test_unported_router_and_dispatcher_raise_on_use():
     TMoEConfig(num_experts=4, impl="alltoall", routing="hash")   # valid config
     with pytest.raises(NotImplementedError):
         get_dispatcher("alltoall")
-    for name in ("hash", "expert_choice"):
-        with pytest.raises(NotImplementedError):
-            get_router(name)
+    for name in ("hash", "expert_choice"):       # ported: they resolve
+        assert get_router(name).name == name
+    with pytest.raises(ValueError, match="registered routers"):
+        TMoEConfig(num_experts=4, routing="nope")
     with pytest.raises(ValueError, match="registered dispatchers"):
         TMoEConfig(num_experts=4, impl="nope")
     with pytest.raises(ValueError, match="dropless"):

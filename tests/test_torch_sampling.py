@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro.serving.continuous import _sample_rows as jsample_rows
-from repro_torch.serving.continuous import _mix32, _mul32, _row_uniforms, _sample_rows
+from repro_torch.core.routers.hashed import _mix32, _mul32
+from repro_torch.serving.continuous import _row_uniforms, _sample_rows
 
 M32 = 0xFFFFFFFF
 

@@ -166,8 +166,10 @@ def test_cli_serves_on_cpu(capsys):
                   "--max-slots", "2", "--max-len", "32", "--device", "cpu"])
     assert stats["generated_tokens"] == 15.0
     assert stats["moe_dropped_fraction"] == 0.0
-    with pytest.raises(NotImplementedError, match="--engine static"):
-        main(["--arch", "m6-base", "--smoke", "--device", "cpu"])
+    # the reference's default engine, static: one lockstep batch of 4 prompts
+    stats = main(["--arch", "m6-base", "--smoke", "--device", "cpu"])
+    assert stats["decode_tokens_per_s"] > 0.0
+    assert set(stats) == {"prefill_s", "decode_s", "decode_tokens_per_s"}
 
 
 def test_cli_serves_slo_priority_trace_on_cpu(capsys):
@@ -210,7 +212,7 @@ def test_cli_serves_slo_priority_trace_on_cpu(capsys):
     assert stats["moe_dropped_fraction"] == 0.0
     assert serve._unported(serve.build_parser().parse_args(argv)) == []
     bad = serve.build_parser().parse_args(argv[:5] + ["--mesh", "2", "--profile-dir", "d"])
-    assert serve._unported(bad) == ["--engine static", "--mesh", "--profile-dir"]
+    assert serve._unported(bad) == ["--mesh", "--profile-dir"]
 
 
 def test_port_imports_without_jax():

@@ -191,7 +191,7 @@ def test_cli_trains_on_cpu(tmp_path):
     (["--grad-compression", "int8"], "--grad-compression"),
     (["--data", "2"], "--data/--model"),
     (["--moe-impl", "alltoall"], "alltoall"),
-    (["--routing", "hash"], "hash"),
+    (["--moe-impl", "alltoall", "--routing", "expert_choice"], "alltoall"),
     (["--profile-dir", "x"], "--profile-dir"),
 ])
 def test_cli_unported_flags_raise(flags, name):
