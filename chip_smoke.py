@@ -64,7 +64,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               exactly 0.0, and each serving kernel's launch count must equal
               layers x engine steps.  Then one mixed step's forward runs
               twice, through the kernels and through the plain versions, and
-              the logits and greedy tokens are compared.
+              the logits and greedy tokens are compared.  The device busy
+              share of 24 steps is taken twice, recording the CPU's activity
+              beside the card's (the share phases 5 and 7 have always
+              reported) and the card's alone (as phase 12 takes it).
 6. train    — first, AdamW's update of m6-shaped leaves at steps 1-4 and the
               trainer's 3-way microbatch average must be bit-equal on the
               card to the CPU's (true divisions; the share a Python-number
@@ -179,9 +182,38 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               layers, 2 training steps each of hash (pallas) and
               expert_choice (pallas, dropless) through the train CLI,
               then one step's loss and gradients kernels against plain.
-12. report  — a {"kernels": [...]} line (decode_attention's launches and
+12. families — the decoder-LM configs at full width, random weights from
+              seed 0, each over its own 16-request synthetic trace through
+              the continuous engine with dropless MoE: (a) granite-moe-3b-
+              a800m at its 32 layers (top-8 of 40 swiglu experts, 24 heads
+              over 8 kv heads of 64: the paged kernel at G = 3), (b) granite
+              under prototyped(8) (8 prototypes x 5 experts, 8 top-1), (c)
+              qwen2.5-32b at 2 layers over int8 pools (the quantized kernel
+              at G = 5, D 128, QKV bias) and olmoe-1b-7b at 2 layers
+              (qk-norm, G = 1, D 128, top-8 of 64); every run meets every
+              budget with dropped fraction 0.0 and launches its attention
+              kernel and ragged FFN layers x steps times (every FFN launch
+              on the tensor cores, nothing else), and its greedy tokens
+              equal those of the same engine on the plain versions but at
+              near-ties of the latter's top two logits; tokens/s, step ms,
+              p50/p95 and (granite) the device busy share, recorded from
+              the CUDA activity alone.  (d) granite at
+              2 layers through the train CLI: 4 steps of Adafactor with 8
+              top-1 prototyping, batch 4 x 2048 (losses finite and within 1
+              of ln 49155, the chunked attention path in every layer,
+              moe_ffn layers x steps x 2 on the tensor cores); Adafactor's
+              update of every leaf on the card against the CPU's on the
+              same gradients (rtol 2e-5); 2 steps at --grad-compression
+              int8 whose codes and scales equal the CPU's; a --profile-dir
+              step whose trace names moe_ffn's kernel.  Phase 3 holds the
+              decode kernels at G = 3 and 5 and at olmoe's G = 1, D 128,
+              moe_ffn at granite's training shape and the ragged FFN at
+              granite's decode and mixed steps and olmoe's decode step;
+              phase 4 times them.
+13. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
-              router_train_launches of phase 11), the card line, and as the
+              router_train_launches of phase 11; family_launches and
+              family_shapes of phase 12), the card line, and as the
               last line {"ok": true, "device": {"platform": "gpu", "kind":
               ..., "count": 1}}.
 """
@@ -489,11 +521,12 @@ def dense_case(B, T, Hq, Hkv, D, lengths, seed, dtype=None, pad_t=0):
 
 
 def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups=1,
-             capacity=None):
+             capacity=None, top_k=1):
     """Expert-sorted rows exactly as the dropless dispatcher builds them
     from a top-1 plan over random router logits, for ``groups`` routing
     groups of ``n_choices`` each (one launch over all groups' rows); with
-    ``capacity``, from an expert-choice plan over ``n_choices`` tokens
+    ``top_k``, a top-k plan over ``n_choices`` tokens (top_k choices each);
+    with ``capacity``, from an expert-choice plan over ``n_choices`` tokens
     (its slot-major view: E segments of min(capacity, n_choices) rows)."""
     import torch
 
@@ -505,7 +538,7 @@ def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups
     g = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn((groups, n_choices, E), generator=g, device="cuda")
     if capacity is None:
-        plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0),
+        plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=top_k, aux_loss_coef=0.0),
                          n_choices)
     else:
         plan = expert_choice_plan(logits, MoEConfig(num_experts=E, routing="expert_choice"),
@@ -712,6 +745,9 @@ def phase_check(torch):
     check_dense_design(torch)
     for name, err in check_static_kernels(torch, weights).items():
         errs[name] = max(errs[name], err)
+    for name, err in check_family_kernels(torch).items():
+        errs[name] = max(errs[name], err)
+        errs[f"family {name}"] = err
     return errs, weights
 
 
@@ -1059,9 +1095,10 @@ def check_slo_step_kernels(torch):
     return errs
 
 
-def time_quantized(torch, lens, seed, name="int8"):
+def time_quantized(torch, lens, seed, name="int8", heads=(16, 16, 64)):
     """Kernel, plain and dequantize-then-SDPA times for one quantized paged
-    attention call at the m6 decode shape (16 rotating copies)."""
+    attention call at the m6 decode shape (``heads`` = (Hq, Hkv, D); 16
+    rotating copies)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da
@@ -1069,7 +1106,7 @@ def time_quantized(torch, lens, seed, name="int8"):
     from repro_torch.quant import get_kv_quant
 
     pol = get_kv_quant(name)
-    copies = [quant_attention_case(len(lens), 16, 16, 64, 16, 16, lens, seed=seed + c,
+    copies = [quant_attention_case(len(lens), *heads, 16, 16, lens, seed=seed + c,
                                    name=name) for c in range(16)]
     it = iter(range(1 << 30))
 
@@ -1093,7 +1130,8 @@ def time_quantized(torch, lens, seed, name="int8"):
         v = (pol.decode(vc[tbl]) * vs[tbl][..., None, None]).to(q.dtype)
         k = k.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
         v = v.permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D)
-        return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask,
+                                              enable_gqa=Hq != Hkv)
 
     lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa, bound_ms=bound)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
@@ -1110,17 +1148,20 @@ def dense_sdpa(q, k, v, lengths):
     T = k.shape[1]
     mask = (torch.arange(T, device=k.device)[None, :] < lengths[:, None])[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q[:, :, None, :], k.transpose(1, 2),
-                                                  v.transpose(1, 2), attn_mask=mask)
+                                                  v.transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=q.shape[1] != k.shape[2])
 
 
-def time_dense(torch, lens, seed, T=256):
+def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64)):
     """Kernel, plain and SDPA (length mask) times for one dense decode call
-    at the m6 shape, B = len(lens), 16 rotating copies; the caller knows
-    the longest length, as a decode step's host does."""
+    at the m6 shape (``heads`` = (Hq, Hkv, D)), B = len(lens), 16 rotating
+    copies; the caller knows the longest length, as a decode step's host
+    does."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    copies = [dense_case(len(lens), T, 16, 16, 64, lens, seed=seed + c) for c in range(16)]
+    Hq, Hkv, D = heads
+    copies = [dense_case(len(lens), T, Hq, Hkv, D, lens, seed=seed + c) for c in range(16)]
     it = iter(range(1 << 30))
 
     def nxt():
@@ -1136,19 +1177,20 @@ def time_dense(torch, lens, seed, T=256):
     sdpa = dense_sdpa(q, k, v, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
                 library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
-                plan=da.dense_plan(len(lens), 16, 1, 64, T, 2, da._sm_count(0),
+                plan=da.dense_plan(len(lens), Hkv, Hq // Hkv, D, T, 2, da._sm_count(0),
                                    max_length=max(lens)))
 
 
-def time_attention(torch, lens, seed):
-    """Kernel, plain and SDPA times for one attention call; 16 rotating
-    copies of the pools (> 50 MB L2 at 40 rows) so launches read cold."""
+def time_attention(torch, lens, seed, heads=(16, 16, 64)):
+    """Kernel, plain and SDPA times for one attention call (``heads`` =
+    (Hq, Hkv, D)); 16 rotating copies of the pools (> 50 MB L2 at 40 rows)
+    so launches read cold."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as pda
     from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
 
-    copies = [attention_case(len(lens), 16, 16, 64, 16, 16, lens, seed=seed + c)
+    copies = [attention_case(len(lens), *heads, 16, 16, lens, seed=seed + c)
               for c in range(16)]
     it = iter(range(1 << 30))
 
@@ -1169,7 +1211,8 @@ def time_attention(torch, lens, seed):
     mask = (torch.arange(MB * bs, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
 
     def sdpa():
-        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
+        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask,
+                                              enable_gqa=Hq != Hkv)
 
     kernels = sorted(profiled_kernels(sdpa, 4), key=lambda e: -e.self_device_time_total)
     log(f"  SDPA at N={N} launches: " + "; ".join(
@@ -1259,39 +1302,46 @@ def pass_ms(torch, fn, reps: int = 10, bound_ms=None) -> dict:
             for k in ("up", "down")}
 
 
-def time_ffn(torch, n, seed, weights, groups=1, capacity=None):
+def time_ffn(torch, n, seed, weights, groups=1, capacity=None,
+             shape=(32, 1024, 4096, "gelu", 1)):
     """Kernel, plain and grouped_mm times for one ragged FFN call at the
     dispatcher's layout for ``n`` routed choices over 32 experts (in each
     of ``groups`` routing groups; with ``capacity``, expert choice's
-    slot-major layout over ``n`` tokens)."""
+    slot-major layout over ``n`` tokens); ``shape`` = (E, M, I, activation,
+    top_k), top_k > 1 routing ``n`` tokens top_k ways."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
-    xs, be, weights, rag, bx = ffn_case(n, 32, 1024, 4096, seed=seed, weights=weights,
-                                        groups=groups, capacity=capacity)
+    E, M, I, act, top_k = shape
+    xs, be, weights, rag, bx = ffn_case(n, E, M, I, seed=seed, act=act, weights=weights,
+                                        groups=groups, capacity=capacity, top_k=top_k)
 
     def kern():
-        return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
+        return rffn.ragged_ffn(xs, be, *weights, act, block_x=bx)
 
     bound, by = ffn_bound(xs, be, weights, rag, bx)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
     cc_ms = cuda_ms(on_cuda_cores(rffn, kern))
-    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
+    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, act), reps=5)
     lib_ms = lib_dev = None
     offs = rag.expert_offsets[0, 1:].contiguous()
-    w_up, _, w_down = weights
+    w_up, w_gate, w_down = weights
     try:
         if groups > 1:
             raise ValueError(f"one set of expert offsets, the launch holds {groups} groups")
 
         def grouped():
-            h = F.gelu(F.grouped_mm(xs, w_up, offs=offs), approximate="tanh")
+            h = F.grouped_mm(xs, w_up, offs=offs)
+            if act == "swiglu":
+                h = F.silu(F.grouped_mm(xs, w_gate, offs=offs)) * h
+            else:
+                h = F.gelu(h, approximate="tanh")
             return F.grouped_mm(h, w_down, offs=offs)
 
         live = int(offs[-1])
-        ref = ragged_ffn_ref(xs, be, *weights, "gelu")
+        ref = ragged_ffn_ref(xs, be, *weights, act)
         if (grouped()[:live].float() - ref[:live].float()).abs().max() <= TOL * 4:
             lib_ms, lib_dev = cuda_ms(grouped), device_ms(grouped, bound_ms=bound)
         else:
@@ -1304,28 +1354,35 @@ def time_ffn(torch, n, seed, weights, groups=1, capacity=None):
                 pass_ms=pass_ms(torch, kern, bound_ms=bound))
 
 
-def time_moe_ffn(torch, X, seed):
+def time_moe_ffn(torch, X, seed, shape=(32, 1024, 4096, "gelu")):
     """Kernel, plain and bf16 torch.bmm times for one grouped FFN call on
-    the capacity buffers of one m6-base layer (E = 32, M = 1024,
-    I = 4096, gelu): the weights are 537 MB, far above the 50 MB L2, so
-    every launch reads them cold."""
+    the capacity buffers of one layer, ``shape`` = (E, M, I, activation):
+    m6-base's by default (E = 32, M = 1024, I = 4096, gelu: the weights are
+    537 MB, far above the 50 MB L2, so every launch reads them cold)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_ffn import ops as mf
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 
-    x, w_up, _, w_down = moe_case(32, X, 1024, 4096, seed=seed)
+    E, M, I, act = shape
+    x, w_up, w_gate, w_down = moe_case(E, X, M, I, seed=seed, act=act)
+
     def kern():
-        return mf.moe_ffn(x, w_up, None, w_down, "gelu")
+        return mf.moe_ffn(x, w_up, w_gate, w_down, act)
 
     def bmm():
-        return torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"), w_down)
+        h = torch.bmm(x, w_up)
+        if act == "swiglu":
+            h = F.silu(torch.bmm(x, w_gate)) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return torch.bmm(h, w_down)
 
     k_ms = cuda_ms(kern, reps=10)
     cc_ms = cuda_ms(on_cuda_cores(mf, kern), reps=5)
-    p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, None, w_down, "gelu"), reps=5)
+    p_ms = cuda_ms(lambda: moe_ffn_ref(x, w_up, w_gate, w_down, act), reps=5)
     lib_ms = cuda_ms(bmm, reps=10)
-    bound, by = moe_ffn_bound(x, w_up, None)
+    bound, by = moe_ffn_bound(x, w_up, w_gate)
     return dict(ms=k_ms, device_ms=device_ms(kern, reps=10, bound_ms=bound), plain_ms=p_ms,
                 library_ms=lib_ms, library_device_ms=device_ms(bmm, reps=10, bound_ms=bound),
                 bound_ms=bound, bound_by=by, cuda_core_ms=cc_ms,
@@ -1654,14 +1711,22 @@ def phase_serve(torch):
                p95_ms=stats["p95_ms"], mean_step_ms=wall_ms / steps, steps=steps)
 
     e2e.update(profile_steps(torch, cfg, params, serve, requests))
+    e2e["device_busy_share_cuda_only"] = profile_steps(
+        torch, cfg, params, serve, requests, cpu=False)["device_busy_share"]
     compare_mixed_step(torch, cfg, params, serve, requests)
     return launches, e2e, out
 
 
-def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
+def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
     """torch.profiler over engine steps of the trace's first 8 requests,
     all admitted at once: device busy share (kernel time over wall time)
-    and the kernels that take the device time."""
+    and the kernels that take the device time.  It records the CPU's
+    activity beside the card's, as phases 5 and 7 always have (the
+    recording lengthens the wall time the share divides by); with ``cpu``
+    false the CUDA activity alone, all that the share reads, as phase 12
+    takes it (recording the CPU's made the profiler's processing of
+    granite's 32-layer steps the largest cost of that phase).  Phase 5
+    takes both, so that the two series can be set side by side."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.continuous import ContinuousEngine
@@ -1674,7 +1739,8 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
     for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         open_session(torch)
         t0 = time.perf_counter()
         n = 0
@@ -1694,8 +1760,9 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24):
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
         return {"device_busy_share": None}
-    log(f"  profiler over {n} steps: device busy {busy_us / 1e3:.2f} ms of "
-        f"{wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; kernels and copies)")
+    log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over {n} steps: device busy "
+        f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; "
+        f"kernels and copies)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
     return {"device_busy_share": busy_us / wall_us, "profiled_steps": n,
@@ -3752,18 +3819,11 @@ def router_train_runs(torch, argv, device, layers=STATIC_TRAIN_LAYERS):
     tensor cores, and nothing else), then one step's loss and gradients
     through the kernels against the plain versions (``compare_train_step``,
     routing near-ties reported).  Returns (report, launches)."""
-    from unittest import mock
-
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.train import device_batch
 
-    build_full = train_mod.build
-
-    def build_cut(args):
-        return build_full(args).replace(num_layers=layers)
-
     report, total = {}, {}
-    with mock.patch.object(train_mod, "build", build_cut):
+    with cut_depth(layers):
         for label, extra, ffn in STATIC_TRAIN_RUNS:
             args = argv + extra + ["--steps", "2", "--device", device]
             launches = {}
@@ -3811,6 +3871,527 @@ def phase_static(torch, continuous):
     torch.cuda.empty_cache()
     report["train"], train_launches = router_train_runs(torch, TRAIN_ARGS, "cuda")
     return report, launches, train_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the decoder-LM families (granite, qwen2.5-32b, olmoe) and the
+# rest of training (Adafactor, int8 compression, chunked attention, profiler)
+# ---------------------------------------------------------------------------
+
+FAMILY_LENS = [21, 56, 112, 9, 74, 33, 98, 47]     # phase 4's decode step lengths
+# the decode kernels' new GQA groups: label -> (Hq, Hkv, D)
+FAMILY_HEADS = {"G=3 D=64": (24, 8, 64),          # granite-moe-3b-a800m
+                "G=5 D=128": (40, 8, 128),        # qwen2.5-32b, qwen3-14b
+                "G=1 D=128": (16, 16, 128)}       # olmoe-1b-7b
+# the ragged FFN at the families' engine steps, 8 rows a decode step and
+# 8 + 32 a mixed step (a decode row a slot and a 32-token prefill chunk):
+# label -> (tokens, (E, M, I, act, top_k))
+FAMILY_FFN = {"granite decode": (8, (40, 1536, 512, "swiglu", 8)),
+              "granite mixed step": (40, (40, 1536, 512, "swiglu", 8)),
+              "olmoe decode": (8, (64, 2048, 1024, "swiglu", 8))}
+# moe_ffn at granite's training shape under 8 top-1 prototyping: B 4 x S 2048
+# tokens in 16 groups of 512, C = int(8 x 512 / 40 x 1.25) = 128, X = 16 x 128
+GRANITE_TRAIN_FFN = (40, 2048, 1536, 512, "swiglu")   # E, X, M, I, act
+FAMILY_TRAIN_ARGS = ["--arch", "granite-moe-3b-a800m", "--moe-impl", "pallas", "--optimizer",
+                     "adafactor", "--routing", "prototype", "--k", "8", "--batch", "4",
+                     "--seq", "2048", "--log-every", "1"]
+FAMILY_TRAIN_LAYERS = 2
+FAMILY_TRAIN_STEPS = 4
+FAMILY_SMALL_LAYERS = 2          # qwen2.5-32b and olmoe-1b-7b at full width
+# Adafactor on the card against the CPU: the same arithmetic with every mean
+# a sum in another order (over up to 75 M elements); each factor of an
+# update element (its gradient, the row and column means, the two RMS) is
+# within a few f32 ulps, so an element within rtol 2e-5, as is the state
+ADAFACTOR_RTOL = 2e-5
+LOSS_SLACK = 1.0                 # a random init's CE within this of ln(vocab)
+
+
+def check_family_kernels(torch):
+    """Phase 12's kernel shapes against their plain versions at TOL: the
+    paged kernel (bf16, f32, and int8 / fp8 codes) and the dense kernel at
+    GQA groups of 3 (D 64), 5 (D 128) and olmoe's 1 (D 128), each also
+    against its split-and-merge plain version at the plan's split and (bf16
+    and f32 paged, dense) at every split forced; moe_ffn at granite's
+    training shape (E 40, X 2048, M 1536, I 512, swiglu) and the ragged FFN
+    at granite's decode and mixed steps (8 and 40 tokens, top-8 of 40) and
+    olmoe's decode step (8 tokens, top-8 of 64), on the tensor cores, also
+    within one bf16 ulp of the split-h plain versions.  Length-0 rows
+    exactly 0.  Returns each kernel's max abs err."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.kernels.moe_ffn import ops as mf
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
+    from repro_torch.quant import get_kv_quant
+
+    errs = {}
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    lens = [40, 0, 17, 256, 1, 100, 16, 63]
+    for i, (label, (Hq, Hkv, D)) in enumerate(FAMILY_HEADS.items()):
+        for dt in (torch.bfloat16, torch.float32):
+            case = attention_case(8, Hq, Hkv, D, 16, 16, lens, seed=700 + i, dtype=dt)
+            want = dref.paged_decode_attention_ref(*case)
+            for forced in (None, *da.SPLITS):
+                out = da.paged_decode_attention(*case, splits=forced, max_length=max(lens))
+                torch.cuda.synchronize()
+                splits, stages = da.launch_plan(case[0], case[1], case[3], forced, max(lens))
+                name = (f"paged_decode_attention {label} {str(dt)[6:]} splits={splits}"
+                        f"{'' if forced else ' (plan)'} stages={stages}")
+                keep("paged_decode_attention", check_close(name, out, want))
+                check_close(f"{name} vs split plain", out,
+                            dref.paged_decode_attention_split_ref(*case, splits))
+                if not (out[1] == 0).all():
+                    raise AssertionError(f"{name}: the length-0 row is not exactly 0")
+        for name in ("int8", "fp8"):
+            pol = get_kv_quant(name)
+            case = quant_attention_case(8, Hq, Hkv, D, 16, 16, lens, seed=710 + i, name=name)
+            out = da.quantized_paged_decode_attention(*case, policy=pol, max_length=max(lens))
+            torch.cuda.synchronize()
+            splits, _ = da.launch_plan(case[0], case[1], case[5], None, max(lens))
+            label_q = f"quantized_paged_decode_attention {name} {label} splits={splits}"
+            keep("quantized_paged_decode_attention", check_close(
+                label_q, out, dref.quantized_paged_decode_attention_ref(*case, policy=pol)))
+            check_close(f"{label_q} vs split plain", out,
+                        dref.quantized_paged_decode_attention_split_ref(*case, splits,
+                                                                        policy=pol))
+            if not (out[1] == 0).all():
+                raise AssertionError(f"{label_q}: the length-0 row is not exactly 0")
+        dlens = [0, 1, 256, 77, 130, 16, 255, 9]
+        case = dense_case(8, 256, Hq, Hkv, D, dlens, seed=720 + i)
+        want = dref.decode_attention_ref(*case)
+        for forced in (None, *da.SPLITS):
+            out = da.decode_attention(*case, splits=forced, max_length=256)
+            torch.cuda.synchronize()
+            splits, stages = da.dense_plan(8, Hkv, Hq // Hkv, D, 256, 2, da._sm_count(0),
+                                           forced, 256)
+            name = f"decode_attention {label} splits={splits}{'' if forced else ' (plan)'}"
+            keep("decode_attention", check_close(name, out, want))
+            check_close(f"{name} vs split plain", out,
+                        dref.decode_attention_split_ref(*case, splits))
+            if not (out[0] == 0).all():
+                raise AssertionError(f"{name}: the length-0 row is not exactly 0")
+    E, X, M, I, act = GRANITE_TRAIN_FFN
+    case = moe_case(E, X, M, I, seed=730, act=act)
+    err, split = check_routed(
+        f"moe_ffn granite train E={E} X={X} M={M} I={I} {act}", mf.moe_ffn,
+        lambda *a: mf.moe_ffn(*a, act), case, lambda *a: moe_ffn_ref(*a, act),
+        lambda *a: moe_ffn_split_ref(*a, act), True)
+    keep("moe_ffn", err)
+    keep("moe_ffn split", split)
+    del case
+    for j, (label, (n, (E, M, I, act, top_k))) in enumerate(FAMILY_FFN.items()):
+        xs, be, weights, rag, bx = ffn_case(n, E, M, I, seed=740 + j, act=act, top_k=top_k)
+        log(f"  ragged_ffn {label}: {n} tokens x top-{top_k} of {E}: R={xs.shape[0]} rows, "
+            f"bx={bx}, {int((rag.token >= 0).sum())} routed")
+        err, split = check_routed(
+            f"ragged_ffn {label}", rffn.ragged_ffn,
+            lambda *a: rffn.ragged_ffn(*a, act, block_x=bx), (xs, be, *weights),
+            lambda *a: ragged_ffn_ref(*a, act), lambda *a: ragged_ffn_split_ref(*a, act), True)
+        keep("ragged_ffn", err)
+        keep("ragged_ffn split", split)
+    return errs
+
+
+def phase_timing_families(torch):
+    """Phase 12's kernel shapes timed as phase 4 times its own: the paged,
+    int8, fp8 and dense kernels at the decode step's lengths for G = 3 (D 64)
+    and 5 (D 128) and olmoe's G = 1 (D 128) beside SDPA (GQA), moe_ffn at
+    granite's training shape beside torch.bmm, the ragged FFN at granite's
+    decode and mixed steps and olmoe's decode step beside F.grouped_mm."""
+    out = {}
+    for i, (label, heads) in enumerate(FAMILY_HEADS.items()):
+        out[f"paged_decode_attention {label}"] = time_attention(torch, FAMILY_LENS, 750 + i,
+                                                                heads=heads)
+        for name in ("int8", "fp8"):
+            out[f"quantized_paged_decode_attention {name} {label}"] = time_quantized(
+                torch, FAMILY_LENS, 760 + i, name=name, heads=heads)
+        out[f"decode_attention {label}"] = time_dense(torch, FAMILY_LENS, 770 + i, heads=heads)
+    E, X, M, I, act = GRANITE_TRAIN_FFN
+    out["moe_ffn granite train"] = time_moe_ffn(torch, X, seed=780, shape=(E, M, I, act))
+    for j, (label, (n, shape)) in enumerate(FAMILY_FFN.items()):
+        out[f"ragged_ffn {label}"] = time_ffn(torch, n, seed=790 + j, weights=None, shape=shape)
+    for name, r in out.items():
+        log(f"  families {name}: {timing_line(r)}")
+    return out
+
+
+def family_serve(torch, cfg, params, requests, device, label, kv_quant="none",
+                 profile=False):
+    """(a)-(c): ``requests`` through the continuous engine (dropless MoE) with
+    the kernel counters at 0 before it: every budget met, the cache's
+    conservation, the dropped fraction 0.0; on the card the paged kernel
+    (the quantized one under int8 / fp8) and, for a MoE model, the ragged
+    FFN launched layers x steps times, every FFN launch on the tensor
+    cores, nothing else.  Then the same engine on the kernels' plain
+    versions, its logits tapped: a request may differ from it only first at
+    a near-tie of the plain run's top two logits (reported with the gap).
+    Returns (report, launches)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.trace import latency_line
+
+    serve = ServeConfig(max_len=max(256, max(r.total_len for r in requests)),
+                        kv_quant=kv_quant)
+    serve_once(torch, cfg, params, serve, [Request(uid=0, prompt=requests[0].prompt,
+                                                   max_new_tokens=3)], device)   # warm-up
+    launches = {}
+    with counted_launches(launches):
+        out, stats, eng, wall_ms = serve_once(torch, cfg, params, serve, requests, device)
+    steps, L = eng.steps, cfg.num_layers
+    if stats.get("moe_dropped_fraction", 0.0) != 0.0:
+        raise AssertionError(f"{label}: dropped fraction {stats['moe_dropped_fraction']}")
+    attn = "paged_decode_attention" if kv_quant == "none" else "quantized_paged_decode_attention"
+    if device == "cuda":
+        want = {attn: L * steps}
+        if cfg.moe.num_experts:
+            want["ragged_ffn"] = L * steps
+        expect_launches(label, launches, want)
+    t0 = time.perf_counter()
+    with plain_versions():
+        base, margins = tapped_margins(torch, cfg, params, serve, requests, device)
+    plain_s = time.perf_counter() - t0
+    div = first_divergences(base, out, margins, requests, f"{label} kernels vs plain")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    log(f"  {label}: {latency_line(stats)}; {steps} steps, mean step {wall_ms / steps:.2f} ms "
+        f"(host clock); {len(requests) - len(div)} of {len(requests)} requests' tokens equal "
+        f"to the plain versions' (their run {plain_s:.1f} s); launches {shown} = {L} layers x "
+        f"{steps} steps")
+    report = dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+                  p95_ms=stats["p95_ms"], mean_step_ms=wall_ms / steps, steps=steps,
+                  layers=L, requests_equal_to_plain=len(requests) - len(div),
+                  divergences=[dict(request=u, token=p, gap=g) for u, p, g in div],
+                  launches=shown, plain_run_s=plain_s)
+    if profile and device == "cuda":
+        t0 = time.perf_counter()
+        report.update(profile_steps(torch, cfg, params, serve, requests, n_steps=8, cpu=False))
+        report["profile_s"] = time.perf_counter() - t0
+    return report, launches
+
+
+def family_configs():
+    """(label, config, layers cut or None, kv_quant) of (a)-(c), at full
+    width: granite at full depth, top-8 of 40, then its 8 top-1
+    prototyping; qwen2.5-32b (int8 pools, G = 5, QKV bias) and
+    olmoe-1b-7b (qk-norm, G = 1, D 128, top-8 of 64) at 2 layers."""
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.configs import olmoe_1b_7b, qwen2_5_32b
+
+    def dropless(cfg):
+        return cfg.replace_moe(impl="dropless", capacity_factor=None)
+
+    cut = FAMILY_SMALL_LAYERS
+    return [("(a) granite-moe-3b-a800m", dropless(granite.CONFIG), "none"),
+            ("(b) granite prototyped(8)", dropless(granite.prototyped(8)), "none"),
+            ("(c) qwen2.5-32b, int8 pools", qwen2_5_32b.CONFIG.replace(num_layers=cut), "int8"),
+            ("(c) olmoe-1b-7b", dropless(olmoe_1b_7b.CONFIG.replace(num_layers=cut)), "none")]
+
+
+def family_serving_runs(torch, configs, device, n_requests=16):
+    """(a)-(c) over ``configs`` (``family_configs``): each model's random
+    params from seed 0 and its own 16-request synthetic trace (seed 0);
+    the device busy share profiled for granite, (a) and (b).  Returns (report, launches
+    summed over the runs)."""
+    from repro_torch.nn import count_params, init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    report, total = {}, {}
+    for label, cfg, kv_quant in configs:
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=device)
+        requests = synthetic_trace(n_requests, cfg.vocab_size, seed=0)
+        log(f"  {label}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads} kv heads of {cfg.resolved_head_dim}, "
+            f"{count_params(cfg) / 1e9:.3f} B params, random init in "
+            f"{time.perf_counter() - t0:.1f} s; kv_quant {kv_quant}")
+        report[label], got = family_serve(torch, cfg, params, requests, device, label,
+                                          kv_quant=kv_quant,
+                                          profile=label.startswith(("(a)", "(b)")))
+        report[label].update(params_b=count_params(cfg) / 1e9)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return report, total
+
+
+@contextmanager
+def counted_chunked(calls: list):
+    """Every call of the chunked attention path (``models.chunked_attention``)
+    appended to ``calls`` as its (S, T)."""
+    from unittest import mock
+
+    from repro_torch.models import chunked_attention as ca
+
+    real = ca.chunked_attention
+
+    def spy(qg, k, *a, **kw):
+        calls.append((qg.shape[1], k.shape[1]))
+        return real(qg, k, *a, **kw)
+
+    with mock.patch.object(ca, "chunked_attention", spy):
+        yield
+
+
+@contextmanager
+def cut_depth(layers):
+    """The train CLI's config at ``layers`` layers (no CLI flag for depth)."""
+    from unittest import mock
+
+    from repro_torch.launch import train as train_mod
+
+    build_full = train_mod.build
+    with mock.patch.object(train_mod, "build",
+                           lambda args: build_full(args).replace(num_layers=layers)):
+        yield
+
+
+@contextmanager
+def recorded_compression(store: list):
+    """Every ``compress_grads`` call of the trainer: (grads, error feedback
+    in, mode, outputs), the tensors copied to the host before and after."""
+    from unittest import mock
+
+    from repro_torch.train import trainer
+
+    real = trainer.compress_grads
+
+    def spy(grads, mode, ef=None):
+        host = ({k: g.detach().cpu() for k, g in grads.items()},
+                None if ef is None else {k: e.cpu() for k, e in ef.items()})
+        out, new_ef = real(grads, mode, ef)
+        store.append((*host, mode, {k: g.cpu() for k, g in out.items()},
+                      None if new_ef is None else {k: e.cpu() for k, e in new_ef.items()}))
+        return out, new_ef
+
+    with mock.patch.object(trainer, "compress_grads", spy):
+        yield
+
+
+def check_int8_codes(torch, store, device):
+    """Each recorded int8 compression (``recorded_compression``) done again
+    on the CPU from the same gradients and residual: every leaf's codes and
+    scale (``quantize_int8`` of gradient + residual) bit-equal to the
+    device's, and so the compressed gradients and the new residuals."""
+    from repro_torch.optim.compression import compress_grads, quantize_int8
+
+    for step, (grads, ef, mode, out, new_ef) in enumerate(store):
+        if mode != "int8":
+            raise AssertionError(f"compression mode {mode}, expected int8")
+        cpu_out, cpu_ef = compress_grads(grads, mode, ef)
+        for k, g in grads.items():
+            target = g.float() + (ef[k] if ef is not None else 0.0)
+            dq, ds = quantize_int8(target.to(device))
+            cq, cs = quantize_int8(target)
+            if not (torch.equal(dq.cpu(), cq)
+                    and torch.equal(ds.cpu().view(torch.int32), cs.view(torch.int32))):
+                raise AssertionError(f"int8 step {step}, {k}: codes or scale on the device "
+                                     f"differ from the CPU's")
+            if not (torch.equal(out[k].view(torch.int32), cpu_out[k].view(torch.int32))
+                    and torch.equal(new_ef[k].view(torch.int32), cpu_ef[k].view(torch.int32))):
+                raise AssertionError(f"int8 step {step}, {k}: compressed gradient or residual "
+                                     f"differs from the CPU's")
+    log(f"  int8 compression: codes, scales, compressed gradients and residuals of "
+        f"{len(store)} steps x {len(store[0][0])} leaves bit-equal to the CPU's")
+    return len(store)
+
+
+def adafactor_vs_cpu(torch, cfg, params, batches, device, steps=2):
+    """Adafactor's update on ``device`` against the port's CPU update on the
+    same gradients (clipped, as the trainer clips them, at the initial
+    params, of ``batches``) and the same state, for every leaf at each of
+    ``steps`` steps: updates and state within ADAFACTOR_RTOL.  Returns the
+    largest relative difference of each kind."""
+    from repro_torch.nn import flat_params
+    from repro_torch.optim.adafactor import adafactor
+    from repro_torch.optim.clip import clip_by_global_norm
+    from repro_torch.optim.schedules import warmup_constant
+    from repro_torch.train.trainer import _grads, make_loss_fn
+
+    flat = flat_params(params)
+    loss_fn = make_loss_fn(cfg)
+    grads = []
+    for b in batches[:steps]:
+        loss, _ = loss_fn(params, b)
+        grads.append(clip_by_global_norm(_grads(loss, flat), 1.0)[0])
+    opt = adafactor(warmup_constant(5e-3, 2))
+    dev_p = {k: p.detach().clone() for k, p in flat.items()}
+    cpu_p = {k: p.cpu() for k, p in dev_p.items()}
+    dev_s, cpu_s = opt.init(dev_p), opt.init(cpu_p)
+    worst = {"update": 0.0, "state": 0.0}
+
+    def rel(a, b):                    # compared where ``a`` lives: the card's rate
+        b = b.to(a.device).float()
+        d = (a.float() - b).abs()
+        bad = d > ADAFACTOR_RTOL * b.abs()
+        return float((d / b.abs().clamp_min(1e-30)).max()), int(bad.sum())
+
+    for step, g in enumerate(grads):
+        du, dev_s = opt.update(g, dev_s, dev_p, step)
+        cu, cpu_s = opt.update({k: v.cpu() for k, v in g.items()}, cpu_s, cpu_p, step)
+        sync(torch, next(iter(du.values())))
+        for k in flat:
+            for what, a, b in [("update", du[k], cu[k])] + [
+                    ("state", dev_s["v"][k][n], cpu_s["v"][k][n]) for n in cpu_s["v"][k]]:
+                r, bad = rel(a, b)
+                worst[what] = max(worst[what], r)
+                if bad:
+                    raise AssertionError(f"Adafactor step {step + 1} {k}: {bad} {what} elements "
+                                         f"beyond rtol {ADAFACTOR_RTOL} of the CPU's (worst {r:.3g})")
+            dev_p[k].add_(du[k].float())
+            cpu_p[k].add_(cu[k].float())
+    log(f"  Adafactor on the device against the CPU, {len(flat)} leaves ("
+        f"{sum(p.numel() for p in flat.values()) / 1e6:.1f} M parameters) x {len(grads)} steps "
+        f"on the same gradients: largest relative difference, updates {worst['update']:.3g}, "
+        f"state {worst['state']:.3g} (rtol {ADAFACTOR_RTOL})")
+    return worst
+
+
+def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_TRAIN_STEPS,
+                 profile_dir=None):
+    """(d): granite training through the train CLI at ``layers`` layers:
+    ``steps`` steps of Adafactor with 8 top-1 prototyping through moe_ffn,
+    every loss finite and within LOSS_SLACK of ln(vocab), the attention on
+    the chunked path (S*T > 2^21) in every layer's forward and remat
+    recompute, moe_ffn launched layers x steps x 2 times on the tensor
+    cores and nothing else; Adafactor on the device against the CPU
+    (``adafactor_vs_cpu``); the same run under AdamW for its step time;
+    two steps at --grad-compression int8 whose codes
+    and scales equal the CPU's (``check_int8_codes``); and, with
+    ``profile_dir``, a --profile-dir step whose trace names moe_ffn's
+    tensor-core kernel.  Returns (report, launches)."""
+    import os
+    import shutil
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import device_batch
+
+    report, calls, launches, seconds = {}, [], {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name):                     # seconds each part of (d) takes
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    with cut_depth(layers):
+        args = argv + ["--steps", str(steps), "--device", device]
+        with counted_launches(launches), counted_chunked(calls):
+            t0 = time.perf_counter()
+            logs = train_mod.main(args)
+            wall_s = time.perf_counter() - t0
+        cfg, state, _, pipeline = train_setup(args)
+    ln_v = math.log(cfg.vocab_size)
+    for m in logs:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and abs(m["loss"] - ln_v) <= LOSS_SLACK):
+            raise AssertionError(f"granite train step {m['step']}: loss {m['loss']}, grad norm "
+                                 f"{m['grad_norm']} (ln vocab {ln_v:.3f})")
+    S = pipeline.batch_at(0)["tokens"].shape[1]
+    if len(calls) != layers * steps * 2 or any(c != (S, S) for c in calls):
+        raise AssertionError(f"chunked attention calls {len(calls)} (shapes "
+                             f"{sorted(set(calls))}), expected {layers} layers x {steps} steps "
+                             f"x 2 (forward + remat recompute) at S = T = {S}")
+    if device == "cuda":
+        expect_launches("granite train", launches, {"moe_ffn": layers * steps * 2})
+    steady = logs[1:]
+    step_ms = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+    tokens = pipeline.batch_at(0)["labels"].size
+    log(f"  (d) granite train, {layers} layers, {steps} steps: losses "
+        f"{[round(m['loss'], 4) for m in logs]} (ln {cfg.vocab_size} = {ln_v:.3f}), grad norms "
+        f"{[round(m['grad_norm'], 4) for m in logs]}, dropped fraction "
+        f"{[round(m['moe_dropped_fraction'], 4) for m in logs]}; chunked attention {len(calls)} "
+        f"calls at S = T = {S}; moe_ffn launches {launches['moe_ffn']}; mean step "
+        f"{step_ms:.1f} ms over steps 1-{steps - 1} ({tokens / (step_ms / 1e3):.0f} tokens/s), "
+        f"run {wall_s:.1f} s")
+    report["adafactor"] = dict(losses=[m["loss"] for m in logs],
+                               grad_norms=[m["grad_norm"] for m in logs],
+                               dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
+                               mean_step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+                               first_step_ms=logs[0]["step_time_s"] * 1e3,
+                               chunked_calls=len(calls), moe_ffn_launches=launches["moe_ffn"])
+    batches = [device_batch(pipeline.batch_at(i), device) for i in range(2)]
+    lap("adafactor run")
+    report["adafactor_vs_cpu"] = adafactor_vs_cpu(torch, cfg, state.params, batches, device)
+    lap("adafactor against the CPU")
+    del state, batches
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the same run under AdamW, for the step time beside Adafactor's
+    adamw = [a if a != "adafactor" else "adamw" for a in argv]
+    got = {}
+    with cut_depth(layers), counted_launches(got):
+        logs = train_mod.main(adamw + ["--steps", str(steps), "--device", device])
+    if not all(math.isfinite(m["loss"]) for m in logs):
+        raise AssertionError(f"AdamW run: losses {[m['loss'] for m in logs]}")
+    if device == "cuda":
+        expect_launches("granite train, AdamW", got, {"moe_ffn": layers * steps * 2})
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    adamw_ms = sum(m["step_time_s"] for m in logs[1:]) / len(logs[1:]) * 1e3
+    log(f"  AdamW on the same run: mean step {adamw_ms:.1f} ms over steps 1-{steps - 1} against "
+        f"Adafactor's {step_ms:.1f} ms")
+    report["adamw"] = dict(losses=[m["loss"] for m in logs], mean_step_ms=adamw_ms)
+    lap("adamw run")
+    store = []
+    with cut_depth(layers), recorded_compression(store), counted_launches(got):
+        logs = train_mod.main(argv + ["--steps", "2", "--device", device, "--grad-compression",
+                                      "int8"])
+    if not all(math.isfinite(m["loss"]) for m in logs) or len(store) != 2:
+        raise AssertionError(f"int8 run: losses {[m['loss'] for m in logs]}, {len(store)} "
+                             f"compressions")
+    if device == "cuda":
+        expect_launches("granite train, int8", got, {"moe_ffn": layers * 2 * 2})
+    report["int8"] = dict(losses=[m["loss"] for m in logs],
+                          steps_checked=check_int8_codes(torch, store, device))
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    del store
+    lap("int8 run and codes")
+    if profile_dir is not None:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+        with cut_depth(layers), counted_launches(got):
+            train_mod.main(argv + ["--steps", "1", "--device", device, "--profile-dir",
+                                   str(profile_dir)])
+        if device == "cuda":
+            expect_launches("granite train, --profile-dir", got, {"moe_ffn": layers * 2})
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        path = os.path.join(profile_dir, "trace.json")
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        size_mb = os.path.getsize(path) / 1e6
+        shutil.rmtree(profile_dir, ignore_errors=True)
+        named = sorted(n for n in names if "tc_pass_kernel" in n)
+        if device == "cuda" and not named:
+            raise AssertionError("the --profile-dir trace names no moe_ffn tensor-core kernel")
+        log(f"  --profile-dir: trace.json of {size_mb:.1f} MB, {len(names)} event names, "
+            f"moe_ffn's kernels {named[:2]}")
+        report["profile"] = dict(trace_mb=size_mb, moe_ffn_kernels=named)
+        lap("profile run")
+    log(f"  (d)'s parts, seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    report["seconds"] = seconds
+    return report, launches
+
+
+def phase_families(torch):
+    """Phase 12: the decoder-LM families served at full width on the
+    card and granite's training; returns (report, launches of the phase)."""
+    log(f"phase 12: families: granite served at full width and 8 top-1 prototyping, "
+        f"qwen2.5-32b over int8 pools, olmoe-1b-7b, granite training ({card_line()})")
+    launches = {}
+    report, got = family_serving_runs(torch, family_configs(), "cuda")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    report["(d) granite training"], got = family_train(
+        torch, FAMILY_TRAIN_ARGS, "cuda", profile_dir=ROOT / "build" / "chip_smoke_profile")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return report, launches
 
 
 def main() -> int:
@@ -3877,6 +4458,7 @@ def main() -> int:
     timing, timing_mixed = phase_timing(torch, ffn_weights)
     timing.update(phase_timing_training(torch))
     timing.update(phase_timing_static(torch, ffn_weights))
+    timing.update(phase_timing_families(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -3908,9 +4490,13 @@ def main() -> int:
     t0 = time.perf_counter()
     static, static_launches, router_launches = phase_static(torch, e2e)
     static_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families, family_launches = phase_families(torch)
+    families_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
-        f"{slo_s:.1f} s, static phase {static_s:.1f} s")
+        f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -3931,6 +4517,14 @@ def main() -> int:
     static_timing = {"decode_attention": ["decode_attention static"],
                      "moe_ffn": ["moe_ffn X=1", "moe_ffn X=15"],
                      "ragged_ffn": ["ragged_ffn static prefill", "ragged_ffn expert choice"]}
+    # phase 12's shapes of the kernels that run there
+    family_timing = {
+        "paged_decode_attention": [f"paged_decode_attention {g}" for g in FAMILY_HEADS],
+        "quantized_paged_decode_attention": [f"quantized_paged_decode_attention {q} {g}"
+                                             for q in ("int8", "fp8") for g in FAMILY_HEADS],
+        "decode_attention": [f"decode_attention {g}" for g in FAMILY_HEADS],
+        "moe_ffn": ["moe_ffn granite train"],
+        "ragged_ffn": [f"ragged_ffn {label}" for label in FAMILY_FFN]}
     kernels = []
     for name, (src, replaces, counts) in sources.items():
         if counts[name] <= 0:
@@ -3983,12 +4577,23 @@ def main() -> int:
             if slo_launches[name] <= 0:
                 raise AssertionError(f"{name}: launched no time in phase 10")
             entry["slo_launches"] = slo_launches[name]
+        if name in family_timing:         # phase 12: the families' shapes and runs
+            # (the dense kernel's path is the static engine: phase 3 holds it at G = 3, 5)
+            if name != "decode_attention" and family_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 12")
+            entry["family_launches"] = family_launches[name]
+            entry["family_max_abs_err"] = errs[f"family {name}"]
+            entry["family_shapes"] = {
+                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms",
+                                                      "library_device_ms")}
+                for label in family_timing[name]}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
-                      "spec": spec, "slo": slo, "static": static, "build_s": build_s,
-                      "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
+                      "spec": spec, "slo": slo, "static": static, "families": families,
+                      "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
-                      "static_s": static_s,
+                      "static_s": static_s, "families_s": families_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

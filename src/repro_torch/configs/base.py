@@ -159,17 +159,16 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer and step settings (``repro.configs.base.TrainConfig``).
-    The port implements ``optimizer="adamw"``, ``grad_compression="none"``
-    and no ZeRO sharding; ``zero1`` is carried for parity and unused on
-    one device."""
+    The port has no ZeRO sharding: ``zero1`` is carried for parity and
+    unused on one device."""
 
     learning_rate: float = 8e-5      # paper: AdamW 8e-5
-    optimizer: str = "adamw"         # adamw | adafactor (adafactor not ported)
+    optimizer: str = "adamw"         # adamw | adafactor (paper 1T: adafactor @5e-3)
     warmup_steps: int = 500          # paper Table 5
     weight_decay: float = 0.01
     grad_clip_norm: float = 1.0
     zero1: bool = True
-    grad_compression: str = "none"   # none | bf16 | int8 (only none ported)
+    grad_compression: str = "none"   # none | bf16 | int8
     microbatches: int = 1            # grad accumulation
     seed: int = 0
 

@@ -1,23 +1,53 @@
-"""Architecture registry: --arch <id> -> (full config, smoke config).
-The port serves the four m6 ids only."""
+"""Architecture registry: --arch <id> -> (full config, smoke config)
+(``repro.configs.registry``).  Every id of the reference is listed; the
+three whose model family the port does not implement (xlstm, encdec,
+zamba) raise NotImplementedError naming the family."""
 from __future__ import annotations
 
-from repro_torch.configs import m6
+import importlib
+
 from repro_torch.configs.base import ModelConfig
 
-_M6 = {"m6-base": m6.M6_BASE, "m6-10b": m6.M6_10B,
-       "m6-100b": m6.M6_100B, "m6-1t": m6.M6_1T}
+_ARCH_MODULES = {
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "m6-base": "repro_torch.configs.m6",
+    "m6-10b": "repro_torch.configs.m6",
+    "m6-100b": "repro_torch.configs.m6",
+    "m6-1t": "repro_torch.configs.m6",
+}
 
-ALL_IDS = list(_M6)
+# the reference's ids whose family has no port
+_UNPORTED_FAMILY = {"xlstm-125m": "xlstm", "seamless-m4t-large-v2": "encdec",
+                    "zamba2-7b": "zamba"}
+
+_M6_ATTR = {"m6-base": "M6_BASE", "m6-10b": "M6_10B",
+            "m6-100b": "M6_100B", "m6-1t": "M6_1T"}
+
+ALL_IDS = [*_ARCH_MODULES, *_UNPORTED_FAMILY]
+ARCH_IDS = [a for a in ALL_IDS if not a.startswith("m6")]
+
+
+def get_module(arch: str):
+    if arch not in ALL_IDS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ALL_IDS}")
+    if arch in _UNPORTED_FAMILY:
+        raise NotImplementedError(f"arch {arch!r}: model family {_UNPORTED_FAMILY[arch]!r} "
+                                  f"is not ported")
+    return importlib.import_module(_ARCH_MODULES[arch])
 
 
 def get_config(arch: str) -> ModelConfig:
-    try:
-        return _M6[arch]
-    except KeyError:
-        raise ValueError(f"unknown arch {arch!r}; ported: {ALL_IDS}") from None
+    mod = get_module(arch)
+    if arch in _M6_ATTR:
+        return getattr(mod, _M6_ATTR[arch])
+    return mod.CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    get_config(arch)
-    return m6.smoke()
+    return get_module(arch).smoke()

@@ -24,12 +24,16 @@ namespace decode {
 constexpr int kWarps = 4;
 constexpr float kNegInf = -1e30f;
 
+// The largest power of two <= n (n >= 1).
+__host__ __device__ constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
+
 // VEC elements per lane: 16 bytes of the element, at most 32 / G (registers)
-// and at most D.
+// rounded down to a power of two (G = 3 and 5 give 10 and 6, which are no
+// vector width and do not divide D), and at most D.
 template <int ELEM_BYTES, int G, int D>
 __host__ __device__ constexpr int vec_elems() {
   constexpr int by_bytes = 16 / ELEM_BYTES;
-  constexpr int by_regs = 32 / G;
+  constexpr int by_regs = floor_pow2(32 / G);
   constexpr int v = by_bytes < by_regs ? by_bytes : by_regs;
   return v < D ? v : D;
 }

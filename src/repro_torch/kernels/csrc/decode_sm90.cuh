@@ -640,7 +640,9 @@ cudaError_t launch(const Tiles& src, const Launch& a, cudaStream_t stream) {
   switch (a.G) {
     case 1: return launch_g<TQ, Fmt, Tiles, 1>(src, a, stream);
     case 2: return launch_g<TQ, Fmt, Tiles, 2>(src, a, stream);
+    case 3: return launch_g<TQ, Fmt, Tiles, 3>(src, a, stream);
     case 4: return launch_g<TQ, Fmt, Tiles, 4>(src, a, stream);
+    case 5: return launch_g<TQ, Fmt, Tiles, 5>(src, a, stream);
     case 8: return launch_g<TQ, Fmt, Tiles, 8>(src, a, stream);
     default: return cudaErrorInvalidValue;
   }

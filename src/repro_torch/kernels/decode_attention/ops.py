@@ -46,6 +46,7 @@ _QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 8 + [_P]
 _DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_C] * 3 + [_P]
 
 SPLITS = (1, 2, 4, 8)         # cluster sizes the paged kernels take (8: the portable limit)
+GROUPS = (1, 2, 3, 4, 5, 8)   # GQA groups G = Hq / Hkv the kernels are instantiated for
 MIN_SPLIT_PASSES = 2          # a split must keep at least this many passes of the loop
 SPLIT_CTAS_PER_SM = 4         # splitting stops at this many CTAs an SM
 STAGE_BUDGET = 64 * 1024      # bytes of K/V tiles a CTA keeps in flight, at most
@@ -81,9 +82,10 @@ def _check_tile(name: str, bs: int, D: int, elem_bytes: int) -> None:
 
 def _rows_per_pass(D: int, G: int, elem_bytes: int) -> int:
     """Token rows the kernel's 4 warps read in one pass: two a lane
-    (``paged_decode_sm90.cuh::kRowsPerLane``), D / VEC lanes a row, VEC
-    elements a lane (``decode_common.cuh``)."""
-    vec = min(16 // elem_bytes, 32 // G, D)
+    (``decode_sm90.cuh::kRowsPerLane``), D / VEC lanes a row, VEC elements
+    a lane (``decode_common.cuh::vec_elems``: 32 / G rounded down to a
+    power of two)."""
+    vec = min(16 // elem_bytes, 1 << ((32 // G).bit_length() - 1), D)
     return 2 * 4 * (32 // (D // vec))
 
 
@@ -194,8 +196,8 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
                          f"{tuple(v_pool.shape)} vs q {tuple(q.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != N or lengths.shape != (N,):
         raise ValueError("paged_decode_attention: block_tables (N, MB), lengths (N,)")
-    if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (32, 64, 128):
-        raise ValueError(f"paged_decode_attention kernel takes G in (1, 2, 4, 8) and "
+    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in (32, 64, 128):
+        raise ValueError(f"paged_decode_attention kernel takes G in {GROUPS} and "
                          f"D in (32, 64, 128); got Hq={Hq}, Hkv={Hkv}, D={D}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_tables", block_tables), ("lengths", lengths)):
@@ -290,8 +292,8 @@ def _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, length
                          f"vs q {tuple(q.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != N or lengths.shape != (N,):
         raise ValueError(f"{name}: block_tables (N, MB), lengths (N,)")
-    if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (32, 64, 128):
-        raise ValueError(f"{name} kernel takes G in (1, 2, 4, 8) and D in (32, 64, 128); "
+    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in (32, 64, 128):
+        raise ValueError(f"{name} kernel takes G in {GROUPS} and D in (32, 64, 128); "
                          f"got Hq={Hq}, Hkv={Hkv}, D={D}")
     _check_aligned(name, q=q, k_pool=k_pool, v_pool=v_pool)
     _check_tile(name, bs, D, 1)
@@ -369,8 +371,8 @@ def _check_dense(q, k, v, lengths):
         raise ValueError("decode_attention: lengths (B,)")
     if k.shape[1] < 1:
         raise ValueError("decode_attention: an empty cache (T = 0) has no tensor map")
-    if Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (16, 32, 64, 128):
-        raise ValueError(f"decode_attention kernel takes G in (1, 2, 4, 8) and D in "
+    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in (16, 32, 64, 128):
+        raise ValueError(f"decode_attention kernel takes G in {GROUPS} and D in "
                          f"(16, 32, 64, 128); got Hq={Hq}, Hkv={Hkv}, D={D}")
     if not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous")

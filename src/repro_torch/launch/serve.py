@@ -37,10 +37,17 @@
       --trace-kind priority --sched-policy priority_strict --slo-preempt \\
       --host-blocks 56 --requests 32
 
-The flags are the reference's.  Those whose feature is not ported (meshes,
-the device profiler) raise NotImplementedError; as in the reference, the
-static engine takes no --mesh, --spec-drafter, --trace-out or
---metrics-out.
+  # granite-moe-3b-a800m at full width: 32 layers, top-8 of 40 swiglu
+  # experts, GQA groups of 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --engine continuous --moe-impl dropless --capacity-factor none --requests 16
+
+The flags are the reference's.  Those whose feature is not ported
+(meshes) raise NotImplementedError; as in the reference, the static
+engine takes no --mesh, --spec-drafter, --trace-out, --metrics-out or
+--profile-dir.  ``--profile-dir`` writes a ``torch.profiler`` Chrome trace
+of the serve run (CPU and, on the card, CUDA activity) there as
+``trace.json``.
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``,
 unless ``--ckpt-dir`` names checkpoints in the reference's format: then the
 latest one's params are served (a train checkpoint's ``.params`` leaves or
@@ -59,6 +66,7 @@ from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
 from repro_torch.core.dispatch import UNPORTED, available_dispatchers
 from repro_torch.kernels import build
 from repro_torch.nn import init_params
+from repro_torch.obs.profile import device_trace
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import available_policies
@@ -84,7 +92,6 @@ def _unported(args) -> list:
     """Flags set to something this port does not implement."""
     checks = [
         (args.mesh is not None, "--mesh"),
-        (args.profile_dir is not None, "--profile-dir"),
     ]
     return [flag for cond, flag in checks if cond]
 
@@ -190,7 +197,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--metrics-every", type=int, default=50)
-    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the serve run into this "
+                         "directory as trace.json (continuous engine only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the kernels' "
                          "plain PyTorch versions)")
@@ -211,7 +220,7 @@ def main(argv=None):
         raise NotImplementedError("not ported: " + ", ".join(bad))
 
     obs = None
-    if args.trace_out or args.metrics_out:
+    if args.trace_out or args.metrics_out or args.profile_dir:
         from repro_torch.obs import Observability
 
         obs = Observability(tracing=args.trace_out is not None)
@@ -260,7 +269,8 @@ def main(argv=None):
         engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
                                   seed=args.seed, device=args.device,
                                   draft_model=draft_model, obs=obs)
-        toks, stats = engine.generate(prompts, args.gen)
+        with device_trace(args.profile_dir, args.device):
+            toks, stats = engine.generate(prompts, args.gen)
         _write_obs(engine, args)
         print("generated:", toks[:, :16])
         print({k: round(float(v), 4) for k, v in stats.items()})
@@ -306,7 +316,8 @@ def main(argv=None):
         print(f"  req {st.request.uid}: {len(st.generated)} tokens, "
               f"latency {st.latency_ms():.0f}ms, first {st.generated[:8]}")
 
-    _, stats = engine.run(requests, on_finish=stream)
+    with device_trace(args.profile_dir, args.device):
+        _, stats = engine.run(requests, on_finish=stream)
     _write_obs(engine, args)
     if spec is not None:
         print(f"speculative[{spec.drafter}]: acceptance {stats['acceptance_rate']:.2f}, "

@@ -8,11 +8,13 @@ The cache (:class:`KVCache`) is ``(B, T, Hkv, D)`` in the activation
 dtype, written in place (the reference's jit donates it instead), so it
 must be made and used under ``torch.inference_mode()``; its ``length`` is
 a Python int, known on the host.  A prefill (S > 1) attends over the
-cache through the reference's masked ``_sdpa``, as the reference computes
-it outside Pallas; a decode step (S = 1) is the dense decode attention
+cache through the reference's ``_sdpa``, as the reference computes it
+outside Pallas; a decode step (S = 1) is the dense decode attention
 kernel (``repro_torch.kernels.decode_attention.decode_attention``) over
-the cache, every row at length ``length + 1``.  The chunked path is not
-ported (see :func:`_sdpa`)."""
+the cache, every row at length ``length + 1``.  ``_sdpa`` takes the
+chunked path (:mod:`repro_torch.models.chunked_attention`) under
+``attention_impl="chunked"``, or under ``"auto"`` when S*T > 2^21, as the
+reference's does."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -65,17 +67,26 @@ def _sdpa_reference(q, k, v, cfg: ModelConfig, mask) -> torch.Tensor:
     return out.reshape(B, S, Hq, D).to(q.dtype)
 
 
-def _sdpa(q, k, v, cfg: ModelConfig, mask) -> torch.Tensor:
-    """The reference path; the reference's chunked path (``"chunked"``, or
-    ``"auto"`` when S*T > 2^21) is not ported.  m6's learned positions cap
-    S*T at 256^2, far below the threshold."""
-    S, T = q.shape[1], k.shape[1]
+def _sdpa(q, k, v, cfg: ModelConfig, mask, *, causal_offset=None) -> torch.Tensor:
+    """Grouped SDPA with the reference's dispatch: the chunked path under
+    ``"chunked"``, or under ``"auto"`` when S*T > 2^21, else the
+    materialised scores.  ``mask`` is honoured only by the latter; the
+    chunked path masks itself from ``causal_offset`` (None: bidirectional;
+    an int or a 0-dim tensor: causal, the first query at that position)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "chunked" if S * T > _CHUNK_THRESHOLD else "reference"
-    if impl == "chunked":
-        raise NotImplementedError("chunked attention is not ported")
-    return _sdpa_reference(q, k, v, cfg, mask)
+    if impl != "chunked":
+        return _sdpa_reference(q, k, v, cfg, mask)
+    from repro_torch.models.chunked_attention import chunked_attention
+
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    causal = causal_offset is not None
+    out = chunked_attention(qg, k, v, causal, causal_offset if causal else 0,
+                            cfg.attention_block, cfg.attn_logit_softcap)
+    return out.reshape(B, S, Hq, D)
 
 
 def causal_mask(S: int, T: int, offset: int = 0, device=None) -> torch.Tensor:
@@ -108,14 +119,14 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
             T = cache.k.shape[1]
             rows = torch.arange(S, device=x.device)[:, None] + idx
             mask = (torch.arange(T, device=x.device)[None, :] <= rows)[None, None, None]
-            out = _sdpa(q, cache.k, cache.v, cfg, mask)
+            out = _sdpa(q, cache.k, cache.v, cfg, mask, causal_offset=idx)
     elif use_flash:
         from repro_torch.kernels.flash_attention import flash_attention
 
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     else:
         mask = causal_mask(S, S, device=x.device) if causal else None
-        out = _sdpa(q, k, v, cfg, mask)
+        out = _sdpa(q, k, v, cfg, mask, causal_offset=0 if causal else None)
     return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), new_cache
 
 

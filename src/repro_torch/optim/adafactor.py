@@ -1,0 +1,95 @@
+"""Adafactor (Shazeer & Stern 2018), the reference's
+(``repro.optim.adafactor``): second moments factored into row and column
+means for every leaf of two or more dims (a stacked expert tensor
+(..., E, M, I) per expert, over its last two axes), decay
+``beta2 = 1 - t^-0.8``, update clipping at RMS 1.0, and the step scaled by
+the parameter's RMS.  The paper fitted its 1T model's optimizer state
+with it, at lr 5e-3.
+
+State: ``{"v": {<flat path>: {"vr", "vc"} | {"v"}}}``, f32, updated in
+place; ``checkpoint.leaves`` gives its leaves the reference's keys
+(``.opt_state['v']['embed']['table']['vc']``).
+
+Numerics follow AdamW's rules (``optim/adamw.py``): every mean is a sum
+divided by a 0-dim tensor on the leaf's device (PyTorch on the card
+multiplies by the reciprocal of a Python number), and the square roots
+are correctly rounded on the CPU as well (``adamw._sqrt``).  Sums are
+taken in PyTorch's order, not XLA's, so the update agrees with the
+reference's to rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.optim.adamw import _sqrt
+from repro_torch.optim.api import Optimizer
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2
+
+
+def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
+              clip_threshold: float = 1.0, decay_pow: float = 0.8,
+              multiply_by_parameter_scale: bool = True) -> Optimizer:
+    def init(params: Dict[str, torch.Tensor]):
+        def one(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], **z),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+
+        return {"v": {k: one(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params, step: int):
+        # beta2 and 1 - beta2 in f32, as the reference computes them
+        t = np.float32(step + 1)
+        beta2 = np.float32(1) - t ** np.float32(-decay_pow)
+        one_m = float(np.float32(1) - beta2)
+        beta2 = float(beta2)
+        lr = float(np.float32(schedule(step + 1)))
+        consts: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+        def const(device, name, value):
+            d = consts.setdefault(device, {})
+            if name not in d:
+                d[name] = torch.full((), value, dtype=torch.float32, device=device)
+            return d[name]
+
+        def mean(x, dim=None, keepdim=False):
+            n = x.numel() if dim is None else x.shape[dim]
+            s = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+            return s / const(x.device, f"n{n}", n)
+
+        updates = {}
+        for k, g in grads.items():
+            v, p = state["v"][k], params[k]
+            dev = p.device
+            g32 = g.float()
+            g2 = g32.square().add_(eps1)
+            if _factored(p.shape):
+                vr, vc = v["vr"], v["vc"]
+                vr.mul_(beta2).add_(mean(g2, -1) * one_m)
+                vc.mul_(beta2).add_(mean(g2, -2) * one_m)
+                # v_hat = vr vc / mean_row(vr)
+                denom = mean(vr, -1, keepdim=True).clamp_min_(eps1)
+                vhat = (vr[..., None] * vc[..., None, :]).div_(denom[..., None])
+            else:
+                vhat = v["v"]
+                vhat.mul_(beta2).add_(g2 * one_m)
+            u = g32 / _sqrt(vhat + eps1)
+            rms_u = _sqrt(mean(u.square()).add_(eps1))
+            u = u / (rms_u / const(dev, "clip", clip_threshold)).clamp_min_(1.0)
+            scale = const(dev, "lr", lr)
+            if multiply_by_parameter_scale:
+                p_rms = _sqrt(mean(p.float().square()))
+                scale = scale * p_rms.clamp_min_(eps2)
+            updates[k] = ((-scale) * u).to(p.dtype)
+        return updates, state
+
+    return Optimizer(init, update)

@@ -28,5 +28,7 @@ def make_optimizer(tc: TrainConfig, schedule: Callable[[int], float]) -> Optimiz
 
         return adamw(schedule, weight_decay=tc.weight_decay)
     if tc.optimizer == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' is not ported (adamw only)")
+        from repro_torch.optim.adafactor import adafactor
+
+        return adafactor(schedule)
     raise ValueError(f"unknown optimizer {tc.optimizer!r}")

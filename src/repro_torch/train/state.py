@@ -8,18 +8,23 @@ class TrainState(NamedTuple):
     params: Any                 # nested param tree; its leaves are the f32 masters
     opt_state: Any
     step: int
-    error_feedback: Any = None  # int8-compression residual (compression not ported)
+    error_feedback: Any = None  # int8-compression residual, f32, keyed by flat path
 
 
 def init_train_state(params, optimizer, grad_compression: str = "none") -> TrainState:
     """``params`` is a training tree (``init_params(..., train=True)`` or
     ``from_jax_params(..., train=True)``); its leaves become autograd
-    leaves.  The optimizer state is keyed by the flat parameter paths."""
+    leaves.  The optimizer state and, under ``int8`` compression, the zero
+    error-feedback residual are keyed by the flat parameter paths."""
+    import torch
+
     from repro_torch.nn import flat_params
 
-    if grad_compression != "none":
-        raise NotImplementedError(f"grad_compression {grad_compression!r} is not ported")
     flat = flat_params(params)
     for p in flat.values():
         p.requires_grad_(True)
-    return TrainState(params, optimizer.init(flat), 0, None)
+    ef = None
+    if grad_compression == "int8":
+        ef = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for k, p in flat.items()}
+    return TrainState(params, optimizer.init(flat), 0, ef)

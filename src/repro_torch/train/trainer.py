@@ -1,6 +1,6 @@
 """The train step (``repro.train.trainer``): forward and backward,
-gradient accumulation over microbatches, global-norm clipping and the
-optimizer update.
+gradient accumulation over microbatches, global-norm clipping, gradient
+compression and the optimizer update, in the reference's order.
 
 The reference's step is a pure function that jit compiles with the old
 state donated; the port's runs eagerly and updates the parameters and
@@ -19,6 +19,7 @@ from repro_torch.models.registry import get_family
 from repro_torch.nn import flat_params
 from repro_torch.optim.api import Optimizer
 from repro_torch.optim.clip import clip_by_global_norm
+from repro_torch.optim.compression import compress_grads
 from repro_torch.train.losses import total_loss
 from repro_torch.train.state import TrainState
 
@@ -60,8 +61,6 @@ def microbatch_mean(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Te
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer) -> Callable:
     loss_fn = make_loss_fn(cfg)
-    if tc.grad_compression != "none":
-        raise NotImplementedError(f"grad_compression {tc.grad_compression!r} is not ported")
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         # The MoE side channel: routers and dispatchers see the step and
@@ -86,12 +85,13 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer) -> 
             metrics = {k: v.detach() for k, v in metrics.items()}
 
         grads, gnorm = clip_by_global_norm(grads, tc.grad_clip_norm)
+        grads, ef = compress_grads(grads, tc.grad_compression, state.error_feedback)
         updates, new_opt = optimizer.update(grads, state.opt_state, flat, state.step)
         with torch.no_grad():
             for k, p in flat.items():
                 p.copy_(p.float() + updates[k].float())
         metrics["grad_norm"] = gnorm
-        return TrainState(state.params, new_opt, state.step + 1, None), metrics
+        return TrainState(state.params, new_opt, state.step + 1, ef), metrics
 
     return train_step
 

@@ -43,6 +43,7 @@ from repro_torch.optim.adamw import adamw as tadamw
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.train.state import TrainState, init_train_state
 from repro_torch.train.trainer import make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CLI = ["--arch", "m6-base", "--smoke", "--moe-impl", "pallas", "--batch", "4", "--seq", "36",

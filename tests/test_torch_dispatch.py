@@ -28,6 +28,7 @@ from repro_torch.core.dispatch.gather import flat_slot_ids
 from repro_torch.core.moe import moe_ffn_apply as t_moe
 from repro_torch.core.routers.prototype import prototype_plan as t_prototype_plan
 from repro_torch.core.routers.topk import topk_plan as t_topk_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

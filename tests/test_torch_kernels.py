@@ -30,6 +30,7 @@ from repro_torch.kernels.moe_dropless import ops as rffn_ops
 from repro_torch.kernels.moe_dropless import ref as rag_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.kernels.moe_ffn import ref as moe_ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

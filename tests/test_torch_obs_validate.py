@@ -24,6 +24,7 @@ from repro_torch.obs.validate import _main as tmain
 from repro_torch.obs.validate import validate_chrome_trace, validate_metrics_jsonl
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.request import Priority, Request
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _both_trace(path):

@@ -20,6 +20,7 @@ from repro.optim.schedules import warmup_constant as j_warmup
 from repro_torch.optim.adamw import adamw as t_adamw
 from repro_torch.optim.schedules import warmup_constant as t_warmup
 from repro_torch.train.trainer import microbatch_mean
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"wq": (48, 40), "bias": (40,), "up": (3, 8, 24)}
 B1 = 0.9

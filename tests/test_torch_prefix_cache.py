@@ -29,6 +29,7 @@ from repro_torch.serving import prefix_cache as tpc
 from repro_torch.serving import trace as ttrace
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.serving.kv_cache import make_kv_cache
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_chain_hash_bytes_equal():

@@ -29,6 +29,7 @@ from repro_torch.quant import get_kv_quant as t_policy
 from repro_torch.quant import quant_write_kv as t_quant_write
 from repro_torch.quant.kv_cache import QuantizedPagedKVCache as TQCache
 from repro_torch.quant.kv_cache import QuantizedPrefixCachingKVCache as TQPCache
+from torch_threads import one_torch_thread  # noqa: F401
 
 POLICIES = ["int8", "fp8"]
 

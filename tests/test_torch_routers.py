@@ -41,6 +41,7 @@ from repro_torch.core.routers.expert_choice import expert_choice_plan as t_ec_pl
 from repro_torch.core.routers.hashed import _mix32 as t_mix32
 from repro_torch.core.routers.hashed import hash_plan as t_hash_plan
 from repro_torch.nn import flat_params, from_jax_params, init_params, lm_shapes
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 EDGES = [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]

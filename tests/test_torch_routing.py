@@ -21,6 +21,7 @@ from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.core.dispatch.dropless import dropless_dispatch as t_dropless
 from repro_torch.core.moe import moe_ffn_apply as t_moe
 from repro_torch.core.routers.topk import topk_plan as t_topk_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -18,6 +18,7 @@ import torch
 from repro.serving.continuous import _sample_rows as jsample_rows
 from repro_torch.core.routers.hashed import _mix32, _mul32
 from repro_torch.serving.continuous import _row_uniforms, _sample_rows
+from torch_threads import one_torch_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 

@@ -27,6 +27,7 @@ from repro_torch.nn import from_jax_params, lm_shapes
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.serving.kv_cache import BlockAllocator as TBlockAllocator
 from repro_torch.serving.kv_cache import PagedKVCache as TPagedKVCache
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
@@ -212,7 +213,7 @@ def test_cli_serves_slo_priority_trace_on_cpu(capsys):
     assert stats["moe_dropped_fraction"] == 0.0
     assert serve._unported(serve.build_parser().parse_args(argv)) == []
     bad = serve.build_parser().parse_args(argv[:5] + ["--mesh", "2", "--profile-dir", "d"])
-    assert serve._unported(bad) == ["--mesh", "--profile-dir"]
+    assert serve._unported(bad) == ["--mesh"]
 
 
 def test_port_imports_without_jax():

@@ -52,6 +52,7 @@ from repro_torch.serving.prefix_cache import PrefixCachingKVCache as TPrefixCach
 from repro_torch.serving.scheduler import Scheduler as TScheduler
 from repro_torch.serving.scheduler import get_policy as tget_policy
 from repro_torch.serving.slo.swap import SwapManager as TSwapManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(name="t", family="decoder_lm", num_layers=1, d_model=32, num_heads=2,
              num_kv_heads=2, d_ff=64, vocab_size=64, dtype="float32")

@@ -50,6 +50,7 @@ from repro_torch.serving.speculative import (
     register_drafter,
 )
 from repro_torch.serving.speculative.ngram import lookup_continuation as tlookup
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 TINY = dict(name="t", family="decoder_lm", num_layers=2, d_model=32, num_heads=2,

@@ -45,6 +45,7 @@ from repro_torch.nn import from_jax_params
 from repro_torch.serving.continuous import ContinuousEngine as TContinuous
 from repro_torch.serving.engine import ServingEngine as TStatic
 from repro_torch.serving.trace import run_trace_static, synthetic_trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 TOL = 1e-4
