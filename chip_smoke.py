@@ -210,12 +210,38 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               moe_ffn at granite's training shape and the ragged FFN at
               granite's decode and mixed steps and olmoe's decode step;
               phase 4 times them.
-13. report  — a {"kernels": [...]} line (decode_attention's launches and
+13. more    — more families (``chip_smoke.phase_more_families(torch)``
+              alone after ``build.build()``), random weights from seed 0:
+              (a) Fig. 4's MoE attention runs at m6-base's full width
+              (about 2.04 B parameters): top-1 and 2 top-1 prototyping
+              (``configs.m6.variant``), pallas, capacity 1.25, AdamW, 8 x
+              144, 4 steps each through the train CLI (losses finite and
+              within 1 of ln 21128, dropped fraction in [0, 1), moe_ffn
+              layers x steps x 2 on the tensor cores and nothing else, peak
+              memory), and one step's loss and gradients kernels vs plain
+              (the attention's routing flips reported beside the FFN's);
+              (b) m6-base at moe_layer_period 2 (MoE in layers 0, 2, 4),
+              dropless: phase 5's trace through the continuous engine
+              (conservation after every step, paged kernel 5 x steps,
+              ragged FFN 3 x steps, tokens equal to the plain versions' but
+              at near-ties), the static engine on the 8 x 48 batch (tokens
+              equal to the continuous engine's but at near-ties, dense
+              kernel 5 x decode steps), 2 pallas training steps (moe_ffn 3
+              x steps x 2); (c) xlstm-125m at full width: its 16-request
+              trace in recurrent slots (every budget met, no kernel
+              launched; tokens/s, mean step, p50/p95), the static engine's
+              token-by-token generate on the 8 x 48 batch equal to the
+              continuous engine's but at near-ties, the trace's first 4
+              requests again on the CPU (the card's tokens equal to the
+              CPU's but at near-ties), and 2 steps of the train CLI at 4 x
+              1024 (the chunked mLSTM form and the sLSTM loop; losses
+              finite and within 1 of ln 50304).
+14. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
-              family_shapes of phase 12), the card line, and as the
-              last line {"ok": true, "device": {"platform": "gpu", "kind":
-              ..., "count": 1}}.
+              family_shapes of phase 12; more_families_launches of phase
+              13), the card line, and as the last line {"ok": true,
+              "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
@@ -1825,7 +1851,9 @@ def expert_choice_routes(x, router_w, plan):
 
 @contextmanager
 def recorded_routing(store: list):
-    """Record, per MoE layer, each row's route (its top-1 expert; under
+    """Record, per routing call (an MoE layer's FFN, and before it its MoE
+    attention's), each row's route (its top-1 expert; under prototyping
+    its pick in every prototype, as one code; under
     expert choice the set of experts that picked it), the margin a bf16
     perturbation must overcome to change it (the router-logit gap to the
     runner-up; under expert choice ``expert_choice_routes``' gap; none
@@ -1847,13 +1875,26 @@ def recorded_routing(store: list):
             elif router_w is None:              # hash: no logits, nothing can flip
                 first = plan.expert_index[..., 0].reshape(-1).clone()
                 store.append((first, torch.full(first.shape, math.inf), valid))
+            elif router_w.dim() == 3:           # prototyping: a top-1 in each prototype
+                logits = torch.einsum("gtm,mzf->gtzf", x.float(), router_w.float())
+                top2 = logits.topk(2, dim=-1).values
+                E = router_w.shape[1] * router_w.shape[2]
+                powers = E ** torch.arange(plan.expert_index.shape[-1], device=x.device)
+                code = (plan.expert_index.long() * powers).sum(dim=-1)   # every prototype's pick
+                store.append((code.reshape(-1).clone(),
+                              (top2[..., 0] - top2[..., 1]).amin(dim=-1).reshape(-1).clone(),
+                              valid))
             else:
                 top2 = (x.float() @ router_w.float()).topk(2, dim=-1).values
                 store.append((plan.expert_index[..., 0].reshape(-1).clone(),
                               (top2[..., 0] - top2[..., 1]).reshape(-1).clone(), valid))
         return plan
 
-    with mock.patch.object(moe, "route", route):
+    from repro_torch.core import moe_attention
+
+    # an MoE attention layer routes before its FFN: one store, in call order
+    with mock.patch.object(moe, "route", route), \
+            mock.patch.object(moe_attention, "route", route):
         yield
 
 
@@ -2146,8 +2187,9 @@ def profile_train_steps(torch, state, step_fn, batch, n_steps=2):
 
 def _flip_report(routes_k, routes_p, layers, seq_len, label):
     """Routing flips between two forwards over (batch x seq_len) tokens, per
-    layer (the forward's route calls only: the remat recompute appends
-    more), each reported with its router-logit margin.  A flip must be a
+    routing call (``layers`` of them: the forward's route calls only, the
+    remat recompute appends more; an MoE attention layer routes twice), each
+    reported with its router-logit margin.  A flip must be a
     near-tie (margin < FLIP_MARGIN) unless an earlier layer's flip
     reached the token through causal attention (a flipped token moves the
     later tokens of its sequence).  Under an expert capacity a flip also
@@ -2220,7 +2262,8 @@ def compare_train_step(torch, cfg, params, batch):
         lp, gp = loss_and_grads(rp)
     sync(torch, batch["tokens"])
     seq = batch["tokens"].shape[1] + batch["patch_embeds"].shape[1]
-    flips, _ = _flip_report(rk, rp, cfg.num_layers, seq, "train step")
+    routes = moe_layers(cfg) * (2 if cfg.moe.moe_attention else 1)   # a forward's route calls
+    flips, _ = _flip_report(rk, rp, routes, seq, "train step")
     tokens = batch["labels"].numel()
     loss_tol = 1e-3 + 10.0 * len({r for _, r, _ in flips}) / tokens
     nk = math.sqrt(sum(float(g.float().square().sum()) for g in gk))
@@ -2355,7 +2398,7 @@ def serve_once(torch, cfg, params, serve, requests, device="cuda", **kw):
         if len(out[r.uid]) != r.max_new_tokens:
             raise AssertionError(f"request {r.uid}: {len(out[r.uid])} tokens, budget "
                                  f"{r.max_new_tokens}")
-    eng.cache.check_conservation()
+    eng.scheduler.check_conservation()       # slots, and the KV cache where there is one
     return out, stats, eng, wall_ms
 
 
@@ -3702,7 +3745,7 @@ def static_parity(torch, cfg, params, prompts, gen, device, label):
     continuous engine's on one equal-length batch; a row may differ only
     from a near-tie of the continuous run's top two logits on.  On the
     card the dense decode kernel must run layers x decode steps times and
-    the ragged FFN layers x (prefill + decode steps), all on the tensor
+    the ragged FFN MoE layers x (prefill + decode steps), all on the tensor
     cores, and nothing else."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serving.request import Request
@@ -3714,7 +3757,7 @@ def static_parity(torch, cfg, params, prompts, gen, device, label):
         raise AssertionError(f"{label}: tokens of shape {toks.shape} outside the vocabulary")
     if params["embed"]["table"].is_cuda:
         expect_launches(label, launches, {"decode_attention": L * (gen - 1),
-                                          "ragged_ffn": L * gen})
+                                          "ragged_ffn": moe_layers(cfg) * gen})
     requests = [Request(uid=i, prompt=prompts[i], max_new_tokens=gen) for i in range(B)]
     serve = ServeConfig(max_slots=B, max_len=S + gen + 1)
     base, margins = tapped_margins(torch, cfg, params, serve, requests, device)
@@ -4020,27 +4063,29 @@ def phase_timing_families(torch):
 
 
 def family_serve(torch, cfg, params, requests, device, label, kv_quant="none",
-                 profile=False):
+                 profile=False, max_len=None, **engine_kw):
     """(a)-(c): ``requests`` through the continuous engine (dropless MoE) with
     the kernel counters at 0 before it: every budget met, the cache's
     conservation, the dropped fraction 0.0; on the card the paged kernel
     (the quantized one under int8 / fp8) and, for a MoE model, the ragged
     FFN launched layers x steps times, every FFN launch on the tensor
-    cores, nothing else.  Then the same engine on the kernels' plain
-    versions, its logits tapped: a request may differ from it only first at
-    a near-tie of the plain run's top two logits (reported with the gap).
-    Returns (report, launches)."""
+    cores, nothing else (the ragged FFN MoE layers x steps in a mixed
+    stack).  Then the same engine on the kernels' plain versions, its
+    logits tapped: a request may differ from it only first at a near-tie of
+    the plain run's top two logits (reported with the gap).  ``engine_kw``
+    goes to the engine (``check_invariants``).  Returns (report, launches)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serving.request import Request
     from repro_torch.serving.trace import latency_line
 
-    serve = ServeConfig(max_len=max(256, max(r.total_len for r in requests)),
+    serve = ServeConfig(max_len=max_len or max(256, max(r.total_len for r in requests)),
                         kv_quant=kv_quant)
     serve_once(torch, cfg, params, serve, [Request(uid=0, prompt=requests[0].prompt,
                                                    max_new_tokens=3)], device)   # warm-up
     launches = {}
     with counted_launches(launches):
-        out, stats, eng, wall_ms = serve_once(torch, cfg, params, serve, requests, device)
+        out, stats, eng, wall_ms = serve_once(torch, cfg, params, serve, requests, device,
+                                              **engine_kw)
     steps, L = eng.steps, cfg.num_layers
     if stats.get("moe_dropped_fraction", 0.0) != 0.0:
         raise AssertionError(f"{label}: dropped fraction {stats['moe_dropped_fraction']}")
@@ -4048,7 +4093,7 @@ def family_serve(torch, cfg, params, requests, device, label, kv_quant="none",
     if device == "cuda":
         want = {attn: L * steps}
         if cfg.moe.num_experts:
-            want["ragged_ffn"] = L * steps
+            want["ragged_ffn"] = moe_layers(cfg) * steps
         expect_launches(label, launches, want)
     t0 = time.perf_counter()
     with plain_versions():
@@ -4137,16 +4182,21 @@ def counted_chunked(calls: list):
         yield
 
 
-@contextmanager
 def cut_depth(layers):
     """The train CLI's config at ``layers`` layers (no CLI flag for depth)."""
+    return built_config(lambda cfg: cfg.replace(num_layers=layers))
+
+
+@contextmanager
+def built_config(edit):
+    """The train CLI's config through ``edit`` (it has no flag for depth,
+    MoE attention or the MoE layer period)."""
     from unittest import mock
 
     from repro_torch.launch import train as train_mod
 
     build_full = train_mod.build
-    with mock.patch.object(train_mod, "build",
-                           lambda args: build_full(args).replace(num_layers=layers)):
+    with mock.patch.object(train_mod, "build", lambda args: edit(build_full(args))):
         yield
 
 
@@ -4394,6 +4444,266 @@ def phase_families(torch):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: more families: the paper's MoE attention (Fig. 4), a mixed
+# dense/MoE stack, and xlstm-125m
+# ---------------------------------------------------------------------------
+
+MORE_TRAIN_STEPS = 4             # Fig. 4's runs, a step each more than phase 6's prototyping
+MIXED_PERIOD = 2                 # MoE in layers 0, 2 and 4 of m6-base's five
+MIXED_TRAIN_STEPS = 2
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--seq", "1024", "--log-every", "1"]
+XLSTM_TRAIN_STEPS = 2
+XLSTM_CPU_REQUESTS = 4           # the trace's first requests, served again on the CPU
+MORE_FAMILIES_KERNELS = ("moe_ffn", "paged_decode_attention", "ragged_ffn", "decode_attention")
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of a decoder stack (every layer of a uniform one)."""
+    from repro_torch.nn.spec import is_moe_layer
+
+    return sum(is_moe_layer(cfg, i) for i in range(cfg.num_layers))
+
+
+def fig4_edits():
+    """(label, config edit) of (a): MoE attention under top-1 and under
+    the paper's 2 top-1 prototyping (``configs.m6.variant``)."""
+    from repro_torch.configs.m6 import variant
+
+    return (("top-1", lambda cfg: cfg.replace_moe(moe_attention=True)),
+            ("2 top-1", lambda cfg: variant(cfg, "prototype", 2).replace_moe(moe_attention=True)))
+
+
+def check_losses(label, logs, vocab) -> None:
+    for m in logs:
+        ok = (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              and abs(m["loss"] - math.log(vocab)) <= LOSS_SLACK
+              and 0.0 <= m.get("moe_dropped_fraction", 0.0) < 1.0)
+        if not ok:
+            raise AssertionError(f"{label}: step {m['step']}: loss {m['loss']} (ln V = "
+                                 f"{math.log(vocab):.4f}), grad norm {m['grad_norm']}, dropped "
+                                 f"fraction {m.get('moe_dropped_fraction')}")
+
+
+def edited_train(torch, argv, edit, steps, device, label, compare=True):
+    """``steps`` steps through the train CLI on ``edit`` of its config
+    (losses finite and within LOSS_SLACK of ln V, dropped fraction in [0,
+    1); on the card moe_ffn launched MoE layers x steps x 2 (forward and
+    remat recompute), all on the tensor cores, and nothing else), then,
+    with ``compare``, one step's loss and gradients through the kernels
+    against the plain versions (``compare_train_step``: the MoE attention's
+    routing flips reported beside the FFN's).  Returns (report, launches)."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import device_batch
+    from repro_torch.nn import count_params
+
+    args = argv + ["--steps", str(steps), "--device", device]
+    launches = {}
+    with built_config(edit):
+        cfg = train_mod.build(train_mod.build_parser().parse_args(args))
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with counted_launches(launches):
+            t0 = time.perf_counter()
+            logs = train_mod.main(args)
+            wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        check_losses(label, logs, cfg.vocab_size)
+        want = {"moe_ffn": moe_layers(cfg) * steps * 2} if cfg.moe.num_experts else {}
+        if device == "cuda":
+            expect_launches(label, launches, want)
+        steady = logs[1:] or logs
+        step_ms = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+        report = dict(params_b=count_params(cfg) / 1e9, losses=[m["loss"] for m in logs],
+                      grad_norms=[m["grad_norm"] for m in logs],
+                      dropped_fraction=[m.get("moe_dropped_fraction", 0.0) for m in logs],
+                      mean_step_ms=step_ms, first_step_ms=logs[0]["step_time_s"] * 1e3,
+                      peak_memory_gb=peak, wall_s=wall_s,
+                      launches={n: launches[n] for n in KERNEL_NAMES if launches[n]})
+        peak_text = f", peak memory {peak:.1f} GB" if peak is not None else ""
+        log(f"  {label}: {cfg.num_layers} layers ({moe_layers(cfg)} MoE), "
+            f"{report['params_b']:.3f} B params, {steps} steps: losses "
+            f"{[round(x, 4) for x in report['losses']]}, dropped fraction "
+            f"{[round(x, 4) for x in report['dropped_fraction']]}; mean step {step_ms:.1f} ms "
+            f"(host clock, synced; first {report['first_step_ms']:.0f} ms){peak_text}; "
+            f"launches {report['launches']}")
+        if compare:
+            cfg, state, _, pipeline = train_setup(args)
+            batch = device_batch(pipeline.batch_at(0), device)
+            report["kernels_vs_plain"] = compare_train_step(torch, cfg, state.params, batch)
+            del state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def mixed_stack_runs(torch, cfg, device, train_argv, requests=None, max_len=None,
+                     train_edit=None, shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN)):
+    """(b): ``cfg`` (dropless m6 at moe_layer_period 2) over phase 5's trace
+    through the continuous engine (conservation after every step;
+    ``family_serve``'s gates: paged kernel layers x steps, ragged FFN MoE
+    layers x steps, tokens equal to the plain versions' but at near-ties),
+    the static engine on an equal-length batch (``static_parity``: tokens
+    equal to the continuous engine's, dense kernel layers x decode steps),
+    and ``MIXED_TRAIN_STEPS`` steps through the train CLI at the same
+    period (moe_ffn MoE layers x steps x 2).  ``requests`` defaults to phase
+    5's trace.  Returns (report, launches)."""
+    import numpy as np
+
+    from repro_torch.nn import init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    total, report = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    params = init_params(cfg, seed=0, device=device)
+    requests = requests or synthetic_trace(16, cfg.vocab_size, seed=0)
+    report["continuous"], got = family_serve(torch, cfg, params, requests, device,
+                                             "(b) continuous", max_len=max_len,
+                                             check_invariants=True)
+    add(got)
+    B, S, gen = shape
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    static_generate(torch, cfg, params, prompts, 2)      # warm-up
+    report["static"], got = static_parity(torch, cfg, params, prompts, gen, device, "(b) static")
+    add(got)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    edit = train_edit or (lambda c: c.replace(moe_layer_period=cfg.moe_layer_period))
+    report["train"], got = edited_train(torch, train_argv, edit, MIXED_TRAIN_STEPS, device,
+                                        "(b) train", compare=False)
+    add(got)
+    return report, total
+
+
+def xlstm_runs(torch, cfg, device, train_argv, n_requests=16, cpu_requests=XLSTM_CPU_REQUESTS,
+               shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN), train_steps=XLSTM_TRAIN_STEPS):
+    """(c): ``cfg`` (xlstm) over its own synthetic trace through the
+    continuous engine in recurrent slots (every budget met, conservation
+    after every step, no kernel launched); the static engine's token-by-token
+    ``generate`` on an equal-length batch, equal to the continuous engine's
+    on it; the trace's first ``cpu_requests`` requests again on the CPU
+    (the same params there), the card's tokens equal to the CPU's but at
+    near-ties of the CPU run's top two logits; then ``train_steps`` steps
+    through the train CLI (losses finite and within LOSS_SLACK of ln V).
+    Returns the report."""
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.nn import count_params, init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.trace import latency_line, synthetic_trace
+
+    report = {}
+    params = init_params(cfg, seed=0, device=device)
+    requests = synthetic_trace(n_requests, cfg.vocab_size, seed=0)
+    serve = ServeConfig(max_len=max(256, max(r.total_len for r in requests)))
+    serve_once(torch, cfg, params, serve, [Request(uid=0, prompt=requests[0].prompt,
+                                                   max_new_tokens=3)], device)   # warm-up
+    launches = {}
+    with counted_launches(launches):
+        out, stats, eng, wall_ms = serve_once(torch, cfg, params, serve, requests, device,
+                                              check_invariants=True)
+    if device == "cuda":
+        expect_launches("(c) continuous", launches, {})
+    report["continuous"] = dict(
+        params_b=count_params(cfg) / 1e9, tokens_per_s=stats["generated_tokens_per_s"],
+        p50_ms=stats["p50_ms"], p95_ms=stats["p95_ms"], steps=eng.steps,
+        mean_step_ms=wall_ms / eng.steps, max_slots=serve.max_slots)
+    log(f"  (c) xlstm continuous, recurrent slots: {latency_line(stats)}; {eng.steps} steps of "
+        f"({serve.max_slots}, 1), mean step {wall_ms / eng.steps:.2f} ms (host clock); no "
+        f"kernel launched")
+
+    B, S, gen = shape
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    static = ServingEngine(cfg, params, max_len=S + gen + 1)
+    static.generate(prompts[:, :4], 2)                                  # warm-up
+    toks, sstats = static.generate(prompts, gen)
+    batch = [Request(uid=i, prompt=prompts[i], max_new_tokens=gen) for i in range(B)]
+    base, margins = tapped_margins(torch, cfg, params,
+                                   ServeConfig(max_slots=B, max_len=S + gen + 1), batch, device)
+    div = first_divergences(base, {i: toks[i].tolist() for i in range(B)}, margins, batch,
+                            "(c) static vs continuous")
+    log(f"  (c) static token-by-token generate of {B} x {S}, {gen} tokens: {B - len(div)} of "
+        f"{B} rows equal to the continuous engine's; prompt {sstats['prefill_s'] * 1e3:.1f} ms, "
+        f"decode {sstats['decode_tokens_per_s']:.1f} tokens/s")
+    report["static"] = dict(rows_equal=B - len(div), rows=B,
+                            divergences=[dict(request=u, token=p, gap=g) for u, p, g in div],
+                            prompt_ms=sstats["prefill_s"] * 1e3,
+                            decode_tokens_per_s=sstats["decode_tokens_per_s"])
+
+    if device == "cuda":
+        t0 = time.perf_counter()
+        cpu_params = _to_cpu(params)
+        few = requests[:cpu_requests]
+        base, margins = tapped_margins(torch, cfg, cpu_params, ServeConfig(
+            max_slots=len(few), max_len=serve.max_len), few, "cpu")
+        div = first_divergences(base, {r.uid: out[r.uid] for r in few}, margins, few,
+                                "(c) card vs CPU")
+        cpu_s = time.perf_counter() - t0
+        log(f"  (c) the trace's first {len(few)} requests on the CPU ({cpu_s:.1f} s): "
+            f"{len(few) - len(div)} of {len(few)} equal to the card's")
+        report["card_vs_cpu"] = dict(requests=len(few), equal=len(few) - len(div),
+                                     divergences=[dict(request=u, token=p, gap=g)
+                                                  for u, p, g in div], cpu_s=cpu_s)
+        del cpu_params
+    del params, eng, static
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    report["train"], _ = edited_train(torch, train_argv, lambda c: c, train_steps, device,
+                                      "(c) xlstm train", compare=False)
+    return report
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.to("cpu")
+
+
+def phase_more_families(torch):
+    """Phase 13: Fig. 4's MoE attention runs and a mixed stack at m6-base's
+    full width, and xlstm-125m at its own; returns (report, launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.m6 import M6_BASE
+
+    log(f"phase 13: more families: MoE attention (Fig. 4) and a mixed dense/MoE stack at "
+        f"m6-base width, xlstm-125m served and trained ({card_line()})")
+    launches, report = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    for label, edit in fig4_edits():
+        report[f"(a) moe attention, {label}"], got = edited_train(
+            torch, TRAIN_ARGS, edit, MORE_TRAIN_STEPS, "cuda", f"(a) moe attention, {label}")
+        add(got)
+    report["(a) seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = M6_BASE.replace(moe_layer_period=MIXED_PERIOD).replace_moe(
+        impl="dropless", capacity_factor=None)
+    report["(b) mixed stack"], got = mixed_stack_runs(torch, mixed, "cuda", TRAIN_ARGS)
+    add(got)
+    report["(b) seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["(c) xlstm-125m"] = xlstm_runs(torch, registry.get_config("xlstm-125m"), "cuda",
+                                          XLSTM_TRAIN_ARGS)
+    report["(c) seconds"] = time.perf_counter() - t0
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4494,9 +4804,14 @@ def main() -> int:
     t0 = time.perf_counter()
     families, family_launches = phase_families(torch)
     families_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    more, more_launches = phase_more_families(torch)
+    more_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
-        f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s")
+        f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
+        f"more families phase {more_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -4588,12 +4903,19 @@ def main() -> int:
                                                       "bound_by", "library_ms",
                                                       "library_device_ms")}
                 for label in family_timing[name]}
+        # phase 13: Fig. 4's training (moe_ffn), the mixed stack's serving
+        # (paged, ragged, dense) and training (moe_ffn); xlstm runs no kernel
+        entry["more_families_launches"] = more_launches[name]
+        if name in MORE_FAMILIES_KERNELS and more_launches[name] <= 0:
+            raise AssertionError(f"{name}: launched no time in phase 13")
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
+                      "more_families": more,
                       "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
+                      "more_families_s": more_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

@@ -47,25 +47,37 @@ import numpy as np
 import torch
 
 _STEP_RE = re.compile(r"step_(\d+)$")
-_KEY_PART = re.compile(r"\['([^'\\]*)'\]")
+_KEY_PART = re.compile(r"\['([^'\\]*)'\]|\[(\d+)\]")
 
 
 def jax_key(path: str) -> str:
     """The reference's key of the port's parameter path: ``"blocks/attn/wq/kernel"``
-    -> ``"['blocks']['attn']['wq']['kernel']"``, the keystr of the dict
-    path (``blocks``, ``attn``, ``wq``, ``kernel``) that
-    ``nn.from_jax_params`` walks in the reference's tree for that leaf."""
-    return "".join(f"[{part!r}]" for part in path.split("/"))
+    -> ``"['blocks']['attn']['wq']['kernel']"``, the keystr of the path
+    (``blocks``, ``attn``, ``wq``, ``kernel``) that ``nn.from_jax_params``
+    walks in the reference's tree for that leaf.  A part made of digits is
+    a list index (``nn.flat_params`` writes a per-layer list's entries so):
+    ``"blocks/0/ffn/up"`` -> ``"['blocks'][0]['ffn']['up']"``."""
+    return "".join(f"[{part}]" if part.isdigit() else f"[{part!r}]"
+                   for part in path.split("/"))
 
 
 def port_path(key: str) -> str:
-    """The inverse of :func:`jax_key`: a reference key made only of dict
-    keys back to the port's ``"/"``-joined path.  Raises ValueError for any
-    other key (an attribute, an index)."""
-    parts = _KEY_PART.findall(key)
-    if not parts or jax_key("/".join(parts)) != key:
+    """The inverse of :func:`jax_key`: a reference key made of dict keys,
+    with list indices only between two of them (a param tree's root is a
+    dict and its leaves are named), back to the port's ``"/"``-joined path.
+    Raises ValueError for any other key (an attribute, a leading or
+    trailing index)."""
+    parts = ["".join(p) for p in _KEY_PART.findall(key)]
+    if (not parts or parts[0].isdigit() or parts[-1].isdigit()
+            or jax_key("/".join(parts)) != key):
         raise ValueError(f"not a key of the param tree: {key!r}")
     return "/".join(parts)
+
+
+def _path_order(path: str):
+    """Sort key of a ``"/"``-joined path in the reference's flatten order:
+    dict keys as strings, list indices (digit parts) as numbers."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in path.split("/"))
 
 
 def _is_namedtuple(x) -> bool:
@@ -83,7 +95,7 @@ def leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     if _is_namedtuple(tree):
         return [kv for f in tree._fields for kv in leaves(getattr(tree, f), f"{prefix}.{f}")]
     if isinstance(tree, Mapping):
-        return [kv for k in sorted(tree, key=lambda k: str(k).split("/"))
+        return [kv for k in sorted(tree, key=lambda k: _path_order(str(k)))
                 for kv in leaves(tree[k], prefix + jax_key(str(k)))]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree) for kv in leaves(v, f"{prefix}[{i}]")]

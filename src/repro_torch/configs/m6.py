@@ -38,6 +38,15 @@ M6_1T = _m6("m6-1t", 24, 21248, 960, init_range=0.002)
 CONFIG = M6_BASE
 
 
+def variant(base: ModelConfig, routing: str, k: int, capacity_mode: str = "k") -> ModelConfig:
+    """The paper's ablation grid (Top-1/2/4, 2/4 Top-1, Capacity kx / 1x),
+    and any other registered router k-way (``repro.configs.m6.variant``)."""
+    if routing == "prototype":
+        return base.replace_moe(routing="prototype", num_prototypes=k,
+                                prototype_top_k=1, capacity_mode=capacity_mode)
+    return base.replace_moe(routing=routing, top_k=k, capacity_mode=capacity_mode)
+
+
 def smoke() -> ModelConfig:
     return M6_BASE.replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,

@@ -42,6 +42,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
       --engine continuous --moe-impl dropless --capacity-factor none --requests 16
 
+  # xlstm-125m in recurrent slots (the continuous engine), or by the static
+  # engine, which feeds each prompt token by token
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --engine continuous --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --engine static --requests 16
+
+Every --arch the reference lists is served but the encdec and zamba
+families' (seamless-m4t-large-v2, zamba2-7b), which raise
+NotImplementedError naming the family.  For xlstm-125m the continuous
+engine refuses what needs the paged KV cache (speculation, prefix caching,
+--kv-quant, --slo-preempt), as the reference's does.
 The flags are the reference's.  Those whose feature is not ported
 (meshes) raise NotImplementedError; as in the reference, the static
 engine takes no --mesh, --spec-drafter, --trace-out, --metrics-out or

@@ -20,6 +20,16 @@
       --moe-impl pallas --optimizer adafactor --routing prototype --k 8 \
       --steps 4 --batch 4 --seq 2048
 
+  # xlstm-125m at full width: the chunked mLSTM form (1024 > 2 x 256) and
+  # the sLSTM loop over time
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+      --steps 2 --batch 4 --seq 1024
+
+Every --arch the reference lists trains but the encdec and zamba families'
+(seamless-m4t-large-v2, zamba2-7b), which raise NotImplementedError naming
+the family.  MoE attention and mixed dense/MoE stacks have no flag, as in
+the reference: a config that sets ``moe.moe_attention`` or
+``moe_layer_period`` trains through ``run`` like any other.
 The flags are the reference's.  Those whose feature is not ported raise
 NotImplementedError: --data or --model above 1 and ``--moe-impl
 alltoall``.  ``--routing`` takes all four of the reference's routers

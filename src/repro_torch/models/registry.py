@@ -1,22 +1,30 @@
 """Per-family model API (``repro.models.registry``).  The port has the
-decoder-LM family and the two that add prefix embeddings to it (vlm, m6):
+decoder-LM family, the two that add prefix embeddings to it (vlm, m6), and
+xLSTM:
 
   forward(params, batch, cfg, ctx)             training forward; logits
                                                align with batch["labels"]
-  init_state(cfg, batch, max_len, device)      empty dense KV caches
+  init_state(cfg, batch, max_len, device)      empty dense KV caches, or
+                                               the recurrent family's O(1)
+                                               zero state (max_len ignored)
   decode(params, tokens, state, cfg, ctx)      one-token serve step
-  prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state)
+  prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state);
+                                               None for a recurrent family
 
 The static engine (``repro_torch.serving.engine``) serves through
-``prefill`` and ``decode``; the continuous engine runs its own paged
-forward."""
+``prefill`` and ``decode`` (``decode`` token by token over the prompt when
+``prefill`` is None); the continuous engine runs its own paged forward for
+the decoder LMs and ``decode`` in recurrent slots for xLSTM.  The families
+with no MoE layer (xLSTM) take ``ctx`` and ignore it.  The zamba and
+encdec families are not ported."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as TF
+from repro_torch.models import xlstm as XL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +32,7 @@ class FamilyAPI:
     forward: Callable     # (params, batch, cfg, ctx) -> (logits, aux)
     init_state: Callable  # (cfg, batch, max_len, device) -> state
     decode: Callable      # (params, tokens, state, cfg, ctx) -> (logits, state)
-    prefill: Callable     # (params, batch, cfg, max_len, ctx) -> (logits, state)
+    prefill: Optional[Callable]  # (params, batch, cfg, max_len, ctx) -> (logits, state)
 
 
 def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -45,7 +53,25 @@ def _lm_prefill(params, batch, cfg: ModelConfig, max_len: int, ctx=None):
 
 DECODER_LM = FamilyAPI(forward=_lm_forward, init_state=TF.init_caches,
                        decode=TF.decode_apply, prefill=_lm_prefill)
-_FAMILIES = {"decoder_lm": DECODER_LM, "vlm": DECODER_LM, "m6": DECODER_LM}
+
+
+def _xl_forward(params, batch, cfg: ModelConfig, ctx=None):
+    logits, aux, _ = XL.xlstm_apply(params, batch["tokens"], cfg)
+    return logits, aux
+
+
+def _xl_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    return XL.xlstm_init_states(cfg, batch, device)
+
+
+def _xl_decode(params, tokens, state, cfg: ModelConfig, ctx=None):
+    logits, _, new_state = XL.xlstm_apply(params, tokens, cfg, states=state)
+    return logits, new_state
+
+
+XLSTM = FamilyAPI(forward=_xl_forward, init_state=_xl_init_state, decode=_xl_decode,
+                  prefill=None)
+_FAMILIES = {"decoder_lm": DECODER_LM, "vlm": DECODER_LM, "m6": DECODER_LM, "xlstm": XLSTM}
 
 
 def get_family(cfg: ModelConfig) -> FamilyAPI:

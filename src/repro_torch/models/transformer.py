@@ -1,17 +1,23 @@
-"""Decoder-only transformer LM (``repro.models.transformer``), three
-entry points:
+"""Decoder-only transformer LM (``repro.models.transformer``): dense or MoE
+FFN, optional MoE attention, three entry points:
 
 * ``lm_apply``      — full-sequence forward (training, evaluation);
 * ``prefill_apply`` — full-sequence forward that also fills dense KV
   caches (the static engine's prompt step);
 * ``decode_apply``  — one-token step against those caches.
 
-Layers are stacked ``(L, ...)`` as the reference stacks them under
-``scan_layers``; a Python loop over layer slices stands in for
-``lax.scan``, and ``cfg.remat`` recomputes each layer in the backward
-pass through ``torch.utils.checkpoint`` as ``jax.checkpoint`` does around
-the scan body.  The caches are one :class:`~repro_torch.models.attention.KVCache`
-whose k/v stack the layers, ``(L, B, T, Hkv, D)``, written in place.
+A uniform stack's layers are stacked ``(L, ...)`` as the reference stacks
+them under ``scan_layers``, and a Python loop over layer slices stands in
+for ``lax.scan``; a mixed dense/MoE stack (``moe_layer_period`` > 1) is the
+reference's list of per-layer dicts.  ``cfg.remat`` recomputes each layer
+in the backward pass through ``torch.utils.checkpoint``, as
+``jax.checkpoint`` does around the scan body; the port does so for a
+per-layer list too, where the reference's unrolled loop keeps every
+activation (the same values, less memory).  An MoE layer of an ``moe_attention`` config runs MoE attention
+(``repro_torch.core.moe_attention``) when it has no cache; it has no
+cached decode path, so ``prefill_apply`` and ``decode_apply`` refuse it.
+The caches are one :class:`~repro_torch.models.attention.KVCache` whose
+k/v stack the layers, ``(L, B, T, Hkv, D)``, written in place.
 """
 from __future__ import annotations
 
@@ -24,19 +30,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
 from repro_torch.core.metrics import empty_aux
 from repro_torch.core.moe import moe_ffn_apply
+from repro_torch.core.moe_attention import moe_attention_apply
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache, attention_apply
-
-
-def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
-    return cfg.moe.num_experts > 0 and (layer_idx % cfg.moe_layer_period == 0)
+from repro_torch.nn.spec import is_moe_layer as _is_moe_layer
 
 
 def unstack_layers(params, num_layers: int) -> list:
-    """The stacked ``(L, ...)`` block params as one param dict per layer
-    (views).  One ``unbind`` per leaf: its backward stacks the layers'
-    gradients once, where indexing layer by layer would zero-fill a
-    full-size gradient for every layer."""
+    """The block params as one param dict per layer: a mixed stack's list
+    as it is, a stacked ``(L, ...)`` tree as views.  One ``unbind`` per
+    leaf: its backward stacks the layers' gradients once, where indexing
+    layer by layer would zero-fill a full-size gradient for every layer."""
+    if isinstance(params, list):
+        return params
     if isinstance(params, dict):
         per_key = {k: unstack_layers(v, num_layers) for k, v in params.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(num_layers)]
@@ -46,14 +52,23 @@ def unstack_layers(params, num_layers: int) -> list:
 def block_apply(params, x, cfg: ModelConfig, *, positions, moe_layer: bool,
                 cache: Optional[KVCache] = None, use_flash: bool = False,
                 ctx: Optional[MoEContext] = None):
-    """Pre-norm block. Returns (x, aux, new_cache)."""
+    """Pre-norm block. Returns (x, aux, new_cache).  An MoE attention
+    layer's aux losses are added into the FFN's ``*_loss`` entries."""
     h = L.norm_apply(params["ln_attn"], x, cfg)
-    attn_out, new_cache = attention_apply(params["attn"], h, cfg, positions=positions,
-                                          cache=cache, use_flash=use_flash)
+    attn_aux = None
+    if cfg.moe.moe_attention and moe_layer and cache is None:
+        attn_out, attn_aux = moe_attention_apply(params["attn"], h, cfg,
+                                                 positions=positions, ctx=ctx)
+        new_cache = None
+    else:
+        attn_out, new_cache = attention_apply(params["attn"], h, cfg, positions=positions,
+                                              cache=cache, use_flash=use_flash)
     x = x + attn_out
     h = L.norm_apply(params["ln_ffn"], x, cfg)
     if moe_layer:
         ffn_out, aux = moe_ffn_apply(params["ffn"], h, cfg, ctx=ctx)
+        if attn_aux is not None:
+            aux = {k: aux[k] + attn_aux[k] if k.endswith("_loss") else aux[k] for k in aux}
     else:
         ffn_out, aux = L.ffn_apply(params["ffn"], h, cfg), empty_aux(
             cfg.moe.num_experts, x.device)
@@ -62,25 +77,25 @@ def block_apply(params, x, cfg: ModelConfig, *, positions, moe_layer: bool,
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, caches: Optional[KVCache] = None,
                 use_flash: bool = False, ctx: Optional[MoEContext] = None):
-    """All layers over the stacked block tree; returns (x, aux, new_caches)
-    with the ``*_loss`` entries of aux summed over layers and the others
-    stacked (L, ...); new_caches is None without caches."""
-    if cfg.moe.num_experts > 0 and cfg.moe_layer_period != 1:
-        raise NotImplementedError("mixed dense/MoE layer stacks are not ported")
-    moe_layer = _is_moe_layer(cfg, 0)
+    """All layers (stacked or a per-layer list); returns (x, aux,
+    new_caches) with the ``*_loss`` entries of aux summed over layers and
+    the others stacked (L, ...); new_caches is None without caches."""
+    if caches is not None and cfg.moe.moe_attention:
+        # the reference would run dense attention over the expert weights
+        raise NotImplementedError("moe_attention has no cached decode path")
 
-    def body(h, bp, cache=None):
-        return block_apply(bp, h, cfg, positions=positions, moe_layer=moe_layer,
+    def body(h, bp, i, cache=None):
+        return block_apply(bp, h, cfg, positions=positions, moe_layer=_is_moe_layer(cfg, i),
                            cache=cache, use_flash=use_flash, ctx=ctx)
 
     auxes = []
     for i, bp in enumerate(unstack_layers(params["blocks"], cfg.num_layers)):
         if caches is not None:
-            x, aux, _ = body(x, bp, caches_index(caches, i))
+            x, aux, _ = body(x, bp, i, caches_index(caches, i))
         elif cfg.remat and torch.is_grad_enabled():
-            x, aux, _ = checkpoint(body, x, bp, use_reentrant=False)
+            x, aux, _ = checkpoint(body, x, bp, i, use_reentrant=False)
         else:
-            x, aux, _ = body(x, bp)
+            x, aux, _ = body(x, bp, i)
         auxes.append(aux)
     aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
     for k in aux:

@@ -5,5 +5,6 @@ from repro_torch.nn.spec import (  # noqa: F401
     from_jax_params,
     init_params,
     lm_shapes,
+    model_shapes,
     padded_vocab,
 )

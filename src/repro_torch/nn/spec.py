@@ -1,10 +1,13 @@
 """Parameter shape trees, random init and the JAX weights bridge.
 
-:func:`lm_shapes` is the port of ``repro.models.transformer.lm_specs`` for
-the uniform decoder (every layer the same kind), with the blocks stacked
-``(L, ...)`` as the reference stacks them under ``scan_layers``.  Each
-leaf is a :class:`ParamShape`: its shape, the dtype the port keeps it in,
-and how it is initialised.
+:func:`lm_shapes` is the port of ``repro.models.transformer.lm_specs``:
+a uniform stack (every layer the same kind) has its blocks stacked
+``(L, ...)`` as the reference stacks them under ``scan_layers``; a mixed
+dense/MoE stack (``moe_layer_period`` > 1) is the reference's list of
+per-layer dicts.  :func:`model_shapes` picks the family's tree (the
+xLSTM family's from ``repro_torch.models.xlstm``).  Each leaf is a
+:class:`ParamShape`: its shape, the dtype the port keeps it in, and how it
+is initialised.
 
 Storage dtypes: the reference stores every parameter in
 ``cfg.param_dtype`` (f32) and casts the matmul weights and embedding
@@ -66,25 +69,33 @@ def _dense(wdt: str, lead, d_in: int, d_out: int, bias: bool = False):
     return out
 
 
-def _block(cfg: ModelConfig, wdt: str, L: int) -> Dict:
-    lead = (L,)
+def _block(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...], moe_layer: bool) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    attn = {
-        "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias),
-        "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-        "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-        "wo": _dense(wdt, lead, cfg.num_heads * hd, d),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones")
-        attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones")
-    gated = cfg.ffn_activation in ("swiglu", "geglu")
     m = cfg.moe
-    if m.num_experts > 0:
+    router = get_router(m.routing).weight_shape(m, d) if moe_layer else None
+    if m.moe_attention and moe_layer:       # core/moe_attention.py: per-expert projections
+        E = m.num_experts
+        attn = {"wq": ParamShape(lead + (E, d, cfg.num_heads * hd), wdt, "normal"),
+                "wk": ParamShape(lead + (E, d, cfg.num_kv_heads * hd), wdt, "normal"),
+                "wv": ParamShape(lead + (E, d, cfg.num_kv_heads * hd), wdt, "normal"),
+                "wo": ParamShape(lead + (E, cfg.num_heads * hd, d), wdt, "normal")}
+        if router is not None:
+            attn["router"] = ParamShape(lead + router, "float32", "normal")
+    else:
+        attn = {
+            "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias),
+            "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+            "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+            "wo": _dense(wdt, lead, cfg.num_heads * hd, d),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+            attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+    gated = cfg.ffn_activation in ("swiglu", "geglu")
+    if moe_layer:
         E = m.num_experts
         ffn = {"up": ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal"),
                "down": ParamShape(lead + (E, cfg.d_ff, d), wdt, "normal")}
-        router = get_router(m.routing).weight_shape(m, d)
         if router is not None:          # the hash router has no weight
             ffn["router"] = ParamShape(lead + router, "float32", "normal")
         if gated:
@@ -98,18 +109,21 @@ def _block(cfg: ModelConfig, wdt: str, L: int) -> Dict:
             "attn": attn, "ffn": ffn}
 
 
+def is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.moe.num_experts > 0 and layer_idx % cfg.moe_layer_period == 0
+
+
 def lm_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
     """Param shape tree, key for key the reference's ``lm_specs`` tree;
     ``train`` picks the training tree's storage (see module doc)."""
-    if cfg.moe.num_experts > 0 and cfg.moe_layer_period != 1:
-        raise NotImplementedError(
-            "mixed dense/MoE layer stacks are not ported (moe_layer_period=1 only)")
-    if cfg.moe.moe_attention:
-        raise NotImplementedError("moe_attention is not ported")
     wdt = cfg.param_dtype if train else cfg.dtype
     table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal")
-    tree = {"embed": {"table": table}, "final_norm": _norm(cfg),
-            "blocks": _block(cfg, wdt, cfg.num_layers)}
+    uniform = cfg.moe.num_experts == 0 or cfg.moe_layer_period == 1
+    if cfg.scan_layers and uniform:     # stacked (L, ...), as the reference decides
+        blocks = _block(cfg, wdt, (cfg.num_layers,), is_moe_layer(cfg, 0))
+    else:
+        blocks = [_block(cfg, wdt, (), is_moe_layer(cfg, i)) for i in range(cfg.num_layers)]
+    tree = {"embed": {"table": table}, "final_norm": _norm(cfg), "blocks": blocks}
     if cfg.pos_embed == "learned":
         tree["pos_embed"] = ParamShape((cfg.max_seq_len, cfg.d_model), "float32", "normal")
     if not cfg.tie_embeddings:
@@ -117,26 +131,43 @@ def lm_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
     return tree
 
 
+def model_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
+    """The param shape tree of ``cfg``'s family."""
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import xlstm_shapes
+
+        return xlstm_shapes(cfg, train)
+    return lm_shapes(cfg, train)
+
+
 def _map(fn, tree, path=()):
     if isinstance(tree, ParamShape):
         return fn(path, tree)
+    if isinstance(tree, list):
+        return [_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
 
 
-def flat_params(tree: Mapping, prefix: str = "") -> Dict:
-    """The leaves of a param (or shape) tree by "/"-joined path, keys in
-    sorted order (the reference's tree-leaf order); the leaves themselves,
-    not copies."""
+def flat_params(tree, prefix: str = "") -> Dict:
+    """The leaves of a param (or shape) tree by "/"-joined path, in the
+    reference's tree-leaf order (dict keys sorted, list entries by index; an
+    index is its digits in the path, ``"blocks/0/ffn/up"``); the leaves
+    themselves, not copies."""
+    if isinstance(tree, list):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        items = [(k, tree[k]) for k in sorted(tree)]
     out = {}
-    for k in sorted(tree):
-        v, path = tree[k], f"{prefix}{k}"
-        out.update(flat_params(v, path + "/") if isinstance(v, Mapping) else {path: v})
+    for k, v in items:
+        path = f"{prefix}{k}"
+        out.update(flat_params(v, path + "/") if isinstance(v, (Mapping, list))
+                   else {path: v})
     return out
 
 
 def count_params(cfg: ModelConfig) -> int:
     total = []
-    _map(lambda p, s: total.append(int(np.prod(s.shape))), lm_shapes(cfg))
+    _map(lambda p, s: total.append(int(np.prod(s.shape))), model_shapes(cfg))
     return sum(total)
 
 
@@ -157,7 +188,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = Fa
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return t.mul_(cfg.initializer_range).to(dt)
 
-    return _map(one, lm_shapes(cfg, train))
+    return _map(one, model_shapes(cfg, train))
 
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda", train: bool = False) -> Dict:
@@ -172,7 +203,8 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda", train: bool 
             node = node[k]
         a = np.array(node, dtype=np.float32)      # a writable copy
         if tuple(a.shape) != tuple(s.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected {s.shape}")
+            raise ValueError(f"{'/'.join(map(str, path))}: shape {a.shape}, "
+                             f"expected {s.shape}")
         return torch.from_numpy(a).to(device=device, dtype=torch_dtype(s.dtype))
 
-    return _map(one, lm_shapes(cfg, train))
+    return _map(one, model_shapes(cfg, train))

@@ -56,13 +56,26 @@ then shed waiting requests whose deadline is provably unmeetable
 resumes at the exact token.  All of it happens between steps, never inside
 a forward; the restored blocks are read back by the same decode kernels.
 
+**Mixed dense/MoE stacks** (``moe_layer_period`` > 1) run the per-layer
+list of blocks: the paged kernel in every layer, the ragged FFN in the MoE
+layers.  MoE attention has no cached decode path and is refused, as the
+reference refuses it.
+
+**Recurrent families** (xLSTM) keep an O(1) state per slot instead of KV
+pools: every step is one ``decode`` of shape ``(max_slots, 1)``, a
+prefilling slot feeding prompt token ``prefill_pos`` at that position and
+a decoding slot its last token at ``context_len``; a slot's state is zeroed
+when a request is admitted to it.  No kernel runs on this path (see
+``repro_torch.models.xlstm``).  Speculation, prefix caching, KV
+quantization and preemption need the paged cache and are refused there, with
+the reference's messages.
+
 Differences from the reference, by design of the port:
 
 * the KV pools are updated in place (the reference's jit donates them
   and adopts the returned pools);
 * PyTorch runs the step eagerly, so there is no compiled-variant census;
-* meshes and recurrent families are not ported and raise
-  NotImplementedError.
+* meshes are not ported and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -86,6 +99,7 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _project_qkv
+from repro_torch.models.registry import get_family
 from repro_torch.models.transformer import _is_moe_layer, unstack_layers
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_cache import PagedKVCache, make_kv_cache
@@ -96,6 +110,7 @@ from repro_torch.serving.speculative.base import DraftItem
 from repro_torch.serving.trace import latency_stats, slo_class_stats
 
 _PAGED_FAMILIES = ("decoder_lm", "vlm", "m6")
+_RECURRENT_FAMILIES = ("xlstm",)
 _ROW_FIELDS = ("tokens", "ctx_ids", "positions", "lengths", "wb", "wo")  # sent to the device
 
 
@@ -261,18 +276,41 @@ class ContinuousEngine:
                  draft_model: Optional[Tuple] = None, check_invariants: bool = False,
                  obs: Optional[Observability] = None,
                  logit_tap: Optional[Callable] = None):
-        if cfg.family not in _PAGED_FAMILIES:
+        if cfg.family in _PAGED_FAMILIES:
+            self.mode = "paged"
+            if cfg.attn_logit_softcap > 0:
+                raise NotImplementedError(
+                    "paged decode attention does not implement logit softcap")
+            if cfg.moe.moe_attention:
+                raise NotImplementedError("moe_attention has no cached decode path")
+        elif cfg.family in _RECURRENT_FAMILIES:
+            self.mode = "recurrent"
+        else:
             raise NotImplementedError(
                 f"continuous batching for family {cfg.family!r} is not ported "
-                f"(paged families: {_PAGED_FAMILIES})")
-        if cfg.attn_logit_softcap > 0:
-            raise NotImplementedError("paged decode attention does not implement logit softcap")
-        if cfg.moe.moe_attention:
-            raise NotImplementedError("moe_attention has no cached decode path")
+                f"(paged families: {_PAGED_FAMILIES}; recurrent: {_RECURRENT_FAMILIES})")
         if serve.mesh is not None:
+            if self.mode != "paged":
+                raise NotImplementedError(
+                    "mesh serving needs the paged KV cache (recurrent slot states "
+                    "have no block partition)")
             # (the reference also refuses serve.slo with a mesh: its swap
             # assumes one device pool)
             raise NotImplementedError("mesh serving (serve.mesh) is not ported")
+        if self.mode == "recurrent":
+            for cond, msg in (
+                    (serve.spec is not None, "speculative decoding needs the paged KV "
+                     "cache (recurrent slot states have no cheap rollback)"),
+                    (serve.prefix_cache, "prefix caching needs the paged KV cache "
+                     "(recurrent slot states are not content-addressable blocks)"),
+                    (serve.kv_quant != "none", "KV quantization needs the paged KV cache "
+                     "(recurrent slot states are not block pools)"),
+                    (serve.slo is not None and serve.slo.preemption,
+                     "preemption needs the paged KV cache (recurrent slot states have no "
+                     "block-level swap); use SLOConfig(preemption=False) for "
+                     "priority/deadline ordering alone")):
+                if cond:
+                    raise NotImplementedError(msg)
         if cfg.moe.num_experts > 0:
             get_router(cfg.moe.routing)
             get_dispatcher(cfg.moe.impl)
@@ -288,7 +326,6 @@ class ContinuousEngine:
             raise ValueError(f"params on {table.device}, engine on {self.device}")
         self.cfg = cfg
         self.params = params
-        self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.serve = serve
         self.temperature = float(temperature)
         self.seed = seed
@@ -297,15 +334,25 @@ class ContinuousEngine:
         self.obs = obs if obs is not None else Observability()
         # read-only spy on each step's logits: called with host arrays
         # (logits (N, V_pad) f32, slots, positions, lengths), length 0 marking
-        # a padding row
+        # a padding row (an idle slot in recurrent mode, where the reference
+        # has no tap)
         self._logit_tap = logit_tap
         self._moe_acc = None        # device-side telemetry accumulator
         self._moe_rows = 0
+        self.spec = serve.spec
+        self.drafter = None
+        if self.mode == "recurrent":
+            self.fam = get_family(cfg)
+            self.cache = None
+            self._state = self.fam.init_state(cfg, serve.max_slots, serve.max_len,
+                                              device=self.device)
+            self.scheduler = Scheduler(serve.max_slots, serve.max_len, None,
+                                       policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
+            return
+        self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.cache = make_kv_cache(cfg, serve, device=self.device)
         self.scheduler = Scheduler(serve.max_slots, serve.max_len, self.cache,
                                    policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
-        self.spec = serve.spec
-        self.drafter = None
         if self.spec is not None:
             from repro_torch.serving.speculative import make_drafter
 
@@ -332,7 +379,7 @@ class ContinuousEngine:
         m.gauge("queue_depth").set(len(sched.waiting))
         m.gauge("running_slots").set(len(sched.running))
         m.gauge("serve_peak_running").set_max(len(sched.running))
-        for d, occ in enumerate(self.cache.occupancy()):
+        for d, occ in enumerate(self.cache.occupancy() if self.cache is not None else ()):
             for state in ("free", "live", "cached"):
                 m.gauge("kv_blocks", state=state, shard=d).set(occ[state])
             m.gauge("kv_reserved_blocks", shard=d).set(occ["reserved"])
@@ -400,12 +447,17 @@ class ContinuousEngine:
         Returns the requests that finished, after the ones shed this step."""
         self.scheduler.maybe_preempt(clock_ms)
         shed = self.scheduler.shed_unmeetable(clock_ms)
-        self.scheduler.admit(clock_ms)
+        admitted = self.scheduler.admit(clock_ms)
+        if self.mode == "recurrent":
+            for st in admitted:
+                self._reset_slot(st.slot)
         if not self.scheduler.running:
             return shed
+        if self.mode == "recurrent":
+            finished = self._recurrent_host_step(clock_ms)
         # speculate only in decode-only steps: mid-prefill, the mixed step
         # makes prompt progress and decode slots emit one token
-        if self.spec is not None and self.scheduler.prefilling is None:
+        elif self.spec is not None and self.scheduler.prefilling is None:
             finished = self._verify_host_step(clock_ms)
         else:
             finished = self._paged_host_step(clock_ms)
@@ -584,6 +636,56 @@ class ContinuousEngine:
         self._commit_running()
         self._obs_step("verify", live, N)
         return finished
+
+    # -- recurrent slots -----------------------------------------------------
+
+    def _reset_slot(self, slot: int) -> None:
+        for state in self._state:
+            for t in state:
+                t[slot].zero_()
+
+    def _recurrent_host_step(self, clock_ms: float) -> List[RequestState]:
+        """One ``(max_slots, 1)`` decode over every slot's state: a
+        prefilling slot feeds its next prompt token, a decoding slot its
+        last token; idle slots feed token 0 into a state nobody reads."""
+        S = self.serve.max_slots
+        tokens = np.zeros((S, 1), np.int64)
+        positions = np.zeros(S, np.int64)
+        sample_rows: List[Tuple[int, RequestState]] = []
+        prefill_advanced: List[RequestState] = []
+        for slot, st in self.scheduler.running.items():
+            positions[slot] = st.context_len
+            if st.status is Status.PREFILL:
+                tokens[slot, 0] = st.request.prompt[st.prefill_pos]
+                positions[slot] = st.prefill_pos
+                prefill_advanced.append(st)
+                if st.prefill_pos + 1 == st.request.prompt_len:
+                    sample_rows.append((slot, st))
+            else:
+                tokens[slot, 0] = st.last_token
+                sample_rows.append((slot, st))
+        live = len(self.scheduler.running)
+        with self.obs.tracer.span("engine_step", kind="decode", step=self.steps, rows=S,
+                                  live_rows=live), torch.no_grad():
+            logits, self._state = self.fam.decode(
+                self.params, torch.from_numpy(tokens).to(self.device), self._state, self.cfg,
+                ctx=MoEContext())
+            logits = logits[:, -1, :].float()
+            slots = np.arange(S)
+            if self._logit_tap is not None:
+                lengths = np.zeros(S, np.int64)
+                for slot in self.scheduler.running:
+                    lengths[slot] = positions[slot] + 1
+                self._logit_tap(logits.cpu().numpy(), slots, positions, lengths)
+            next_tok = _sample_rows(logits, slots, positions, self.temperature,
+                                    self.seed).cpu().numpy()
+        for st in prefill_advanced:
+            st.prefill_pos += 1
+            if st.prefill_pos == st.request.prompt_len:
+                st.status = Status.DECODE
+                self.obs.request_phase(st.request.uid, "decode", slot=st.slot)
+        self._obs_step("decode", live, S)
+        return self._collect_samples(next_tok, sample_rows, clock_ms)
 
     def _collect_samples(self, next_tok: np.ndarray, sample_rows, clock_ms: float
                          ) -> List[RequestState]:

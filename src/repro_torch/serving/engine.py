@@ -22,8 +22,15 @@ Differences from the reference, by design of the port:
 * a ``max_len`` past the learned position table is refused at
   construction, and a ``generate`` whose prompt and tokens do not fit
   ``max_len`` is refused (the reference clamps both silently);
-* the recurrent families' token-by-token prompt path is not ported (no
-  such family is), nor a logit softcap (the dense decode kernel has none).
+* MoE attention (``moe_attention``) is refused at construction: it has no
+  cached decode path, and the reference's cached path would run dense
+  attention over the expert weights;
+* no logit softcap (the dense decode kernel has none).
+
+A recurrent family (xLSTM, ``prefill`` None) takes its prompt token by
+token through ``decode`` from a zero state, as the reference's does, and
+runs no kernel; its O(1) state has no length, so ``max_len`` bounds
+nothing there.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ class ServingEngine:
         self.fam = get_family(cfg)
         if cfg.attn_logit_softcap > 0:
             raise NotImplementedError("the dense decode attention kernel has no logit softcap")
+        if cfg.moe.moe_attention:
+            raise NotImplementedError("moe_attention has no cached decode path")
         if cfg.pos_embed == "learned" and max_len > cfg.max_seq_len:
             raise ValueError(f"static engine max_len {max_len} exceeds the learned "
                              f"position table ({cfg.max_seq_len} positions)")
@@ -73,12 +82,19 @@ class ServingEngine:
         """prompts: (B, S) ints.  Returns ((B, num_tokens) int32 numpy, stats)."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         B, S = prompts.shape
-        if S + num_tokens - 1 > self.max_len:
+        recurrent = self.fam.prefill is None
+        if not recurrent and S + num_tokens - 1 > self.max_len:
             raise ValueError(f"prompt {S} + {num_tokens} tokens exceed max_len {self.max_len}")
         with torch.inference_mode():
             t0 = time.perf_counter()
-            logits, state = self.fam.prefill(self.params, {"tokens": prompts}, self.cfg,
-                                             max_len=self.max_len, ctx=self.ctx)
+            if recurrent:           # the prompt, token by token
+                state = self.fam.init_state(self.cfg, B, self.max_len, device=self.device)
+                for i in range(S):
+                    logits, state = self.fam.decode(self.params, prompts[:, i:i + 1], state,
+                                                    self.cfg, ctx=self.ctx)
+            else:
+                logits, state = self.fam.prefill(self.params, {"tokens": prompts}, self.cfg,
+                                                 max_len=self.max_len, ctx=self.ctx)
             tok = self._sample(logits, S - 1, temperature, seed)
             self._sync()
             t_prefill = time.perf_counter() - t0

@@ -145,9 +145,9 @@ def test_learned_positions_past_table_raise():
 
 @pytest.mark.parametrize("kw", [
     dict(serve=TServeConfig(max_len=32, mesh=(("data", 1), ("expert", 1)))),
-    # the reference serves recurrent families in recurrent slots; the port
-    # serves only the paged ones
-    dict(cfg=dict(family="xlstm")),
+    # the reference refuses zamba (one batch-wide cache length) and encdec;
+    # so does the port
+    dict(cfg=dict(family="zamba")),
 ])
 def test_unported_options_raise(kw):
     _, tcfg = _cfgs()
