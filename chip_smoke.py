@@ -40,6 +40,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               rows and at expert choice's slot-major layout, and the dense
               kernel at the static engine's caches (every row at one
               length), also against its split-and-merge plain version.
+              Phase 14's shape: the dense kernel at zamba2-7b's shared
+              attention (bf16, B 8, Hkv 32, G 1, D 224) at the plan and
+              every split forced, a wrapping ring, 1e4 past every length,
+              f32, and the engine's equal-length steps.
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -56,7 +60,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               the FFN, flash and dense kernels measured again on the same
               inputs; and phase 11's shapes (above), the dense kernel at
               the static trace's cache and median decode length beside
-              SDPA's time and its bound.
+              SDPA's time and its bound; the dense kernel at zamba's
+              trace cache, at its median and its longest attended length.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -236,12 +241,35 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               CPU's but at near-ties), and 2 steps of the train CLI at 4 x
               1024 (the chunked mLSTM form and the sLSTM loop; losses
               finite and within 1 of ln 50304).
-14. report  — a {"kernels": [...]} line (decode_attention's launches and
+14. zamba   — zamba2-7b (``chip_smoke.phase_zamba(torch)`` alone after
+              ``build.build()``), random weights from seed 0: (b) at full
+              width and depth (81 Mamba2 layers, 14 applications of the
+              shared attention, 6.868 B parameters) the static engine's
+              greedy generate of an 8 x 48 batch, 16 tokens (the dense
+              kernel launched 14 x steps, every prompt token a step, and
+              nothing else; the tokens equal to the same engine's on the
+              plain versions but at near-ties of its top two logits;
+              decode tokens/s, mean step, peak memory, the busy share of
+              a profiled generate); (e) the serve CLI with --engine
+              static --requests 16 --batch 8: run_trace_static over
+              synthetic_trace(16, 32000, seed=0) in FCFS groups of 8
+              (every budget met, launches and tokens gated as in (b);
+              tokens/s, mean step, p50/p95), and --engine continuous
+              refused with the reference's reason;
+              (c) at 7 layers (1.097 B parameters, segments (0, 6) and (6,
+              7)) the card's tokens on 4 rows equal to the CPU's but at
+              near-ties; (d) 2 AdamW steps of the train CLI at 7 layers, 4
+              x 1024 (losses finite and within 1 of ln 32000, no kernel
+              launched, the shared attention's materialised scores, step
+              ms and peak memory).
+15. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
-              13), the card line, and as the last line {"ok": true,
-              "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+              13; zamba_launches of phase 14, and the dense kernel's
+              zamba_shapes), the card line, and as the last line {"ok":
+              true, "device": {"platform": "gpu", "kind": ..., "count":
+              1}}.
 """
 from __future__ import annotations
 
@@ -774,6 +802,9 @@ def phase_check(torch):
     for name, err in check_family_kernels(torch).items():
         errs[name] = max(errs[name], err)
         errs[f"family {name}"] = err
+    for name, err in check_zamba_kernel(torch).items():
+        errs[name] = max(errs[name], err)
+        errs[f"zamba {name}"] = err
     return errs, weights
 
 
@@ -1795,17 +1826,19 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
             "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3}
 
 
-def profile_static(torch, cfg, params, prompts, gen):
+def profile_static(torch, cfg, params, prompts, gen, cpu=True):
     """torch.profiler over one static ``generate`` (a prefill and gen - 1
     decode steps): device busy share and the kernels that take the device
-    time, as ``profile_steps`` reads them for the continuous engine."""
+    time, as ``profile_steps`` reads them for the continuous engine (with
+    ``cpu`` false from the CUDA activity alone)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         open_session(torch)
         t0 = time.perf_counter()
         eng.generate(prompts, gen)
@@ -1820,7 +1853,8 @@ def profile_static(torch, cfg, params, prompts, gen):
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
         return {"device_busy_share": None}
-    log(f"  profiler over one static generate ({gen - 1} decode steps): device busy "
+    log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over one static generate of "
+        f"{prompts.shape[0]} x {prompts.shape[1]}, {gen} tokens: device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
@@ -2906,27 +2940,33 @@ def tapped_margins(torch, cfg, params, serve, requests, device="cuda"):
     return out, margins
 
 
-def first_divergences(base, other, margins, requests, label):
-    """Requests whose tokens differ from ``base``: each must first differ
-    where the base run's top-two logits (``margins``, from its
-    ``logit_tap``) are a near-tie (``logit_tie``); reported with the gap.
-    Returns [(uid, index, gap)]."""
-    plen = {r.uid: r.prompt_len for r in requests}
+def divergences(base, other, margin, label):
+    """Keys (requests, rows) whose tokens in ``other`` differ from
+    ``base``: each must first differ where the base run's top two logits
+    are a near-tie (``logit_tie``), ``margin(key, token index)`` giving
+    (their gap, the top logit); reported with the gap.  Returns [(key,
+    index, gap)]."""
     out = []
-    for uid in sorted(base):
-        a, b = base[uid], other[uid]
+    for key in sorted(base):
+        a, b = list(base[key]), list(other[key])
         if a == b:
             continue
         p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        gap, top = margins[uid, plen[uid] - 1 + p]
-        out.append((uid, p, gap))
-        log(f"  {label}: request {uid} first differs at generated token {p} ({a[p]} in "
-            f"the base run, {b[p]} here): the base run's top-two logit gap {gap:.4g} "
-            f"(top logit {top:.4g})")
+        gap, top = margin(key, p)
+        out.append((key, p, gap))
+        log(f"  {label}: #{key} first differs at generated token {p} ({a[p]} in the base run, "
+            f"{b[p]} here): the base run's top-two logit gap {gap:.4g} (top logit {top:.4g})")
         if not logit_tie(gap, top):
-            raise AssertionError(f"{label}: request {uid} differs at token {p} where the top "
-                                 f"two logits are {gap} apart, not a near-tie")
+            raise AssertionError(f"{label}: #{key} differs at token {p} where the top two "
+                                 f"logits are {gap} apart, not a near-tie")
     return out
+
+
+def first_divergences(base, other, margins, requests, label):
+    """``divergences`` of requests, ``margins`` keyed by (uid, position)
+    from the base run's ``logit_tap``."""
+    plen = {r.uid: r.prompt_len for r in requests}
+    return divergences(base, other, lambda uid, p: margins[uid, plen[uid] - 1 + p], label)
 
 
 @contextmanager
@@ -3700,18 +3740,30 @@ def expect_launches(label: str, got: dict, want: dict) -> None:
                                  f"on the tensor-core route")
 
 
+def static_groups(requests, batch=STATIC_BATCH):
+    """``run_trace_static``'s FCFS groups: [(requests, prompts (B, S) right-
+    padded with 0, the group's longest gen)]."""
+    import numpy as np
+
+    order = sorted(requests, key=lambda r: (r.arrival_ms, r.uid))
+    out = []
+    for i in range(0, len(order), batch):
+        group = order[i:i + batch]
+        prompts = np.zeros((len(group), max(r.prompt_len for r in group)), np.int32)
+        for j, r in enumerate(group):
+            prompts[j, :r.prompt_len] = r.prompt
+        out.append((group, prompts, max(r.max_new_tokens for r in group)))
+    return out
+
+
 def static_decode_shapes(requests, batch=STATIC_BATCH):
     """(cache length T, the attended length of every decode step) of
     ``run_trace_static(requests, batch)``: FCFS groups, each decoding its
     longest gen - 1 steps from its longest prompt."""
     from repro_torch.serving.trace import static_max_len
 
-    order = sorted(requests, key=lambda r: (r.arrival_ms, r.uid))
-    lens = []
-    for i in range(0, len(order), batch):
-        group = order[i:i + batch]
-        S = max(r.prompt_len for r in group)
-        lens += [S + j + 1 for j in range(max(r.max_new_tokens for r in group) - 1)]
+    lens = [prompts.shape[1] + j + 1 for _, prompts, gen in static_groups(requests, batch)
+            for j in range(gen - 1)]
     return static_max_len(requests), lens
 
 
@@ -4704,6 +4756,344 @@ def phase_more_families(torch):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: zamba2-7b: Mamba2 / SSD blocks and the shared attention at full
+# width and depth through the static engine, trained at 7 layers
+# ---------------------------------------------------------------------------
+
+ZAMBA_HEADS = (32, 32, 224)      # the shared attention's Hq, Hkv, D: 2 x 3584 over 32 heads
+ZAMBA_CUT_LAYERS = 7             # (c), (d): segments (0, 6) and (6, 7), two applications
+ZAMBA_CPU_SHAPE = (4, 16, 8)     # (c): rows, prompt tokens, generated tokens
+ZAMBA_PROFILE_SHAPE = (8, 4)     # a profiled generate: the batch's first 8 prompt tokens, 4 more
+ZAMBA_TRAIN_ARGS = ["--arch", "zamba2-7b", "--batch", "4", "--seq", "1024", "--log-every", "1"]
+ZAMBA_TRAIN_STEPS = 2
+
+
+def zamba_decode_lengths(requests, batch=STATIC_BATCH):
+    """The attended length of every decode step of ``run_trace_static`` on
+    zamba: a group feeds its prompt token by token, then decodes gen - 1
+    tokens, at lengths 1 .. S + gen - 1."""
+    return [n for _, prompts, gen in static_groups(requests, batch)
+            for n in range(1, prompts.shape[1] + gen)]
+
+
+def tapped_generate(torch, cfg, params, prompts, gen, max_len=None):
+    """``ServingEngine.generate`` with its sampler tapped: (tokens (B, gen),
+    {(row, token index): (top-two logit gap, top logit)})."""
+    from unittest import mock
+
+    from repro_torch.serving.engine import ServingEngine
+
+    V, S = cfg.vocab_size, prompts.shape[1]
+    margins = {}
+    real = ServingEngine._sample
+
+    def tap(self, logits, position, temperature, seed):
+        top2 = torch.topk(logits[:, -1, :V].float(), 2, dim=-1).values.cpu()
+        for i in range(top2.shape[0]):
+            margins[i, position - S + 1] = (float(top2[i, 0] - top2[i, 1]), float(top2[i, 0]))
+        return real(self, logits, position, temperature, seed)
+
+    eng = ServingEngine(cfg, params, max_len=max_len or S + gen + 1)
+    with mock.patch.object(ServingEngine, "_sample", tap):
+        toks, _ = eng.generate(prompts, gen)
+    return toks, margins
+
+
+def zamba_generate(torch, cfg, params, prompts, gen, device, label):
+    """(b): the static engine's greedy ``generate`` (every prompt token a
+    decode step): tokens in the vocabulary; on the card the dense kernel
+    launched n_shared x (S + gen - 1) times and nothing else; the tokens
+    equal to the same engine's on the plain versions but at near-ties.
+    Returns (report, launches)."""
+    from repro_torch.models.zamba import _n_shared
+
+    B, S = prompts.shape
+    steps = S + gen - 1
+    toks, stats, launches, wall_ms = static_generate(torch, cfg, params, prompts, gen)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or toks.shape != (B, gen):
+        raise AssertionError(f"{label}: tokens of shape {toks.shape} outside the vocabulary")
+    if device == "cuda":
+        expect_launches(label, launches, {"decode_attention": _n_shared(cfg) * steps})
+    t0 = time.perf_counter()
+    with plain_versions():
+        base, margins = tapped_generate(torch, cfg, params, prompts, gen)
+    plain_s = time.perf_counter() - t0
+    div = divergences({i: base[i] for i in range(B)}, {i: toks[i] for i in range(B)},
+                      lambda k, p: margins[k, p], f"{label} kernels vs plain")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    log(f"  {label}: generate of {B} x {S} prompts, {gen} tokens, {steps} steps: {B - len(div)} "
+        f"of {B} rows equal to the plain versions' (their run {plain_s:.1f} s); prompt "
+        f"{stats['prefill_s'] * 1e3:.1f} ms, decode {stats['decode_tokens_per_s']:.1f} tokens/s, "
+        f"mean step {wall_ms / steps:.2f} ms (host clock, synced), wall {wall_ms:.0f} ms; "
+        f"launches {shown}")
+    return dict(rows=B, rows_equal_to_plain=B - len(div),
+                divergences=[dict(row=k, token=p, gap=g) for k, p, g in div],
+                steps=steps, mean_step_ms=wall_ms / steps, wall_ms=wall_ms,
+                prompt_ms=stats["prefill_s"] * 1e3,
+                decode_tokens_per_s=stats["decode_tokens_per_s"],
+                tokens_per_s=B * gen / (wall_ms / 1e3), plain_run_s=plain_s,
+                launches=shown), launches
+
+
+def zamba_card_vs_cpu(torch, cfg, prompts, gen, cut_layers):
+    """(c): ``cfg`` cut to ``cut_layers`` layers, random params from seed 0
+    on the card and a copy on the CPU: the card's greedy tokens equal to
+    the CPU's but at near-ties of the CPU run's top two logits."""
+    from repro_torch.models.zamba import _n_shared, _segments
+    from repro_torch.nn import count_params, init_params
+
+    cut = cfg.replace(num_layers=cut_layers)
+    params = init_params(cut, seed=0, device="cuda")
+    B, S = prompts.shape
+    toks, _, launches, wall_ms = static_generate(torch, cut, params, prompts, gen)
+    expect_launches("(c) card", launches, {"decode_attention": _n_shared(cut) * (S + gen - 1)})
+    t0 = time.perf_counter()
+    base, margins = tapped_generate(torch, cut, _to_cpu(params), prompts, gen)
+    cpu_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    div = divergences({i: base[i] for i in range(B)}, {i: toks[i] for i in range(B)},
+                      lambda k, p: margins[k, p], "(c) card vs CPU")
+    log(f"  (c) {cut_layers} layers (segments {_segments(cut)}, {count_params(cut) / 1e9:.3f} B "
+        f"params), {B} x {S} prompts, {gen} tokens: {B - len(div)} of {B} rows on the card "
+        f"equal to the CPU's (card {wall_ms:.0f} ms, CPU {cpu_s:.1f} s)")
+    return dict(layers=cut_layers, params_b=count_params(cut) / 1e9, rows=B,
+                rows_equal=B - len(div), card_ms=wall_ms, cpu_s=cpu_s,
+                divergences=[dict(row=k, token=p, gap=g) for k, p, g in div])
+
+
+def zamba_cli(torch, cfg, params, cli_argv, device, n_requests=16, batch=STATIC_BATCH):
+    """(b) and (e): the serve CLI with ``--engine static --requests N
+    --batch 8``, which serves ``synthetic_trace(N, vocab, seed=0)`` by
+    ``run_trace_static`` in FCFS groups from its own random params (seed
+    0: ``params``'s values): every budget met; on the card the dense
+    kernel launched n_shared x decode steps times (every prompt token a
+    step) and nothing else; each group's tokens equal to the same engine's
+    on the plain versions (over ``params``) but at near-ties of its top
+    two logits.  Then ``--engine continuous``, which must refuse zamba
+    with the reference's reason.  Returns (report, launches)."""
+    from unittest import mock
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.zamba import _n_shared
+
+    argv = list(cli_argv) + ["--requests", str(n_requests), "--batch", str(batch),
+                             "--device", device]
+    got = {}
+    real = serve_cli.run_trace_static
+
+    def spy(engine, requests, batch, **kw):
+        sync(torch, params["embed"]["table"])
+        t0 = time.perf_counter()
+        out = real(engine, requests, batch, **kw)
+        sync(torch, params["embed"]["table"])
+        got.update(out=out[0], requests=requests, T=engine.max_len,
+                   wall_ms=(time.perf_counter() - t0) * 1e3)
+        return out
+
+    launches = {}
+    with counted_launches(launches), mock.patch.object(serve_cli, "run_trace_static", spy):
+        t0 = time.perf_counter()
+        stats = serve_cli.main(argv + ["--engine", "static"])
+        cli_s = time.perf_counter() - t0
+    out, requests, T = got["out"], got["requests"], got["T"]
+    for r in requests:
+        if len(out[r.uid]) != r.max_new_tokens:
+            raise AssertionError(f"(e) serve CLI: request {r.uid}: {len(out[r.uid])} tokens, "
+                                 f"budget {r.max_new_tokens}")
+    steps = len(zamba_decode_lengths(requests, batch))
+    if device == "cuda":
+        expect_launches("(e) serve CLI", launches, {"decode_attention": _n_shared(cfg) * steps})
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base, margins = {}, {}
+    with plain_versions():
+        for group, prompts, gen in static_groups(requests, batch):
+            toks, marg = tapped_generate(torch, cfg, params, prompts, gen, max_len=T)
+            for j, r in enumerate(group):
+                base[r.uid] = toks[j, :r.max_new_tokens].tolist()
+                margins.update({(r.uid, p): m for (row, p), m in marg.items() if row == j})
+    plain_s = time.perf_counter() - t0
+    div = divergences(base, out, lambda k, p: margins[k, p], "(e) trace kernels vs plain")
+    try:
+        serve_cli.main(argv + ["--engine", "continuous"])
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("(e): the continuous engine served zamba")
+    if "zamba" not in refusal:
+        raise AssertionError(f"(e): the continuous engine's refusal does not name zamba: {refusal}")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    log(f"  (e) serve CLI --engine static, {n_requests} requests in groups of {batch}: "
+        f"{stats['generated_tokens_per_s']:.1f} tokens/s, p50 {stats['p50_ms']:.0f} ms p95 "
+        f"{stats['p95_ms']:.0f} ms; cache T = {T}, {steps} steps, mean step "
+        f"{got['wall_ms'] / steps:.2f} ms (host clock, synced; {cli_s:.1f} s with its random "
+        f"init); {len(requests) - len(div)} of {len(requests)} requests' tokens equal to the "
+        f"plain versions' (their run {plain_s:.1f} s); launches {shown}; --engine continuous "
+        f"refused: {refusal}")
+    return dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+                p95_ms=stats["p95_ms"], total_ms=stats["total_ms"], batch=batch, max_len=T,
+                steps=steps, mean_step_ms=got["wall_ms"] / steps, cli_s=cli_s,
+                requests_equal_to_plain=len(requests) - len(div),
+                divergences=[dict(request=k, token=p, gap=g) for k, p, g in div],
+                plain_run_s=plain_s, launches=shown, continuous_refusal=refusal), launches
+
+
+def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
+               shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN), cut_layers=ZAMBA_CUT_LAYERS,
+               cpu_shape=ZAMBA_CPU_SHAPE, train_steps=ZAMBA_TRAIN_STEPS, cli_requests=16):
+    """(b)-(e) over ``cfg`` (zamba2-7b, or its smoke config with ``--smoke``
+    in ``cli_argv`` for a CPU rehearsal), random params from seed 0; the
+    serve CLI's trace of ``cli_requests``.  Returns (report, launches)."""
+    import numpy as np
+
+    from repro_torch.models.zamba import _n_shared
+    from repro_torch.nn import count_params, init_params
+
+    total, report = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    sync(torch, params["embed"]["table"])
+    log(f"  (b) {cfg.name}: {cfg.num_layers} Mamba2 layers, d {cfg.d_model}, "
+        f"{_n_shared(cfg)} applications of the shared block ({cfg.num_heads} heads of "
+        f"{2 * cfg.d_model // cfg.num_heads}), {count_params(cfg):,} params, random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S, gen = shape
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    static_generate(torch, cfg, params, prompts[:, :4], 2)          # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    report["(b) generate"], got = zamba_generate(torch, cfg, params, prompts, gen, device,
+                                                 "(b) generate")
+    add(got)
+    if cuda:
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        report["(b) peak_memory_gb"] = peak
+        log(f"  (b) peak memory of the generate {peak:.1f} GB (weights "
+            f"{count_params(cfg) * 2 / 1e9:.1f} GB in bf16)")
+        p_len, p_gen = ZAMBA_PROFILE_SHAPE
+        report["(b) profile"] = profile_static(torch, cfg, params, prompts[:, :p_len], p_gen,
+                                               cpu=False)
+    report["params"] = count_params(cfg)
+    report["(e) serve CLI trace"], got = zamba_cli(torch, cfg, params, cli_argv, device,
+                                                   cli_requests)
+    add(got)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+        rows, c_len, c_gen = cpu_shape
+        report["(c) card vs CPU"] = zamba_card_vs_cpu(torch, cfg, prompts[:rows, :c_len], c_gen,
+                                                      cut_layers)
+    calls = []
+    with counted_chunked(calls):
+        report["(d) train"], got = edited_train(
+            torch, train_argv, lambda c: c.replace(num_layers=cut_layers), train_steps, device,
+            "(d) zamba train", compare=False)
+    if calls:
+        raise AssertionError(f"(d): the chunked attention path ran {calls}; S x T = 2^20 takes "
+                             f"the materialised scores")
+    add(got)
+    return report, total
+
+
+def phase_zamba(torch):
+    """Phase 14: zamba2-7b served at full width and depth by the static
+    engine and its serve CLI, the card against the CPU at 7 layers, and
+    trained at 7 layers; returns (report, launches)."""
+    from repro_torch.configs import registry
+
+    log(f"phase 14: zamba2-7b: the static engine at full width and depth, the serve CLI, "
+        f"the card against the CPU and training at {ZAMBA_CUT_LAYERS} layers ({card_line()})")
+    return zamba_runs(torch, registry.get_config("zamba2-7b"), "cuda", ZAMBA_TRAIN_ARGS)
+
+
+def zamba_shapes():
+    """The dense kernel's shapes on zamba's path: (cache T, the median
+    attended length) of the trace run and of the 8 x 48 batch, every step
+    of a group at one length."""
+    from repro_torch.serving.trace import static_max_len, synthetic_trace
+
+    requests = synthetic_trace(16, 32000, seed=0)
+    lens = sorted(zamba_decode_lengths(requests))
+    return {"trace": (static_max_len(requests), lens[len(lens) // 2]),
+            "batch": (STATIC_PROMPT + STATIC_GEN + 1, (STATIC_PROMPT + STATIC_GEN) // 2)}
+
+
+def check_zamba_kernel(torch):
+    """The dense kernel at zamba's shared attention (bf16, B 8, Hkv 32, G 1,
+    D 224, the trace's cache) against its plain version at TOL and its
+    split-and-merge plain version, length-0 rows exactly 0: the plan and
+    every split forced; a ring that wraps (a 1000-position row of a
+    1024-position cache) at splits 1 and 2; cache rows of 1e4 / -1e4 past
+    every length; f32 (two 16-byte loads a lane); the engine's shapes,
+    every row at one length.  Returns {"decode_attention": max abs err}."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+
+    Hq, Hkv, D = ZAMBA_HEADS
+    err = 0.0
+
+    def run(label, case, splits=None, max_length=None):
+        nonlocal err
+        q, k = case[0], case[1]
+        out = da.decode_attention(*case, splits=splits, max_length=max_length)
+        torch.cuda.synchronize()
+        B, T = q.shape[0], k.shape[1]
+        plan = da.dense_plan(B, Hkv, 1, D, T, q.element_size(), da._sm_count(0), splits,
+                             max_length)
+        name = (f"decode_attention zamba {label} B={B} T={T} D={D} {str(q.dtype)[6:]} "
+                f"splits={plan[0]}{' (plan)' if splits is None else ''} stages={plan[1]}")
+        err = max(err, check_close(name, out, dref.decode_attention_ref(*case)))
+        check_close(f"{name} vs split plain", out,
+                    dref.decode_attention_split_ref(*case, plan[0]))
+        if not (out[case[3] == 0] == 0).all():
+            raise AssertionError(f"{name}: a length-0 row is not exactly 0")
+
+    T, _ = zamba_shapes()["trace"]
+    lens = [0, 1, T - 1, 77, 48, 16, 15, 9]
+    for splits in (None, *da.SPLITS):
+        run("forced" if splits else "", dense_case(8, T, Hq, Hkv, D, lens, seed=800), splits,
+            max(lens))
+    for splits in (1, 2):
+        run("ring wraps", dense_case(3, 1024, Hq, Hkv, D, [1000, 0, 37], seed=801), splits)
+    q, k, v, lengths = dense_case(8, T, Hq, Hkv, D, lens, seed=802)
+    past = torch.arange(T, device="cuda")[None, :] >= lengths[:, None]
+    k[past], v[past] = 1e4, -1e4
+    for splits in (None, 1, 4):
+        run("1e4 past the lengths", (q, k, v, lengths), splits)
+    for splits in (None, 1, 2):
+        run("f32", dense_case(8, T, Hq, Hkv, D, lens, seed=803, dtype=torch.float32), splits,
+            max(lens))
+    for label, (T, length) in zamba_shapes().items():
+        run(f"{label} at length {length}", dense_case(8, T, Hq, Hkv, D, [length] * 8,
+                                                      seed=804 + T), None, length)
+    return {"decode_attention": err}
+
+
+def phase_timing_zamba(torch):
+    """The dense kernel at zamba's shared attention, as phase 4 times its
+    own: the trace's cache at its median and its longest attended length,
+    beside SDPA with a length mask and the bytes bound."""
+    T, length = zamba_shapes()["trace"]
+    out = {"decode_attention zamba": time_dense(torch, [length] * 8, 810, T=T,
+                                                heads=ZAMBA_HEADS),
+           "decode_attention zamba longest": time_dense(torch, [T - 1] * 8, 811, T=T,
+                                                        heads=ZAMBA_HEADS)}
+    for name, r in out.items():
+        log(f"  {name} (T {T}, length {length if name.endswith('zamba') else T - 1}): "
+            f"{timing_line(r)}")
+    return out
+
+
+
 def main() -> int:
     try:
         import torch
@@ -4769,6 +5159,7 @@ def main() -> int:
     timing.update(phase_timing_training(torch))
     timing.update(phase_timing_static(torch, ffn_weights))
     timing.update(phase_timing_families(torch))
+    timing.update(phase_timing_zamba(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -4808,10 +5199,14 @@ def main() -> int:
     t0 = time.perf_counter()
     more, more_launches = phase_more_families(torch)
     more_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zamba, zamba_launches = phase_zamba(torch)
+    zamba_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
-        f"more families phase {more_s:.1f} s")
+        f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -4908,14 +5303,25 @@ def main() -> int:
         entry["more_families_launches"] = more_launches[name]
         if name in MORE_FAMILIES_KERNELS and more_launches[name] <= 0:
             raise AssertionError(f"{name}: launched no time in phase 13")
+        # phase 14: zamba's shared attention, the dense kernel at D = 224
+        entry["zamba_launches"] = zamba_launches[name]
+        if name == "decode_attention":
+            if zamba_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 14")
+            entry["zamba_max_abs_err"] = errs[f"zamba {name}"]
+            entry["zamba_shapes"] = {
+                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms",
+                                                      "library_device_ms", "plan")}
+                for label in ("decode_attention zamba", "decode_attention zamba longest")}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
-                      "more_families": more,
+                      "more_families": more, "zamba": zamba,
                       "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
-                      "more_families_s": more_s,
+                      "more_families_s": more_s, "zamba_s": zamba_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

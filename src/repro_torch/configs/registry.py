@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> -> (full config, smoke config)
 (``repro.configs.registry``).  Every id of the reference is listed; the
-two whose model family the port does not implement yet (encdec, zamba)
-raise NotImplementedError naming the family."""
+one whose model family the port does not implement yet (encdec) raises
+NotImplementedError naming the family."""
 from __future__ import annotations
 
 import importlib
@@ -21,10 +21,11 @@ _ARCH_MODULES = {
     "m6-100b": "repro_torch.configs.m6",
     "m6-1t": "repro_torch.configs.m6",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # the reference's ids whose family has no port
-_UNPORTED_FAMILY = {"seamless-m4t-large-v2": "encdec", "zamba2-7b": "zamba"}
+_UNPORTED_FAMILY = {"seamless-m4t-large-v2": "encdec"}
 
 _M6_ATTR = {"m6-base": "M6_BASE", "m6-10b": "M6_10B",
             "m6-100b": "M6_100B", "m6-1t": "M6_1T"}

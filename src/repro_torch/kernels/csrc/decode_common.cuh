@@ -7,11 +7,15 @@
 // own online-softmax state (m, l, acc) for the G grouped query heads, merged
 // once through shared memory at the end.  Inside a warp, TPR = D / VEC
 // lanes share one K/V token row, each holding VEC contiguous dims, so one
-// pass of the warp reads RPW = 32 / TPR token rows with one vector load per
-// lane (16 bytes where the registers allow it: VEC * G <= 32 keeps q and acc
-// at 2 * G * VEC floats per lane).  A token's score is summed over its TPR
-// lanes with shuffles; the running max is warp-wide, so every lane rescales
-// by the same alpha, and the rows' partial l and acc are summed at the end.
+// pass of the warp reads RPW = 32 / LANES token rows (LANES = TPR rounded up
+// to a power of two) with one vector load per lane (16 bytes where the
+// registers allow it: VEC * G <= 32 keeps q and acc at 2 * G * VEC floats
+// per lane).  A token's score is summed over its LANES lanes with
+// shuffles; the running max is warp-wide, so every lane rescales by the
+// same alpha, and the rows' partial l and acc are summed at the end.  A
+// width that is no power of two (D = 224: 28 lanes of 8) leaves the row's
+// last LANES - TPR lanes idle: they hold zeros, so the shuffles' sums and
+// the merges are unchanged.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,15 +30,21 @@ constexpr float kNegInf = -1e30f;
 
 // The largest power of two <= n (n >= 1).
 __host__ __device__ constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
+// The smallest power of two >= n (n >= 1).
+__host__ __device__ constexpr int ceil_pow2(int n) { return n < 2 ? 1 : 2 * ceil_pow2((n + 1) / 2); }
 
 // VEC elements per lane: 16 bytes of the element, at most 32 / G (registers)
 // rounded down to a power of two (G = 3 and 5 give 10 and 6, which are no
-// vector width and do not divide D), and at most D.
+// vector width and do not divide D), but at least D / 32 rounded up to a
+// power of two, so that a row fits one warp (D = 224 in f32: 8 elements, two
+// 16-byte loads), and at most D.
 template <int ELEM_BYTES, int G, int D>
 __host__ __device__ constexpr int vec_elems() {
   constexpr int by_bytes = 16 / ELEM_BYTES;
   constexpr int by_regs = floor_pow2(32 / G);
-  constexpr int v = by_bytes < by_regs ? by_bytes : by_regs;
+  constexpr int by_warp = ceil_pow2((D + 31) / 32);
+  constexpr int v0 = by_bytes < by_regs ? by_bytes : by_regs;
+  constexpr int v = v0 > by_warp ? v0 : by_warp;
   return v < D ? v : D;
 }
 
@@ -57,16 +67,22 @@ template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<4> { using type = uint32_t; };
 
-// VEC consecutive elements at p (aligned to their byte count) -> f32.
+// VEC consecutive elements at p (aligned to one load's byte count) -> f32:
+// one vector load of 4, 8 or 16 bytes, or several of 16.
 template <typename Fmt, int VEC>
 __device__ __forceinline__ void load_vec(const typename Fmt::T* p, float* out) {
   constexpr int kBytes = VEC * (int)sizeof(typename Fmt::T);
-  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "vector load of 4, 8 or 16 bytes");
-  using R = typename Raw<kBytes>::type;
-  const R r = *reinterpret_cast<const R*>(p);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+  constexpr int kLoad = kBytes < 16 ? kBytes : 16;
+  static_assert(kLoad == 4 || kLoad == 8 || (kLoad == 16 && kBytes % 16 == 0),
+                "vector loads of 4, 8 or 16 bytes");
+  using R = typename Raw<kLoad>::type;
 #pragma unroll
-  for (int j = 0; j < kBytes / 4; ++j) Fmt::dec(w[j], out + j * Fmt::kPerWord);
+  for (int c = 0; c < kBytes / kLoad; ++c) {
+    const R r = reinterpret_cast<const R*>(p)[c];
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+    for (int j = 0; j < kLoad / 4; ++j) Fmt::dec(w[j], out + (c * (kLoad / 4) + j) * Fmt::kPerWord);
+  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -47,7 +47,9 @@
 //   a stage once the CTA has read its tile (a pass then reads no tile past
 //   those in flight).
 // - Compute from shared memory, in decode_common.cuh's row-parallel layout:
-//   TPR lanes a token row, 16-byte vector reads, a warp-wide online
+//   TPR lanes a token row (D = 224, zamba2-7b's shared attention and the
+//   dense kernel's only width that is no power of two: 28 lanes of 8
+//   elements and 4 idle lanes holding zeros), 16-byte vector reads, a warp-wide online
 //   softmax, the f32 decode of bf16 / f32 / int8 / e4m3 (int8 by byte
 //   permutes, not the quarter-rate int-to-float conversion).  The 4 warps
 //   share each arrived tile (different token rows), each lane taking two
@@ -158,7 +160,7 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
 // (State::update's arithmetic over ROWS rows at once, so that their
 // shuffles and exponentials overlap, and split so that it runs before V
 // has arrived).
-template <int G, int VEC, int TPR, int ROWS>
+template <int G, int VEC, int LANES, int ROWS>
 __device__ __forceinline__ void scores(State<G, VEC>& st, const float (&qr)[G][VEC],
                                        const float (&kf)[ROWS][VEC], const float (&k_mul)[ROWS],
                                        const bool (&live)[ROWS], float (&p)[ROWS][G],
@@ -175,7 +177,7 @@ __device__ __forceinline__ void scores(State<G, VEC>& st, const float (&qr)[G][V
       s[u] = (part[0] + part[1]) + (part[2] + part[3]);
     }
 #pragma unroll
-    for (int o = 1; o < TPR; o <<= 1)
+    for (int o = 1; o < LANES; o <<= 1)
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
     float mx = kNegInf;
@@ -185,7 +187,7 @@ __device__ __forceinline__ void scores(State<G, VEC>& st, const float (&qr)[G][V
       mx = fmaxf(mx, s[u]);
     }
 #pragma unroll
-    for (int o = TPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int o = LANES; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float mn = fmaxf(st.m[g], mx);
     alpha[g] = exp2f(st.m[g] - mn);
     float p_sum = 0.0f;
@@ -259,6 +261,7 @@ struct PagedTiles {
   static constexpr bool kScaled = kScaled_;
   static constexpr bool kEarly = false;   // the copies need the table, read beside the length
   static constexpr bool kD16 = false;     // D in (32, 64, 128)
+  static constexpr bool kD224 = false;
   static constexpr int kAlign = 16;       // shared-memory alignment of a tile (bulk copies)
   const E* k_pool;
   const E* v_pool;
@@ -294,7 +297,8 @@ template <typename E>
 struct DenseTiles {
   static constexpr bool kScaled = false;
   static constexpr bool kEarly = true;    // every copy is known before the length
-  static constexpr bool kD16 = true;      // D in (16, 32, 64, 128)
+  static constexpr bool kD16 = true;      // D in (16, 32, 64, 128), and 224 at G = 1
+  static constexpr bool kD224 = true;     // (zamba2-7b's shared attention)
   static constexpr int kAlign = 128;      // shared-memory alignment of a tile (TMA boxes)
   CUtensorMap k_map;
   CUtensorMap v_map;
@@ -324,14 +328,19 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
   using E = typename Fmt::T;
   constexpr bool kScaled = Tiles::kScaled;
   constexpr int VEC = vec_elems<(int)sizeof(E), G, D>();
-  constexpr int TPR = D / VEC;          // lanes per token row
-  constexpr int RPW = 32 / TPR;         // token rows per warp pass
+  constexpr int TPR = D / VEC;          // lanes holding a token row's dims
+  constexpr int LANES = ceil_pow2(TPR); // lanes a token row spans (the rest idle)
+  constexpr int RPW = 32 / LANES;       // token rows per warp pass
+  static_assert(TPR * VEC == D && LANES <= 32, "a token row within one warp");
   constexpr int R = kWarps * RPW;       // token rows per CTA pass and lane row
   constexpr int ROWS = kRowsPerLane;    // token rows a lane takes per pass
   constexpr int SLOT = 2 * G + G * D;   // one rank's (m, l, acc) in the cluster merge
   const int split = blockIdx.x, S = gridDim.x, h = blockIdx.y, i = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = lane / TPR, d0 = (lane % TPR) * VEC;
+  // an idle lane (D = 224: the last 4 of each 32) holds zero q, K and V, so
+  // it adds nothing to the shuffles' sums and writes nothing
+  const bool dims = lane % LANES < TPR;
+  const int row = lane / LANES, d0 = dims ? (lane % LANES) * VEC : 0;
   const int bs = src.bs;
   const int tile = bs * D;
   const uint32_t tile_bytes = (uint32_t)(tile * sizeof(E));
@@ -386,8 +395,8 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
     early = min(min(stages, first_pass), src.tiles > split ? (src.tiles - split + S - 1) / S : 0);
     start(0, early);
   }
-  float qr[G][VEC];                     // in flight with the length (and the table)
-  load_q<TQ, G, VEC, D>(q + ((size_t)i * Hkv + h) * G * D, d0, scale, qr);
+  float qr[G][VEC] = {};                // in flight with the length (and the table)
+  if (dims) load_q<TQ, G, VEC, D>(q + ((size_t)i * Hkv + h) * G * D, d0, scale, qr);
   TQ* o = out + ((size_t)i * Hkv + h) * G * D;
   const int ctx = min(length, src.capacity);
   const int nb = ctx > 0 ? (ctx + bs - 1) / bs : 0;
@@ -446,26 +455,24 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
       parity[u] = wrap ? (uint32_t)(j / stages) & 1u : 0u;
       at[u] = stage[u] * tile + (r - j * bs) * D + d0;
       km[u] = vm[u] = 1.0f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kf[u][e] = 0.0f;
       if (live[u]) {
         sm90::mbar_wait(&full_k[stage[u]], parity[u]);
-        load_vec<Fmt, VEC>(k_tiles + at[u], kf[u]);
+        if (dims) load_vec<Fmt, VEC>(k_tiles + at[u], kf[u]);
         if constexpr (kScaled) km[u] = k_mul[stage[u]];
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[u][e] = 0.0f;
       }
     }
     float p[ROWS][G], alpha[G];
-    scores<G, VEC, TPR, ROWS>(st, qr, kf, km, live, p, alpha);
+    scores<G, VEC, LANES, ROWS>(st, qr, kf, km, live, p, alpha);
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) vf[u][e] = 0.0f;
       if (live[u]) {
         sm90::mbar_wait(&full_v[stage[u]], parity[u]);
-        load_vec<Fmt, VEC>(v_tiles + at[u], vf[u]);
+        if (dims) load_vec<Fmt, VEC>(v_tiles + at[u], vf[u]);
         if constexpr (kScaled) vm[u] = v_mul[stage[u]];
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) vf[u][e] = 0.0f;
       }
     }
     accumulate<G, VEC, ROWS>(st, p, alpha, vf, vm);
@@ -493,7 +500,7 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int off = TPR; off < 32; off <<= 1) {
+    for (int off = LANES; off < 32; off <<= 1) {
       st.l[g] += __shfl_xor_sync(0xffffffffu, st.l[g], off);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) st.acc[g][e] += __shfl_xor_sync(0xffffffffu, st.acc[g][e], off);
@@ -624,6 +631,9 @@ cudaError_t launch_g(const Tiles& src, const Launch& a, cudaStream_t stream) {
     case 32: return launch_gd<TQ, Fmt, Tiles, G, 32>(src, a, stream);
     case 64: return launch_gd<TQ, Fmt, Tiles, G, 64>(src, a, stream);
     case 128: return launch_gd<TQ, Fmt, Tiles, G, 128>(src, a, stream);
+    case 224:
+      if constexpr (Tiles::kD224 && G == 1) return launch_gd<TQ, Fmt, Tiles, G, 224>(src, a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -55,6 +55,8 @@ MAX_STAGE_BYTES = 160 * 1024  # one stage (K and V tiles) fits beside the merges
 SMEM_PER_SM = 228 * 1024      # an H100 SM's shared memory, 1 KB of it reserved per CTA
 DENSE_TILE_ROWS = 16          # positions of one dense-cache tile (a TMA box), as an engine block
 TMA_ALIGN = 128               # shared-memory alignment of a TMA box: the dense launch's slack
+DENSE_WIDE_D = 224            # the dense kernel's one other width, at G = 1 (zamba2-7b's
+                              # shared attention: 2 x 3584 over 32 heads)
 
 
 def _stage_bytes(bs: int, D: int, elem_bytes: int) -> int:
@@ -80,13 +82,19 @@ def _check_tile(name: str, bs: int, D: int, elem_bytes: int) -> None:
                          f"stage within {MAX_STAGE_BYTES} B")
 
 
+def _ceil_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
 def _rows_per_pass(D: int, G: int, elem_bytes: int) -> int:
     """Token rows the kernel's 4 warps read in one pass: two a lane
-    (``decode_sm90.cuh::kRowsPerLane``), D / VEC lanes a row, VEC elements
-    a lane (``decode_common.cuh::vec_elems``: 32 / G rounded down to a
-    power of two)."""
-    vec = min(16 // elem_bytes, 1 << ((32 // G).bit_length() - 1), D)
-    return 2 * 4 * (32 // (D // vec))
+    (``decode_sm90.cuh::kRowsPerLane``), D / VEC lanes a row rounded up to
+    a power of two (D = 224: 28 lanes of 8 and 4 idle, a whole warp), VEC
+    elements a lane (``decode_common.cuh::vec_elems``: 16 bytes, at most
+    32 / G rounded down to a power of two, at least D / 32 rounded up)."""
+    vec = min(16 // elem_bytes, 1 << ((32 // G).bit_length() - 1))
+    vec = min(max(vec, _ceil_pow2(-(-D // 32))), D)
+    return 2 * 4 * (32 // _ceil_pow2(D // vec))
 
 
 def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: int,
@@ -371,9 +379,11 @@ def _check_dense(q, k, v, lengths):
         raise ValueError("decode_attention: lengths (B,)")
     if k.shape[1] < 1:
         raise ValueError("decode_attention: an empty cache (T = 0) has no tensor map")
-    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in (16, 32, 64, 128):
+    widths = (16, 32, 64, 128) + ((DENSE_WIDE_D,) if Hq == Hkv else ())
+    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in widths:
         raise ValueError(f"decode_attention kernel takes G in {GROUPS} and D in "
-                         f"(16, 32, 64, 128); got Hq={Hq}, Hkv={Hkv}, D={D}")
+                         f"(16, 32, 64, 128), or D = {DENSE_WIDE_D} at G = 1; got Hq={Hq}, "
+                         f"Hkv={Hkv}, D={D}")
     if not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous")
     es = q.element_size()

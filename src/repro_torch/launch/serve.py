@@ -49,11 +49,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
       --engine static --requests 16
 
-Every --arch the reference lists is served but the encdec and zamba
-families' (seamless-m4t-large-v2, zamba2-7b), which raise
-NotImplementedError naming the family.  For xlstm-125m the continuous
-engine refuses what needs the paged KV cache (speculation, prefix caching,
---kv-quant, --slo-preempt), as the reference's does.
+  # zamba2-7b at full width and depth (81 Mamba2 layers, 14 applications of
+  # the shared attention, whose every step is the dense decode kernel at
+  # head_dim 224), by the static engine, which feeds each prompt token by
+  # token; the continuous engine refuses zamba, as the reference's does
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --engine static --requests 16
+
+Every --arch the reference lists is served but the encdec family's
+(seamless-m4t-large-v2), which raises NotImplementedError naming the
+family.  For xlstm-125m the continuous engine refuses what needs the paged
+KV cache (speculation, prefix caching, --kv-quant, --slo-preempt), as the
+reference's does.
 The flags are the reference's.  Those whose feature is not ported
 (meshes) raise NotImplementedError; as in the reference, the static
 engine takes no --mesh, --spec-drafter, --trace-out, --metrics-out or

@@ -25,9 +25,16 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
       --steps 2 --batch 4 --seq 1024
 
-Every --arch the reference lists trains but the encdec and zamba families'
-(seamless-m4t-large-v2, zamba2-7b), which raise NotImplementedError naming
-the family.  MoE attention and mixed dense/MoE stacks have no flag, as in
+  # zamba2-7b at smoke size on the CPU: the chunked SSD scan and the shared
+  # attention.  At full width its 81 layers' f32 masters, gradients and
+  # AdamW moments (~110 GB) exceed one card; chip_smoke.py trains it at 7
+  # layers by editing ``build``'s config (the CLI has no depth flag)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b --smoke \
+      --steps 2 --batch 2 --seq 40 --device cpu
+
+Every --arch the reference lists trains but the encdec family's
+(seamless-m4t-large-v2), which raises NotImplementedError naming the
+family.  MoE attention and mixed dense/MoE stacks have no flag, as in
 the reference: a config that sets ``moe.moe_attention`` or
 ``moe_layer_period`` trains through ``run`` like any other.
 The flags are the reference's.  Those whose feature is not ported raise

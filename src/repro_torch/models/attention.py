@@ -109,6 +109,9 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
     new_cache = None
     if cache is not None:
         idx = cache.length
+        if idx + S > cache.k.shape[1]:      # the reference's write clamps silently
+            raise ValueError(f"KV cache of {cache.k.shape[1]} positions cannot take "
+                             f"{S} more at length {idx}")
         cache.k[:, idx:idx + S] = k.to(cache.k.dtype)
         cache.v[:, idx:idx + S] = v.to(cache.v.dtype)
         new_cache = KVCache(cache.k, cache.v, idx + S)

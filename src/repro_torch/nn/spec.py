@@ -5,7 +5,9 @@ a uniform stack (every layer the same kind) has its blocks stacked
 ``(L, ...)`` as the reference stacks them under ``scan_layers``; a mixed
 dense/MoE stack (``moe_layer_period`` > 1) is the reference's list of
 per-layer dicts.  :func:`model_shapes` picks the family's tree (the
-xLSTM family's from ``repro_torch.models.xlstm``).  Each leaf is a
+xLSTM family's from ``repro_torch.models.xlstm``, zamba's from
+``repro_torch.models.zamba``: its Mamba2 blocks stacked ``(L, ...)``
+under ``mamba``, its one shared block under ``shared``).  Each leaf is a
 :class:`ParamShape`: its shape, the dtype the port keeps it in, and how it
 is initialised.
 
@@ -137,6 +139,10 @@ def model_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
         from repro_torch.models.xlstm import xlstm_shapes
 
         return xlstm_shapes(cfg, train)
+    if cfg.family == "zamba":
+        from repro_torch.models.zamba import zamba_shapes
+
+        return zamba_shapes(cfg, train)
     return lm_shapes(cfg, train)
 
 

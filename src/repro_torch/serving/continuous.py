@@ -286,9 +286,11 @@ class ContinuousEngine:
         elif cfg.family in _RECURRENT_FAMILIES:
             self.mode = "recurrent"
         else:
+            # the reference's refusal and reason
             raise NotImplementedError(
-                f"continuous batching for family {cfg.family!r} is not ported "
-                f"(paged families: {_PAGED_FAMILIES}; recurrent: {_RECURRENT_FAMILIES})")
+                f"continuous batching not implemented for family "
+                f"{cfg.family!r} (zamba's shared-attention cache keeps one "
+                f"batch-wide length; encdec needs per-request encoder memory)")
         if serve.mesh is not None:
             if self.mode != "paged":
                 raise NotImplementedError(

@@ -27,10 +27,14 @@ Differences from the reference, by design of the port:
   attention over the expert weights;
 * no logit softcap (the dense decode kernel has none).
 
-A recurrent family (xLSTM, ``prefill`` None) takes its prompt token by
-token through ``decode`` from a zero state, as the reference's does, and
-runs no kernel; its O(1) state has no length, so ``max_len`` bounds
-nothing there.
+A family with no ``prefill`` (xLSTM, zamba) takes its prompt token by
+token through ``decode`` from a zero state, as the reference's does.
+xLSTM runs no kernel, and its O(1) state has no length, so ``max_len``
+bounds nothing there.  Zamba's state holds a ``max_len`` cache for each
+application of its shared attention, whose every step (prompt tokens
+too) is the dense decode kernel; a ``generate`` past ``max_len`` is
+refused as a decoder LM's is (the reference clamps the cache write
+silently).
 """
 from __future__ import annotations
 
@@ -83,7 +87,7 @@ class ServingEngine:
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         B, S = prompts.shape
         recurrent = self.fam.prefill is None
-        if not recurrent and S + num_tokens - 1 > self.max_len:
+        if self.fam.kv_cache and S + num_tokens - 1 > self.max_len:
             raise ValueError(f"prompt {S} + {num_tokens} tokens exceed max_len {self.max_len}")
         with torch.inference_mode():
             t0 = time.perf_counter()

@@ -55,9 +55,10 @@ class ModelDrafter:
                 raise ValueError(f"serve max_len {W} exceeds the draft model's learned "
                                  f"position table ({dcfg.max_seq_len} positions)")
             dcfg = dcfg.replace(max_seq_len=W)
-        # every family the port has is a full-forward one (the reference's
-        # check for a prefill); get_family raises for the others
         self.fam = get_family(dcfg)
+        if self.fam.prefill is None:
+            raise ValueError(f"model drafter needs a full-forward (transformer-like) "
+                             f"family, got {dcfg.family!r}")
         if dparams is None:
             from repro_torch.nn import init_params
 

@@ -7,8 +7,9 @@ Each smoke config runs through both packages from the reference's params
 within 1e-4 (two layers; the tolerance tests/test_torch_training.py holds
 ``lm_apply`` to), one AdamW step's loss and grad norm within rtol 1e-5 and
 its parameters within 2e-5, and the prefill-then-decode logits within
-1e-4.  The ids whose family is not ported (encdec, zamba) raise, naming
-the family; xlstm-125m has its own tests (test_torch_xlstm.py).
+1e-4.  The id whose family is not ported (encdec) raises, naming the
+family; xlstm-125m and zamba2-7b have their own tests (test_torch_xlstm.py,
+test_torch_zamba.py).
 """
 import dataclasses
 
@@ -44,7 +45,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["granite-moe-3b-a800m", "olmoe-1b-7b", "qwen3-8b", "qwen3-14b", "deepseek-7b",
          "qwen2.5-32b", "pixtral-12b"]
-UNPORTED = {"seamless-m4t-large-v2": "encdec", "zamba2-7b": "zamba"}
+UNPORTED = {"seamless-m4t-large-v2": "encdec"}
 SEQ = 24
 
 
