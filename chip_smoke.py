@@ -43,7 +43,13 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               Phase 14's shape: the dense kernel at zamba2-7b's shared
               attention (bf16, B 8, Hkv 32, G 1, D 224) at the plan and
               every split forced, a wrapping ring, 1e4 past every length,
-              f32, and the engine's equal-length steps.
+              f32, and the engine's equal-length steps.  Phase 15's:
+              the dense kernel at encdec's cross-attention (bf16 and f32,
+              B 8, Hkv 16, D 64, G 1, every row at T = S_src = 256 and at
+              T = 250, whose last TMA box runs past T; the plan and every
+              split forced), and with a logit softcap of 5 on q scaled so
+              that the scores reach about +-20, at m6's static trace shape
+              and zamba's D = 224, against the capped plain versions.
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -61,7 +67,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               inputs; and phase 11's shapes (above), the dense kernel at
               the static trace's cache and median decode length beside
               SDPA's time and its bound; the dense kernel at zamba's
-              trace cache, at its median and its longest attended length.
+              trace cache, at its median and its longest attended length;
+              the dense kernel at encdec's cross-attention (T = 256, 250)
+              and at the static trace shape under the softcap.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -262,12 +270,35 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               x 1024 (losses finite and within 1 of ln 32000, no kernel
               launched, the shared attention's materialised scores, step
               ms and peak memory).
-15. report  — a {"kernels": [...]} line (decode_attention's launches and
+15. encdec  — seamless-m4t-large-v2 (``chip_smoke.phase_encdec(torch)``
+              alone after ``build.build()``), random weights from seed 0:
+              (a) at full width and depth (24 + 24 layers, 1.370 B
+              parameters) encode SyntheticSeq2Seq(256206, 1024, 8,
+              src_len=256, tgt_len=48, seed=0).batch_at(0)'s 8 x 256
+              frames, init_state(max_len=64), feed 8 target tokens one
+              decode_step at a time, then greedy steps to 48 tokens (the
+              dense kernel launched 2 x 24 x 47 times, self- and
+              cross-attention, and nothing else; every greedy token in the
+              vocabulary; the tokens equal to the same loop's on the plain
+              versions but at near-ties; encode ms, mean step, tokens/s,
+              peak memory, the busy share of a profiled loop); (b) at 2 +
+              2 layers the card's tokens on 4 rows equal to the CPU's but
+              at near-ties; (c) 2 AdamW steps of the train CLI at full
+              depth, 4 x 256 (losses finite and within 1 of ln 256206, no
+              kernel launched; step ms, peak memory); (d) the serve CLI
+              refused by both engines with the reference's reasons; (e)
+              m6-base's static 8 x 48 generate under a softcap of 0.5
+              (dense kernel 5 x decode steps, ragged FFN 5 x (prefill +
+              decode steps); tokens equal to the plain versions' but at
+              near-ties).
+16. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
               13; zamba_launches of phase 14, and the dense kernel's
-              zamba_shapes), the card line, and as the last line {"ok":
+              zamba_shapes; encdec_launches of phase 15, and the dense
+              kernel's encdec_shapes and softcap_shapes), the card line,
+              and as the last line {"ok":
               true, "device": {"platform": "gpu", "kind": ..., "count":
               1}}.
 """
@@ -805,6 +836,9 @@ def phase_check(torch):
     for name, err in check_zamba_kernel(torch).items():
         errs[name] = max(errs[name], err)
         errs[f"zamba {name}"] = err
+    for key, err in check_encdec_kernel(torch).items():
+        errs[key] = err
+        errs["decode_attention"] = max(errs["decode_attention"], err)
     return errs, weights
 
 
@@ -1209,11 +1243,12 @@ def dense_sdpa(q, k, v, lengths):
                                                   enable_gqa=q.shape[1] != k.shape[2])
 
 
-def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64)):
+def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64), softcap=0.0):
     """Kernel, plain and SDPA (length mask) times for one dense decode call
     at the m6 shape (``heads`` = (Hq, Hkv, D)), B = len(lens), 16 rotating
     copies; the caller knows the longest length, as a decode step's host
-    does."""
+    does.  ``softcap`` caps the kernel's and the plain version's scores
+    (SDPA has no cap: its time is the uncapped call's)."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -1225,12 +1260,12 @@ def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64)):
         return copies[next(it) % len(copies)]
 
     def kern():
-        return da.decode_attention(*nxt(), max_length=max(lens))
+        return da.decode_attention(*nxt(), max_length=max(lens), softcap=softcap)
 
     q, k, v, lengths = copies[0]
     bound, by = dense_bound(q, k, lengths)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
-    p_ms = cuda_ms(lambda: decode_attention_ref(*nxt()))
+    p_ms = cuda_ms(lambda: decode_attention_ref(*nxt(), softcap=softcap))
     sdpa = dense_sdpa(q, k, v, lengths)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
                 library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
@@ -1699,8 +1734,8 @@ def plain_versions():
     def plain_quantized(*args, policy, max_length=None):
         return quantized_paged_decode_attention_ref(*args, policy=policy)
 
-    def plain_dense(*args, splits=None, max_length=None):
-        return decode_attention_ref(*args)
+    def plain_dense(*args, splits=None, max_length=None, softcap=0.0):
+        return decode_attention_ref(*args, softcap=softcap)
 
     with mock.patch.object(pda, "paged_decode_attention", plain_paged), \
             mock.patch.object(pda, "quantized_paged_decode_attention", plain_quantized), \
@@ -1828,20 +1863,27 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
 
 def profile_static(torch, cfg, params, prompts, gen, cpu=True):
     """torch.profiler over one static ``generate`` (a prefill and gen - 1
-    decode steps): device busy share and the kernels that take the device
-    time, as ``profile_steps`` reads them for the continuous engine (with
-    ``cpu`` false from the CUDA activity alone)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    decode steps): ``busy_share``."""
     from repro_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
+    return busy_share(torch, lambda: eng.generate(prompts, gen),
+                      f"one static generate of {prompts.shape[0]} x {prompts.shape[1]}, "
+                      f"{gen} tokens", cpu)
+
+
+def busy_share(torch, run, what, cpu=True):
+    """torch.profiler over ``run()``: device busy share and the kernels that
+    take the device time, as ``profile_steps`` reads them for the
+    continuous engine (with ``cpu`` false from the CUDA activity alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         open_session(torch)
         t0 = time.perf_counter()
-        eng.generate(prompts, gen)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = device_events(prof)
@@ -1853,8 +1895,7 @@ def profile_static(torch, cfg, params, prompts, gen, cpu=True):
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
         return {"device_busy_share": None}
-    log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over one static generate of "
-        f"{prompts.shape[0]} x {prompts.shape[1]}, {gen} tokens: device busy "
+    log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over {what}: device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
@@ -4800,21 +4841,18 @@ def tapped_generate(torch, cfg, params, prompts, gen, max_len=None):
     return toks, margins
 
 
-def zamba_generate(torch, cfg, params, prompts, gen, device, label):
-    """(b): the static engine's greedy ``generate`` (every prompt token a
-    decode step): tokens in the vocabulary; on the card the dense kernel
-    launched n_shared x (S + gen - 1) times and nothing else; the tokens
-    equal to the same engine's on the plain versions but at near-ties.
-    Returns (report, launches)."""
-    from repro_torch.models.zamba import _n_shared
-
+def generate_vs_plain(torch, cfg, params, prompts, gen, device, label, want, steps):
+    """The static engine's greedy ``generate`` of ``steps`` decode steps:
+    tokens in the vocabulary; on the card each kernel launched ``want``
+    times (and every FFN launch on the tensor cores), nothing else; the
+    tokens equal to the same engine's on the plain versions but at
+    near-ties.  Returns (report, launches)."""
     B, S = prompts.shape
-    steps = S + gen - 1
     toks, stats, launches, wall_ms = static_generate(torch, cfg, params, prompts, gen)
     if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or toks.shape != (B, gen):
         raise AssertionError(f"{label}: tokens of shape {toks.shape} outside the vocabulary")
     if device == "cuda":
-        expect_launches(label, launches, {"decode_attention": _n_shared(cfg) * steps})
+        expect_launches(label, launches, want)
     t0 = time.perf_counter()
     with plain_versions():
         base, margins = tapped_generate(torch, cfg, params, prompts, gen)
@@ -4971,8 +5009,9 @@ def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
     static_generate(torch, cfg, params, prompts[:, :4], 2)          # warm-up
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    report["(b) generate"], got = zamba_generate(torch, cfg, params, prompts, gen, device,
-                                                 "(b) generate")
+    report["(b) generate"], got = generate_vs_plain(
+        torch, cfg, params, prompts, gen, device, "(b) generate",
+        {"decode_attention": _n_shared(cfg) * (S + gen - 1)}, S + gen - 1)
     add(got)
     if cuda:
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5094,6 +5133,328 @@ def phase_timing_zamba(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: seamless-m4t-large-v2 (encdec) at full width and depth: encoded,
+# decoded greedily with cross-attention on the dense decode kernel, and
+# trained; the logit softcap on the static path
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_SHAPE = (8, 256, 48)        # (a): rows, source frames, target tokens
+ENCDEC_FEED = 8                    # (a), (b): target tokens fed before the greedy steps
+ENCDEC_MAX_LEN = 64                # (a), (b): the self caches' positions
+ENCDEC_PROFILE_TOKENS = 16         # (a): a profiled loop's target tokens
+ENCDEC_CUT_LAYERS = 2              # (b): encoder and decoder layers, card and CPU
+ENCDEC_CPU_SHAPE = (4, 256, 24)    # (b): rows, source frames, target tokens
+ENCDEC_TRAIN_ARGS = ["--arch", ENCDEC_ARCH, "--batch", "4", "--seq", "256", "--log-every", "1"]
+ENCDEC_TRAIN_STEPS = 2
+ENCDEC_REFUSALS = {"static": "use encdec.init_state with real memory for concrete states",
+                   "continuous": "encdec needs per-request encoder memory"}
+SOFTCAP = 5.0                      # phase 3 and 4: the dense kernel's cap
+SOFTCAP_SCORE = 20.0               # phase 3: q scaled so that the largest scores reach about this
+STATIC_SOFTCAP = 0.5               # (e): m6-base's cap, of the order of its random scores
+
+
+def encdec_greedy(torch, cfg, params, frames, feed, total, tap=False):
+    """``encode`` the frames, ``init_state(ENCDEC_MAX_LEN)``, feed the (B,
+    F) tokens one ``decode_step`` at a time, then greedy steps to ``total``
+    tokens (total - 1 steps).  Returns (the generated tokens {row: list},
+    their top-two gaps {(row, index): (gap, top logit)} if ``tap``, encode
+    ms, decode ms), host clock, synced."""
+    from repro_torch.models import encdec as ED
+
+    B, F = feed.shape
+    V = cfg.vocab_size
+    table = params["embed"]["table"]
+    with torch.inference_mode():
+        sync(torch, table)
+        t0 = time.perf_counter()
+        memory = ED.encode(params, frames, cfg)
+        sync(torch, table)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        state = ED.init_state(params, memory, cfg, ENCDEC_MAX_LEN)
+        sync(torch, table)
+        toks, tops = [feed[:, i] for i in range(F)], []
+        t0 = time.perf_counter()
+        for i in range(total - 1):
+            logits, state = ED.decode_step(params, toks[i][:, None], state, cfg)
+            if i + 1 >= F:
+                last = logits[:, -1, :V].float()
+                toks.append(last.argmax(dim=-1))
+                if tap:
+                    tops.append(torch.topk(last, 2, dim=-1).values)
+        sync(torch, table)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.stack(toks[F:], dim=1).cpu()
+    margins = {}
+    for p, top2 in enumerate(tops):
+        top2 = top2.cpu()
+        for r in range(B):
+            margins[r, p] = (float(top2[r, 0] - top2[r, 1]), float(top2[r, 0]))
+    return {r: gen[r].tolist() for r in range(B)}, margins, encode_ms, decode_ms
+
+
+def encdec_batch(torch, cfg, shape, device):
+    """``SyntheticSeq2Seq(V, d, B, src_len, tgt_len, seed=0).batch_at(0)``:
+    (frames on ``device``, target tokens (B, tgt_len) on ``device``)."""
+    from repro_torch.data.pipeline import SyntheticSeq2Seq
+
+    B, src, tgt = shape
+    b = SyntheticSeq2Seq(cfg.vocab_size, cfg.d_model, B, src_len=src, tgt_len=tgt,
+                         seed=0).batch_at(0)
+    return (torch.from_numpy(b["frames"]).to(device),
+            torch.from_numpy(b["tokens"]).long().to(device))
+
+
+def encdec_decode(torch, cfg, params, shape, feed, device, label="(a) decode"):
+    """(a): ``encdec_greedy`` over ``encdec_batch``: on the card the dense
+    kernel launched 2 x layers x steps times (self- and cross-attention)
+    and nothing else; logits finite (every greedy token in the vocabulary);
+    the tokens equal to the same loop's on the plain versions but at
+    near-ties of its top two logits.  Returns (report, launches)."""
+    B, src, total = shape
+    steps = total - 1
+    frames, toks = encdec_batch(torch, cfg, shape, device)
+    encdec_greedy(torch, cfg, params, frames[:, :16], toks[:, :2], 4)      # warm-up
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    with counted_launches(launches):
+        got, _, enc_ms, dec_ms = encdec_greedy(torch, cfg, params, frames, toks[:, :feed], total)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if cuda:
+        expect_launches(label, launches, {"decode_attention": 2 * cfg.num_layers * steps})
+    if any(not 0 <= t < cfg.vocab_size for row in got.values() for t in row):
+        raise AssertionError(f"{label}: a greedy token outside the vocabulary (non-finite logits)")
+    t0 = time.perf_counter()
+    with plain_versions():
+        base, margins, _, _ = encdec_greedy(torch, cfg, params, frames, toks[:, :feed], total,
+                                            tap=True)
+    plain_s = time.perf_counter() - t0
+    if any(not math.isfinite(g) for g, _ in margins.values()):
+        raise AssertionError(f"{label}: non-finite logits on the plain versions")
+    div = divergences(base, got, lambda r, p: margins[r, p], f"{label} kernels vs plain")
+    shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
+    peak_text = f", peak memory {peak:.2f} GB" if cuda else ""
+    log(f"  {label}: {B} rows, {src} frames, {feed} tokens fed then greedy to {total} "
+        f"({steps} decode steps, max_len {ENCDEC_MAX_LEN}): {B - len(div)} of {B} rows equal "
+        f"to the plain versions' (their run {plain_s:.1f} s); encode {enc_ms:.2f} ms, mean "
+        f"step {dec_ms / steps:.2f} ms, {B * steps / (dec_ms / 1e3):.1f} tokens/s (host clock, "
+        f"synced){peak_text}; launches {shown}")
+    return dict(rows=B, src_len=src, fed=feed, tokens=total, steps=steps, encode_ms=enc_ms,
+                mean_step_ms=dec_ms / steps, decode_ms=dec_ms,
+                decode_tokens_per_s=B * steps / (dec_ms / 1e3), peak_memory_gb=peak,
+                rows_equal_to_plain=B - len(div), plain_run_s=plain_s,
+                divergences=[dict(row=k, token=p, gap=g) for k, p, g in div],
+                launches=shown), launches
+
+
+def encdec_card_vs_cpu(torch, cfg, shape, feed, cut_layers):
+    """(b): ``cfg`` cut to ``cut_layers`` encoder and decoder layers, random
+    params from seed 0 on the card and a copy on the CPU: the card's greedy
+    tokens (dense kernel 2 x layers x steps) equal to the CPU's but at
+    near-ties of the CPU run's top two logits."""
+    from repro_torch.nn import count_params, init_params
+
+    cut = cfg.replace(num_layers=cut_layers, num_encoder_layers=cut_layers)
+    params = init_params(cut, seed=0, device="cuda")
+    B, src, total = shape
+    frames, toks = encdec_batch(torch, cut, shape, "cuda")
+    launches = {}
+    with counted_launches(launches):
+        got, _, _, dec_ms = encdec_greedy(torch, cut, params, frames, toks[:, :feed], total)
+    expect_launches("(b) card", launches, {"decode_attention": 2 * cut_layers * (total - 1)})
+    t0 = time.perf_counter()
+    base, margins, _, _ = encdec_greedy(torch, cut, _to_cpu(params), frames.cpu(),
+                                        toks[:, :feed].cpu(), total, tap=True)
+    cpu_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    div = divergences(base, got, lambda r, p: margins[r, p], "(b) card vs CPU")
+    log(f"  (b) {cut_layers} + {cut_layers} layers ({count_params(cut) / 1e9:.3f} B params), "
+        f"{B} rows of {src} frames, greedy to {total} tokens: {B - len(div)} of {B} rows on "
+        f"the card equal to the CPU's (card decode {dec_ms:.0f} ms, CPU {cpu_s:.1f} s)")
+    return dict(layers=cut_layers, params_b=count_params(cut) / 1e9, rows=B,
+                rows_equal=B - len(div), card_decode_ms=dec_ms, cpu_s=cpu_s,
+                divergences=[dict(row=k, token=p, gap=g) for k, p, g in div])
+
+
+def encdec_profile(torch, cfg, params, shape, feed):
+    """(a): the busy share of a profiled greedy loop (the card's activity
+    alone) over ENCDEC_PROFILE_TOKENS target tokens."""
+    B, src, _ = shape
+    frames, toks = encdec_batch(torch, cfg, shape, "cuda")
+    return busy_share(
+        torch, lambda: encdec_greedy(torch, cfg, params, frames, toks[:, :feed],
+                                     ENCDEC_PROFILE_TOKENS),
+        f"one encode and {ENCDEC_PROFILE_TOKENS - 1} decode steps of {B} rows", cpu=False)
+
+
+def encdec_cli_refusals(torch, cli_argv, device):
+    """(d): the serve CLI refuses the encdec id under both engines with the
+    reference's reasons, launching no kernel.  Returns {engine: message}."""
+    from repro_torch.launch import serve as serve_cli
+
+    out, launches = {}, {}
+    for engine, want in ENCDEC_REFUSALS.items():
+        with counted_launches(launches):
+            try:
+                serve_cli.main(list(cli_argv) + ["--engine", engine, "--device", device])
+            except NotImplementedError as e:
+                out[engine] = str(e)
+            else:
+                raise AssertionError(f"(d): --engine {engine} served {cli_argv[1]}")
+        if want not in out[engine]:
+            raise AssertionError(f"(d): --engine {engine} refused with {out[engine]!r}, not "
+                                 f"the reference's reason ({want!r})")
+        if any(launches[n] for n in KERNEL_NAMES):
+            raise AssertionError(f"(d): --engine {engine} launched {launches}")
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        log(f"  (d) serve CLI --engine {engine}: refused: {out[engine]}")
+    return out
+
+
+def encdec_runs(torch, cfg, device, train_argv, static_cfg, cli_argv=("--arch", ENCDEC_ARCH),
+                shape=ENCDEC_SHAPE, feed=ENCDEC_FEED, cut_layers=ENCDEC_CUT_LAYERS,
+                cpu_shape=ENCDEC_CPU_SHAPE, train_steps=ENCDEC_TRAIN_STEPS,
+                static_shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN)):
+    """(a)-(e) over ``cfg`` (seamless-m4t-large-v2, or its smoke config
+    with ``--smoke`` in ``cli_argv`` and ``train_argv`` for a CPU
+    rehearsal) and ``static_cfg`` (softcapped m6), random params from seed
+    0.  Returns (report, launches)."""
+    import numpy as np
+
+    from repro_torch.nn import count_params, init_params
+
+    total, report = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    sync(torch, params["embed"]["table"])
+    log(f"  (a) {cfg.name}: {cfg.num_encoder_layers} encoder + {cfg.num_layers} decoder "
+        f"layers, d {cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+        f"{count_params(cfg):,} params, random init in {time.perf_counter() - t0:.1f} s")
+    report["params"] = count_params(cfg)
+    report["(a) decode"], got = encdec_decode(torch, cfg, params, shape, feed, device)
+    add(got)
+    if cuda:
+        report["(a) profile"] = encdec_profile(torch, cfg, params, shape, feed)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+        report["(b) card vs CPU"] = encdec_card_vs_cpu(torch, cfg, cpu_shape, feed, cut_layers)
+    report["(c) train"], got = edited_train(torch, train_argv, lambda c: c, train_steps, device,
+                                            "(c) encdec train", compare=False)
+    add(got)
+    report["(d) serve CLI refusals"] = encdec_cli_refusals(torch, cli_argv, device)
+    # (e): the static engine under a softcap (dense kernel layers x decode
+    # steps, the ragged FFN MoE layers x (prefill + decode steps))
+    sparams = init_params(static_cfg, seed=0, device=device)
+    B, S, gen = static_shape
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, static_cfg.vocab_size, (B, S)).astype(np.int32)
+    static_generate(torch, static_cfg, sparams, prompts[:, :4], 2)              # warm-up
+    report["(e) static softcap"], got = generate_vs_plain(
+        torch, static_cfg, sparams, prompts, gen, device,
+        f"(e) softcap {static_cfg.attn_logit_softcap}",
+        {"decode_attention": static_cfg.num_layers * (gen - 1),
+         "ragged_ffn": moe_layers(static_cfg) * gen}, gen - 1)
+    add(got)
+    return report, total
+
+
+def phase_encdec(torch):
+    """Phase 15: seamless-m4t-large-v2 decoded greedily at full width and
+    depth, the card against the CPU at 2 + 2 layers, trained at full depth,
+    refused by both serving engines; m6-base's static engine under a
+    softcap.  Returns (report, launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.m6 import M6_BASE
+
+    log(f"phase 15: {ENCDEC_ARCH}: greedy decode at full width and depth, the card against "
+        f"the CPU, training, the serve CLI's refusals; the softcap on the static path "
+        f"({card_line()})")
+    static_cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None).replace(
+        attn_logit_softcap=STATIC_SOFTCAP)
+    return encdec_runs(torch, registry.get_config(ENCDEC_ARCH), "cuda", ENCDEC_TRAIN_ARGS,
+                       static_cfg)
+
+
+def check_encdec_kernel(torch):
+    """Phase 15's shapes of the dense kernel against its plain and
+    split-and-merge plain versions at TOL: cross-attention over the memory
+    (B 8, Hkv 16, G 1, D 64, every row at T = S_src = 256, and at T = 250,
+    whose last TMA box runs past T), the plan and every split forced, bf16
+    and f32; then a softcap of SOFTCAP on q scaled so that the scores reach
+    about +-SOFTCAP_SCORE, at m6's static trace shape and zamba's D = 224,
+    with every row at one length (the engines' steps) and at mixed lengths
+    with a length-0 row (exactly 0).  Returns {"encdec decode_attention":
+    max abs err, "softcap decode_attention": max abs err}."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+
+    errs = {"encdec decode_attention": 0.0, "softcap decode_attention": 0.0}
+
+    def run(key, label, case, splits, softcap=0.0):
+        q, k, _, lengths = case
+        max_length = int(lengths.max())
+        out = da.decode_attention(*case, splits=splits, max_length=max_length, softcap=softcap)
+        torch.cuda.synchronize()
+        B, Hq, D = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        plan = da.dense_plan(B, Hkv, Hq // Hkv, D, T, q.element_size(), da._sm_count(0), splits,
+                             max_length)
+        name = (f"decode_attention {label} B={B} T={T} Hkv={Hkv} D={D} {str(q.dtype)[6:]} "
+                f"splits={plan[0]}{' (plan)' if splits is None else ''} stages={plan[1]}")
+        want = dref.decode_attention_ref(*case, softcap=softcap)
+        errs[key] = max(errs[key], check_close(name, out, want))
+        check_close(f"{name} vs split plain", out,
+                    dref.decode_attention_split_ref(*case, plan[0], softcap=softcap))
+        if not (out[lengths == 0] == 0).all():
+            raise AssertionError(f"{name}: a length-0 row is not exactly 0")
+
+    for T in (256, 250):
+        for dtype in (torch.bfloat16, torch.float32):
+            for splits in (None, *da.SPLITS):
+                run("encdec decode_attention", "cross-attention",
+                    dense_case(8, T, 16, 16, 64, [T] * 8, seed=900 + T, dtype=dtype), splits)
+    T, length = static_shapes()["trace"]
+    zT, zlen = zamba_shapes()["trace"]
+    for label, (Hq, Hkv, D), T, length in (("m6 static", (16, 16, 64), T, length),
+                                           ("zamba", ZAMBA_HEADS, zT, zlen)):
+        for lens in ([length] * 8, [0, 1, T - 1, length, 48, 16, 15, 9]):
+            q, k, v, lengths = dense_case(8, T, Hq, Hkv, D, lens, seed=910 + T)
+            q = q * (SOFTCAP_SCORE / 4.0)          # unit scores * 5: about 4 sigma reach 20
+            s = torch.einsum("bhd,bthd->bth", q.float(), k.float()) * D ** -0.5   # G = 1
+            top = float(s[torch.arange(T, device="cuda")[None, :] < lengths[:, None]].abs().max())
+            for splits in (None, 1, 2, 4):
+                run("softcap decode_attention", f"softcap {SOFTCAP} {label} (|s| <= {top:.1f})",
+                    (q, k, v, lengths), splits, SOFTCAP)
+    return errs
+
+
+def phase_timing_encdec(torch):
+    """The dense kernel at encdec's cross-attention (B 8, Hkv 16, D 64, every
+    row at T = S_src = 256, and at 250) and at m6's static trace shape under
+    the softcap, as phase 4 times its own (the static shape without a cap is
+    ``decode_attention static``)."""
+    T, length = static_shapes()["trace"]
+    out = {"decode_attention encdec cross": time_dense(torch, [256] * 8, 920, T=256),
+           "decode_attention encdec cross T=250": time_dense(torch, [250] * 8, 921, T=250),
+           "decode_attention static softcap": time_dense(torch, [length] * 8, 164, T=T,
+                                                         softcap=SOFTCAP)}
+    for name, r in out.items():
+        log(f"  {name}: {timing_line(r)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5160,6 +5521,7 @@ def main() -> int:
     timing.update(phase_timing_static(torch, ffn_weights))
     timing.update(phase_timing_families(torch))
     timing.update(phase_timing_zamba(torch))
+    timing.update(phase_timing_encdec(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -5203,10 +5565,15 @@ def main() -> int:
     t0 = time.perf_counter()
     zamba, zamba_launches = phase_zamba(torch)
     zamba_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    encdec, encdec_launches = phase_encdec(torch)
+    encdec_s = time.perf_counter() - t0
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
-        f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s")
+        f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s, encdec phase "
+        f"{encdec_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -5314,14 +5681,30 @@ def main() -> int:
                                                       "bound_by", "library_ms",
                                                       "library_device_ms", "plan")}
                 for label in ("decode_attention zamba", "decode_attention zamba longest")}
+        # phase 15: encdec's self- and cross-attention decode and the softcap,
+        # the dense kernel's
+        entry["encdec_launches"] = encdec_launches[name]
+        if name == "decode_attention":
+            if encdec_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 15")
+            entry["encdec_max_abs_err"] = errs[f"encdec {name}"]
+            entry["softcap_max_abs_err"] = errs[f"softcap {name}"]
+            for key, labels in (("encdec_shapes", ("decode_attention encdec cross",
+                                                   "decode_attention encdec cross T=250")),
+                                ("softcap_shapes", ("decode_attention static softcap",))):
+                entry[key] = {
+                    label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "library_ms",
+                                                          "library_device_ms", "plan")}
+                    for label in labels}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
-                      "more_families": more, "zamba": zamba,
+                      "more_families": more, "zamba": zamba, "encdec": encdec,
                       "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
-                      "more_families_s": more_s, "zamba_s": zamba_s,
+                      "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

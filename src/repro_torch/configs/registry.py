@@ -1,7 +1,5 @@
 """Architecture registry: --arch <id> -> (full config, smoke config)
-(``repro.configs.registry``).  Every id of the reference is listed; the
-one whose model family the port does not implement yet (encdec) raises
-NotImplementedError naming the family."""
+(``repro.configs.registry``), every id of the reference."""
 from __future__ import annotations
 
 import importlib
@@ -22,24 +20,19 @@ _ARCH_MODULES = {
     "m6-1t": "repro_torch.configs.m6",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
-
-# the reference's ids whose family has no port
-_UNPORTED_FAMILY = {"seamless-m4t-large-v2": "encdec"}
 
 _M6_ATTR = {"m6-base": "M6_BASE", "m6-10b": "M6_10B",
             "m6-100b": "M6_100B", "m6-1t": "M6_1T"}
 
-ALL_IDS = [*_ARCH_MODULES, *_UNPORTED_FAMILY]
+ALL_IDS = list(_ARCH_MODULES)
 ARCH_IDS = [a for a in ALL_IDS if not a.startswith("m6")]
 
 
 def get_module(arch: str):
     if arch not in ALL_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ALL_IDS}")
-    if arch in _UNPORTED_FAMILY:
-        raise NotImplementedError(f"arch {arch!r}: model family {_UNPORTED_FAMILY[arch]!r} "
-                                  f"is not ported")
     return importlib.import_module(_ARCH_MODULES[arch])
 
 

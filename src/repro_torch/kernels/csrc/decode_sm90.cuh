@@ -64,6 +64,16 @@
 //   rank 0's merge barrier and leaves; rank 0 merges the S slots in rank
 //   order and writes.  No workspace, no atomics, no second kernel, and only
 //   rank 0 waits.
+// - The logit softcap (the reference's _sdpa: s <- c tanh(s / c) on the
+//   natural-scale score s = q . k D^-0.5, before the softmax).  With a cap
+//   c > 0 each live score becomes (c log2 e) tanhf(s2 / (c log2 e)) on the
+//   base-2 score s2 = s log2 e, before the running max, so every split sees
+//   capped scores and the merge is unchanged.  The cap is a template flag
+//   (kCap), instantiated for the dense tiles alone (the continuous engine,
+//   which runs the paged kernels, refuses a cap): a runtime branch in the
+//   score loop cost the uncapped dense kernel 4 % on an H100 at the static
+//   engine's shape, and the kCap = false kernels are the arithmetic of
+//   before.
 // All math is f32, the softmax in base 2 (q pre-scaled by D^-0.5 log2 e);
 // one query per (row, head) is a GEMV, so the CUDA cores, not wgmma's
 // 64-row tiles, do it.
@@ -159,12 +169,13 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
 // softmax's max and l over them, and their weights p and the rescale alpha
 // (State::update's arithmetic over ROWS rows at once, so that their
 // shuffles and exponentials overlap, and split so that it runs before V
-// has arrived).
-template <int G, int VEC, int LANES, int ROWS>
+// has arrived).  kCap caps each score at cap2 in base 2 (cap2 = c log2 e,
+// inv_cap2 its reciprocal).
+template <int G, int VEC, int LANES, int ROWS, bool kCap>
 __device__ __forceinline__ void scores(State<G, VEC>& st, const float (&qr)[G][VEC],
                                        const float (&kf)[ROWS][VEC], const float (&k_mul)[ROWS],
                                        const bool (&live)[ROWS], float (&p)[ROWS][G],
-                                       float (&alpha)[G]) {
+                                       float (&alpha)[G], float cap2, float inv_cap2) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float s[ROWS];
@@ -183,7 +194,9 @@ __device__ __forceinline__ void scores(State<G, VEC>& st, const float (&qr)[G][V
     float mx = kNegInf;
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
-      s[u] = live[u] ? s[u] * k_mul[u] : kNegInf;
+      float x = s[u] * k_mul[u];
+      if constexpr (kCap) x = cap2 * tanhf(x * inv_cap2);
+      s[u] = live[u] ? x : kNegInf;
       mx = fmaxf(mx, s[u]);
     }
 #pragma unroll
@@ -262,6 +275,7 @@ struct PagedTiles {
   static constexpr bool kEarly = false;   // the copies need the table, read beside the length
   static constexpr bool kD16 = false;     // D in (32, 64, 128)
   static constexpr bool kD224 = false;
+  static constexpr bool kCapped = false;  // no softcap instantiation
   static constexpr int kAlign = 16;       // shared-memory alignment of a tile (bulk copies)
   const E* k_pool;
   const E* v_pool;
@@ -299,6 +313,7 @@ struct DenseTiles {
   static constexpr bool kEarly = true;    // every copy is known before the length
   static constexpr bool kD16 = true;      // D in (16, 32, 64, 128), and 224 at G = 1
   static constexpr bool kD224 = true;     // (zamba2-7b's shared attention)
+  static constexpr bool kCapped = true;   // a softcap instantiation beside each kernel
   static constexpr int kAlign = 128;      // shared-memory alignment of a tile (TMA boxes)
   CUtensorMap k_map;
   CUtensorMap v_map;
@@ -320,11 +335,11 @@ struct DenseTiles {
 
 // (launch bounds of one CTA an SM: without the minimum, ptxas held some
 // instantiations to 64 or 96 registers and spilled)
-template <typename TQ, typename Fmt, typename Tiles, int G, int D>
+template <typename TQ, typename Fmt, typename Tiles, int G, int D, bool kCap>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
               const int32_t* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int stages,
-              float scale) {
+              float scale, float cap2, float inv_cap2) {
   using E = typename Fmt::T;
   constexpr bool kScaled = Tiles::kScaled;
   constexpr int VEC = vec_elems<(int)sizeof(E), G, D>();
@@ -464,7 +479,7 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
       }
     }
     float p[ROWS][G], alpha[G];
-    scores<G, VEC, LANES, ROWS>(st, qr, kf, km, live, p, alpha);
+    scores<G, VEC, LANES, ROWS, kCap>(st, qr, kf, km, live, p, alpha, cap2, inv_cap2);
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
 #pragma unroll
@@ -573,19 +588,20 @@ decode_kernel(const __grid_constant__ Tiles src, const TQ* __restrict__ q,
 }
 
 // The launch's arguments beside the layout: q, lengths, out, sizes, the
-// split and the ring's depth.
+// split, the ring's depth and the logit softcap (0: none).
 struct Launch {
   const void* q;
   const int32_t* lengths;  // (N,)
   void* out;
   int N, Hkv, G, D, splits, stages;
+  float softcap;
 };
 
 // One launch of grid (splits, Hkv, N) in clusters of (splits, 1, 1).
-template <typename TQ, typename Fmt, typename Tiles, int G, int D>
-cudaError_t launch_gd(const Tiles& src, const Launch& a, cudaStream_t stream) {
+template <typename TQ, typename Fmt, typename Tiles, int G, int D, bool kCap>
+cudaError_t launch_k(const Tiles& src, const Launch& a, cudaStream_t stream) {
   using E = typename Fmt::T;
-  auto kernel = decode_kernel<TQ, Fmt, Tiles, G, D>;
+  auto kernel = decode_kernel<TQ, Fmt, Tiles, G, D, kCap>;
   const size_t smem = smem_bytes<E>(src.bs, D, G, a.stages, a.splits) +
                       (Tiles::kAlign > 16 ? Tiles::kAlign : 0);
   // past 48 KB of static and dynamic shared memory together a kernel must
@@ -617,9 +633,22 @@ cudaError_t launch_gd(const Tiles& src, const Launch& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = a.splits > 1 ? 1 : 0;
   const float scale = 1.4426950408889634f / sqrtf((float)D);   // D^-0.5 log2(e)
+  const float cap2 = a.softcap > 0.0f ? a.softcap * 1.4426950408889634f : 0.0f;
+  const float inv_cap2 = cap2 > 0.0f ? 1.0f / cap2 : 0.0f;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, src, (const TQ*)a.q, a.lengths,
-                                             (TQ*)a.out, a.Hkv, a.stages, scale);
+                                             (TQ*)a.out, a.Hkv, a.stages, scale, cap2, inv_cap2);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The capped kernel where a softcap is asked for (dense tiles only), else
+// the uncapped one.
+template <typename TQ, typename Fmt, typename Tiles, int G, int D>
+cudaError_t launch_gd(const Tiles& src, const Launch& a, cudaStream_t stream) {
+  if (a.softcap > 0.0f) {
+    if constexpr (Tiles::kCapped) return launch_k<TQ, Fmt, Tiles, G, D, true>(src, a, stream);
+    return cudaErrorInvalidValue;
+  }
+  return launch_k<TQ, Fmt, Tiles, G, D, false>(src, a, stream);
 }
 
 template <typename TQ, typename Fmt, typename Tiles, int G>
@@ -645,7 +674,7 @@ cudaError_t launch(const Tiles& src, const Launch& a, cudaStream_t stream) {
   if (a.N == 0) return cudaSuccess;
   const bool splits_ok = a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == 8;
   if (!splits_ok || a.stages < 1 || a.stages > kMaxStages || src.bs < 1 || src.tiles < 1 ||
-      (src.bs * a.D * sizeof(typename Fmt::T)) % 16)
+      (src.bs * a.D * sizeof(typename Fmt::T)) % 16 || !(a.softcap >= 0.0f))
     return cudaErrorInvalidValue;
   switch (a.G) {
     case 1: return launch_g<TQ, Fmt, Tiles, 1>(src, a, stream);

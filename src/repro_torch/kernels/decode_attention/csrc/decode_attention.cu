@@ -6,7 +6,9 @@
 //
 // What it computes: single-token GQA decode over a dense cache, one query
 // per sequence b, G grouped query heads per kv head h:
-//   out[b, h * G + g] = softmax(q[b, h * G + g] . K[b, :len, h]^T * D^-0.5) V[b, :len, h]
+//   out[b, h * G + g] = softmax(cap(q[b, h * G + g] . K[b, :len, h]^T * D^-0.5)) V[b, :len, h]
+// where cap(s) = c tanh(s / c) with a logit softcap c > 0 (the reference's
+// _sdpa, which this kernel stands in for on the static path), else s.
 // with q and out (B, Hq, D) contiguous and K/V (B, T, Hkv, D) read through
 // their strides (element strides of b, t and h; the last dim contiguous).
 // Keys past lengths[b] (and past T) are neither read into the result nor
@@ -46,7 +48,7 @@ template <typename TQ, typename Fmt>
 cudaError_t run(CUtensorMapDataType type, const void* q, const void* k, const void* v,
                 const int32_t* lengths, void* out, int B, int T, int Hkv, int G, int D,
                 const long long* ks, const long long* vs, int bs, int splits, int stages,
-                cudaStream_t stream) {
+                float softcap, cudaStream_t stream) {
   using E = typename Fmt::T;
   if (B == 0) return cudaSuccess;
   if (T < 1 || bs < 1 || bs > 256 || D > 256 || bs * D * sizeof(E) % 128)
@@ -67,7 +69,7 @@ cudaError_t run(CUtensorMapDataType type, const void* q, const void* k, const vo
   src.bs = bs;
   src.tiles = (T + bs - 1) / bs;
   src.capacity = T;
-  const decode_sm90::Launch a{q, lengths, out, B, Hkv, G, D, splits, stages};
+  const decode_sm90::Launch a{q, lengths, out, B, Hkv, G, D, splits, stages, softcap};
   return decode_sm90::launch<TQ, Fmt>(src, a, stream);
 }
 
@@ -76,22 +78,23 @@ cudaError_t run(CUtensorMapDataType type, const void* q, const void* k, const vo
 // dtype (of q, k, v and out): 0 = bfloat16, 1 = float32.  k_strides and
 // v_strides: the (b, t, h) element strides (multiples of 16 bytes, the
 // base 16-byte aligned).  bs: positions a tile (bs * D * sizeof a multiple
-// of 128 bytes); splits in (1, 2, 4, 8), 1 <= stages <= 32.  Returns a
-// cudaError_t (cudaErrorInvalidValue where the tensor maps cannot be
-// encoded).
+// of 128 bytes); splits in (1, 2, 4, 8), 1 <= stages <= 32; softcap: the
+// logit cap c (0: none).  Returns a cudaError_t (cudaErrorInvalidValue where
+// the tensor maps cannot be encoded).
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, int B, int T, int Hkv, int G,
                                 int D, long long kb, long long kt, long long kh, long long vb,
                                 long long vt, long long vh, int bs, int splits, int stages,
-                                void* stream) {
+                                float softcap, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int32_t* len = (const int32_t*)lengths;
   const long long ks[3] = {kb, kt, kh}, vs[3] = {vb, vt, vh};
   if (dtype == 0)
     return (int)run<__nv_bfloat16, decode::FmtBF16>(sm90::kBF16, q, k, v, len, out, B, T, Hkv,
-                                                    G, D, ks, vs, bs, splits, stages, s);
+                                                    G, D, ks, vs, bs, splits, stages, softcap,
+                                                    s);
   if (dtype == 1)
     return (int)run<float, decode::FmtF32>(sm90::kF32, q, k, v, len, out, B, T, Hkv, G, D, ks,
-                                           vs, bs, splits, stages, s);
+                                           vs, bs, splits, stages, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,8 @@ extern "C" int paged_decode_attention(int dtype, const void* q, const void* k_po
                                       const void* lengths, void* out, int N, int Hkv,
                                       int G, int D, int bs, int MB, int splits, int stages,
                                       void* stream) {
-  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages};
+  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages,
+                              0.0f};  // no logit softcap
   const int32_t* tbl = (const int32_t*)tables;
   const cudaStream_t s = (cudaStream_t)stream;
   using decode_sm90::launch_paged;

@@ -38,7 +38,8 @@ extern "C" int quantized_paged_decode_attention(int dtype, int fmt, const void* 
                                                 void* out, int N, int Hkv, int G, int D,
                                                 int bs, int MB, int splits, int stages,
                                                 void* stream) {
-  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages};
+  const decode_sm90::Launch a{q, (const int32_t*)lengths, out, N, Hkv, G, D, splits, stages,
+                              0.0f};  // no logit softcap
   const float* ks = (const float*)k_scales;
   const float* vs = (const float*)v_scales;
   const int32_t* tbl = (const int32_t*)tables;

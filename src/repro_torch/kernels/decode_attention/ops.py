@@ -43,7 +43,7 @@ _FMT_CODE = {"int8": 0, "fp8": 1}
 # the C signatures in csrc/: (codes..., pointers..., sizes..., strides..., stream)
 _ARGTYPES = [_C] + [_P] * 6 + [_C] * 8 + [_P]
 _QUANT_ARGTYPES = [_C, _C] + [_P] * 8 + [_C] * 8 + [_P]
-_DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_C] * 3 + [_P]
+_DENSE_ARGTYPES = [_C] + [_P] * 5 + [_C] * 5 + [_L] * 6 + [_C] * 3 + [ctypes.c_float] + [_P]
 
 SPLITS = (1, 2, 4, 8)         # cluster sizes the paged kernels take (8: the portable limit)
 GROUPS = (1, 2, 3, 4, 5, 8)   # GQA groups G = Hq / Hkv the kernels are instantiated for
@@ -409,15 +409,18 @@ def _map_strides(t: torch.Tensor) -> Tuple[int, int, int]:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, splits: Optional[int] = None,
-                     max_length: Optional[int] = None) -> torch.Tensor:
+                     max_length: Optional[int] = None, softcap: float = 0.0) -> torch.Tensor:
     """Single-token GQA decode over a dense cache: q (B, Hq, D); k/v
     (B, T, Hkv, D), read through their strides; lengths (B,) int32 valid
     prefix (0 => output exactly 0).  Returns (B, Hq, D).  ``splits``
     forces the kernel's cluster split (default: :func:`dense_plan`'s);
     ``max_length``, the longest of ``lengths`` where the caller knows it
-    on the host, informs that plan and nothing else."""
+    on the host, informs that plan and nothing else; ``softcap`` c > 0
+    caps each score s at c tanh(s / c) (the reference's ``_sdpa``)."""
+    if softcap < 0:
+        raise ValueError(f"decode_attention: softcap {softcap} < 0")
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _check_dense(q, k, v, lengths)
@@ -431,7 +434,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(), B, T, Hkv, Hq // Hkv, D,
                  *_map_strides(k), *_map_strides(v), DENSE_TILE_ROWS, splits, stages,
-                 _stream(q))
+                 float(softcap), _stream(q))
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err} (1: the "
                            f"copy engine refused a tensor map, or an argument)")

@@ -59,10 +59,17 @@ def quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
     return out.reshape(N, Hq, D).to(q.dtype)
 
 
+def _cap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    """The reference ``_sdpa``'s logit softcap, c tanh(s / c), where c > 0."""
+    return torch.tanh(scores / softcap) * softcap if softcap > 0 else scores
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     """Single-token GQA decode over a dense cache: q (B, Hq, D); k/v
-    (B, T, Hkv, D); lengths (B,).  Returns (B, Hq, D).
+    (B, T, Hkv, D); lengths (B,).  Returns (B, Hq, D).  ``softcap`` c > 0
+    caps each score at c tanh(s / c) before the mask, as the reference's
+    ``_sdpa`` does.
 
     The reference's ``decode_attention_ref`` masks with -inf, so a length-0
     row comes out NaN there, while its kernel gives exactly 0 (l = 0, so
@@ -72,7 +79,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, D).float()
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (D ** -0.5)
+    scores = _cap(torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (D ** -0.5), softcap)
     valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
@@ -83,7 +90,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
-                 bs: int, splits: int) -> torch.Tensor:
+                 bs: int, splits: int, softcap: float = 0.0) -> torch.Tensor:
     """Attention of qg (N, Hkv, G, D) over the gathered f32 context k/v
     (N, Hkv, T, D) in tiles of ``bs`` positions, computed as the kernels'
     cluster computes it: split r takes the row's tiles r, r + splits,
@@ -91,9 +98,10 @@ def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: to
     (m = -1e30, l = acc = 0 when it has none); the states merge in split
     order,
     ``out = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30)``
-    with M the largest m_r, so a length-0 row comes out exactly 0."""
+    with M the largest m_r, so a length-0 row comes out exactly 0; every
+    split sees the scores capped by ``softcap`` (c > 0)."""
     N, Hkv, T, D = k.shape
-    scores = torch.einsum("nkgd,nktd->nkgt", qg, k) * (D ** -0.5)
+    scores = _cap(torch.einsum("nkgd,nktd->nkgt", qg, k) * (D ** -0.5), softcap)
     pos = torch.arange(T, device=k.device)
     valid = pos[None, :] < lengths[:, None]                         # (N, T)
     states = []
@@ -111,17 +119,18 @@ def _split_merge(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: to
 
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                lengths: torch.Tensor, splits: int,
-                               tile_rows: int = 16) -> torch.Tensor:
+                               tile_rows: int = 16, softcap: float = 0.0) -> torch.Tensor:
     """:func:`decode_attention_ref` computed through the dense kernel's
     split over ``splits`` CTAs and their merge (``_split_merge``), over
     tiles of ``tile_rows`` positions (``ops.DENSE_TILE_ROWS``); positions
-    past T do not exist, those past a length are not weighted."""
+    past T do not exist, those past a length are not weighted; ``softcap``
+    as :func:`decode_attention_ref`'s."""
     B, Hq, D = q.shape
     Hkv = k.shape[2]
     kk = k.permute(0, 2, 1, 3).float()                      # (B, Hkv, T, D)
     vv = v.permute(0, 2, 1, 3).float()
     out = _split_merge(q.reshape(B, Hkv, Hq // Hkv, D).float(), kk, vv, lengths, tile_rows,
-                       splits)
+                       splits, softcap)
     return out.reshape(B, Hq, D).to(q.dtype)
 
 

@@ -56,9 +56,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --engine static --requests 16
 
-Every --arch the reference lists is served but the encdec family's
-(seamless-m4t-large-v2), which raises NotImplementedError naming the
-family.  For xlstm-125m the continuous engine refuses what needs the paged
+Every --arch the reference lists resolves.  No engine serves the encdec
+family (seamless-m4t-large-v2), as in the reference: ``--engine static``
+fails at the family's ``init_state`` (its decode state needs the encoder's
+memory: ``repro_torch.models.encdec``), ``--engine continuous`` refuses
+the family, each with the reference's message.  For xlstm-125m the continuous engine refuses what needs the paged
 KV cache (speculation, prefix caching, --kv-quant, --slo-preempt), as the
 reference's does.
 The flags are the reference's.  Those whose feature is not ported

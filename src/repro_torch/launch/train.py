@@ -32,10 +32,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b --smoke \
       --steps 2 --batch 2 --seq 40 --device cpu
 
-Every --arch the reference lists trains but the encdec family's
-(seamless-m4t-large-v2), which raises NotImplementedError naming the
-family.  MoE attention and mixed dense/MoE stacks have no flag, as in
-the reference: a config that sets ``moe.moe_attention`` or
+  # seamless-m4t-large-v2 (encdec) at full width and depth: frames of
+  # --seq positions in, --seq target tokens out (the reference's pipeline)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \
+      --steps 2 --batch 4 --seq 256
+
+Every --arch the reference lists trains.  MoE attention and mixed
+dense/MoE stacks have no flag, as in the reference: a config that sets ``moe.moe_attention`` or
 ``moe_layer_period`` trains through ``run`` like any other.
 The flags are the reference's.  Those whose feature is not ported raise
 NotImplementedError: --data or --model above 1 and ``--moe-impl

@@ -1,8 +1,9 @@
 """Multi-head attention with GQA, qk-norm, RoPE and a dense KV cache
 (``repro.models.attention``): the Q/K/V projection the serving engines
 share; full-sequence self-attention for training and ``lm_apply``, with
-the flash kernel as an optional drop-in (``use_flash=True``); and the
-cache branch the static engine runs.
+the flash kernel as an optional drop-in (``use_flash=True``); the
+cache branch the static engine runs; and cross-attention over a fixed
+memory (the encdec family's decoder), whose K/V :func:`project_kv` makes.
 
 The cache (:class:`KVCache`) is ``(B, T, Hkv, D)`` in the activation
 dtype, written in place (the reference's jit donates it instead), so it
@@ -11,8 +12,14 @@ a Python int, known on the host.  A prefill (S > 1) attends over the
 cache through the reference's ``_sdpa``, as the reference computes it
 outside Pallas; a decode step (S = 1) is the dense decode attention
 kernel (``repro_torch.kernels.decode_attention.decode_attention``) over
-the cache, every row at length ``length + 1``.  ``_sdpa`` takes the
-chunked path (:mod:`repro_torch.models.chunked_attention`) under
+the cache, every row at length ``length + 1``.  Cross-attention (``kv=``)
+takes q from ``wq`` (q-norm where set, no RoPE) and the memory's K/V as
+given: over S > 1 queries (teacher forcing) the reference's ``_sdpa``
+without a mask, and for a decode step (S = 1) the dense decode kernel
+over the memory, every row at its length S_src.  Both decode routes apply
+the logit softcap (``attn_logit_softcap``) as the reference's ``_sdpa``
+does.  ``_sdpa`` takes the chunked path
+(:mod:`repro_torch.models.chunked_attention`) under
 ``attention_impl="chunked"``, or under ``"auto"`` when S*T > 2^21, as the
 reference's does."""
 from __future__ import annotations
@@ -97,14 +104,28 @@ def causal_mask(S: int, T: int, offset: int = 0, device=None) -> torch.Tensor:
 
 
 def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = True,
-                    cache: Optional[KVCache] = None, use_flash: bool = False
+                    cache: Optional[KVCache] = None, use_flash: bool = False,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B, S, d) -> (y (B, S, d), updated cache).  Without a cache: full
     self-attention over x (training, ``lm_apply``).  With one: this step's
     K/V are written at ``cache.length`` in place, then a prefill (S > 1)
     attends over the cache masked to ``t <= length + s`` and a decode step
-    (S = 1) runs the dense decode kernel."""
+    (S = 1) runs the dense decode kernel.  With ``kv=(k, v)``, headed
+    (B, T, Hkv, D) memory K/V: cross-attention over all T positions (no
+    cache, no RoPE)."""
     B, S, _ = x.shape
+    if kv is not None:
+        hd = cfg.resolved_head_dim
+        q = dense_apply(params["wq"], x, cfg).reshape(B, S, cfg.num_heads, hd)
+        if cfg.qk_norm:
+            q = head_rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        k, v = kv
+        if S == 1:
+            out = _decode_attention(q[:, 0].contiguous(), k, v, k.shape[1], cfg)[:, None]
+        else:
+            out = _sdpa(q, k, v, cfg, mask=None)
+        return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), None
     q, k, v = _project_qkv(params, x, cfg, positions)
     new_cache = None
     if cache is not None:
@@ -135,11 +156,33 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
 
 def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> torch.Tensor:
     """One query per row over the first ``length`` positions of the dense
-    cache: the reference's ``_sdpa`` over mask ``t <= cache.length``, as the
-    dense decode kernel computes it.  The kernel has no logit softcap."""
-    if cfg.attn_logit_softcap > 0:
-        raise NotImplementedError("the dense decode attention kernel has no logit softcap")
+    cache (or memory): the reference's ``_sdpa`` over mask
+    ``t <= cache.length`` (or no mask), softcap included, as the dense
+    decode kernel computes it."""
     from repro_torch.kernels.decode_attention import decode_attention
 
     lengths = torch.full((q.shape[0],), length, dtype=torch.int32, device=q.device)
-    return decode_attention(q, k_cache, v_cache, lengths, max_length=length)
+    return decode_attention(q, k_cache, v_cache, lengths, max_length=length,
+                            softcap=cfg.attn_logit_softcap)
+
+
+def project_kv(params, memory, cfg: ModelConfig):
+    """Cross-attention K/V (B, T, Hkv, D) of the encoder memory (B, T, d),
+    k-normed where ``qk_norm`` is set (no RoPE)."""
+    B, T, _ = memory.shape
+    hd = cfg.resolved_head_dim
+    k = dense_apply(params["wk"], memory, cfg).reshape(B, T, cfg.num_kv_heads, hd)
+    v = dense_apply(params["wv"], memory, cfg).reshape(B, T, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        k = head_rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, lead: Tuple[int, ...] = (),
+               device=None) -> KVCache:
+    """A zeroed ``lead + (B, max_len, Hkv, D)`` cache in the activation
+    dtype, length 0: one layer's, or with ``lead`` the stacked caches of
+    several that share one length."""
+    shape = lead + (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0)

@@ -1,17 +1,23 @@
-"""Per-family model API (``repro.models.registry``).  The port has the
-decoder-LM family, the two that add prefix embeddings to it (vlm, m6),
-xLSTM and zamba:
+"""Per-family model API (``repro.models.registry``): every family of the
+reference, the decoder LM, the two that add prefix embeddings to it (vlm,
+m6), xLSTM, zamba and encdec:
 
   forward(params, batch, cfg, ctx)             training forward; logits
                                                align with batch["labels"]
+                                               (encdec reads batch["frames"]
+                                               and batch["tokens"])
   init_state(cfg, batch, max_len, device)      empty dense KV caches, the
                                                recurrent family's O(1)
                                                zero state (max_len ignored),
                                                or zamba's Mamba2 states
-                                               and shared-attention caches
+                                               and shared-attention caches;
+                                               encdec refuses (its state
+                                               needs the encoder's memory:
+                                               ``encdec.init_state``)
   decode(params, tokens, state, cfg, ctx)      one-token serve step
   prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state);
-                                               None for xLSTM and zamba
+                                               None for xLSTM, zamba and
+                                               encdec
   kv_cache                                     the state holds caches of
                                                max_len positions
 
@@ -19,14 +25,19 @@ The static engine (``repro_torch.serving.engine``) serves through
 ``prefill`` and ``decode`` (``decode`` token by token over the prompt when
 ``prefill`` is None); the continuous engine runs its own paged forward for
 the decoder LMs and ``decode`` in recurrent slots for xLSTM, and refuses
-zamba, as the reference's does.  The families with no MoE layer (xLSTM,
-zamba) take ``ctx`` and ignore it.  The encdec family is not ported."""
+zamba and encdec, as the reference's does.  No engine serves encdec: the
+static engine's ``generate`` fails at ``init_state`` with the reference's
+message (the reference asserts; the port raises NotImplementedError), and
+its decode route is ``encdec.encode``, ``encdec.init_state`` and
+``decode`` (``encdec.decode_step``).  The families with no MoE layer
+(xLSTM, zamba) take ``ctx`` and ignore it."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
@@ -91,8 +102,20 @@ def _zb_decode(params, tokens, state, cfg: ModelConfig, ctx=None):
 
 ZAMBA = FamilyAPI(forward=_zb_forward, init_state=ZB.zamba_init_state, decode=_zb_decode,
                   prefill=None)
+
+
+def _ed_forward(params, batch, cfg: ModelConfig, ctx=None):
+    return ED.encdec_train_apply(params, batch["frames"], batch["tokens"], cfg, ctx=ctx)
+
+
+def _ed_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    raise NotImplementedError("use encdec.init_state with real memory for concrete states")
+
+
+ENCDEC = FamilyAPI(forward=_ed_forward, init_state=_ed_init_state, decode=ED.decode_step,
+                   prefill=None)
 _FAMILIES = {"decoder_lm": DECODER_LM, "vlm": DECODER_LM, "m6": DECODER_LM, "xlstm": XLSTM,
-             "zamba": ZAMBA}
+             "zamba": ZAMBA, "encdec": ENCDEC}
 
 
 def get_family(cfg: ModelConfig) -> FamilyAPI:

@@ -32,7 +32,7 @@ from repro_torch.core.metrics import empty_aux
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.core.moe_attention import moe_attention_apply
 from repro_torch.models import layers as L
-from repro_torch.models.attention import KVCache, attention_apply
+from repro_torch.models.attention import KVCache, attention_apply, init_cache
 from repro_torch.nn.spec import is_moe_layer as _is_moe_layer
 
 
@@ -97,13 +97,16 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, caches: Optional[KVCa
         else:
             x, aux, _ = body(x, bp, i)
         auxes.append(aux)
-    aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
-    for k in aux:
-        if k.endswith("_loss"):
-            aux[k] = aux[k].sum()
     if caches is not None:             # every layer wrote this step's positions in place
         caches = KVCache(caches.k, caches.v, caches.length + x.shape[1])
-    return x, aux, caches
+    return x, sum_layer_aux(auxes), caches
+
+
+def sum_layer_aux(auxes: list) -> dict:
+    """Per-layer aux dicts -> the ``*_loss`` entries summed over layers, the
+    others stacked (L, ...), as the reference's scan leaves them."""
+    aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+    return {k: v.sum() if k.endswith("_loss") else v for k, v in aux.items()}
 
 
 def caches_index(caches: KVCache, i: int) -> KVCache:
@@ -114,9 +117,7 @@ def caches_index(caches: KVCache, i: int) -> KVCache:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> KVCache:
     """Zeroed caches of every layer in the activation dtype,
     ``(L, B, T, Hkv, D)``, length 0."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0)
+    return init_cache(cfg, batch, max_len, lead=(cfg.num_layers,), device=device)
 
 
 def _logits(params, x, cfg: ModelConfig):

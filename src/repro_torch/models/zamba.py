@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.metrics import empty_aux
 from repro_torch.models import layers as L
-from repro_torch.models.attention import KVCache, attention_apply
+from repro_torch.models.attention import KVCache, attention_apply, init_cache
 from repro_torch.models.mamba2 import (
     Mamba2State,
     mamba2_block_apply,
@@ -142,9 +142,6 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
 def zamba_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> ZambaState:
     """Zeroed f32 Mamba2 states of every layer and ``n_shared`` empty
     ``max_len`` caches in the activation dtype, length 0."""
-    scfg = _shared_cfg(cfg)
-    shape = (_n_shared(cfg), batch, max_len, scfg.num_kv_heads, scfg.resolved_head_dim)
-    return ZambaState(
-        mamba2_init_state(cfg, batch, device, lead=(cfg.num_layers,)),
-        KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
-                torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0))
+    return ZambaState(mamba2_init_state(cfg, batch, device, lead=(cfg.num_layers,)),
+                      init_cache(_shared_cfg(cfg), batch, max_len, lead=(_n_shared(cfg),),
+                                 device=device))

@@ -1,6 +1,7 @@
 from repro_torch.nn.spec import (  # noqa: F401
     ParamShape,
     count_params,
+    encdec_shapes,
     flat_params,
     from_jax_params,
     init_params,

@@ -7,7 +7,9 @@ dense/MoE stack (``moe_layer_period`` > 1) is the reference's list of
 per-layer dicts.  :func:`model_shapes` picks the family's tree (the
 xLSTM family's from ``repro_torch.models.xlstm``, zamba's from
 ``repro_torch.models.zamba``: its Mamba2 blocks stacked ``(L, ...)``
-under ``mamba``, its one shared block under ``shared``).  Each leaf is a
+under ``mamba``, its one shared block under ``shared``; encdec's from
+:func:`encdec_shapes`: ``encoder`` and ``decoder`` stacked, one embedding
+table that also unembeds).  Each leaf is a
 :class:`ParamShape`: its shape, the dtype the port keeps it in, and how it
 is initialised.
 
@@ -71,6 +73,21 @@ def _dense(wdt: str, lead, d_in: int, d_out: int, bias: bool = False):
     return out
 
 
+def _attn(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...]) -> Dict[str, ParamShape]:
+    """Dense attention's leaves (``repro.models.attention.attention_specs``)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = {
+        "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias),
+        "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+        "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+        "wo": _dense(wdt, lead, cfg.num_heads * hd, d),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+        attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+    return attn
+
+
 def _block(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...], moe_layer: bool) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     m = cfg.moe
@@ -84,15 +101,7 @@ def _block(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...], moe_layer: bool) -
         if router is not None:
             attn["router"] = ParamShape(lead + router, "float32", "normal")
     else:
-        attn = {
-            "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias),
-            "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-            "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-            "wo": _dense(wdt, lead, cfg.num_heads * hd, d),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones")
-            attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+        attn = _attn(cfg, wdt, lead)
     gated = cfg.ffn_activation in ("swiglu", "geglu")
     if moe_layer:
         E = m.num_experts
@@ -133,8 +142,31 @@ def lm_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
     return tree
 
 
+def encdec_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
+    """Param shape tree, key for key the reference's ``encdec_specs``: the
+    dense encoder blocks stacked ``(L_enc, ...)`` (``num_encoder_layers``,
+    or ``num_layers`` where that is 0), the decoder blocks stacked
+    ``(L, ...)`` with self-attention, cross-attention and an FFN that is MoE
+    in every layer where ``num_experts`` > 0 (dense attention in both, even
+    under ``moe_attention``); one embedding table, which also unembeds,
+    whatever ``tie_embeddings`` says, and no position table."""
+    wdt = cfg.param_dtype if train else cfg.dtype
+    n_enc = cfg.num_encoder_layers or cfg.num_layers
+    lead = (cfg.num_layers,)
+    dec = _block(cfg, wdt, lead, moe_layer=cfg.moe.num_experts > 0)
+    decoder = {"ln_self": _norm(cfg, lead), "self_attn": _attn(cfg, wdt, lead),
+               "ln_cross": _norm(cfg, lead), "cross_attn": _attn(cfg, wdt, lead),
+               "ln_ffn": dec["ln_ffn"], "ffn": dec["ffn"]}
+    return {"embed": {"table": ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt,
+                                          "normal")},
+            "encoder": _block(cfg, wdt, (n_enc,), moe_layer=False),
+            "enc_norm": _norm(cfg), "decoder": decoder, "final_norm": _norm(cfg)}
+
+
 def model_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
     """The param shape tree of ``cfg``'s family."""
+    if cfg.family == "encdec":
+        return encdec_shapes(cfg, train)
     if cfg.family == "xlstm":
         from repro_torch.models.xlstm import xlstm_shapes
 

@@ -24,8 +24,11 @@ Differences from the reference, by design of the port:
   ``max_len`` is refused (the reference clamps both silently);
 * MoE attention (``moe_attention``) is refused at construction: it has no
   cached decode path, and the reference's cached path would run dense
-  attention over the expert weights;
-* no logit softcap (the dense decode kernel has none).
+  attention over the expert weights.
+
+A logit softcap (``attn_logit_softcap``) is applied as the reference's
+``_sdpa`` applies it: in the prefill's attention and, inside the dense
+decode kernel, in every decode step's.
 
 A family with no ``prefill`` (xLSTM, zamba) takes its prompt token by
 token through ``decode`` from a zero state, as the reference's does.
@@ -34,7 +37,9 @@ bounds nothing there.  Zamba's state holds a ``max_len`` cache for each
 application of its shared attention, whose every step (prompt tokens
 too) is the dense decode kernel; a ``generate`` past ``max_len`` is
 refused as a decoder LM's is (the reference clamps the cache write
-silently).
+silently).  Encdec has no ``prefill`` either, and its ``init_state``
+refuses with the reference's message (a decode state needs the encoder's
+memory), so ``generate`` fails there, as the reference's does.
 """
 from __future__ import annotations
 
@@ -55,8 +60,6 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, max_len: int):
         self.fam = get_family(cfg)
-        if cfg.attn_logit_softcap > 0:
-            raise NotImplementedError("the dense decode attention kernel has no logit softcap")
         if cfg.moe.moe_attention:
             raise NotImplementedError("moe_attention has no cached decode path")
         if cfg.pos_embed == "learned" and max_len > cfg.max_seq_len:

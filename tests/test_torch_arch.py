@@ -1,15 +1,18 @@
 """The decoder-LM and VLM configs in the port against the JAX reference on
 the CPU: tests/test_arch_smoke.py's forward, train step and decode step for
-each of the seven ids, with numeric parity in place of shape checks.
+each of the seven ids and seamless-m4t-large-v2 (encdec), with numeric
+parity in place of shape checks.
 
 Each smoke config runs through both packages from the reference's params
 (``from_jax_params``) on the reference pipeline's batches, f32: logits
 within 1e-4 (two layers; the tolerance tests/test_torch_training.py holds
 ``lm_apply`` to), one AdamW step's loss and grad norm within rtol 1e-5 and
 its parameters within 2e-5, and the prefill-then-decode logits within
-1e-4.  The id whose family is not ported (encdec) raises, naming the
-family; xlstm-125m and zamba2-7b have their own tests (test_torch_xlstm.py,
-test_torch_zamba.py).
+1e-4 (encdec: token-by-token decode steps from the encoder's memory, as
+tests/test_arch_smoke.py:58-63 drives it).  Every id resolves; no engine
+serves encdec (the reference's refusals); xlstm-125m and zamba2-7b have
+their own tests (test_torch_xlstm.py, test_torch_zamba.py), and encdec
+its own besides (test_torch_encdec.py).
 """
 import dataclasses
 
@@ -44,8 +47,9 @@ from repro_torch.train.trainer import make_train_step as t_make_train_step
 from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["granite-moe-3b-a800m", "olmoe-1b-7b", "qwen3-8b", "qwen3-14b", "deepseek-7b",
-         "qwen2.5-32b", "pixtral-12b"]
-UNPORTED = {"seamless-m4t-large-v2": "encdec"}
+         "qwen2.5-32b", "pixtral-12b", "seamless-m4t-large-v2"]
+# the ids no serving engine takes, and the reference's reason at generate
+UNPORTED = {"seamless-m4t-large-v2": "use encdec.init_state with real memory"}
 SEQ = 24
 
 
@@ -83,9 +87,21 @@ def test_configs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", list(UNPORTED))
 def test_unported_families_raise(arch):
-    for get in (treg.get_config, treg.get_smoke_config, treg.get_module):
-        with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-            get(arch)
+    """The id resolves to the reference's config, and the static engine's
+    ``generate`` refuses it as the reference's does, with its message (the
+    reference asserts, the port raises NotImplementedError)."""
+    from repro.serving.engine import ServingEngine as JStatic
+    from repro_torch.serving.engine import ServingEngine as TStatic
+
+    for get in ("get_config", "get_smoke_config"):
+        assert dataclasses.asdict(getattr(treg, get)(arch)) == dataclasses.asdict(
+            getattr(jreg, get)(arch))
+    jcfg, tcfg, jp, tp = _setup(arch)
+    prompts = np.zeros((2, 4), np.int32)
+    with pytest.raises(AssertionError, match=UNPORTED[arch]):
+        JStatic(jcfg, jp, max_len=16).generate(jnp.asarray(prompts), 3)
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
+        TStatic(tcfg, tp, max_len=16).generate(prompts, 3)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -135,11 +151,30 @@ def test_train_step_matches_reference(arch):
 def test_decode_step_matches_reference(arch):
     """The static path: a prefill of 8 tokens into 16-position caches, then
     two decode steps (the dense decode attention wrapper, its plain version
-    here), logits within 1e-4 at every step."""
+    here), logits within 1e-4 at every step.  Encdec has no prefill: its
+    10 tokens are decode steps from ``init_state`` over the memory that
+    ``encode`` makes of 6 frames."""
     jcfg, tcfg, jp, tp = _setup(arch)
     jfam, tfam = j_family(jcfg), t_family(tcfg)
     toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 10)).astype(np.int32)
     V = jcfg.vocab_size
+    if jcfg.family == "encdec":
+        from repro.models import encdec as JED
+        from repro_torch.models import encdec as TED
+
+        frames = np.random.default_rng(6).standard_normal((2, 6, jcfg.d_model)).astype(
+            np.float32)
+        jstate = JED.init_state(jp, JED.encode(jp, jnp.asarray(frames), jcfg), jcfg, 16)
+        jdec = jax.jit(lambda p, t, s: jfam.decode(p, t, s, jcfg))
+        with torch.inference_mode():
+            tstate = TED.init_state(tp, TED.encode(tp, torch.from_numpy(frames), tcfg), tcfg, 16)
+            for i in range(10):
+                jl, jstate = jdec(jp, jnp.asarray(toks[:, i:i + 1]), jstate)
+                tl, tstate = tfam.decode(tp, torch.from_numpy(toks[:, i:i + 1]), tstate, tcfg)
+                assert tuple(tl.shape) == (2, 1, jl.shape[-1])
+                np.testing.assert_allclose(tl[..., :V].numpy(), np.asarray(jl)[..., :V],
+                                           atol=1e-4)
+        return
     jl, jstate = jfam.prefill(jp, {"tokens": jnp.asarray(toks[:, :8])}, jcfg, 16)
     with torch.inference_mode():
         tl, tstate = tfam.prefill(tp, {"tokens": torch.from_numpy(toks[:, :8])}, tcfg, 16)

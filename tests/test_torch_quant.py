@@ -338,7 +338,8 @@ def test_decode_attention_reads_strided_cache():
     ("decode_attention", da_ops._DENSE_ARGTYPES)])
 def test_ctypes_signatures_match_c_sources(name, argtypes):
     """The wrappers' ctypes argtypes mirror the extern "C" signatures:
-    pointers for pointers and the stream, 64-bit ints for the strides."""
+    pointers for pointers and the stream, 64-bit ints for the strides, a
+    float for the dense kernel's softcap."""
     import ctypes
     import re
 
@@ -347,7 +348,8 @@ def test_ctypes_signatures_match_c_sources(name, argtypes):
     src = build.SOURCES[name].read_text()
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_longlong if "long long" in p
-             else ctypes.c_int for p in (p.strip() for p in sig.split(","))]
+             else ctypes.c_float if p.startswith("float ") else ctypes.c_int
+             for p in (p.strip() for p in sig.split(","))]
     assert argtypes == kinds
 
 

@@ -255,8 +255,6 @@ def test_learned_positions_and_cache_bounds_are_refused():
     eng = TStatic(tcfg, tp, max_len=tcfg.max_seq_len)
     with pytest.raises(ValueError, match="exceed max_len"):
         eng.generate(_prompts(tcfg.vocab_size, B=1, S=60), 6)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TStatic(tcfg.replace(attn_logit_softcap=30.0), tp, max_len=16)
 
 
 def test_serve_cli_static_engine_on_cpu(tmp_path, capsys):
