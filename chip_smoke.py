@@ -291,13 +291,51 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               (dense kernel 5 x decode steps, ragged FFN 5 x (prefill +
               decode steps); tokens equal to the plain versions' but at
               near-ties).
-16. report  — a {"kernels": [...]} line (decode_attention's launches and
+16. mesh    — m6-base served on a (data, expert) mesh
+              (``chip_smoke.phase_mesh(torch, base, int8)`` after phases 5
+              and 7 (a), whose step clocks ``STEP_CLOCKS`` records), phase
+              5's weights, trace and ServeConfig defaults, dropless: (a)
+              the (1, 1) mesh in this process on a world-1 NCCL group,
+              phase 5's and 7 (a)'s runs replayed at their step clocks
+              (the same admissions, so the same rows) over bf16 and int8
+              pools: tokens identical to theirs, the paged (int8: the
+              quantized) kernel and the ragged FFN launched layers x steps,
+              every FFN launch on the tensor cores, no all_to_all,
+              conservation after every step; the bf16 replay in two
+              rounds with and without the per-step checks on the mesh
+              and without them on a single-device engine (mean step of
+              each); then an
+              unreplayed run (tokens/s, mean step, p50/p95); (b) (data 2, expert 2) as
+              four spawned processes that share the card over gloo
+              (``launch.mesh.spawn``), m6-base with group_size 1 (G = N: 8
+              at decode, 72 at a mixed step, split over the 4 ranks), each
+              rank drawing only its slices of the weights: every rank 16
+              of the 32 experts and a pool slice of shard_blocks + 1 rows,
+              3 all_to_alls in every MoE layer of every step, the paged
+              kernel and the ragged FFN launched layers x steps on each
+              rank (the FFN on the tensor cores), every rank's tokens
+              equal (also asserted each step by check_invariants), and
+              equal to a single-device run of the same config in this
+              process but at reported near-ties of its top two logits;
+              reported: equality with phase 5's tokens, per-rank tokens/s,
+              mean step and the seconds in collectives; then the trace
+              served once more by each rank's ContinuousEngine.run,
+              unreplayed, the ranks agreeing on each step's clock: its
+              tokens equal on every rank and every budget met (tokens/s,
+              p50/p95, the token match against the replay).  Phase 3 holds the
+              paged and int8 kernels at a shard's 4 and 36 rows over a
+              65-row pool slice and the ragged FFN at (b)'s received
+              buffers (928 and 8352 rows, 16 local experts); phase 4 times
+              them.
+17. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
               13; zamba_launches of phase 14, and the dense kernel's
               zamba_shapes; encdec_launches of phase 15, and the dense
-              kernel's encdec_shapes and softcap_shapes), the card line,
+              kernel's encdec_shapes and softcap_shapes; mesh_launches,
+              mesh_max_abs_err and mesh_shapes of phase 16 for the paged,
+              int8 and ragged FFN kernels), the card line,
               and as the last line {"ok":
               true, "device": {"platform": "gpu", "kind": ..., "count":
               1}}.
@@ -839,6 +877,9 @@ def phase_check(torch):
     for key, err in check_encdec_kernel(torch).items():
         errs[key] = err
         errs["decode_attention"] = max(errs["decode_attention"], err)
+    for name, err in check_mesh_kernels(torch).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+        errs[f"mesh {name}"] = err
     return errs, weights
 
 
@@ -1775,7 +1816,9 @@ def phase_serve(torch):
     rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, stats = engine.run(requests)
+    STEP_CLOCKS["bf16"] = []                                    # phase 16 replays them
+    with recorded_clocks(STEP_CLOCKS["bf16"]):
+        out, stats = engine.run(requests)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
@@ -2500,8 +2543,10 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
     rffn.ragged_ffn.tc_launches = 0
     report, before, outs = {}, {n: 0 for n in counters}, {}
     for name in ("int8", "fp8"):
-        out, stats, eng, wall_ms = serve_once(
-            torch, cfg, params, dataclasses.replace(serve, kv_quant=name), requests, device)
+        STEP_CLOCKS[name] = []                                  # phase 16 replays int8's
+        with recorded_clocks(STEP_CLOCKS[name]):
+            out, stats, eng, wall_ms = serve_once(
+                torch, cfg, params, dataclasses.replace(serve, kv_quant=name), requests, device)
         got = {n: fn.launches - before[n] for n, fn in counters.items()}
         before = {n: fn.launches for n, fn in counters.items()}
         steps = eng.steps
@@ -5455,6 +5500,615 @@ def phase_timing_encdec(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving on a (data, expert) mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRIVIAL = (("data", 1), ("expert", 1))
+MESH_RANKS = (("data", 2), ("expert", 2))     # (b): four processes that share the card
+MESH_SPAWN_TIMEOUT = 600
+# the step clocks of phase 5's run ("bf16") and phase 7 (a)'s int8 run
+# ("int8"): phase 16 replays them, so that its engines admit as those runs
+# did and every step's rows, and so every kernel's shapes, are theirs
+STEP_CLOCKS = {}
+# (b)'s kernel shapes, a shard's: 4 decode rows, or 4 + a 32-row chunk, on a
+# pool slice of 64 blocks + garbage; the ragged FFN's received rows of one-
+# token groups (bx = 8, R = 232), 2 (decode) or 18 (mixed) groups from each
+# of 2 source ranks, on 16 of 32 experts
+MESH_DECODE_LENS = [21, 56, 112, 9]
+MESH_CHUNK = (40, 32)                           # the chunk's first position, rows
+MESH_FFN_GROUPS = {"decode": 2, "mixed": 18}
+
+
+@contextmanager
+def recorded_clocks(store: list):
+    """Every ``ContinuousEngine.step`` call's clock appended to ``store``."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    real = ContinuousEngine.step
+
+    def step(self, clock_ms: float = 0.0):
+        store.append(clock_ms)
+        return real(self, clock_ms)
+
+    ContinuousEngine.step = step
+    try:
+        yield store
+    finally:
+        ContinuousEngine.step = real
+
+
+def replay(torch, engine, requests, clocks):
+    """Serve ``requests`` on ``engine`` stepping at ``clocks``, an earlier
+    run's step clocks: the same admissions, so the same rows at every step.
+    Returns ({uid: tokens}, wall ms)."""
+    table = engine.params["embed"]["table"]
+    for r in requests:
+        engine.scheduler.add(r)
+    out = {}
+    sync(torch, table)
+    t0 = time.perf_counter()
+    for clock in clocks:
+        for st in engine.step(clock):
+            out[st.request.uid] = list(st.generated)
+    sync(torch, table)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if engine.scheduler.has_work() or len(out) != len(requests):
+        raise AssertionError(f"replay: {len(out)} of {len(requests)} requests done after "
+                             f"{len(clocks)} steps")
+    return out, wall_ms
+
+
+def mesh_shard_case(seed, chunk=True, quant=None, dtype=None):
+    """A shard's attention inputs in (b): ``MESH_DECODE_LENS`` decode rows
+    (the last slot's masked when ``chunk``: it prefills) and, with
+    ``chunk``, the 32 chunk rows of that slot, which share its table; a pool
+    slice of 64 blocks + garbage (``shard_blocks + 1``)."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    Hq = Hkv = 16
+    D, bs, MB, P = 64, 16, 16, 65
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lens = list(MESH_DECODE_LENS)
+    start, n = MESH_CHUNK
+    if chunk:
+        lens[-1] = 0
+        lens += [start + j + 1 for j in range(n)]
+    N = len(lens)
+    kp = torch.randn((P, Hkv, bs, D), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((P, Hkv, bs, D), generator=g, device="cuda").to(dtype)
+    q = torch.randn((N, Hq, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(P - 1, generator=g, device="cuda").reshape(4, MB).int()
+    slot = [0, 1, 2, 3] + [3] * (N - 4)
+    tables = perm[torch.tensor(slot, device="cuda")]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    used = torch.arange(MB, device="cuda")[None, :] * bs < lengths[:, None]
+    tables = torch.where(used, tables, torch.full_like(tables, P - 1)).contiguous()
+    if quant is None:
+        return q, kp, vp, tables, lengths
+    kc, ks, vc, vs = quantize_pools(kp, vp, quant)
+    return q, kc, vc, ks, vs, tables, lengths
+
+
+def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=4096):
+    """The rows expert shard ``shard`` of ``ne`` receives in (b)'s ragged
+    all_to_all, built as ``dropless.ragged_ep_dispatch`` packs them: from
+    each of ``ne`` source ranks, ``groups`` one-token groups routed top-1
+    over E experts (bx 8, R = 232 rows a group), each group's rows of this
+    shard's experts at the front of its R-row slot, the rest zero rows of
+    local expert 0.  Returns (xs, local block experts, this shard's
+    weights, live rows, the flat indices of the routed row blocks)."""
+    import torch
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.routers.topk import topk_plan
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = ne * groups
+    logits = torch.randn((G, 1, E), generator=g, device="cuda")
+    plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0), 1)
+    bx = 8
+    rag = plan.ragged(bx)
+    R = rag.token.shape[1]
+    epl = E // ne
+    x = torch.randn((G, 1, M), generator=g, device="cuda").to(torch.bfloat16)
+    xs = torch.zeros((G, R, M), dtype=torch.bfloat16, device="cuda")
+    be = torch.zeros((G, R // bx), dtype=torch.int32, device="cuda")
+    live, routed = 0, []
+    for i in range(G):
+        lo = int(rag.expert_offsets[i, shard * epl])
+        hi = int(rag.expert_offsets[i, (shard + 1) * epl])
+        tok = rag.token[i, lo:hi]
+        xs[i, :hi - lo] = torch.where((tok >= 0)[:, None], x[i, 0][None, :],
+                                      torch.zeros_like(x[i, 0])[None, :])
+        be[i, :(hi - lo) // bx] = rag.block_expert[i, lo // bx:hi // bx] - shard * epl
+        live += int((tok >= 0).sum())
+        routed.append(i * (R // bx) + torch.arange((hi - lo) // bx, device="cuda"))
+    if weights is None:
+        def w(*shape):
+            return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+
+        weights = (w(epl, M, I), None, w(epl, I, M))
+    return (xs.reshape(G * R, M), be.reshape(-1).contiguous(), weights, live,
+            torch.cat(routed))
+
+
+def mesh_ffn_bound(xs, be, weights, live, routed):
+    """The live rows read and written, the routed blocks' expert ids and
+    the routed experts' weights (``ffn_bound`` for a received buffer: the
+    padding blocks, parked on local expert 0, add neither rows nor an
+    expert)."""
+    M = xs.shape[1]
+    w_up, w_gate, w_down = weights
+    I = w_up.shape[2]
+    mats = 3 if w_gate is not None else 2
+    experts = int(be[routed].unique().numel())
+    nbytes = (2 * live * M * xs.element_size() + routed.numel() * 4
+              + experts * mats * M * I * w_up.element_size())
+    return roofline(nbytes, 2.0 * live * M * I * mats)
+
+
+def check_mesh_kernels(torch):
+    """Phase 16's shard shapes against the plain versions at TOL: the paged
+    and int8 kernels over a shard's pool slice at (b)'s decode and mixed
+    rows (length-0 rows exactly 0), the ragged FFN at (b)'s received
+    buffers on the tensor cores (also within one bf16 ulp of split-h).
+    Returns each kernel's max abs err."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.quant import get_kv_quant
+
+    errs = {"paged_decode_attention": 0.0, "quantized_paged_decode_attention": 0.0,
+            "ragged_ffn": 0.0}
+    for i, chunk in enumerate((False, True)):
+        label = "mixed" if chunk else "decode"
+        case = mesh_shard_case(1600 + i, chunk)
+        out = da.paged_decode_attention(*case, max_length=int(case[4].max()))
+        torch.cuda.synchronize()
+        errs["paged_decode_attention"] = max(errs["paged_decode_attention"], check_close(
+            f"paged_decode_attention mesh {label} N={case[0].shape[0]}", out,
+            dref.paged_decode_attention_ref(*case)))
+        if not (out[case[4] == 0] == 0).all():
+            raise AssertionError("paged_decode_attention: a length-0 row is not exactly 0")
+        qcase = mesh_shard_case(1610 + i, chunk, quant="int8")
+        pol = get_kv_quant("int8")
+        out = da.quantized_paged_decode_attention(*qcase, policy=pol,
+                                                  max_length=int(qcase[6].max()))
+        torch.cuda.synchronize()
+        errs["quantized_paged_decode_attention"] = max(
+            errs["quantized_paged_decode_attention"], check_close(
+                f"quantized_paged_decode_attention int8 mesh {label}", out,
+                dref.quantized_paged_decode_attention_ref(*qcase, policy=pol)))
+        if not (out[qcase[6] == 0] == 0).all():
+            raise AssertionError("quantized_paged_decode_attention: a length-0 row is not 0")
+    weights = None
+    for label, groups in MESH_FFN_GROUPS.items():
+        xs, be, weights, live, routed = mesh_ffn_case(groups, 1620, weights)
+        log(f"  ragged_ffn mesh {label}: {xs.shape[0]} received rows, {live} live, "
+            f"{routed.numel()} routed blocks of {be.numel()} on "
+            f"{be[routed].unique().numel()} of {weights[0].shape[0]} local experts")
+        err, _ = check_routed(
+            f"ragged_ffn mesh {label}", rffn.ragged_ffn,
+            lambda *a: rffn.ragged_ffn(*a, "gelu", block_x=8), (xs, be, *weights),
+            lambda *a: ragged_ffn_ref(*a, "gelu"), lambda *a: ragged_ffn_split_ref(*a, "gelu"),
+            True)
+        errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+    return errs
+
+
+def time_mesh_ffn(torch, groups, seed):
+    """Kernel, plain and grouped_mm times of the ragged FFN over a received
+    buffer of (b); grouped_mm over the same rows sorted by local expert
+    (its offsets need each expert's rows contiguous)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
+
+    xs, be, weights, live, routed = mesh_ffn_case(groups, seed)
+    w_up, _, w_down = weights
+
+    def kern():
+        return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=8)
+
+    bound, by = mesh_ffn_bound(xs, be, weights, live, routed)
+    k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
+    rows_e = be.long().repeat_interleave(8)
+    order = torch.argsort(rows_e, stable=True)
+    xsort = xs[order].contiguous()
+    offs = torch.bincount(rows_e, minlength=w_up.shape[0]).cumsum(0).int()
+    lib_ms = lib_dev = None
+    try:
+        def grouped():
+            h = F.gelu(F.grouped_mm(xsort, w_up, offs=offs), approximate="tanh")
+            return F.grouped_mm(h, w_down, offs=offs)
+
+        lib_ms, lib_dev = cuda_ms(grouped), device_ms(grouped, bound_ms=bound)
+    except (RuntimeError, TypeError) as exc:
+        log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:160]}): library_ms null")
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+                rows=int(xs.shape[0]), live_rows=live,
+                routed_experts=int(be[routed].unique().numel()))
+
+
+def time_mesh_attention(torch, chunk, seed, quant=None):
+    """Kernel, plain and SDPA times of the paged (or int8) kernel at a
+    shard's rows over its pool slice (16 rotating copies)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.quant import get_kv_quant
+
+    copies = [mesh_shard_case(seed + c, chunk, quant=quant) for c in range(16)]
+    it = iter(range(1 << 30))
+    pol = get_kv_quant(quant) if quant else None
+
+    def nxt():
+        return copies[next(it) % len(copies)]
+
+    first = copies[0]
+    lengths = first[-1]
+    longest = int(lengths.max())
+    if quant is None:
+        q, kp, vp, tables, _ = first
+        bound, by = attention_bound(q, kp, tables, lengths)
+
+        def kern():
+            return da.paged_decode_attention(*nxt(), max_length=longest)
+
+        def plain():
+            return dref.paged_decode_attention_ref(*nxt())
+
+        k_all, v_all = kp, vp
+    else:
+        q, kc, vc, ks, vs, tables, _ = first
+        bound, by = quant_attention_bound(q, kc, tables, lengths)
+
+        def kern():
+            return da.quantized_paged_decode_attention(*nxt(), policy=pol, max_length=longest)
+
+        def plain():
+            return dref.quantized_paged_decode_attention_ref(*nxt(), policy=pol)
+
+    N, Hq, D = q.shape
+    Hkv, bs, MB = first[1].shape[1], first[1].shape[2], tables.shape[1]
+    tbl = tables.long()
+    mask = (torch.arange(MB * bs, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+
+    def gathered(k_pool, v_pool):
+        return (k_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D),
+                v_pool[tbl].permute(0, 2, 1, 3, 4).reshape(N, Hkv, MB * bs, D))
+
+    if quant is None:
+        kk, vv = gathered(kp, vp)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
+    else:
+        def sdpa():                  # dequantize the rows' blocks, then SDPA (phase 4's way)
+            kk, vv = gathered((pol.decode(kc) * ks[..., None, None]).to(q.dtype),
+                              (pol.decode(vc) * vs[..., None, None]).to(q.dtype))
+            return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask)
+
+    return dict(ms=cuda_ms(kern), device_ms=device_ms(kern, bound_ms=bound),
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(sdpa),
+                library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
+                plan=da.launch_plan(q, first[1], tables, max_length=longest))
+
+
+MESH_TIMING = {"paged_decode_attention": ["paged_decode_attention mesh decode",
+                                          "paged_decode_attention mesh mixed"],
+               "quantized_paged_decode_attention": ["quantized_paged_decode_attention mesh decode",
+                                                    "quantized_paged_decode_attention mesh mixed"],
+               "ragged_ffn": ["ragged_ffn mesh decode", "ragged_ffn mesh mixed"]}
+
+
+def phase_timing_mesh(torch):
+    """Phase 16's shard shapes timed as phase 4 times its own (the SDPA
+    yardstick dequantizes the int8 pool outside its timing)."""
+    out = {}
+    for i, chunk in enumerate((False, True)):
+        label = "mixed" if chunk else "decode"
+        out[f"paged_decode_attention mesh {label}"] = time_mesh_attention(torch, chunk, 1640 + i)
+        out[f"quantized_paged_decode_attention mesh {label}"] = time_mesh_attention(
+            torch, chunk, 1650 + i, quant="int8")
+    for j, (label, groups) in enumerate(MESH_FFN_GROUPS.items()):
+        out[f"ragged_ffn mesh {label}"] = time_mesh_ffn(torch, groups, 1660 + j)
+    for name, r in out.items():
+        log(f"  mesh {name}: {timing_line(r)}")
+    return out
+
+
+def mesh_trivial_runs(torch, cfg, params, requests, base_tokens, int8_tokens, device="cuda",
+                      max_len=256):
+    """(a): the (1, 1) mesh in this process on a world-1 group (NCCL on the
+    card): phase 5's and phase 7 (a)'s runs replayed at their step clocks
+    over bf16 and int8 pools, tokens identical to theirs, every kernel
+    launched layers x steps (the ragged FFN on the tensor cores), no
+    all_to_all (the expert axis is 1), conservation after every step; the
+    bf16 replay in two rounds with and without the per-step checks on the
+    mesh and without them on a single-device engine, for what the checks
+    and the mesh cost a step; then an unreplayed run of the bf16 engine for
+    tokens/s and p50/p95."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_rules, shard_params
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.trace import latency_line
+
+    on_card = torch.device(device).type == "cuda"
+    mesh = make_serve_mesh(MESH_TRIVIAL, device)
+    log(f"  (a) {mesh}, backend {dist.get_backend()}")
+    placed = shard_params(params, make_rules(cfg, mesh, expert_axis="expert"), mesh.coord,
+                          keep=("router",))
+    serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)),
+                        mesh=MESH_TRIVIAL)
+    report, launches = {}, {}
+    attn = {"none": "paged_decode_attention", "int8": "quantized_paged_decode_attention"}
+    try:
+        for kv_quant, want, key in (("none", base_tokens, "bf16"),
+                                    ("int8", int8_tokens, "int8")):
+            eng = ContinuousEngine(cfg, placed, dataclasses.replace(serve, kv_quant=kv_quant),
+                                   device=device, check_invariants=True, mesh=mesh)
+            got = {}
+            collectives.reset_counters()
+            with counted_launches(got):
+                out, wall_ms = replay(torch, eng, requests, STEP_CLOCKS[key])
+            steps = eng.steps
+            if on_card:
+                expect_launches(f"(a) {key}", got, {attn[kv_quant]: cfg.num_layers * steps,
+                                                    "ragged_ffn": cfg.num_layers * steps})
+            if collectives.all_to_all.launches:
+                raise AssertionError(f"(a) {key}: all_to_all ran on a 1 x 1 mesh")
+            differ = sorted(u for u in want if want[u] != out[u])
+            if differ:
+                raise AssertionError(f"(a) {key}: requests {differ} differ from the single-device "
+                                     f"run's tokens")
+            eng.cache.check_conservation()
+            launches[attn[kv_quant]] = got[attn[kv_quant]]
+            launches["ragged_ffn"] = launches.get("ragged_ffn", 0) + got["ragged_ffn"]
+            log(f"  (a) {key} pools: {steps} steps replayed at phase "
+                f"{'5' if key == 'bf16' else '7 (a)'}'s clocks, tokens identical to that run's; "
+                f"mean step {wall_ms / steps:.3f} ms (host clock); launches "
+                f"{ {n: v for n, v in got.items() if v} }")
+            report[key] = dict(steps=steps, replay_mean_step_ms=wall_ms / steps,
+                               tokens_identical=True)
+        # what the per-step checks and the mesh cost a step: the bf16 replay
+        # in two rounds of three variants, so that the host's drift spreads
+        variants = (("checked_mesh", True, True), ("unchecked_mesh", False, True),
+                    ("unchecked_single_device", False, False))
+        costs = {name: [] for name, _, _ in variants}
+        for _ in range(2):
+            for name, checked, on_mesh in variants:
+                eng = ContinuousEngine(
+                    cfg, placed if on_mesh else params,
+                    dataclasses.replace(serve, mesh=MESH_TRIVIAL if on_mesh else None),
+                    device=device, check_invariants=checked, mesh=mesh if on_mesh else None)
+                out, wall_ms = replay(torch, eng, requests, STEP_CLOCKS["bf16"])
+                if out != base_tokens:
+                    raise AssertionError(f"(a) {name}: tokens differ from phase 5's")
+                costs[name].append(wall_ms / eng.steps)
+        log("  (a) bf16 replayed in two rounds, mean step (host clock): " + "; ".join(
+            f"{name} {' / '.join(f'{v:.3f}' for v in vals)} ms" for name, vals in costs.items()))
+        report["bf16"]["variant_mean_step_ms"] = costs
+        out, stats, eng, wall_ms = serve_once(torch, cfg, placed, serve, requests, device,
+                                              check_invariants=True, mesh=mesh)
+        steps = eng.steps
+        log(f"  (a) unreplayed: {latency_line(stats)}; {steps} steps, mean step "
+            f"{wall_ms / steps:.3f} ms (host clock); token match against phase 5 "
+            f"{token_match(base_tokens, out):.4f}")
+        report["run"] = dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
+                             p95_ms=stats["p95_ms"], mean_step_ms=wall_ms / steps, steps=steps,
+                             token_match_vs_phase5=token_match(base_tokens, out))
+    finally:
+        dist.destroy_process_group()
+    return report, launches
+
+
+def mesh_rank(rank, world, cfg, serve, requests, clocks, device):
+    """(b): one rank of the (2, 2) mesh, in a process of its own (gloo on
+    the card's CUDA tensors): m6-base's weights drawn leaf by leaf (this
+    rank's slices only), phase 5's trace replayed at its clocks with
+    ``check_invariants`` (conservation each step, every rank's tokens
+    all-gathered and compared); then the trace served once more through
+    ``ContinuousEngine.run`` unreplayed, the ranks agreeing on each step's
+    clock (``agree_max``).  Returns what phase 16 gates and reports."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_rules, placement
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.nn import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_serve_mesh(MESH_RANKS, device, backend="gloo")
+    rules = make_rules(cfg, mesh, expert_axis="expert")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device,
+                         place=placement(rules, mesh.coord, keep=("router",)))
+    init_s = time.perf_counter() - t0
+    eng = ContinuousEngine(cfg, params, serve, device=device, check_invariants=True, mesh=mesh)
+    steps = []
+    real = eng._paged_host_step
+
+    def counted(clock_ms):
+        before = collectives.all_to_all.launches
+        done = real(clock_ms)
+        steps.append(collectives.all_to_all.launches - before)
+        return done
+
+    eng._paged_host_step = counted
+    got = {}
+    collectives.reset_counters()
+    with counted_launches(got):
+        out, wall_ms = replay(torch, eng, requests, clocks)
+    tokens = sum(len(v) for v in out.values())
+    rep = dict(rank=rank, coord=mesh.coord, tokens=out, steps=eng.steps, a2a_steps=steps,
+               launches=got, wall_ms=wall_ms, tokens_per_s=tokens / (wall_ms / 1e3),
+               a2a_s=collectives.all_to_all.seconds, all_gather_s=collectives.all_gather.seconds,
+               a2a_launches=collectives.all_to_all.launches,
+               all_gather_launches=collectives.all_gather.launches,
+               experts=int(params["blocks"]["ffn"]["up"].shape[1]),
+               pool_rows=int(eng.cache.k_pool.shape[1]), shard_blocks=eng.cache.shard_blocks,
+               init_s=init_s)
+    eng._paged_host_step = real
+    first = eng.steps
+    run_out, stats = eng.run(requests)
+    rep.update(run_tokens=run_out, run_steps=eng.steps - first,
+               run_tokens_per_s=stats["generated_tokens_per_s"], run_p50_ms=stats["p50_ms"],
+               run_p95_ms=stats["p95_ms"])
+    return rep
+
+
+def r0_run(ranks) -> str:
+    """The unreplayed run of (b) per rank: steps, tokens/s, p50/p95."""
+    return "; ".join(f"rank {r['rank']} {r['run_steps']} steps {r['run_tokens_per_s']:.1f} "
+                     f"tokens/s p50 {r['run_p50_ms']:.1f} p95 {r['run_p95_ms']:.1f} ms"
+                     for r in ranks)
+
+
+def mesh_rank_runs(torch, cfg, requests, base_tokens, device="cuda", spawn_dir=None,
+                   max_len=256):
+    """(b): the (2, 2) mesh as four processes that share the card, against
+    a single-device run of the same ``group_size=1`` config in this process
+    (phase 5's weights, replayed at phase 5's clocks, tapped for the top-two
+    logit gaps): every rank holds 16 of the 32 experts and a pool slice of
+    ``shard_blocks + 1`` rows, all_to_all ran 3 times in every MoE layer of
+    every step, the paged kernel and the ragged FFN launched layers x steps
+    on each rank (the FFN on the tensor cores), every rank's tokens equal,
+    and equal to the single-device run's but at near-ties; the unreplayed
+    run's tokens equal on every rank and every budget met."""
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.nn import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    on_card = torch.device(device).type == "cuda"
+    V = cfg.vocab_size
+    serve = ServeConfig(max_len=max(max_len, max(r.total_len for r in requests)))
+    params = init_params(cfg, seed=0, device=device)            # phase 5's weights
+    margins, holder = {}, []
+
+    def tap(lg, slots, pos, lens):
+        running = holder[0].scheduler.running
+        for i in np.flatnonzero(lens > 0):
+            top2 = np.partition(lg[i, :V], V - 2)[V - 2:]
+            margins[running[int(slots[i])].request.uid, int(pos[i])] = (
+                float(top2[1] - top2[0]), float(top2[1]))
+
+    single = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap)
+    holder.append(single)
+    base, single_ms = replay(torch, single, requests, STEP_CLOCKS["bf16"])
+    single_steps = single.steps
+    del single, holder[:], params
+    if on_card:
+        torch.cuda.empty_cache()
+    import dataclasses
+    import tempfile
+
+    mesh_serve = dataclasses.replace(serve, mesh=MESH_RANKS)
+    if spawn_dir is not None:
+        Path(spawn_dir).mkdir(parents=True, exist_ok=True)
+    init = str(Path(tempfile.mkdtemp(dir=spawn_dir)) / "init")
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, 4, backend="gloo", init_file=init, timeout=MESH_SPAWN_TIMEOUT,
+                  args=(cfg, mesh_serve, requests, STEP_CLOCKS["bf16"],
+                        "cuda:0" if on_card else "cpu"))
+    spawn_s = time.perf_counter() - t0
+    E, L = cfg.moe.num_experts, cfg.num_layers
+    for r in ranks:
+        label = f"(b) rank {r['rank']} {r['coord']}"
+        if r["experts"] != E // 2 or r["pool_rows"] != r["shard_blocks"] + 1:
+            raise AssertionError(f"{label}: {r['experts']} experts, a pool of {r['pool_rows']} rows "
+                                 f"(shard_blocks {r['shard_blocks']})")
+        if r["steps"] != single_steps or any(n != 3 * L for n in r["a2a_steps"]):
+            raise AssertionError(f"{label}: {r['steps']} steps (single device {single_steps}), "
+                                 f"all_to_all per step {sorted(set(r['a2a_steps']))}, expected "
+                                 f"3 x {L} MoE layers at every step")
+        if on_card:
+            expect_launches(label, r["launches"], {"paged_decode_attention": L * r["steps"],
+                                                   "ragged_ffn": L * r["steps"]})
+        if r["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"{label}: tokens differ from rank 0's")
+        if r["run_tokens"] != ranks[0]["run_tokens"] or any(
+                len(r["run_tokens"].get(q.uid, ())) != q.max_new_tokens for q in requests):
+            raise AssertionError(f"{label}: the unreplayed run's tokens differ from rank 0's "
+                                 f"or fall short of a budget")
+    plen = {r.uid: r.prompt_len for r in requests}
+    flips = divergences(base, ranks[0]["tokens"],
+                        lambda uid, p: margins[uid, plen[uid] - 1 + p], "(b) vs single device")
+    same5 = all(base_tokens[u] == ranks[0]["tokens"][u] for u in base_tokens)
+    for r in ranks:
+        log(f"  (b) rank {r['rank']} {r['coord']}: {r['experts']} experts, pool "
+            f"{r['pool_rows']} rows; {r['steps']} steps, mean step {r['wall_ms'] / r['steps']:.3f} "
+            f"ms, {r['tokens_per_s']:.1f} tokens/s (host clock); all_to_all "
+            f"{r['a2a_launches']} launches {r['a2a_s']:.3f} s, all_gather "
+            f"{r['all_gather_launches']} launches {r['all_gather_s']:.3f} s; launches "
+            f"{ {n: v for n, v in r['launches'].items() if v} }; weights drawn in "
+            f"{r['init_s']:.1f} s")
+    run_match = token_match(ranks[0]["tokens"], ranks[0]["run_tokens"])
+    log(f"  (b) unreplayed run (ContinuousEngine.run, clocks agreed): {r0_run(ranks)}; every "
+        f"rank's tokens equal; token match against the replay {run_match:.4f}")
+    log(f"  (b) single device (group_size 1, this process): {single_steps} steps, mean step "
+        f"{single_ms / single_steps:.3f} ms; the ranks' tokens equal its tokens but at "
+        f"{len(flips)} near-tie flips; equal to phase 5's: {same5}; spawn to join "
+        f"{spawn_s:.1f} s")
+    r0 = ranks[0]
+    report = dict(
+        ranks=[{k: r[k] for k in ("coord", "steps", "wall_ms", "tokens_per_s", "a2a_s",
+                                  "all_gather_s", "a2a_launches", "all_gather_launches",
+                                  "experts", "pool_rows", "init_s")} for r in ranks],
+        mean_step_ms=[r["wall_ms"] / r["steps"] for r in ranks],
+        single_device_mean_step_ms=single_ms / single_steps, steps=single_steps,
+        flips=[(u, p, g) for u, p, g in flips], tokens_equal_phase5=same5, spawn_s=spawn_s,
+        run=[{k: r[k] for k in ("run_steps", "run_tokens_per_s", "run_p50_ms", "run_p95_ms")}
+             for r in ranks], run_token_match_vs_replay=run_match)
+    launches = {n: r0["launches"][n] for n in ("paged_decode_attention", "ragged_ffn")}
+    return report, launches
+
+
+def phase_mesh(torch, base_tokens, int8_tokens):
+    """Phase 16: serving on a (data, expert) mesh (see the module doc).
+    Returns (report, {kernel: {mesh: launches}})."""
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.nn import init_params
+    from repro_torch.serving.trace import synthetic_trace
+
+    log(f"phase 16: m6-base served on a (data, expert) mesh ({card_line()})")
+    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    requests = synthetic_trace(16, cfg.vocab_size, seed=0)      # phase 5's trace
+    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    report, mesh_launches = {}, {}
+    report["trivial"], launches = mesh_trivial_runs(torch, cfg, params, requests, base_tokens,
+                                                    int8_tokens)
+    for name, n in launches.items():
+        mesh_launches.setdefault(name, {})["1x1"] = n
+    del params
+    torch.cuda.empty_cache()
+    report["ranks"], launches = mesh_rank_runs(
+        torch, cfg.replace_moe(group_size=1), requests, base_tokens,
+        spawn_dir=str(ROOT / "build"))
+    for name, n in launches.items():
+        mesh_launches.setdefault(name, {})["2x2 rank 0"] = n
+    return report, mesh_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5522,6 +6176,7 @@ def main() -> int:
     timing.update(phase_timing_families(torch))
     timing.update(phase_timing_zamba(torch))
     timing.update(phase_timing_encdec(torch))
+    timing.update(phase_timing_mesh(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -5569,11 +6224,16 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec, encdec_launches = phase_encdec(torch)
     encdec_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh, mesh_launches = phase_mesh(torch, base_tokens, kv_tokens["int8"])
+    mesh_s = time.perf_counter() - t0
+    log(f"  mesh phase {mesh_s:.1f} s")
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
         f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s, encdec phase "
-        f"{encdec_s:.1f} s")
+        f"{encdec_s:.1f} s, mesh phase {mesh_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -5697,14 +6357,27 @@ def main() -> int:
                                                           "bound_ms", "bound_by", "library_ms",
                                                           "library_device_ms", "plan")}
                     for label in labels}
+        # phase 16: the mesh's launches (rows 3-5) and a shard's shapes
+        if name in MESH_TIMING:
+            entry["mesh_launches"] = mesh_launches.get(name, {})
+            if not entry["mesh_launches"] or min(entry["mesh_launches"].values()) <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 16: "
+                                     f"{entry['mesh_launches']}")
+            entry["mesh_max_abs_err"] = errs[f"mesh {name}"]
+            entry["mesh_shapes"] = {
+                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms",
+                                                      "library_device_ms")}
+                for label in MESH_TIMING[name]}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
-                      "more_families": more, "zamba": zamba, "encdec": encdec,
+                      "more_families": more, "zamba": zamba, "encdec": encdec, "mesh": mesh,
                       "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
                       "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,
+                      "mesh_s": mesh_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

@@ -50,16 +50,11 @@ class MoEConfig:
 
     def __post_init__(self):
         if self.num_experts > 0:
-            # A dispatcher the reference registers but the port does not
-            # (alltoall) is a valid config; using it raises
-            # NotImplementedError at get_dispatcher.
             from repro_torch.core import dispatch, routers
 
             routers.get_router(self.routing)
-            supports_dropless = False
-            if self.impl not in dispatch.UNPORTED:
-                supports_dropless = getattr(dispatch.get_dispatcher(self.impl),
-                                            "supports_dropless", False)
+            supports_dropless = getattr(dispatch.get_dispatcher(self.impl),
+                                        "supports_dropless", False)
             if self.capacity_factor is None and not supports_dropless:
                 capable = [n for n in dispatch.available_dispatchers() if getattr(
                     dispatch.get_dispatcher(n), "supports_dropless", False)]
@@ -89,6 +84,11 @@ class MoEConfig:
             raise ValueError(f"num_experts={self.num_experts} not divisible by "
                              f"num_prototypes={self.num_prototypes}")
         return self.num_experts // self.num_prototypes
+
+    @property
+    def dropless(self) -> bool:
+        """True when capacity_factor=None: no token is ever dropped."""
+        return self.capacity_factor is None
 
     def capacity(self, tokens_per_shard: int) -> int:
         """Per-expert capacity C = k*T/N*gamma (Eq. 2); T when dropless."""
@@ -258,15 +258,37 @@ class ServeConfig:
         if self.max_len < 2:
             raise ValueError("max_len must be >= 2 (one prompt + one generated)")
         if self.mesh is not None:
+            # the reference's validation: slots and KV blocks partition
+            # evenly over the data axis
             names = tuple(a for a, _ in self.mesh)
             if names != ("data", "expert"):
                 raise ValueError(
-                    f"ServeConfig.mesh axes must be ('data', 'expert'), got {names}")
+                    f"ServeConfig.mesh axes must be ('data', 'expert'), got {names}; "
+                    "use size 1 for an axis you don't shard over")
+            if any(int(n) < 1 for _, n in self.mesh):
+                raise ValueError("ServeConfig.mesh axis sizes must be >= 1")
+            d = self.data_shards
+            if self.max_slots % d:
+                raise ValueError(
+                    f"max_slots={self.max_slots} must divide evenly over {d} data shards")
+            if self.resolved_num_blocks % d:
+                raise ValueError(
+                    f"num_blocks={self.resolved_num_blocks} must divide evenly "
+                    f"over {d} data shards")
         from repro_torch.serving.scheduler import get_policy
 
         get_policy(self.sched_policy)
         if self.kv_quant not in KV_QUANTS:
             raise ValueError(f"unknown kv_quant {self.kv_quant!r}; known: {KV_QUANTS}")
+
+    @property
+    def data_shards(self) -> int:
+        """Slot/KV-pool shards along the mesh's data axis (1 if unsharded)."""
+        return dict(self.mesh).get("data", 1) if self.mesh else 1
+
+    @property
+    def expert_shards(self) -> int:
+        return dict(self.mesh).get("expert", 1) if self.mesh else 1
 
     @property
     def blocks_per_slot(self) -> int:

@@ -1,15 +1,14 @@
 """MoE execution backends (``repro.core.dispatch``).  ``MoEConfig.impl``
-is a key into this registry; the port registers ``dropless`` (the
-capacity-free ragged grouped GEMM that serving uses) and the capacity
-backends ``einsum``, ``gather`` and ``pallas`` that training uses."""
+is a key into this registry; the port registers the reference's five:
+``dropless`` (the capacity-free ragged grouped GEMM that serving uses),
+the capacity backends ``einsum``, ``gather`` and ``pallas`` that training
+uses, and ``alltoall`` (explicit expert parallelism over a serving mesh,
+``gather`` without one)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple, Type
 
 _REGISTRY: Dict[str, object] = {}
-
-# The reference's other backends: valid in a config, not ported.
-UNPORTED = ("alltoall",)
 
 
 def register_dispatcher(cls: Type) -> Type:
@@ -21,9 +20,6 @@ def register_dispatcher(cls: Type) -> Type:
 
 
 def get_dispatcher(name: str):
-    if name in UNPORTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"moe impl {name!r} is not ported; ported: {', '.join(available_dispatchers())}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -36,4 +32,4 @@ def available_dispatchers() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from repro_torch.core.dispatch import dropless, einsum, gather, pallas  # noqa: E402,F401
+from repro_torch.core.dispatch import alltoall, dropless, einsum, gather, pallas  # noqa: E402,F401

@@ -14,9 +14,19 @@ reference's; at top-1 each token row gets exactly one nonzero term
 (padding rows add gate-0 products into token 0), so the result does not
 depend on that order.  Under expert choice a token gets a term from
 each expert that picked it, summed in the card's order.
+
+Expert parallelism: under a serving mesh that shards the experts and
+splits the groups (``mesh.expert_mesh_plan``),
+:func:`ragged_ep_dispatch` ships each expert shard its own experts' sorted
+row segments over ``all_to_all`` and runs the ragged FFN kernel on them
+with local expert ids.  Where the experts are sharded but the groups do not
+split over the mesh, ``moe_ffn_apply`` has gathered the layer's experts
+whole and the single-device dispatch runs, as the reference's GSPMD
+computes the unsharded one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,7 +34,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
 from repro_torch.core.dispatch import register_dispatcher
+from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_rank
 from repro_torch.core.routers.base import RoutingPlan
+from repro_torch.distributed import collectives
 from repro_torch.kernels.moe_dropless import ops as dropless_ops
 from repro_torch.kernels.moe_dropless.ops import pick_block_rows
 
@@ -39,11 +51,83 @@ def plan_block_rows(plan: RoutingPlan, max_block: int = 128) -> int:
     return pick_block_rows(n, plan.num_experts, max_block)
 
 
+def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelConfig,
+                       block_rows: int, placed) -> torch.Tensor:
+    """Explicit expert parallelism over the ragged layout
+    (``repro.core.dispatch.dropless.ragged_ep_dispatch``).
+
+    The :class:`~repro_torch.core.routers.base.RaggedView` is expert-major
+    with block-aligned segments, so the rows bound for expert shard ``s``
+    (experts ``[s * E / ne, (s + 1) * E / ne)``) are one block-aligned range
+    ``[offsets[s * E / ne], offsets[(s + 1) * E / ne])`` of a group.  This
+    rank takes its groups of the joint (data, expert) axis, packs each
+    group's ne ranges into an ``(ne, R)`` row budget (padding parked on a
+    zero row), ships them with one ``all_to_all`` over the expert axis
+    (with each block's local expert id), runs the ragged FFN on its own
+    experts, sends the rows back, unpacks them to the single-device layout,
+    combines by gate-weighted scatter-add and all-gathers its groups over
+    the mesh.  Whole row blocks move, so every FFN block holds the rows it
+    holds in the single-device layout."""
+    mesh, e_ax, dp_axes = placed
+    ne = mesh.shape[e_ax]
+    joint = (*dp_axes, e_ax)
+    E = plan.num_experts
+    epl = E // ne
+    dt = cfg.activation_dtype
+    G, T, M = xg.shape
+    bx = block_rows
+    Gl = G // math.prod(mesh.shape[a] for a in joint)
+    rows = slice(joint_rank(mesh, joint) * Gl, (joint_rank(mesh, joint) + 1) * Gl)
+    rag = plan.ragged(bx)
+    R = rag.token.shape[1]
+    dev = xg.device
+    group = mesh.group(e_ax)
+
+    token, gate = rag.token[rows], rag.gate[rows]
+    offsets, bexp = rag.expert_offsets[rows].long(), rag.block_expert[rows].long()
+    toks = torch.clamp(token, min=0).long()                     # -1 -> row 0
+    xs = xg[rows].gather(1, toks[..., None].expand(Gl, R, M)).to(dt)
+    e_row = bexp.repeat_interleave(bx, dim=1)                   # (Gl, R) global ids
+    offd = offsets[:, ::epl]                                    # (Gl, ne + 1)
+    start, seglen = offd[:, :-1], offd[:, 1:] - offd[:, :-1]
+    j = torch.arange(R, device=dev)
+    src = start[:, :, None] + j                                 # (Gl, ne, R)
+    valid = j < seglen[:, :, None]
+    srcp = torch.where(valid, src, torch.full_like(src, R))     # park on the pad row
+    gi = torch.arange(Gl, device=dev)[:, None, None].expand(Gl, ne, R)
+    xpad = torch.cat([xs, torch.zeros((Gl, 1, M), dtype=dt, device=dev)], dim=1)
+    buf = xpad[gi, srcp]                                        # (Gl, ne, R, M)
+    epad = torch.cat([e_row, torch.zeros((Gl, 1), dtype=e_row.dtype, device=dev)], dim=1)
+    e_src = epad.gather(1, srcp.reshape(Gl, ne * R)).reshape(Gl, ne, R)
+    dest = torch.arange(ne, device=dev)[None, :, None]
+    ebuf = torch.where(valid, e_src - dest * epl, torch.zeros_like(e_src))   # local ids
+    # ship: the leading axis is the destination expert shard, then the source
+    recv = collectives.all_to_all(buf.transpose(0, 1), group, split_axis=0, concat_axis=0)
+    erecv = collectives.all_to_all(ebuf.transpose(0, 1), group, split_axis=0, concat_axis=0)
+    out = dropless_ops.ragged_ffn(
+        recv.reshape(ne * Gl * R, M), erecv.reshape(-1, bx)[:, 0].to(torch.int32).contiguous(),
+        params["up"].to(dt), params["gate"].to(dt) if "gate" in params else None,
+        params["down"].to(dt), cfg.ffn_activation, block_x=bx)
+    back = collectives.all_to_all(out.reshape(ne, Gl, R, M), group, split_axis=0,
+                                  concat_axis=0).transpose(0, 1)   # (Gl, ne, R, M)
+    back = torch.where(valid[..., None], back, torch.zeros_like(back))
+    # valid sources are distinct; the parked pad row only ever takes zeros
+    res = torch.zeros((Gl, R + 1, M), dtype=dt, device=dev).index_put_((gi, srcp), back)[:, :R]
+    vals = res * gate[..., None].to(dt)
+    g2 = torch.arange(Gl, device=dev)[:, None].expand(Gl, R)
+    y = torch.zeros((Gl, T, M), dtype=dt, device=dev).index_put_((g2, toks), vals,
+                                                                  accumulate=True)
+    return collectives.all_gather(y, mesh.world, dim=0)
+
+
 def dropless_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
                       cfg: ModelConfig, block_rows: int = 0) -> torch.Tensor:
     dt = cfg.activation_dtype
     G, T, M = xg.shape
     block_rows = block_rows or plan_block_rows(plan)
+    placed = expert_mesh_plan(plan, G)
+    if placed is not None:
+        return ragged_ep_dispatch(params, xg, plan, cfg, block_rows, placed)
     rag = plan.ragged(block_rows)
     R = rag.token.shape[1]
 

@@ -1,0 +1,71 @@
+"""Where an MoE layer's experts sit on a serving mesh, for the dispatchers
+and ``core.moe.moe_ffn_apply``.
+
+Under a mesh whose active :class:`~repro_torch.distributed.sharding.Rules`
+shard the experts over an axis, a rank holds experts ``[e * E / ne,
+(e + 1) * E / ne)`` of every expert leaf.  :func:`expert_mesh_plan` is the
+reference's placement test (``repro.core.dispatch.alltoall._expert_mesh_plan``):
+the dispatchers in :data:`EXPERT_PARALLEL` run explicit expert parallelism
+when it places the plan.  Every other case, a backend that reads all the
+experts or a plan whose groups do not split over the mesh, computes the
+single-device dispatch over the layer's experts gathered whole
+(:func:`gathered_experts`), as the reference's GSPMD computes the unsharded
+one; ``moe_ffn_apply`` makes that choice once a layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+from repro_torch.core.routers.base import RoutingPlan
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import active_rules
+
+EXPERT_LEAVES = ("up", "gate", "down")
+# the backends that run on a rank's own experts when the plan is placed
+EXPERT_PARALLEL = ("alltoall", "dropless")
+
+
+def expert_mesh_plan(plan: RoutingPlan, G: int) -> Optional[Tuple]:
+    """(mesh, expert_axis, group_axes) when explicit EP can run, else None."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    e_ax = rules.params.get("expert")
+    if e_ax is None or isinstance(e_ax, tuple):
+        return None
+    mesh = rules.mesh
+    ne = mesh.shape[e_ax]
+    if ne <= 1 or plan.num_experts % ne != 0:
+        return None
+    dp = rules.acts.get("groups")
+    dp_axes = () if dp is None else (dp if isinstance(dp, tuple) else (dp,))
+    dp_axes = tuple(a for a in dp_axes if a != e_ax)
+    nd = math.prod(mesh.shape[a] for a in dp_axes)
+    if G % (nd * ne) != 0:
+        return None
+    return mesh, e_ax, dp_axes
+
+
+def joint_rank(mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's index on the joint axis ``axes`` (row-major)."""
+    r = 0
+    for a in axes:
+        r = r * mesh.shape[a] + mesh.coord[a]
+    return r
+
+
+def gathered_experts(params):
+    """``params`` with the expert leaves whole: all-gathered over the expert
+    axis when the active rules shard them (a transient of the layer's
+    expert bytes), else as they are."""
+    rules = active_rules()
+    e_ax = None if rules is None else rules.params.get("expert")
+    if e_ax is None or rules.mesh.shape[e_ax] == 1:
+        return params
+    group = rules.mesh.group(e_ax)
+    out = dict(params)
+    for k in EXPERT_LEAVES:
+        if k in params:
+            out[k] = collectives.all_gather(params[k], group, dim=0)
+    return out

@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.context import MoEContext
 from repro_torch.core.dispatch import get_dispatcher
+from repro_torch.core.dispatch.mesh import EXPERT_PARALLEL, expert_mesh_plan, gathered_experts
 from repro_torch.core.metrics import gate_entropy
 from repro_torch.core.routing import route
 
@@ -42,7 +43,12 @@ def moe_ffn_apply(params, x: torch.Tensor, cfg: ModelConfig,
     if router_w is not None:
         router_w = router_w.float()
     plan = route(xg, router_w, m, m.capacity(T), ctx=gctx)
-    y = get_dispatcher(m.impl)(params, xg, plan, cfg, ctx=gctx)
+    dispatcher = get_dispatcher(m.impl)
+    if m.impl not in EXPERT_PARALLEL or expert_mesh_plan(plan, G) is None:
+        # a backend that reads every expert, or a plan the mesh cannot
+        # split: gather the layer's experts (a no-op off a mesh)
+        params = gathered_experts(params)
+    y = dispatcher(params, xg, plan, cfg, ctx=gctx)
     y = y.reshape(B, S, M).to(x.dtype)
     aux = {
         "moe_aux_loss": plan.aux_loss,

@@ -449,3 +449,55 @@ __all__ = ["decode_attention", "decode_attention_ref", "dense_plan",
            "paged_decode_attention", "paged_decode_attention_ref",
            "paged_update_attention", "quantized_paged_decode_attention",
            "quantized_paged_decode_attention_ref", "quantized_paged_update_attention"]
+
+
+def _shard_rows(mesh, axis: str, *rows):
+    """This rank's slice of each row-major operand: rows [d * per, (d + 1)
+    * per) of N, d its index on ``axis`` (the engine lays a step's rows out
+    shard-major, each shard's rows covering its own slots)."""
+    D, d = mesh.shape[axis], mesh.coord[axis]
+    N = rows[0].shape[0]
+    if N % D:
+        raise ValueError(f"{N} rows do not split over {D} {axis} shards")
+    per = N // D
+    return [r[d * per:(d + 1) * per] for r in rows]
+
+
+def sharded_paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
+                                   block_tables, lengths, *, mesh, axis: str = "data",
+                                   max_length: Optional[int] = None):
+    """:func:`paged_update_attention` over the mesh's ``axis``
+    (``repro.kernels.decode_attention.ops.sharded_paged_update_attention``):
+    this rank writes and attends its own rows (its slice of every row
+    operand) through its shard's pool slice ``k_pool``/``v_pool``, by the
+    shard-local block ids its rows carry, and the rows' outputs are
+    all-gathered over the axis.  ``max_length`` is the longest of this
+    rank's rows, so a shard plans its own launch.  Returns ``(out (N, Hq,
+    D), k_pool, v_pool)``."""
+    from repro_torch.distributed.collectives import all_gather
+
+    q, k, v, wb, wo, tables, lens = _shard_rows(mesh, axis, q, k, v, write_blocks,
+                                                write_offsets, block_tables, lengths)
+    out, k_pool, v_pool = paged_update_attention(q.contiguous(), k, v, k_pool, v_pool, wb, wo,
+                                                 tables.contiguous(), lens.contiguous(),
+                                                 max_length)
+    return all_gather(out, mesh.group(axis)), k_pool, v_pool
+
+
+def sharded_quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales,
+                                             write_blocks, write_offsets, block_tables, lengths,
+                                             *, policy, mesh, axis: str = "data",
+                                             max_length: Optional[int] = None):
+    """:func:`quantized_paged_update_attention` over the mesh's ``axis``, as
+    :func:`sharded_paged_update_attention`, the scale pools this shard's
+    alongside its code pools.  Returns ``(out, k_pool, v_pool, k_scales,
+    v_scales)``."""
+    from repro_torch.distributed.collectives import all_gather
+
+    q, k, v, wb, wo, tables, lens = _shard_rows(mesh, axis, q, k, v, write_blocks,
+                                                write_offsets, block_tables, lengths)
+    out = quantized_paged_update_attention(q.contiguous(), k, v, k_pool, v_pool, k_scales,
+                                           v_scales, wb, wo, tables.contiguous(),
+                                           lens.contiguous(), policy=policy,
+                                           max_length=max_length)[0]
+    return all_gather(out, mesh.group(axis)), k_pool, v_pool, k_scales, v_scales

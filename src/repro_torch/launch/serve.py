@@ -56,6 +56,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --engine static --requests 16
 
+  # on a (data 2, expert 2) mesh, one process a rank: slots and KV pools
+  # over data, the experts over expert (ragged expert-parallel all_to_all);
+  # --mesh-backend gloo when the four ranks share one card (NCCL refuses
+  # two ranks on a device), nccl (the default on CUDA) when each has its own
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch m6-base --engine continuous --moe-impl dropless --capacity-factor none \
+      --requests 16 --mesh data=2,expert=2 --mesh-backend gloo
+
 Every --arch the reference lists resolves.  No engine serves the encdec
 family (seamless-m4t-large-v2), as in the reference: ``--engine static``
 fails at the family's ``init_state`` (its decode state needs the encoder's
@@ -63,12 +71,14 @@ memory: ``repro_torch.models.encdec``), ``--engine continuous`` refuses
 the family, each with the reference's message.  For xlstm-125m the continuous engine refuses what needs the paged
 KV cache (speculation, prefix caching, --kv-quant, --slo-preempt), as the
 reference's does.
-The flags are the reference's.  Those whose feature is not ported
-(meshes) raise NotImplementedError; as in the reference, the static
-engine takes no --mesh, --spec-drafter, --trace-out, --metrics-out or
---profile-dir.  ``--profile-dir`` writes a ``torch.profiler`` Chrome trace
-of the serve run (CPU and, on the card, CUDA activity) there as
-``trace.json``.
+The flags are the reference's, and --mesh-backend.  As in the reference,
+the static engine takes no --mesh, --spec-drafter, --trace-out,
+--metrics-out or --profile-dir, and the continuous engine refuses --mesh
+with speculation or SLO scheduling.  On a mesh every rank serves the same
+trace (its rank's device is ``cuda:{LOCAL_RANK % device_count}``); rank 0
+alone prints and writes the trace, metrics and profile.
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the serve
+run (CPU and, on the card, CUDA activity) there as ``trace.json``.
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``,
 unless ``--ckpt-dir`` names checkpoints in the reference's format: then the
 latest one's params are served (a train checkpoint's ``.params`` leaves or
@@ -77,6 +87,8 @@ a bare-params checkpoint's, cast to the serving tree's storage dtypes).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
@@ -84,11 +96,11 @@ import numpy as np
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import KV_QUANTS, ServeConfig, SLOConfig, SpecConfig
 from repro_torch.configs.registry import ALL_IDS, get_config, get_smoke_config
-from repro_torch.core.dispatch import UNPORTED, available_dispatchers
+from repro_torch.core.dispatch import available_dispatchers
 from repro_torch.kernels import build
 from repro_torch.nn import init_params
 from repro_torch.obs.profile import device_trace
-from repro_torch.serving.continuous import ContinuousEngine
+from repro_torch.serving.continuous import ContinuousEngine, check_mesh_support
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import available_policies
 from repro_torch.serving.speculative import available_drafters
@@ -109,15 +121,31 @@ def parse_capacity_factor(value: str):
     return None if value.lower() in ("none", "dropless", "inf") else float(value)
 
 
-def _unported(args) -> list:
-    """Flags set to something this port does not implement."""
-    checks = [
-        (args.mesh is not None, "--mesh"),
-    ]
-    return [flag for cond, flag in checks if cond]
+def parse_mesh(text: str):
+    """'data=2,expert=4' or bare '2,4' -> ServeConfig.mesh tuples (the
+    reference's parser)."""
+    sizes = {}
+    parts = [p.strip() for p in text.split(",") if p.strip()]
+    if all("=" in p for p in parts):
+        for p in parts:
+            name, _, n = p.partition("=")
+            sizes[name.strip()] = int(n)
+    else:
+        if len(parts) > 2:
+            raise SystemExit(f"--mesh {text!r}: at most data,expert sizes")
+        for name, n in zip(("data", "expert"), parts):
+            sizes[name] = int(n)
+    unknown = set(sizes) - {"data", "expert"}
+    if unknown:
+        raise SystemExit(
+            f"--mesh {text!r}: unknown axes {sorted(unknown)} "
+            "(serving meshes have axes data, expert)")
+    return (("data", sizes.get("data", 1)), ("expert", sizes.get("expert", 1)))
 
 
 def _write_obs(engine, args) -> None:
+    if engine.mesh is not None and engine.mesh.rank != 0:
+        return
     if args.trace_out:
         if args.trace_out.endswith(".jsonl"):
             engine.obs.tracer.write_jsonl(args.trace_out)
@@ -181,7 +209,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-block", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="serving mesh (continuous engine): 'data=2,expert=4' (or bare "
+                         "'2,4'); one process a rank, under torch.distributed.run")
+    ap.add_argument("--mesh-backend", default=None, choices=[None, "nccl", "gloo"],
+                    help="the mesh's process-group backend (default nccl on CUDA, gloo "
+                         "on the CPU); gloo when ranks share a card")
     ap.add_argument("--sched-policy", default="fcfs", choices=available_policies(),
                     help="admission policy")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -210,7 +243,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint dir of the draft model's params (params-only restore; "
                          "without it the draft model is random)")
     ap.add_argument("--moe-impl", default=None,
-                    choices=[None, *available_dispatchers(), *UNPORTED])
+                    choices=[None, *available_dispatchers()])
     ap.add_argument("--capacity-factor", default=None,
                     help="gamma, or 'none' for dropless serving")
     ap.add_argument("--ckpt-dir", default=None)
@@ -236,9 +269,7 @@ def main(argv=None):
                             ("--profile-dir", args.profile_dir)):
             if value is not None:
                 raise SystemExit(f"{flag} needs --engine continuous")
-    bad = _unported(args)
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
+    mesh_spec = None if args.mesh is None else parse_mesh(args.mesh)
 
     obs = None
     if args.trace_out or args.metrics_out or args.profile_dir:
@@ -253,8 +284,64 @@ def main(argv=None):
         cfg = cfg.replace_moe(impl=args.moe_impl)
     if args.capacity_factor is not None and cfg.moe.num_experts:
         cfg = cfg.replace_moe(capacity_factor=parse_capacity_factor(args.capacity_factor))
+    if mesh_spec is not None:
+        return _serve_on_mesh(args, cfg, mesh_spec, obs)
     params = init_params(cfg, seed=args.seed, device=args.device)
+    return _serve(args, cfg, params, obs)
+
+
+def _slo(args):
+    return (SLOConfig(preemption=args.slo_preempt, host_blocks=args.host_blocks,
+                      shed=args.slo_shed)
+            if args.slo_preempt or args.slo_shed else None)
+
+
+def _serve_on_mesh(args, cfg, mesh_spec, obs):
+    """The continuous engine on a serving mesh, this process one rank: the
+    reference's refusals first, then the mesh, then this rank's placement
+    of the params (drawn leaf by leaf, or cut from the checkpoint)."""
+    from repro_torch.distributed.sharding import make_rules, placement, shard_params
+    from repro_torch.launch.mesh import make_serve_mesh, rank_device
+
+    spec = (None if args.spec_drafter is None
+            else SpecConfig(drafter=args.spec_drafter, gamma=args.spec_gamma))
+    check_mesh_support(cfg, ServeConfig(max_slots=args.max_slots, mesh=mesh_spec, spec=spec,
+                                        slo=_slo(args)))
+    device = rank_device(args.device)
+    mesh = make_serve_mesh(mesh_spec, device, args.mesh_backend)
+    rules = make_rules(cfg, mesh, expert_axis="expert")
+    keep = ("router",)
     if args.ckpt_dir:
+        # the checkpoint holds whole leaves: restore them on the host, then
+        # keep this rank's slices
+        template = init_params(cfg, seed=args.seed, device="cpu")
+        restored, step = Checkpointer(args.ckpt_dir).restore_params_latest(template)
+        full = template if restored is None else restored
+        params = _to_device(shard_params(full, rules, mesh.coord, keep), device)
+        if restored is not None:
+            print(f"restored params-only from checkpoint step {step}")
+    else:
+        params = init_params(cfg, seed=args.seed, device=device,
+                             place=placement(rules, mesh.coord, keep))
+    quiet = contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext()
+    with quiet:
+        return _serve(args, cfg, params, obs, mesh=mesh)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _serve(args, cfg, params, obs, mesh=None):
+    mesh_spec = None if mesh is None else tuple(mesh.shape.items())
+    device = args.device if mesh is None else mesh.device
+    # rank 0 alone profiles
+    profile_dir = args.profile_dir if mesh is None or mesh.rank == 0 else None
+    if args.ckpt_dir and mesh is None:
         # params-only restore: no optimizer state, no TrainState; the
         # Checkpointer reads the params of a train checkpoint (or a
         # bare-params one) into the serving tree
@@ -286,11 +373,11 @@ def main(argv=None):
                             prefill_chunk=args.prefill_chunk,
                             max_len=max(args.max_len, max_len),
                             spec=spec, sched_policy=args.sched_policy,
-                            kv_quant=args.kv_quant)
+                            kv_quant=args.kv_quant, mesh=mesh_spec)
         engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
-                                  seed=args.seed, device=args.device,
-                                  draft_model=draft_model, obs=obs)
-        with device_trace(args.profile_dir, args.device):
+                                  seed=args.seed, device=device,
+                                  draft_model=draft_model, obs=obs, mesh=mesh)
+        with device_trace(profile_dir, device):
             toks, stats = engine.generate(prompts, args.gen)
         _write_obs(engine, args)
         print("generated:", toks[:, :16])
@@ -321,23 +408,21 @@ def main(argv=None):
                                     temperature=args.temperature, seed=args.seed)
         print(latency_line(stats))
         return stats
-    slo = (SLOConfig(preemption=args.slo_preempt, host_blocks=args.host_blocks,
-                     shed=args.slo_shed)
-           if args.slo_preempt or args.slo_shed else None)
     serve = ServeConfig(max_slots=args.max_slots, kv_block_size=args.kv_block,
                         prefill_chunk=args.prefill_chunk,
                         max_len=max(args.max_len, longest),
                         spec=spec, sched_policy=args.sched_policy,
-                        prefix_cache=args.prefix_cache, slo=slo, kv_quant=args.kv_quant)
+                        prefix_cache=args.prefix_cache, slo=_slo(args), kv_quant=args.kv_quant,
+                        mesh=mesh_spec)
     engine = ContinuousEngine(cfg, params, serve, temperature=args.temperature,
-                              seed=args.seed, device=args.device, draft_model=draft_model,
-                              obs=obs)
+                              seed=args.seed, device=device, draft_model=draft_model,
+                              obs=obs, mesh=mesh)
 
     def stream(st):
         print(f"  req {st.request.uid}: {len(st.generated)} tokens, "
               f"latency {st.latency_ms():.0f}ms, first {st.generated[:8]}")
 
-    with device_trace(args.profile_dir, args.device):
+    with device_trace(profile_dir, device):
         _, stats = engine.run(requests, on_finish=stream)
     _write_obs(engine, args)
     if spec is not None:

@@ -40,9 +40,10 @@
 Every --arch the reference lists trains.  MoE attention and mixed
 dense/MoE stacks have no flag, as in the reference: a config that sets ``moe.moe_attention`` or
 ``moe_layer_period`` trains through ``run`` like any other.
-The flags are the reference's.  Those whose feature is not ported raise
-NotImplementedError: --data or --model above 1 and ``--moe-impl
-alltoall``.  ``--routing`` takes all four of the reference's routers
+The flags are the reference's.  --data or --model above 1 (a training
+mesh) is not ported and raises NotImplementedError; ``--moe-impl
+alltoall`` trains, as the reference's does without a mesh, as ``gather``.
+``--routing`` takes all four of the reference's routers
 (topk, prototype, expert_choice, hash); ``--optimizer`` adamw or
 adafactor (m6-1t's default); ``--grad-compression`` none, bf16 or int8
 (with error feedback); ``--profile-dir`` writes a ``torch.profiler``
@@ -107,8 +108,6 @@ def _unported(args, cfg) -> list:
     """Flags set to something this port does not implement."""
     checks = [
         (args.data > 1 or args.model > 1, "--data/--model > 1"),
-        (cfg.moe.num_experts > 0 and cfg.moe.impl in dispatch.UNPORTED,
-         f"--moe-impl {cfg.moe.impl}"),
     ]
     return [flag for cond, flag in checks if cond]
 
@@ -129,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity-factor", default=None,
                     help="gamma, or 'none' for dropless (needs --moe-impl dropless)")
     ap.add_argument("--moe-impl", default=None,
-                    choices=[None, *dispatch.available_dispatchers(), *dispatch.UNPORTED])
+                    choices=[None, *dispatch.available_dispatchers()])
     ap.add_argument("--aux-loss-coef", type=float, default=None)
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--microbatches", type=int, default=1)

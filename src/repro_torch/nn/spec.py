@@ -29,6 +29,12 @@ casts at the same places, so it runs either of two trees:
 Norm scales/biases, the router and the learned ``pos_embed`` source are
 f32 in both, as the reference computes with them.
 
+The decoder-LM tree's leaves carry the reference's *logical axes*
+(``ParamSpec.logical_axes``: "embed", "heads", "expert", ... with "layers"
+leading a stacked leaf), which ``repro_torch.distributed.sharding`` maps
+to mesh axes; the other families' leaves carry none yet (their trees are
+not placed on a mesh).
+
 Random init (:func:`init_params`) draws truncated normals (+-2 sigma,
 times ``initializer_range``) from a ``torch.Generator``; it matches the
 reference in distribution only — ``jax.random`` and ``torch`` give
@@ -38,7 +44,7 @@ carry the reference's params across with :func:`from_jax_params`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +58,11 @@ class ParamShape:
     shape: Tuple[int, ...]
     dtype: str                  # "bfloat16" | "float32" ...
     init: str                   # "normal" (truncated) | "ones" | "zeros"
+    axes: Optional[Tuple[Optional[str], ...]] = None    # logical axes, one a dim
+
+
+def _lead_axes(lead: Tuple[int, ...]) -> Tuple[Optional[str], ...]:
+    return ("layers",) * len(lead)
 
 
 def padded_vocab(vocab_size: int, multiple: int = 256) -> int:
@@ -60,16 +71,19 @@ def padded_vocab(vocab_size: int, multiple: int = 256) -> int:
 
 def _norm(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict[str, ParamShape]:
     d = cfg.d_model
-    out = {"scale": ParamShape(lead + (d,), "float32", "ones")}
+    axes = _lead_axes(lead) + ("embed",)
+    out = {"scale": ParamShape(lead + (d,), "float32", "ones", axes)}
     if cfg.norm == "layernorm":
-        out["bias"] = ParamShape(lead + (d,), "float32", "zeros")
+        out["bias"] = ParamShape(lead + (d,), "float32", "zeros", axes)
     return out
 
 
-def _dense(wdt: str, lead, d_in: int, d_out: int, bias: bool = False):
-    out = {"kernel": ParamShape(lead + (d_in, d_out), wdt, "normal")}
+def _dense(wdt: str, lead, d_in: int, d_out: int, bias: bool = False,
+           axes: Tuple[str, str] = ("embed", "mlp")):
+    la = _lead_axes(lead)
+    out = {"kernel": ParamShape(lead + (d_in, d_out), wdt, "normal", la + axes)}
     if bias:
-        out["bias"] = ParamShape(lead + (d_out,), "float32", "zeros")
+        out["bias"] = ParamShape(lead + (d_out,), "float32", "zeros", la + axes[1:])
     return out
 
 
@@ -77,43 +91,54 @@ def _attn(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...]) -> Dict[str, ParamS
     """Dense attention's leaves (``repro.models.attention.attention_specs``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     attn = {
-        "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias),
-        "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-        "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-        "wo": _dense(wdt, lead, cfg.num_heads * hd, d),
+        "wq": _dense(wdt, lead, d, cfg.num_heads * hd, cfg.qkv_bias, ("embed", "heads")),
+        "wk": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias, ("embed", "kv_heads")),
+        "wv": _dense(wdt, lead, d, cfg.num_kv_heads * hd, cfg.qkv_bias, ("embed", "kv_heads")),
+        "wo": _dense(wdt, lead, cfg.num_heads * hd, d, axes=("heads", "embed")),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones")
-        attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones")
+        attn["q_norm"] = ParamShape(lead + (hd,), "float32", "ones", _lead_axes(lead) + (None,))
+        attn["k_norm"] = ParamShape(lead + (hd,), "float32", "ones", _lead_axes(lead) + (None,))
     return attn
 
 
 def _block(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...], moe_layer: bool) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     m = cfg.moe
+    la = _lead_axes(lead)
     router = get_router(m.routing).weight_shape(m, d) if moe_layer else None
+    # the routers' ParamSpecs: ("embed", "expert"), or ("embed", None,
+    # "expert") for the prototype router's (d, P, E / P)
+    router_axes = (None if router is None
+                   else la + ("embed",) + (None,) * (len(router) - 2) + ("expert",))
     if m.moe_attention and moe_layer:       # core/moe_attention.py: per-expert projections
         E = m.num_experts
-        attn = {"wq": ParamShape(lead + (E, d, cfg.num_heads * hd), wdt, "normal"),
-                "wk": ParamShape(lead + (E, d, cfg.num_kv_heads * hd), wdt, "normal"),
-                "wv": ParamShape(lead + (E, d, cfg.num_kv_heads * hd), wdt, "normal"),
-                "wo": ParamShape(lead + (E, cfg.num_heads * hd, d), wdt, "normal")}
+
+        def expert(shape, axes):
+            return ParamShape(lead + shape, wdt, "normal", la + axes)
+
+        attn = {"wq": expert((E, d, cfg.num_heads * hd), ("expert", "embed", "heads")),
+                "wk": expert((E, d, cfg.num_kv_heads * hd), ("expert", "embed", "kv_heads")),
+                "wv": expert((E, d, cfg.num_kv_heads * hd), ("expert", "embed", "kv_heads")),
+                "wo": expert((E, cfg.num_heads * hd, d), ("expert", "heads", "embed"))}
         if router is not None:
-            attn["router"] = ParamShape(lead + router, "float32", "normal")
+            attn["router"] = ParamShape(lead + router, "float32", "normal", router_axes)
     else:
         attn = _attn(cfg, wdt, lead)
     gated = cfg.ffn_activation in ("swiglu", "geglu")
     if moe_layer:
         E = m.num_experts
-        ffn = {"up": ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal"),
-               "down": ParamShape(lead + (E, cfg.d_ff, d), wdt, "normal")}
+        up_axes = la + ("expert", "embed", "mlp")
+        ffn = {"up": ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal", up_axes),
+               "down": ParamShape(lead + (E, cfg.d_ff, d), wdt, "normal",
+                                  la + ("expert", "mlp", "embed"))}
         if router is not None:          # the hash router has no weight
-            ffn["router"] = ParamShape(lead + router, "float32", "normal")
+            ffn["router"] = ParamShape(lead + router, "float32", "normal", router_axes)
         if gated:
-            ffn["gate"] = ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal")
+            ffn["gate"] = ParamShape(lead + (E, d, cfg.d_ff), wdt, "normal", up_axes)
     else:
         ffn = {"up": _dense(wdt, lead, d, cfg.d_ff),
-               "down": _dense(wdt, lead, cfg.d_ff, d)}
+               "down": _dense(wdt, lead, cfg.d_ff, d, axes=("mlp", "embed"))}
         if gated:
             ffn["gate"] = _dense(wdt, lead, d, cfg.d_ff)
     return {"ln_attn": _norm(cfg, lead), "ln_ffn": _norm(cfg, lead),
@@ -128,7 +153,8 @@ def lm_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
     """Param shape tree, key for key the reference's ``lm_specs`` tree;
     ``train`` picks the training tree's storage (see module doc)."""
     wdt = cfg.param_dtype if train else cfg.dtype
-    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal")
+    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal",
+                       ("vocab", "embed"))
     uniform = cfg.moe.num_experts == 0 or cfg.moe_layer_period == 1
     if cfg.scan_layers and uniform:     # stacked (L, ...), as the reference decides
         blocks = _block(cfg, wdt, (cfg.num_layers,), is_moe_layer(cfg, 0))
@@ -136,7 +162,8 @@ def lm_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
         blocks = [_block(cfg, wdt, (), is_moe_layer(cfg, i)) for i in range(cfg.num_layers)]
     tree = {"embed": {"table": table}, "final_norm": _norm(cfg), "blocks": blocks}
     if cfg.pos_embed == "learned":
-        tree["pos_embed"] = ParamShape((cfg.max_seq_len, cfg.d_model), "float32", "normal")
+        tree["pos_embed"] = ParamShape((cfg.max_seq_len, cfg.d_model), "float32", "normal",
+                                       (None, "embed"))
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": table}
     return tree
@@ -209,9 +236,13 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(total)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = False) -> Dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = False,
+                place: Optional[Callable] = None) -> Dict:
     """Random params from a ``torch.Generator`` on ``device`` (see module
-    doc); ``train=True`` builds the training tree."""
+    doc); ``train=True`` builds the training tree.  ``place(path, shape,
+    leaf)`` (``repro_torch.distributed.sharding.placement``) keeps a mesh
+    rank's slice of each leaf as it is drawn: the values are those of the
+    whole tree, and no more than one whole leaf is held at a time."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -219,12 +250,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = Fa
     def one(path, s: ParamShape):
         dt = torch_dtype(s.dtype)
         if s.init == "ones":
-            return torch.ones(s.shape, dtype=dt, device=device)
-        if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=dt, device=device)
-        t = torch.empty(s.shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return t.mul_(cfg.initializer_range).to(dt)
+            t = torch.ones(s.shape, dtype=dt, device=device)
+        elif s.init == "zeros":
+            t = torch.zeros(s.shape, dtype=dt, device=device)
+        else:
+            t = torch.empty(s.shape, dtype=torch.float32, device=device)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            t = t.mul_(cfg.initializer_range).to(dt)
+        return t if place is None else place(path, s, t)
 
     return _map(one, model_shapes(cfg, train))
 

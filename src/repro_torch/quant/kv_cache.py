@@ -5,7 +5,9 @@ pools ``(L, P, Hkv, bs, D)`` plus float32 absmax *scale* pools
 ``(L, P, Hkv)`` indexed by the same block table
 (``value = policy.decode(code) * scale``, :mod:`repro_torch.quant.policy`).
 Everything host-side is inherited unchanged; only pool allocation,
-copy-on-write and byte accounting know about the scales.  A preemption swap
+copy-on-write and byte accounting know about the scales.  Detached
+(``device=None``: the sharded cache's per-shard sub-caches) a quantized
+cache keeps its policy and no pools.  A preemption swap
 (:class:`~repro_torch.serving.slo.swap.SwapManager`) copies a block's codes
 and its scale rows verbatim both ways, so a restored block decodes exactly
 as it did before the swap: nothing is re-quantized in flight.
@@ -29,6 +31,9 @@ class _QuantPools:
         self.policy = get_kv_quant(self.serve.kv_quant)
         if not self.policy.quantized:
             raise ValueError("quantized cache built with kv_quant='none'; use make_kv_cache")
+        self.k_pool = self.v_pool = self.k_scales = self.v_scales = None
+        if device is None:          # detached: host accounting only
+            return
         rows = self.num_blocks + 1          # + garbage block
         shape = (cfg.num_layers, rows, cfg.num_kv_heads, self.block_size,
                  cfg.resolved_head_dim)
@@ -48,6 +53,8 @@ class _QuantPools:
 
     def check_conservation(self) -> None:
         super().check_conservation()
+        if self.k_pool is None:
+            return
         # every pool row has exactly one scale row under the same
         # (layer, block) key: the block table indexes both with the same ids
         want = tuple(self.k_pool.shape[:3])

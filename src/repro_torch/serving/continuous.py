@@ -70,12 +70,33 @@ when a request is admitted to it.  No kernel runs on this path (see
 quantization and preemption need the paged cache and are refused there, with
 the reference's messages.
 
+**Serving on a mesh** (``ServeConfig.mesh = (("data", D), ("expert",
+E))``): one process a mesh rank (``repro_torch.launch.mesh``).  Every rank
+runs this same host code (scheduler, block accounting, the step's rows)
+and so holds the same state: the reference's single controller, run once a
+rank; ``run`` agrees the ranks' step clock, and ``check_invariants``
+all-gathers every step's sampled tokens and asserts that the ranks agree.
+Slots and KV pools partition over ``data``
+(:class:`~repro_torch.serving.kv_cache.ShardedPagedKVCache`: this rank's
+pools are its shard's slice), and a step's rows are laid out shard-major,
+shard d's rows ``[d * per, (d + 1) * per)`` its own slots' decode rows
+then, on the prefilling slot's shard, the chunk rows.  Embedding, norms,
+Q/K/V, unembedding and sampling run over all rows on every rank; each rank
+writes and attends its own shard's rows through its pool slice
+(``sharded_paged_update_attention``) and the outputs are all-gathered over
+``data``.  Expert leaves shard over ``expert``
+(``distributed.sharding.make_rules``; ``params`` is the rank's placement,
+``sharding.shard_params(..., keep=("router",))``), and a dropless MoE
+layer whose groups split over the mesh runs the ragged expert-parallel
+``all_to_all`` (``core.dispatch.dropless.ragged_ep_dispatch``).  As in the
+reference, recurrent families, speculation and SLO scheduling are refused
+on a mesh.
+
 Differences from the reference, by design of the port:
 
 * the KV pools are updated in place (the reference's jit donates them
   and adopts the returned pools);
-* PyTorch runs the step eagerly, so there is no compiled-variant census;
-* meshes are not ported and raise NotImplementedError.
+* PyTorch runs the step eagerly, so there is no compiled-variant census.
 """
 from __future__ import annotations
 
@@ -93,9 +114,13 @@ from repro_torch.core.metrics import load_entropy
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.core.routers import get_router
 from repro_torch.core.routers.hashed import _M32, _mix32
+from repro_torch.distributed.collectives import agree_max
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.kernels.decode_attention import (
     paged_update_attention,
     quantized_paged_update_attention,
+    sharded_paged_update_attention,
+    sharded_quantized_paged_update_attention,
 )
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _project_qkv
@@ -133,22 +158,32 @@ def _layer_telemetry(aux, num_experts: int, device) -> dict:
 
 def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths,
                  row_tables, wb, wo, kp, vp, ctx, ksc=None, vsc=None, policy=None,
-                 max_length=None):
+                 max_length=None, mesh=None):
     """One pre-norm block over the flat row batch ``x: (1, N, d)``; writes
     this step's K/V into ``kp``/``vp`` in place before attending (quantized
     into the code pools, with the scale pools ``ksc``/``vsc``, when
     ``policy`` is set).  ``max_length``, the rows' longest context known on
-    the host, only informs the attention kernel's launch plan."""
+    the host, only informs the attention kernel's launch plan.  With
+    ``mesh`` the write and attention run over the ``data`` axis: this rank's
+    shard-major rows through its pool slice (``max_length`` then its own
+    rows' longest)."""
     N = x.shape[1]
     h = L.norm_apply(bp["ln_attn"], x, cfg)
     q, k, v = _project_qkv(bp["attn"], h, cfg, positions)        # (1, N, H*, D)
-    if policy is None:
+    if policy is None and mesh is None:
         out, _, _ = paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
                                            wb, wo, row_tables, lengths, max_length)
-    else:
+    elif policy is None:
+        out = sharded_paged_update_attention(q[0], k[0], v[0], kp, vp, wb, wo, row_tables,
+                                             lengths, mesh=mesh, max_length=max_length)[0]
+    elif mesh is None:
         out = quantized_paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
                                                ksc, vsc, wb, wo, row_tables, lengths,
                                                policy=policy, max_length=max_length)[0]
+    else:
+        out = sharded_quantized_paged_update_attention(
+            q[0], k[0], v[0], kp, vp, ksc, vsc, wb, wo, row_tables, lengths, policy=policy,
+            mesh=mesh, max_length=max_length)[0]
     x = x + L.dense_apply(bp["attn"]["wo"], out.reshape(1, N, -1), cfg)
     h = L.norm_apply(bp["ln_ffn"], x, cfg)
     if moe_layer:
@@ -161,11 +196,12 @@ def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths
 
 
 def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
-                  k_scales=None, v_scales=None, policy=None, max_length=None):
+                  k_scales=None, v_scales=None, policy=None, max_length=None, mesh=None):
     """Flat-row forward: embed -> blocks -> float32 logits (N, V_pad), plus
     the per-layer routing telemetry stacked ``(L, ...)`` ({} when dense).
     ``policy`` (a quantized ``KVQuantPolicy``) switches the K/V write and
-    attention to the quantized ops over the (L, P, Hkv) scale pools."""
+    attention to the quantized ops over the (L, P, Hkv) scale pools;
+    ``mesh`` shards them over its data axis (see :func:`_paged_block`)."""
     quantized = policy is not None
     tokens, positions = rows["tokens"].long(), rows["positions"].long()
     x = L.embedding_apply(params["embed"], tokens[None], cfg)    # (1, N, d)
@@ -180,13 +216,32 @@ def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
             lengths=rows["lengths"], row_tables=rows["row_tables"], wb=rows["wb"],
             wo=rows["wo"], kp=k_pools[i], vp=v_pools[i], ctx=ctx,
             ksc=k_scales[i] if quantized else None,
-            vsc=v_scales[i] if quantized else None, policy=policy, max_length=max_length)
+            vsc=v_scales[i] if quantized else None, policy=policy, max_length=max_length,
+            mesh=mesh)
         telems.append(tl)
     telem = ({} if cfg.moe.num_experts == 0
              else {k: torch.stack([t[k] for t in telems]) for k in telems[0]})
     x = L.norm_apply(params["final_norm"], x, cfg)
     unembed = params.get("unembed", params["embed"])
     return L.unembed_apply(unembed, x, cfg)[0].float(), telem
+
+
+def check_mesh_support(cfg: ModelConfig, serve: ServeConfig) -> None:
+    """The reference's refusals of ``serve.mesh``, with its messages."""
+    if serve.mesh is None:
+        return
+    if cfg.family not in _PAGED_FAMILIES:
+        raise NotImplementedError(
+            "mesh serving needs the paged KV cache (recurrent slot states have no "
+            "block partition)")
+    if serve.spec is not None:
+        raise NotImplementedError(
+            "speculative decoding is not supported with ServeConfig.mesh yet (the verify "
+            "row layout is not shard-major)")
+    if serve.slo is not None:
+        raise NotImplementedError(
+            "SLO scheduling is not supported with ServeConfig.mesh yet (KV swap-to-host "
+            "assumes a single device pool)")
 
 
 def _row_buffers(N: int, blocks_per_slot: int, garbage_block: int):
@@ -268,14 +323,17 @@ class ContinuousEngine:
     draft model.  Drive it with :meth:`run` (a trace of :class:`Request`,
     virtual clock, per-request latencies) or :meth:`generate` (a batch of
     prompts, all admitted at t=0).  ``params`` is the port's param tree
-    (``repro_torch.nn``) on ``device``.
+    (``repro_torch.nn``) on ``device``.  On a mesh (``serve.mesh``) it is
+    this rank's placement of the tree; ``mesh`` is the rank's
+    :class:`repro_torch.launch.mesh.Mesh` (made from ``serve.mesh`` and
+    ``device`` when not given).
     """
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig = ServeConfig(),
                  *, temperature: float = 0.0, seed: int = 0, device="cuda",
                  draft_model: Optional[Tuple] = None, check_invariants: bool = False,
                  obs: Optional[Observability] = None,
-                 logit_tap: Optional[Callable] = None):
+                 logit_tap: Optional[Callable] = None, mesh=None):
         if cfg.family in _PAGED_FAMILIES:
             self.mode = "paged"
             if cfg.attn_logit_softcap > 0:
@@ -291,14 +349,7 @@ class ContinuousEngine:
                 f"continuous batching not implemented for family "
                 f"{cfg.family!r} (zamba's shared-attention cache keeps one "
                 f"batch-wide length; encdec needs per-request encoder memory)")
-        if serve.mesh is not None:
-            if self.mode != "paged":
-                raise NotImplementedError(
-                    "mesh serving needs the paged KV cache (recurrent slot states "
-                    "have no block partition)")
-            # (the reference also refuses serve.slo with a mesh: its swap
-            # assumes one device pool)
-            raise NotImplementedError("mesh serving (serve.mesh) is not ported")
+        check_mesh_support(cfg, serve)
         if self.mode == "recurrent":
             for cond, msg in (
                     (serve.spec is not None, "speculative decoding needs the paged KV "
@@ -343,6 +394,10 @@ class ContinuousEngine:
         self._moe_rows = 0
         self.spec = serve.spec
         self.drafter = None
+        self.mesh = self.rules = None
+        self.data_shards = serve.data_shards
+        if serve.mesh is not None:
+            self._setup_mesh(mesh)
         if self.mode == "recurrent":
             self.fam = get_family(cfg)
             self.cache = None
@@ -352,7 +407,8 @@ class ContinuousEngine:
                                        policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
             return
         self.layers = unstack_layers(params["blocks"], cfg.num_layers)
-        self.cache = make_kv_cache(cfg, serve, device=self.device)
+        self.cache = make_kv_cache(cfg, serve, device=self.device,
+                                   shard=self.mesh.coord["data"] if self.mesh else 0)
         self.scheduler = Scheduler(serve.max_slots, serve.max_len, self.cache,
                                    policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
         if self.spec is not None:
@@ -360,6 +416,24 @@ class ContinuousEngine:
 
             self.drafter = make_drafter(self.spec, cfg, serve, seed=seed,
                                         draft_model=draft_model, device=self.device)
+
+    def _setup_mesh(self, mesh) -> None:
+        """The rank's mesh and rules; ``params`` must be the rank's placement
+        under them (the expert leaves its ``E / ne`` experts)."""
+        from repro_torch.distributed.sharding import check_placed, make_rules
+        from repro_torch.launch.mesh import make_serve_mesh
+
+        if mesh is None:
+            mesh = make_serve_mesh(self.serve.mesh, self.device)
+        if tuple(mesh.shape.items()) != tuple((a, int(n)) for a, n in self.serve.mesh):
+            raise ValueError(f"mesh {mesh.shape} is not serve.mesh {self.serve.mesh}")
+        if mesh.device != self.device:
+            raise ValueError(f"mesh rank on {mesh.device}, engine on {self.device}")
+        self.mesh = mesh
+        # data carries slots and groups, expert the FFN experts: what the
+        # ragged expert-parallel dispatch wants
+        self.rules = make_rules(self.cfg, mesh, expert_axis="expert")
+        check_placed(self.params, self.rules, keep=("router",))
 
     # -- observability ------------------------------------------------------
 
@@ -471,7 +545,12 @@ class ContinuousEngine:
     def build_rows(self) -> StepRows:
         """The next step's rows: every decoding slot's token, then the
         current chunk of the earliest-admitted prefilling request.  Grows
-        the slots' KV blocks to cover the positions written."""
+        the slots' KV blocks to cover the positions written.
+
+        The layout is shard-major over the mesh's data axis (with D = 1 the
+        S decode rows, then the chunk rows): shard d owns rows ``[d * per,
+        (d + 1) * per)``, its own ``S / D`` slots' decode rows first, then,
+        on the prefilling slot's shard, the chunk rows."""
         serve, cache, sched = self.serve, self.cache, self.scheduler
         S = serve.max_slots
         pre = sched.prefilling
@@ -479,20 +558,24 @@ class ContinuousEngine:
         if pre is not None:
             stream, target = pre.confirmed_tokens, pre.prefill_target
             chunk = min(serve.prefill_chunk, target - pre.prefill_pos)
-        N = S + (serve.prefill_chunk if pre is not None else 0)
-        b = _row_buffers(N, serve.blocks_per_slot, cache.garbage_block)
+        D = self.data_shards
+        spd = S // D
+        per = spd + (serve.prefill_chunk if pre is not None else 0)
+        b = _row_buffers(D * per, serve.blocks_per_slot, cache.garbage_block)
         sample_rows: List[Tuple[int, RequestState]] = []
         for slot, st in sched.running.items():
             if st.status is not Status.DECODE:
                 continue
             pos = st.context_len
             cache.ensure_capacity(slot, pos + 1)
-            _fill_row(b, cache, slot, slot, st.last_token, pos)
-            sample_rows.append((slot, st))
+            row = (slot // spd) * per + slot % spd
+            _fill_row(b, cache, row, slot, st.last_token, pos)
+            sample_rows.append((row, st))
         if pre is not None:
             cache.ensure_capacity(pre.slot, pre.prefill_pos + chunk)
+            base = (pre.slot // spd) * per + spd
             for j in range(chunk):
-                row, p = S + j, pre.prefill_pos + j
+                row, p = base + j, pre.prefill_pos + j
                 _fill_row(b, cache, row, pre.slot, stream[p], p)
                 # sample off the last prompt row only
                 if p == pre.request.prompt_len - 1 and not pre.generated:
@@ -513,21 +596,54 @@ class ContinuousEngine:
         rows = {k: dev[i * N:(i + 1) * N] for i, k in enumerate(_ROW_FIELDS)}
         rows["row_tables"] = dev[len(_ROW_FIELDS) * N:].reshape(N, -1)
         cache = self.cache
-        return _paged_logits(self.params, self.layers, self.cfg, rows, cache.k_pool,
-                             cache.v_pool, cache.k_scales, cache.v_scales, cache.policy,
-                             max_length=int(buffers["lengths"].max()))
+        lengths = buffers["lengths"]
+        if self.mesh is not None:       # this rank's shard's rows
+            per, d = N // self.data_shards, self.mesh.coord["data"]
+            lengths = lengths[d * per:(d + 1) * per]
+        with use_rules(self.rules):
+            return _paged_logits(self.params, self.layers, self.cfg, rows, cache.k_pool,
+                                 cache.v_pool, cache.k_scales, cache.v_scales, cache.policy,
+                                 max_length=int(lengths.max()), mesh=self.mesh)
+
+    def _shard_spans(self, sr: StepRows) -> None:
+        """Per-shard child spans of a mesh step: each data shard's slice of
+        the rows, with its own live-row census."""
+        tr = self.obs.tracer
+        if self.mesh is None or not tr.enabled:
+            return
+        per = sr.num_rows // self.data_shards
+        for d in range(self.data_shards):
+            live = int(np.count_nonzero(sr.buffers["lengths"][d * per:(d + 1) * per]))
+            with tr.span("engine_step_shard", kind=sr.kind, step=self.steps, shard=d,
+                         rows=per, live_rows=live):
+                pass
+
+    def _check_ranks_agree(self, tokens: torch.Tensor) -> None:
+        """Every mesh rank sampled the same tokens (all-gathered, never
+        broadcast: a rank that diverged is found, not overwritten)."""
+        from repro_torch.distributed.collectives import all_gather
+
+        every = all_gather(tokens[None], self.mesh.world, dim=0).cpu()
+        if not bool((every == every[:1]).all()):
+            bad = [r for r in range(every.shape[0]) if not torch.equal(every[r], every[0])]
+            raise AssertionError(f"step {self.steps}: ranks {bad} sampled other tokens than "
+                                 f"rank 0")
 
     def _paged_host_step(self, clock_ms: float) -> List[RequestState]:
         sr = self.build_rows()
         with self.obs.tracer.span("engine_step", kind=sr.kind, step=self.steps,
                                   rows=sr.num_rows, live_rows=sr.live):
+            self._shard_spans(sr)
             logits, telem = self.forward_rows(sr.buffers)
             b = sr.buffers
             if self._logit_tap is not None:
                 self._logit_tap(logits.cpu().numpy(), b["slots"], b["positions"],
                                 b["lengths"])
-            next_tok = _sample_rows(logits, b["slots"], b["positions"], self.temperature,
-                                    self.seed).cpu().numpy()
+            tokens = _sample_rows(logits, b["slots"], b["positions"], self.temperature,
+                                  self.seed)
+            if self.mesh is not None and self.check_invariants:
+                self._check_ranks_agree(tokens)
+            next_tok = tokens.cpu().numpy()
         self._moe_accum(telem, sr.num_rows)
         pre = sr.prefilling
         if pre is not None:
@@ -719,6 +835,8 @@ class ContinuousEngine:
         done: List[RequestState] = []
         while self.scheduler.has_work():
             clock = max(clock, (time.perf_counter() - t0) * 1e3)
+            if self.mesh is not None:   # the ranks admit alike on one clock
+                clock = agree_max(clock, self.mesh.world, self.device)
             if not self.scheduler.running:
                 nxt = self.scheduler.next_arrival_ms()
                 if nxt is not None and nxt > clock:

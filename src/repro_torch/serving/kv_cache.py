@@ -15,13 +15,14 @@ the engine's step updates in place; the allocator and table are host
 Python/numpy, exactly as in the reference.
 
 :func:`make_kv_cache` composes the variants as the reference does: prefix
-caching (``repro_torch.serving.prefix_cache``) and the int8/fp8 pools
-(``repro_torch.quant.kv_cache``), each on or off.  The sharded cache is not
-ported.
+caching (``repro_torch.serving.prefix_cache``), the int8/fp8 pools
+(``repro_torch.quant.kv_cache``) and, on a serving mesh, the data-sharded
+:class:`ShardedPagedKVCache`, each on or off.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +74,9 @@ class BlockAllocator:
 
 
 class PagedKVCache:
-    """Device block pools + host block table for one model."""
+    """Device block pools + host block table for one model.  With
+    ``device=None`` the cache is *detached*: host accounting only, no pools
+    (the sharded cache's per-shard sub-caches)."""
 
     # the quantization policy and per-block scale pools: None here; the
     # quantized variants hold int8 codes and (L, P, Hkv) float32 absmax
@@ -97,11 +100,21 @@ class PagedKVCache:
         self.reserved_total = 0
 
     def _alloc_pools(self, cfg: ModelConfig, device) -> None:
-        """The device pools; the quantized variants override this."""
+        """The device pools (none when detached); the quantized variants
+        override this."""
+        self.k_pool = self.v_pool = None
+        if device is None:
+            return
         shape = (cfg.num_layers, self.num_blocks + 1, cfg.num_kv_heads,
                  self.block_size, cfg.resolved_head_dim)
         self.k_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
         self.v_pool = torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
+
+    def detach_pools(self) -> None:
+        """Drop the device pools, keeping the host accounting (tables,
+        allocator, reservations)."""
+        self.k_pool = self.v_pool = None
+        self.k_scales = self.v_scales = None
 
     @property
     def block_bytes(self) -> int:
@@ -123,6 +136,18 @@ class PagedKVCache:
         ignored here; the prefix-caching cache charges only the unshared
         part."""
         return self.reserved_total + self.blocks_needed(total_len) <= self.num_blocks
+
+    def can_allocate_slot_on(self, slot: int, total_len: int, prompt=None) -> bool:
+        """Admission gate for a given slot: every slot draws on the one pool
+        here; the sharded cache asks the shard that owns ``slot``."""
+        return self.can_allocate_slot(total_len, prompt=prompt)
+
+    def pick_slot(self, free_slots: Sequence[int], total_len: int, prompt=None) -> Optional[int]:
+        """The index in ``free_slots`` of the slot an admission takes (the
+        last, LIFO), or None when the pool has no room for it."""
+        if free_slots and self.can_allocate_slot(total_len, prompt=prompt):
+            return len(free_slots) - 1
+        return None
 
     def row_table(self, slot: int) -> np.ndarray:
         return self.block_table[slot]
@@ -222,6 +247,9 @@ class PagedKVCache:
         swap.load(self, [(rec.host_of[k], held[k]) for k in range(rec.num_blocks)])
         return rec.context_len
 
+    def held_blocks(self, slot: int) -> int:
+        return len(self._slot_blocks.get(slot, ()))
+
     def check_conservation(self) -> None:
         self.allocator.check_conservation()
         held_total = 0
@@ -247,24 +275,211 @@ class PagedKVCache:
                  "reserved": self.reserved_total, "block_bytes": self.block_bytes}]
 
 
-def make_kv_cache(cfg: ModelConfig, serve: ServeConfig, device="cuda") -> PagedKVCache:
-    """The cache variant ``serve`` asks for: prefix caching when
-    ``serve.prefix_cache``, int8/fp8 pools when ``serve.kv_quant != "none"``,
-    all four combinations (``repro.serving.kv_cache.make_kv_cache`` without
-    the mesh, which is not ported)."""
-    if serve.mesh is not None:
-        raise NotImplementedError("the sharded (mesh) KV cache is not ported")
+def _single_cache_class(serve: ServeConfig):
     quantized = serve.kv_quant != "none"
     if serve.prefix_cache:
         if quantized:
             from repro_torch.quant.kv_cache import QuantizedPrefixCachingKVCache
 
-            return QuantizedPrefixCachingKVCache(cfg, serve, device=device)
+            return QuantizedPrefixCachingKVCache
         from repro_torch.serving.prefix_cache import PrefixCachingKVCache
 
-        return PrefixCachingKVCache(cfg, serve, device=device)
+        return PrefixCachingKVCache
     if quantized:
         from repro_torch.quant.kv_cache import QuantizedPagedKVCache
 
-        return QuantizedPagedKVCache(cfg, serve, device=device)
-    return PagedKVCache(cfg, serve, device=device)
+        return QuantizedPagedKVCache
+    return PagedKVCache
+
+
+class ShardedPagedKVCache:
+    """D per-shard caches behind the single-cache interface
+    (``repro.serving.kv_cache.ShardedPagedKVCache``).
+
+    The mesh's data axis partitions slots contiguously (slot ``s`` lives on
+    shard ``s // slots_per_shard``), and each shard runs its own allocator
+    (the refcounted prefix-caching one under ``serve.prefix_cache``) over a
+    private pool slice whose garbage block is its last row.  Block ids in
+    tables, write coordinates and the step's rows are **shard-local**.
+    Every rank keeps the host accounting of all D shards (identical on every
+    rank: the ranks run the same scheduler), as detached sub-caches; the
+    device pools are those of this rank's shard ``shard`` alone,
+    ``(L, shard_blocks + 1, Hkv, bs, hd)`` (int8 codes plus their
+    ``(L, shard_blocks + 1, Hkv)`` f32 scales when quantized).  The
+    reference stacks all shards' pools in one array that ``shard_map``
+    splits; no rank here ever allocates another shard's rows.
+
+    KV swap-to-host preemption is not supported on a sharded cache (the
+    engine refuses ``serve.slo`` with a mesh); its hooks raise, as the
+    reference's do.
+    """
+
+    def __init__(self, cfg: ModelConfig, serve: ServeConfig, device="cuda", shard: int = 0):
+        d = serve.data_shards
+        if not 0 <= shard < d:
+            raise ValueError(f"shard {shard} of {d} data shards")
+        self.cfg = cfg
+        self.serve = serve
+        self.num_shards = d
+        self.shard = shard
+        self.block_size = serve.kv_block_size
+        self.num_blocks = serve.resolved_num_blocks
+        self.slots_per_shard = serve.max_slots // d
+        self.shard_blocks = self.num_blocks // d
+        self.garbage_block = self.shard_blocks       # shard-local: its slice's last row
+        sub_serve = dataclasses.replace(serve, mesh=None, max_slots=self.slots_per_shard,
+                                        num_blocks=self.shard_blocks)
+        cls = _single_cache_class(serve)
+        self.shards = [cls(cfg, sub_serve, device=None) for _ in range(d)]
+        # this rank's shard's pools, allocated as that shard's own cache
+        # would allocate them
+        own = cls(cfg, sub_serve, device=device)
+        self.policy = own.policy
+        self.k_pool, self.v_pool = own.k_pool, own.v_pool
+        self.k_scales, self.v_scales = own.k_scales, own.v_scales
+
+    def _loc(self, slot: int) -> Tuple[int, int]:
+        """(shard, shard-local slot) of a global slot id."""
+        return divmod(slot, self.slots_per_shard)
+
+    # -- admission / accounting (scheduler-facing) ---------------------------
+
+    @property
+    def block_bytes(self) -> int:
+        return self.shards[0].block_bytes
+
+    @property
+    def max_request_blocks(self) -> int:
+        return self.shard_blocks
+
+    @property
+    def reserved_total(self) -> int:
+        return sum(s.reserved_total for s in self.shards)
+
+    def blocks_needed(self, total_len: int) -> int:
+        return -(-total_len // self.block_size)
+
+    def can_allocate_slot(self, total_len: int, prompt=None) -> bool:
+        """True when *some* shard has room (the scheduler asks
+        :meth:`pick_slot`)."""
+        return any(s.can_allocate_slot(total_len, prompt=prompt) for s in self.shards)
+
+    def can_allocate_slot_on(self, slot: int, total_len: int, prompt=None) -> bool:
+        d, _ = self._loc(slot)
+        return self.shards[d].can_allocate_slot(total_len, prompt=prompt)
+
+    def pick_slot(self, free_slots: Sequence[int], total_len: int, prompt=None) -> Optional[int]:
+        """The index in ``free_slots`` of the LIFO-first slot whose shard
+        has room (slots are bound to shards), or None."""
+        for i in range(len(free_slots) - 1, -1, -1):
+            if self.can_allocate_slot_on(free_slots[i], total_len, prompt=prompt):
+                return i
+        return None
+
+    def allocate_slot(self, slot: int, total_len: int, prompt=None) -> int:
+        d, ls = self._loc(slot)
+        return self.shards[d].allocate_slot(ls, total_len, prompt=prompt)
+
+    def commit(self, slot: int, tokens) -> None:
+        d, ls = self._loc(slot)
+        self.shards[d].commit(ls, tokens)
+
+    def committed_blocks(self, slot: int) -> int:
+        d, ls = self._loc(slot)
+        return self.shards[d].committed_blocks(ls)
+
+    def free_slot(self, slot: int) -> None:
+        d, ls = self._loc(slot)
+        self.shards[d].free_slot(ls)
+
+    def ensure_capacity(self, slot: int, length: int) -> None:
+        d, ls = self._loc(slot)
+        self.shards[d].ensure_capacity(ls, length)
+
+    def truncate_slot(self, slot: int, new_len: int) -> None:
+        d, ls = self._loc(slot)
+        self.shards[d].truncate_slot(ls, new_len)
+
+    def write_coords(self, slot: int, position: int) -> Tuple[int, int]:
+        """Shard-local (block, offset): the shard's pool slice is indexed by
+        its own block ids."""
+        d, ls = self._loc(slot)
+        return self.shards[d].write_coords(ls, position)
+
+    def row_table(self, slot: int) -> np.ndarray:
+        d, ls = self._loc(slot)
+        return self.shards[d].row_table(ls)
+
+    def held_blocks(self, slot: int) -> int:
+        d, ls = self._loc(slot)
+        return self.shards[d].held_blocks(ls)
+
+    def warm_prefix_tokens(self, prompt) -> int:
+        return max(s.warm_prefix_tokens(prompt) for s in self.shards)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """The prefix-cache counters summed over shards."""
+        totals: Dict[str, int] = {}
+        for s in self.shards:
+            for k, v in s.stats.items():
+                totals[k] = totals.get(k, 0) + v
+        return totals
+
+    def occupancy(self) -> list:
+        """One occupancy entry per shard's allocator."""
+        return [o for s in self.shards for o in s.occupancy()]
+
+    # -- preemption swap hooks: unsupported under data sharding --------------
+
+    def swap_footprint(self, slot: int) -> int:
+        raise NotImplementedError(
+            "KV swap-to-host preemption is not supported on a sharded cache")
+
+    def swap_out(self, slot, swap, *, uid, total_len, context_len):
+        raise NotImplementedError(
+            "KV swap-to-host preemption is not supported on a sharded cache")
+
+    def can_restore(self, rec) -> bool:
+        raise NotImplementedError(
+            "KV swap-to-host preemption is not supported on a sharded cache")
+
+    def restore_slot(self, slot, rec, swap) -> int:
+        raise NotImplementedError(
+            "KV swap-to-host preemption is not supported on a sharded cache")
+
+    def check_conservation(self) -> None:
+        """Every shard's invariants, then the aggregate: summed reservations
+        within the pool, free + live + cached blocks over all shards equal
+        to it, and this rank's pools of one shard's rows."""
+        for s in self.shards:
+            s.check_conservation()
+        free = live = cached = 0
+        for s in self.shards:
+            a = s.allocator
+            free += a.free_count
+            live += getattr(a, "allocated_count", 0) + getattr(a, "live_count", 0)
+            cached += getattr(a, "cached_count", 0)
+        if self.reserved_total > self.num_blocks or free + live + cached != self.num_blocks:
+            raise AssertionError(
+                f"sharded KV cache: reserved {self.reserved_total}, free {free} + live "
+                f"{live} + cached {cached} vs {self.num_blocks} blocks")
+        if self.k_pool is not None:
+            rows = self.shard_blocks + 1
+            if self.k_pool.shape[1] != rows or self.v_pool.shape[1] != rows:
+                raise AssertionError(f"sharded KV cache: pools of {self.k_pool.shape[1]} rows, "
+                                     f"a shard has {rows}")
+            if self.k_scales is not None and (
+                    tuple(self.k_scales.shape) != tuple(self.k_pool.shape[:3])
+                    or self.v_scales.shape != self.k_scales.shape):
+                raise AssertionError("sharded KV cache: scale pools do not match code pools")
+
+
+def make_kv_cache(cfg: ModelConfig, serve: ServeConfig, device="cuda", shard: int = 0):
+    """The cache variant ``serve`` asks for: the sharded composition when
+    ``serve.mesh`` is set (with this rank's data shard ``shard``'s pools),
+    prefix caching when ``serve.prefix_cache``, int8/fp8 pools when
+    ``serve.kv_quant != "none"``; all eight combinations compose."""
+    if serve.mesh is not None:
+        return ShardedPagedKVCache(cfg, serve, device=device, shard=shard)
+    return _single_cache_class(serve)(cfg, serve, device=device)

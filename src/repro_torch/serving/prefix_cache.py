@@ -335,6 +335,13 @@ class PrefixCachingKVCache(PagedKVCache):
                                published=self.index.published(old))
         if self.allocator.refcount(old) > 0:
             self.stats["cow_detaches"] += 1
+        if self.k_pool is None:
+            # a detached per-shard sub-cache: only speculative rollback into a
+            # partial shared block reaches here, and the engine refuses
+            # speculation on a mesh, so this is a guard, not a path
+            raise NotImplementedError(
+                "copy-on-write detach needs device pools; not supported on "
+                "a detached per-shard cache")
         new = self.allocator.alloc(1, owner=slot)[0]
         if new != old:      # eviction can hand the same id straight back
             self.k_pool[:, new] = self.k_pool[:, old]

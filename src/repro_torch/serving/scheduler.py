@@ -176,17 +176,25 @@ class Scheduler:
                                  max_new_tokens=request.max_new_tokens)
         return st
 
-    def _fits(self, st: RequestState) -> bool:
-        if self.kv_cache is None:
-            return True
+    def _slot_index(self, st: RequestState) -> Optional[int]:
+        """Where in ``free_slots`` the request's admission lands, or None
+        when no free slot's pool has room for its worst-case footprint.
+        The cache chooses (``pick_slot``: the LIFO slot of one pool, the
+        LIFO-first slot whose shard fits of a sharded one); a ``PREEMPTED``
+        request takes the LIFO slot if its swap record can come back."""
+        cache = self.kv_cache
+        if cache is None:
+            return len(self.free_slots) - 1
         if st.status is Status.PREEMPTED:
-            return self.kv_cache.can_restore(st.swap_record)
-        return self.kv_cache.can_allocate_slot(st.request.total_len,
-                                               prompt=st.request.prompt)
+            return len(self.free_slots) - 1 if cache.can_restore(st.swap_record) else None
+        return cache.pick_slot(self.free_slots, st.request.total_len, prompt=st.request.prompt)
+
+    def _fits(self, st: RequestState) -> bool:
+        return self._slot_index(st) is not None
 
     def admit(self, clock_ms: float) -> List[RequestState]:
         """Admit arrived requests under the policy while slots (and
-        unreserved KV footprint) last; the slot is the LIFO free one.  A
+        unreserved KV footprint) last; the slot is ``_slot_index``'s.  A
         ``PREEMPTED`` pick is restored instead of freshly allocated: its
         recorded blocks come back and prefill resumes at the restored
         position, or decode does when the whole context came back."""
@@ -196,7 +204,7 @@ class Scheduler:
             if idx is None:
                 break
             st = self.waiting.pop(idx)
-            slot = self.free_slots.pop()
+            slot = self.free_slots.pop(self._slot_index(st))
             st.cached_tokens = 0
             if st.status is Status.PREEMPTED:
                 # (a swap record exists only with a cache: see __init__)

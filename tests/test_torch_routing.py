@@ -111,12 +111,26 @@ def test_dropless_dispatch_and_moe_layer_match_reference(capacity_factor, act):
 
 
 def test_unported_router_and_dispatcher_raise_on_use():
+    """Every router and dispatcher the reference registers resolves, the
+    ``alltoall`` dispatcher among them: without a serving mesh it is the
+    reference's ``gather`` (and ``dropless`` for a dropless plan), and its
+    output equals the reference's ``alltoall`` on the same plan; unknown
+    names raise."""
+    from repro.core.dispatch import get_dispatcher as jget_dispatcher
     from repro_torch.core.dispatch import get_dispatcher
     from repro_torch.core.routers import get_router
 
     TMoEConfig(num_experts=4, impl="alltoall", routing="hash")   # valid config
-    with pytest.raises(NotImplementedError):
-        get_dispatcher("alltoall")
+    a2a = get_dispatcher("alltoall")
+    assert a2a.name == "alltoall" and a2a.supports_dropless
+    for capacity_factor in (None, 1.0):
+        jcfg, tcfg = _moe_cfgs(impl="alltoall", capacity_factor=capacity_factor)
+        jparams = jinit(moe_ffn_specs(jcfg), jax.random.PRNGKey(3))
+        tparams = {k: torch.from_numpy(np.array(v)) for k, v in jax.device_get(jparams).items()}
+        xg = np.random.default_rng(4).standard_normal((1, 40, 32)).astype(np.float32)
+        jp, tp = _plans(1, 40, 8, 2, 40 if capacity_factor is None else 10, seed=5)
+        _close(jget_dispatcher("alltoall")(jparams, jnp.asarray(xg), jp, jcfg),
+               a2a(tparams, torch.from_numpy(xg), tp, tcfg))
     for name in ("hash", "expert_choice"):       # ported: they resolve
         assert get_router(name).name == name
     with pytest.raises(ValueError, match="registered routers"):

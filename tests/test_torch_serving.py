@@ -23,6 +23,7 @@ from repro.serving.kv_cache import BlockAllocator as JBlockAllocator
 from repro.serving.kv_cache import PagedKVCache as JPagedKVCache
 from repro_torch.configs import m6 as tm6
 from repro_torch.configs.base import ServeConfig as TServeConfig
+from repro_torch.configs.base import SLOConfig as TSLOConfig
 from repro_torch.nn import from_jax_params, lm_shapes
 from repro_torch.serving.continuous import ContinuousEngine as TEngine
 from repro_torch.serving.kv_cache import BlockAllocator as TBlockAllocator
@@ -144,7 +145,10 @@ def test_learned_positions_past_table_raise():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(serve=TServeConfig(max_len=32, mesh=(("data", 1), ("expert", 1)))),
+    # a mesh serves (tests/test_torch_mesh*.py); with SLO scheduling it is
+    # refused, as the reference refuses it
+    dict(serve=TServeConfig(max_len=32, mesh=(("data", 1), ("expert", 1)),
+                            slo=TSLOConfig(preemption=True))),
     # the reference refuses zamba (one batch-wide cache length) and encdec;
     # so does the port
     dict(cfg=dict(family="zamba")),
@@ -211,9 +215,13 @@ def test_cli_serves_slo_priority_trace_on_cpu(capsys):
     assert stats["generated_tokens"] == sum(len(st.generated) for st in done)
     assert stats["requests_shed"] == sum(st.status is Status.SHED for st in done)
     assert stats["moe_dropped_fraction"] == 0.0
-    assert serve._unported(serve.build_parser().parse_args(argv)) == []
-    bad = serve.build_parser().parse_args(argv[:5] + ["--mesh", "2", "--profile-dir", "d"])
-    assert serve._unported(bad) == ["--mesh"]
+    # --mesh parses as the reference's; with SLO scheduling it is refused
+    # with the reference's message, before any process group is made
+    mesh = serve.build_parser().parse_args(argv[:5] + ["--mesh", "2", "--profile-dir", "d"])
+    assert serve.parse_mesh(mesh.mesh) == (("data", 2), ("expert", 1))
+    with pytest.raises(NotImplementedError, match="SLO scheduling is not supported with "
+                                                  "ServeConfig.mesh"):
+        serve.main(argv + ["--mesh", "2"])
 
 
 def test_port_imports_without_jax():

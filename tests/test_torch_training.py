@@ -193,10 +193,40 @@ def test_cli_trains_on_cpu(tmp_path):
     (["--moe-impl", "alltoall", "--routing", "expert_choice"], "alltoall"),
 ])
 def test_cli_unported_flags_raise(flags, name):
-    from repro_torch.launch.train import main
+    """--data/--model above 1 (a training mesh) is not ported and raises.
+    ``--moe-impl alltoall`` trains, as the reference's does without a mesh:
+    as ``gather``, its losses equal to the gather CLI's, and its train step
+    (the CLI's config, from the reference's params) within rtol 1e-5 of the
+    reference's step under alltoall over two steps."""
+    from repro_torch.launch.train import build, build_parser, main
 
-    with pytest.raises(NotImplementedError, match=name):
-        main(["--arch", "m6-base", "--smoke", "--steps", "1", "--device", "cpu", *flags])
+    if name != "alltoall":
+        with pytest.raises(NotImplementedError, match=name):
+            main(["--arch", "m6-base", "--smoke", "--steps", "1", "--device", "cpu", *flags])
+        return
+    argv = ["--arch", "m6-base", "--smoke", "--steps", "2", "--batch", "2", "--seq", "36",
+            "--log-every", "1", "--device", "cpu"]
+    logs = main(argv + flags)
+    gather = main(argv + ["gather" if f == "alltoall" else f for f in flags])
+    assert [m["loss"] for m in logs] == [m["loss"] for m in gather]
+    assert all(np.isfinite(m["loss"]) for m in logs)
+    tcfg = build(build_parser().parse_args(argv + flags))
+    jcfg = jm6.smoke().replace_moe(routing=tcfg.moe.routing, top_k=tcfg.moe.top_k,
+                                   impl="alltoall")
+    jp, tp = _params(jcfg, tcfg)
+    kw = dict(learning_rate=1e-3, warmup_steps=2)
+    jtc, ttc = JTrainConfig(**kw), TTrainConfig(**kw)
+    jopt = j_make_optimizer(jtc, j_warmup(jtc.learning_rate, jtc.warmup_steps))
+    topt = t_make_optimizer(ttc, t_warmup(ttc.learning_rate, ttc.warmup_steps))
+    jstate, tstate = j_init_state(jp, jopt), t_init_state(tp, topt)
+    jstep = jax.jit(j_make_train_step(jcfg, jtc, jopt))
+    tstep = t_make_train_step(tcfg, ttc, topt)
+    pipe = jpipe.make_pipeline(jcfg, 2, 36, seed=0)
+    for i in range(2):
+        b = pipe.batch_at(i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
 
 
 def test_chip_smoke_train_comparisons_run_on_cpu(capsys):
