@@ -198,7 +198,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 12. families — the decoder-LM configs at full width, random weights from
               seed 0, each over its own 16-request synthetic trace through
               the continuous engine with dropless MoE: (a) granite-moe-3b-
-              a800m at its 32 layers (top-8 of 40 swiglu experts, 24 heads
+              a800m at 8 of its 32 layers (top-8 of 40 swiglu experts, 24 heads
               over 8 kv heads of 64: the paged kernel at G = 3), (b) granite
               under prototyped(8) (8 prototypes x 5 experts, 8 top-1), (c)
               qwen2.5-32b at 2 layers over int8 pools (the quantized kernel
@@ -259,8 +259,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               plain versions but at near-ties of its top two logits;
               decode tokens/s, mean step, peak memory, the busy share of
               a profiled generate); (e) the serve CLI with --engine
-              static --requests 16 --batch 8: run_trace_static over
-              synthetic_trace(16, 32000, seed=0) in FCFS groups of 8
+              static --requests 8 --batch 8: run_trace_static over
+              synthetic_trace(8, 32000, seed=0), one FCFS group of 8
               (every budget met, launches and tokens gated as in (b);
               tokens/s, mean step, p50/p95), and --engine continuous
               refused with the reference's reason;
@@ -327,7 +327,30 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               65-row pool slice and the ragged FFN at (b)'s received
               buffers (928 and 8352 rows, 16 local experts); phase 4 times
               them.
-17. report  — a {"kernels": [...]} line (decode_attention's launches and
+17. mesh training — m6-base trained on a (data, model) mesh: (a) phase
+              6's 8 top-1 pallas steps again through the train CLI on the
+              (1, 1) mesh (a world-1 NCCL group in this process): losses
+              and final params bit-equal to phase 6's, no collective,
+              moe_ffn launched as there; (b) (data 2, model 2) as four
+              spawned processes that share the card over gloo, a batch of
+              16 x 256 (G = 4 groups of 1024, one a rank): alltoall top-1
+              at 5 layers for 3 steps, and 4 top-1 prototyping, dropless
+              and pallas at 2 layers for 2 steps, AdamW with ZeRO-1; each
+              run first single-device on the card (step 0's loss, routes
+              and gradients), then on the ranks: every rank's loss equal
+              at every step, step 0 within compare_train_step's gates of
+              the single device (loss, gradient norm, every leaf's cosine;
+              flips reported with margins), all_to_all a step = MoE layers
+              x 6 (capacity) / 8 (dropless) / 0 (pallas), moe_ffn and the
+              ragged FFN 2 x layers x steps a rank on the tensor cores and
+              no other kernel, half the AdamW state a rank on every leaf
+              with a free divisible dim, every grouped-FFN shape launched
+              one that phase 3 holds against its plain version (moe_ffn at
+              X = 80 a rank and 160 on one device; the ragged FFN over a
+              rank's received 4032 rows and one device's 8064; phase 4
+              times them); reported per rank: step ms, tokens/s,
+              collective seconds by kind, peak GB.
+18. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
@@ -335,7 +358,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               zamba_shapes; encdec_launches of phase 15, and the dense
               kernel's encdec_shapes and softcap_shapes; mesh_launches,
               mesh_max_abs_err and mesh_shapes of phase 16 for the paged,
-              int8 and ragged FFN kernels), the card line,
+              int8 and ragged FFN kernels; mesh_train_launches,
+              mesh_train_max_abs_err and mesh_train_shapes of phase 17 (b)
+              for moe_ffn and the ragged FFN), the card line,
               and as the last line {"ok":
               true, "device": {"platform": "gpu", "kind": ..., "count":
               1}}.
@@ -880,6 +905,9 @@ def phase_check(torch):
     for name, err in check_mesh_kernels(torch).items():
         errs[name] = max(errs.get(name, 0.0), err)
         errs[f"mesh {name}"] = err
+    for name, err in check_mesh_train_kernels(torch).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+        errs[f"mesh_train {name}"] = err
     return errs, weights
 
 
@@ -2104,14 +2132,21 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
 
 TRAIN_ARGS = ["--arch", "m6-base", "--moe-impl", "pallas", "--batch", "8", "--seq", "144",
               "--log-every", "1"]
+PHASE6_TOP1 = {}                # phase 6's 8 top-1 steps: final params (host) and losses, for 17 (a)
 
 
-def train_run(torch, extra, steps):
-    """``repro_torch.launch.train.main`` itself for ``steps`` steps, logging
-    every step (each log syncs, so each step_time_s is a whole step)."""
-    from repro_torch.launch.train import main as train_main
+def train_run(torch, extra, steps, keep=None):
+    """``repro_torch.launch.train.main``'s loop (``run``) itself for
+    ``steps`` steps, logging every step (each log syncs, so each
+    step_time_s is a whole step); ``keep`` (a dict) gets the final params'
+    host copy by flat path."""
+    from repro_torch.launch.train import build_parser, run
+    from repro_torch.nn import flat_params
 
-    logs = train_main(TRAIN_ARGS + ["--steps", str(steps)] + extra)
+    logs, state = run(build_parser().parse_args(TRAIN_ARGS + ["--steps", str(steps)] + extra))
+    if keep is not None:
+        keep.update({k: p.detach().cpu() for k, p in flat_params(state.params).items()})
+    del state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for m in logs:
@@ -2148,7 +2183,10 @@ def phase_train(torch):
             fn.launches = 0
         mf.moe_ffn.tc_launches = 0
         torch.cuda.reset_peak_memory_stats()
-        logs = train_run(torch, extra, steps)
+        keep = PHASE6_TOP1 if label == "top-1" else None
+        logs = train_run(torch, extra, steps, keep)
+        if keep is not None:
+            keep["losses"] = [m["loss"] for m in logs]
         got = {name: fn.launches for name, fn in counters.items()}
         want = 5 * steps * 2        # layers x steps x (forward + remat recompute)
         if got["moe_ffn"] != want or any(got[n] for n in got if n != "moe_ffn"):
@@ -3082,22 +3120,33 @@ def recorded_acceptance(store: list):
 
 @contextmanager
 def recorded_ffn_shapes(store: dict):
-    """Count the dropless dispatcher's ragged FFN calls by (rows, block
-    rows).  The dispatcher's handle on the kernel module is swapped, not the
-    module's own ``ragged_ffn``, whose launch counters stay in place."""
+    """Count the grouped-FFN calls of the MoE layers by shape: ("ragged_ffn",
+    rows, block rows) of the dropless dispatcher's kernel and ("moe_ffn",
+    E, X, M) of the capacity dispatchers'.  The callers' handles are
+    swapped, not the kernel modules' wrappers, whose launch counters stay
+    in place."""
     from types import SimpleNamespace
     from unittest import mock
 
+    import repro_torch.kernels.moe_ffn as moe_pkg
     from repro_torch.core.dispatch import dropless
 
-    real = dropless.dropless_ops.ragged_ffn
+    real_ragged = dropless.dropless_ops.ragged_ffn
+    real_moe = moe_pkg.moe_ffn
 
-    def ffn(x, be, *args, block_x=128, **kw):
-        key = (int(x.shape[0]), int(block_x))
+    def count(key):
         store[key] = store.get(key, 0) + 1
-        return real(x, be, *args, block_x=block_x, **kw)
 
-    with mock.patch.object(dropless, "dropless_ops", SimpleNamespace(ragged_ffn=ffn)):
+    def ragged(x, be, *args, block_x=128, **kw):
+        count(("ragged_ffn", int(x.shape[0]), int(block_x)))
+        return real_ragged(x, be, *args, block_x=block_x, **kw)
+
+    def moe(x, *args, **kw):
+        count(("moe_ffn", *map(int, x.shape)))
+        return real_moe(x, *args, **kw)
+
+    with mock.patch.object(dropless, "dropless_ops", SimpleNamespace(ragged_ffn=ragged)), \
+            mock.patch.object(moe_pkg, "moe_ffn", moe):
         yield
 
 
@@ -3185,7 +3234,8 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
         rep["divergences"] = first_divergences(ref[kv], out, margins[kv], requests, label)
         rep["token_match"] = token_match(ref[kv], out)
         rep["launches"] = launches
-        rep["ragged_ffn_shapes"] = {f"{n} rows, bx {bx}": c for (n, bx), c in shapes.items()}
+        rep["ragged_ffn_shapes"] = {f"{n} rows, bx {bx}": c for (kind, n, bx), c in shapes.items()
+                                    if kind == "ragged_ffn"}
         log(f"  {label}: {latency_line(stats)}; {eng.steps} steps ({rep['verify_steps']} "
             f"verify), mean step {rep['mean_step_ms']:.3f} ms (host clock); acceptance "
             f"{rep['spec_acceptance_rate']:.3f}, {rep['spec_tokens_per_step']:.3f} tokens a "
@@ -4079,6 +4129,7 @@ FAMILY_TRAIN_ARGS = ["--arch", "granite-moe-3b-a800m", "--moe-impl", "pallas", "
 FAMILY_TRAIN_LAYERS = 2
 FAMILY_TRAIN_STEPS = 4
 FAMILY_SMALL_LAYERS = 2          # qwen2.5-32b and olmoe-1b-7b at full width
+FAMILY_GRANITE_LAYERS = 8        # granite served at 8 of its 32 layers (the script's time)
 # Adafactor on the card against the CPU: the same arithmetic with every mean
 # a sum in another order (over up to 75 M elements); each factor of an
 # update element (its gradient, the row and column means, the two RMS) is
@@ -4256,19 +4307,21 @@ def family_serve(torch, cfg, params, requests, device, label, kv_quant="none",
 
 
 def family_configs():
-    """(label, config, layers cut or None, kv_quant) of (a)-(c), at full
-    width: granite at full depth, top-8 of 40, then its 8 top-1
-    prototyping; qwen2.5-32b (int8 pools, G = 5, QKV bias) and
-    olmoe-1b-7b (qk-norm, G = 1, D 128, top-8 of 64) at 2 layers."""
+    """(label, config, kv_quant) of (a)-(c), at full width: granite at
+    ``FAMILY_GRANITE_LAYERS``, top-8 of 40, then its 8 top-1 prototyping;
+    qwen2.5-32b (int8 pools, G = 5, QKV bias) and olmoe-1b-7b (qk-norm,
+    G = 1, D 128, top-8 of 64) at 2 layers."""
     from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.configs import olmoe_1b_7b, qwen2_5_32b
 
     def dropless(cfg):
         return cfg.replace_moe(impl="dropless", capacity_factor=None)
 
-    cut = FAMILY_SMALL_LAYERS
-    return [("(a) granite-moe-3b-a800m", dropless(granite.CONFIG), "none"),
-            ("(b) granite prototyped(8)", dropless(granite.prototyped(8)), "none"),
+    cut, deep = FAMILY_SMALL_LAYERS, FAMILY_GRANITE_LAYERS
+    return [("(a) granite-moe-3b-a800m", dropless(granite.CONFIG.replace(num_layers=deep)),
+             "none"),
+            ("(b) granite prototyped(8)",
+             dropless(granite.prototyped(8).replace(num_layers=deep)), "none"),
             ("(c) qwen2.5-32b, int8 pools", qwen2_5_32b.CONFIG.replace(num_layers=cut), "int8"),
             ("(c) olmoe-1b-7b", dropless(olmoe_1b_7b.CONFIG.replace(num_layers=cut)), "none")]
 
@@ -4348,10 +4401,10 @@ def recorded_compression(store: list):
 
     real = trainer.compress_grads
 
-    def spy(grads, mode, ef=None):
+    def spy(grads, mode, ef=None, global_max=None):
         host = ({k: g.detach().cpu() for k, g in grads.items()},
                 None if ef is None else {k: e.cpu() for k, e in ef.items()})
-        out, new_ef = real(grads, mode, ef)
+        out, new_ef = real(grads, mode, ef, global_max)
         store.append((*host, mode, {k: g.cpu() for k, g in out.items()},
                       None if new_ef is None else {k: e.cpu() for k, e in new_ef.items()}))
         return out, new_ef
@@ -4853,6 +4906,7 @@ ZAMBA_CPU_SHAPE = (4, 16, 8)     # (c): rows, prompt tokens, generated tokens
 ZAMBA_PROFILE_SHAPE = (8, 4)     # a profiled generate: the batch's first 8 prompt tokens, 4 more
 ZAMBA_TRAIN_ARGS = ["--arch", "zamba2-7b", "--batch", "4", "--seq", "1024", "--log-every", "1"]
 ZAMBA_TRAIN_STEPS = 2
+ZAMBA_CLI_REQUESTS = 8           # (e): one FCFS group of 8 (the script's time)
 
 
 def zamba_decode_lengths(requests, batch=STATIC_BATCH):
@@ -5025,7 +5079,8 @@ def zamba_cli(torch, cfg, params, cli_argv, device, n_requests=16, batch=STATIC_
 
 def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
                shape=(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN), cut_layers=ZAMBA_CUT_LAYERS,
-               cpu_shape=ZAMBA_CPU_SHAPE, train_steps=ZAMBA_TRAIN_STEPS, cli_requests=16):
+               cpu_shape=ZAMBA_CPU_SHAPE, train_steps=ZAMBA_TRAIN_STEPS,
+               cli_requests=ZAMBA_CLI_REQUESTS):
     """(b)-(e) over ``cfg`` (zamba2-7b, or its smoke config with ``--smoke``
     in ``cli_argv`` for a CPU rehearsal), random params from seed 0; the
     serve CLI's trace of ``cli_requests``.  Returns (report, launches)."""
@@ -5591,14 +5646,16 @@ def mesh_shard_case(seed, chunk=True, quant=None, dtype=None):
     return q, kc, vc, ks, vs, tables, lengths
 
 
-def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=4096):
-    """The rows expert shard ``shard`` of ``ne`` receives in (b)'s ragged
+def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=4096, tokens=1,
+                  bx=8):
+    """The rows expert shard ``shard`` of ``ne`` receives in a ragged
     all_to_all, built as ``dropless.ragged_ep_dispatch`` packs them: from
-    each of ``ne`` source ranks, ``groups`` one-token groups routed top-1
-    over E experts (bx 8, R = 232 rows a group), each group's rows of this
-    shard's experts at the front of its R-row slot, the rest zero rows of
-    local expert 0.  Returns (xs, local block experts, this shard's
-    weights, live rows, the flat indices of the routed row blocks)."""
+    each of ``ne`` source ranks, ``groups`` groups of ``tokens`` tokens
+    routed top-1 over E experts (phase 16 (b): one-token groups, bx 8,
+    R = 232 rows a group), each group's rows of this shard's experts at the
+    front of its R-row slot, the rest zero rows of local expert 0.  Returns
+    (xs, local block experts, this shard's weights, live rows, the flat
+    indices of the routed row blocks)."""
     import torch
 
     from repro_torch.configs.base import MoEConfig
@@ -5606,13 +5663,12 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     G = ne * groups
-    logits = torch.randn((G, 1, E), generator=g, device="cuda")
-    plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0), 1)
-    bx = 8
+    logits = torch.randn((G, tokens, E), generator=g, device="cuda")
+    plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0), tokens)
     rag = plan.ragged(bx)
     R = rag.token.shape[1]
     epl = E // ne
-    x = torch.randn((G, 1, M), generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn((G, tokens, M), generator=g, device="cuda").to(torch.bfloat16)
     xs = torch.zeros((G, R, M), dtype=torch.bfloat16, device="cuda")
     be = torch.zeros((G, R // bx), dtype=torch.int32, device="cuda")
     live, routed = 0, []
@@ -5620,7 +5676,7 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
         lo = int(rag.expert_offsets[i, shard * epl])
         hi = int(rag.expert_offsets[i, (shard + 1) * epl])
         tok = rag.token[i, lo:hi]
-        xs[i, :hi - lo] = torch.where((tok >= 0)[:, None], x[i, 0][None, :],
+        xs[i, :hi - lo] = torch.where((tok >= 0)[:, None], x[i][tok.clamp(min=0).long()],
                                       torch.zeros_like(x[i, 0])[None, :])
         be[i, :(hi - lo) // bx] = rag.block_expert[i, lo // bx:hi // bx] - shard * epl
         live += int((tok >= 0).sum())
@@ -5699,25 +5755,34 @@ def check_mesh_kernels(torch):
     return errs
 
 
-def time_mesh_ffn(torch, groups, seed):
+def time_mesh_ffn(torch, groups, seed, tokens=1, bx=8):
     """Kernel, plain and grouped_mm times of the ragged FFN over a received
-    buffer of (b); grouped_mm over the same rows sorted by local expert
-    (its offsets need each expert's rows contiguous)."""
+    buffer (phase 16 (b)'s by default; ``mesh_ffn_case``'s arguments)."""
+    xs, be, weights, live, routed = mesh_ffn_case(groups, seed, tokens=tokens, bx=bx)
+    out = time_sorted_ffn(torch, xs, be, weights, bx, *mesh_ffn_bound(xs, be, weights, live,
+                                                                       routed))
+    out.update(rows=int(xs.shape[0]), live_rows=live,
+               routed_experts=int(be[routed].unique().numel()))
+    return out
+
+
+def time_sorted_ffn(torch, xs, be, weights, bx, bound, by):
+    """Kernel, plain and grouped_mm times of the ragged FFN (gelu) over
+    ``xs``; grouped_mm over the same rows sorted by expert (its offsets
+    need each expert's rows contiguous, whatever the groups)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
-    xs, be, weights, live, routed = mesh_ffn_case(groups, seed)
     w_up, _, w_down = weights
 
     def kern():
-        return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=8)
+        return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
 
-    bound, by = mesh_ffn_bound(xs, be, weights, live, routed)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
     p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
-    rows_e = be.long().repeat_interleave(8)
+    rows_e = be.long().repeat_interleave(bx)
     order = torch.argsort(rows_e, stable=True)
     xsort = xs[order].contiguous()
     offs = torch.bincount(rows_e, minlength=w_up.shape[0]).cumsum(0).int()
@@ -5732,9 +5797,7 @@ def time_mesh_ffn(torch, groups, seed):
         log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
-                rows=int(xs.shape[0]), live_rows=live,
-                routed_experts=int(be[routed].unique().numel()))
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
 
 
 def time_mesh_attention(torch, chunk, seed, quant=None):
@@ -6109,6 +6172,441 @@ def phase_mesh(torch, base_tokens, int8_tokens):
     return report, mesh_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = (2, 2)       # (b): data x model, four processes that share the card
+MESH_TRAIN_ARGS = ["--arch", "m6-base", "--batch", "16", "--seq", "256", "--log-every", "1"]
+# (label, flags, layers, steps): 16 x 256 = 4096 tokens, G = 4 groups of the paper's 1024, two a
+# data rank, one a model rank; the first run at full depth, the other three cut to 2 layers
+MESH_TRAIN_RUNS = (
+    ("alltoall top-1", ["--moe-impl", "alltoall"], 5, 3),
+    ("alltoall 4 top-1", ["--moe-impl", "alltoall", "--routing", "prototype", "--k", "4"], 2, 2),
+    ("dropless", ["--moe-impl", "dropless", "--capacity-factor", "none"], 2, 2),
+    ("pallas", ["--moe-impl", "pallas"], 2, 2),
+)
+# all_to_all a MoE layer a step: forward, remat recompute and backward of the capacity path's
+# two exchanges; of the ragged path's three, whose expert ids have no backward; none where the
+# experts are gathered whole
+MESH_TRAIN_A2A = {"alltoall": 6, "dropless": 8, "pallas": 0}
+MESH_TRAIN_TIMEOUT = 900
+# (b)'s kernel shapes, held against the plain versions in phase 3 and timed in phase 4
+# (``mesh_train_ranks`` fails where a run launches either kernel at another shape): moe_ffn
+# over the gathered experts (pallas) at X = 2 groups x C 40 on a rank and 4 groups on one
+# device; the ragged FFN (dropless: groups of 1024 tokens, bx 32, R 2016 rows a group) over a
+# rank's received buffer, one group from each model rank on its 16 of 32 experts, and over one
+# device's 4 groups
+MESH_TRAIN_MOE_X = {"rank": 80, "single device": 160}
+MESH_TRAIN_GROUP, MESH_TRAIN_BX, MESH_TRAIN_R = 1024, 32, 2016
+MESH_TRAIN_RAGGED_ROWS = {"rank": 2 * MESH_TRAIN_R, "single device": 4 * MESH_TRAIN_R}
+MESH_TRAIN_TIMING = {"moe_ffn": [f"moe_ffn mesh train {k}" for k in MESH_TRAIN_MOE_X],
+                     "ragged_ffn": [f"ragged_ffn mesh train {k}" for k in MESH_TRAIN_RAGGED_ROWS]}
+
+
+def mesh_train_shapes() -> set:
+    """The grouped-FFN shapes phase 3 checks for (b), as
+    ``recorded_ffn_shapes`` keys them."""
+    return ({("moe_ffn", 32, X, 1024) for X in MESH_TRAIN_MOE_X.values()}
+            | {("ragged_ffn", rows, MESH_TRAIN_BX) for rows in MESH_TRAIN_RAGGED_ROWS.values()})
+
+
+def check_mesh_train_kernels(torch):
+    """Phase 3 at (b)'s shapes (``MESH_TRAIN_MOE_X``,
+    ``MESH_TRAIN_RAGGED_ROWS``): each kernel on the tensor cores and
+    against its plain version at TOL.  Its split-h plain version is
+    compared too and the elements beyond SPLIT_ATOL / SPLIT_RTOL are
+    reported, not gated: over these 4-8 M outputs one or two land there,
+    small outputs of cancelling sums (``ffn_accuracy.py`` sets each beside
+    an f64 sum).  Returns each kernel's max abs err against the plain
+    version."""
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.kernels.moe_ffn import ops as mf
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
+
+    def check(name, wrapper, call, args, ref, split_ref):
+        before = wrapper.tc_launches
+        out = call(*args)
+        torch.cuda.synchronize()
+        if wrapper.tc_launches - before != 1:
+            raise AssertionError(f"{name}: took the CUDA-core route, expected the tensor cores")
+        err = check_close(f"{name} [tensor cores] vs plain", out, ref(*args))
+        want = split_ref(*args).float()
+        diff = (out.float() - want).abs()
+        beyond = diff > SPLIT_ATOL + SPLIT_RTOL * want.abs()
+        worst = ""
+        if beyond.any():
+            i = int(torch.where(beyond, diff, torch.zeros_like(diff)).argmax())
+            worst = (f" (the largest there {float(diff.flatten()[i]):.3g} at |y| "
+                     f"{float(want.flatten()[i].abs()):.3g})")
+        log(f"    vs split-h plain: {float((out.float() == want).float().mean()):.4f} of the "
+            f"elements bit-equal, {int(beyond.sum())} of {out.numel()} beyond atol "
+            f"{SPLIT_ATOL:g} + rtol {SPLIT_RTOL:g}{worst}")
+        return err
+
+    errs = {"moe_ffn": 0.0, "ragged_ffn": 0.0}
+    for i, (label, X) in enumerate(MESH_TRAIN_MOE_X.items()):
+        case = moe_case(32, X, 1024, 4096, seed=1700 + i)
+        err = check(f"moe_ffn mesh train {label} E=32 X={X}", mf.moe_ffn,
+                    lambda *a: mf.moe_ffn(*a, "gelu"), case, lambda *a: moe_ffn_ref(*a, "gelu"),
+                    lambda *a: moe_ffn_split_ref(*a, "gelu"))
+        errs["moe_ffn"] = max(errs["moe_ffn"], err)
+        del case
+    for i, label in enumerate(MESH_TRAIN_RAGGED_ROWS):
+        if label == "rank":
+            xs, be, weights, live, _ = mesh_ffn_case(1, 1710, tokens=MESH_TRAIN_GROUP,
+                                                     bx=MESH_TRAIN_BX)
+        else:
+            xs, be, weights, rag, _ = ffn_case(MESH_TRAIN_GROUP, 32, 1024, 4096, seed=1711,
+                                               groups=4, bx=MESH_TRAIN_BX)
+            live = int((rag.token >= 0).sum())
+        if xs.shape[0] != MESH_TRAIN_RAGGED_ROWS[label]:
+            raise AssertionError(f"ragged_ffn mesh train {label}: {xs.shape[0]} rows, expected "
+                                 f"{MESH_TRAIN_RAGGED_ROWS[label]}")
+        err = check(f"ragged_ffn mesh train {label} ({xs.shape[0]} rows, {live} live, bx "
+                    f"{MESH_TRAIN_BX}, {weights[0].shape[0]} experts)", rffn.ragged_ffn,
+                    lambda *a: rffn.ragged_ffn(*a, "gelu", block_x=MESH_TRAIN_BX),
+                    (xs, be, *weights), lambda *a: ragged_ffn_ref(*a, "gelu"),
+                    lambda *a: ragged_ffn_split_ref(*a, "gelu"))
+        errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+        del xs, be, weights
+    return errs
+
+
+def phase_timing_mesh_train(torch):
+    """(b)'s kernel shapes timed as phase 4 times the others."""
+    out = {}
+    for i, (label, X) in enumerate(MESH_TRAIN_MOE_X.items()):
+        out[f"moe_ffn mesh train {label}"] = time_moe_ffn(torch, X, seed=1720 + i)
+    out["ragged_ffn mesh train rank"] = time_mesh_ffn(torch, 1, 1730, tokens=MESH_TRAIN_GROUP,
+                                                      bx=MESH_TRAIN_BX)
+    xs, be, weights, rag, bx = ffn_case(MESH_TRAIN_GROUP, 32, 1024, 4096, seed=1731, groups=4,
+                                        bx=MESH_TRAIN_BX)
+    out["ragged_ffn mesh train single device"] = time_sorted_ffn(
+        torch, xs, be, weights, bx, *ffn_bound(xs, be, weights, rag, bx))
+    for name, r in out.items():
+        log(f"  {name}: {timing_line(r)}")
+    return out
+
+
+def fmt_gb(x) -> str:
+    return "not measured (CPU)" if x is None else f"{x:.1f} GB"
+
+
+def mesh_train_trivial(torch):
+    """(a): phase 6's 8 top-1 ``pallas`` steps again through the train CLI on
+    the (1, 1) mesh (``--mesh-backend nccl``: a world-1 NCCL group in this
+    process): losses and final params bit-equal to phase 6's, no
+    collective run, ``moe_ffn`` launched as in phase 6 and nothing else."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.train import build_parser, run
+    from repro_torch.nn import flat_params
+
+    collectives.reset_counters()
+    got = {}
+    with counted_launches(got):
+        logs, state = run(build_parser().parse_args(
+            TRAIN_ARGS + ["--steps", "8", "--mesh-backend", "nccl"]))
+    torch.cuda.synchronize()
+    losses = [m["loss"] for m in logs]
+    if losses != PHASE6_TOP1["losses"]:
+        raise AssertionError(f"(a) losses {losses} differ from phase 6's {PHASE6_TOP1['losses']}")
+    differ = [k for k, p in flat_params(state.params).items()
+              if not torch.equal(p.detach().cpu().view(torch.int32),
+                                 PHASE6_TOP1[k].view(torch.int32))]
+    if differ:
+        raise AssertionError(f"(a) final params differ from phase 6's: {differ}")
+    expect_launches("(a)", got, {"moe_ffn": 5 * 8 * 2})
+    ran = {fn.__name__: fn.launches for fn in collectives.COUNTED if fn.launches}
+    if ran:
+        raise AssertionError(f"(a) collectives ran on the (1, 1) mesh: {ran}")
+    step_ms = sum(m["step_time_s"] for m in logs[1:]) / (len(logs) - 1) * 1e3
+    log(f"  (a) (1, 1) mesh, world-1 NCCL group: 8 top-1 steps, losses and all "
+        f"{len(PHASE6_TOP1) - 1} final param leaves bit-equal to phase 6's; moe_ffn "
+        f"{got['moe_ffn']} launches, all on the tensor cores; no collective; mean step "
+        f"{step_ms:.1f} ms over steps 1-7 (host clock, synced)")
+    del state
+    PHASE6_TOP1.clear()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, mean_step_ms=step_ms, moe_ffn_launches=got["moe_ffn"]), got
+
+
+def mesh_train_single(torch, flags, layers, path, device="cuda", base_args=MESH_TRAIN_ARGS):
+    """The single-device port on the card at a run's config and batch 0
+    (``compare_train_step``'s quantities): loss, gradient norm and each
+    forward routing call's routes and margins; the gradients written to
+    ``path`` in bf16, by flat path, for the ranks to compare against."""
+    from repro_torch.launch.train import build_parser, device_batch, setup
+    from repro_torch.nn import flat_params
+    from repro_torch.train.trainer import make_loss_fn
+
+    with cut_depth(layers):
+        cfg, _, _, state, pipeline = setup(build_parser().parse_args(
+            base_args + flags + ["--device", device]))
+    batch = device_batch(pipeline.batch_at(0), device)
+    flat = flat_params(state.params)
+    routes, shapes = [], {}
+    with recorded_routing(routes), recorded_ffn_shapes(shapes):
+        loss, _ = make_loss_fn(cfg)(state.params, batch)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+    torch.save({k: g.to(torch.bfloat16).cpu() for k, g in zip(flat, grads)}, path)
+    out = dict(loss=float(loss.detach()), grad_norm=norm, tokens=batch["labels"].numel(),
+               batch_positions=batch["tokens"].shape[0] * (batch["tokens"].shape[1]
+                                                          + batch["patch_embeds"].shape[1]),
+               experts=cfg.moe.num_experts, kernel_shapes=set(shapes),
+               seq=batch["tokens"].shape[1] + batch["patch_embeds"].shape[1],
+               routes=[tuple(t.cpu() for t in r) for r in routes[:moe_layers(cfg)]])
+    del state, grads, flat, loss
+    if sync(torch, batch["tokens"]):
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cosines(torch, layout, grads, single) -> dict:
+    """Each leaf's gradient cosine between the rank's reduced gradient
+    blocks and the single-device gradient's same blocks (``single``, whole
+    leaves on the host), the model-sharded leaves' sums all-reduced over
+    "model" (uncounted: a measurement); leaves whose single-device gradient
+    is 0 are left out, as ``compare_train_step`` leaves them."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import Sharding
+
+    sums, sharded = {}, []
+    for k, g in grads.items():
+        ref = Sharding(layout.mesh, layout.spec[k]).slice(single[k], layout.mesh.coord)
+        a, b = g.float(), ref.to(g.device).float()
+        sums[k] = torch.stack([(a * b).sum(), a.square().sum(), b.square().sum(),
+                               b.abs().amax()])
+        if any("model" in (e if isinstance(e, tuple) else (e,)) for e in layout.spec[k] if e):
+            sharded.append(k)
+    if sharded:
+        both = torch.stack([sums[k] for k in sharded])
+        dist.all_reduce(both, group=layout.mesh.group("model"))
+        sums.update(zip(sharded, both.unbind(0)))
+    return {k: float(t[0] / (t[1] * t[2]).sqrt()) for k, t in sums.items() if float(t[3]) > 0}
+
+
+def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
+    """(b): one rank of the (2, 2) mesh, in a process of its own (gloo on the
+    card's CUDA tensors): each run through the train CLI's parts with this
+    rank's blocks of the seed's weights, its gradient cosines at step 0
+    against the single-device run's, its routes, launches, collectives,
+    step times, peak memory and ZeRO-1 state."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import flat_params
+    from repro_torch.train import trainer
+    from repro_torch.train.layout import MeshLayout
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_debug_mesh(*MESH_TRAIN_SHAPE, device=device, backend="gloo")
+    out = []
+    for label, flags, layers, steps, path in runs:
+        args = train_mod.build_parser().parse_args(
+            base_args + flags + ["--steps", str(steps), "--device", device])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with cut_depth(layers):
+            cfg = train_mod.build(args)
+            layout = MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
+            _, _, step_fn, state, pipeline = train_mod.setup(args, layout)
+        init_s = time.perf_counter() - t0
+        single = torch.load(path, mmap=True)
+        cos = {}
+        real_clip = trainer.clip_by_global_norm
+
+        def clip(grads, max_norm, sum_squares=None, cos=cos, single=single, layout=layout):
+            if not cos:
+                cos.update(mesh_cosines(torch, layout, grads, single))
+            return real_clip(grads, max_norm, sum_squares)
+
+        routes, losses, norms, step_ms, a2a, gathers, got = [], [], [], [], [], [], {}
+        shapes = {}
+        collectives.reset_counters()
+        with counted_launches(got), recorded_ffn_shapes(shapes), \
+                mock.patch.object(trainer, "clip_by_global_norm", clip):
+            for step in range(steps):
+                batch = train_mod.device_batch(pipeline.batch_at(step), device)
+                before = (collectives.all_to_all.launches, collectives.all_gather.launches)
+                sync(torch, batch["tokens"])
+                t0 = time.perf_counter()
+                if step == 0:
+                    with recorded_routing(routes):
+                        state, m = step_fn(state, batch)
+                else:
+                    state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                sync(torch, batch["tokens"])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                a2a.append(collectives.all_to_all.launches - before[0])
+                gathers.append(collectives.all_gather.launches - before[1])
+        flat = flat_params(state.params)
+        zeroed = [k for k in flat if layout.zdim[k] is not None]
+        halved = [k for k in zeroed
+                  if state.opt_state["mu"][k].numel() * layout.nd == flat[k].numel()]
+        out.append(dict(
+            label=label, rank=rank, coord=mesh.coord, losses=losses, grad_norms=norms,
+            step_ms=step_ms, a2a=a2a, all_gathers=gathers, launches=got, cos=cos,
+            kernel_shapes=set(shapes),
+            routes=[tuple(t.cpu() for t in r) for r in routes[:layers]],
+            collective_s={fn.__name__: fn.seconds for fn in collectives.COUNTED},
+            collective_launches={fn.__name__: fn.launches for fn in collectives.COUNTED},
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            init_s=init_s,
+            zero_leaves=len(zeroed), zero_halved=len(halved), leaves=len(flat),
+            local_params=sum(p.numel() for p in flat.values()),
+            state_elems=sum(t.numel() for sub in state.opt_state.values() for t in sub.values())))
+        del state, step_fn, flat, single
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
+                     train_runs=MESH_TRAIN_RUNS):
+    """(b): every run single-device on the card first (loss, gradients and
+    routes of batch 0), then the (2, 2) mesh as four processes that share
+    the card, each running every run in turn.  Gates: every rank's loss
+    equal at every step; against the single-device run,
+    ``compare_train_step``'s (loss within 1e-3 + 10 / tokens per flipped
+    token, gradient norm within 2e-2, every leaf's gradient cosine >= 0.99,
+    0.9 with flips; flips reported with their margins); all_to_all a step
+    = MoE layers x ``MESH_TRAIN_A2A``; ``moe_ffn`` (pallas) and the ragged
+    FFN (dropless) launched 2 x layers x steps, all on the tensor cores,
+    and no other kernel; every leaf with a free divisible dim keeps half
+    its AdamW state on a rank."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    Path(spawn_dir).mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=spawn_dir))
+    on_card = torch.device(device).type == "cuda"
+    singles, runs = {}, []
+    for i, (label, flags, layers, steps) in enumerate(train_runs):
+        path = work / f"grads-{i}.pt"
+        singles[label] = mesh_train_single(torch, flags, layers, str(path), device, base_args)
+        runs.append((label, flags, layers, steps, str(path)))
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(mesh_train_rank, 4, backend="gloo", init_file=str(work / "init"),
+                      timeout=MESH_TRAIN_TIMEOUT,
+                      args=(runs, "cuda:0" if on_card else device, base_args))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)      # the gradient files, 6.2 GB at full width
+    spawn_s = time.perf_counter() - t0
+    D, M = MESH_TRAIN_SHAPE
+    report, launches = {}, {"moe_ffn": 0, "ragged_ffn": 0}
+    for i, (label, flags, layers, steps) in enumerate(train_runs):
+        reps = [r[i] for r in ranks]
+        one = singles[label]
+        for r in reps:
+            if r["losses"] != reps[0]["losses"]:
+                raise AssertionError(f"(b) {label}: rank {r['rank']}'s losses {r['losses']} "
+                                     f"differ from rank 0's {reps[0]['losses']}")
+        data_ranks = [reps[d * M] for d in range(D)]          # model coordinate 0
+        mesh_routes = [tuple(torch.cat([dr["routes"][layer][j] for dr in data_ranks])
+                             for j in range(3)) for layer in range(layers)]
+        flips, _ = _flip_report(one["routes"], mesh_routes, layers, one["seq"],
+                                f"(b) {label}, single device vs mesh")
+        loss_tol = 1e-3 + 10.0 * len({r for _, r, _ in flips}) / one["tokens"]
+        loss, norm = reps[0]["losses"][0], reps[0]["grad_norms"][0]
+        cos = reps[0]["cos"]
+        worst = min(cos, key=cos.get)
+        log(f"  (b) {label} ({layers} layers, {steps} steps): step-0 loss {loss:.6f} vs single "
+            f"device {one['loss']:.6f} (|diff| {abs(loss - one['loss']):.3g}, tolerance "
+            f"{loss_tol:.3g}); grad norm {norm:.5f} vs {one['grad_norm']:.5f}; lowest leaf "
+            f"gradient cosine {cos[worst]:.6f} ({worst}); {len(flips)} routing flips; losses "
+            f"{[round(x, 4) for x in reps[0]['losses']]} on every rank")
+        if abs(loss - one["loss"]) > loss_tol:
+            raise AssertionError(f"(b) {label}: loss {loss} vs single device {one['loss']}")
+        if abs(norm - one["grad_norm"]) > 2e-2 * one["grad_norm"]:
+            raise AssertionError(f"(b) {label}: grad norm {norm} vs single device "
+                                 f"{one['grad_norm']}")
+        if cos[worst] < (0.9 if flips else 0.99):
+            raise AssertionError(f"(b) {label}: gradient of {worst}: cosine {cos[worst]}")
+        impl = flags[flags.index("--moe-impl") + 1]
+        want_a2a = MESH_TRAIN_A2A[impl] * layers
+        E = singles[label]["experts"]
+        want = {"pallas": {"moe_ffn": 2 * layers * steps},
+                "dropless": {"ragged_ffn": 2 * layers * steps}}.get(impl, {}) if on_card else {}
+        if on_card:
+            ran = set(one["kernel_shapes"]).union(*(r["kernel_shapes"] for r in reps))
+            unchecked = sorted(ran - mesh_train_shapes())
+            if unchecked:
+                raise AssertionError(f"(b) {label}: grouped-FFN shapes {unchecked} that phase 3 "
+                                     f"does not check")
+            log(f"    grouped-FFN shapes launched (each held against its plain version in "
+                f"phase 3): {sorted(ran)}")
+        for r in reps:
+            tag = f"(b) {label} rank {r['rank']} {r['coord']}"
+            if any(n != want_a2a for n in r["a2a"]):
+                raise AssertionError(f"{tag}: all_to_all a step {r['a2a']}, expected {want_a2a}")
+            expect_launches(tag, r["launches"], want)
+            if r["zero_halved"] != r["zero_leaves"] or not r["zero_leaves"]:
+                raise AssertionError(f"{tag}: {r['zero_halved']} of {r['zero_leaves']} leaves "
+                                     f"with a free divisible dim keep half their AdamW state")
+        for name in launches:
+            launches[name] += reps[0]["launches"][name]
+        tokens = one["batch_positions"]
+        rows = []
+        for r in reps:
+            steady = r["step_ms"][1:]
+            ms = sum(steady) / len(steady)
+            rows.append(dict(coord=r["coord"], mean_step_ms=ms, tokens_per_s=tokens / (ms / 1e3),
+                             first_step_ms=r["step_ms"][0], step_ms=r["step_ms"],
+                             collective_s=r["collective_s"],
+                             collective_launches=r["collective_launches"],
+                             peak_gb=r["peak_gb"], init_s=r["init_s"],
+                             local_params=r["local_params"], adamw_state_elems=r["state_elems"]))
+            log(f"    rank {r['rank']} {r['coord']}: mean step {ms:.1f} ms over steps 1-"
+                f"{steps - 1}, {tokens / (ms / 1e3):.0f} tokens/s (host clock, synced; the "
+                f"{tokens} positions of the global batch a step); collective s "
+                f"{ {k: round(v, 3) for k, v in r['collective_s'].items() if v} }; launches "
+                f"{ {k: v for k, v in r['collective_launches'].items() if v} }; peak "
+                f"{fmt_gb(r['peak_gb'])}; {r['local_params'] / 1e6:.1f} M params held, AdamW "
+                f"state {r['state_elems'] / 1e6:.1f} M elements ({r['zero_halved']} of "
+                f"{r['leaves']} leaves halved); kernels "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+        report[label] = dict(
+            layers=layers, steps=steps, experts_a_rank=E // M, losses=reps[0]["losses"],
+            single_device_loss=one["loss"], single_device_grad_norm=one["grad_norm"],
+            grad_norm=norm, min_grad_cosine=cos[worst], min_cosine_leaf=worst,
+            routing_flips=[(layer, tok, margin) for layer, tok, margin in flips],
+            all_to_all_a_step=reps[0]["a2a"], all_gather_a_step=reps[0]["all_gathers"],
+            ranks=rows)
+    log(f"  (b) spawn to join {spawn_s:.1f} s (four processes, every run)")
+    report["spawn_s"] = spawn_s
+    return report, launches
+
+
+def phase_mesh_train(torch):
+    """Phase 17: training on a (data, model) mesh (see ``mesh_train_trivial``
+    and ``mesh_train_ranks``).  Returns (report, {kernel: launches in
+    (b)})."""
+    log(f"phase 17: m6-base trained on a (data, model) mesh ({card_line()})")
+    report = {}
+    report["trivial"], _ = mesh_train_trivial(torch)
+    report["ranks"], launches = mesh_train_ranks(torch, str(ROOT / "build"))
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6177,6 +6675,7 @@ def main() -> int:
     timing.update(phase_timing_zamba(torch))
     timing.update(phase_timing_encdec(torch))
     timing.update(phase_timing_mesh(torch))
+    timing.update(phase_timing_mesh_train(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -6229,11 +6728,16 @@ def main() -> int:
     mesh, mesh_launches = phase_mesh(torch, base_tokens, kv_tokens["int8"])
     mesh_s = time.perf_counter() - t0
     log(f"  mesh phase {mesh_s:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_train, mesh_train_launches = phase_mesh_train(torch)
+    mesh_train_s = time.perf_counter() - t0
+    log(f"  mesh training phase {mesh_train_s:.1f} s")
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
         f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s, encdec phase "
-        f"{encdec_s:.1f} s, mesh phase {mesh_s:.1f} s")
+        f"{encdec_s:.1f} s, mesh phase {mesh_s:.1f} s, mesh training phase {mesh_train_s:.1f} s")
 
     sources = {
         "paged_decode_attention": (
@@ -6369,6 +6873,18 @@ def main() -> int:
                                                       "bound_by", "library_ms",
                                                       "library_device_ms")}
                 for label in MESH_TIMING[name]}
+        # phase 17 (b): the mesh training runs' launches (rows 1 and 3), and
+        # their shapes held against the plain versions and timed
+        if name in mesh_train_launches:
+            entry["mesh_train_launches"] = mesh_train_launches[name]
+            if mesh_train_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 17")
+            entry["mesh_train_max_abs_err"] = errs[f"mesh_train {name}"]
+            entry["mesh_train_shapes"] = {
+                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms",
+                                                      "library_device_ms")}
+                for label in MESH_TRAIN_TIMING[name]}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
@@ -6377,7 +6893,7 @@ def main() -> int:
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
                       "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,
-                      "mesh_s": mesh_s,
+                      "mesh_s": mesh_s, "mesh_train": mesh_train, "mesh_train_s": mesh_train_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

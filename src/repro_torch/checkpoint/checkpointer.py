@@ -33,6 +33,14 @@ reads a void leaf back the same way, so it needs neither ``ml_dtypes`` nor
 
 Unlike the reference's (which device_puts onto a mesh), a restore fills
 the template's own tensors, on their device, in place.
+
+On a training mesh a rank's tree holds blocks of the leaves.  ``placed``
+(``train.layout.MeshLayout.checkpoint_view``) names each leaf's placement:
+a save all-gathers every leaf whole on every rank and the writer (rank 0,
+``writer=True``) alone writes them, so the files are a single-device
+save's; a restore reads every leaf whole and keeps the block of the
+*current* mesh, so a checkpoint saved on one mesh restores on another
+(the reference's elastic reshard).
 """
 from __future__ import annotations
 
@@ -155,33 +163,42 @@ def _from_file(path: str, entry: Dict) -> torch.Tensor:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.directory = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree) -> str:
-        """Synchronous atomic save."""
-        return self._write(step, self._snapshot(tree))
+    def save(self, step: int, tree, placed=None) -> Optional[str]:
+        """Synchronous atomic save (``placed``: a mesh rank's, see the
+        module doc; every rank calls it, the writer writes)."""
+        host = self._snapshot(tree, placed)
+        return self._write(step, host) if self.writer else None
 
-    def save_async(self, step: int, tree) -> None:
+    def save_async(self, step: int, tree, placed=None) -> None:
         """Copy every leaf to host memory now; write on a background thread."""
         self.wait()
-        host = self._snapshot(tree)
-        self._thread = threading.Thread(target=self._write, args=(step, host), daemon=True)
-        self._thread.start()
+        host = self._snapshot(tree, placed)
+        if self.writer:
+            self._thread = threading.Thread(target=self._write, args=(step, host), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
 
-    @staticmethod
-    def _snapshot(tree) -> List[Tuple[str, np.ndarray, str]]:
-        return [(key, *_to_host(leaf)) for key, leaf in leaves(tree)]
+    def _snapshot(self, tree, placed=None) -> List[Tuple[str, np.ndarray, str]]:
+        out = []
+        for key, leaf in leaves(tree):
+            if placed is not None:
+                leaf = placed.whole(key, leaf)
+            if self.writer:
+                out.append((key, *_to_host(leaf)))
+        return out
 
     def _write(self, step: int, host: List[Tuple[str, np.ndarray, str]]) -> str:
         final = os.path.join(self.directory, f"step_{step}")
@@ -226,12 +243,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def _restore_tree(self, step: int, template, lookup):
+    def _restore_tree(self, step: int, template, lookup, placed=None):
         """Fill ``template``'s leaves from checkpoint ``step``;
         ``lookup(by_key, key)`` maps a template key to its manifest entry
         (or None).  A tensor leaf is filled in place (cast to its dtype, on
-        its device); any other leaf (``TrainState.step``) is replaced by the
-        stored value as an int."""
+        its device; a mesh rank's block of it with ``placed``); any other
+        leaf (``TrainState.step``) is replaced by the stored value as an
+        int."""
         path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -245,6 +263,8 @@ class Checkpointer:
             if entry is None:
                 raise KeyError(f"checkpoint missing leaf {key}")
             value = _from_file(os.path.join(path, entry["file"]), entry)
+            if placed is not None:
+                value = placed.local(key, value)
             expected = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else ()
             if tuple(value.shape) != expected:
                 raise ValueError(f"shape mismatch for {key}: {tuple(value.shape)} vs {expected}")
@@ -254,11 +274,12 @@ class Checkpointer:
 
         return _rebuild(template, fill)
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, placed=None):
         """Restore into ``template`` (the tree that was saved, or one of its
         structure: a ``TrainState``, a param tree), filling its tensors in
-        place; returns the tree with any int leaf replaced."""
-        return self._restore_tree(step, template, lambda by_key, key: by_key.get(key))
+        place; returns the tree with any int leaf replaced.  ``placed``: a
+        mesh rank's, see the module doc."""
+        return self._restore_tree(step, template, lambda by_key, key: by_key.get(key), placed)
 
     def restore_latest(self, template):
         step = self.latest_step()

@@ -1,12 +1,14 @@
 """Explicit expert-parallel dispatch over ``all_to_all``
 (``repro.core.dispatch.alltoall``).
 
-Under a serving mesh whose ``expert`` axis shards the experts (the active
-:class:`~repro_torch.distributed.sharding.Rules` place them there), each
-rank holds experts ``[e * E / ne, (e + 1) * E / ne)`` of every expert leaf
-and the routed groups split over every rank of the mesh, data and expert
-axes jointly (rank r takes groups ``[r * G / (nd * ne), (r + 1) * G /
-(nd * ne))``):
+Under a mesh whose expert axis shards the experts (the active
+:class:`~repro_torch.distributed.sharding.Rules` place them there: the
+serving mesh's ``expert`` axis, the training mesh's ``model``), each rank
+holds experts ``[e * E / ne, (e + 1) * E / ne)`` of every expert leaf and
+the routed groups split over the joint axis of ``mesh.joint_axes`` (on the
+serving mesh every rank, data and expert axes jointly: rank r takes groups
+``[r * G / (nd * ne), (r + 1) * G / (nd * ne))``; on the training mesh the
+expert axis over a data rank's own groups):
 
 1. each rank scatters its groups' token choices into a full ``(E, rows,
    M)`` buffer by the plan's flat slot ids;
@@ -16,9 +18,12 @@ axes jointly (rank r takes groups ``[r * G / (nd * ne), (r + 1) * G /
    the reference's does between its exchanges);
 4. a second ``all_to_all`` returns the rows, each rank combines its groups'
    tokens (a gate-weighted gather, or a scatter-add for slot-major plans),
-   and an all-gather over the mesh hands every rank all G groups: the
+   and an all-gather over the joint axis hands every rank all G groups: the
    port's ranks hold their rows replicated, where the reference's
    ``shard_map`` output stays sharded for GSPMD.
+
+Both exchanges are differentiable (the backward of each is the inverse
+exchange), so the dispatch trains.
 
 The plan is computed once, outside the dispatcher, so capacity semantics
 are every other backend's.  Without a placed mesh (no rules, experts not
@@ -40,7 +45,7 @@ from repro_torch.core.dispatch import register_dispatcher
 from repro_torch.core.dispatch.base import expert_ffn
 from repro_torch.core.dispatch.dropless import dropless_dispatch, plan_block_rows
 from repro_torch.core.dispatch.gather import flat_slot_ids, gather_dispatch
-from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_rank
+from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_axes, joint_rank
 from repro_torch.core.routers.base import RoutingPlan
 from repro_torch.distributed import collectives
 
@@ -58,16 +63,16 @@ def alltoall_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
     placed = expert_mesh_plan(plan, G)
     if placed is None:
         return gather_dispatch(params, xg, plan, cfg)
-    mesh, e_ax, dp_axes = placed
-    joint = (*dp_axes, e_ax)
+    mesh, e_ax, _ = placed
+    joint = joint_axes(placed)
     n = math.prod(mesh.shape[a] for a in joint)
     Gl = G // n
     r = joint_rank(mesh, joint)
     rows = slice(r * Gl, (r + 1) * Gl)
-    group = mesh.group(e_ax)
+    group, joint_group = mesh.group(e_ax), mesh.axes_group(joint)
     dt = cfg.activation_dtype
     E = plan.num_experts
-    xl = xg[rows]
+    xl = collectives.scatter_to(xg, joint_group)
     dev = xg.device
     if plan.token_at_slot is not None:
         # slot-major plans (expert choice): dispatch a gather by token_at_slot,
@@ -81,7 +86,7 @@ def alltoall_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
         buf = buf.transpose(0, 1).reshape(E, Gl * Cs, M)
         out = _exchange_ffn(params, buf, cfg, group)
         out = out.reshape(E, Gl, Cs, M).transpose(0, 1)         # (Gl, E, Cs, M)
-        gate = plan.gate_at_slot[rows]
+        gate = collectives.scatter_to(plan.gate_at_slot, joint_group)
         g = torch.where(filled, gate, torch.zeros_like(gate)).to(dt)
         vals = (out * g[..., None]).reshape(Gl * E * Cs, M)
         at = (torch.arange(Gl, device=dev)[:, None] * T + tok_safe).reshape(-1)
@@ -101,9 +106,9 @@ def alltoall_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
         out = out.reshape(E, Gl, C, M).transpose(0, 1).reshape(Gl, n_slots, M)
         idx = torch.clamp(flat_slot, max=n_slots - 1)
         picked = out.gather(1, idx[..., None].expand(Gl, T * K, M))
-        gates = plan.masked_gate[rows].to(dt).reshape(Gl, T * K)
+        gates = collectives.scatter_to(plan.masked_gate, joint_group).to(dt).reshape(Gl, T * K)
         y = (picked * gates[..., None]).reshape(Gl, T, K, M).sum(dim=2)
-    return collectives.all_gather(y, mesh.world, dim=0)
+    return collectives.all_gather(y, joint_group, dim=0, grad="slice")
 
 
 @register_dispatcher

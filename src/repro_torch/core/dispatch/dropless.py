@@ -15,8 +15,9 @@ reference's; at top-1 each token row gets exactly one nonzero term
 depend on that order.  Under expert choice a token gets a term from
 each expert that picked it, summed in the card's order.
 
-Expert parallelism: under a serving mesh that shards the experts and
-splits the groups (``mesh.expert_mesh_plan``),
+Expert parallelism: under a mesh that shards the experts and splits the
+groups (``mesh.expert_mesh_plan``; the serving mesh's joint axis or the
+training mesh's expert axis, as ``alltoall.py`` sets out),
 :func:`ragged_ep_dispatch` ships each expert shard its own experts' sorted
 row segments over ``all_to_all`` and runs the ragged FFN kernel on them
 with local expert ids.  Where the experts are sharded but the groups do not
@@ -34,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
 from repro_torch.core.dispatch import register_dispatcher
-from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_rank
+from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_axes, joint_rank
 from repro_torch.core.routers.base import RoutingPlan
 from repro_torch.distributed import collectives
 from repro_torch.kernels.moe_dropless import ops as dropless_ops
@@ -68,9 +69,9 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     combines by gate-weighted scatter-add and all-gathers its groups over
     the mesh.  Whole row blocks move, so every FFN block holds the rows it
     holds in the single-device layout."""
-    mesh, e_ax, dp_axes = placed
+    mesh, e_ax, _ = placed
     ne = mesh.shape[e_ax]
-    joint = (*dp_axes, e_ax)
+    joint = joint_axes(placed)
     E = plan.num_experts
     epl = E // ne
     dt = cfg.activation_dtype
@@ -81,12 +82,13 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     rag = plan.ragged(bx)
     R = rag.token.shape[1]
     dev = xg.device
-    group = mesh.group(e_ax)
+    group, joint_group = mesh.group(e_ax), mesh.axes_group(joint)
 
-    token, gate = rag.token[rows], rag.gate[rows]
+    token, gate = rag.token[rows], collectives.scatter_to(rag.gate, joint_group)
     offsets, bexp = rag.expert_offsets[rows].long(), rag.block_expert[rows].long()
     toks = torch.clamp(token, min=0).long()                     # -1 -> row 0
-    xs = xg[rows].gather(1, toks[..., None].expand(Gl, R, M)).to(dt)
+    xl = collectives.scatter_to(xg, joint_group)
+    xs = xl.gather(1, toks[..., None].expand(Gl, R, M)).to(dt)
     e_row = bexp.repeat_interleave(bx, dim=1)                   # (Gl, R) global ids
     offd = offsets[:, ::epl]                                    # (Gl, ne + 1)
     start, seglen = offd[:, :-1], offd[:, 1:] - offd[:, :-1]
@@ -117,7 +119,7 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     g2 = torch.arange(Gl, device=dev)[:, None].expand(Gl, R)
     y = torch.zeros((Gl, T, M), dtype=dt, device=dev).index_put_((g2, toks), vals,
                                                                   accumulate=True)
-    return collectives.all_gather(y, mesh.world, dim=0)
+    return collectives.all_gather(y, joint_group, dim=0, grad="slice")
 
 
 def dropless_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,

@@ -1,5 +1,5 @@
-"""Where an MoE layer's experts sit on a serving mesh, for the dispatchers
-and ``core.moe.moe_ffn_apply``.
+"""Where an MoE layer's experts sit on a mesh, for the dispatchers and
+``core.moe.moe_ffn_apply``.
 
 Under a mesh whose active :class:`~repro_torch.distributed.sharding.Rules`
 shard the experts over an axis, a rank holds experts ``[e * E / ne,
@@ -11,6 +11,16 @@ experts or a plan whose groups do not split over the mesh, computes the
 single-device dispatch over the layer's experts gathered whole
 (:func:`gathered_experts`), as the reference's GSPMD computes the unsharded
 one; ``moe_ffn_apply`` makes that choice once a layer.
+
+The groups split over a *joint* axis (:func:`joint_axes`): on the
+serving mesh, whose ranks all hold the whole batch, the data and expert
+axes jointly (the reference's ``shard_map`` layout); on a training mesh,
+whose data ranks hold their own groups (``Rules.batch_sharded``), the
+expert axis alone.  A rank's groups enter the exchange through
+``collectives.scatter_to`` and its combined output leaves through an
+all-gather over the joint axis, whose backward keeps the rank's own
+groups' gradient: the groups were the same on every rank of the joint
+axis, and so is what is computed from the gathered output.
 """
 from __future__ import annotations
 
@@ -41,10 +51,21 @@ def expert_mesh_plan(plan: RoutingPlan, G: int) -> Optional[Tuple]:
     dp = rules.acts.get("groups")
     dp_axes = () if dp is None else (dp if isinstance(dp, tuple) else (dp,))
     dp_axes = tuple(a for a in dp_axes if a != e_ax)
+    if rules.batch_sharded:
+        # a training rank's groups are already its data rank's: they split
+        # over the expert axis alone
+        dp_axes = ()
     nd = math.prod(mesh.shape[a] for a in dp_axes)
     if G % (nd * ne) != 0:
         return None
     return mesh, e_ax, dp_axes
+
+
+def joint_axes(placed) -> Tuple[str, ...]:
+    """The axes the groups split over, of :func:`expert_mesh_plan`'s
+    result."""
+    _, e_ax, dp_axes = placed
+    return (*dp_axes, e_ax)
 
 
 def joint_rank(mesh, axes: Tuple[str, ...]) -> int:
@@ -55,10 +76,15 @@ def joint_rank(mesh, axes: Tuple[str, ...]) -> int:
     return r
 
 
-def gathered_experts(params):
+def gathered_experts(params, dtype=None):
     """``params`` with the expert leaves whole: all-gathered over the expert
     axis when the active rules shard them (a transient of the layer's
-    expert bytes), else as they are."""
+    expert bytes), else as they are.  ``dtype``: the dtype the expert FFN
+    casts them to at use, cast before the gather (the same values; a
+    training tree's f32 masters move in half the bytes).  Every rank of
+    the expert axis then computes the same dispatch, so the gather's
+    backward keeps each rank its own experts' gradient (``grad="slice"``),
+    not a sum over ranks."""
     rules = active_rules()
     e_ax = None if rules is None else rules.params.get("expert")
     if e_ax is None or rules.mesh.shape[e_ax] == 1:
@@ -67,5 +93,6 @@ def gathered_experts(params):
     out = dict(params)
     for k in EXPERT_LEAVES:
         if k in params:
-            out[k] = collectives.all_gather(params[k], group, dim=0)
+            leaf = params[k] if dtype is None else params[k].to(dtype)
+            out[k] = collectives.all_gather(leaf, group, dim=0, grad="slice")
     return out

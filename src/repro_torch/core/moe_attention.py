@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
-from repro_torch.core.moe import group_tokens
+from repro_torch.core.moe import group_tokens, mesh_aux, straddles
 from repro_torch.core.routing import route
 from repro_torch.models.attention import _sdpa, causal_mask
 from repro_torch.models.layers import apply_rope, rope
@@ -44,6 +44,10 @@ def moe_attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     dt = cfg.activation_dtype
     B, S, M = x.shape
     hd = cfg.resolved_head_dim
+    if straddles(B * S, m):
+        raise NotImplementedError(
+            "moe_attention on a data-sharded mesh whose groups straddle the data ranks: "
+            "the global group count must divide over the data axes")
     xg, G = group_tokens(x, m)
     T = xg.shape[1]
     router_w = params.get("router")
@@ -77,7 +81,6 @@ def moe_attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     ag, _ = group_tokens(attn, m)
     disp_a = torch.einsum("gtec,gtm->egcm", disp, ag)
     y = back(_moe_project(params["wo"], disp_a, dt), M)
-    aux = {"moe_aux_loss": plan.aux_loss, "moe_z_loss": plan.z_loss,
-           "moe_cv": plan.metrics["cv"],
-           "moe_dropped_fraction": plan.metrics["dropped_fraction"]}
+    aux = mesh_aux(plan, gathered=False)
+    aux = {k: aux[k] for k in ("moe_aux_loss", "moe_z_loss", "moe_cv", "moe_dropped_fraction")}
     return y.to(x.dtype), aux

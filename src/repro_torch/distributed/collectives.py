@@ -3,16 +3,34 @@
 :func:`all_to_all` is ``jax.lax.all_to_all`` in its tiled form (split
 ``split_axis`` into one chunk a rank, send chunk i to rank i, concatenate
 what arrives along ``concat_axis`` in rank order); :func:`all_gather`
-concatenates every rank's tensor along a dim, in rank order.  Over a
+concatenates every rank's tensor along a dim, in rank order;
+:func:`all_reduce` sums (or takes the max) over the ranks;
+:func:`reduce_scatter` is an all-reduce whose result each rank keeps only
+its chunk of (gloo has no reduce-scatter: the sum is the same).  Over a
 group of one rank each returns its input and runs nothing.
 
-Each function counts its calls that ran a collective in ``.launches``
-(beside the kernels' ``launches``: a test or ``chip_smoke.py`` asserts
-that expert parallelism really engaged from ``all_to_all.launches``, the
-port's counterpart of the reference's jaxpr check ``"all_to_all" in
-str(jx)``) and the host seconds they took in ``.seconds``.  Under gloo a
-CUDA tensor is staged through host memory, so those seconds are the
-copies and the exchange.
+Each is differentiable, because the training mesh differentiates through
+them (the reference's GSPMD writes the transposes itself):
+
+* ``all_to_all``'s backward is the inverse exchange;
+* ``all_gather``'s backward depends on who consumes the result:
+  ``grad="slice"`` (every rank computes the same thing from the gathered
+  tensor, so its gradient is already whole on every rank: the rank keeps
+  its chunk) or ``grad="sum"`` (the ranks consume it differently: the
+  chunk's gradient is the sum over ranks, a reduce-scatter);
+* ``all_reduce``'s (sum) backward is the identity (the result feeds the
+  same computation on every rank);
+* :func:`copy_to` is the identity whose backward all-reduces (the input of
+  a region that each rank computes a part of), and :func:`scatter_to`
+  keeps the rank's chunk and all-gathers in the backward.
+
+Each function counts its calls that ran a collective in ``.launches``,
+forward and backward alike (beside the kernels' ``launches``: a test or
+``chip_smoke.py`` asserts that expert parallelism really engaged from
+``all_to_all.launches``, the port's counterpart of the reference's jaxpr
+check ``"all_to_all" in str(jx)``) and the host seconds they took in
+``.seconds``.  Under gloo a CUDA tensor is staged through host memory,
+so those seconds are the copies and the exchange.
 """
 from __future__ import annotations
 
@@ -26,13 +44,17 @@ def _size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
-    """Tiled all-to-all over ``group`` (n ranks): ``x.shape[split_axis]``
-    must divide by n; the result's ``split_axis`` shrinks n-fold and its
-    ``concat_axis`` grows n-fold (both the same axis: the shape is kept)."""
+def _rank(group) -> int:
+    return dist.get_group_rank(group, dist.get_rank()) if group is not None else dist.get_rank()
+
+
+def _count(fn, t0: float) -> None:
+    fn.launches += 1
+    fn.seconds += time.perf_counter() - t0
+
+
+def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
     n = _size(group)
-    if n == 1:
-        return x
     t0 = time.perf_counter()
     S = x.shape[split_axis]
     if S % n:
@@ -43,32 +65,167 @@ def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> tor
     dist.all_to_all_single(recv, send, group=group)
     chunks = recv.reshape(n, S // n, *send.shape[1:]).unbind(0)
     out = torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
-    all_to_all.launches += 1
-    all_to_all.seconds += time.perf_counter() - t0
+    _count(all_to_all, t0)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _exchange(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _exchange(g, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all over ``group`` (n ranks): ``x.shape[split_axis]``
+    must divide by n; the result's ``split_axis`` shrinks n-fold and its
+    ``concat_axis`` grows n-fold (both the same axis: the shape is kept)."""
+    if _size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 all_to_all.launches = 0
 all_to_all.seconds = 0.0
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim``, in rank order."""
-    n = _size(group)
-    if n == 1:
-        return x
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     t0 = time.perf_counter()
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
+    parts = [torch.empty_like(x) for _ in range(_size(group))]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
-    all_gather.launches += 1
-    all_gather.seconds += time.perf_counter() - t0
+    _count(all_gather, t0)
     return out
+
+
+def _chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    c = x.shape[dim] // n
+    return x.narrow(dim, _rank(group) * c, c)
+
+
+def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    t0 = time.perf_counter()
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    _count(all_reduce, t0)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, grad):
+        ctx.args = (group, dim, grad)
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, grad = ctx.args
+        if grad == "sum":
+            g = _reduce(g, group)
+        return _chunk(g, group, dim).contiguous(), None, None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0, grad: str = "slice") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, in rank order; the
+    backward as the module doc says (``grad`` "slice" or "sum")."""
+    if _size(group) == 1:
+        return x
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"all_gather: grad {grad!r}, expected 'slice' or 'sum'")
+    return _AllGather.apply(x, group, dim, grad)
 
 
 all_gather.launches = 0
 all_gather.seconds = 0.0
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="sum"``, differentiable: the backward is the identity)
+    or the elementwise max (``op="max"``, no gradient) over ``group``."""
+    if _size(group) == 1:
+        return x
+    if op == "max":
+        return _reduce(x.detach(), group, dist.ReduceOp.MAX)
+    if op != "sum":
+        raise ValueError(f"all_reduce: op {op!r}, expected 'sum' or 'max'")
+    return _AllReduce.apply(x, group)
+
+
+all_reduce.launches = 0
+all_reduce.seconds = 0.0
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity, whose backward sums the gradient over ``group``."""
+    if _size(group) == 1:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _chunk(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _gather(g, group, dim), None, None
+
+
+def scatter_to(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` (``x`` the same on every
+    rank); the backward all-gathers the chunks' gradients."""
+    if _size(group) == 1:
+        return x
+    return _ScatterTo.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk of the sum of every rank's ``x`` (no gradient)."""
+    if _size(group) == 1:
+        return x
+    t0 = time.perf_counter()
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    out = _chunk(out, group, dim).contiguous()
+    _count(reduce_scatter, t0)
+    return out
+
+
+reduce_scatter.launches = 0
+reduce_scatter.seconds = 0.0
 
 
 def agree_max(value: float, group, device) -> float:
@@ -82,7 +239,10 @@ def agree_max(value: float, group, device) -> float:
     return float(t.item())
 
 
+COUNTED = (all_to_all, all_gather, all_reduce, reduce_scatter)
+
+
 def reset_counters() -> None:
-    for fn in (all_to_all, all_gather):
+    for fn in COUNTED:
         fn.launches = 0
         fn.seconds = 0.0

@@ -16,24 +16,34 @@ runs one process and holds its own slices, which :func:`shard_params` cuts
 (and :func:`placement` cuts as ``init_params`` draws each leaf), and the
 code that needs another rank's slice asks for it through
 :mod:`repro_torch.distributed.collectives`.  So :func:`shard`, the
-reference's activation constraint, is a no-op here.  A partition spec is a
-tuple of mesh axes per dim (``None``: replicated), trailing ``None``s
-dropped, as ``tuple(jax.sharding.PartitionSpec(...))`` reads.
+reference's activation constraint, is a no-op here; the model code asks
+:func:`tensor_parallel` and :func:`data_parallel` whether the active rules
+give it a block of a param axis or a rank's rows of the batch.  A
+partition spec is a tuple of mesh axes per dim (``None``: replicated),
+trailing ``None``s dropped, as ``tuple(jax.sharding.PartitionSpec(...))``
+reads; a :class:`Sharding` is the reference's ``NamedSharding`` (the
+trees of :func:`param_shardings` and :func:`activation_shardings`), and
+:class:`Blocks` sums a leaf over the ranks that hold its blocks.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-import threading
+import types
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import collectives
+
 MeshAxes = Union[None, str, Tuple[str, ...]]
 PSpec = Tuple[MeshAxes, ...]
 
-_ctx = threading.local()
+# Process-wide, not thread-local as the reference's: the autograd engine
+# runs a CUDA backward, and with it the remat recompute of a forward, on a
+# thread of its own, which must see the rules that forward ran under.
+_ctx = types.SimpleNamespace(rules=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +61,18 @@ class MeshShape:
 class Rules:
     """Logical -> mesh axis maps for parameters and activations, with the
     config they were made for (the port's :func:`shard_params` reads its
-    param tree)."""
+    param tree).  ``batch_sharded``: a rank's activations are its own rows
+    of the batch (the training mesh: each data rank draws its rows of the
+    global batch); otherwise every rank holds the whole batch (the serving
+    mesh, whose dispatch splits the groups itself)."""
 
     def __init__(self, mesh, params: Mapping[str, MeshAxes], acts: Mapping[str, MeshAxes],
-                 cfg=None):
+                 cfg=None, batch_sharded: bool = False):
         self.mesh = mesh
         self.params = dict(params)
         self.acts = dict(acts)
         self.cfg = cfg
+        self.batch_sharded = batch_sharded
 
 
 def _size(mesh, axes: MeshAxes) -> int:
@@ -69,11 +83,12 @@ def _size(mesh, axes: MeshAxes) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
-def make_rules(cfg, mesh, *, expert_axis: Optional[str] = None) -> Rules:
+def make_rules(cfg, mesh, *, expert_axis: Optional[str] = None,
+               batch_sharded: bool = False) -> Rules:
     """Rules for a ModelConfig on a mesh (the reference's, line for line).
     Mesh axes: optional "pod" (extra DP), "data" (DP), "model" (TP/EP), and
     ``expert_axis`` where experts shard over an axis of their own (the
-    serving mesh's "expert")."""
+    serving mesh's "expert").  ``batch_sharded`` as :class:`Rules`'."""
     axes = mesh.axis_names
     dp: MeshAxes = ("pod", "data") if "pod" in axes else ("data",)
     tp = "model" if "model" in axes else None
@@ -112,12 +127,18 @@ def make_rules(cfg, mesh, *, expert_axis: Optional[str] = None) -> Rules:
         "heads": params["heads"], "kv_heads": params["kv_heads"],
         "vocab": params["vocab"], "expert": params["expert"], "cache_seq": None,
     }
-    return Rules(mesh, params, acts, cfg=cfg)
+    return Rules(mesh, params, acts, cfg=cfg, batch_sharded=batch_sharded)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The data-parallel axes of a training mesh: "pod" (where there is
+    one) and "data"."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 @contextlib.contextmanager
 def use_rules(rules: Optional[Rules]):
-    prev = getattr(_ctx, "rules", None)
+    prev = _ctx.rules
     _ctx.rules = rules
     try:
         yield rules
@@ -126,7 +147,7 @@ def use_rules(rules: Optional[Rules]):
 
 
 def active_rules() -> Optional[Rules]:
-    return getattr(_ctx, "rules", None)
+    return _ctx.rules
 
 
 def logical_to_pspec(logical_axes: Sequence[Optional[str]], table: Mapping[str, MeshAxes],
@@ -152,6 +173,38 @@ def logical_to_pspec(logical_axes: Sequence[Optional[str]], table: Mapping[str, 
     return tuple(spec)
 
 
+def tensor_parallel(logical: str):
+    """(process group, size, index) of the mesh axis over which the active
+    rules shard the param axis ``logical`` (the model axis of a training
+    mesh: heads, kv heads, vocab, a dense FFN's mlp), or None where no
+    rules are active, the axis is unsharded, or its size is 1."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    ax = rules.params.get(logical)
+    if ax is None or isinstance(ax, tuple) or rules.mesh.shape[ax] == 1:
+        return None
+    return rules.mesh.group(ax), rules.mesh.shape[ax], rules.mesh.coord[ax]
+
+
+def data_parallel():
+    """(process group, size, index) of the data axis over which a rank's
+    activations are its own rows (``Rules.batch_sharded``), or None where
+    no such rules are active or the data axes have one rank."""
+    rules = active_rules()
+    if rules is None or not rules.batch_sharded:
+        return None
+    mesh = rules.mesh
+    axes = dp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in axes)
+    if n == 1:
+        return None
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coord[a]
+    return mesh.axes_group(axes), n, idx
+
+
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """The reference's activation sharding constraint: a no-op in the port,
     which has no GSPMD to hand it to (a rank computes what it holds)."""
@@ -170,15 +223,147 @@ def _map_shapes(fn, shapes, path=()):
 
 def _leaf_pspec(path, s, rules: Rules) -> PSpec:
     if s.axes is None:
-        raise NotImplementedError(
-            f"{'/'.join(map(str, path))}: this family's param tree carries no logical "
-            f"axes (only the decoder-LM tree is placed on a mesh)")
+        raise ValueError(f"{'/'.join(map(str, path))}: a param leaf without logical axes")
     return logical_to_pspec(s.axes, rules.params, s.shape, rules.mesh)
 
 
 def param_pspecs(shape_tree, rules: Rules):
     """ParamShape tree -> partition spec tree under ``rules.params``."""
     return _map_shapes(lambda p, s: _leaf_pspec(p, s, rules), shape_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's placement on a mesh (the reference's ``NamedSharding``):
+    the mesh and one entry of mesh axes a dim."""
+
+    mesh: object
+    spec: PSpec
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = list(shape)
+        for dim, ax in enumerate(self.spec):
+            out[dim] //= _size(self.mesh, ax)
+        return tuple(out)
+
+    def slice(self, t: torch.Tensor, coord: Mapping[str, int]) -> torch.Tensor:
+        """The rank at ``coord``'s block of the whole leaf ``t``."""
+        return _slice(t, self.spec, self.mesh, coord)
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's block ``t`` (all-gathered over
+        each sharded dim's axes; the mesh must have process groups)."""
+        for dim, ax in enumerate(self.spec):
+            if ax is None:
+                continue
+            for a in reversed(ax if isinstance(ax, tuple) else (ax,)):   # minor axis first
+                t = collectives.all_gather(t.detach(), self.mesh.group(a), dim=dim)
+        return t
+
+
+class Blocks:
+    """A rank's block of a leaf placed by ``spec`` on ``mesh``: sums over
+    the whole leaf from the block (the mesh must have process groups)."""
+
+    def __init__(self, mesh, spec: PSpec, ndim: int):
+        self.mesh = mesh
+        self.spec = tuple(spec) + (None,) * (ndim - len(spec))
+
+    def sum(self, x: torch.Tensor, dim: Optional[int] = None, keepdim: bool = False):
+        """(the whole leaf's sum over ``dim``, or over all of it, as this
+        rank's block of the result; the number of elements summed)."""
+        dims = range(x.dim()) if dim is None else (dim % x.dim(),)
+        axes = tuple(a for d in dims for a in _axes(self.spec[d]))
+        n = x.numel() if dim is None else x.shape[dim]
+        n *= math.prod(self.mesh.shape[a] for a in axes)
+        out = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+        axes = tuple(a for a in axes if self.mesh.shape[a] > 1)
+        if axes:
+            out = collectives.all_reduce(out, self.mesh.axes_group(axes))
+        return out, n
+
+    def without(self, dim: int) -> "Blocks":
+        """The blocks of a reduction over ``dim`` (keepdim or not: the
+        reduced dim is whole)."""
+        spec = list(self.spec)
+        del spec[dim]
+        return Blocks(self.mesh, tuple(spec), len(spec))
+
+
+def _axes(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def param_shardings(shape_tree, rules: Rules, keep: Sequence[str] = ()):
+    """ParamShape tree -> :class:`Sharding` tree: the placement that
+    :func:`shard_params` cuts (a leaf whose last key is in ``keep`` whole)."""
+    def one(path, s):
+        spec = () if path and path[-1] in keep else _leaf_pspec(path, s, rules)
+        return Sharding(rules.mesh, spec)
+
+    return _map_shapes(one, shape_tree)
+
+
+def activation_shardings(tree, cfg, global_batch: int, seq_len: int, rules: Rules):
+    """Heuristic placements for decode-state / batch trees (the
+    reference's, line for line): per leaf (anything with ``.shape``), the
+    first dim equal to ``global_batch`` shards over DP; a dim matching a
+    known head count (kv heads, q heads, ssm heads) shards over the model
+    axis; if no head dim shards, a 3+-dim leaf's ``seq_len`` dim takes the
+    model axis (a sequence-sharded KV cache); if no batch dim shards, the
+    ``seq_len`` dim takes DP.  Divisibility is always checked; fallback is
+    replication.  Returns the tree of :class:`Sharding`."""
+    mesh = rules.mesh
+    dp = dp_axes(mesh)
+    tp = "model" if "model" in mesh.axis_names else None
+    dp_size = _size(mesh, dp)
+    tp_size = mesh.shape[tp] if tp else 1
+    hd = cfg.resolved_head_dim
+    head_like = {cfg.num_kv_heads, cfg.num_heads, cfg.ssm_heads or -1,
+                 cfg.num_kv_heads * hd, cfg.num_heads * hd}
+    dp_entry = dp if len(dp) > 1 else dp[0]
+
+    def one(leaf):
+        shape = getattr(leaf, "shape", None)
+        if shape is None or len(shape) == 0:
+            return Sharding(mesh, ())
+        entries = [None] * len(shape)
+        batch_done = False
+        for i, d in enumerate(shape):
+            if not batch_done and d == global_batch and d % dp_size == 0 and d > 1:
+                entries[i] = dp_entry
+                batch_done = True
+                break
+        tp_done = False
+        for i, d in enumerate(shape):
+            if entries[i] is None and tp and not tp_done and d in head_like and d % tp_size == 0:
+                entries[i] = tp
+                tp_done = True
+        if not tp_done and tp and len(shape) >= 3:
+            for i, d in enumerate(shape):
+                if entries[i] is None and d == seq_len and d % tp_size == 0 and d > 1:
+                    entries[i] = tp
+                    tp_done = True
+                    break
+        if not batch_done:
+            for i, d in enumerate(shape):
+                if entries[i] is None and d == seq_len and d % dp_size == 0 and d > 1:
+                    entries[i] = dp_entry
+                    break
+        while entries and entries[-1] is None:
+            entries.pop()
+        return Sharding(mesh, tuple(entries))
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)) and not hasattr(t, "shape"):
+            return type(t)(walk(v) for v in t)
+        return one(t)
+
+    return walk(tree)
 
 
 def _slice(t: torch.Tensor, spec: PSpec, mesh, coord: Mapping[str, int]) -> torch.Tensor:

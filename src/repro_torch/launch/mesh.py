@@ -18,8 +18,11 @@ that never arrives fails the collective instead of hanging it.
 :func:`spawn` runs a function in ``world`` fresh processes joined into one
 process group through a ``file://`` rendezvous (no fixed port): the CPU
 tests' gloo ranks and ``chip_smoke.py``'s ranks that share the card.
-The production TPU pod mesh (``make_production_mesh``) waits for the
-training slice.
+:func:`make_debug_mesh` is the train CLI's ("data", "model") mesh;
+:func:`make_production_mesh` the reference's pod meshes, ("data",
+"model") of 16 x 16 or ("pod", "data", "model") of 2 x 16 x 16, "pod"
+being more data parallelism, scaled down by ``REPRO_MESH_SINGLE`` /
+``REPRO_MESH_MULTI`` (e.g. ``2,4``) as the reference's.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ class Mesh:
             coord[name] = r % n
             r //= n
         self.coord = {a: coord[a] for a in self.axis_names}
+        self._joint = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -74,6 +78,29 @@ class Mesh:
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
+
+    def axes_group(self, axes):
+        """The process group of the joint axis ``axes`` (row-major in the
+        mesh's axis order): one axis's, the world for all of them, else made
+        at the first call, which every rank must make at the same point (as
+        every rank runs the same program); ``torch.distributed`` orders a
+        group by global rank, which is that row-major order."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if len(axes) == 1:
+            return self.group(axes[0])
+        if axes == self.axis_names:
+            return self.world
+        if axes not in self._joint:
+            rest = [a for a in self.axis_names if a not in axes]
+            ranks = {}
+            for r in range(math.prod(self.sizes)):
+                c, q = {}, r
+                for name, n in zip(reversed(self.axis_names), reversed(self.sizes)):
+                    c[name], q = q % n, q // n
+                ranks.setdefault(tuple(c[a] for a in rest), []).append(r)
+            self._joint[axes], _ = dist.new_subgroups_by_enumeration(
+                list(ranks.values()), timeout=TIMEOUT)
+        return self._joint[axes]
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coord}, {self.device}, "
@@ -144,6 +171,27 @@ def make_debug_mesh(data: int = 1, model: int = 1, device="cpu",
                     backend: Optional[str] = None) -> Mesh:
     """A small ``("data", "model")`` mesh over this process's world."""
     return make_mesh((("data", data), ("model", model)), device, backend)
+
+
+def production_mesh_axes(*, multi_pod: bool = False) -> Tuple[Tuple[str, int], ...]:
+    """The production mesh's ((axis, size), ...): the reference's pod
+    shapes, or the scale-down of ``REPRO_MESH_MULTI`` / ``REPRO_MESH_SINGLE``
+    (comma-separated sizes, one an axis)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    env = os.environ.get("REPRO_MESH_MULTI" if multi_pod else "REPRO_MESH_SINGLE")
+    if env:
+        shape = tuple(int(x) for x in env.split(","))
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh sizes {shape} for axes {axes}")
+    return tuple(zip(axes, shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         backend: Optional[str] = None) -> Mesh:
+    """The production mesh (:func:`production_mesh_axes`) over this
+    process's world."""
+    return make_mesh(production_mesh_axes(multi_pod=multi_pod), device, backend)
 
 
 def rank_device(device: str = "cuda") -> torch.device:

@@ -1,4 +1,4 @@
-"""Training entry point (``repro.launch.train``) on one card.
+"""Training entry point (``repro.launch.train``), on one card or a mesh.
 
   # m6-base at full width, top-1 with capacity 1.25, the grouped-FFN kernel
   PYTHONPATH=src python -m repro_torch.launch.train --arch m6-base \\
@@ -37,12 +37,35 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \
       --steps 2 --batch 4 --seq 256
 
+  # m6-base on a (data 2, model 2) mesh: one process a rank, experts,
+  # heads and the vocab sharded over "model", the batch over "data",
+  # ZeRO-1 optimizer state; four ranks on one card share it over gloo
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch m6-base --data 2 --model 2 \
+      --moe-impl alltoall --batch 16 --seq 256 --steps 3 --mesh-backend gloo
+
+  # the same at smoke size, four gloo ranks on the CPU
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch m6-base --smoke --data 2 --model 2 \
+      --moe-impl alltoall --batch 8 --seq 32 --steps 2 --device cpu
+
 Every --arch the reference lists trains.  MoE attention and mixed
 dense/MoE stacks have no flag, as in the reference: a config that sets ``moe.moe_attention`` or
 ``moe_layer_period`` trains through ``run`` like any other.
-The flags are the reference's.  --data or --model above 1 (a training
-mesh) is not ported and raises NotImplementedError; ``--moe-impl
-alltoall`` trains, as the reference's does without a mesh, as ``gather``.
+The flags are the reference's, and ``--mesh-backend``.  ``--data D
+--model M`` trains on a ("data", "model") mesh of D x M ranks, one process
+a rank (under ``torch.distributed.run``; ``launch.mesh.spawn`` for tests),
+as the reference's pjit step does (``train.trainer``, ``train.layout``):
+each rank on ``cuda:{LOCAL_RANK % cards}``, NCCL where each has a card of
+its own, gloo (``--mesh-backend gloo``) where ranks share one; rank 0
+alone prints and writes the checkpoints, the logs and the traces.
+``--mesh-backend`` alone runs the (1, 1) mesh in this process (a world-1
+group), whose step is the single-device one bit for bit.  Refused on a
+mesh, with a reason: ``cfg.fsdp``, and ``--model`` above 1 for the MoE
+attention, xLSTM, zamba and encdec trees (their layers have no
+tensor-parallel form here; ``--data`` above 1 trains them).
+``--moe-impl alltoall`` without a mesh trains, as the reference's does,
+as ``gather``.
 ``--routing`` takes all four of the reference's routers
 (topk, prototype, expert_choice, hash); ``--optimizer`` adamw or
 adafactor (m6-1t's default); ``--grad-compression`` none, bf16 or int8
@@ -64,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Callable, Optional
 
@@ -104,12 +128,44 @@ def build(args):
     return cfg
 
 
+def on_mesh(args) -> bool:
+    """Whether the flags ask for a training mesh."""
+    return (args.data * args.model > 1 or args.mesh_backend is not None
+            or "WORLD_SIZE" in os.environ)
+
+
 def _unported(args, cfg) -> list:
-    """Flags set to something this port does not implement."""
+    """Flags set to something this port does not implement, with why."""
+    mesh = on_mesh(args)
+    no_tp = (cfg.family in ("xlstm", "zamba", "encdec") or cfg.moe.moe_attention)
     checks = [
-        (args.data > 1 or args.model > 1, "--data/--model > 1"),
+        (mesh and cfg.fsdp, "cfg.fsdp on a mesh (the embed dim over the data axes)"),
+        (args.model > 1 and no_tp,
+         f"--model > 1 for the {'moe_attention' if cfg.moe.moe_attention else cfg.family} "
+         f"tree (no tensor-parallel form; --data trains it)"),
     ]
     return [flag for cond, flag in checks if cond]
+
+
+def make_layout(args):
+    """The ``MeshLayout`` of the flags' training mesh: the flags refused
+    before any rank joins a group, then the default process group joined
+    (``torch.distributed.run``'s environment, or a world-1 group for the
+    (1, 1) mesh), this rank's device, the rules with the batch sharded
+    over "data"."""
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_debug_mesh, rank_device
+    from repro_torch.train.layout import MeshLayout
+
+    cfg = build(args)
+    bad = _unported(args, cfg)
+    if bad:
+        raise NotImplementedError("not ported: " + ", ".join(bad))
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_debug_mesh(args.data, args.model, device, args.mesh_backend)
+    return MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,11 +208,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the kernels' "
                          "plain PyTorch versions)")
+    ap.add_argument("--mesh-backend", default=None, choices=[None, "nccl", "gloo"],
+                    help="the training mesh's torch.distributed backend (default: NCCL on "
+                         "CUDA, gloo on the CPU; ranks that share a card need gloo)")
     return ap
 
 
-def parts(args):
-    """(cfg, tc, optimizer, train_step, pipeline) as ``main`` builds them."""
+def parts(args, layout=None):
+    """(cfg, tc, optimizer, train_step, pipeline) as ``main`` builds them
+    (``layout``: a mesh rank's, from :func:`make_layout`)."""
     cfg = build(args)
     bad = _unported(args, cfg)
     if bad:
@@ -171,23 +231,30 @@ def parts(args):
         warmup_steps=min(500, args.steps // 4 + 1),
     )
     opt = make_optimizer(tc, warmup_constant(tc.learning_rate, tc.warmup_steps))
-    step_fn = make_train_step(cfg, tc, opt)
+    step_fn = make_train_step(cfg, tc, opt, layout)
     pipeline = make_pipeline(cfg, args.batch, args.seq, seed=args.seed)
     return cfg, tc, opt, step_fn, pipeline
 
 
-def setup(args):
+def setup(args, layout=None):
     """(cfg, tc, train_step, state, pipeline) as ``main`` builds them, the
-    state the seed's."""
-    cfg, tc, opt, step_fn, pipeline = parts(args)
-    return cfg, tc, step_fn, fresh_state(cfg, tc, opt, args), pipeline
+    state the seed's (a mesh rank's blocks of it, with ``layout``)."""
+    cfg, tc, opt, step_fn, pipeline = parts(args, layout)
+    return cfg, tc, step_fn, fresh_state(cfg, tc, opt, args, layout), pipeline
 
 
-def fresh_state(cfg, tc, opt, args):
+def fresh_state(cfg, tc, opt, args, layout=None):
     """The initial train state: the seed's params (the training tree) and
-    a zero optimizer state."""
-    params = init_params(cfg, seed=args.seed, device=args.device, train=True)
-    return init_train_state(params, opt, tc.grad_compression)
+    a zero optimizer state; on a mesh, the rank's blocks of them, each leaf
+    drawn whole and cut (the values of the single-device tree)."""
+    if layout is None:
+        params = init_params(cfg, seed=args.seed, device=args.device, train=True)
+        return init_train_state(params, opt, tc.grad_compression)
+    from repro_torch.distributed.sharding import placement
+
+    place = placement(layout.rules, layout.mesh.coord, keep=layout.keep)
+    params = init_params(cfg, seed=args.seed, device=layout.mesh.device, train=True, place=place)
+    return init_train_state(params, opt, tc.grad_compression, layout)
 
 
 def device_batch(batch, device):
@@ -199,17 +266,21 @@ def run(args, on_step: Optional[Callable[[int, TrainState], None]] = None):
     ``on_step(step, state)`` is called before each step with the state that
     step starts from (a test's probe and fault injection: an exception
     there fails the loop as a failing step would)."""
-    cfg, tc, opt, step_fn, pipeline = parts(args)
-    if torch.device(args.device).type == "cuda":
+    layout = make_layout(args) if on_mesh(args) else None
+    cfg, tc, opt, step_fn, pipeline = parts(args, layout)
+    device = args.device if layout is None else layout.mesh.device
+    lead = layout is None or layout.mesh.rank == 0      # prints and writes
+    if torch.device(device).type == "cuda":
         # build the kernels now (all nvcc at once), not inside the first step
         t0 = time.perf_counter()
         kernel_build.build()
-        print(f"kernels built in {time.perf_counter() - t0:.1f}s")
+        if lead:
+            print(f"kernels built in {time.perf_counter() - t0:.1f}s")
 
     obs = Observability(tracing=args.trace_out is not None)
     if args.metrics_out:
         obs.metrics_every = max(args.log_every, 1)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = Checkpointer(args.ckpt_dir, writer=lead) if args.ckpt_dir else None
     watchdog = StepWatchdog()
     t_tokens = args.batch * args.seq
     logs = []
@@ -221,21 +292,24 @@ def run(args, on_step: Optional[Callable[[int, TrainState], None]] = None):
         # a failure after save_async returned leaves that checkpoint's files
         # being written; its snapshot was whole, so let the write finish
         ckpt.wait()
+        if layout is not None:              # rank 0's writes are done for every rank
+            torch.distributed.barrier(layout.mesh.world)
         latest = ckpt.latest_step()
         return 0 if latest is None else latest
 
     def loop(start: int) -> int:
         # every attempt starts from a new state (a failed one may be half
         # updated), which a checkpoint then overwrites leaf for leaf
-        st = fresh_state(cfg, tc, opt, args)
+        st = fresh_state(cfg, tc, opt, args, layout)
+        placed = None if layout is None else layout.checkpoint_view(st)
         if ckpt is not None and start > 0:
-            st = ckpt.restore(start, st)
+            st = ckpt.restore(start, st, placed)
         reg = obs.metrics
         for step in range(st.step, args.steps):
             if on_step is not None:
                 on_step(step, st)
             t0 = time.time()
-            batch = device_batch(pipeline.batch_at(step), args.device)
+            batch = device_batch(pipeline.batch_at(step), device)
             with obs.tracer.span("train_step", cat="train", step=step, tokens=t_tokens):
                 st, metrics = step_fn(st, batch)
             reg.counter("train_steps_total").inc()
@@ -255,22 +329,25 @@ def run(args, on_step: Optional[Callable[[int, TrainState], None]] = None):
                 reg.histogram("train_step_ms").observe(dt * 1e3)
                 if args.metrics_out:
                     obs.metrics_row(step=step)
-                print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                      f"cv {m.get('moe_cv', 0):.3f} drop "
-                      f"{m.get('moe_dropped_fraction', 0):.3f} "
-                      f"({m['tokens_per_s']:.0f} tok/s)", flush=True)
+                if lead:
+                    print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+                          f"cv {m.get('moe_cv', 0):.3f} drop "
+                          f"{m.get('moe_dropped_fraction', 0):.3f} "
+                          f"({m['tokens_per_s']:.0f} tok/s)", flush=True)
             # named by the steps it holds: resuming at its .step is exact
             if ckpt is not None and st.step < args.steps and st.step % args.ckpt_every == 0:
-                ckpt.save_async(st.step, st)
+                ckpt.save_async(st.step, st, placed)
         if ckpt is not None:
             ckpt.wait()
-            ckpt.save(args.steps, st)
+            ckpt.save(args.steps, st, placed)
         held["state"] = st
         return args.steps
 
-    with device_trace(args.profile_dir, args.device):
+    with device_trace(args.profile_dir if lead else None, device):
         run_with_restarts(loop, resume_step, max_restarts=args.max_restarts)
 
+    if not lead:
+        return logs, held["state"]
     if args.trace_out:
         if args.trace_out.endswith(".jsonl"):
             obs.tracer.write_jsonl(args.trace_out)

@@ -21,7 +21,10 @@ the logit softcap (``attn_logit_softcap``) as the reference's ``_sdpa``
 does.  ``_sdpa`` takes the chunked path
 (:mod:`repro_torch.models.chunked_attention`) under
 ``attention_impl="chunked"``, or under ``"auto"`` when S*T > 2^21, as the
-reference's does."""
+reference's does.  On a training mesh whose rules shard the heads over the
+model axis, a rank's q, k and v projections are its heads' columns and
+``wo`` its heads' rows: the rank attends over its heads and the output is
+all-reduced (the input enters through ``collectives.copy_to``)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -29,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import tensor_parallel
 from repro_torch.models.layers import apply_rope, dense_apply, head_rmsnorm_apply, rope
 
 _CHUNK_THRESHOLD = 1 << 21  # S*T above this -> the reference's chunked path under "auto"
@@ -41,12 +46,13 @@ class KVCache(NamedTuple):
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
-    """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, S, Hkv, D)."""
-    B = x.shape[0]
+    """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, S, Hkv, D); a rank's heads
+    where the projections are sharded by head."""
+    B, S = x.shape[:2]
     hd = cfg.resolved_head_dim
-    q = dense_apply(params["wq"], x, cfg).reshape(B, -1, cfg.num_heads, hd)
-    k = dense_apply(params["wk"], x, cfg).reshape(B, -1, cfg.num_kv_heads, hd)
-    v = dense_apply(params["wv"], x, cfg).reshape(B, -1, cfg.num_kv_heads, hd)
+    q = dense_apply(params["wq"], x, cfg).reshape(B, S, -1, hd)
+    k = dense_apply(params["wk"], x, cfg).reshape(B, S, -1, hd)
+    v = dense_apply(params["wv"], x, cfg).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = head_rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k = head_rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
@@ -126,6 +132,9 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
         else:
             out = _sdpa(q, k, v, cfg, mask=None)
         return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), None
+    tp = _head_parallel(params, cfg) if cache is None else None
+    if tp is not None:
+        x = collectives.copy_to(x, tp)
     q, k, v = _project_qkv(params, x, cfg, positions)
     new_cache = None
     if cache is not None:
@@ -151,7 +160,24 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
     else:
         mask = causal_mask(S, S, device=x.device) if causal else None
         out = _sdpa(q, k, v, cfg, mask, causal_offset=0 if causal else None)
-    return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), new_cache
+    out = dense_apply(params["wo"], out.reshape(B, S, -1), cfg)
+    if tp is not None:
+        out = collectives.all_reduce(out, tp)
+    return out, new_cache
+
+
+def _head_parallel(params, cfg: ModelConfig):
+    """The model axis's process group where this layer's projections hold
+    a rank's heads (column-parallel q, k, v; row-parallel ``wo``), else
+    None."""
+    tp = tensor_parallel("heads")
+    if tp is None or params["wq"]["kernel"].shape[-1] == cfg.num_heads * cfg.resolved_head_dim:
+        return None
+    if params["wk"]["kernel"].shape[-1] == cfg.num_kv_heads * cfg.resolved_head_dim:
+        raise NotImplementedError(
+            f"the q heads shard over the model axis and the {cfg.num_kv_heads} kv heads do "
+            f"not: a rank's q heads would need kv heads of other ranks")
+    return tp[0]
 
 
 def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> torch.Tensor:

@@ -53,18 +53,21 @@ def mamba2_block_shapes(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...] = ()):
     d_inner, H, _, N = _dims(cfg)
     conv_dim = d_inner + 2 * N          # x, B and C go through the conv
 
-    def w(*shape, dtype=wdt, init="normal"):
-        return ParamShape(lead + shape, dtype, init)
+    def w(*shape, axes, dtype=wdt, init="normal"):
+        return ParamShape(lead + shape, dtype, init, ("layers",) * len(lead) + axes)
 
+    inner, plain = ("embed", "ssm_inner"), ("embed", None)
     return {"ln": _norm(cfg, lead),
-            "in_z": w(d, d_inner), "in_x": w(d, d_inner), "in_B": w(d, N), "in_C": w(d, N),
-            "in_dt": w(d, H), "conv_w": w(cfg.ssm_conv_width, conv_dim),
-            "conv_b": w(conv_dim, dtype="float32", init="zeros"),
-            "A_log": w(H, dtype="float32", init="zeros"),
-            "dt_bias": w(H, dtype="float32", init="zeros"),
-            "D": w(H, dtype="float32", init="ones"),
-            "head_norm": w(d_inner, dtype="float32", init="ones"),
-            "out_proj": w(d_inner, d)}
+            "in_z": w(d, d_inner, axes=inner), "in_x": w(d, d_inner, axes=inner),
+            "in_B": w(d, N, axes=plain), "in_C": w(d, N, axes=plain),
+            "in_dt": w(d, H, axes=plain),
+            "conv_w": w(cfg.ssm_conv_width, conv_dim, axes=(None, "ssm_inner")),
+            "conv_b": w(conv_dim, axes=("ssm_inner",), dtype="float32", init="zeros"),
+            "A_log": w(H, axes=(None,), dtype="float32", init="zeros"),
+            "dt_bias": w(H, axes=(None,), dtype="float32", init="zeros"),
+            "D": w(H, axes=(None,), dtype="float32", init="ones"),
+            "head_norm": w(d_inner, axes=("ssm_inner",), dtype="float32", init="ones"),
+            "out_proj": w(d_inner, d, axes=("ssm_inner", "embed"))}
 
 
 def _segsum(logd: torch.Tensor) -> torch.Tensor:

@@ -64,15 +64,20 @@ def _mlstm_shapes(cfg: ModelConfig, wdt: str):
     d = cfg.d_model
     di, H, _ = _mlstm_dims(cfg)
 
-    def w(*shape, dtype=wdt, init="normal"):
-        return ParamShape(shape, dtype, init)
+    def w(*shape, axes, dtype=wdt, init="normal"):
+        return ParamShape(shape, dtype, init, axes)
 
-    return {"ln": _norm(cfg), "up_x": w(d, di), "up_z": w(d, di),
-            "conv_w": w(_CONV_WIDTH, di), "wq": w(di, di), "wk": w(di, di), "wv": w(di, di),
-            "w_igate": w(di, H, dtype="float32"), "w_fgate": w(di, H, dtype="float32"),
-            "b_igate": w(H, dtype="float32", init="zeros"),
-            "b_fgate": w(H, dtype="float32", init="ones"),
-            "head_norm": w(di, dtype="float32", init="ones"), "down": w(di, d)}
+    inner_in, inner_out = ("embed", "ssm_inner"), ("ssm_inner", None)
+    return {"ln": _norm(cfg), "up_x": w(d, di, axes=inner_in), "up_z": w(d, di, axes=inner_in),
+            "conv_w": w(_CONV_WIDTH, di, axes=(None, "ssm_inner")),
+            "wq": w(di, di, axes=inner_out), "wk": w(di, di, axes=inner_out),
+            "wv": w(di, di, axes=inner_out),
+            "w_igate": w(di, H, axes=inner_out, dtype="float32"),
+            "w_fgate": w(di, H, axes=inner_out, dtype="float32"),
+            "b_igate": w(H, axes=(None,), dtype="float32", init="zeros"),
+            "b_fgate": w(H, axes=(None,), dtype="float32", init="ones"),
+            "head_norm": w(di, axes=("ssm_inner",), dtype="float32", init="ones"),
+            "down": w(di, d, axes=("ssm_inner", "embed"))}
 
 
 def _slstm_shapes(cfg: ModelConfig, wdt: str):
@@ -81,13 +86,13 @@ def _slstm_shapes(cfg: ModelConfig, wdt: str):
     # the gates multiply in f32 (the reference casts w_gates and r_gates to
     # f32 at use), so both trees keep them in f32
     return {"ln": _norm(cfg),
-            "w_gates": ParamShape((d, 4 * d), "float32", "normal"),
-            "r_gates": ParamShape((H, dh, 4 * dh), "float32", "normal"),
-            "b_gates": ParamShape((4 * d,), "float32", "zeros"),
-            "head_norm": ParamShape((d,), "float32", "ones"),
+            "w_gates": ParamShape((d, 4 * d), "float32", "normal", ("embed", None)),
+            "r_gates": ParamShape((H, dh, 4 * dh), "float32", "normal", (None, None, None)),
+            "b_gates": ParamShape((4 * d,), "float32", "zeros", (None,)),
+            "head_norm": ParamShape((d,), "float32", "ones", ("embed",)),
             "ln_ffn": _norm(cfg),
-            "ffn_up": ParamShape((d, 2 * pf), wdt, "normal"),
-            "ffn_down": ParamShape((pf, d), wdt, "normal")}
+            "ffn_up": ParamShape((d, 2 * pf), wdt, "normal", ("embed", "mlp")),
+            "ffn_down": ParamShape((pf, d), wdt, "normal", ("mlp", "embed"))}
 
 
 def _is_slstm(cfg: ModelConfig, i: int) -> bool:
@@ -99,7 +104,8 @@ def xlstm_shapes(cfg: ModelConfig, train: bool = False):
     """Param shape tree, key for key the reference's ``xlstm_specs``
     (storage dtypes as ``nn.spec``'s module doc sets out)."""
     wdt = cfg.param_dtype if train else cfg.dtype
-    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal")
+    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal",
+                       ("vocab", "embed"))
     return {"embed": {"table": table}, "final_norm": _norm(cfg),
             "blocks": [_slstm_shapes(cfg, wdt) if _is_slstm(cfg, i) else _mlstm_shapes(cfg, wdt)
                        for i in range(cfg.num_layers)]}

@@ -67,9 +67,10 @@ def zamba_shapes(cfg: ModelConfig, train: bool = False):
     (storage dtypes as ``nn.spec``'s module doc sets out)."""
     wdt = cfg.param_dtype if train else cfg.dtype
     scfg = _shared_cfg(cfg)
-    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal")
+    table = ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt, "normal",
+                       ("vocab", "embed"))
     shared = _block(scfg, wdt, (), moe_layer=False)
-    shared["out"] = ParamShape((2 * cfg.d_model, cfg.d_model), wdt, "normal")
+    shared["out"] = ParamShape((2 * cfg.d_model, cfg.d_model), wdt, "normal", (None, "embed"))
     return {"embed": {"table": table},
             "mamba": mamba2_block_shapes(cfg, wdt, (cfg.num_layers,)),
             "shared": shared, "final_norm": _norm(cfg)}

@@ -29,11 +29,10 @@ casts at the same places, so it runs either of two trees:
 Norm scales/biases, the router and the learned ``pos_embed`` source are
 f32 in both, as the reference computes with them.
 
-The decoder-LM tree's leaves carry the reference's *logical axes*
-(``ParamSpec.logical_axes``: "embed", "heads", "expert", ... with "layers"
-leading a stacked leaf), which ``repro_torch.distributed.sharding`` maps
-to mesh axes; the other families' leaves carry none yet (their trees are
-not placed on a mesh).
+Every family's leaves carry the reference's *logical axes*
+(``ParamSpec.logical_axes``: "embed", "heads", "expert", "ssm_inner", ...
+with "layers" leading a stacked leaf), which
+``repro_torch.distributed.sharding`` maps to mesh axes.
 
 Random init (:func:`init_params`) draws truncated normals (+-2 sigma,
 times ``initializer_range``) from a ``torch.Generator``; it matches the
@@ -185,7 +184,7 @@ def encdec_shapes(cfg: ModelConfig, train: bool = False) -> Dict:
                "ln_cross": _norm(cfg, lead), "cross_attn": _attn(cfg, wdt, lead),
                "ln_ffn": dec["ln_ffn"], "ffn": dec["ffn"]}
     return {"embed": {"table": ParamShape((padded_vocab(cfg.vocab_size), cfg.d_model), wdt,
-                                          "normal")},
+                                          "normal", ("vocab", "embed"))},
             "encoder": _block(cfg, wdt, (n_enc,), moe_layer=False),
             "enc_norm": _norm(cfg), "decoder": decoder, "final_norm": _norm(cfg)}
 

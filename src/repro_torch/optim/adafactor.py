@@ -10,6 +10,13 @@ State: ``{"v": {<flat path>: {"vr", "vc"} | {"v"}}}``, f32, updated in
 place; ``checkpoint.leaves`` gives its leaves the reference's keys
 (``.opt_state['v']['embed']['table']['vc']``).
 
+On a mesh a leaf is a rank's block (``shards``, path ->
+:class:`~repro_torch.distributed.sharding.Blocks`): the row and column
+means, the mean of the row statistics and the update and parameter RMS
+are sums over the whole leaf, all-reduced over the axes that cut the
+summed dims, divided by the whole leaf's counts; the factored statistics
+are the blocks of the whole leaf's.
+
 Numerics follow AdamW's rules (``optim/adamw.py``): every mean is a sum
 divided by a 0-dim tensor on the leaf's device (PyTorch on the card
 multiplies by the reciprocal of a Python number), and the square roots
@@ -46,7 +53,7 @@ def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
         return {"v": {k: one(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state, params, step: int):
+    def update(grads, state, params, step: int, shards=None):
         # beta2 and 1 - beta2 in f32, as the reference computes them
         t = np.float32(step + 1)
         beta2 = np.float32(1) - t ** np.float32(-decay_pow)
@@ -61,33 +68,38 @@ def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
                 d[name] = torch.full((), value, dtype=torch.float32, device=device)
             return d[name]
 
-        def mean(x, dim=None, keepdim=False):
-            n = x.numel() if dim is None else x.shape[dim]
-            s = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+        def mean(x, dim=None, keepdim=False, blocks=None):
+            if blocks is None:
+                n = x.numel() if dim is None else x.shape[dim]
+                s = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+            else:
+                s, n = blocks.sum(x, dim, keepdim)
             return s / const(x.device, f"n{n}", n)
 
         updates = {}
         for k, g in grads.items():
             v, p = state["v"][k], params[k]
+            blk = None if shards is None else shards[k]
             dev = p.device
             g32 = g.float()
             g2 = g32.square().add_(eps1)
             if _factored(p.shape):
                 vr, vc = v["vr"], v["vc"]
-                vr.mul_(beta2).add_(mean(g2, -1) * one_m)
-                vc.mul_(beta2).add_(mean(g2, -2) * one_m)
+                vr.mul_(beta2).add_(mean(g2, -1, blocks=blk) * one_m)
+                vc.mul_(beta2).add_(mean(g2, -2, blocks=blk) * one_m)
                 # v_hat = vr vc / mean_row(vr)
-                denom = mean(vr, -1, keepdim=True).clamp_min_(eps1)
+                denom = mean(vr, -1, keepdim=True,
+                             blocks=None if blk is None else blk.without(-1)).clamp_min_(eps1)
                 vhat = (vr[..., None] * vc[..., None, :]).div_(denom[..., None])
             else:
                 vhat = v["v"]
                 vhat.mul_(beta2).add_(g2 * one_m)
             u = g32 / _sqrt(vhat + eps1)
-            rms_u = _sqrt(mean(u.square()).add_(eps1))
+            rms_u = _sqrt(mean(u.square(), blocks=blk).add_(eps1))
             u = u / (rms_u / const(dev, "clip", clip_threshold)).clamp_min_(1.0)
             scale = const(dev, "lr", lr)
             if multiply_by_parameter_scale:
-                p_rms = _sqrt(mean(p.float().square()))
+                p_rms = _sqrt(mean(p.float().square(), blocks=blk))
                 scale = scale * p_rms.clamp_min_(eps2)
             updates[k] = ((-scale) * u).to(p.dtype)
         return updates, state

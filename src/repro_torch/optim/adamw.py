@@ -33,7 +33,9 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 "nu": {k: zeros(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state, params, step: int):
+    def update(grads, state, params, step: int, shards=None):
+        # elementwise: a mesh rank's blocks update as the whole leaves
+        # would, so ``shards`` (see ``optim.api``) is not read
         step1 = np.float32(step + 1)
         lr = float(schedule(step + 1))
         # the bias corrections in f32, as the reference computes them

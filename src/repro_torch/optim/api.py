@@ -2,9 +2,12 @@
 flat parameter dict,
 
   init(params) -> state
-  update(grads, state, params, step) -> (updates, new_state)
+  update(grads, state, params, step, shards=None) -> (updates, new_state)
 
-with the updates *added* to the params by the trainer.  The port's
+with the updates *added* to the params by the trainer.  On a mesh the
+leaves are a rank's blocks and ``shards`` (path -> ``sharding.Blocks``)
+lets an optimizer that reduces over a leaf (Adafactor) sum over the
+whole of it.  The port's
 optimizers update their state tensors in place and return the same
 objects (the reference's jit donates the old state, so nothing reads it
 again)."""

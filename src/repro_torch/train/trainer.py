@@ -6,6 +6,18 @@ The reference's step is a pure function that jit compiles with the old
 state donated; the port's runs eagerly and updates the parameters and
 the optimizer state in place, returning them in a new ``TrainState``.
 The update is added in f32, as the reference adds it.
+
+On a ("data", "model") mesh (``layout``, a
+:class:`~repro_torch.train.layout.MeshLayout`) the step is the
+reference's under pjit, with GSPMD's collectives written out: every rank
+is given the global batch and takes its rows (the pipeline is a pure
+function of the step, so every rank draws the same bytes), computes its
+blocks' gradients under the mesh's rules (tensor and expert parallelism
+over "model", ``models`` and ``core.dispatch``), sums them over the data
+axes, clips by the whole gradient's norm, compresses with whole-leaf int8
+scales, updates its ZeRO-1 block of each parameter and all-gathers the
+blocks over the data axes.  One device runs the same step on a mesh of one
+rank (``MeshLayout.single``), on which every collective is skipped.
 """
 from __future__ import annotations
 
@@ -15,11 +27,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.context import MoEContext
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.models.registry import get_family
 from repro_torch.nn import flat_params
 from repro_torch.optim.api import Optimizer
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.compression import compress_grads
+from repro_torch.train.layout import MeshLayout
 from repro_torch.train.losses import total_loss
 from repro_torch.train.state import TrainState
 
@@ -59,41 +73,58 @@ def microbatch_mean(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Te
     return out
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer) -> Callable:
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: Optimizer,
+                    layout: Optional[MeshLayout] = None) -> Callable:
+    """The train step of a mesh rank whose state ``init_train_state(...,
+    layout=layout)`` builds; without ``layout``, of one device (a mesh of
+    one rank, on which every collective is skipped)."""
     loss_fn = make_loss_fn(cfg)
+    layout = layout if layout is not None else MeshLayout.single(cfg)
+    sum_squares, global_max, shards = layout.sum_squares(), layout.global_max(), layout.shards()
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        # The MoE side channel: routers and dispatchers see the step and
-        # the train flag; the ported routers read no PRNG.
-        ctx = MoEContext(step=state.step, is_training=True)
         flat = flat_params(state.params)
-        if tc.microbatches > 1:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in flat.items()}
-            msum = {"loss": 0.0, "ce": 0.0}
-            for one in _split_microbatches(batch, tc.microbatches):
-                loss, metrics = loss_fn(state.params, one, ctx)
-                for k, g in _grads(loss, flat).items():
-                    grads[k] = grads[k] + g
-                msum = {"loss": msum["loss"] + loss.detach(),
-                        "ce": msum["ce"] + metrics["ce"].detach()}
-            grads = microbatch_mean(grads, tc.microbatches)
-            metrics = microbatch_mean(msum, tc.microbatches)
-        else:
-            loss, metrics = loss_fn(state.params, batch, ctx)
-            grads = _grads(loss, flat)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-
-        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip_norm)
-        grads, ef = compress_grads(grads, tc.grad_compression, state.error_feedback)
-        updates, new_opt = optimizer.update(grads, state.opt_state, flat, state.step)
+        with use_rules(layout.rules):
+            grads, metrics = _loss_and_grads(
+                loss_fn, tc, state, layout.local_batch(batch, tc.microbatches), flat)
+        grads = layout.reduce_grads(grads)
+        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip_norm, sum_squares)
+        grads, ef = compress_grads(grads, tc.grad_compression, state.error_feedback, global_max)
         with torch.no_grad():
-            for k, p in flat.items():
+            blocks = {k: layout.zero_block(k, p) for k, p in flat.items()}
+            updates, new_opt = optimizer.update(
+                {k: layout.zero_block(k, g) for k, g in grads.items()}, state.opt_state,
+                blocks, state.step, shards=shards)
+            for k, p in blocks.items():
                 p.copy_(p.float() + updates[k].float())
+            for k, p in flat.items():
+                layout.gather_update(k, p)
         metrics["grad_norm"] = gnorm
         return TrainState(state.params, new_opt, state.step + 1, ef), metrics
 
     return train_step
+
+
+def _loss_and_grads(loss_fn, tc: TrainConfig, state: TrainState, batch: Dict, flat):
+    """(grads, metrics) of the batch, microbatched as ``tc`` says."""
+    # The MoE side channel: routers and dispatchers see the step and the
+    # train flag; the ported routers read no PRNG.
+    ctx = MoEContext(step=state.step, is_training=True)
+    if tc.microbatches > 1:
+        grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for k, p in flat.items()}
+        msum = {"loss": 0.0, "ce": 0.0}
+        for one in _split_microbatches(batch, tc.microbatches):
+            loss, metrics = loss_fn(state.params, one, ctx)
+            for k, g in _grads(loss, flat).items():
+                grads[k] = grads[k] + g
+            # the metrics' loss: the global one on a data-sharded mesh, where
+            # ``loss`` is this rank's part of it
+            msum = {"loss": msum["loss"] + metrics["loss"].detach(),
+                    "ce": msum["ce"] + metrics["ce"].detach()}
+        return microbatch_mean(grads, tc.microbatches), microbatch_mean(msum, tc.microbatches)
+    loss, metrics = loss_fn(state.params, batch, ctx)
+    return _grads(loss, flat), {k: v.detach() for k, v in metrics.items()}
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

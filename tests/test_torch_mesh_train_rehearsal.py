@@ -1,0 +1,43 @@
+"""A CPU rehearsal of ``chip_smoke.py`` phase 17 (b): its four runs on a
+(data 2, model 2) mesh of four gloo ranks, at m6-base's smoke size (a
+batch of 8 x 32: 8 groups of 32, two a model rank), against the
+single-device port on the same batch.  ``mesh_train_ranks`` raises where
+a gate of the card's run fails (every rank's loss equal at every step;
+loss, gradient norm and every leaf's gradient cosine against the
+single-device step; all_to_all a step; half the AdamW state a rank); the
+kernels' launch gates are the card's alone (the CPU runs their plain
+versions)."""
+import os
+import sys
+
+import pytest
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SMOKE = ["--arch", "m6-base", "--smoke", "--batch", "8", "--seq", "32", "--log-every", "1"]
+
+
+def _chip_smoke():
+    """``chip_smoke`` as ``sys.modules`` holds it now (another test file may
+    have loaded it under that name): the spawned ranks import it by name,
+    so the rank body must be that module's."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    if "chip_smoke" not in sys.modules:
+        import chip_smoke  # noqa: F401
+    return sys.modules["chip_smoke"]
+
+
+def test_phase17_runs_on_the_cpu(tmp_path):
+    import torch
+
+    chip_smoke = _chip_smoke()
+    runs = tuple((label, flags, 2, steps) for label, flags, _, steps in chip_smoke.MESH_TRAIN_RUNS)
+    report, launches = chip_smoke.mesh_train_ranks(torch, str(tmp_path), "cpu", SMOKE, runs)
+    assert launches == {"moe_ffn": 0, "ragged_ffn": 0}
+    for label, _, layers, steps in runs:
+        r = report[label]
+        assert len(r["losses"]) == steps and len(r["ranks"]) == 4
+        assert r["min_grad_cosine"] >= 0.99 and not r["routing_flips"]
+        assert r["losses"][0] == pytest.approx(r["single_device_loss"], abs=1e-5)

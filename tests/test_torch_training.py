@@ -193,15 +193,18 @@ def test_cli_trains_on_cpu(tmp_path):
     (["--moe-impl", "alltoall", "--routing", "expert_choice"], "alltoall"),
 ])
 def test_cli_unported_flags_raise(flags, name):
-    """--data/--model above 1 (a training mesh) is not ported and raises.
-    ``--moe-impl alltoall`` trains, as the reference's does without a mesh:
-    as ``gather``, its losses equal to the gather CLI's, and its train step
-    (the CLI's config, from the reference's params) within rtol 1e-5 of the
-    reference's step under alltoall over two steps."""
+    """--data/--model above 1 trains on a mesh of that many ranks, one
+    process a rank: in one process, without ``torch.distributed.run``'s
+    environment, it raises and says how to start the ranks (the mesh itself
+    is ``test_torch_mesh_train.py``'s).  ``--moe-impl alltoall`` trains, as
+    the reference's does without a mesh: as ``gather``, its losses equal to
+    the gather CLI's, and its train step (the CLI's config, from the
+    reference's params) within rtol 1e-5 of the reference's step under
+    alltoall over two steps."""
     from repro_torch.launch.train import build, build_parser, main
 
     if name != "alltoall":
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(RuntimeError, match="torch.distributed.run"):
             main(["--arch", "m6-base", "--smoke", "--steps", "1", "--device", "cpu", *flags])
         return
     argv = ["--arch", "m6-base", "--smoke", "--steps", "2", "--batch", "2", "--seq", "36",
