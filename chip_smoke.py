@@ -349,8 +349,24 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               X = 80 a rank and 160 on one device; the ragged FFN over a
               rank's received 4032 rows and one device's 8064; phase 4
               times them); reported per rank: step ms, tokens/s,
-              collective seconds by kind, peak GB.
-18. report  — a {"kernels": [...]} line (decode_attention's launches and
+              collective seconds by kind, peak GB, and every step's
+              collectives by kind, axis and byte; then, in the same
+              world, the pallas run again with cfg.fsdp (phase 18 (c)).
+18. tooling — (a) flops_for, bytes_for and the one-card roofline bound
+              (distributed/costs.py and roofline.py, the H100 SXM's
+              datasheet peaks) of phase 6's top-1 cell and phase 5's
+              decode step beside their measured steps, and the achieved
+              model-FLOPs share; (b) the dry run (launch/dryrun.py on meta
+              tensors, as rank 0 of a fake process group, in a CPU process
+              started after phase 2) of phase 6's cell on one device and
+              of phase 17 (b)'s first run as rank 0 of (2, 2): its
+              parameter and optimizer-state bytes and every step's
+              collective launches and bytes by kind and axis equal rank
+              0's on the card exactly; its predicted peak beside
+              max_memory_allocated; (c) FSDP's run: losses and every final
+              param block bit-equal to the run without FSDP, the same
+              kernel launches; its peak a rank.
+19. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
@@ -369,6 +385,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -385,8 +402,6 @@ TOL = 2e-2                      # bf16 kernel tolerance (atol = rtol)
 # rounding boundary, plus an f32 summation slack
 SPLIT_ATOL, SPLIT_RTOL = 1e-5, 2.0 ** -7
 FLIP_MARGIN = 2e-2              # router-logit gap a bf16 rounding can close
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM
-BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16
 GROUPED_FFN_SM90 = "src/repro_torch/kernels/csrc/grouped_ffn_sm90.cuh"
 FLASH_SM90 = "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh"
 DECODE_SM90 = "src/repro_torch/kernels/csrc/decode_sm90.cuh"
@@ -712,9 +727,11 @@ def ffn_case(n_choices, E, M, I, seed, act="gelu", bx=None, weights=None, groups
 
 def roofline(nbytes: float, flops: float):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the flops over the bf16 tensor-core rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    memory rate and the flops over the bf16 tensor-core rate, the H100
+    SXM's datasheet peaks (``repro_torch.distributed.roofline``)."""
+    from repro_torch.distributed.roofline import kernel_bound
+
+    return kernel_bound(nbytes, flops)
 
 
 def attention_bound(q, kp, tables, lengths):
@@ -6191,6 +6208,8 @@ MESH_TRAIN_RUNS = (
 # experts are gathered whole
 MESH_TRAIN_A2A = {"alltoall": 6, "dropless": 8, "pallas": 0}
 MESH_TRAIN_TIMEOUT = 900
+# phase 18 (c): after the runs, this run again with ``cfg.fsdp`` in the same world
+MESH_TRAIN_FSDP = "pallas"
 # (b)'s kernel shapes, held against the plain versions in phase 3 and timed in phase 4
 # (``mesh_train_ranks`` fails where a run launches either kernel at another shape): moe_ffn
 # over the gathered experts (pallas) at X = 2 groups x C 40 on a rank and 4 groups on one
@@ -6413,7 +6432,7 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_debug_mesh(*MESH_TRAIN_SHAPE, device=device, backend="gloo")
-    out = []
+    out, fsdp_base = [], None
     for label, flags, layers, steps, path in runs:
         args = train_mod.build_parser().parse_args(
             base_args + flags + ["--steps", str(steps), "--device", device])
@@ -6435,13 +6454,15 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             return real_clip(grads, max_norm, sum_squares)
 
         routes, losses, norms, step_ms, a2a, gathers, got = [], [], [], [], [], [], {}
-        shapes = {}
+        shapes, step_collectives = {}, []
+        state_bytes = (tensor_bytes(state.params), tensor_bytes(state.opt_state))
         collectives.reset_counters()
         with counted_launches(got), recorded_ffn_shapes(shapes), \
                 mock.patch.object(trainer, "clip_by_global_norm", clip):
             for step in range(steps):
                 batch = train_mod.device_batch(pipeline.batch_at(step), device)
                 before = (collectives.all_to_all.launches, collectives.all_gather.launches)
+                counted = collective_counts(collectives)
                 sync(torch, batch["tokens"])
                 t0 = time.perf_counter()
                 if step == 0:
@@ -6455,7 +6476,11 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 a2a.append(collectives.all_to_all.launches - before[0])
                 gathers.append(collectives.all_gather.launches - before[1])
+                step_collectives.append(counts_since(collective_counts(collectives), counted))
         flat = flat_params(state.params)
+        if label == MESH_TRAIN_FSDP:
+            fsdp_base = (args, layers, steps, losses, got,
+                         {k: p.detach().cpu() for k, p in flat.items()})
         zeroed = [k for k in flat if layout.zdim[k] is not None]
         halved = [k for k in zeroed
                   if state.opt_state["mu"][k].numel() * layout.nd == flat[k].numel()]
@@ -6470,11 +6495,91 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             init_s=init_s,
             zero_leaves=len(zeroed), zero_halved=len(halved), leaves=len(flat),
             local_params=sum(p.numel() for p in flat.values()),
-            state_elems=sum(t.numel() for sub in state.opt_state.values() for t in sub.values())))
+            state_elems=sum(t.numel() for sub in state.opt_state.values() for t in sub.values()),
+            param_bytes=state_bytes[0], opt_state_bytes=state_bytes[1],
+            step_collectives=step_collectives))
         del state, step_fn, flat, single
         if on_card:
             torch.cuda.empty_cache()
+    if fsdp_base is not None:
+        out.append(mesh_train_fsdp(torch, mesh, device, fsdp_base))
     return out
+
+
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a nested dict / list / tuple."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def collective_counts(collectives) -> dict:
+    """The counters' launches and wire bytes (by mesh axis) by kind."""
+    return {collectives.KINDS[fn.__name__]: (fn.launches, dict(fn.bytes))
+            for fn in collectives.COUNTED}
+
+
+def counts_since(now: dict, before: dict) -> dict:
+    """{kind: {"launches": n, "bytes": {axis: b}}} between two snapshots."""
+    out = {}
+    for kind, (n, by) in now.items():
+        n0, by0 = before[kind]
+        out[kind] = {"launches": n - n0,
+                     "bytes": {a: b - by0.get(a, 0) for a, b in by.items() if b - by0.get(a, 0)}}
+    return out
+
+
+def mesh_train_fsdp(torch, mesh, device, base):
+    """Phase 18 (c), on a rank of (b)'s world: the ``MESH_TRAIN_FSDP`` run
+    again with ``cfg.fsdp`` (the "embed" dim over "data", gathered at each
+    use): its losses and launches, and whether each of its final parameter
+    blocks equals the same block of that run's (``base``) bit for bit."""
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import train as train_mod
+    from repro_torch.nn import flat_params
+    from repro_torch.train.layout import MeshLayout
+
+    args, layers, steps, base_losses, base_launches, base_params = base
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with built_config(lambda cfg: cfg.replace(num_layers=layers, fsdp=True)):
+        cfg = train_mod.build(args)
+        layout = MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
+        _, _, step_fn, state, pipeline = train_mod.setup(args, layout)
+    losses, got, step_ms = [], {}, []
+    with counted_launches(got):
+        for step in range(steps):
+            batch = train_mod.device_batch(pipeline.batch_at(step), device)
+            sync(torch, batch["tokens"])
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            sync(torch, batch["tokens"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    d = mesh.coord["data"]
+    differ, blocks = [], 0
+    for k, p in flat_params(state.params).items():
+        want = base_params[k]
+        if k in layout.fsdp:
+            dim = layout.fsdp[k]
+            c = p.shape[dim]
+            want = want.narrow(dim, d * c, c)
+            blocks += 1
+        if not torch.equal(p.detach().cpu().view(torch.int32), want.view(torch.int32)):
+            differ.append(k)
+    return dict(label="fsdp", losses=losses, base_losses=base_losses, launches=got,
+                base_launches=base_launches, differ=differ, fsdp_leaves=blocks,
+                leaves=len(base_params), step_ms=step_ms,
+                local_params=sum(p.numel() for p in flat_params(state.params).values()),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
 
 
 def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
@@ -6585,15 +6690,50 @@ def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
                 f"{r['leaves']} leaves halved); kernels "
                 f"{ {k: v for k, v in r['launches'].items() if v} }")
         report[label] = dict(
+            rank0={k: reps[0][k] for k in ("param_bytes", "opt_state_bytes", "step_collectives",
+                                           "peak_gb")},
             layers=layers, steps=steps, experts_a_rank=E // M, losses=reps[0]["losses"],
             single_device_loss=one["loss"], single_device_grad_norm=one["grad_norm"],
             grad_norm=norm, min_grad_cosine=cos[worst], min_cosine_leaf=worst,
             routing_flips=[(layer, tok, margin) for layer, tok, margin in flips],
             all_to_all_a_step=reps[0]["a2a"], all_gather_a_step=reps[0]["all_gathers"],
             ranks=rows)
+    fsdp = [r[len(train_runs)] for r in ranks if len(r) > len(train_runs)]
+    if fsdp:
+        report["fsdp"] = check_mesh_train_fsdp(fsdp)
     log(f"  (b) spawn to join {spawn_s:.1f} s (four processes, every run)")
     report["spawn_s"] = spawn_s
     return report, launches
+
+
+def check_mesh_train_fsdp(ranks) -> dict:
+    """Phase 18 (c)'s gates over the ranks' ``mesh_train_fsdp`` results:
+    losses and every final parameter block bit-equal to the run without
+    FSDP, the same kernel launches (and tensor-core routes)."""
+    for r in ranks:
+        tag = f"18 (c) rank {ranks.index(r)}"
+        if r["losses"] != r["base_losses"]:
+            raise AssertionError(f"{tag}: FSDP losses {r['losses']} differ from "
+                                 f"{r['base_losses']} without FSDP")
+        if r["differ"]:
+            raise AssertionError(f"{tag}: final params differ from the run without FSDP: "
+                                 f"{r['differ'][:5]}")
+        if r["launches"] != r["base_launches"]:
+            raise AssertionError(f"{tag}: launches {r['launches']} vs {r['base_launches']} "
+                                 f"without FSDP")
+        if not r["fsdp_leaves"]:
+            raise AssertionError(f"{tag}: no leaf placed by FSDP")
+    r = ranks[0]
+    launched = {k: v for k, v in r["launches"].items() if v}
+    log(f"  18 (c) {MESH_TRAIN_FSDP} with cfg.fsdp, {len(r['losses'])} steps: losses "
+        f"{[round(x, 5) for x in r['losses']]} and all {r['leaves']} final param blocks "
+        f"bit-equal to the run without FSDP on every rank ({r['fsdp_leaves']} leaves FSDP "
+        f"blocks); launches {launched} as without FSDP; peak a rank "
+        f"{[fmt_gb(x['peak_gb']) for x in ranks]}; {r['local_params'] / 1e6:.1f} M params "
+        f"held by rank 0; steps {[round(x) for x in r['step_ms']]} ms")
+    return dict(losses=r["losses"], launches=launched, fsdp_leaves=r["fsdp_leaves"],
+                leaves=r["leaves"], peak_gb=[x["peak_gb"] for x in ranks],
+                local_params=r["local_params"], step_ms=[x["step_ms"] for x in ranks])
 
 
 def phase_mesh_train(torch):
@@ -6605,6 +6745,156 @@ def phase_mesh_train(torch):
     report["trivial"], _ = mesh_train_trivial(torch)
     report["ranks"], launches = mesh_train_ranks(torch, str(ROOT / "build"))
     return report, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the analysis tooling
+# ---------------------------------------------------------------------------
+
+# the dry run's cells (``repro_torch.launch.dryrun.trace_cell``): label -> (the train CLI's
+# flags, seq, batch, mesh axes) of phase 6's top-1 run on one device and of phase 17 (b)'s
+# first run as rank 0 of (data 2, model 2)
+TOOLING_CELLS = {
+    "phase 6": (TRAIN_ARGS, 144, 8, (("data", 1), ("model", 1))),
+    "phase 17 (b)": (MESH_TRAIN_ARGS + MESH_TRAIN_RUNS[0][1], 256, 16,
+                     (("data", 2), ("model", 2))),
+}
+DRYRUN_OUT = ROOT / "build" / "phase18-dryrun.json"
+
+
+def dryrun_child(path: str) -> None:
+    """The dry run of ``TOOLING_CELLS`` (on ``meta`` tensors, as rank 0 of a
+    ``fake`` process group: no card), written to ``path`` as JSON.  Runs in
+    a CPU process of its own, which ``start_dryrun`` starts early."""
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.train import build, build_parser
+
+    out = {}
+    for label, (argv, seq, batch, axes) in TOOLING_CELLS.items():
+        cfg = build(build_parser().parse_args(argv))
+        out[label] = trace_cell(cfg, ShapeConfig(label, seq, batch, "train"), axes)
+    Path(path).write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """Start ``dryrun_child`` in a CPU process (no card visible to it); its
+    log goes beside the result.  Returns (process, start time)."""
+    import atexit
+
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
+            f"import chip_smoke; chip_smoke.dryrun_child({str(DRYRUN_OUT)!r})")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(DRYRUN_OUT.with_suffix(".log"), "w") as err:      # the child keeps its own fd
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=err, stderr=err)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def analytic_cell(cfg, shape, measured_ms: float) -> dict:
+    """``flops_for``, ``bytes_for`` and the one-card roofline of a cell
+    beside its measured step, and the achieved model-FLOPs share."""
+    from repro_torch.distributed.costs import bytes_for, flops_for
+    from repro_torch.distributed.roofline import (
+        PEAK_FLOPS,
+        Roofline,
+        model_flops_forward,
+        model_flops_train,
+    )
+    from repro_torch.launch.dryrun import active_param_count
+    from repro_torch.nn import count_params
+
+    active = active_param_count(cfg)
+    tokens = shape.tokens if shape.kind != "decode" else shape.global_batch
+    mf = (model_flops_train if shape.kind == "train" else model_flops_forward)(active, tokens)
+    rl = Roofline(flops=flops_for(cfg, shape), bytes_accessed=bytes_for(cfg, shape,
+                                                                        count_params(cfg)),
+                  collective_bytes=0.0, chips=1, model_flops=mf)
+    return dict(flops=rl.flops, bytes=rl.bytes_accessed, bound_ms=rl.bound_time * 1e3,
+                dominant=rl.dominant, measured_ms=measured_ms,
+                measured_over_bound=measured_ms / (rl.bound_time * 1e3),
+                model_flops=mf, mfu=mf / (measured_ms / 1e3 * PEAK_FLOPS))
+
+
+def phase_tooling(torch, serve, train, mesh_train, dry):
+    """Phase 18: (a) the analytic models of phase 6's top-1 cell and phase
+    5's decode step beside their measured steps, and the achieved
+    model-FLOPs share; (b) the dry run (``dry``: ``start_dryrun``'s
+    process) of phase 6's cell and of phase 17 (b)'s rank 0 against the
+    card: parameter and optimizer-state bytes, and every step's
+    collective launches and bytes by kind and axis, equal exactly; the
+    predicted peak beside the measured one; (c) is phase 17's FSDP run,
+    reported here."""
+    from repro_torch.configs.base import ServeConfig, ShapeConfig
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.launch.train import build, build_parser
+
+    log(f"phase 18: the analysis tooling ({card_line()})")
+    out = {}
+    # (a)
+    cfg = build(build_parser().parse_args(TRAIN_ARGS))
+    out["phase 6 analytic"] = analytic_cell(cfg, ShapeConfig("phase 6", 144, 8, "train"),
+                                            train["top-1"]["mean_step_ms"])
+    decode_cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
+    slots = ServeConfig().max_slots
+    out["phase 5 analytic"] = analytic_cell(
+        decode_cfg, ShapeConfig("phase 5", 256, slots, "decode"), serve["mean_step_ms"])
+    for label in ("phase 6 analytic", "phase 5 analytic"):
+        a = out[label]
+        log(f"  (a) {label}: flops_for {a['flops'] / 1e12:.4f} TFLOP, bytes_for "
+            f"{a['bytes'] / 1e9:.3f} GB, bound {a['bound_ms']:.4f} ms ({a['dominant']}; "
+            f"H100 SXM datasheet peaks) vs measured {a['measured_ms']:.2f} ms "
+            f"({a['measured_over_bound']:.1f}x); model FLOPs {a['model_flops'] / 1e12:.4f} T, "
+            f"achieved share of the bf16 peak {a['mfu']:.4f}")
+    # (b)
+    proc, t0 = dry
+    rc = proc.wait(timeout=max(60.0, 600.0 - (time.perf_counter() - t0)))
+    if rc != 0 or not DRYRUN_OUT.exists():
+        raise AssertionError(f"the dry run exited {rc}: "
+                             f"{DRYRUN_OUT.with_suffix('.log').read_text()[-2000:]}")
+    cells = json.loads(DRYRUN_OUT.read_text())
+    rank0 = mesh_train["ranks"]["alltoall top-1"]["rank0"]
+    measured = {"phase 6": dict(peak_gb=train["top-1"]["peak_memory_gb"]),
+                "phase 17 (b)": rank0}
+    for label, rec in cells.items():
+        mem, coll = rec["memory"], rec["collectives"]
+        real = measured[label]
+        if "param_bytes" in real:
+            got = (real["param_bytes"], real["opt_state_bytes"])
+            want = (mem["param_bytes_per_device"], mem["opt_state_bytes_per_device"])
+            if got != want:
+                raise AssertionError(f"(b) {label}: rank 0 holds {got} param / optimizer-state "
+                                     f"bytes, the dry run {want}")
+            for i, step in enumerate(real["step_collectives"]):
+                for kind, c in step.items():
+                    dry_bytes = {a: b for a, b in coll["bytes"][kind].items() if b}
+                    if c["launches"] != coll["launches"][kind] or c["bytes"] != dry_bytes:
+                        raise AssertionError(
+                            f"(b) {label} step {i}: {kind} {c} on the card, the dry run "
+                            f"{coll['launches'][kind]} launches, {dry_bytes}")
+        peak = mem["peak_bytes_per_device"] / 1e9
+        rec["measured_peak_gb"] = real["peak_gb"]
+        rec["peak_ratio"] = peak / real["peak_gb"]
+        log(f"  (b) {label} ({rec['chips']} rank(s), traced on meta in {rec['trace_s']} s): "
+            f"predicted peak {peak:.2f} GB vs measured {real['peak_gb']:.2f} GB "
+            f"(ratio {rec['peak_ratio']:.3f}); params {mem['param_bytes_per_device'] / 1e9:.3f} "
+            f"GB, optimizer state {mem['opt_state_bytes_per_device'] / 1e9:.3f} GB"
+            + (" (both equal rank 0's on the card); every step's collectives "
+               f"{ {k: v for k, v in coll['launches'].items() if v} } with their bytes by "
+               "kind and axis equal rank 0's" if "param_bytes" in real else "")
+            + f"; counted {rec['counted']['flops'] * rec['chips'] / 1e12:.4f} TFLOP over the "
+            f"ranks vs flops_for {rec['roofline']['flops'] / 1e12:.4f}")
+    out["dry run"] = cells
+    # (c)
+    out["fsdp"] = mesh_train["ranks"].get("fsdp")
+    if out["fsdp"] is None:
+        raise AssertionError("18 (c): phase 17 ran no FSDP run")
+    return out
 
 
 def main() -> int:
@@ -6666,6 +6956,7 @@ def main() -> int:
             if "wgmma" in line.lower() and "warning" in line.lower():
                 log(f"    ptxas: {line.strip()[:200]}")
     check_sass(build)
+    dry = start_dryrun()            # phase 18's dry run, on the CPU meanwhile
 
     errs, ffn_weights = phase_check(torch)
     timing, timing_mixed = phase_timing(torch, ffn_weights)
@@ -6733,6 +7024,11 @@ def main() -> int:
     mesh_train, mesh_train_launches = phase_mesh_train(torch)
     mesh_train_s = time.perf_counter() - t0
     log(f"  mesh training phase {mesh_train_s:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tooling = phase_tooling(torch, e2e, train, mesh_train, dry)
+    tooling_s = time.perf_counter() - t0
+    log(f"  tooling phase {tooling_s:.1f} s (the dry run's CPU process started after phase 2)")
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
@@ -6894,6 +7190,7 @@ def main() -> int:
                       "static_s": static_s, "families_s": families_s,
                       "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,
                       "mesh_s": mesh_s, "mesh_train": mesh_train, "mesh_train_s": mesh_train_s,
+                      "tooling": tooling, "tooling_s": tooling_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

@@ -157,6 +157,21 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what the dry run traces, and at what size
+    (``repro.configs.base.ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer and step settings (``repro.configs.base.TrainConfig``).
     The port has no ZeRO sharding: ``zero1`` is carried for parity and

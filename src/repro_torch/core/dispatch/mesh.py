@@ -78,21 +78,34 @@ def joint_rank(mesh, axes: Tuple[str, ...]) -> int:
 
 def gathered_experts(params, dtype=None):
     """``params`` with the expert leaves whole: all-gathered over the expert
-    axis when the active rules shard them (a transient of the layer's
-    expert bytes), else as they are.  ``dtype``: the dtype the expert FFN
-    casts them to at use, cast before the gather (the same values; a
-    training tree's f32 masters move in half the bytes).  Every rank of
-    the expert axis then computes the same dispatch, so the gather's
-    backward keeps each rank its own experts' gradient (``grad="slice"``),
-    not a sum over ranks."""
+    axis when the active rules shard them, and over the axis that shards
+    each expert's mlp dim where the experts do not divide over the mesh
+    (granite's 40 over 16: the rules then shard ``d_ff`` instead) — a
+    transient of the layer's expert bytes — else as they are.  ``dtype``:
+    the dtype the expert FFN casts them to at use, cast before the gather
+    (the same values; a training tree's f32 masters move in half the
+    bytes).  Every rank of those axes then computes the same dispatch, so
+    the gather's backward keeps each rank its own block's gradient
+    (``grad="slice"``), not a sum over ranks."""
     rules = active_rules()
-    e_ax = None if rules is None else rules.params.get("expert")
-    if e_ax is None or rules.mesh.shape[e_ax] == 1:
+    if rules is None:
         return params
-    group = rules.mesh.group(e_ax)
+    e_ax, mlp_ax = rules.params.get("expert"), rules.params.get("mlp")
+    gathers = []                            # (axis, {leaf: dim})
+    if e_ax is not None and rules.mesh.shape[e_ax] > 1:
+        gathers.append((e_ax, {k: 0 for k in EXPERT_LEAVES}))
+    elif mlp_ax is not None and not isinstance(mlp_ax, tuple) and rules.mesh.shape[mlp_ax] > 1 \
+            and "up" in params and params["up"].shape[-1] != rules.cfg.d_ff:
+        gathers.append((mlp_ax, {"up": -1, "gate": -1, "down": -2}))
+    if not gathers:
+        return params
     out = dict(params)
     for k in EXPERT_LEAVES:
-        if k in params:
-            leaf = params[k] if dtype is None else params[k].to(dtype)
-            out[k] = collectives.all_gather(leaf, group, dim=0, grad="slice")
+        if k in params and dtype is not None:
+            out[k] = params[k].to(dtype)
+    for axis, dims in gathers:
+        group = rules.mesh.group(axis)
+        for k, dim in dims.items():
+            if k in out:
+                out[k] = collectives.all_gather(out[k], group, dim=dim, grad="slice")
     return out

@@ -17,7 +17,8 @@ them (the reference's GSPMD writes the transposes itself):
   ``grad="slice"`` (every rank computes the same thing from the gathered
   tensor, so its gradient is already whole on every rank: the rank keeps
   its chunk) or ``grad="sum"`` (the ranks consume it differently: the
-  chunk's gradient is the sum over ranks, a reduce-scatter);
+  chunk's gradient is the sum over ranks, a reduce-scatter; FSDP's
+  gather of a parameter at its use);
 * ``all_reduce``'s (sum) backward is the identity (the result feeds the
   same computation on every rank);
 * :func:`copy_to` is the identity whose backward all-reduces (the input of
@@ -28,16 +29,36 @@ Each function counts its calls that ran a collective in ``.launches``,
 forward and backward alike (beside the kernels' ``launches``: a test or
 ``chip_smoke.py`` asserts that expert parallelism really engaged from
 ``all_to_all.launches``, the port's counterpart of the reference's jaxpr
-check ``"all_to_all" in str(jx)``) and the host seconds they took in
-``.seconds``.  Under gloo a CUDA tensor is staged through host memory,
-so those seconds are the copies and the exchange.
+check ``"all_to_all" in str(jx)``), the host seconds they took in
+``.seconds``, and their wire bytes in ``.bytes``, by the mesh axis of the
+group (:func:`name_group`; ``"group"`` for a group no mesh named).  Under
+gloo a CUDA tensor is staged through host memory, so those seconds are
+the copies and the exchange.
+
+The bytes follow the reference's HLO parser (``repro.distributed.hlo``):
+an all-reduce counts twice its operand (a ring: reduce-scatter then
+all-gather), an all-gather the gathered size, a reduce-scatter its input,
+an all-to-all its operand; each call once.  :func:`collective_bytes` sums
+them in the reference's shape.  On ``meta`` tensors under the ``fake``
+process group (the dry run) every call is counted as it would run, and
+nothing moves.
 """
 from __future__ import annotations
 
 import time
+from collections import defaultdict
+from typing import Dict
 
 import torch
 import torch.distributed as dist
+
+# the mesh axis (or joint axes) each process group spans, for the byte counts
+_GROUP_NAMES: Dict[object, str] = {}
+
+
+def name_group(group, axis: str) -> None:
+    """Count the bytes of collectives over ``group`` under ``axis``."""
+    _GROUP_NAMES[group] = axis
 
 
 def _size(group) -> int:
@@ -48,9 +69,17 @@ def _rank(group) -> int:
     return dist.get_group_rank(group, dist.get_rank()) if group is not None else dist.get_rank()
 
 
-def _count(fn, t0: float) -> None:
+def _count(fn, t0: float, group, wire: float, result: float) -> None:
+    """One call of ``fn`` over ``group``: ``wire`` bytes by the module
+    doc's convention, ``result`` the bytes of its result (the HLO's)."""
     fn.launches += 1
     fn.seconds += time.perf_counter() - t0
+    fn.bytes[_GROUP_NAMES.get(group, "group")] += wire
+    fn.result_bytes += result
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
@@ -65,7 +94,7 @@ def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torc
     dist.all_to_all_single(recv, send, group=group)
     chunks = recv.reshape(n, S // n, *send.shape[1:]).unbind(0)
     out = torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
-    _count(all_to_all, t0)
+    _count(all_to_all, t0, group, _nbytes(x), _nbytes(x))
     return out
 
 
@@ -90,17 +119,13 @@ def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> tor
     return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
-all_to_all.launches = 0
-all_to_all.seconds = 0.0
-
-
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     t0 = time.perf_counter()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(_size(group))]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
-    _count(all_gather, t0)
+    _count(all_gather, t0, group, _nbytes(out), _nbytes(out))
     return out
 
 
@@ -116,7 +141,19 @@ def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     t0 = time.perf_counter()
     out = x.contiguous().clone()
     dist.all_reduce(out, op=op, group=group)
-    _count(all_reduce, t0)
+    _count(all_reduce, t0, group, 2 * _nbytes(out), _nbytes(out))
+    return out
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum over ``group``: an
+    all-reduce whose chunk the rank keeps (gloo has no reduce-scatter; the
+    sum is the same), counted as the reduce-scatter it stands for."""
+    t0 = time.perf_counter()
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    out = _chunk(out, group, dim).contiguous()
+    _count(reduce_scatter, t0, group, _nbytes(x), _nbytes(out))
     return out
 
 
@@ -130,7 +167,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         group, dim, grad = ctx.args
         if grad == "sum":
-            g = _reduce(g, group)
+            return _reduce_scatter(g, group, dim), None, None, None
         return _chunk(g, group, dim).contiguous(), None, None, None
 
 
@@ -142,10 +179,6 @@ def all_gather(x: torch.Tensor, group, dim: int = 0, grad: str = "slice") -> tor
     if grad not in ("slice", "sum"):
         raise ValueError(f"all_gather: grad {grad!r}, expected 'slice' or 'sum'")
     return _AllGather.apply(x, group, dim, grad)
-
-
-all_gather.launches = 0
-all_gather.seconds = 0.0
 
 
 class _AllReduce(torch.autograd.Function):
@@ -168,10 +201,6 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     if op != "sum":
         raise ValueError(f"all_reduce: op {op!r}, expected 'sum' or 'max'")
     return _AllReduce.apply(x, group)
-
-
-all_reduce.launches = 0
-all_reduce.seconds = 0.0
 
 
 class _CopyTo(torch.autograd.Function):
@@ -216,16 +245,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """This rank's chunk of the sum of every rank's ``x`` (no gradient)."""
     if _size(group) == 1:
         return x
-    t0 = time.perf_counter()
-    out = x.detach().contiguous().clone()
-    dist.all_reduce(out, group=group)
-    out = _chunk(out, group, dim).contiguous()
-    _count(reduce_scatter, t0)
-    return out
-
-
-reduce_scatter.launches = 0
-reduce_scatter.seconds = 0.0
+    return _reduce_scatter(x, group, dim)
 
 
 def agree_max(value: float, group, device) -> float:
@@ -240,9 +260,41 @@ def agree_max(value: float, group, device) -> float:
 
 
 COUNTED = (all_to_all, all_gather, all_reduce, reduce_scatter)
+# the reference HLO parser's name of each kind
+KINDS = {"all_to_all": "all-to-all", "all_gather": "all-gather", "all_reduce": "all-reduce",
+         "reduce_scatter": "reduce-scatter"}
 
 
 def reset_counters() -> None:
     for fn in COUNTED:
         fn.launches = 0
         fn.seconds = 0.0
+        fn.bytes = defaultdict(float)
+        fn.result_bytes = 0.0
+
+
+reset_counters()
+
+
+def collective_bytes() -> Dict[str, float]:
+    """The counters since :func:`reset_counters` in the shape of the
+    reference's ``hlo.collective_bytes``: each kind's result bytes, the
+    wire bytes of them all under ``"total"``, the calls under ``"count"``
+    and each kind's under ``"n_<kind>"``."""
+    out: Dict[str, float] = {}
+    for fn in COUNTED:
+        if fn.launches:
+            out[KINDS[fn.__name__]] = float(fn.result_bytes)
+            out[f"n_{KINDS[fn.__name__]}"] = float(fn.launches)
+    out["total"] = float(sum(sum(fn.bytes.values()) for fn in COUNTED))
+    out["count"] = float(sum(fn.launches for fn in COUNTED))
+    return out
+
+
+def bytes_by_axis() -> Dict[str, float]:
+    """The wire bytes since :func:`reset_counters`, summed by mesh axis."""
+    out: Dict[str, float] = defaultdict(float)
+    for fn in COUNTED:
+        for axis, b in fn.bytes.items():
+            out[axis] += b
+    return dict(out)

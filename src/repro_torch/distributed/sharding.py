@@ -15,7 +15,8 @@ The reference hands its specs to GSPMD.  PyTorch has no GSPMD: a mesh rank
 runs one process and holds its own slices, which :func:`shard_params` cuts
 (and :func:`placement` cuts as ``init_params`` draws each leaf), and the
 code that needs another rank's slice asks for it through
-:mod:`repro_torch.distributed.collectives`.  So :func:`shard`, the
+:mod:`repro_torch.distributed.collectives` (FSDP's blocks through
+:func:`fsdp_gather`, at each use).  So :func:`shard`, the
 reference's activation constraint, is a no-op here; the model code asks
 :func:`tensor_parallel` and :func:`data_parallel` whether the active rules
 give it a block of a param axis or a rank's rows of the batch.  A
@@ -73,6 +74,7 @@ class Rules:
         self.acts = dict(acts)
         self.cfg = cfg
         self.batch_sharded = batch_sharded
+        self.fsdp = None            # fsdp_dims' result, made at its first call
 
 
 def _size(mesh, axes: MeshAxes) -> int:
@@ -128,6 +130,26 @@ def make_rules(cfg, mesh, *, expert_axis: Optional[str] = None,
         "vocab": params["vocab"], "expert": params["expert"], "cache_seq": None,
     }
     return Rules(mesh, params, acts, cfg=cfg, batch_sharded=batch_sharded)
+
+
+def tree_name(cfg) -> str:
+    """The name of ``cfg``'s param tree: its family's, or "moe_attention"."""
+    return "moe_attention" if cfg.moe.moe_attention else cfg.family
+
+
+def unsharded_forms(cfg, model: int, fsdp: bool) -> list:
+    """What ``cfg``'s tree lacks to run on a mesh with ``model`` ranks on
+    the model axis (and FSDP where ``fsdp``): the xLSTM, zamba and encdec
+    trees and MoE attention have no tensor-parallel form, and FSDP gathers
+    only the decoder-LM trees' blocks."""
+    out = []
+    if model > 1 and (cfg.family in ("xlstm", "zamba", "encdec") or cfg.moe.moe_attention):
+        out.append(f"a model axis of {model} for the {tree_name(cfg)} tree (no "
+                   f"tensor-parallel form)")
+    if fsdp and cfg.family in ("xlstm", "zamba", "encdec"):
+        out.append(f"cfg.fsdp for the {cfg.family} tree (FSDP gathers the decoder-LM "
+                   f"trees only)")
+    return out
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -203,6 +225,55 @@ def data_parallel():
     for a in axes:
         idx = idx * mesh.shape[a] + mesh.coord[a]
     return mesh.axes_group(axes), n, idx
+
+
+def fsdp_dims(rules: Rules) -> Dict[str, Tuple[int, int]]:
+    """FSDP (``cfg.fsdp``: the "embed" dim over the data axes): the flat
+    path of each leaf of the rules' param tree whose placement shards a dim
+    over the data axes, that dim and its whole size; empty where the data
+    axes have one rank or no leaf is so placed."""
+    if rules.fsdp is None:
+        rules.fsdp = {}
+        dp = set(dp_axes(rules.mesh))
+        if rules.cfg is not None and _size(rules.mesh, tuple(dp)) > 1:
+            from repro_torch.nn.spec import flat_params, model_shapes
+
+            for k, s in flat_params(model_shapes(rules.cfg, train=True)).items():
+                spec = logical_to_pspec(s.axes, rules.params, s.shape, rules.mesh)
+                dim = next((i for i, e in enumerate(spec) if dp & set(_axes(e))), None)
+                if dim is not None:
+                    rules.fsdp[k] = (dim, s.shape[dim])
+    return rules.fsdp
+
+
+def fsdp_gather(tree, prefix: str = "", lead: int = 0):
+    """``tree``, a subtree of the params at flat path ``prefix`` (with
+    ``lead`` leading dims of its leaves unbound, a stacked layer's), with
+    every FSDP block of the active rules all-gathered whole over the data
+    axes (``grad="sum"``: the backward reduce-scatters its gradient).  A
+    leaf held whole (the router) stays as it is, and so does everything
+    where no rules are active or FSDP is off.  Called at each use of the
+    parameters, inside the remat region, so that the recompute gathers
+    again and no whole leaf outlives its layer."""
+    rules = active_rules()
+    dims = fsdp_dims(rules) if rules is not None else {}
+    if not dims:
+        return tree
+    group = rules.mesh.axes_group(dp_axes(rules.mesh))
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, f"{path}{k}/") for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{path}{i}/") for i, v in enumerate(node)]
+        if path[:-1] not in dims or not isinstance(node, torch.Tensor):
+            return node
+        dim, whole = dims[path[:-1]]
+        if node.shape[dim - lead] == whole:
+            return node                             # held whole (the router)
+        return collectives.all_gather(node, group, dim=dim - lead, grad="sum")
+
+    return walk(tree, prefix)
 
 
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:

@@ -7,7 +7,8 @@ Three kernels, each beside its plain version in ``ref.py``:
 (``csrc/quantized_paged_decode_attention.cu``) and the dense-cache
 ``decode_attention`` (``csrc/decode_attention.cu``).  On CPU tensors a
 wrapper runs the plain version; on CUDA tensors it launches its kernel on
-the current stream or raises.  Each wrapper's ``.launches`` counts its
+the current stream; on ``meta`` tensors (the dry run) it makes the
+kernel's output and launches nothing; on any other device it raises.  Each wrapper's ``.launches`` counts its
 kernel launches (and nothing else).
 
 The three kernels share one design (``kernels/csrc/decode_sm90.cuh``):
@@ -227,13 +228,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     on the host, informs that plan and nothing else."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
     _check(q, k_pool, v_pool, block_tables, lengths)
+    out = torch.empty_like(q)
+    if q.device.type == "meta":         # the dry run: the kernel's output, no launch
+        return out
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
     splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
-    out = torch.empty_like(q)
     fn = _lib()
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -320,13 +323,15 @@ def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
     if q.device.type == "cpu":
         return quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
                                                     block_tables, lengths, policy=policy)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"quantized_paged_decode_attention: no kernel for device {q.device}")
     _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, lengths, policy)
+    out = torch.empty_like(q)
+    if q.device.type == "meta":         # the dry run: the kernel's output, no launch
+        return out
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
     splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
-    out = torch.empty_like(q)
     fn = _lib("quantized_paged_decode_attention")
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], _FMT_CODE[policy.name], q.data_ptr(),
@@ -421,14 +426,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: softcap {softcap} < 0")
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _check_dense(q, k, v, lengths)
+    out = torch.empty_like(q)
+    if q.device.type == "meta":         # the dry run: the kernel's output, no launch
+        return out
     B, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     splits, stages = dense_plan(B, Hkv, Hq // Hkv, D, T, q.element_size(),
                                 _sm_count(q.device.index), splits, max_length)
-    out = torch.empty_like(q)
     fn = _lib("decode_attention")
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -3,8 +3,9 @@
 
 On CPU tensors :func:`flash_attention` runs the plain version in
 ``ref.py``; on CUDA tensors it launches ``csrc/flash_attention.cu`` on the
-current stream (reading (B, S, H, D) directly, so no transposes) or
-raises.  Two routes (``common.flash_tensor_core_route``): bf16 with D in
+current stream (reading (B, S, H, D) directly, so no transposes); on
+``meta`` tensors (the dry run) it makes the kernel's output and launches
+nothing; on any other device it raises.  Two routes (``common.flash_tensor_core_route``): bf16 with D in
 (64, 128) launches ``flash_attention_tc`` (TMA and wgmma,
 ``kernels/csrc/flash_attention_sm90.cuh``; P as bf16 hi + lo, the numerics
 of ``ref.attention_split_ref``), the rest ``flash_attention`` (CUDA cores,
@@ -72,12 +73,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "kernel defines none): call it under torch.no_grad()")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v)
     B, S, Hq, D = q.shape
     tensor_cores = flash_tensor_core_route(q.dtype, D)
     o = torch.empty_like(q)
+    if q.device.type == "meta":         # the dry run: the kernel's output, no launch
+        return o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tensor_cores:

@@ -7,7 +7,9 @@ the routing tests compare.  :func:`ragged_ffn` is a
 ``torch.autograd.Function``, as the reference's ``custom_vjp``: its
 forward runs the plain version in ``ref.py`` on CPU tensors and launches
 ``csrc/ragged_ffn.cu`` (two grouped passes, h in device memory) on CUDA
-tensors, on the current stream, or raises; its backward is autograd
+tensors, on the current stream; on ``meta`` tensors (the dry run) it makes
+the kernel's output and workspace and launches nothing; on any other
+device it raises; its backward is autograd
 through ``ref.py`` (``block_expert`` gets no gradient).  Two routes
 (``common.tensor_core_route``): bf16 launches ``ragged_ffn_tc`` (wgmma,
 ``kernels/csrc/grouped_ffn_sm90.cuh``, one block of bx rows as the N
@@ -86,26 +88,36 @@ def _check(x, block_expert, w_up, w_gate, w_down, block_x):
             raise ValueError(f"ragged_ffn: {name} must be contiguous")
 
 
+def _buffers(x, I: int, tensor_cores: bool):
+    """The kernel's output and its h workspace: (2, N, I) bf16 hi + lo
+    planes on the tensor-core route, (N, I) f32 on the CUDA cores."""
+    N = x.shape[0]
+    y = torch.empty_like(x)
+    if tensor_cores:
+        return y, torch.empty((2, N, I), dtype=torch.bfloat16, device=x.device)
+    return y, torch.empty((N, I), dtype=torch.float32, device=x.device)
+
+
 def _launch(x, block_expert, w_up, w_gate, w_down, activation, block_x):
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ragged_ffn: no kernel for device {x.device}")
     _check(x, block_expert, w_up, w_gate, w_down, block_x)
     N, M = x.shape
     E, _, I = w_up.shape
     tensor_cores = tensor_core_route(x.dtype, M, I)
+    y, h = _buffers(x, I, tensor_cores)
+    if x.device.type == "meta":         # the dry run: the kernel's tensors, no launch
+        return y
     act = act_code(activation, w_gate is not None)
     gate = w_gate.data_ptr() if w_gate is not None else None
-    y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if tensor_cores:
             n, tiles = tile_rows(block_x, w_gate is not None)
-            h = torch.empty((2, N, I), dtype=torch.bfloat16, device=x.device)   # hi, lo
             err = _lib("ragged_ffn_tc")(
                 x.data_ptr(), w_up.data_ptr(), gate, w_down.data_ptr(), block_expert.data_ptr(),
                 h.data_ptr(), y.data_ptr(), N, M, I, E, block_x, act, n, tiles, stream)
         else:
-            h = torch.empty((N, I), dtype=torch.float32, device=x.device)
             err = _lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(), gate,
                          w_down.data_ptr(), block_expert.data_ptr(), h.data_ptr(), y.data_ptr(),
                          N, M, I, block_x, act, stream)

@@ -4,7 +4,8 @@
 :func:`moe_ffn` is a ``torch.autograd.Function``, as the reference's
 ``custom_vjp``: its forward runs the plain version in ``ref.py`` on CPU
 tensors and launches ``csrc/moe_ffn.cu`` on CUDA tensors, on the current
-stream, or raises; its backward is autograd through ``ref.py`` (the TPU
+stream; on ``meta`` tensors (the dry run) it makes the kernel's output and
+workspace and launches nothing; on any other device it raises; its backward is autograd through ``ref.py`` (the TPU
 kernel has no backward kernel either).  Two routes
 (``common.tensor_core_route``): bf16 with M and I multiples of 8 launches
 ``moe_ffn_tc`` (wgmma, ``kernels/csrc/grouped_ffn_sm90.cuh``; h as bf16
@@ -66,26 +67,36 @@ def _check(x, w_up, w_gate, w_down):
             raise ValueError(f"moe_ffn: {name} must be contiguous")
 
 
+def _buffers(x, I: int, tensor_cores: bool):
+    """The kernel's output and its h workspace: (2, E*X, I) bf16 hi + lo
+    planes on the tensor-core route, (E*X, I) f32 on the CUDA cores."""
+    E, X, _ = x.shape
+    y = torch.empty_like(x)
+    if tensor_cores:
+        return y, torch.empty((2, E * X, I), dtype=torch.bfloat16, device=x.device)
+    return y, torch.empty((E * X, I), dtype=torch.float32, device=x.device)
+
+
 def _launch(x, w_up, w_gate, w_down, activation):
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_ffn: no kernel for device {x.device}")
     _check(x, w_up, w_gate, w_down)
     E, X, M = x.shape
     I = w_up.shape[-1]
     tensor_cores = tensor_core_route(x.dtype, M, I)
+    y, h = _buffers(x, I, tensor_cores)
+    if x.device.type == "meta":         # the dry run: the kernel's tensors, no launch
+        return y
     act = act_code(activation, w_gate is not None)
     gate = w_gate.data_ptr() if w_gate is not None else None
-    y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if tensor_cores:
             n, tiles = tile_rows(X, w_gate is not None)
-            h = torch.empty((2, E * X, I), dtype=torch.bfloat16, device=x.device)  # hi, lo
             err = _lib("moe_ffn_tc")(x.data_ptr(), w_up.data_ptr(), gate, w_down.data_ptr(),
                                      h.data_ptr(), y.data_ptr(), E, X, M, I, act, n, tiles,
                                      stream)
         else:
-            h = torch.empty((E * X, I), dtype=torch.float32, device=x.device)
             err = _lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_up.data_ptr(), gate,
                          w_down.data_ptr(), h.data_ptr(), y.data_ptr(), E, X, M, I, act, stream)
     if err:

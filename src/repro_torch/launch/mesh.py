@@ -37,6 +37,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import collectives
+
 TIMEOUT = datetime.timedelta(seconds=60)
 SERVE_AXES = ("data", "expert")
 
@@ -71,6 +73,9 @@ class Mesh:
             r //= n
         self.coord = {a: coord[a] for a in self.axis_names}
         self._joint = {}
+        for a in self.axis_names:
+            collectives.name_group(self.group(a), a)
+        collectives.name_group(self.world, "+".join(self.axis_names))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -100,6 +105,7 @@ class Mesh:
                 ranks.setdefault(tuple(c[a] for a in rest), []).append(r)
             self._joint[axes], _ = dist.new_subgroups_by_enumeration(
                 list(ranks.values()), timeout=TIMEOUT)
+            collectives.name_group(self._joint[axes], "+".join(axes))
         return self._joint[axes]
 
     def __repr__(self) -> str:

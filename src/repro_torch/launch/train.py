@@ -60,10 +60,13 @@ each rank on ``cuda:{LOCAL_RANK % cards}``, NCCL where each has a card of
 its own, gloo (``--mesh-backend gloo``) where ranks share one; rank 0
 alone prints and writes the checkpoints, the logs and the traces.
 ``--mesh-backend`` alone runs the (1, 1) mesh in this process (a world-1
-group), whose step is the single-device one bit for bit.  Refused on a
-mesh, with a reason: ``cfg.fsdp``, and ``--model`` above 1 for the MoE
+group), whose step is the single-device one bit for bit.  A config with
+``fsdp`` set (no flag, as in the reference: the dry run sets it) trains
+with the "embed" dim of the decoder-LM trees over the data axes.
+Refused on a mesh, with a reason: ``--model`` above 1 for the MoE
 attention, xLSTM, zamba and encdec trees (their layers have no
-tensor-parallel form here; ``--data`` above 1 trains them).
+tensor-parallel form here; ``--data`` above 1 trains them), and
+``cfg.fsdp`` for the xLSTM, zamba and encdec trees.
 ``--moe-impl alltoall`` without a mesh trains, as the reference's does,
 as ``gather``.
 ``--routing`` takes all four of the reference's routers
@@ -136,15 +139,9 @@ def on_mesh(args) -> bool:
 
 def _unported(args, cfg) -> list:
     """Flags set to something this port does not implement, with why."""
-    mesh = on_mesh(args)
-    no_tp = (cfg.family in ("xlstm", "zamba", "encdec") or cfg.moe.moe_attention)
-    checks = [
-        (mesh and cfg.fsdp, "cfg.fsdp on a mesh (the embed dim over the data axes)"),
-        (args.model > 1 and no_tp,
-         f"--model > 1 for the {'moe_attention' if cfg.moe.moe_attention else cfg.family} "
-         f"tree (no tensor-parallel form; --data trains it)"),
-    ]
-    return [flag for cond, flag in checks if cond]
+    from repro_torch.distributed.sharding import unsharded_forms
+
+    return unsharded_forms(cfg, args.model, on_mesh(args) and cfg.fsdp)
 
 
 def make_layout(args):

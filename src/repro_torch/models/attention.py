@@ -21,10 +21,15 @@ the logit softcap (``attn_logit_softcap``) as the reference's ``_sdpa``
 does.  ``_sdpa`` takes the chunked path
 (:mod:`repro_torch.models.chunked_attention`) under
 ``attention_impl="chunked"``, or under ``"auto"`` when S*T > 2^21, as the
-reference's does.  On a training mesh whose rules shard the heads over the
-model axis, a rank's q, k and v projections are its heads' columns and
-``wo`` its heads' rows: the rank attends over its heads and the output is
-all-reduced (the input enters through ``collectives.copy_to``)."""
+reference's does.  On a mesh whose rules shard the heads over the model
+axis (training, and the dry run's prefill and decode), a rank's q, k and v
+projections are its heads' columns and ``wo`` its heads' rows: the rank
+attends over its heads, its cache holds its kv heads, and the output is
+all-reduced (the input enters through ``collectives.copy_to``).  Where
+the kv heads do not divide over the axis, ``wk`` and ``wv`` are whole on
+every rank and a rank projects only the kv heads its q heads read; where
+a rank's block of the heads is not whole heads, the layer gathers its
+projections and every rank computes every head."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -132,9 +137,12 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
         else:
             out = _sdpa(q, k, v, cfg, mask=None)
         return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), None
-    tp = _head_parallel(params, cfg) if cache is None else None
+    tp = _head_parallel(params, cfg)
+    if tp is not None and tp[1] == "gather":
+        params, tp = _gathered_heads(params, cfg, tp[0]), None
     if tp is not None:
-        x = collectives.copy_to(x, tp)
+        x = collectives.copy_to(x, tp[0])
+        params = _rank_projections(params, cfg, *tp)
     q, k, v = _project_qkv(params, x, cfg, positions)
     new_cache = None
     if cache is not None:
@@ -162,22 +170,89 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
         out = _sdpa(q, k, v, cfg, mask, causal_offset=0 if causal else None)
     out = dense_apply(params["wo"], out.reshape(B, S, -1), cfg)
     if tp is not None:
-        out = collectives.all_reduce(out, tp)
+        out = collectives.all_reduce(out, tp[0])
     return out, new_cache
 
 
 def _head_parallel(params, cfg: ModelConfig):
-    """The model axis's process group where this layer's projections hold
-    a rank's heads (column-parallel q, k, v; row-parallel ``wo``), else
-    None."""
+    """Where this layer's projections hold a rank's heads (column-parallel
+    q, k, v; row-parallel ``wo``): (the model axis's process group, None)
+    where ``wk`` / ``wv`` hold the rank's kv heads too, or (group, (lo,
+    hi)) where they are whole (the kv heads do not divide over the axis)
+    and the rank's q heads read kv heads lo..hi-1; else None."""
     tp = tensor_parallel("heads")
-    if tp is None or params["wq"]["kernel"].shape[-1] == cfg.num_heads * cfg.resolved_head_dim:
+    hd = cfg.resolved_head_dim
+    if tp is None or params["wq"]["kernel"].shape[-1] == cfg.num_heads * hd:
         return None
-    if params["wk"]["kernel"].shape[-1] == cfg.num_kv_heads * cfg.resolved_head_dim:
+    group, _, _ = tp
+    if params["wq"]["kernel"].shape[-1] % hd:
+        return group, "gather"
+    if params["wk"]["kernel"].shape[-1] != cfg.num_kv_heads * hd:
+        return group, None
+    return group, rank_kv_heads(cfg, *tp[1:])
+
+
+def _gathered_heads(params, cfg: ModelConfig, group):
+    """The layer's projections whole where a rank's block of the heads is
+    not whole heads (the rules shard the heads' columns, as the reference's
+    do: granite's 24 heads or qwen's 40 over 16 ranks): all-gathered over
+    the model axis, so that every rank computes every head (the
+    gather's backward keeps a rank its own block's gradient)."""
+    hd = cfg.resolved_head_dim
+    out = dict(params)
+    for name, whole in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
+                        ("wv", cfg.num_kv_heads)):
+        if params[name]["kernel"].shape[-1] != whole * hd:
+            out[name] = {k: collectives.all_gather(t, group, dim=t.dim() - 1, grad="slice")
+                         for k, t in params[name].items()}
+    wo = params["wo"]["kernel"]
+    out["wo"] = {**params["wo"],
+                 "kernel": collectives.all_gather(wo, group, dim=wo.dim() - 2, grad="slice")}
+    return out
+
+
+def rank_kv_heads(cfg: ModelConfig, n: int, r: int) -> Tuple[int, int]:
+    """The kv heads (lo, hi) that rank ``r`` of ``n`` on the heads' axis
+    reads: those of its q heads ``r * Hq / n ...``.  Its q heads must be
+    whole GQA groups or lie within one."""
+    hq, G = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
+    if hq % G and G % hq:
         raise NotImplementedError(
-            f"the q heads shard over the model axis and the {cfg.num_kv_heads} kv heads do "
-            f"not: a rank's q heads would need kv heads of other ranks")
-    return tp[0]
+            f"{hq} q heads a rank in GQA groups of {G}: a rank's q heads are neither whole "
+            f"groups nor within one")
+    return r * hq // G, ((r + 1) * hq - 1) // G + 1
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads a rank's cache holds under the active rules: its block
+    of them, or those its q heads read where the kv heads are whole."""
+    tp = tensor_parallel("heads")
+    if tp is None or cfg.num_heads % tp[1]:         # no heads, or every head on every rank
+        return cfg.num_kv_heads
+    n = tp[1]
+    if tensor_parallel("kv_heads") is not None and cfg.num_kv_heads % n == 0:
+        return cfg.num_kv_heads // n
+    lo, hi = rank_kv_heads(cfg, n, tp[2])
+    return hi - lo
+
+
+def _rank_projections(params, cfg: ModelConfig, group, kv):
+    """The layer's params as a rank of a head-parallel region uses them:
+    the leaves every rank holds whole and uses for its own heads (the q /
+    k norms; ``wk`` / ``wv`` where the kv heads are whole, cut to the
+    rank's ``kv`` heads) enter through ``collectives.copy_to``, whose
+    backward sums the ranks' parts of their gradients."""
+    out = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in params:
+            out[name] = collectives.copy_to(params[name], group)
+    if kv is not None:
+        hd = cfg.resolved_head_dim
+        cols = slice(kv[0] * hd, kv[1] * hd)
+        for name in ("wk", "wv"):
+            out[name] = {k: collectives.copy_to(t, group)[..., cols]
+                         for k, t in params[name].items()}
+    return out
 
 
 def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> torch.Tensor:
@@ -209,6 +284,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, lead: Tuple[int, ...]
     """A zeroed ``lead + (B, max_len, Hkv, D)`` cache in the activation
     dtype, length 0: one layer's, or with ``lead`` the stacked caches of
     several that share one length."""
-    shape = lead + (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = lead + (batch, max_len, local_kv_heads(cfg), cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
                    torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0)

@@ -18,6 +18,12 @@ m6), xLSTM, zamba and encdec:
   prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state);
                                                None for xLSTM, zamba and
                                                encdec
+  input_specs(cfg, shape)                      the train / prefill batch
+                                               of a ShapeConfig, as meta
+                                               tensors (the dry run's)
+  decode_input_specs(cfg, shape)               {"tokens", "state"}: one
+                                               token a row and the state at
+                                               seq_len, as meta tensors
   kv_cache                                     the state holds caches of
                                                max_len positions
 
@@ -36,11 +42,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
+from repro_torch.models.attention import KVCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +58,22 @@ class FamilyAPI:
     init_state: Callable  # (cfg, batch, max_len, device) -> state
     decode: Callable      # (params, tokens, state, cfg, ctx) -> (logits, state)
     prefill: Optional[Callable]  # (params, batch, cfg, max_len, ctx) -> (logits, state)
+    input_specs: Callable        # (cfg, shape) -> the train / prefill batch on meta
+    decode_input_specs: Callable  # (cfg, shape) -> {"tokens", "state"} on meta
     kv_cache: bool = True        # the state has max_len positions (a longer run is refused)
+
+
+def _tokens(b: int, s: int) -> torch.Tensor:
+    return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+
+def _token_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    return {"tokens": _tokens(shape.global_batch, shape.seq_len),
+            "labels": _tokens(shape.global_batch, shape.seq_len)}
+
+
+def _full(cache: KVCache, length: int) -> KVCache:
+    return KVCache(cache.k, cache.v, length)
 
 
 def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -68,8 +92,28 @@ def _lm_prefill(params, batch, cfg: ModelConfig, max_len: int, ctx=None):
     return logits, caches
 
 
+def _lm_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch of ``shape``: text after the image-token prefix, whose
+    patch embeddings come in the activation dtype (vlm, m6)."""
+    b, text = shape.global_batch, shape.seq_len - cfg.num_image_tokens
+    specs = {"tokens": _tokens(b, text), "labels": _tokens(b, text)}
+    if cfg.num_image_tokens:
+        specs["patch_embeds"] = torch.empty((b, cfg.num_image_tokens, cfg.d_model),
+                                            dtype=cfg.activation_dtype, device="meta")
+    return specs
+
+
+def _lm_decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """One token a row against caches of ``seq_len`` positions, all but the
+    last one filled (the step attends over the whole cache)."""
+    b = shape.global_batch
+    caches = TF.init_caches(cfg, b, shape.seq_len, device="meta")
+    return {"tokens": _tokens(b, 1), "state": _full(caches, shape.seq_len - 1)}
+
+
 DECODER_LM = FamilyAPI(forward=_lm_forward, init_state=TF.init_caches,
-                       decode=TF.decode_apply, prefill=_lm_prefill)
+                       decode=TF.decode_apply, prefill=_lm_prefill,
+                       input_specs=_lm_input_specs, decode_input_specs=_lm_decode_input_specs)
 
 
 def _xl_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -87,7 +131,11 @@ def _xl_decode(params, tokens, state, cfg: ModelConfig, ctx=None):
 
 
 XLSTM = FamilyAPI(forward=_xl_forward, init_state=_xl_init_state, decode=_xl_decode,
-                  prefill=None, kv_cache=False)
+                  prefill=None, input_specs=_token_specs,
+                  decode_input_specs=lambda cfg, shape: {
+                      "tokens": _tokens(shape.global_batch, 1),
+                      "state": XL.xlstm_init_states(cfg, shape.global_batch, "meta")},
+                  kv_cache=False)
 
 
 def _zb_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -100,8 +148,16 @@ def _zb_decode(params, tokens, state, cfg: ModelConfig, ctx=None):
     return logits, new_state
 
 
+def _zb_decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b = shape.global_batch
+    st = ZB.zamba_init_state(cfg, b, shape.seq_len, "meta")
+    return {"tokens": _tokens(b, 1),
+            "state": st._replace(attn=_full(st.attn, shape.seq_len - 1))}
+
+
 ZAMBA = FamilyAPI(forward=_zb_forward, init_state=ZB.zamba_init_state, decode=_zb_decode,
-                  prefill=None)
+                  prefill=None, input_specs=_token_specs,
+                  decode_input_specs=_zb_decode_input_specs)
 
 
 def _ed_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -112,8 +168,29 @@ def _ed_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
     raise NotImplementedError("use encdec.init_state with real memory for concrete states")
 
 
+def _ed_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Frames (stub frontend embeddings) of ``seq_len`` positions and as
+    many target tokens, as the reference's."""
+    b, s = shape.global_batch, shape.seq_len
+    return {"frames": torch.empty((b, s, cfg.d_model), dtype=cfg.activation_dtype,
+                                  device="meta"),
+            **_token_specs(cfg, shape)}
+
+
+def _ed_decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The reference's ``abstract_state`` at ``seq_len``: self caches of
+    ``seq_len`` positions (all but the last filled) and cross K/V of a
+    ``seq_len``-frame memory."""
+    b, s = shape.global_batch, shape.seq_len
+    caches = TF.init_caches(cfg, b, s, device="meta")
+    kv = torch.empty((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim),
+                     dtype=cfg.activation_dtype, device="meta")
+    return {"tokens": _tokens(b, 1), "state": ED.EncDecState(_full(caches, s - 1), kv, kv)}
+
+
 ENCDEC = FamilyAPI(forward=_ed_forward, init_state=_ed_init_state, decode=ED.decode_step,
-                   prefill=None)
+                   prefill=None, input_specs=_ed_input_specs,
+                   decode_input_specs=_ed_decode_input_specs)
 _FAMILIES = {"decoder_lm": DECODER_LM, "vlm": DECODER_LM, "m6": DECODER_LM, "xlstm": XLSTM,
              "zamba": ZAMBA, "encdec": ENCDEC}
 

@@ -13,7 +13,10 @@ reference's list of per-layer dicts.  ``cfg.remat`` recomputes each layer
 in the backward pass through ``torch.utils.checkpoint``, as
 ``jax.checkpoint`` does around the scan body; the port does so for a
 per-layer list too, where the reference's unrolled loop keeps every
-activation (the same values, less memory).  An MoE layer of an ``moe_attention`` config runs MoE attention
+activation (the same values, less memory).  Under FSDP
+(``distributed.sharding.fsdp_gather``) each layer gathers its blocks
+inside that region, and the leaves outside the blocks are gathered once
+a call.  An MoE layer of an ``moe_attention`` config runs MoE attention
 (``repro_torch.core.moe_attention``) when it has no cache; it has no
 cached decode path, so ``prefill_apply`` and ``decode_apply`` refuse it.
 The caches are one :class:`~repro_torch.models.attention.KVCache` whose
@@ -31,6 +34,7 @@ from repro_torch.core.context import MoEContext
 from repro_torch.core.metrics import empty_aux
 from repro_torch.core.moe import moe_ffn_apply
 from repro_torch.core.moe_attention import moe_attention_apply
+from repro_torch.distributed.sharding import fsdp_gather
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache, attention_apply, init_cache
 from repro_torch.nn.spec import is_moe_layer as _is_moe_layer
@@ -84,7 +88,10 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, caches: Optional[KVCa
         # the reference would run dense attention over the expert weights
         raise NotImplementedError("moe_attention has no cached decode path")
 
+    stacked = not isinstance(params["blocks"], list)
+
     def body(h, bp, i, cache=None):
+        bp = fsdp_gather(bp, "blocks/" if stacked else f"blocks/{i}/", lead=int(stacked))
         return block_apply(bp, h, cfg, positions=positions, moe_layer=_is_moe_layer(cfg, i),
                            cache=cache, use_flash=use_flash, ctx=ctx)
 
@@ -120,6 +127,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> KVCa
     return init_cache(cfg, batch, max_len, lead=(cfg.num_layers,), device=device)
 
 
+def _outer(params):
+    """The params with the leaves outside the blocks gathered whole where
+    the active rules place them by FSDP (once a call: a tied table serves
+    the lookup and the unembedding from one gather)."""
+    return {**params, **fsdp_gather({k: v for k, v in params.items() if k != "blocks"})}
+
+
 def _logits(params, x, cfg: ModelConfig):
     x = L.norm_apply(params["final_norm"], x, cfg)
     return L.unembed_apply(params.get("unembed", params["embed"]), x, cfg)
@@ -134,6 +148,7 @@ def lm_apply(params, tokens, cfg: ModelConfig, *, positions=None, use_flash: boo
     image patches) prepended to the token embeddings; positions run over
     the prefix too, and the prefix rows' token ids read -1 in the MoE
     context."""
+    params = _outer(params)
     x = L.embedding_apply(params["embed"], tokens, cfg)
     prefix = 0
     if extra_embeds is not None:
@@ -156,6 +171,7 @@ def decode_apply(params, tokens, caches: KVCache, cfg: ModelConfig,
     (from the cache length), so identity and position routing agree
     between prefill and decode; the learned positions come from the cache
     length too."""
+    params = _outer(params)
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape
     length = caches.length
@@ -178,6 +194,7 @@ def prefill_apply(params, tokens, cfg: ModelConfig, *, max_len: int,
     a learned-position model (m6) different tokens than its continuous
     engine; the port's prefill computes the prompt positions that its
     decode steps continue from."""
+    params = _outer(params)
     caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape

@@ -1,5 +1,6 @@
 from repro_torch.nn.spec import (  # noqa: F401
     ParamShape,
+    abstract,
     count_params,
     encdec_shapes,
     flat_params,

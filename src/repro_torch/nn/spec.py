@@ -35,7 +35,8 @@ with "layers" leading a stacked leaf), which
 ``repro_torch.distributed.sharding`` maps to mesh axes.
 
 Random init (:func:`init_params`) draws truncated normals (+-2 sigma,
-times ``initializer_range``) from a ``torch.Generator``; it matches the
+times ``initializer_range``; ``nn.initializers.truncated_normal_init``)
+from a ``torch.Generator``; it matches the
 reference in distribution only — ``jax.random`` and ``torch`` give
 different numbers for the same seed.  Tests that need identical weights
 carry the reference's params across with :func:`from_jax_params`.
@@ -50,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.routers import get_router
+from repro_torch.nn.initializers import ones_init, truncated_normal_init, zeros_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,17 +247,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", train: bool = Fa
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    inits = {"ones": ones_init, "zeros": zeros_init,
+             "normal": truncated_normal_init(cfg.initializer_range)}
 
     def one(path, s: ParamShape):
-        dt = torch_dtype(s.dtype)
-        if s.init == "ones":
-            t = torch.ones(s.shape, dtype=dt, device=device)
-        elif s.init == "zeros":
-            t = torch.zeros(s.shape, dtype=dt, device=device)
-        else:
-            t = torch.empty(s.shape, dtype=torch.float32, device=device)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            t = t.mul_(cfg.initializer_range).to(dt)
+        t = inits[s.init](gen, s.shape, torch_dtype(s.dtype), device)
+        return t if place is None else place(path, s, t)
+
+    return _map(one, model_shapes(cfg, train))
+
+
+def abstract(cfg: ModelConfig, train: bool = False, place: Optional[Callable] = None) -> Dict:
+    """The param tree as ``meta`` tensors of its shapes and storage dtypes
+    (``repro.nn.abstract``): what the dry run traces, with no storage;
+    ``place`` as :func:`init_params`' (a mesh rank's blocks)."""
+    def one(path, s: ParamShape):
+        t = torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta")
         return t if place is None else place(path, s, t)
 
     return _map(one, model_shapes(cfg, train))

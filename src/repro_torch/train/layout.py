@@ -16,7 +16,13 @@ block of the parameter (:meth:`MeshLayout.zero_block`) and all-gathers the
 updated blocks over the data axes (:meth:`MeshLayout.gather_update`).
 Clipping takes the whole gradient's norm (:meth:`MeshLayout.sum_squares`)
 and int8 compression the whole leaf's maximum
-(:meth:`MeshLayout.global_max`).  On a mesh of one rank every collective
+(:meth:`MeshLayout.global_max`).  Under FSDP (``cfg.fsdp``: the "embed"
+dim over the data axes) a leaf so placed is the rank's block of the data
+axes too: the model code gathers it at each use
+(``sharding.fsdp_gather``), its gradient arrives as the rank's block of
+the sum (a reduce-scatter), which :meth:`MeshLayout.reduce_grads` does not
+sum again, and ZeRO-1 leaves it as it is (its data axes are taken).  On a
+mesh of one rank every collective
 is skipped and the step is the single-device one, bit for bit
 (:meth:`MeshLayout.single` is that layout, without a process group).
 """
@@ -34,6 +40,7 @@ from repro_torch.distributed.sharding import (
     Rules,
     Sharding,
     dp_axes,
+    fsdp_dims,
     make_rules,
     param_shardings,
 )
@@ -70,6 +77,10 @@ class MeshLayout:
                 self.d = self.d * mesh.shape[a] + mesh.coord[a]
             self.dp_group = mesh.axes_group(dp)
         self.tp_axes = tuple(a for a in mesh.axis_names if a not in dp and mesh.shape[a] > 1)
+        # FSDP's leaves: the rank's block of the data axes too (gathered at
+        # each use by the model code, their gradient reduce-scattered there)
+        self.fsdp = {k: d for k, (d, _) in fsdp_dims(rules).items()
+                     if self.nd > 1 and _uses(self.spec[k], dp)}      # the router: whole
         self.zdim = {}
         for k, zs in self.zspec.items():
             zs = tuple(zs) + (None,) * (len(self.shape[k]) - len(zs))
@@ -110,10 +121,11 @@ class MeshLayout:
 
     @torch.no_grad()
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The gradients summed over the data axes, in f32 buckets."""
+        """The gradients summed over the data axes, in f32 buckets (an FSDP
+        leaf's is already its block of the sum)."""
         if self.dp_group is None:
             return grads
-        out, bucket, size = {}, [], 0
+        out, bucket, size = {k: grads[k] for k in self.fsdp}, [], 0
 
         def flush():
             flat = torch.cat([grads[k].float().reshape(-1) for k in bucket])
@@ -125,6 +137,8 @@ class MeshLayout:
                 at += n
 
         for k, g in grads.items():
+            if k in self.fsdp:
+                continue
             if bucket and size + g.numel() > BUCKET_ELEMS:
                 flush()
                 bucket, size = [], 0
@@ -138,19 +152,32 @@ class MeshLayout:
         axes = tuple(a for a in self.tp_axes if _uses(self.spec[k], (a,)))
         return self.mesh.axes_group(axes) if axes else None
 
+    def _data_whole(self, k: str, g: torch.Tensor) -> torch.Tensor:
+        """An FSDP leaf's gradient block gathered over the data axes (its
+        model block), any other as it is."""
+        if k not in self.fsdp:
+            return g
+        return collectives.all_gather(g.detach(), self.dp_group, dim=self.fsdp[k])
+
     def sum_squares(self):
         """``clip.global_norm``'s hook: the whole gradient's sum of squares
         from the blocks (a leaf sharded over the model axis contributes the
-        all-reduced sum of its blocks'), or None where no leaf is sharded
-        (the single-device sum)."""
-        if not any(self._tp_group(k) is not None for k in self.spec):
+        all-reduced sum of its blocks'; an FSDP leaf's blocks are gathered
+        over the data axes first, so that each leaf's sum is taken in the
+        order a replicated leaf's is, bit for bit), or None where no leaf
+        is sharded (the single-device sum)."""
+        tp = any(self._tp_group(k) is not None for k in self.spec)
+        if not tp and not self.fsdp:
             return None
 
         def total(grads):
-            whole = [g.float().square().sum() for k, g in grads.items()
-                     if self._tp_group(k) is None]
-            parts = [g.float().square().sum() for k, g in grads.items()
-                     if self._tp_group(k) is not None]
+            def sq(k, g):                   # one whole FSDP gradient at a time
+                return self._data_whole(k, g).float().square().sum()
+
+            whole = [sq(k, g) for k, g in grads.items() if self._tp_group(k) is None]
+            parts = [sq(k, g) for k, g in grads.items() if self._tp_group(k) is not None]
+            if not parts:
+                return sum(whole)
             group = self.mesh.axes_group(self.tp_axes)
             return sum(whole) + collectives.all_reduce(torch.stack(parts).sum(), group)
 
@@ -158,14 +185,18 @@ class MeshLayout:
 
     def global_max(self):
         """``compress_grads``' hook: a sharded leaf's maximum all-reduced
-        over the axes that shard it, or None where no leaf is sharded."""
-        if not any(self._tp_group(k) is not None for k in self.spec):
+        over the axes that shard it (the data axes too for an FSDP leaf),
+        or None where no leaf is sharded."""
+        if not self.fsdp and not any(self._tp_group(k) is not None for k in self.spec):
             return None
 
         def hook(k):
-            group = self._tp_group(k)
-            if group is None:
+            axes = tuple(a for a in self.tp_axes if _uses(self.spec[k], (a,)))
+            if k in self.fsdp:
+                axes = axes + dp_axes(self.mesh)
+            if not axes:
                 return None
+            group = self.mesh.axes_group(axes)
             return lambda amax: collectives.all_reduce(amax, group, op="max")
 
         return hook

@@ -30,6 +30,7 @@ from repro_torch.kernels.moe_dropless import ops as rffn_ops
 from repro_torch.kernels.moe_dropless import ref as rag_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.kernels.moe_ffn import ref as moe_ref
+from torch_elsewhere import elsewhere
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
@@ -184,7 +185,7 @@ def test_cuda_argument_checks():
     with pytest.raises(ValueError, match="block_tables"):
         pda_ops._check(q, pool, pool, tbl[:3], lens)
     with pytest.raises(ValueError, match="no kernel"):
-        pda_ops.paged_decode_attention(q.to("meta"), pool, pool, tbl, lens)
+        pda_ops.paged_decode_attention(elsewhere(q), pool, pool, tbl, lens)
 
 
 def test_build_keys_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):
@@ -340,7 +341,7 @@ def test_flash_attention_refuses_gradients_and_checks_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         flash_ops._check(q, k.transpose(1, 2).contiguous().transpose(1, 2), k)
     with pytest.raises(ValueError, match="no kernel"), torch.no_grad():
-        flash_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+        flash_ops.flash_attention(elsewhere(q), elsewhere(k), elsewhere(k))
 
     x = torch.zeros(2, 45, 64, dtype=torch.bfloat16)
     wu, wd = torch.zeros(2, 64, 40, dtype=torch.bfloat16), torch.zeros(2, 40, 64, dtype=torch.bfloat16)
@@ -350,7 +351,7 @@ def test_flash_attention_refuses_gradients_and_checks_arguments():
     with pytest.raises(TypeError):
         moe_ops._check(x.float(), wu, None, wd)
     with pytest.raises(ValueError, match="no kernel"):
-        moe_ops.moe_ffn(x.to("meta"), wu.to("meta"), None, wd.to("meta"), "gelu")
+        moe_ops.moe_ffn(elsewhere(x), elsewhere(wu), None, elsewhere(wd), "gelu")
 
 
 # (kind, E, rows, M, I, act, dtype, route): rows is X for "moe" and the block

@@ -29,6 +29,7 @@ from repro_torch.quant import get_kv_quant as t_policy
 from repro_torch.quant import quant_write_kv as t_quant_write
 from repro_torch.quant.kv_cache import QuantizedPagedKVCache as TQCache
 from repro_torch.quant.kv_cache import QuantizedPrefixCachingKVCache as TQPCache
+from torch_elsewhere import elsewhere
 from torch_threads import one_torch_thread  # noqa: F401
 
 POLICIES = ["int8", "fp8"]
@@ -379,7 +380,7 @@ def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="strides"):
             da_ops._check_dense(q16, bad, k, lens)
     with pytest.raises(ValueError, match="no kernel"):
-        da_ops.decode_attention(q.to("meta"), k, k, lens)
+        da_ops.decode_attention(elsewhere(q), k, k, lens)
 
 
 def _tiny_cfgs(**kw):
