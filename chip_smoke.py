@@ -50,6 +50,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               split forced), and with a logit softcap of 5 on q scaled so
               that the scores reach about +-20, at m6's static trace shape
               and zamba's D = 224, against the capped plain versions.
+              Phase 19's: the dense kernel at a rank's heads of (1, 4)
+              (bf16, B 8): zamba's 8 of 32 heads of 224 over the engine's
+              33-position cache, seamless's self-attention 4 of 16 heads of
+              64 over 64 positions and its cross-attention over the
+              256-frame memory, the plan and every split forced, every row
+              at the run's longest length and at mixed ones.
 4. timing   — per kernel: its time by CUDA events over back-to-back calls
               (for a kernel of a few microseconds, the host's launch rate)
               and its device time (torch.profiler: every kernel one call
@@ -69,7 +75,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               SDPA's time and its bound; the dense kernel at zamba's
               trace cache, at its median and its longest attended length;
               the dense kernel at encdec's cross-attention (T = 256, 250)
-              and at the static trace shape under the softcap.
+              and at the static trace shape under the softcap; the dense
+              kernel at phase 19's rank shapes.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
@@ -156,7 +163,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               phase 3 holds against its plain versions).  A profiler
               session counts only when it recorded every launch and a time
               no shorter than the bound (phase 4 and 9 alike).
-10. slo     — m6-base SLO scheduling, phase 5's weights, dropless MoE, the
+10. slo     — m6-base SLO scheduling at 2 of its 5 layers (the script's
+              time), random weights from seed 0, dropless MoE, the
               reference benchmark's slo_sweep cell (4 slots, 16-token blocks
               and chunks, 28 blocks, prefix cache on, synthetic_priority with
               short HIGH requests against long NORMAL/LOW ones): (a) a
@@ -246,7 +254,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               token-by-token generate on the 8 x 48 batch equal to the
               continuous engine's but at near-ties, the trace's first 4
               requests again on the CPU (the card's tokens equal to the
-              CPU's but at near-ties), and 2 steps of the train CLI at 4 x
+              CPU's but at near-ties), and 2 steps of the train CLI at 4 of
+              its 12 layers (the script's time; phase 19 trains all 12), 4 x
               1024 (the chunked mLSTM form and the sLSTM loop; losses
               finite and within 1 of ln 50304).
 14. zamba   — zamba2-7b (``chip_smoke.phase_zamba(torch)`` alone after
@@ -366,7 +375,32 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               max_memory_allocated; (c) FSDP's run: losses and every final
               param block bit-equal to the run without FSDP, the same
               kernel launches; its peak a rank.
-19. report  — a {"kernels": [...]} line (decode_attention's launches and
+19. mesh families — xlstm-125m, zamba2-7b and seamless-m4t-large-v2 on
+              a model axis, four spawned processes that share the card
+              over gloo, each drawing only its blocks of the seed's
+              weights: (a) served on (data 1, model 4) under
+              ``make_rules(cfg, mesh)``, greedy, at full width and depth:
+              zamba2-7b and xlstm-125m through ``ServingEngine(...,
+              rules=)`` (8 rows, 16 prompt tokens a token a step, 16
+              generated), seamless through ``encdec_greedy`` under the
+              rules (8 x 256 frames encoded, 8 tokens fed, greedy to 16);
+              every rank's tokens equal, and equal to the same run's on one
+              device on the card but at reported near-ties of its top two
+              logits; the dense kernel launched zamba 14 x 31 and seamless
+              2 x 24 x 15 times a rank, at the rank's head count and at
+              shapes phase 3 holds, and nothing else (xlstm: no kernel);
+              every rank's parameter bytes its placement's; per rank the
+              mean decode step, tokens/s, collective seconds and launches
+              a step, peak GB; (b) trained on (data 2, model 2), AdamW with
+              ZeRO-1, 2 steps through the train CLI's parts: xlstm-125m at
+              its 12 layers (4 x 128: the sLSTM loop is eager), zamba2-7b at 7 layers (4 x 512),
+              seamless at 4 + 4 layers (4 x 256); every rank's loss equal
+              at every step, step 0 within compare_train_step's gates of
+              one device on the card (loss 1e-3, gradient norm 2e-2, every
+              leaf's cosine >= 0.99), no kernel launched, half the AdamW
+              state a rank on every leaf with a free divisible dim; per
+              rank step ms, collective seconds, peak GB.
+20. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
@@ -376,7 +410,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               mesh_max_abs_err and mesh_shapes of phase 16 for the paged,
               int8 and ragged FFN kernels; mesh_train_launches,
               mesh_train_max_abs_err and mesh_train_shapes of phase 17 (b)
-              for moe_ffn and the ragged FFN), the card line,
+              for moe_ffn and the ragged FFN; mesh_families_launches of
+              phase 19 (a) a rank, and the dense kernel's
+              mesh_families_max_abs_err and mesh_families_shapes), the
+              seconds since the script started, the card line,
               and as the last line {"ok":
               true, "device": {"platform": "gpu", "kind": ..., "count":
               1}}.
@@ -409,6 +446,9 @@ DECODE_SM90 = "src/repro_torch/kernels/csrc/decode_sm90.cuh"
 # names, in each of the three decode libraries
 DECODE_KERNEL = "decode_sm9013decode_kernel"
 DECODE_LIBS = ("paged_decode_attention", "quantized_paged_decode_attention", "decode_attention")
+
+
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -925,6 +965,9 @@ def phase_check(torch):
     for name, err in check_mesh_train_kernels(torch).items():
         errs[name] = max(errs.get(name, 0.0), err)
         errs[f"mesh_train {name}"] = err
+    for name, err in check_mesh_family_kernel(torch).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+        errs[f"mesh_families {name}"] = err
     return errs, weights
 
 
@@ -3518,6 +3561,7 @@ SLO_REQUESTS = 48                 # the reference's 128, cut to the phase's time
 # 6 expected); seed 9 is the first whose 48 hold the class weights' expected
 # counts, 6 / 24 / 18
 SLO_SEED = 9
+SLO_LAYERS = 2                    # m6-base's widths at 2 of its 5 layers (the script's time)
 SLO_POLICIES = ("fcfs", "priority_strict", "edf", "cache_aware")
 
 
@@ -3817,13 +3861,15 @@ def shed_run(torch, cfg, params, qps, device="cuda", n_requests=24, trace_kw=Non
 
 
 def phase_slo(torch):
-    """Phase 10: m6-base SLO scheduling, phase 5's weights, dropless MoE."""
+    """Phase 10: m6-base SLO scheduling at ``SLO_LAYERS`` layers, dropless
+    MoE."""
     from repro_torch.configs.m6 import M6_BASE
     from repro_torch.nn import init_params
 
-    log(f"phase 10: m6-base SLO scheduling ({card_line()})")
-    cfg = M6_BASE.replace_moe(impl="dropless", capacity_factor=None)
-    params = init_params(cfg, seed=0, device="cuda")            # phase 5's weights
+    log(f"phase 10: m6-base SLO scheduling at {SLO_LAYERS} of its 5 layers ({card_line()})")
+    cfg = M6_BASE.replace(num_layers=SLO_LAYERS).replace_moe(impl="dropless",
+                                                            capacity_factor=None)
+    params = init_params(cfg, seed=0, device="cuda")
     report, launches = slo_policy_runs(torch, cfg, params)
     report["swap"] = swap_roundtrips(torch, cfg)
     report["shedding"], shed_launches = shed_run(torch, cfg, params, report["trace"]["qps"])
@@ -4662,6 +4708,7 @@ MIXED_PERIOD = 2                 # MoE in layers 0, 2 and 4 of m6-base's five
 MIXED_TRAIN_STEPS = 2
 XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--seq", "1024", "--log-every", "1"]
 XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_LAYERS = 4           # one sLSTM block and three mLSTM (phase 19 (b) trains all 12)
 XLSTM_CPU_REQUESTS = 4           # the trace's first requests, served again on the CPU
 MORE_FAMILIES_KERNELS = ("moe_ffn", "paged_decode_attention", "ragged_ffn", "decode_attention")
 
@@ -4866,8 +4913,9 @@ def xlstm_runs(torch, cfg, device, train_argv, n_requests=16, cpu_requests=XLSTM
     del params, eng, static
     if device == "cuda":
         torch.cuda.empty_cache()
-    report["train"], _ = edited_train(torch, train_argv, lambda c: c, train_steps, device,
-                                      "(c) xlstm train", compare=False)
+    report["train"], _ = edited_train(torch, train_argv,
+                                      lambda c: c.replace(num_layers=XLSTM_TRAIN_LAYERS),
+                                      train_steps, device, "(c) xlstm train", compare=False)
     return report
 
 
@@ -4934,9 +4982,10 @@ def zamba_decode_lengths(requests, batch=STATIC_BATCH):
             for n in range(1, prompts.shape[1] + gen)]
 
 
-def tapped_generate(torch, cfg, params, prompts, gen, max_len=None):
-    """``ServingEngine.generate`` with its sampler tapped: (tokens (B, gen),
-    {(row, token index): (top-two logit gap, top logit)})."""
+def tapped_generate(torch, cfg, params, prompts, gen, max_len=None, eng=None):
+    """``ServingEngine.generate`` (of ``eng``, or of a new engine) with its
+    sampler tapped: (tokens (B, gen), {(row, token index): (top-two logit
+    gap, top logit)}, the generate's stats)."""
     from unittest import mock
 
     from repro_torch.serving.engine import ServingEngine
@@ -4951,10 +5000,10 @@ def tapped_generate(torch, cfg, params, prompts, gen, max_len=None):
             margins[i, position - S + 1] = (float(top2[i, 0] - top2[i, 1]), float(top2[i, 0]))
         return real(self, logits, position, temperature, seed)
 
-    eng = ServingEngine(cfg, params, max_len=max_len or S + gen + 1)
+    eng = eng or ServingEngine(cfg, params, max_len=max_len or S + gen + 1)
     with mock.patch.object(ServingEngine, "_sample", tap):
-        toks, _ = eng.generate(prompts, gen)
-    return toks, margins
+        toks, stats = eng.generate(prompts, gen)
+    return toks, margins, stats
 
 
 def generate_vs_plain(torch, cfg, params, prompts, gen, device, label, want, steps):
@@ -4971,7 +5020,7 @@ def generate_vs_plain(torch, cfg, params, prompts, gen, device, label, want, ste
         expect_launches(label, launches, want)
     t0 = time.perf_counter()
     with plain_versions():
-        base, margins = tapped_generate(torch, cfg, params, prompts, gen)
+        base, margins, _ = tapped_generate(torch, cfg, params, prompts, gen)
     plain_s = time.perf_counter() - t0
     div = divergences({i: base[i] for i in range(B)}, {i: toks[i] for i in range(B)},
                       lambda k, p: margins[k, p], f"{label} kernels vs plain")
@@ -5003,7 +5052,7 @@ def zamba_card_vs_cpu(torch, cfg, prompts, gen, cut_layers):
     toks, _, launches, wall_ms = static_generate(torch, cut, params, prompts, gen)
     expect_launches("(c) card", launches, {"decode_attention": _n_shared(cut) * (S + gen - 1)})
     t0 = time.perf_counter()
-    base, margins = tapped_generate(torch, cut, _to_cpu(params), prompts, gen)
+    base, margins, _ = tapped_generate(torch, cut, _to_cpu(params), prompts, gen)
     cpu_s = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
@@ -5064,7 +5113,7 @@ def zamba_cli(torch, cfg, params, cli_argv, device, n_requests=16, batch=STATIC_
     base, margins = {}, {}
     with plain_versions():
         for group, prompts, gen in static_groups(requests, batch):
-            toks, marg = tapped_generate(torch, cfg, params, prompts, gen, max_len=T)
+            toks, marg, _ = tapped_generate(torch, cfg, params, prompts, gen, max_len=T)
             for j, r in enumerate(group):
                 base[r.uid] = toks[j, :r.max_new_tokens].tolist()
                 margins.update({(r.uid, p): m for (row, p), m in marg.items() if row == j})
@@ -5272,10 +5321,24 @@ SOFTCAP_SCORE = 20.0               # phase 3: q scaled so that the largest score
 STATIC_SOFTCAP = 0.5               # (e): m6-base's cap, of the order of its random scores
 
 
+def vocab_whole(last, cfg):
+    """(B, V_pad) logits from a rank's vocab columns under the active rules
+    (all-gathered over the vocab's axis, as the static engine gathers
+    them), or as they are."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import tensor_parallel
+    from repro_torch.nn.spec import padded_vocab
+
+    if last.shape[-1] == padded_vocab(cfg.vocab_size):
+        return last
+    return collectives.all_gather(last, tensor_parallel("vocab")[0], dim=-1)
+
+
 def encdec_greedy(torch, cfg, params, frames, feed, total, tap=False):
     """``encode`` the frames, ``init_state(ENCDEC_MAX_LEN)``, feed the (B,
     F) tokens one ``decode_step`` at a time, then greedy steps to ``total``
-    tokens (total - 1 steps).  Returns (the generated tokens {row: list},
+    tokens (total - 1 steps); under rules that shard the vocab, argmax over
+    the gathered logits.  Returns (the generated tokens {row: list},
     their top-two gaps {(row, index): (gap, top logit)} if ``tap``, encode
     ms, decode ms), host clock, synced."""
     from repro_torch.models import encdec as ED
@@ -5296,7 +5359,7 @@ def encdec_greedy(torch, cfg, params, frames, feed, total, tap=False):
         for i in range(total - 1):
             logits, state = ED.decode_step(params, toks[i][:, None], state, cfg)
             if i + 1 >= F:
-                last = logits[:, -1, :V].float()
+                last = vocab_whole(logits[:, -1].float(), cfg)[:, :V]
                 toks.append(last.argmax(dim=-1))
                 if tap:
                     tops.append(torch.topk(last, 2, dim=-1).values)
@@ -6897,6 +6960,522 @@ def phase_tooling(torch, serve, train, mesh_train, dry):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the xLSTM, zamba and encdec trees on a model axis
+# ---------------------------------------------------------------------------
+
+MF_SERVE_MESH = (1, 4)          # (a): data x model, four processes that share the card
+MF_TRAIN_MESH = (2, 2)          # (b)
+MF_ARCHS = ("zamba2-7b", ENCDEC_ARCH, "xlstm-125m")
+MF_SERVE = (8, 16, 16)          # (a) zamba, xlstm: rows, prompt tokens (a token a step), generated
+MF_ENCDEC = (8, 256, 16)        # (a) encdec: rows, source frames, target tokens (ENCDEC_FEED fed)
+# (b): the train CLI's flags and the config's depth, a family (zamba at phase 14's 7 layers)
+MF_TRAIN = {"xlstm-125m": (["--batch", "4", "--seq", "128"], {}),
+            "zamba2-7b": (["--batch", "4", "--seq", "512"], {"num_layers": ZAMBA_CUT_LAYERS}),
+            ENCDEC_ARCH: (["--batch", "4", "--seq", "256"],
+                          {"num_layers": 4, "num_encoder_layers": 4})}
+MF_TRAIN_STEPS = 2
+MF_SPAWN_TIMEOUT = 600
+
+
+def mf_config(arch, smoke=False):
+    from repro_torch.configs import registry
+
+    return registry.get_smoke_config(arch) if smoke else registry.get_config(arch)
+
+
+def mf_decode_launches(cfg) -> int:
+    """(a)'s dense kernel launches a run: zamba's shared applications x
+    steps (prompt tokens too), encdec's 2 x layers x steps, xLSTM none."""
+    from repro_torch.models.zamba import _n_shared
+
+    if cfg.family == "zamba":
+        B, S, gen = MF_SERVE
+        return _n_shared(cfg) * (S + gen - 1)
+    if cfg.family == "encdec":
+        return 2 * cfg.num_layers * (MF_ENCDEC[2] - 1)
+    return 0
+
+
+def mf_kernel_shapes():
+    """The dense kernel's shapes on (a)'s ranks, (label, B, T, Hq, Hkv, D,
+    the longest attended length): zamba2-7b's shared attention (8 of 32
+    heads of 224 a rank, the engine's cache), seamless's self-attention
+    (4 of 16 heads of 64, the ENCDEC_MAX_LEN cache) and cross-attention
+    (4 heads over the 256-frame memory)."""
+    B, S, gen = MF_SERVE
+    Hq, _, D = ZAMBA_HEADS
+    n = MF_SERVE_MESH[1]
+    return [("zamba rank", B, S + gen + 1, Hq // n, Hq // n, D, S + gen - 1),
+            ("encdec self rank", MF_ENCDEC[0], ENCDEC_MAX_LEN, 16 // n, 16 // n, 64,
+             MF_ENCDEC[2] - 1),
+            ("encdec cross rank", MF_ENCDEC[0], MF_ENCDEC[1], 16 // n, 16 // n, 64,
+             MF_ENCDEC[1])]
+
+
+@contextmanager
+def recorded_dense_shapes(store: set):
+    """Record (B, T, Hq, Hkv, D) of every dense decode kernel call the models
+    make (``attention._decode_attention`` imports the package's name at
+    each call); the wrapper itself still counts the launches."""
+    from unittest import mock
+
+    import repro_torch.kernels.decode_attention as pkg
+
+    real = pkg.decode_attention
+
+    def rec(q, k, v, *a, **kw):
+        store.add((q.shape[0], k.shape[1], q.shape[1], k.shape[2], q.shape[2]))
+        return real(q, k, v, *a, **kw)
+
+    with mock.patch.object(pkg, "decode_attention", rec):
+        yield
+
+
+def check_mesh_family_kernel(torch):
+    """Phase 19 (a)'s dense kernel shapes (``mf_kernel_shapes``) against the
+    plain version at TOL and the split-and-merge plain version: bf16, the
+    plan and every split forced, rows at the run's lengths (every row at
+    one length, as the engine runs them) and at mixed ones, length 0
+    exactly 0.  Returns {"decode_attention": max abs err}."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+
+    err = 0.0
+    for label, B, T, Hq, Hkv, D, longest in mf_kernel_shapes():
+        mixed = [0, 1, longest, longest // 2, 7, 16, 15, 3][:B]
+        for lens in ([longest] * B, mixed):
+            for splits in (None, *da.SPLITS):
+                case = dense_case(B, T, Hq, Hkv, D, lens, seed=900 + T + len(set(lens)))
+                out = da.decode_attention(*case, splits=splits, max_length=max(lens))
+                torch.cuda.synchronize()
+                plan = da.dense_plan(B, Hkv, Hq // Hkv, D, T, 2, da._sm_count(0), splits,
+                                     max(lens))
+                name = (f"decode_attention {label} B={B} T={T} Hq={Hq} D={D} lengths "
+                        f"{'equal' if len(set(lens)) == 1 else 'mixed'} splits={plan[0]}"
+                        f"{' (plan)' if splits is None else ''}")
+                err = max(err, check_close(name, out, dref.decode_attention_ref(*case)))
+                check_close(f"{name} vs split plain", out,
+                            dref.decode_attention_split_ref(*case, plan[0]))
+                if not (out[case[3] == 0] == 0).all():
+                    raise AssertionError(f"{name}: a length-0 row is not exactly 0")
+    return {"decode_attention": err}
+
+
+def mf_checked_shapes() -> set:
+    """(B, T, Hq, Hkv, D) of every shape ``check_mesh_family_kernel`` holds."""
+    return {(B, T, Hq, Hkv, D) for _, B, T, Hq, Hkv, D, _ in mf_kernel_shapes()}
+
+
+def phase_timing_mesh_families(torch):
+    """The dense kernel at (a)'s rank shapes, every row at the run's median
+    (zamba, encdec self) or only (cross) attended length, as phase 4 times
+    its own: events, device time, the plain version, SDPA with a length
+    mask and the bound (``roofline.kernel_bound``)."""
+    out = {}
+    for label, B, T, Hq, Hkv, D, longest in mf_kernel_shapes():
+        length = longest if label.endswith("cross rank") else (longest + 1) // 2
+        r = time_dense(torch, [length] * B, 920 + T, T=T, heads=(Hq, Hkv, D))
+        out[f"decode_attention {label}"] = r
+        log(f"  decode_attention {label} (B {B}, T {T}, {Hq} heads of {D}, length {length}): "
+            f"{timing_line(r)}")
+    return out
+
+
+def mf_generate(torch, cfg, params, device, rules=None, tap=False, measured=None):
+    """(a)'s greedy run of one family under ``rules`` (None: one device):
+    zamba and xLSTM through the static engine (the prompt a token a step;
+    ``tap``: its sampler tapped, one device only), encdec through
+    ``encdec_greedy`` (the frames encoded, ENCDEC_FEED tokens fed); a
+    short warm-up first, then the run inside ``measured()`` where given.
+    Returns ({row: tokens}, {(row, token): (top-two gap, top)} with
+    ``tap``, decode steps, the mean decode step in ms, tokens/s)."""
+    import numpy as np
+
+    from contextlib import nullcontext
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.serving.engine import ServingEngine
+
+    measured = measured or nullcontext
+    if cfg.family == "encdec":
+        B, src, total = MF_ENCDEC
+        frames, tgt = encdec_batch(torch, cfg, MF_ENCDEC, device)
+        with use_rules(rules):
+            encdec_greedy(torch, cfg, params, frames[:, :16], tgt[:, :2], 4)      # warm-up
+            with measured():
+                toks, margins, _, dec_ms = encdec_greedy(torch, cfg, params, frames,
+                                                         tgt[:, :ENCDEC_FEED], total, tap=tap)
+        steps = total - 1
+        return toks, margins, steps, dec_ms / steps, B * steps / (dec_ms / 1e3)
+    B, S, gen = MF_SERVE
+    prompts = np.random.default_rng(STATIC_SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    eng = ServingEngine(cfg, params, max_len=S + gen + 1, rules=rules)
+    eng.generate(prompts[:, :2], 2)                                            # warm-up
+    margins = {}
+    with measured():
+        if tap:
+            toks, margins, stats = tapped_generate(torch, cfg, params, prompts, gen, eng=eng)
+        else:
+            toks, stats = eng.generate(prompts, gen)
+    return ({i: toks[i].tolist() for i in range(B)}, margins, S + gen - 1,
+            stats["decode_s"] * 1e3 / (gen - 1), stats["decode_tokens_per_s"])
+
+
+def mf_serve_single(torch, arch, device, smoke=False):
+    """(a)'s single-device run of one family on the card, the sampler
+    tapped: its tokens and their top-two margins."""
+    from repro_torch.nn import init_params
+
+    cfg = mf_config(arch, smoke)
+    params = init_params(cfg, seed=0, device=device)
+    toks, margins, _, step_ms, tps = mf_generate(torch, cfg, params, device, tap=True)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(tokens=toks, margins=margins, mean_step_ms=step_ms, tokens_per_s=tps)
+
+
+def mf_serve_rank(torch, mesh, arch, device, smoke=False):
+    """(a) on one rank of the (1, 4) mesh: its blocks of the seed's weights
+    drawn leaf by leaf (the router whole; the ranks in turn), their bytes beside the
+    placement's, then ``mf_generate`` under ``make_rules(cfg, mesh)`` with
+    the kernel counters and the collective counters from 0, the dense
+    kernel's call shapes recorded; the peak memory of the rank's process."""
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_rules, param_shardings, placement
+    from repro_torch.nn import flat_params, init_params, model_shapes
+
+    cfg = mf_config(arch, smoke)
+    rules = make_rules(cfg, mesh)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for turn in range(math.prod(mesh.sizes)):      # one rank draws at a time: a whole f32
+        if turn == mesh.rank:                      # leaf is 8.3 GB at zamba2-7b
+            params = init_params(cfg, seed=0, device=device,
+                                 place=placement(rules, mesh.coord, keep=("router",)))
+            if cuda:
+                torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    init_s = time.perf_counter() - t0
+    shapes = flat_params(model_shapes(cfg))
+    placed = sum(math.prod(sh.local_shape(shapes[k].shape))
+                 * torch.empty((), dtype=torch_dtype(shapes[k].dtype)).element_size()
+                 for k, sh in flat_params(param_shardings(model_shapes(cfg), rules,
+                                                          keep=("router",))).items())
+    got, calls, wall = {}, set(), []
+
+    @contextmanager
+    def measured():
+        collectives.reset_counters()
+        with counted_launches(got), recorded_dense_shapes(calls):
+            t0 = time.perf_counter()
+            yield
+            if cuda:
+                torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+
+    toks, _, steps, step_ms, tps = mf_generate(torch, cfg, params, device, rules,
+                                               measured=measured)
+    out = dict(rank=mesh.rank, coord=dict(mesh.coord), tokens=toks, launches=got,
+               dense_shapes=calls, steps=steps, mean_step_ms=step_ms, tokens_per_s=tps,
+               wall_s=wall[0],
+               collective_s={fn.__name__: fn.seconds for fn in collectives.COUNTED},
+               collective_launches={fn.__name__: fn.launches for fn in collectives.COUNTED},
+               param_bytes=tensor_bytes(params), placed_bytes=placed, init_s=init_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mf_train_args(arch, device, smoke=False):
+    flags, _ = MF_TRAIN[arch]
+    return (["--arch", arch, *flags, "--log-every", "1", "--steps", str(MF_TRAIN_STEPS),
+             "--device", device] + (["--smoke", "--seq", "32"] if smoke else []))
+
+
+def mf_train_edit(arch, smoke=False):
+    return lambda cfg: cfg if smoke else cfg.replace(**MF_TRAIN[arch][1])
+
+
+def mf_train_single(torch, arch, path, device, smoke=False):
+    """(b)'s single device on the card at a family's config and batch 0:
+    loss, gradient norm, and the gradients written to ``path`` in bf16 by
+    flat path, for the ranks' per-leaf cosines."""
+    from repro_torch.launch.train import build_parser, device_batch, setup
+    from repro_torch.nn import flat_params
+    from repro_torch.train.trainer import make_loss_fn
+
+    with built_config(mf_train_edit(arch, smoke)):
+        cfg, _, _, state, pipeline = setup(build_parser().parse_args(
+            mf_train_args(arch, device, smoke)))
+    batch = device_batch(pipeline.batch_at(0), device)
+    flat = flat_params(state.params)
+    loss, _ = make_loss_fn(cfg)(state.params, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+    torch.save({k: g.to(torch.bfloat16).cpu() for k, g in zip(flat, grads)}, path)
+    out = dict(loss=float(loss.detach()), grad_norm=norm, layers=cfg.num_layers,
+               tokens=batch["labels"].numel())
+    del state, grads, flat, loss
+    if sync(torch, batch["tokens"]):
+        torch.cuda.empty_cache()
+    return out
+
+
+def mf_train_rank(torch, mesh, arch, path, device, smoke=False):
+    """(b) on one rank of the (2, 2) mesh: the train CLI's parts with the
+    rank's blocks of the seed's weights, AdamW with ZeRO-1; step 0's
+    gradient cosines a leaf against the single device's (``path``), every
+    step's loss, gradient norm and host time, the kernel launches, the
+    collectives, the peak memory and the ZeRO-1 state a leaf."""
+    from unittest import mock
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import train as train_mod
+    from repro_torch.nn import flat_params
+    from repro_torch.train import trainer
+    from repro_torch.train.layout import MeshLayout
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    args = train_mod.build_parser().parse_args(mf_train_args(arch, device, smoke))
+    with built_config(mf_train_edit(arch, smoke)):
+        cfg = train_mod.build(args)
+        layout = MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
+        _, _, step_fn, state, pipeline = train_mod.setup(args, layout)
+    single = torch.load(path, mmap=True)
+    cos = {}
+    real_clip = trainer.clip_by_global_norm
+
+    def clip(grads, max_norm, sum_squares=None):
+        if not cos:
+            cos.update(mesh_cosines(torch, layout, grads, single))
+        return real_clip(grads, max_norm, sum_squares)
+
+    losses, norms, step_ms, got = [], [], [], {}
+    collectives.reset_counters()
+    with counted_launches(got), mock.patch.object(trainer, "clip_by_global_norm", clip):
+        for step in range(MF_TRAIN_STEPS):
+            batch = train_mod.device_batch(pipeline.batch_at(step), device)
+            sync(torch, batch["tokens"])
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            sync(torch, batch["tokens"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    flat = flat_params(state.params)
+    zeroed = [k for k in flat if layout.zdim[k] is not None]
+    halved = [k for k in zeroed
+              if state.opt_state["mu"][k].numel() * layout.nd == flat[k].numel()]
+    out = dict(rank=mesh.rank, coord=dict(mesh.coord), losses=losses, grad_norms=norms,
+               step_ms=step_ms, launches=got, cos=cos, layers=cfg.num_layers,
+               collective_s={fn.__name__: fn.seconds for fn in collectives.COUNTED},
+               collective_launches={fn.__name__: fn.launches for fn in collectives.COUNTED},
+               zero_leaves=len(zeroed), zero_halved=len(halved), leaves=len(flat),
+               local_params=sum(p.numel() for p in flat.values()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+    del state, step_fn, flat, single
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_family_rank(rank, world, train_paths, device, smoke=False):
+    """One of phase 19's four processes: (a) every family served on the
+    (1, 4) mesh, then (b) every family trained on the (2, 2) mesh, in one
+    gloo world that shares the card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"serve": {}, "train": {}}
+    mesh = make_debug_mesh(*MF_SERVE_MESH, device=device, backend="gloo")
+    for arch in MF_ARCHS:
+        out["serve"][arch] = mf_serve_rank(torch, mesh, arch, device, smoke)
+    mesh = make_debug_mesh(*MF_TRAIN_MESH, device=device, backend="gloo")
+    for arch, path in train_paths.items():
+        out["train"][arch] = mf_train_rank(torch, mesh, arch, path, device, smoke)
+    return out
+
+
+def mf_serve_report(arch, cfg, single, reps, device):
+    """(a)'s gates for one family over its ranks: tokens equal on every
+    rank, and to one device's but at near-ties of its top two logits; on
+    the card the dense kernel launched ``mf_decode_launches`` times a rank
+    at shapes phase 3 holds, at the rank's head count, and nothing else;
+    every rank's parameter bytes its placement's."""
+    n = MF_SERVE_MESH[1]
+    for r in reps:
+        if r["tokens"] != reps[0]["tokens"]:
+            raise AssertionError(f"(a) {arch}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["param_bytes"] != r["placed_bytes"]:
+            raise AssertionError(f"(a) {arch} rank {r['rank']}: {r['param_bytes']} parameter "
+                                 f"bytes, its placement's {r['placed_bytes']}")
+        if device == "cuda":
+            want = mf_decode_launches(cfg)
+            expect_launches(f"(a) {arch} rank {r['rank']}",
+                            r["launches"], {"decode_attention": want} if want else {})
+            heads = {s[2] for s in r["dense_shapes"]}
+            whole = cfg.num_heads
+            if heads and heads != {whole // n}:
+                raise AssertionError(f"(a) {arch}: dense kernel at {heads} q heads a rank, "
+                                     f"expected {whole // n} of {whole}")
+            unchecked = sorted(r["dense_shapes"] - mf_checked_shapes())
+            if unchecked:
+                raise AssertionError(f"(a) {arch}: dense kernel shapes {unchecked} that phase "
+                                     f"3 does not check")
+    div = divergences(single["tokens"], reps[0]["tokens"],
+                      lambda k, p: single["margins"][k, p], f"(a) {arch} mesh vs one device")
+    B = len(single["tokens"])
+    rows = []
+    for r in reps:
+        steps = r["steps"]
+        per_step = {k: v / steps for k, v in r["collective_launches"].items() if v}
+        share = sum(r["collective_s"].values()) / r["wall_s"]
+        rows.append(dict(coord=r["coord"], mean_step_ms=r["mean_step_ms"],
+                         tokens_per_s=r["tokens_per_s"], collective_s=r["collective_s"],
+                         collective_share=share, wall_s=r["wall_s"],
+                         collective_launches_a_step=per_step, peak_gb=r["peak_gb"],
+                         param_bytes=r["param_bytes"], init_s=r["init_s"]))
+        log(f"    rank {r['rank']}: mean decode step {r['mean_step_ms']:.2f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s (host clock, synced), collective s "
+            f"{ {k: round(v, 3) for k, v in r['collective_s'].items() if v} } of the run's "
+            f"{r['wall_s']:.2f} s ({100 * share:.1f} %; {steps} steps), launches a "
+            f"step { {k: round(v, 2) for k, v in per_step.items()} }, peak "
+            f"{fmt_gb(r['peak_gb'])}, {r['param_bytes'] / 1e9:.3f} GB of params (its "
+            f"placement's), drawn in {r['init_s']:.1f} s")
+    launched = {k: v for k, v in reps[0]["launches"].items() if v and k in KERNEL_NAMES}
+    log(f"  (a) {arch}: {B - len(div)} of {B} rows equal to one device's "
+        f"({single['mean_step_ms']:.2f} ms a step there), tokens equal on all {len(reps)} "
+        f"ranks; launches a rank {launched}; dense kernel shapes "
+        f"{sorted(reps[0]['dense_shapes'])}")
+    return dict(rows=B, rows_equal_to_one_device=B - len(div),
+                divergences=[dict(row=k, token=p, gap=g) for k, p, g in div],
+                one_device_mean_step_ms=single["mean_step_ms"],
+                one_device_tokens_per_s=single["tokens_per_s"], steps=reps[0]["steps"],
+                launches=launched, dense_shapes=sorted(reps[0]["dense_shapes"]),
+                ranks=rows)
+
+
+def mf_train_report(arch, one, reps, device):
+    """(b)'s gates for one family: every rank's loss equal at every step;
+    step 0 within ``compare_train_step``'s gates of one device (loss within
+    1e-3, gradient norm within 2e-2, every leaf's cosine >= 0.99: no
+    routing); no kernel launched; every leaf with a free divisible dim
+    keeps half its AdamW state on a rank."""
+    for r in reps:
+        if r["losses"] != reps[0]["losses"]:
+            raise AssertionError(f"(b) {arch}: rank {r['rank']}'s losses {r['losses']} differ "
+                                 f"from rank 0's {reps[0]['losses']}")
+        tag = f"(b) {arch} rank {r['rank']}"
+        if device == "cuda":
+            expect_launches(tag, r["launches"], {})
+        if r["zero_halved"] != r["zero_leaves"] or not r["zero_leaves"]:
+            raise AssertionError(f"{tag}: {r['zero_halved']} of {r['zero_leaves']} leaves with "
+                                 f"a free divisible dim keep half their AdamW state")
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"{tag}: a non-finite loss or gradient norm")
+    loss, norm, cos = reps[0]["losses"][0], reps[0]["grad_norms"][0], reps[0]["cos"]
+    worst = min(cos, key=cos.get)
+    log(f"  (b) {arch} ({reps[0]['layers']} layers, {MF_TRAIN_STEPS} steps): step-0 loss "
+        f"{loss:.6f} vs one device {one['loss']:.6f} (|diff| {abs(loss - one['loss']):.3g}); "
+        f"grad norm {norm:.5f} vs {one['grad_norm']:.5f}; lowest leaf gradient cosine "
+        f"{cos[worst]:.6f} ({worst}); losses {[round(x, 4) for x in reps[0]['losses']]} on "
+        f"every rank")
+    if abs(loss - one["loss"]) > 1e-3:
+        raise AssertionError(f"(b) {arch}: loss {loss} vs one device {one['loss']}")
+    if abs(norm - one["grad_norm"]) > 2e-2 * one["grad_norm"]:
+        raise AssertionError(f"(b) {arch}: grad norm {norm} vs one device {one['grad_norm']}")
+    if cos[worst] < 0.99:
+        raise AssertionError(f"(b) {arch}: gradient of {worst}: cosine {cos[worst]}")
+    rows = []
+    for r in reps:
+        steady = r["step_ms"][1:] or r["step_ms"]
+        ms = sum(steady) / len(steady)
+        share = sum(r["collective_s"].values()) / (sum(r["step_ms"]) / 1e3)
+        rows.append(dict(coord=r["coord"], step_ms=r["step_ms"], mean_step_ms=ms,
+                         collective_s=r["collective_s"], collective_share=share,
+                         collective_launches=r["collective_launches"], peak_gb=r["peak_gb"],
+                         local_params=r["local_params"], zero_halved=r["zero_halved"],
+                         leaves=r["leaves"]))
+        log(f"    rank {r['rank']} {r['coord']}: steps {[round(x) for x in r['step_ms']]} ms "
+            f"(host clock, synced), collective s "
+            f"{ {k: round(v, 3) for k, v in r['collective_s'].items() if v} } "
+            f"({100 * share:.1f} % of the steps), peak "
+            f"{fmt_gb(r['peak_gb'])}, {r['local_params'] / 1e6:.1f} M params held, "
+            f"{r['zero_halved']} of {r['leaves']} leaves' AdamW state halved")
+    return dict(layers=reps[0]["layers"], losses=reps[0]["losses"], loss=loss,
+                one_device_loss=one["loss"], grad_norm=norm, one_device_grad_norm=one["grad_norm"],
+                min_grad_cosine=cos[worst], min_cosine_leaf=worst, ranks=rows)
+
+
+def mesh_family_runs(torch, spawn_dir, device="cuda", smoke=False):
+    """(a) and (b): every family first on one device (the card's tokens and
+    margins; the train step's loss and gradients), then the four ranks.
+    Returns (report, {kernel: launches a rank in (a)})."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    Path(spawn_dir).mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=spawn_dir))
+    t0 = time.perf_counter()
+    singles = {arch: mf_serve_single(torch, arch, device, smoke) for arch in MF_ARCHS}
+    paths, trains = {}, {}
+    for i, arch in enumerate(MF_TRAIN):
+        paths[arch] = str(work / f"grads-{i}.pt")
+        trains[arch] = mf_train_single(torch, arch, paths[arch], device, smoke)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(mesh_family_rank, 4, backend="gloo", init_file=str(work / "init"),
+                      timeout=MF_SPAWN_TIMEOUT,
+                      args=(paths, "cuda:0" if device == "cuda" else device, smoke))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    report, launches = {"serve": {}, "train": {}}, {}
+    for arch in MF_ARCHS:
+        cfg = mf_config(arch, smoke)
+        reps = [r["serve"][arch] for r in ranks]
+        report["serve"][arch] = mf_serve_report(arch, cfg, singles[arch], reps, device)
+        for k in KERNEL_NAMES:
+            launches[k] = launches.get(k, 0) + reps[0]["launches"][k]
+    for arch in MF_TRAIN:
+        report["train"][arch] = mf_train_report(arch, trains[arch],
+                                                [r["train"][arch] for r in ranks], device)
+    log(f"  one device first {single_s:.1f} s; the four ranks' spawn to join {spawn_s:.1f} s")
+    report.update(single_s=single_s, spawn_s=spawn_s)
+    return report, launches
+
+
+def phase_mesh_families(torch):
+    """Phase 19: the xLSTM, zamba and encdec trees on a model axis (see
+    ``mesh_family_runs``).  Returns (report, {kernel: launches a rank})."""
+    log(f"phase 19: xlstm-125m, zamba2-7b and {ENCDEC_ARCH} on a model axis: served on (data "
+        f"{MF_SERVE_MESH[0]}, model {MF_SERVE_MESH[1]}), trained on (data {MF_TRAIN_MESH[0]}, "
+        f"model {MF_TRAIN_MESH[1]}) ({card_line()})")
+    return mesh_family_runs(torch, str(ROOT / "build"))
+
+
 def main() -> int:
     try:
         import torch
@@ -6967,6 +7546,7 @@ def main() -> int:
     timing.update(phase_timing_encdec(torch))
     timing.update(phase_timing_mesh(torch))
     timing.update(phase_timing_mesh_train(torch))
+    timing.update(phase_timing_mesh_families(torch))
     again = remeasure(torch, timing, ffn_weights)
     del ffn_weights
     torch.cuda.empty_cache()
@@ -7029,11 +7609,19 @@ def main() -> int:
     tooling = phase_tooling(torch, e2e, train, mesh_train, dry)
     tooling_s = time.perf_counter() - t0
     log(f"  tooling phase {tooling_s:.1f} s (the dry run's CPU process started after phase 2)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_families, mesh_family_launches = phase_mesh_families(torch)
+    mesh_families_s = time.perf_counter() - t0
+    log(f"  mesh families phase {mesh_families_s:.1f} s")
     log(f"  serve phase {serve_s:.1f} s, train phase {train_s:.1f} s, kv phase {kv_s:.1f} s, "
         f"checkpoint phase {ckpt_s:.1f} s, speculative phase {spec_s:.1f} s, slo phase "
         f"{slo_s:.1f} s, static phase {static_s:.1f} s, families phase {families_s:.1f} s, "
         f"more families phase {more_s:.1f} s, zamba phase {zamba_s:.1f} s, encdec phase "
-        f"{encdec_s:.1f} s, mesh phase {mesh_s:.1f} s, mesh training phase {mesh_train_s:.1f} s")
+        f"{encdec_s:.1f} s, mesh phase {mesh_s:.1f} s, mesh training phase {mesh_train_s:.1f} s, "
+        f"mesh families phase {mesh_families_s:.1f} s; {time.perf_counter() - START:.1f} s "
+        f"since the script started")
+    log("phase 20: report")
 
     sources = {
         "paged_decode_attention": (
@@ -7181,6 +7769,18 @@ def main() -> int:
                                                       "bound_by", "library_ms",
                                                       "library_device_ms")}
                 for label in MESH_TRAIN_TIMING[name]}
+        # phase 19 (a): the dense kernel a rank of the (1, 4) mesh, zamba's
+        # shared attention and encdec's self- and cross-attention
+        entry["mesh_families_launches"] = mesh_family_launches[name]
+        if name == "decode_attention":
+            if mesh_family_launches[name] <= 0:
+                raise AssertionError(f"{name}: launched no time in phase 19")
+            entry["mesh_families_max_abs_err"] = errs[f"mesh_families {name}"]
+            entry["mesh_families_shapes"] = {
+                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms",
+                                                      "library_device_ms", "plan")}
+                for label in (f"decode_attention {x[0]}" for x in mf_kernel_shapes())}
         kernels.append(entry)
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
@@ -7191,6 +7791,7 @@ def main() -> int:
                       "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,
                       "mesh_s": mesh_s, "mesh_train": mesh_train, "mesh_train_s": mesh_train_s,
                       "tooling": tooling, "tooling_s": tooling_s,
+                      "mesh_families": mesh_families, "mesh_families_s": mesh_families_s,
                       "mixed_step_kernels": timing_mixed,
                       "moe_ffn_x180": timing["moe_ffn X=180"],
                       "flash_attention_s256": timing["flash_attention S=256"],

@@ -139,11 +139,11 @@ def tree_name(cfg) -> str:
 
 def unsharded_forms(cfg, model: int, fsdp: bool) -> list:
     """What ``cfg``'s tree lacks to run on a mesh with ``model`` ranks on
-    the model axis (and FSDP where ``fsdp``): the xLSTM, zamba and encdec
-    trees and MoE attention have no tensor-parallel form, and FSDP gathers
-    only the decoder-LM trees' blocks."""
+    the model axis (and FSDP where ``fsdp``): MoE attention has no
+    tensor-parallel form, and FSDP gathers only the decoder-LM trees'
+    blocks."""
     out = []
-    if model > 1 and (cfg.family in ("xlstm", "zamba", "encdec") or cfg.moe.moe_attention):
+    if model > 1 and cfg.moe.moe_attention:
         out.append(f"a model axis of {model} for the {tree_name(cfg)} tree (no "
                    f"tensor-parallel form)")
     if fsdp and cfg.family in ("xlstm", "zamba", "encdec"):
@@ -298,6 +298,23 @@ def _leaf_pspec(path, s, rules: Rules) -> PSpec:
     return logical_to_pspec(s.axes, rules.params, s.shape, rules.mesh)
 
 
+# Leaves whose contiguous block of a sharded dim is not what a rank
+# computes with, held whole on every rank (as the router is), the rank
+# reading its own columns at use: Mamba2's conv runs over the x, B and C
+# channels, and a rank needs its x channels and all of B and C (a block of
+# zamba2-7b's 7296 conv channels does not line up with a block of its 7168
+# x channels); the sLSTM FFN's up projection is the columns of u then of
+# the gate, which a rank needs pairwise (``models.xlstm``).
+HELD_WHOLE = {"zamba": ("conv_w", "conv_b"), "xlstm": ("ffn_up",)}
+
+
+def _placed_pspec(path, s, rules: Rules, keep: Sequence[str]) -> PSpec:
+    """A leaf's spec as a mesh rank holds it: :func:`_leaf_pspec`, or
+    whole for a last key in ``keep`` or in the family's ``HELD_WHOLE``."""
+    whole = tuple(keep) + HELD_WHOLE.get(getattr(rules.cfg, "family", None), ())
+    return () if path and path[-1] in whole else _leaf_pspec(path, s, rules)
+
+
 def param_pspecs(shape_tree, rules: Rules):
     """ParamShape tree -> partition spec tree under ``rules.params``."""
     return _map_shapes(lambda p, s: _leaf_pspec(p, s, rules), shape_tree)
@@ -369,10 +386,10 @@ def _axes(entry: MeshAxes) -> Tuple[str, ...]:
 
 def param_shardings(shape_tree, rules: Rules, keep: Sequence[str] = ()):
     """ParamShape tree -> :class:`Sharding` tree: the placement that
-    :func:`shard_params` cuts (a leaf whose last key is in ``keep`` whole)."""
+    :func:`shard_params` cuts (a leaf whose last key is in ``keep`` or in
+    ``HELD_WHOLE`` whole)."""
     def one(path, s):
-        spec = () if path and path[-1] in keep else _leaf_pspec(path, s, rules)
-        return Sharding(rules.mesh, spec)
+        return Sharding(rules.mesh, _placed_pspec(path, s, rules, keep))
 
     return _map_shapes(one, shape_tree)
 
@@ -456,11 +473,9 @@ def _slice(t: torch.Tensor, spec: PSpec, mesh, coord: Mapping[str, int]) -> torc
 def placement(rules: Rules, coord: Mapping[str, int], keep: Sequence[str] = ()) -> Callable:
     """``place(path, shape, leaf)`` for ``init_params``: the rank at
     ``coord`` ({axis: index}) keeps its slice of ``leaf``; a leaf whose last
-    key is in ``keep`` stays whole."""
+    key is in ``keep`` (or in ``HELD_WHOLE``) stays whole."""
     def place(path, s, leaf):
-        if path and path[-1] in keep:
-            return leaf
-        return _slice(leaf, _leaf_pspec(path, s, rules), rules.mesh, coord)
+        return _slice(leaf, _placed_pspec(path, s, rules, keep), rules.mesh, coord)
 
     return place
 
@@ -493,10 +508,9 @@ def check_placed(params, rules: Rules, keep: Sequence[str] = ()) -> None:
         for k in path:
             node = node[k]
         want = list(s.shape)
-        if not (path and path[-1] in keep):
-            for dim, ax in enumerate(_leaf_pspec(path, s, rules)):
-                if ax is not None:
-                    want[dim] //= _size(rules.mesh, ax)
+        for dim, ax in enumerate(_placed_pspec(path, s, rules, keep)):
+            if ax is not None:
+                want[dim] //= _size(rules.mesh, ax)
         if tuple(node.shape) != tuple(want):
             raise ValueError(f"{'/'.join(map(str, path))}: shape {tuple(node.shape)}, a mesh "
                              f"rank's placement is {tuple(want)} (shard_params)")

@@ -25,8 +25,8 @@ microbatching.  It records:
   the H100's datasheet peaks (``distributed.roofline``).
 
 Every number is analytic or a ``meta`` count against datasheet peaks, not
-a measurement.  A cell that raises (a family with no tensor-parallel form
-on a model axis above 1, say) is recorded with ``status: "error"`` and its
+a measurement.  A cell that raises (MoE attention, which has no tensor-parallel
+form, on a model axis above 1, say) is recorded with ``status: "error"`` and its
 reason, as the reference records one.
 
 Usage:

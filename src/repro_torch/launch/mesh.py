@@ -173,9 +173,10 @@ def make_serve_mesh(spec, device, backend: Optional[str] = None) -> Mesh:
     return make_mesh(spec, device, backend)
 
 
-def make_debug_mesh(data: int = 1, model: int = 1, device="cpu",
+def make_debug_mesh(data: int = 1, model: int = 1, device="cuda",
                     backend: Optional[str] = None) -> Mesh:
-    """A small ``("data", "model")`` mesh over this process's world."""
+    """A small ``("data", "model")`` mesh over this process's world, on
+    the card unless ``device`` says otherwise."""
     return make_mesh((("data", data), ("model", model)), device, backend)
 
 

@@ -63,9 +63,12 @@ alone prints and writes the checkpoints, the logs and the traces.
 group), whose step is the single-device one bit for bit.  A config with
 ``fsdp`` set (no flag, as in the reference: the dry run sets it) trains
 with the "embed" dim of the decoder-LM trees over the data axes.
-Refused on a mesh, with a reason: ``--model`` above 1 for the MoE
-attention, xLSTM, zamba and encdec trees (their layers have no
-tensor-parallel form here; ``--data`` above 1 trains them), and
+The xLSTM, zamba and encdec trees train on a model axis too
+(``--arch zamba2-7b --data 2 --model 2``: the Mamba2 blocks' heads, the
+shared block's heads and FFN, the attention heads of encdec, the sLSTM
+FFN and every vocab over "model").  Refused on a mesh, with a reason:
+``--model`` above 1 for the MoE attention tree (its layers have no
+tensor-parallel form here; ``--data`` above 1 trains it), and
 ``cfg.fsdp`` for the xLSTM, zamba and encdec trees.
 ``--moe-impl alltoall`` without a mesh trains, as the reference's does,
 as ``gather``.

@@ -29,7 +29,10 @@ all-reduced (the input enters through ``collectives.copy_to``).  Where
 the kv heads do not divide over the axis, ``wk`` and ``wv`` are whole on
 every rank and a rank projects only the kv heads its q heads read; where
 a rank's block of the heads is not whole heads, the layer gathers its
-projections and every rank computes every head."""
+projections and every rank computes every head.  Cross-attention is
+head-parallel the same way: :func:`project_kv` gives a rank's kv heads of
+the memory (its input through ``copy_to``), the rank's q heads attend over
+them, and ``wo``'s output is all-reduced."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -126,9 +129,10 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
     (B, T, Hkv, D) memory K/V: cross-attention over all T positions (no
     cache, no RoPE)."""
     B, S, _ = x.shape
+    params, x, tp = _heads_region(params, x, cfg)
     if kv is not None:
         hd = cfg.resolved_head_dim
-        q = dense_apply(params["wq"], x, cfg).reshape(B, S, cfg.num_heads, hd)
+        q = dense_apply(params["wq"], x, cfg).reshape(B, S, -1, hd)
         if cfg.qk_norm:
             q = head_rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k, v = kv
@@ -136,13 +140,8 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
             out = _decode_attention(q[:, 0].contiguous(), k, v, k.shape[1], cfg)[:, None]
         else:
             out = _sdpa(q, k, v, cfg, mask=None)
-        return dense_apply(params["wo"], out.reshape(B, S, -1), cfg), None
-    tp = _head_parallel(params, cfg)
-    if tp is not None and tp[1] == "gather":
-        params, tp = _gathered_heads(params, cfg, tp[0]), None
-    if tp is not None:
-        x = collectives.copy_to(x, tp[0])
-        params = _rank_projections(params, cfg, *tp)
+        out = dense_apply(params["wo"], out.reshape(B, S, -1), cfg)
+        return (out if tp is None else collectives.all_reduce(out, tp[0])), None
     q, k, v = _project_qkv(params, x, cfg, positions)
     new_cache = None
     if cache is not None:
@@ -172,6 +171,21 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
     if tp is not None:
         out = collectives.all_reduce(out, tp[0])
     return out, new_cache
+
+
+def _heads_region(params, x, cfg: ModelConfig):
+    """(params, x, tp) as a rank of this layer's head-parallel region uses
+    them (:func:`_head_parallel`'s ``tp``, None where the rank computes
+    every head): the rank's projections with the whole leaves it uses
+    through ``copy_to``, and its input through ``copy_to``; or every
+    head's projections gathered where a rank's block is not whole heads."""
+    tp = _head_parallel(params, cfg)
+    if tp is not None and tp[1] == "gather":
+        return _gathered_heads(params, cfg, tp[0]), x, None
+    if tp is not None:
+        x = collectives.copy_to(x, tp[0])
+        params = _rank_projections(params, cfg, *tp)
+    return params, x, tp
 
 
 def _head_parallel(params, cfg: ModelConfig):
@@ -269,11 +283,14 @@ def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> tor
 
 def project_kv(params, memory, cfg: ModelConfig):
     """Cross-attention K/V (B, T, Hkv, D) of the encoder memory (B, T, d),
-    k-normed where ``qk_norm`` is set (no RoPE)."""
+    k-normed where ``qk_norm`` is set (no RoPE); a rank's kv heads (those
+    its cache would hold, :func:`local_kv_heads`) in a head-parallel
+    layer."""
     B, T, _ = memory.shape
     hd = cfg.resolved_head_dim
-    k = dense_apply(params["wk"], memory, cfg).reshape(B, T, cfg.num_kv_heads, hd)
-    v = dense_apply(params["wv"], memory, cfg).reshape(B, T, cfg.num_kv_heads, hd)
+    params, memory, _ = _heads_region(params, memory, cfg)
+    k = dense_apply(params["wk"], memory, cfg).reshape(B, T, -1, hd)
+    v = dense_apply(params["wv"], memory, cfg).reshape(B, T, -1, hd)
     if cfg.qk_norm:
         k = head_rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
     return k, v

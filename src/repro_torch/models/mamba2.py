@@ -18,6 +18,19 @@ Two of the reference's behaviours are kept as they are:
   decode conv, x / B / C and what follows to f32 under bf16 activations,
   where the parallel form stays in the activation dtype up to the scan
   (``models.xlstm._causal_conv``).
+
+On a mesh whose rules shard ``"ssm_inner"`` over the model axis (zamba's
+tensor parallelism), a rank holds its block of the heads' channels:
+``in_z`` / ``in_x`` are column-parallel (their input enters through
+``collectives.copy_to``), ``head_norm`` its heads' scales, ``out_proj``
+row-parallel with one ``all_reduce``.  ``in_B``, ``in_C``, ``in_dt`` and
+the per-head ``A_log``, ``dt_bias`` and ``D`` are whole on every rank; a
+rank reads all of B and C and its heads' columns of the rest, each
+through ``copy_to``, whose backward sums the ranks' parts of its
+gradient.  The conv's leaves are whole too (``sharding.HELD_WHOLE``): a
+rank convolves its x channels and the B and C channels with their columns.
+The SSD scan and the decode state (:class:`Mamba2State`) hold the rank's
+heads and conv channels.
 """
 from __future__ import annotations
 
@@ -27,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import tensor_parallel
 from repro_torch.models import layers as L
 from repro_torch.models.xlstm import _causal_conv
 from repro_torch.nn.spec import ParamShape, _norm
@@ -41,6 +56,36 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     d_inner = cfg.ssm_expand * cfg.d_model
     H = cfg.ssm_heads or max(d_inner // 64, 1)
     return d_inner, H, d_inner // H, cfg.ssm_state
+
+
+def _heads_split(cfg: ModelConfig):
+    """(process group, ranks, rank) of the model axis over which the active
+    rules shard the heads' channels, or None."""
+    tp = tensor_parallel("ssm_inner")
+    if tp is not None and _dims(cfg)[1] % tp[1]:
+        raise NotImplementedError(f"{_dims(cfg)[1]} SSM heads over {tp[1]} ranks: a rank's "
+                                  f"block of the channels is not whole heads")
+    return tp
+
+
+def _rank_leaves(params, cfg: ModelConfig, group, n: int, r: int):
+    """The block's params as rank ``r`` of ``n`` uses them: the whole
+    leaves through ``copy_to``, cut to the rank's heads (``in_dt``,
+    ``A_log``, ``dt_bias``, ``D``) or its conv channels (its x channels, then
+    B and C); the sharded leaves as they are."""
+    d_inner, H, _, _ = _dims(cfg)
+    heads = slice(r * H // n, (r + 1) * H // n)
+    lo, hi = r * d_inner // n, (r + 1) * d_inner // n
+    out = dict(params)
+    for k in ("in_B", "in_C"):
+        out[k] = collectives.copy_to(params[k], group)
+    out["in_dt"] = collectives.copy_to(params["in_dt"], group)[:, heads]
+    for k in ("A_log", "dt_bias", "D"):
+        out[k] = collectives.copy_to(params[k], group)[heads]
+    for k in ("conv_w", "conv_b"):
+        w = collectives.copy_to(params[k], group)
+        out[k] = torch.cat([w[..., lo:hi], w[..., d_inner:]], dim=-1)
+    return out
 
 
 def mamba2_block_shapes(cfg: ModelConfig, wdt: str, lead: Tuple[int, ...] = ()):
@@ -148,6 +193,13 @@ def mamba2_block_apply(params, x, cfg: ModelConfig, *, state: Optional[Mamba2Sta
                          f"reads token 0 alone and broadcasts it)")
     dt_act = x.dtype
     h = L.norm_apply(params["ln"], x, cfg)
+    tp = _heads_split(cfg)
+    if tp is not None and params["in_x"].shape[-1] == d_inner:
+        tp = None                           # a whole block
+    if tp is not None:
+        h = collectives.copy_to(h, tp[0])
+        params = _rank_leaves(params, cfg, *tp)
+        d_inner, H = d_inner // tp[1], H // tp[1]
     z = h @ params["in_z"].to(dt_act)
     xs = h @ params["in_x"].to(dt_act)
     Bm = h @ params["in_B"].to(dt_act)
@@ -172,13 +224,20 @@ def mamba2_block_apply(params, x, cfg: ModelConfig, *, state: Optional[Mamba2Sta
     y = y + x4 * params["D"][None, None, :, None]
     y = L.head_rmsnorm_apply(params["head_norm"].reshape(H, P), y, cfg.norm_eps)
     y = y.reshape(Bsz, S, d_inner).to(dt_act) * F.silu(z)
-    return x + y @ params["out_proj"].to(dt_act), new_state
+    out = y @ params["out_proj"].to(dt_act)
+    if tp is not None:
+        out = collectives.all_reduce(out, tp[0])
+    return x + out, new_state
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, device=None, lead: Tuple[int, ...] = ()
                       ) -> Mamba2State:
-    """Zeroed f32 state of one block, or of a stack with ``lead`` dims."""
+    """Zeroed f32 state of one block, or of a stack with ``lead`` dims (a
+    rank's heads and conv channels under rules that shard them)."""
     d_inner, H, P, N = _dims(cfg)
+    tp = _heads_split(cfg)
+    if tp is not None:
+        d_inner, H = d_inner // tp[1], H // tp[1]
     conv_dim = d_inner + 2 * N
     return Mamba2State(
         torch.zeros(lead + (batch, H, P, N), dtype=torch.float32, device=device),

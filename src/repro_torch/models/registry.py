@@ -36,7 +36,11 @@ static engine's ``generate`` fails at ``init_state`` with the reference's
 message (the reference asserts; the port raises NotImplementedError), and
 its decode route is ``encdec.encode``, ``encdec.init_state`` and
 ``decode`` (``encdec.decode_step``).  The families with no MoE layer
-(xLSTM, zamba) take ``ctx`` and ignore it."""
+(xLSTM, zamba) take ``ctx`` and ignore it.  Under rules that shard the
+model axis, ``init_state`` and the two ``*_input_specs`` give a rank's
+state: its kv heads in every cache and cross K/V, its SSM heads and conv
+channels in zamba's Mamba2 states (xLSTM's state is whole on every
+rank)."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,7 +53,7 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, local_kv_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,7 +187,7 @@ def _ed_decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     ``seq_len``-frame memory."""
     b, s = shape.global_batch, shape.seq_len
     caches = TF.init_caches(cfg, b, s, device="meta")
-    kv = torch.empty((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim),
+    kv = torch.empty((cfg.num_layers, b, s, local_kv_heads(cfg), cfg.resolved_head_dim),
                      dtype=cfg.activation_dtype, device="meta")
     return {"tokens": _tokens(b, 1), "state": ED.EncDecState(_full(caches, s - 1), kv, kv)}
 

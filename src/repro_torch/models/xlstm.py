@@ -16,6 +16,18 @@ reference's own form (ROADMAP queue 3).  Maxima are ``amax`` and
 ``torch.maximum`` (never ``clamp``), whose gradients split among ties as
 JAX's do: the sLSTM normaliser meets its floor of 1 exactly at a first
 step whose input gate wins.
+
+On a mesh, the leaves sit by the reference's partition specs, under which
+only the vocab and the sLSTM FFN's "mlp" dim shard over the model axis:
+the reference's rules map ``"ssm_inner"`` only for a config with an SSM
+state, which xLSTM has not, so the mLSTM blocks and the sLSTM recurrence
+are whole on every rank and every rank computes them alike.  The sLSTM
+FFN is tensor-parallel: ``ffn_down`` row-parallel (a rank's block of the
+``pf`` hidden units, one ``all_reduce``), and ``ffn_up``, whose columns
+are u's ``pf`` and then the gate's, whole on every rank
+(``sharding.HELD_WHOLE``; a block of it would give a rank u columns
+without their gates): a rank reads its units' columns of each half,
+through ``collectives.copy_to``, as it reads its FFN input.
 """
 from __future__ import annotations
 
@@ -27,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.metrics import empty_aux
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import tensor_parallel
 from repro_torch.models import layers as L
 from repro_torch.nn.spec import ParamShape, _norm, padded_vocab
 
@@ -295,9 +309,20 @@ def slstm_block_apply(params, x, cfg: ModelConfig, *, state: Optional[SLSTMState
                               hs.reshape(B, S, H, -1), cfg.norm_eps)
     x = x + hs.reshape(B, S, d).to(dt)
     g = L.norm_apply(params["ln_ffn"], x, cfg)
-    u, gate = (g @ params["ffn_up"].to(dt)).chunk(2, dim=-1)
-    x = x + (F.gelu(gate, approximate="tanh") * u) @ params["ffn_down"].to(dt)
-    return x, (st if state is not None else None)
+    pf, up = _slstm_ffn(d), params["ffn_up"]
+    tp = tensor_parallel("mlp")
+    if tp is not None and params["ffn_down"].shape[0] != pf:
+        group, n, r = tp
+        g, up = collectives.copy_to(g, group), collectives.copy_to(up, group)
+        lo, hi = r * pf // n, (r + 1) * pf // n
+        up = torch.cat([up[:, lo:hi], up[:, pf + lo:pf + hi]], dim=1)
+    else:
+        tp = None
+    u, gate = (g @ up.to(dt)).chunk(2, dim=-1)
+    out = (F.gelu(gate, approximate="tanh") * u) @ params["ffn_down"].to(dt)
+    if tp is not None:
+        out = collectives.all_reduce(out, tp[0])
+    return x + out, (st if state is not None else None)
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> SLSTMState:

@@ -40,34 +40,52 @@ refused as a decoder LM's is (the reference clamps the cache write
 silently).  Encdec has no ``prefill`` either, and its ``init_state``
 refuses with the reference's message (a decode state needs the encoder's
 memory), so ``generate`` fails there, as the reference's does.
+
+On a mesh (``rules``: ``make_rules(cfg, mesh)``, the reference's
+``ServingEngine(..., rules=)``), each rank runs the engine on its blocks
+of the params (``sharding.shard_params(..., keep=("router",))``; any
+other placement is refused) with ``prefill``, ``decode`` and
+``init_state`` under the rules: tensor parallelism over "model" as the
+models write it out, every rank holding the whole batch.  Its logits are
+its vocab columns; before sampling they are all-gathered over the vocab's
+axis, so every rank samples from the same whole logits and draws the same
+token.  The serve CLI refuses ``--mesh`` with the static engine, as the
+reference's does.
 """
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import Rules, check_placed, tensor_parallel, use_rules
 from repro_torch.models.registry import get_family
+from repro_torch.nn.spec import padded_vocab
 from repro_torch.serving.continuous import _sample_rows
 
 
 class ServingEngine:
-    """``params`` is the port's param tree (``repro_torch.nn``); the engine
-    runs on its device."""
+    """``params`` is the port's param tree (``repro_torch.nn``), or a mesh
+    rank's blocks of it under ``rules``; the engine runs on its device."""
 
-    def __init__(self, cfg: ModelConfig, params, max_len: int):
+    def __init__(self, cfg: ModelConfig, params, max_len: int, rules: Optional[Rules] = None):
         self.fam = get_family(cfg)
         if cfg.moe.moe_attention:
             raise NotImplementedError("moe_attention has no cached decode path")
         if cfg.pos_embed == "learned" and max_len > cfg.max_seq_len:
             raise ValueError(f"static engine max_len {max_len} exceeds the learned "
                              f"position table ({cfg.max_seq_len} positions)")
+        if rules is not None:
+            check_placed(params, rules, keep=("router",))
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.rules = rules
         self.device = params["embed"]["table"].device
         # serving-side MoE context: the family fills in token ids and the
         # absolute positions, so identity and position routing agree
@@ -75,8 +93,11 @@ class ServingEngine:
         self.ctx = MoEContext(is_training=False)
 
     def _sample(self, logits, position: int, temperature: float, seed: int) -> torch.Tensor:
-        """(B, 1) int token per row from the last position's f32 logits."""
+        """(B, 1) int token per row from the last position's f32 logits
+        (all-gathered over the vocab's axis where they are a rank's columns)."""
         last = logits[:, -1, :].float()
+        if last.shape[-1] != padded_vocab(self.cfg.vocab_size):
+            last = collectives.all_gather(last, tensor_parallel("vocab")[0], dim=-1)
         B = last.shape[0]
         tok = _sample_rows(last, np.arange(B), np.full(B, position), temperature, seed)
         return tok.long()[:, None]
@@ -92,7 +113,7 @@ class ServingEngine:
         recurrent = self.fam.prefill is None
         if self.fam.kv_cache and S + num_tokens - 1 > self.max_len:
             raise ValueError(f"prompt {S} + {num_tokens} tokens exceed max_len {self.max_len}")
-        with torch.inference_mode():
+        with torch.inference_mode(), use_rules(self.rules):
             t0 = time.perf_counter()
             if recurrent:           # the prompt, token by token
                 state = self.fam.init_state(self.cfg, B, self.max_len, device=self.device)

@@ -4,10 +4,11 @@ collective byte counter it reads (``distributed.collectives``).
 A dry run joins a process-wide ``fake`` process group, so every dry run
 here runs in a subprocess of its own, one a cell.  Smoke m6 and qwen3-8b on the scaled-down
 production meshes (``REPRO_MESH_SINGLE=2,4``, ``REPRO_MESH_MULTI=2,2,2``)
-must trace their train, prefill and decode cells; a rank's parameter and
-optimizer-state bytes must equal an independent sum over the placements;
-an xLSTM cell on a model axis must be recorded as an error naming the
-missing tensor-parallel form.  On a 2 x 2 gloo world the counter's bytes
+must trace their train, prefill and decode cells, and so must smoke
+xLSTM, zamba and encdec, whose trees are tensor-parallel too; a rank's
+parameter and optimizer-state bytes must equal an independent sum over
+the placements; a MoE-attention cell on a model axis must be refused with
+an error naming the missing tensor-parallel form.  On a 2 x 2 gloo world the counter's bytes
 of each kind must equal sizes computed by hand (the reference HLO
 parser's conventions), and a real train step's collectives on that world
 must equal the dry run's of the same cell, launch for launch and byte for
@@ -65,6 +66,9 @@ MESHES = {"single": ({"REPRO_MESH_SINGLE": "2,4"}, (("data", 2), ("model", 4))),
           "multi": ({"REPRO_MESH_MULTI": "2,2,2"}, (("pod", 2), ("data", 2), ("model", 2)))}
 
 
+ARCHS = ["m6-base", "qwen3-8b", "xlstm-125m", "zamba2-7b", "seamless-m4t-large-v2"]
+
+
 def _cfg(arch):
     cfg = get_smoke_config(arch)
     return cfg.replace_moe(impl="alltoall") if arch == "m6-base" else cfg
@@ -75,8 +79,7 @@ def cells():
     """{(arch, mesh): {kind: record}}, each cell traced in a process of its own."""
     from concurrent.futures import ThreadPoolExecutor
 
-    jobs = [(arch, mesh, kind) for arch in ("m6-base", "qwen3-8b") for mesh in MESHES
-            for kind in SHAPES]
+    jobs = [(arch, mesh, kind) for arch in ARCHS for mesh in MESHES for kind in SHAPES]
     with ThreadPoolExecutor(4) as pool:
         futs = {job: pool.submit(_run, [job[0], job[1], json.dumps({job[2]: SHAPES[job[2]]})],
                                  MESHES[job[1]][0]) for job in jobs}
@@ -87,7 +90,7 @@ def cells():
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ["m6-base", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_cells_trace_ok(cells, arch, mesh):
     res = cells[arch, mesh]
     world = math.prod(n for _, n in MESHES[mesh][1])
@@ -126,7 +129,7 @@ def _placed_bytes(cfg, axes, train):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ["m6-base", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_and_state_bytes_equal_placements(cells, arch, mesh):
     cfg, axes = _cfg(arch), MESHES[mesh][1]
     params, opt = _placed_bytes(cfg, axes, train=True)
@@ -138,17 +141,26 @@ def test_param_and_state_bytes_equal_placements(cells, arch, mesh):
         assert cells[arch, mesh][kind]["memory"]["param_bytes_per_device"] == serve
 
 
-def test_xlstm_on_a_model_axis_is_a_recorded_error(tmp_path):
-    out = tmp_path / "d.json"
-    code = "from repro_torch.launch.dryrun import main; main()"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_MESH_SINGLE="2,4")
-    r = subprocess.run([sys.executable, "-c", code, "--arch", "xlstm-125m", "--shape",
-                        "train_4k", "--mesh", "single", "--out", str(out)],
-                       env=env, capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr[-2000:]
-    rec = json.loads(out.read_text())["xlstm-125m|train_4k|single"]
-    assert rec["status"] == "error" and rec["mesh"] == "2x4"
-    assert "tensor-parallel form" in rec["error"] and "xlstm" in rec["error"]
+def test_xlstm_on_a_model_axis_is_a_recorded_error():
+    """The xLSTM tree traces on a model axis now (``test_cells_trace_ok``);
+    what stays refused there, MoE attention, raises out of ``trace_cell``
+    with the reason the dry run records, before anything is traced."""
+    code = """
+import json
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch.dryrun import trace_cell
+cfg = get_smoke_config("m6-base").replace_moe(moe_attention=True)
+try:
+    trace_cell(cfg, ShapeConfig("train", 64, 8, "train"), (("data", 2), ("model", 4)))
+    print(json.dumps({"status": "ok"}))
+except NotImplementedError as e:
+    print(json.dumps({"status": "error", "error": f"{type(e).__name__}: {e}"}))
+"""
+    rec = _run([], {}, code)
+    assert rec["status"] == "error", rec
+    assert "tensor-parallel form" in rec["error"] and "moe_attention" in rec["error"]
+    assert "a model axis of 4" in rec["error"]
 
 
 def test_collective_bytes_by_hand(tmp_path):

@@ -491,15 +491,27 @@ def test_production_mesh_shape_matches_reference(monkeypatch, env, multi):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    """FSDP, and --model above 1 for the trees without a tensor-parallel
-    form, are refused with a reason before any rank joins a group."""
-    from repro_torch.launch.train import main
+    """--model above 1 for the tree without a tensor-parallel form (MoE
+    attention, which has no flag: the config comes through
+    ``launch.train.build``, as ``chip_smoke.built_config`` gives it) is
+    refused with a reason before any rank joins a group; the xLSTM, zamba
+    and encdec trees are no longer refused there."""
+    from unittest import mock
 
-    for arch, flags, why in (("xlstm-125m", ["--model", "2"], "xlstm"),
-                             ("zamba2-7b", ["--model", "2"], "zamba"),
-                             ("seamless-m4t-large-v2", ["--model", "2"], "encdec")):
-        with pytest.raises(NotImplementedError, match=why):
-            main(["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu", *flags])
+    from repro_torch.launch import train as train_mod
+
+    real = train_mod.build
+
+    def moe_attention(args):
+        return real(args).replace_moe(moe_attention=True)
+
+    with mock.patch.object(train_mod, "build", moe_attention):
+        with pytest.raises(NotImplementedError, match="moe_attention tree"):
+            train_mod.main(["--arch", "m6-base", "--smoke", "--steps", "1", "--device", "cpu",
+                            "--model", "2"])
+    for arch in ("xlstm-125m", "zamba2-7b", "seamless-m4t-large-v2"):
+        args = train_mod.build_parser().parse_args(["--arch", arch, "--smoke", "--model", "2"])
+        assert train_mod._unported(args, train_mod.build(args)) == [], arch
 
 
 def test_rules_are_seen_by_the_autograd_threads():
