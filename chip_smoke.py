@@ -255,7 +255,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               continuous engine's but at near-ties, the trace's first 4
               requests again on the CPU (the card's tokens equal to the
               CPU's but at near-ties), and 2 steps of the train CLI at 4 of
-              its 12 layers (the script's time; phase 19 trains all 12), 4 x
+              its 12 layers (the script's time; so does phase 19), 4 x
               1024 (the chunked mLSTM form and the sLSTM loop; losses
               finite and within 1 of ln 50304).
 14. zamba   — zamba2-7b (``chip_smoke.phase_zamba(torch)`` alone after
@@ -342,9 +342,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               and final params bit-equal to phase 6's, no collective,
               moe_ffn launched as there; (b) (data 2, model 2) as four
               spawned processes that share the card over gloo, a batch of
-              16 x 256 (G = 4 groups of 1024, one a rank): alltoall top-1
-              at 5 layers for 3 steps, and 4 top-1 prototyping, dropless
-              and pallas at 2 layers for 2 steps, AdamW with ZeRO-1; each
+              16 x 256 (G = 4 groups of 1024, one a rank), at 2 layers:
+              alltoall top-1 for 3 steps, and 4 top-1 prototyping,
+              dropless and pallas for 2 steps, AdamW with ZeRO-1; each
               run first single-device on the card (step 0's loss, routes
               and gradients), then on the ranks: every rank's loss equal
               at every step, step 0 within compare_train_step's gates of
@@ -355,12 +355,23 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               no other kernel, half the AdamW state a rank on every leaf
               with a free divisible dim, every grouped-FFN shape launched
               one that phase 3 holds against its plain version (moe_ffn at
-              X = 80 a rank and 160 on one device; the ragged FFN over a
-              rank's received 4032 rows and one device's 8064; phase 4
-              times them); reported per rank: step ms, tokens/s,
-              collective seconds by kind, peak GB, and every step's
-              collectives by kind, axis and byte; then, in the same
-              world, the pallas run again with cfg.fsdp (phase 18 (c)).
+              X = 80 a rank and 160 on one device, 90 for the straddling
+              run below; the ragged FFN over a rank's received 4032 rows
+              and one device's 8064; phase 4 times them), every rank's
+              parameter bytes its placement's; reported per rank: step
+              ms, tokens/s, collective seconds by kind and share, peak
+              GB, and every step's collectives by kind, axis and byte;
+              then, in the same world, Fig. 4's MoE attention (phase 13's
+              config edits) with pallas at 2 layers for 2 steps: top-1 at
+              16 x 256 (two groups a data rank) and 2 top-1 at phase 6's
+              8 x 144 (one global group, straddling the data ranks), each
+              under the gates above (flips over both routing calls a
+              layer), 16 of 32 attention experts a rank, and the
+              MoE-attention layers' collectives a step (counted under
+              their own scope) as the form predicts: 7 all-reduces over
+              "model" a layer, and 2 over "data" (top-1) or 6 all-gathers
+              and 2 reduce-scatters over "data" (straddling); then the
+              pallas run again with cfg.fsdp (phase 18 (c)).
 18. tooling — (a) flops_for, bytes_for and the one-card roofline bound
               (distributed/costs.py and roofline.py, the H100 SXM's
               datasheet peaks) of phase 6's top-1 cell and phase 5's
@@ -381,25 +392,31 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               weights: (a) served on (data 1, model 4) under
               ``make_rules(cfg, mesh)``, greedy, at full width and depth:
               zamba2-7b and xlstm-125m through ``ServingEngine(...,
-              rules=)`` (8 rows, 16 prompt tokens a token a step, 16
-              generated), seamless through ``encdec_greedy`` under the
-              rules (8 x 256 frames encoded, 8 tokens fed, greedy to 16);
+              rules=)`` (8 rows, 8 prompt tokens a token a step, 8
+              generated: the script's time), seamless through
+              ``encdec_greedy`` under the rules (8 x 256 frames encoded, 8
+              tokens fed, greedy to 16);
               every rank's tokens equal, and equal to the same run's on one
               device on the card but at reported near-ties of its top two
-              logits; the dense kernel launched zamba 14 x 31 and seamless
+              logits; the dense kernel launched zamba 14 x 15 and seamless
               2 x 24 x 15 times a rank, at the rank's head count and at
               shapes phase 3 holds, and nothing else (xlstm: no kernel);
               every rank's parameter bytes its placement's; per rank the
               mean decode step, tokens/s, collective seconds and launches
               a step, peak GB; (b) trained on (data 2, model 2), AdamW with
               ZeRO-1, 2 steps through the train CLI's parts: xlstm-125m at
-              its 12 layers (4 x 128: the sLSTM loop is eager), zamba2-7b at 7 layers (4 x 512),
+              4 of its 12 layers (the script's time; 4 x 128: the sLSTM
+              loop is eager), zamba2-7b at 7 layers (4 x 512),
               seamless at 4 + 4 layers (4 x 256); every rank's loss equal
               at every step, step 0 within compare_train_step's gates of
               one device on the card (loss 1e-3, gradient norm 2e-2, every
               leaf's cosine >= 0.99), no kernel launched, half the AdamW
               state a rank on every leaf with a free divisible dim; per
-              rank step ms, collective seconds, peak GB.
+              rank step ms, collective seconds, peak GB; then each family
+              again with cfg.fsdp in the same world: losses and every
+              final parameter block bit-equal to the run without FSDP,
+              the same launches (none), some leaves FSDP blocks, the peak
+              GB a rank beside the run without FSDP.
 20. report  — a {"kernels": [...]} line (decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
@@ -4708,7 +4725,7 @@ MIXED_PERIOD = 2                 # MoE in layers 0, 2 and 4 of m6-base's five
 MIXED_TRAIN_STEPS = 2
 XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--seq", "1024", "--log-every", "1"]
 XLSTM_TRAIN_STEPS = 2
-XLSTM_TRAIN_LAYERS = 4           # one sLSTM block and three mLSTM (phase 19 (b) trains all 12)
+XLSTM_TRAIN_LAYERS = 4           # one sLSTM block and three mLSTM (phase 19 (b) too)
 XLSTM_CPU_REQUESTS = 4           # the trace's first requests, served again on the CPU
 MORE_FAMILIES_KERNELS = ("moe_ffn", "paged_decode_attention", "ragged_ffn", "decode_attention")
 
@@ -6259,9 +6276,9 @@ def phase_mesh(torch, base_tokens, int8_tokens):
 MESH_TRAIN_SHAPE = (2, 2)       # (b): data x model, four processes that share the card
 MESH_TRAIN_ARGS = ["--arch", "m6-base", "--batch", "16", "--seq", "256", "--log-every", "1"]
 # (label, flags, layers, steps): 16 x 256 = 4096 tokens, G = 4 groups of the paper's 1024, two a
-# data rank, one a model rank; the first run at full depth, the other three cut to 2 layers
+# data rank, one a model rank; every run cut to 2 of m6-base's 5 layers (the script's time)
 MESH_TRAIN_RUNS = (
-    ("alltoall top-1", ["--moe-impl", "alltoall"], 5, 3),
+    ("alltoall top-1", ["--moe-impl", "alltoall"], 2, 3),
     ("alltoall 4 top-1", ["--moe-impl", "alltoall", "--routing", "prototype", "--k", "4"], 2, 2),
     ("dropless", ["--moe-impl", "dropless", "--capacity-factor", "none"], 2, 2),
     ("pallas", ["--moe-impl", "pallas"], 2, 2),
@@ -6270,16 +6287,26 @@ MESH_TRAIN_RUNS = (
 # two exchanges; of the ragged path's three, whose expert ids have no backward; none where the
 # experts are gathered whole
 MESH_TRAIN_A2A = {"alltoall": 6, "dropless": 8, "pallas": 0}
+# (b), after the runs in the same world: Fig. 4's MoE attention (``fig4_edits``) on the mesh,
+# (label, flags, layers, steps, Fig. 4 edit): top-1 at 16 x 256 (G = 4, two groups a data rank:
+# the attention experts split over "model") and 2 top-1 at phase 13's 8 x 144 (G = 1: one global
+# group, straddling the data ranks)
+MESH_TRAIN_FIG4 = (
+    ("moe attention top-1", ["--moe-impl", "pallas"], 2, 2, "top-1"),
+    ("moe attention 2 top-1", ["--moe-impl", "pallas", "--batch", "8", "--seq", "144"], 2, 2,
+     "2 top-1"),
+)
 MESH_TRAIN_TIMEOUT = 900
 # phase 18 (c): after the runs, this run again with ``cfg.fsdp`` in the same world
 MESH_TRAIN_FSDP = "pallas"
 # (b)'s kernel shapes, held against the plain versions in phase 3 and timed in phase 4
 # (``mesh_train_ranks`` fails where a run launches either kernel at another shape): moe_ffn
 # over the gathered experts (pallas) at X = 2 groups x C 40 on a rank and 4 groups on one
+# device, and at the straddling 2 top-1 run's one global group, C = 90, on a rank and on one
 # device; the ragged FFN (dropless: groups of 1024 tokens, bx 32, R 2016 rows a group) over a
 # rank's received buffer, one group from each model rank on its 16 of 32 experts, and over one
 # device's 4 groups
-MESH_TRAIN_MOE_X = {"rank": 80, "single device": 160}
+MESH_TRAIN_MOE_X = {"rank": 80, "single device": 160, "straddling 2 top-1": 90}
 MESH_TRAIN_GROUP, MESH_TRAIN_BX, MESH_TRAIN_R = 1024, 32, 2016
 MESH_TRAIN_RAGGED_ROWS = {"rank": 2 * MESH_TRAIN_R, "single device": 4 * MESH_TRAIN_R}
 MESH_TRAIN_TIMING = {"moe_ffn": [f"moe_ffn mesh train {k}" for k in MESH_TRAIN_MOE_X],
@@ -6414,16 +6441,62 @@ def mesh_train_trivial(torch):
     return dict(losses=losses, mean_step_ms=step_ms, moe_ffn_launches=got["moe_ffn"]), got
 
 
-def mesh_train_single(torch, flags, layers, path, device="cuda", base_args=MESH_TRAIN_ARGS):
+def mesh_train_edit(layers, fig4=None):
+    """A (b) run's config edit: ``layers`` deep, with Fig. 4's MoE attention
+    edit of ``fig4_edits`` labelled ``fig4`` (none: as the flags build it)."""
+    edit = dict(fig4_edits()).get(fig4, lambda cfg: cfg)
+    return lambda cfg: edit(cfg.replace(num_layers=layers))
+
+
+def route_calls(cfg) -> int:
+    """A forward's routing calls: one an MoE layer, two with MoE attention."""
+    return moe_layers(cfg) * (2 if cfg.moe.moe_attention else 1)
+
+
+def moe_attention_collectives(cfg, straddling: bool) -> dict:
+    """A train step's collectives of the MoE-attention layers, by kind and
+    axis, as ``core.moe_attention``'s module doc predicts them with the
+    experts split over "model" under remat (none without MoE attention): a
+    layer's 2 all-reduces over "model" forward, 2 in the recompute and 3 in
+    the backward; with its groups on the data rank, the loads' all-reduce
+    over "data" forward and in the recompute; straddling, 3 all-gathers
+    over "data" forward and in the recompute and 2 reduce-scatters in the
+    backward."""
+    n = moe_layers(cfg) if cfg.moe.moe_attention else 0
+    if not n:
+        return {}
+    if straddling:
+        return {"all-reduce": {"model": 7 * n}, "all-gather": {"data": 6 * n},
+                "reduce-scatter": {"data": 2 * n}}
+    return {"all-reduce": {"model": 7 * n, "data": 2 * n}}
+
+
+def placed_bytes(torch, cfg, rules, train: bool) -> int:
+    """The bytes of a rank's parameters under ``rules``' placement (the
+    router whole)."""
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.nn import flat_params, model_shapes
+
+    shapes = flat_params(model_shapes(cfg, train=train))
+    return sum(math.prod(sh.local_shape(shapes[k].shape))
+               * torch.empty((), dtype=torch_dtype(shapes[k].dtype)).element_size()
+               for k, sh in flat_params(param_shardings(model_shapes(cfg, train=train), rules,
+                                                        keep=("router",))).items())
+
+
+def mesh_train_single(torch, flags, layers, path, device="cuda", base_args=MESH_TRAIN_ARGS,
+                      fig4=None):
     """The single-device port on the card at a run's config and batch 0
     (``compare_train_step``'s quantities): loss, gradient norm and each
     forward routing call's routes and margins; the gradients written to
     ``path`` in bf16, by flat path, for the ranks to compare against."""
+    from repro_torch.core.moe import group_count
     from repro_torch.launch.train import build_parser, device_batch, setup
     from repro_torch.nn import flat_params
     from repro_torch.train.trainer import make_loss_fn
 
-    with cut_depth(layers):
+    with built_config(mesh_train_edit(layers, fig4)):
         cfg, _, _, state, pipeline = setup(build_parser().parse_args(
             base_args + flags + ["--device", device]))
     batch = device_batch(pipeline.batch_at(0), device)
@@ -6434,12 +6507,13 @@ def mesh_train_single(torch, flags, layers, path, device="cuda", base_args=MESH_
         grads = torch.autograd.grad(loss, list(flat.values()))
     norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
     torch.save({k: g.to(torch.bfloat16).cpu() for k, g in zip(flat, grads)}, path)
+    positions = batch["tokens"].shape[0] * (batch["tokens"].shape[1]
+                                            + batch["patch_embeds"].shape[1])
     out = dict(loss=float(loss.detach()), grad_norm=norm, tokens=batch["labels"].numel(),
-               batch_positions=batch["tokens"].shape[0] * (batch["tokens"].shape[1]
-                                                          + batch["patch_embeds"].shape[1]),
+               batch_positions=positions, groups=group_count(positions, cfg.moe),
                experts=cfg.moe.num_experts, kernel_shapes=set(shapes),
                seq=batch["tokens"].shape[1] + batch["patch_embeds"].shape[1],
-               routes=[tuple(t.cpu() for t in r) for r in routes[:moe_layers(cfg)]])
+               routes=[tuple(t.cpu() for t in r) for r in routes[:route_calls(cfg)]])
     del state, grads, flat, loss
     if sync(torch, batch["tokens"]):
         torch.cuda.empty_cache()
@@ -6473,14 +6547,18 @@ def mesh_cosines(torch, layout, grads, single) -> dict:
 
 def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
     """(b): one rank of the (2, 2) mesh, in a process of its own (gloo on the
-    card's CUDA tensors): each run through the train CLI's parts with this
-    rank's blocks of the seed's weights, its gradient cosines at step 0
-    against the single-device run's, its routes, launches, collectives,
-    step times, peak memory and ZeRO-1 state."""
+    card's CUDA tensors): each run (``(label, flags, layers, steps, the
+    single device's gradients, Fig. 4 edit)``) through the train CLI's
+    parts with this rank's blocks of the seed's weights, its gradient
+    cosines at step 0 against the single-device run's, its routes,
+    launches, collectives (the MoE-attention layers' apart), step times,
+    peak memory, parameter bytes and ZeRO-1 state; then the
+    ``MESH_TRAIN_FSDP`` run with ``cfg.fsdp``."""
     from unittest import mock
 
     import torch
 
+    from repro_torch.core.moe_attention import SCOPE
     from repro_torch.distributed import collectives
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.launch import train as train_mod
@@ -6496,13 +6574,13 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_debug_mesh(*MESH_TRAIN_SHAPE, device=device, backend="gloo")
     out, fsdp_base = [], None
-    for label, flags, layers, steps, path in runs:
+    for label, flags, layers, steps, path, fig4 in runs:
         args = train_mod.build_parser().parse_args(
             base_args + flags + ["--steps", str(steps), "--device", device])
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with cut_depth(layers):
+        with built_config(mesh_train_edit(layers, fig4)):
             cfg = train_mod.build(args)
             layout = MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
             _, _, step_fn, state, pipeline = train_mod.setup(args, layout)
@@ -6517,7 +6595,7 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             return real_clip(grads, max_norm, sum_squares)
 
         routes, losses, norms, step_ms, a2a, gathers, got = [], [], [], [], [], [], {}
-        shapes, step_collectives = {}, []
+        shapes, step_collectives, step_scoped = {}, [], []
         state_bytes = (tensor_bytes(state.params), tensor_bytes(state.opt_state))
         collectives.reset_counters()
         with counted_launches(got), recorded_ffn_shapes(shapes), \
@@ -6525,7 +6603,7 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             for step in range(steps):
                 batch = train_mod.device_batch(pipeline.batch_at(step), device)
                 before = (collectives.all_to_all.launches, collectives.all_gather.launches)
-                counted = collective_counts(collectives)
+                counted, scoped = collective_counts(collectives), collectives.scoped(SCOPE)
                 sync(torch, batch["tokens"])
                 t0 = time.perf_counter()
                 if step == 0:
@@ -6540,10 +6618,13 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
                 a2a.append(collectives.all_to_all.launches - before[0])
                 gathers.append(collectives.all_gather.launches - before[1])
                 step_collectives.append(counts_since(collective_counts(collectives), counted))
+                step_scoped.append(scoped_since(collectives.scoped(SCOPE), scoped))
         flat = flat_params(state.params)
         if label == MESH_TRAIN_FSDP:
-            fsdp_base = (args, layers, steps, losses, got,
-                         {k: p.detach().cpu() for k, p in flat.items()})
+            fsdp_base = dict(args=args, edit=mesh_train_edit(layers), steps=steps,
+                             losses=losses, launches=got,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                             params={k: p.detach().cpu() for k, p in flat.items()})
         zeroed = [k for k in flat if layout.zdim[k] is not None]
         halved = [k for k in zeroed
                   if state.opt_state["mu"][k].numel() * layout.nd == flat[k].numel()]
@@ -6551,7 +6632,7 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             label=label, rank=rank, coord=mesh.coord, losses=losses, grad_norms=norms,
             step_ms=step_ms, a2a=a2a, all_gathers=gathers, launches=got, cos=cos,
             kernel_shapes=set(shapes),
-            routes=[tuple(t.cpu() for t in r) for r in routes[:layers]],
+            routes=[tuple(t.cpu() for t in r) for r in routes[:route_calls(cfg)]],
             collective_s={fn.__name__: fn.seconds for fn in collectives.COUNTED},
             collective_launches={fn.__name__: fn.launches for fn in collectives.COUNTED},
             peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
@@ -6560,7 +6641,9 @@ def mesh_train_rank(rank, world, runs, device, base_args=MESH_TRAIN_ARGS):
             local_params=sum(p.numel() for p in flat.values()),
             state_elems=sum(t.numel() for sub in state.opt_state.values() for t in sub.values()),
             param_bytes=state_bytes[0], opt_state_bytes=state_bytes[1],
-            step_collectives=step_collectives))
+            placed_bytes=placed_bytes(torch, cfg, layout.rules, train=True),
+            attn_experts=flat["blocks/attn/wq"].shape[1] if "blocks/attn/wq" in flat else None,
+            step_collectives=step_collectives, step_moe_attention=step_scoped))
         del state, step_fn, flat, single
         if on_card:
             torch.cuda.empty_cache()
@@ -6598,22 +6681,37 @@ def counts_since(now: dict, before: dict) -> dict:
     return out
 
 
+def scoped_since(now: dict, before: dict) -> dict:
+    """{kind: {axis: launches}} of ``collectives.scoped`` between two
+    snapshots."""
+    out = {}
+    for kind, by in now.items():
+        d = {a: n - before.get(kind, {}).get(a, 0) for a, n in by.items()}
+        d = {a: n for a, n in d.items() if n}
+        if d:
+            out[kind] = d
+    return out
+
+
 def mesh_train_fsdp(torch, mesh, device, base):
-    """Phase 18 (c), on a rank of (b)'s world: the ``MESH_TRAIN_FSDP`` run
-    again with ``cfg.fsdp`` (the "embed" dim over "data", gathered at each
-    use): its losses and launches, and whether each of its final parameter
-    blocks equals the same block of that run's (``base``) bit for bit."""
+    """A run again with ``cfg.fsdp`` (the "embed" dim over "data", gathered
+    at each use), on a rank of the world that ran it (phase 18 (c): the
+    ``MESH_TRAIN_FSDP`` run of 17 (b); phase 19 (b): each family's): its
+    losses and launches, and whether each of its final parameter blocks
+    equals the same block of that run's bit for bit.  ``base``: that run's
+    flags (``args``), config edit, steps, losses, launches, peak GB and
+    final parameters on the host."""
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.launch import train as train_mod
     from repro_torch.nn import flat_params
     from repro_torch.train.layout import MeshLayout
 
-    args, layers, steps, base_losses, base_launches, base_params = base
+    args, edit, steps, base_params = base["args"], base["edit"], base["steps"], base["params"]
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    with built_config(lambda cfg: cfg.replace(num_layers=layers, fsdp=True)):
+    with built_config(lambda cfg: edit(cfg).replace(fsdp=True)):
         cfg = train_mod.build(args)
         layout = MeshLayout(cfg, make_rules(cfg, mesh, batch_sharded=True))
         _, _, step_fn, state, pipeline = train_mod.setup(args, layout)
@@ -6638,69 +6736,82 @@ def mesh_train_fsdp(torch, mesh, device, base):
             blocks += 1
         if not torch.equal(p.detach().cpu().view(torch.int32), want.view(torch.int32)):
             differ.append(k)
-    return dict(label="fsdp", losses=losses, base_losses=base_losses, launches=got,
-                base_launches=base_launches, differ=differ, fsdp_leaves=blocks,
+    return dict(label="fsdp", losses=losses, base_losses=base["losses"], launches=got,
+                base_launches=base["launches"], differ=differ, fsdp_leaves=blocks,
                 leaves=len(base_params), step_ms=step_ms,
                 local_params=sum(p.numel() for p in flat_params(state.params).values()),
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                base_peak_gb=base["peak_gb"])
 
 
 def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
-                     train_runs=MESH_TRAIN_RUNS):
+                     train_runs=MESH_TRAIN_RUNS, fig4_runs=MESH_TRAIN_FIG4):
     """(b): every run single-device on the card first (loss, gradients and
     routes of batch 0), then the (2, 2) mesh as four processes that share
-    the card, each running every run in turn.  Gates: every rank's loss
-    equal at every step; against the single-device run,
+    the card, each running every run in turn (``train_runs``, then Fig. 4's
+    MoE attention, ``fig4_runs``, then the FSDP run).  Gates: every rank's
+    loss equal at every step; against the single-device run,
     ``compare_train_step``'s (loss within 1e-3 + 10 / tokens per flipped
     token, gradient norm within 2e-2, every leaf's gradient cosine >= 0.99,
-    0.9 with flips; flips reported with their margins); all_to_all a step
-    = MoE layers x ``MESH_TRAIN_A2A``; ``moe_ffn`` (pallas) and the ragged
-    FFN (dropless) launched 2 x layers x steps, all on the tensor cores,
-    and no other kernel; every leaf with a free divisible dim keeps half
-    its AdamW state on a rank."""
+    0.9 with flips; flips, of every routing call, reported with their
+    margins); all_to_all a step = MoE layers x ``MESH_TRAIN_A2A``;
+    ``moe_ffn`` (pallas) and the ragged FFN (dropless) launched 2 x layers
+    x steps, all on the tensor cores, and no other kernel; every leaf with a
+    free divisible dim keeps half its AdamW state on a rank; a rank's
+    parameter bytes its placement's (MoE attention: E / 2 attention experts
+    a rank), and the MoE-attention layers' collectives a step
+    ``moe_attention_collectives``'."""
     import shutil
     import tempfile
 
+    from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import spawn
 
     Path(spawn_dir).mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=spawn_dir))
     on_card = torch.device(device).type == "cuda"
-    singles, runs = {}, []
-    for i, (label, flags, layers, steps) in enumerate(train_runs):
+    runs = [(*r, None) for r in train_runs] + list(fig4_runs)
+    singles, spawned = {}, []
+    for i, (label, flags, layers, steps, fig4) in enumerate(runs):
         path = work / f"grads-{i}.pt"
-        singles[label] = mesh_train_single(torch, flags, layers, str(path), device, base_args)
-        runs.append((label, flags, layers, steps, str(path)))
+        singles[label] = mesh_train_single(torch, flags, layers, str(path), device, base_args,
+                                           fig4)
+        spawned.append((label, flags, layers, steps, str(path), fig4))
     t0 = time.perf_counter()
     try:
         ranks = spawn(mesh_train_rank, 4, backend="gloo", init_file=str(work / "init"),
                       timeout=MESH_TRAIN_TIMEOUT,
-                      args=(runs, "cuda:0" if on_card else device, base_args))
+                      args=(spawned, "cuda:0" if on_card else device, base_args))
     finally:
         shutil.rmtree(work, ignore_errors=True)      # the gradient files, 6.2 GB at full width
     spawn_s = time.perf_counter() - t0
     D, M = MESH_TRAIN_SHAPE
     report, launches = {}, {"moe_ffn": 0, "ragged_ffn": 0}
-    for i, (label, flags, layers, steps) in enumerate(train_runs):
+    for i, (label, flags, layers, steps, fig4) in enumerate(runs):
         reps = [r[i] for r in ranks]
         one = singles[label]
         for r in reps:
             if r["losses"] != reps[0]["losses"]:
                 raise AssertionError(f"(b) {label}: rank {r['rank']}'s losses {r['losses']} "
                                      f"differ from rank 0's {reps[0]['losses']}")
-        data_ranks = [reps[d * M] for d in range(D)]          # model coordinate 0
-        mesh_routes = [tuple(torch.cat([dr["routes"][layer][j] for dr in data_ranks])
-                             for j in range(3)) for layer in range(layers)]
-        flips, _ = _flip_report(one["routes"], mesh_routes, layers, one["seq"],
+        straddling = one["groups"] % D != 0
+        # a data rank's routes are its own groups', or, where the groups
+        # straddle, every group's (model coordinate 0)
+        data_ranks = [reps[d * M] for d in range(1 if straddling else D)]
+        calls = len(one["routes"])
+        mesh_routes = [tuple(torch.cat([dr["routes"][c][j] for dr in data_ranks])
+                             for j in range(3)) for c in range(calls)]
+        flips, _ = _flip_report(one["routes"], mesh_routes, calls, one["seq"],
                                 f"(b) {label}, single device vs mesh")
         loss_tol = 1e-3 + 10.0 * len({r for _, r, _ in flips}) / one["tokens"]
         loss, norm = reps[0]["losses"][0], reps[0]["grad_norms"][0]
         cos = reps[0]["cos"]
         worst = min(cos, key=cos.get)
-        log(f"  (b) {label} ({layers} layers, {steps} steps): step-0 loss {loss:.6f} vs single "
-            f"device {one['loss']:.6f} (|diff| {abs(loss - one['loss']):.3g}, tolerance "
-            f"{loss_tol:.3g}); grad norm {norm:.5f} vs {one['grad_norm']:.5f}; lowest leaf "
-            f"gradient cosine {cos[worst]:.6f} ({worst}); {len(flips)} routing flips; losses "
+        log(f"  (b) {label} ({layers} layers, {steps} steps{', straddling' if straddling else ''}"
+            f"): step-0 loss {loss:.6f} vs single device {one['loss']:.6f} (|diff| "
+            f"{abs(loss - one['loss']):.3g}, tolerance {loss_tol:.3g}); grad norm {norm:.5f} vs "
+            f"{one['grad_norm']:.5f}; lowest leaf gradient cosine {cos[worst]:.6f} ({worst}); "
+            f"{len(flips)} routing flips over {calls} routing calls; losses "
             f"{[round(x, 4) for x in reps[0]['losses']]} on every rank")
         if abs(loss - one["loss"]) > loss_tol:
             raise AssertionError(f"(b) {label}: loss {loss} vs single device {one['loss']}")
@@ -6712,6 +6823,9 @@ def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
         impl = flags[flags.index("--moe-impl") + 1]
         want_a2a = MESH_TRAIN_A2A[impl] * layers
         E = singles[label]["experts"]
+        with built_config(mesh_train_edit(layers, fig4)):
+            cfg = train_mod.build(train_mod.build_parser().parse_args(base_args + flags))
+        want_scoped = moe_attention_collectives(cfg, straddling)
         want = {"pallas": {"moe_ffn": 2 * layers * steps},
                 "dropless": {"ragged_ffn": 2 * layers * steps}}.get(impl, {}) if on_card else {}
         if on_card:
@@ -6730,6 +6844,15 @@ def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
             if r["zero_halved"] != r["zero_leaves"] or not r["zero_leaves"]:
                 raise AssertionError(f"{tag}: {r['zero_halved']} of {r['zero_leaves']} leaves "
                                      f"with a free divisible dim keep half their AdamW state")
+            if r["param_bytes"] != r["placed_bytes"]:
+                raise AssertionError(f"{tag}: {r['param_bytes']} parameter bytes, its "
+                                     f"placement's {r['placed_bytes']}")
+            if fig4 is not None and r["attn_experts"] != E // M:
+                raise AssertionError(f"{tag}: {r['attn_experts']} attention experts, expected "
+                                     f"{E // M} of {E}")
+            if any(n != want_scoped for n in r["step_moe_attention"]):
+                raise AssertionError(f"{tag}: the MoE-attention layers' collectives a step "
+                                     f"{r['step_moe_attention']}, predicted {want_scoped}")
         for name in launches:
             launches[name] += reps[0]["launches"][name]
         tokens = one["batch_positions"]
@@ -6737,44 +6860,52 @@ def mesh_train_ranks(torch, spawn_dir, device="cuda", base_args=MESH_TRAIN_ARGS,
         for r in reps:
             steady = r["step_ms"][1:]
             ms = sum(steady) / len(steady)
+            share = sum(r["collective_s"].values()) / (sum(r["step_ms"]) / 1e3)
             rows.append(dict(coord=r["coord"], mean_step_ms=ms, tokens_per_s=tokens / (ms / 1e3),
                              first_step_ms=r["step_ms"][0], step_ms=r["step_ms"],
-                             collective_s=r["collective_s"],
+                             collective_s=r["collective_s"], collective_share=share,
                              collective_launches=r["collective_launches"],
                              peak_gb=r["peak_gb"], init_s=r["init_s"],
                              local_params=r["local_params"], adamw_state_elems=r["state_elems"]))
             log(f"    rank {r['rank']} {r['coord']}: mean step {ms:.1f} ms over steps 1-"
                 f"{steps - 1}, {tokens / (ms / 1e3):.0f} tokens/s (host clock, synced; the "
                 f"{tokens} positions of the global batch a step); collective s "
-                f"{ {k: round(v, 3) for k, v in r['collective_s'].items() if v} }; launches "
+                f"{ {k: round(v, 3) for k, v in r['collective_s'].items() if v} } "
+                f"({100 * share:.1f} % of the steps); launches "
                 f"{ {k: v for k, v in r['collective_launches'].items() if v} }; peak "
-                f"{fmt_gb(r['peak_gb'])}; {r['local_params'] / 1e6:.1f} M params held, AdamW "
+                f"{fmt_gb(r['peak_gb'])}; {r['local_params'] / 1e6:.1f} M params held "
+                f"({r['param_bytes'] / 1e9:.3f} GB, its placement's), AdamW "
                 f"state {r['state_elems'] / 1e6:.1f} M elements ({r['zero_halved']} of "
                 f"{r['leaves']} leaves halved); kernels "
                 f"{ {k: v for k, v in r['launches'].items() if v} }")
+        if want_scoped:
+            log(f"    the MoE-attention layers' collectives a step, as predicted: {want_scoped}; "
+                f"{reps[0]['attn_experts']} of {E} attention experts a rank")
         report[label] = dict(
             rank0={k: reps[0][k] for k in ("param_bytes", "opt_state_bytes", "step_collectives",
                                            "peak_gb")},
             layers=layers, steps=steps, experts_a_rank=E // M, losses=reps[0]["losses"],
+            straddling=straddling, moe_attention_collectives_a_step=want_scoped,
             single_device_loss=one["loss"], single_device_grad_norm=one["grad_norm"],
             grad_norm=norm, min_grad_cosine=cos[worst], min_cosine_leaf=worst,
             routing_flips=[(layer, tok, margin) for layer, tok, margin in flips],
             all_to_all_a_step=reps[0]["a2a"], all_gather_a_step=reps[0]["all_gathers"],
             ranks=rows)
-    fsdp = [r[len(train_runs)] for r in ranks if len(r) > len(train_runs)]
+    fsdp = [r[len(runs)] for r in ranks if len(r) > len(runs)]
     if fsdp:
-        report["fsdp"] = check_mesh_train_fsdp(fsdp)
+        report["fsdp"] = check_mesh_train_fsdp(fsdp, f"18 (c) {MESH_TRAIN_FSDP}")
     log(f"  (b) spawn to join {spawn_s:.1f} s (four processes, every run)")
     report["spawn_s"] = spawn_s
     return report, launches
 
 
-def check_mesh_train_fsdp(ranks) -> dict:
-    """Phase 18 (c)'s gates over the ranks' ``mesh_train_fsdp`` results:
-    losses and every final parameter block bit-equal to the run without
-    FSDP, the same kernel launches (and tensor-core routes)."""
+def check_mesh_train_fsdp(ranks, label: str) -> dict:
+    """The gates over the ranks' ``mesh_train_fsdp`` results of one run
+    (``label``: phase 18 (c)'s, or a family's in 19 (b)): losses and every
+    final parameter block bit-equal to the run without FSDP, the same
+    kernel launches (and tensor-core routes), some leaves FSDP blocks."""
     for r in ranks:
-        tag = f"18 (c) rank {ranks.index(r)}"
+        tag = f"{label} rank {ranks.index(r)}"
         if r["losses"] != r["base_losses"]:
             raise AssertionError(f"{tag}: FSDP losses {r['losses']} differ from "
                                  f"{r['base_losses']} without FSDP")
@@ -6788,14 +6919,16 @@ def check_mesh_train_fsdp(ranks) -> dict:
             raise AssertionError(f"{tag}: no leaf placed by FSDP")
     r = ranks[0]
     launched = {k: v for k, v in r["launches"].items() if v}
-    log(f"  18 (c) {MESH_TRAIN_FSDP} with cfg.fsdp, {len(r['losses'])} steps: losses "
+    log(f"  {label} with cfg.fsdp, {len(r['losses'])} steps: losses "
         f"{[round(x, 5) for x in r['losses']]} and all {r['leaves']} final param blocks "
         f"bit-equal to the run without FSDP on every rank ({r['fsdp_leaves']} leaves FSDP "
         f"blocks); launches {launched} as without FSDP; peak a rank "
-        f"{[fmt_gb(x['peak_gb']) for x in ranks]}; {r['local_params'] / 1e6:.1f} M params "
-        f"held by rank 0; steps {[round(x) for x in r['step_ms']]} ms")
+        f"{[fmt_gb(x['peak_gb']) for x in ranks]} (without FSDP "
+        f"{[fmt_gb(x['base_peak_gb']) for x in ranks]}); {r['local_params'] / 1e6:.1f} M "
+        f"params held by rank 0; steps {[round(x) for x in r['step_ms']]} ms")
     return dict(losses=r["losses"], launches=launched, fsdp_leaves=r["fsdp_leaves"],
                 leaves=r["leaves"], peak_gb=[x["peak_gb"] for x in ranks],
+                base_peak_gb=[x["base_peak_gb"] for x in ranks],
                 local_params=r["local_params"], step_ms=[x["step_ms"] for x in ranks])
 
 
@@ -6815,12 +6948,12 @@ def phase_mesh_train(torch):
 # ---------------------------------------------------------------------------
 
 # the dry run's cells (``repro_torch.launch.dryrun.trace_cell``): label -> (the train CLI's
-# flags, seq, batch, mesh axes) of phase 6's top-1 run on one device and of phase 17 (b)'s
-# first run as rank 0 of (data 2, model 2)
+# flags, seq, batch, mesh axes, layers: None for the config's) of phase 6's top-1 run on one
+# device and of phase 17 (b)'s first run as rank 0 of (data 2, model 2)
 TOOLING_CELLS = {
-    "phase 6": (TRAIN_ARGS, 144, 8, (("data", 1), ("model", 1))),
+    "phase 6": (TRAIN_ARGS, 144, 8, (("data", 1), ("model", 1)), None),
     "phase 17 (b)": (MESH_TRAIN_ARGS + MESH_TRAIN_RUNS[0][1], 256, 16,
-                     (("data", 2), ("model", 2))),
+                     (("data", 2), ("model", 2)), MESH_TRAIN_RUNS[0][2]),
 }
 DRYRUN_OUT = ROOT / "build" / "phase18-dryrun.json"
 
@@ -6837,8 +6970,10 @@ def dryrun_child(path: str) -> None:
     from repro_torch.launch.train import build, build_parser
 
     out = {}
-    for label, (argv, seq, batch, axes) in TOOLING_CELLS.items():
+    for label, (argv, seq, batch, axes, layers) in TOOLING_CELLS.items():
         cfg = build(build_parser().parse_args(argv))
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
         out[label] = trace_cell(cfg, ShapeConfig(label, seq, batch, "train"), axes)
     Path(path).write_text(json.dumps(out))
 
@@ -6967,10 +7102,10 @@ def phase_tooling(torch, serve, train, mesh_train, dry):
 MF_SERVE_MESH = (1, 4)          # (a): data x model, four processes that share the card
 MF_TRAIN_MESH = (2, 2)          # (b)
 MF_ARCHS = ("zamba2-7b", ENCDEC_ARCH, "xlstm-125m")
-MF_SERVE = (8, 16, 16)          # (a) zamba, xlstm: rows, prompt tokens (a token a step), generated
+MF_SERVE = (8, 8, 8)            # (a) zamba, xlstm: rows, prompt tokens (a token a step), generated
 MF_ENCDEC = (8, 256, 16)        # (a) encdec: rows, source frames, target tokens (ENCDEC_FEED fed)
 # (b): the train CLI's flags and the config's depth, a family (zamba at phase 14's 7 layers)
-MF_TRAIN = {"xlstm-125m": (["--batch", "4", "--seq", "128"], {}),
+MF_TRAIN = {"xlstm-125m": (["--batch", "4", "--seq", "128"], {"num_layers": XLSTM_TRAIN_LAYERS}),
             "zamba2-7b": (["--batch", "4", "--seq", "512"], {"num_layers": ZAMBA_CUT_LAYERS}),
             ENCDEC_ARCH: (["--batch", "4", "--seq", "256"],
                           {"num_layers": 4, "num_encoder_layers": 4})}
@@ -7143,10 +7278,9 @@ def mf_serve_rank(torch, mesh, arch, device, smoke=False):
     placement's, then ``mf_generate`` under ``make_rules(cfg, mesh)`` with
     the kernel counters and the collective counters from 0, the dense
     kernel's call shapes recorded; the peak memory of the rank's process."""
-    from repro_torch.configs.base import torch_dtype
     from repro_torch.distributed import collectives
-    from repro_torch.distributed.sharding import make_rules, param_shardings, placement
-    from repro_torch.nn import flat_params, init_params, model_shapes
+    from repro_torch.distributed.sharding import make_rules, placement
+    from repro_torch.nn import init_params
 
     cfg = mf_config(arch, smoke)
     rules = make_rules(cfg, mesh)
@@ -7163,11 +7297,7 @@ def mf_serve_rank(torch, mesh, arch, device, smoke=False):
                 torch.cuda.empty_cache()
         torch.distributed.barrier()
     init_s = time.perf_counter() - t0
-    shapes = flat_params(model_shapes(cfg))
-    placed = sum(math.prod(sh.local_shape(shapes[k].shape))
-                 * torch.empty((), dtype=torch_dtype(shapes[k].dtype)).element_size()
-                 for k, sh in flat_params(param_shardings(model_shapes(cfg), rules,
-                                                          keep=("router",))).items())
+    placed = placed_bytes(torch, cfg, rules, train=False)
     got, calls, wall = {}, set(), []
 
     @contextmanager
@@ -7235,7 +7365,8 @@ def mf_train_rank(torch, mesh, arch, path, device, smoke=False):
     rank's blocks of the seed's weights, AdamW with ZeRO-1; step 0's
     gradient cosines a leaf against the single device's (``path``), every
     step's loss, gradient norm and host time, the kernel launches, the
-    collectives, the peak memory and the ZeRO-1 state a leaf."""
+    collectives, the peak memory and the ZeRO-1 state a leaf.  Returns
+    (those, the run as ``mesh_train_fsdp`` takes it)."""
     from unittest import mock
 
     from repro_torch.distributed import collectives
@@ -7276,6 +7407,9 @@ def mf_train_rank(torch, mesh, arch, path, device, smoke=False):
             sync(torch, batch["tokens"])
             step_ms.append((time.perf_counter() - t0) * 1e3)
     flat = flat_params(state.params)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    base = dict(args=args, edit=mf_train_edit(arch, smoke), steps=MF_TRAIN_STEPS, losses=losses,
+                launches=got, peak_gb=peak, params={k: p.detach().cpu() for k, p in flat.items()})
     zeroed = [k for k in flat if layout.zdim[k] is not None]
     halved = [k for k in zeroed
               if state.opt_state["mu"][k].numel() * layout.nd == flat[k].numel()]
@@ -7284,18 +7418,18 @@ def mf_train_rank(torch, mesh, arch, path, device, smoke=False):
                collective_s={fn.__name__: fn.seconds for fn in collectives.COUNTED},
                collective_launches={fn.__name__: fn.launches for fn in collectives.COUNTED},
                zero_leaves=len(zeroed), zero_halved=len(halved), leaves=len(flat),
-               local_params=sum(p.numel() for p in flat.values()),
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+               local_params=sum(p.numel() for p in flat.values()), peak_gb=peak)
     del state, step_fn, flat, single
     if cuda:
         torch.cuda.empty_cache()
-    return out
+    return out, base
 
 
 def mesh_family_rank(rank, world, train_paths, device, smoke=False):
     """One of phase 19's four processes: (a) every family served on the
-    (1, 4) mesh, then (b) every family trained on the (2, 2) mesh, in one
-    gloo world that shares the card."""
+    (1, 4) mesh, then (b) every family trained on the (2, 2) mesh, and
+    again with ``cfg.fsdp`` (``mesh_train_fsdp``), in one gloo world that
+    shares the card."""
     import torch
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -7305,13 +7439,15 @@ def mesh_family_rank(rank, world, train_paths, device, smoke=False):
         torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = {"serve": {}, "train": {}}
+    out = {"serve": {}, "train": {}, "fsdp": {}}
     mesh = make_debug_mesh(*MF_SERVE_MESH, device=device, backend="gloo")
     for arch in MF_ARCHS:
         out["serve"][arch] = mf_serve_rank(torch, mesh, arch, device, smoke)
     mesh = make_debug_mesh(*MF_TRAIN_MESH, device=device, backend="gloo")
     for arch, path in train_paths.items():
-        out["train"][arch] = mf_train_rank(torch, mesh, arch, path, device, smoke)
+        out["train"][arch], base = mf_train_rank(torch, mesh, arch, path, device, smoke)
+        out["fsdp"][arch] = mesh_train_fsdp(torch, mesh, device, base)
+        del base
     return out
 
 
@@ -7459,9 +7595,12 @@ def mesh_family_runs(torch, spawn_dir, device="cuda", smoke=False):
         report["serve"][arch] = mf_serve_report(arch, cfg, singles[arch], reps, device)
         for k in KERNEL_NAMES:
             launches[k] = launches.get(k, 0) + reps[0]["launches"][k]
+    report["fsdp"] = {}
     for arch in MF_TRAIN:
         report["train"][arch] = mf_train_report(arch, trains[arch],
                                                 [r["train"][arch] for r in ranks], device)
+        report["fsdp"][arch] = check_mesh_train_fsdp([r["fsdp"][arch] for r in ranks],
+                                                     f"(b) {arch}")
     log(f"  one device first {single_s:.1f} s; the four ranks' spawn to join {spawn_s:.1f} s")
     report.update(single_s=single_s, spawn_s=spawn_s)
     return report, launches

@@ -35,6 +35,12 @@ group (:func:`name_group`; ``"group"`` for a group no mesh named).  Under
 gloo a CUDA tensor is staged through host memory, so those seconds are
 the copies and the exchange.
 
+Under :func:`scope` a call is also counted in ``.scoped`` by (the
+scope's name, the mesh axis), and so is each collective its backward
+runs, under the scope its forward ran in: one layer's collectives,
+forward, remat recompute and backward, apart from the step's others
+(``core.moe_attention`` counts its own so).
+
 The bytes follow the reference's HLO parser (``repro.distributed.hlo``):
 an all-reduce counts twice its operand (a ring: reduce-scatter then
 all-gather), an all-gather the gathered size, a reduce-scatter its input,
@@ -45,20 +51,36 @@ nothing moves.
 """
 from __future__ import annotations
 
+import contextlib
 import time
+import types
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
 # the mesh axis (or joint axes) each process group spans, for the byte counts
 _GROUP_NAMES: Dict[object, str] = {}
+# the name of the scope the collectives run in (process-wide, as the rules
+# are: a CUDA backward runs on an autograd thread of its own)
+_scope = types.SimpleNamespace(name=None)
 
 
 def name_group(group, axis: str) -> None:
     """Count the bytes of collectives over ``group`` under ``axis``."""
     _GROUP_NAMES[group] = axis
+
+
+@contextlib.contextmanager
+def scope(name: Optional[str]):
+    """Count the collectives run inside, and those of their backward, in
+    ``.scoped[name, axis]`` too."""
+    prev, _scope.name = _scope.name, name
+    try:
+        yield
+    finally:
+        _scope.name = prev
 
 
 def _size(group) -> int:
@@ -72,10 +94,13 @@ def _rank(group) -> int:
 def _count(fn, t0: float, group, wire: float, result: float) -> None:
     """One call of ``fn`` over ``group``: ``wire`` bytes by the module
     doc's convention, ``result`` the bytes of its result (the HLO's)."""
+    axis = _GROUP_NAMES.get(group, "group")
     fn.launches += 1
     fn.seconds += time.perf_counter() - t0
-    fn.bytes[_GROUP_NAMES.get(group, "group")] += wire
+    fn.bytes[axis] += wire
     fn.result_bytes += result
+    if _scope.name is not None:
+        fn.scoped[_scope.name, axis] += 1
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -101,13 +126,14 @@ def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torc
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, split_axis, concat_axis):
-        ctx.args = (group, split_axis, concat_axis)
+        ctx.args, ctx.scope = (group, split_axis, concat_axis), _scope.name
         return _exchange(x, group, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, g):
         group, split_axis, concat_axis = ctx.args
-        return _exchange(g, group, concat_axis, split_axis), None, None, None
+        with scope(ctx.scope):
+            return _exchange(g, group, concat_axis, split_axis), None, None, None
 
 
 def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
@@ -160,14 +186,15 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, grad):
-        ctx.args = (group, dim, grad)
+        ctx.args, ctx.scope = (group, dim, grad), _scope.name
         return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         group, dim, grad = ctx.args
         if grad == "sum":
-            return _reduce_scatter(g, group, dim), None, None, None
+            with scope(ctx.scope):
+                return _reduce_scatter(g, group, dim), None, None, None
         return _chunk(g, group, dim).contiguous(), None, None, None
 
 
@@ -206,12 +233,13 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.scope = group, _scope.name
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g, ctx.group), None
+        with scope(ctx.scope):
+            return _reduce(g, ctx.group), None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -224,13 +252,14 @@ def copy_to(x: torch.Tensor, group) -> torch.Tensor:
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.args = (group, dim)
+        ctx.args, ctx.scope = (group, dim), _scope.name
         return _chunk(x, group, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
         group, dim = ctx.args
-        return _gather(g, group, dim), None, None
+        with scope(ctx.scope):
+            return _gather(g, group, dim), None, None
 
 
 def scatter_to(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -271,6 +300,7 @@ def reset_counters() -> None:
         fn.seconds = 0.0
         fn.bytes = defaultdict(float)
         fn.result_bytes = 0.0
+        fn.scoped = defaultdict(int)
 
 
 reset_counters()
@@ -298,3 +328,14 @@ def bytes_by_axis() -> Dict[str, float]:
         for axis, b in fn.bytes.items():
             out[axis] += b
     return dict(out)
+
+
+def scoped(name: str) -> Dict[str, Dict[str, int]]:
+    """The launches counted under :func:`scope` ``name`` since
+    :func:`reset_counters`, by kind (the HLO parser's name) and mesh axis."""
+    out: Dict[str, Dict[str, int]] = {}
+    for fn in COUNTED:
+        for (s, axis), n in fn.scoped.items():
+            if s == name:
+                out.setdefault(KINDS[fn.__name__], {})[axis] = n
+    return out

@@ -16,7 +16,8 @@ runs one process and holds its own slices, which :func:`shard_params` cuts
 (and :func:`placement` cuts as ``init_params`` draws each leaf), and the
 code that needs another rank's slice asks for it through
 :mod:`repro_torch.distributed.collectives` (FSDP's blocks through
-:func:`fsdp_gather`, at each use).  So :func:`shard`, the
+:func:`fsdp_gather`, at each use, in every family's forward).  So
+:func:`shard`, the
 reference's activation constraint, is a no-op here; the model code asks
 :func:`tensor_parallel` and :func:`data_parallel` whether the active rules
 give it a block of a param axis or a rank's rows of the batch.  A
@@ -130,26 +131,6 @@ def make_rules(cfg, mesh, *, expert_axis: Optional[str] = None,
         "vocab": params["vocab"], "expert": params["expert"], "cache_seq": None,
     }
     return Rules(mesh, params, acts, cfg=cfg, batch_sharded=batch_sharded)
-
-
-def tree_name(cfg) -> str:
-    """The name of ``cfg``'s param tree: its family's, or "moe_attention"."""
-    return "moe_attention" if cfg.moe.moe_attention else cfg.family
-
-
-def unsharded_forms(cfg, model: int, fsdp: bool) -> list:
-    """What ``cfg``'s tree lacks to run on a mesh with ``model`` ranks on
-    the model axis (and FSDP where ``fsdp``): MoE attention has no
-    tensor-parallel form, and FSDP gathers only the decoder-LM trees'
-    blocks."""
-    out = []
-    if model > 1 and cfg.moe.moe_attention:
-        out.append(f"a model axis of {model} for the {tree_name(cfg)} tree (no "
-                   f"tensor-parallel form)")
-    if fsdp and cfg.family in ("xlstm", "zamba", "encdec"):
-        out.append(f"cfg.fsdp for the {cfg.family} tree (FSDP gathers the decoder-LM "
-                   f"trees only)")
-    return out
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

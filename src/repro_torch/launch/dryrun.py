@@ -19,15 +19,15 @@ microbatching.  It records:
 * the peak bytes of the rank's live tensors (``distributed.meta_trace``)
   and the parameter and optimizer-state bytes the rank holds;
 * the collectives' launches and bytes by kind and by mesh axis
-  (``distributed.collectives``), the trace's aten ops, and the FLOPs
+  (``distributed.collectives``), and the MoE-attention layers' own
+  launches (``collectives.scoped``), the trace's aten ops, and the FLOPs
   ``FlopCounterMode`` counts (``distributed.costs.counted_flops``);
 * the roofline of the analytic models (``distributed.costs``) against
   the H100's datasheet peaks (``distributed.roofline``).
 
 Every number is analytic or a ``meta`` count against datasheet peaks, not
-a measurement.  A cell that raises (MoE attention, which has no tensor-parallel
-form, on a model axis above 1, say) is recorded with ``status: "error"`` and its
-reason, as the reference records one.
+a measurement.  A cell that raises is recorded with ``status: "error"`` and
+its reason, as the reference records one.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --mesh both \\
@@ -52,6 +52,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.configs.registry import ALL_IDS, ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES, shapes_for
+from repro_torch.core import moe_attention
 from repro_torch.distributed import collectives
 from repro_torch.distributed.costs import bytes_for, counted_flops, flops_for
 from repro_torch.distributed.meta_trace import MetaTrace
@@ -67,7 +68,6 @@ from repro_torch.distributed.sharding import (
     dp_axes,
     make_rules,
     placement,
-    unsharded_forms,
     use_rules,
 )
 from repro_torch.launch.mesh import make_mesh, production_mesh_axes
@@ -247,15 +247,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, axes, *, expert_axis=None,
     world = math.prod(n for _, n in axes)
     fake_world(world)
     mesh = make_mesh(axes, "meta", "fake")
-    bad = unsharded_forms(cfg, mesh.shape.get("model", 1), False)
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
     build = {"train": _train_cell, "prefill": _prefill_cell}.get(shape.kind, _decode_cell)
     t0 = time.perf_counter()
     cfg, run, inputs, held, info, mf = build(cfg, shape, mesh, expert_axis)
-    bad = unsharded_forms(cfg, mesh.shape.get("model", 1), cfg.fsdp)
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
     collectives.reset_counters()
     trace = MetaTrace()
     with trace:
@@ -270,6 +264,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, axes, *, expert_axis=None,
                         for fn in collectives.COUNTED}
     coll["bytes"] = {collectives.KINDS[fn.__name__]: dict(fn.bytes)
                      for fn in collectives.COUNTED}
+    coll["moe_attention"] = collectives.scoped(moe_attention.SCOPE)
     n_params = count_params(cfg)
     rl = Roofline(flops=flops_for(cfg, shape), bytes_accessed=bytes_for(cfg, shape, n_params),
                   collective_bytes=coll["total"] * world, chips=world, model_flops=mf,

@@ -62,14 +62,13 @@ alone prints and writes the checkpoints, the logs and the traces.
 ``--mesh-backend`` alone runs the (1, 1) mesh in this process (a world-1
 group), whose step is the single-device one bit for bit.  A config with
 ``fsdp`` set (no flag, as in the reference: the dry run sets it) trains
-with the "embed" dim of the decoder-LM trees over the data axes.
-The xLSTM, zamba and encdec trees train on a model axis too
+with the "embed" dim of every tree over the data axes.  Every tree trains
+on a model axis: the xLSTM, zamba and encdec trees
 (``--arch zamba2-7b --data 2 --model 2``: the Mamba2 blocks' heads, the
 shared block's heads and FFN, the attention heads of encdec, the sLSTM
-FFN and every vocab over "model").  Refused on a mesh, with a reason:
-``--model`` above 1 for the MoE attention tree (its layers have no
-tensor-parallel form here; ``--data`` above 1 trains it), and
-``cfg.fsdp`` for the xLSTM, zamba and encdec trees.
+FFN and every vocab over "model"), and MoE attention's experts (Fig. 4's
+config, through ``build``: no flag, as in the reference), whose groups
+may straddle the data ranks, as the MoE FFN's may.
 ``--moe-impl alltoall`` without a mesh trains, as the reference's does,
 as ``gather``.
 ``--routing`` takes all four of the reference's routers
@@ -140,27 +139,16 @@ def on_mesh(args) -> bool:
             or "WORLD_SIZE" in os.environ)
 
 
-def _unported(args, cfg) -> list:
-    """Flags set to something this port does not implement, with why."""
-    from repro_torch.distributed.sharding import unsharded_forms
-
-    return unsharded_forms(cfg, args.model, on_mesh(args) and cfg.fsdp)
-
-
 def make_layout(args):
-    """The ``MeshLayout`` of the flags' training mesh: the flags refused
-    before any rank joins a group, then the default process group joined
-    (``torch.distributed.run``'s environment, or a world-1 group for the
-    (1, 1) mesh), this rank's device, the rules with the batch sharded
-    over "data"."""
+    """The ``MeshLayout`` of the flags' training mesh: the default process
+    group joined (``torch.distributed.run``'s environment, or a world-1
+    group for the (1, 1) mesh), this rank's device, the rules with the
+    batch sharded over "data"."""
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.launch.mesh import make_debug_mesh, rank_device
     from repro_torch.train.layout import MeshLayout
 
     cfg = build(args)
-    bad = _unported(args, cfg)
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -218,9 +206,6 @@ def parts(args, layout=None):
     """(cfg, tc, optimizer, train_step, pipeline) as ``main`` builds them
     (``layout``: a mesh rank's, from :func:`make_layout`)."""
     cfg = build(args)
-    bad = _unported(args, cfg)
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
     tc = TrainConfig(
         optimizer=args.optimizer or ("adafactor" if cfg.name == "m6-1t" else "adamw"),
         # from the flag, not the resolved optimizer, as the reference: m6-1t's

@@ -28,9 +28,10 @@ attends over its heads, its cache holds its kv heads, and the output is
 all-reduced (the input enters through ``collectives.copy_to``).  Where
 the kv heads do not divide over the axis, ``wk`` and ``wv`` are whole on
 every rank and a rank projects only the kv heads its q heads read; where
-a rank's block of the heads is not whole heads, the layer gathers its
-projections and every rank computes every head.  Cross-attention is
-head-parallel the same way: :func:`project_kv` gives a rank's kv heads of
+a rank's block of the heads is not whole heads, or where a rank's q heads
+with the kv heads whole are neither whole GQA groups nor within one, the
+layer gathers its projections and every rank computes every head.
+Cross-attention is head-parallel the same way: :func:`project_kv` gives a rank's kv heads of
 the memory (its input through ``copy_to``), the rank's q heads attend over
 them, and ``wo``'s output is all-reduced."""
 from __future__ import annotations
@@ -203,7 +204,8 @@ def _head_parallel(params, cfg: ModelConfig):
         return group, "gather"
     if params["wk"]["kernel"].shape[-1] != cfg.num_kv_heads * hd:
         return group, None
-    return group, rank_kv_heads(cfg, *tp[1:])
+    kv = rank_kv_heads(cfg, *tp[1:])
+    return group, "gather" if kv is None else kv
 
 
 def _gathered_heads(params, cfg: ModelConfig, group):
@@ -225,15 +227,14 @@ def _gathered_heads(params, cfg: ModelConfig, group):
     return out
 
 
-def rank_kv_heads(cfg: ModelConfig, n: int, r: int) -> Tuple[int, int]:
+def rank_kv_heads(cfg: ModelConfig, n: int, r: int) -> Optional[Tuple[int, int]]:
     """The kv heads (lo, hi) that rank ``r`` of ``n`` on the heads' axis
-    reads: those of its q heads ``r * Hq / n ...``.  Its q heads must be
-    whole GQA groups or lie within one."""
+    reads: those of its q heads ``r * Hq / n ...``; None where its q heads
+    are neither whole GQA groups nor within one (the layer then gathers its
+    projections: every rank computes every head)."""
     hq, G = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
     if hq % G and G % hq:
-        raise NotImplementedError(
-            f"{hq} q heads a rank in GQA groups of {G}: a rank's q heads are neither whole "
-            f"groups nor within one")
+        return None
     return r * hq // G, ((r + 1) * hq - 1) // G + 1
 
 
@@ -246,8 +247,8 @@ def local_kv_heads(cfg: ModelConfig) -> int:
     n = tp[1]
     if tensor_parallel("kv_heads") is not None and cfg.num_kv_heads % n == 0:
         return cfg.num_kv_heads // n
-    lo, hi = rank_kv_heads(cfg, n, tp[2])
-    return hi - lo
+    kv = rank_kv_heads(cfg, n, tp[2])
+    return cfg.num_kv_heads if kv is None else kv[1] - kv[0]
 
 
 def _rank_projections(params, cfg: ModelConfig, group, kv):

@@ -27,7 +27,10 @@ in place, so a state is made and used under ``torch.inference_mode()``.
 A decode step (S = 1) runs the dense decode attention kernel twice a
 layer: over the layer's self cache, every row at length + 1, and over its
 cross K/V, every row at S_src.  No serving engine takes this family, as
-in the reference (``models.registry``)."""
+in the reference (``models.registry``).  Under FSDP
+(``sharding.fsdp_gather``) each block gathers its leaves inside its remat
+region, and each function gathers the outer leaves it reads once a call
+(the one table serves the lookup and the unembedding from one gather)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -39,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import MoEContext
 from repro_torch.core.metrics import empty_aux
 from repro_torch.core.moe import moe_ffn_apply
+from repro_torch.distributed.sharding import fsdp_gather
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache, attention_apply, project_kv
 from repro_torch.models.transformer import (
@@ -59,13 +63,21 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
+def _outer(params, *keys):
+    """``params`` with the outer leaves ``keys`` gathered whole where the
+    active rules place them by FSDP (once a call)."""
+    return {**params, **fsdp_gather({k: params[k] for k in keys})}
+
+
 def encode(params, frames, cfg: ModelConfig):
     """frames (B, S_src, d_model) -> the memory (B, S_src, d_model)."""
     B, S, _ = frames.shape
     positions = torch.arange(S, device=frames.device)[None, :].expand(B, S)
     x = frames.to(cfg.activation_dtype)
+    params = _outer(params, "enc_norm")
 
     def body(h, bp):
+        bp = fsdp_gather(bp, "encoder/", lead=1)
         a = L.norm_apply(bp["ln_attn"], h, cfg)
         attn, _ = attention_apply(bp["attn"], a, cfg, positions=positions, causal=False)
         h = h + attn
@@ -103,12 +115,14 @@ def _positions(start: int, B: int, S: int, device):
 def decode_train(params, tokens, memory, cfg: ModelConfig, ctx: Optional[MoEContext] = None):
     """Teacher-forcing decoder forward over ``memory`` (the encoder's
     output); returns (logits (B, S, V_pad), aux)."""
+    params = _outer(params, "embed", "final_norm")
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape
     positions = _positions(0, B, S, x.device)
     ctx = (ctx or MoEContext()).with_tokens(tokens, positions)
 
     def body(h, bp):
+        bp = fsdp_gather(bp, "decoder/", lead=1)
         mem_kv = project_kv(bp["cross_attn"], memory, cfg)
         h, aux, _ = _dec_block(bp, h, mem_kv, cfg, positions=positions, ctx=ctx)
         return h, aux
@@ -130,7 +144,7 @@ def encdec_train_apply(params, frames, tokens, cfg: ModelConfig,
 def init_state(params, memory, cfg: ModelConfig, max_len: int) -> EncDecState:
     """Every decoder layer's cross K/V of ``memory`` and zeroed
     ``max_len`` self caches, length 0, on the memory's device."""
-    kvs = [project_kv(bp["cross_attn"], memory, cfg)
+    kvs = [project_kv(fsdp_gather(bp["cross_attn"], "decoder/cross_attn/", lead=1), memory, cfg)
            for bp in unstack_layers(params["decoder"], cfg.num_layers)]
     caches = init_caches(cfg, memory.shape[0], max_len, device=memory.device)
     return EncDecState(caches, torch.stack([k for k, _ in kvs]),
@@ -142,13 +156,15 @@ def decode_step(params, tokens, state: EncDecState, cfg: ModelConfig,
     """tokens (B, S) -> (logits (B, S, V_pad), new state): the self caches
     take this step's K/V in place at their length.  Positions are absolute,
     from that length, and the MoE context carries them with the tokens."""
+    params = _outer(params, "embed", "final_norm")
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape
     caches = state.self_cache
     positions = _positions(caches.length, B, S, x.device)
     ctx = (ctx or MoEContext()).with_tokens(tokens, positions)
     for i, bp in enumerate(unstack_layers(params["decoder"], cfg.num_layers)):
-        x, _, _ = _dec_block(bp, x, (state.cross_k[i], state.cross_v[i]), cfg,
+        x, _, _ = _dec_block(fsdp_gather(bp, "decoder/", lead=1), x,
+                             (state.cross_k[i], state.cross_v[i]), cfg,
                              positions=positions, cache=caches_index(caches, i), ctx=ctx)
     x = L.norm_apply(params["final_norm"], x, cfg)
     new_caches = KVCache(caches.k, caches.v, caches.length + S)

@@ -30,7 +30,9 @@ through ``copy_to``, whose backward sums the ranks' parts of its
 gradient.  The conv's leaves are whole too (``sharding.HELD_WHOLE``): a
 rank convolves its x channels and the B and C channels with their columns.
 The SSD scan and the decode state (:class:`Mamba2State`) hold the rank's
-heads and conv channels.
+heads and conv channels.  Where a rank's block of the channels is not
+whole heads, the block gathers its channel-sharded leaves and every rank
+computes every head (its state too).
 """
 from __future__ import annotations
 
@@ -60,12 +62,28 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 
 def _heads_split(cfg: ModelConfig):
     """(process group, ranks, rank) of the model axis over which the active
-    rules shard the heads' channels, or None."""
+    rules shard the heads' channels in whole heads, or None (no rules, the
+    channels unsharded, or a rank's block of them not whole heads: the
+    block then computes every head, :func:`_gathered_channels`)."""
     tp = tensor_parallel("ssm_inner")
-    if tp is not None and _dims(cfg)[1] % tp[1]:
-        raise NotImplementedError(f"{_dims(cfg)[1]} SSM heads over {tp[1]} ranks: a rank's "
-                                  f"block of the channels is not whole heads")
-    return tp
+    return tp if tp is not None and _dims(cfg)[1] % tp[1] == 0 else None
+
+
+# the leaves the rules shard by the heads' channels, and that dim
+_CHANNEL_DIMS = {"in_z": -1, "in_x": -1, "head_norm": -1, "out_proj": -2}
+
+
+def _gathered_channels(params, d_inner: int):
+    """The block's channel-sharded leaves whole where the active rules shard
+    them and a rank's block is not whole heads: all-gathered over the model
+    axis, so that every rank computes every head, as the reference's GSPMD
+    computes the block (``grad="slice"``: the gather's backward keeps a
+    rank its own block's gradient)."""
+    tp = tensor_parallel("ssm_inner")
+    if tp is None or params["in_x"].shape[-1] == d_inner:
+        return params
+    return {**params, **{k: collectives.all_gather(params[k], tp[0], dim=d, grad="slice")
+                         for k, d in _CHANNEL_DIMS.items()}}
 
 
 def _rank_leaves(params, cfg: ModelConfig, group, n: int, r: int):
@@ -196,7 +214,9 @@ def mamba2_block_apply(params, x, cfg: ModelConfig, *, state: Optional[Mamba2Sta
     tp = _heads_split(cfg)
     if tp is not None and params["in_x"].shape[-1] == d_inner:
         tp = None                           # a whole block
-    if tp is not None:
+    if tp is None:
+        params = _gathered_channels(params, d_inner)
+    else:
         h = collectives.copy_to(h, tp[0])
         params = _rank_leaves(params, cfg, *tp)
         d_inner, H = d_inner // tp[1], H // tp[1]

@@ -27,7 +27,9 @@ FFN is tensor-parallel: ``ffn_down`` row-parallel (a rank's block of the
 are u's ``pf`` and then the gate's, whole on every rank
 (``sharding.HELD_WHOLE``; a block of it would give a rank u columns
 without their gates): a rank reads its units' columns of each half,
-through ``collectives.copy_to``, as it reads its FFN input.
+through ``collectives.copy_to``, as it reads its FFN input.  Under FSDP
+(``sharding.fsdp_gather``) each block gathers its leaves inside its remat
+region, and the table and final norm are gathered once a call.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.metrics import empty_aux
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import tensor_parallel
+from repro_torch.distributed.sharding import fsdp_gather, tensor_parallel
 from repro_torch.models import layers as L
 from repro_torch.nn.spec import ParamShape, _norm, padded_vocab
 
@@ -349,15 +351,20 @@ def xlstm_apply(params, tokens, cfg: ModelConfig, *, states: Optional[List] = No
     (one per block) means a decode step; without them each block is
     recomputed in the backward pass under ``cfg.remat``.  The unembedding
     is tied to the embedding table."""
+    params = {**params, **fsdp_gather({k: v for k, v in params.items() if k != "blocks"})}
     x = L.embedding_apply(params["embed"], tokens, cfg)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
         st = states[i] if states is not None else None
         fn = slstm_block_apply if _is_slstm(cfg, i) else mlstm_block_apply
+
+        def block(p, h, st=None, f=fn, i=i):
+            return f(fsdp_gather(p, f"blocks/{i}/"), h, cfg, state=st)
+
         if cfg.remat and states is None and torch.is_grad_enabled():
-            x, ns = checkpoint(lambda p, h, f=fn: f(p, h, cfg), bp, x, use_reentrant=False)
+            x, ns = checkpoint(block, bp, x, use_reentrant=False)
         else:
-            x, ns = fn(bp, x, cfg, state=st)
+            x, ns = block(bp, x, st)
         new_states.append(ns)
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = L.unembed_apply(params["embed"], x, cfg)

@@ -24,7 +24,11 @@ The reference's scan over segments and its unrolled loop compute the
 same thing; the port has one loop over :func:`_segments`.  ``cfg.remat``
 recomputes each Mamba2 block and each shared application in the backward
 pass (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-does around the scan bodies."""
+does around the scan bodies.  Under FSDP (``sharding.fsdp_gather``) each
+Mamba2 block gathers its leaves inside its remat region; the shared block,
+the table and the final norm are gathered once a call, so that the shared
+block's gradient sums over its applications on a rank before it sums over
+the data ranks, in the order of the run without FSDP."""
 from __future__ import annotations
 
 import math
@@ -35,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.metrics import empty_aux
+from repro_torch.distributed.sharding import fsdp_gather
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache, attention_apply, init_cache
 from repro_torch.models.mamba2 import (
@@ -99,6 +104,9 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
     means a one-token decode step that writes the state in place; the
     unembedding is tied to the embedding table."""
     decode = state is not None
+    # the outer leaves and the shared block gathered once a call: the shared
+    # block's gradient sums over its applications before the data ranks
+    params = {**params, **fsdp_gather({k: v for k, v in params.items() if k != "mamba"})}
     x = L.embedding_apply(params["embed"], tokens, cfg)
     x0 = x
     B, S, _ = x.shape
@@ -110,8 +118,8 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
     def shared(sp, h, h0):
         return _shared_block(sp, h, h0, cfg, positions=positions)[0]
 
-    def mamba(bp, h):
-        return mamba2_block_apply(bp, h, cfg)[0]
+    def mamba(bp, h, st=None):
+        return mamba2_block_apply(fsdp_gather(bp, "mamba/", lead=1), h, cfg, state=st)
 
     for si, (start, stop) in enumerate(_segments(cfg)):
         if decode:
@@ -124,13 +132,13 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
         for li in range(start, stop):
             if decode:
                 st = Mamba2State(state.mamba.h[li], state.mamba.conv[li])
-                x, new = mamba2_block_apply(layers[li], x, cfg, state=st)
+                x, new = mamba(layers[li], x, st)
                 st.h.copy_(new.h)
                 st.conv.copy_(new.conv)
             elif remat:
-                x = checkpoint(mamba, layers[li], x, use_reentrant=False)
+                x = checkpoint(mamba, layers[li], x, use_reentrant=False)[0]
             else:
-                x = mamba(layers[li], x)
+                x = mamba(layers[li], x)[0]
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = L.unembed_apply(params["embed"], x, cfg)
     new_state = None

@@ -7,8 +7,8 @@ production meshes (``REPRO_MESH_SINGLE=2,4``, ``REPRO_MESH_MULTI=2,2,2``)
 must trace their train, prefill and decode cells, and so must smoke
 xLSTM, zamba and encdec, whose trees are tensor-parallel too; a rank's
 parameter and optimizer-state bytes must equal an independent sum over
-the placements; a MoE-attention cell on a model axis must be refused with
-an error naming the missing tensor-parallel form.  On a 2 x 2 gloo world the counter's bytes
+the placements; a MoE-attention cell on a model axis must trace, its
+layers' collectives as its form predicts.  On a 2 x 2 gloo world the counter's bytes
 of each kind must equal sizes computed by hand (the reference HLO
 parser's conventions), and a real train step's collectives on that world
 must equal the dry run's of the same cell, launch for launch and byte for
@@ -142,25 +142,31 @@ def test_param_and_state_bytes_equal_placements(cells, arch, mesh):
 
 
 def test_xlstm_on_a_model_axis_is_a_recorded_error():
-    """The xLSTM tree traces on a model axis now (``test_cells_trace_ok``);
-    what stays refused there, MoE attention, raises out of ``trace_cell``
-    with the reason the dry run records, before anything is traced."""
+    """What the dry run recorded as an error before traces: the xLSTM tree
+    on a model axis (``test_cells_trace_ok``), and MoE attention on (data
+    2, model 4), its experts split over "model" (2 of 8 a rank) and its 9
+    global groups (8 x 36 positions) straddling the data ranks.  Its layers' collectives are
+    counted as the form predicts, a layer and microbatch: 7 all-reduces
+    over "model" (2 forward, 2 in the remat recompute, 3 in the backward),
+    6 all-gathers over "data" (the rows, the positions, the attention
+    output's rows; forward and recompute) and 2 reduce-scatters (their
+    backward)."""
     code = """
 import json
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.launch.dryrun import trace_cell
 cfg = get_smoke_config("m6-base").replace_moe(moe_attention=True)
-try:
-    trace_cell(cfg, ShapeConfig("train", 64, 8, "train"), (("data", 2), ("model", 4)))
-    print(json.dumps({"status": "ok"}))
-except NotImplementedError as e:
-    print(json.dumps({"status": "error", "error": f"{type(e).__name__}: {e}"}))
+rec = trace_cell(cfg, ShapeConfig("train", 36, 8, "train"), (("data", 2), ("model", 4)))
+print(json.dumps({k: rec[k] for k in ("status", "collectives", "microbatches")}))
 """
     rec = _run([], {}, code)
-    assert rec["status"] == "error", rec
-    assert "tensor-parallel form" in rec["error"] and "moe_attention" in rec["error"]
-    assert "a model axis of 4" in rec["error"]
+    assert rec["status"] == "ok", rec
+    n = get_smoke_config("m6-base").num_layers * rec["microbatches"]
+    assert rec["collectives"]["moe_attention"] == {
+        "all-reduce": {"model": 7 * n}, "all-gather": {"data": 6 * n},
+        "reduce-scatter": {"data": 2 * n}}
+    assert rec["collectives"]["bytes"]["all-reduce"]["model"] > 0
 
 
 def test_collective_bytes_by_hand(tmp_path):

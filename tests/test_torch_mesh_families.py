@@ -273,7 +273,9 @@ def test_chip_smoke_phase19_runs_on_cpu(tmp_path):
     drawing only its blocks, tokens equal on every rank and to one
     device's, parameter bytes its placement's; (b) every family trained on
     (2, 2), losses equal on every rank, step 0 within compare_train_step's
-    gates of one device, half the AdamW state a rank where a dim divides."""
+    gates of one device, half the AdamW state a rank where a dim divides,
+    and again with ``cfg.fsdp``: losses and every final parameter block
+    bit-equal to the run without it, some leaves FSDP blocks."""
     import importlib.util
     import os
     import sys
@@ -292,4 +294,6 @@ def test_chip_smoke_phase19_runs_on_cpu(tmp_path):
         assert all(row["param_bytes"] > 0 for row in r["ranks"]), arch
     for arch, r in report["train"].items():
         assert abs(r["loss"] - r["one_device_loss"]) <= 1e-3 and r["min_grad_cosine"] >= 0.99
+        assert report["fsdp"][arch]["losses"] == r["losses"], arch
+        assert report["fsdp"][arch]["fsdp_leaves"] > 0, arch
     assert not any(launches.values())       # the plain versions on the CPU

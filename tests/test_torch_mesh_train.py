@@ -79,6 +79,12 @@ MESHES = [(2, 2), (4, 1), (1, 4), (2, 1, 2)]       # the last ("pod", "data", "m
 ALL = tuple(MESHES[:3])
 
 
+# the train CLI's MoE-attention run (test_train_cli_refuses_what_is_not_ported):
+# smoke m6, 8 x 36 positions = 9 groups of 32
+CLI = ["--arch", "m6-base", "--smoke", "--steps", "2", "--batch", "8", "--seq", "36",
+       "--log-every", "1", "--device", "cpu"]
+
+
 def _cfgs(**moe):
     kw = dict(num_experts=8, routing="topk", top_k=1, group_size=32, capacity_factor=1.25,
               impl="alltoall")
@@ -176,7 +182,9 @@ def world(tmp_path_factory):
     xs = [rng.randn(8, 5).astype(np.float32) * (r + 1) for r in range(4)]
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, W.train_body, 4, init_file=str(d / "init"),
-                            args=(MESHES, cases, str(d / "ckpt"), xs), timeout=SPAWN_TIMEOUT)
+                            args=(MESHES, cases, str(d / "ckpt"), xs, CLI + ["--data", "2",
+                                                                            "--model", "2"]),
+                            timeout=SPAWN_TIMEOUT)
         refs, by_config = {}, {}
         for name, (jcfg, tcfg, jtc, ttc, jparams, tparams) in made.items():
             key = (jcfg, jtc)                   # pallas and gather share the reference's
@@ -490,28 +498,18 @@ def test_production_mesh_shape_matches_reference(monkeypatch, env, multi):
     assert production_mesh_axes(multi_pod=multi) == tuple(zip(axes, shape))
 
 
-def test_train_cli_refuses_what_is_not_ported():
-    """--model above 1 for the tree without a tensor-parallel form (MoE
-    attention, which has no flag: the config comes through
-    ``launch.train.build``, as ``chip_smoke.built_config`` gives it) is
-    refused with a reason before any rank joins a group; the xLSTM, zamba
-    and encdec trees are no longer refused there."""
-    from unittest import mock
-
-    from repro_torch.launch import train as train_mod
-
-    real = train_mod.build
-
-    def moe_attention(args):
-        return real(args).replace_moe(moe_attention=True)
-
-    with mock.patch.object(train_mod, "build", moe_attention):
-        with pytest.raises(NotImplementedError, match="moe_attention tree"):
-            train_mod.main(["--arch", "m6-base", "--smoke", "--steps", "1", "--device", "cpu",
-                            "--model", "2"])
-    for arch in ("xlstm-125m", "zamba2-7b", "seamless-m4t-large-v2"):
-        args = train_mod.build_parser().parse_args(["--arch", arch, "--smoke", "--model", "2"])
-        assert train_mod._unported(args, train_mod.build(args)) == [], arch
+def test_train_cli_refuses_what_is_not_ported(world):
+    """What the CLI refused before is trained: MoE attention (which has no
+    flag: the config comes through ``launch.train.build``, as
+    ``chip_smoke.built_config`` gives it) with ``--model 2`` (on the
+    world's (data 2, model 2) mesh) on the smoke config, its experts split
+    over "model" and its 9 global groups straddling the data ranks: every
+    rank's losses equal, and within 1e-4 of the same CLI on one device."""
+    one = W.cli_moe_attention(CLI)
+    assert len(one) == 2 and all(np.isfinite(one))
+    for r in world["ranks"]:
+        assert r[4] == world["ranks"][0][4]
+    np.testing.assert_allclose(world["ranks"][0][4], one, atol=TOL, rtol=0)
 
 
 def test_rules_are_seen_by_the_autograd_threads():

@@ -92,15 +92,30 @@ def train_one(mesh, cfg, tc, params, batches):
                 whole=_whole(layout, state)), layout, state
 
 
-def train_body(rank, world, meshes, cases, ckpt_dir, psum_inputs):
+def cli_moe_attention(argv):
+    """The train CLI's ``main(argv)`` on Fig. 4's MoE attention (through
+    ``launch.train.build``'s config: neither package has a flag for it):
+    the logged losses."""
+    from unittest import mock
+
+    from repro_torch.launch import train as train_mod
+
+    real = train_mod.build
+    with mock.patch.object(train_mod, "build",
+                           lambda args: real(args).replace_moe(moe_attention=True)):
+        return [m["loss"] for m in train_mod.main(argv)]
+
+
+def train_body(rank, world, meshes, cases, ckpt_dir, psum_inputs, cli_argv=None):
     """For each mesh ``(data, model)`` (or ``(pod, data, model)``) and each case ``(name, cfg, tc,
     params (port tensors, whole), batches (numpy))``: :func:`train_one`.
     Then the checkpoint round trip: case 0 trained on the first mesh is
     saved to ``ckpt_dir`` (rank 0 writes), restored on the second mesh
-    into a fresh state, and returned whole.  Last, ``compressed_psum`` and
-    ``reduce_scatter`` of ``psum_inputs[rank]`` over the world.  Returns
+    into a fresh state, and returned whole.  Then ``compressed_psum`` and
+    ``reduce_scatter`` of ``psum_inputs[rank]`` over the world; last, the
+    train CLI on ``cli_argv`` (:func:`cli_moe_attention`).  Returns
     ({(mesh, name): result}, the restore's leaves, the compressed sum, the
-    rank's chunk of the sum)."""
+    rank's chunk of the sum, the CLI's losses)."""
     from repro_torch.optim.compression import compressed_psum
 
     from repro_torch.checkpoint import Checkpointer
@@ -142,4 +157,6 @@ def train_body(rank, world, meshes, cases, ckpt_dir, psum_inputs):
         restored = _whole(layout, state)
     x, world_group = torch.from_numpy(psum_inputs[rank]), torch.distributed.group.WORLD
     psum = compressed_psum(x, world_group)
-    return out, restored, psum.numpy(), collectives.reduce_scatter(x, world_group).numpy()
+    chunk = collectives.reduce_scatter(x, world_group).numpy()
+    cli = cli_moe_attention(cli_argv) if cli_argv is not None else None
+    return out, restored, psum.numpy(), chunk, cli
