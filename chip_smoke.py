@@ -9,7 +9,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
 2. build    — builds every kernel (serving and training paths) from the
               sources in this checkout with nvcc for sm_90a (one nvcc per
-              source, all started together) and prints the build seconds,
+              translation unit, all started together) and prints the build seconds,
               registers and spills; the three decode kernels
               (decode_sm90.cuh's decode_kernel in each library) and the
               tensor-core kernels (the grouped FFN's, flash attention's) must
@@ -28,7 +28,16 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               the plain version of that route's numerics (split-h: h as bf16
               hi + lo; split-P: P as bf16 hi + lo); ragged_ffn at the decode
               and mixed steps' rows and at phase 9's model drafter's forward
-              (2 routing groups of 1024 rows in one launch).  The paged kernels also
+              (2 routing groups of 1024 rows in one launch), at every ragged
+              shape below both without the liveness and with it as the
+              dispatchers pass it (the view's token, or a received buffer's
+              ids with -1 on its padding, and the tile from static sizes):
+              the call under torch.cuda.set_sync_debug_mode("error"), a
+              dead block's rows exactly 0, also with every block dead,
+              every block live, and a received buffer's dead rows NaN;
+              the mesh packing's liveness on the card, under "error" too;
+              one dropless dispatch under "warn", its syncing lines
+              reported.  The paged kernels also
               at every cluster split (1, 2, 4, 8) forced, with a ring of
               stages that wraps (a 1000-token row), f32 at G = 2, 4, 8 and
               D = 32, 128, and a garbage block of 1e4 past every length;
@@ -63,7 +72,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               as a yardstick (events and device time), and the bound (the
               larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s
               bf16); for the grouped FFN and flash also their CUDA-core
-              route's time, for the FFN each pass's device time; flash at
+              route's time, for the FFN each pass's device time (and the
+              ragged FFN's work list); the ragged FFN with the liveness (the
+              dispatcher's call) beside the same call without it; flash at
               both m6 training lengths, S = 144 and 256; the paged kernels
               (bf16 and int8) and the dense kernel at 8 rows x 256
               positions and at the decode step for their chosen split and
@@ -390,7 +401,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               a model axis, four spawned processes that share the card
               over gloo, each drawing only its blocks of the seed's
               weights: (a) served on (data 1, model 4) under
-              ``make_rules(cfg, mesh)``, greedy, at full width and depth:
+              ``make_rules(cfg, mesh)``, greedy, at full width and depth
+              but zamba2-7b's, cut to 27 of 81 layers (the script's time):
               zamba2-7b and xlstm-125m through ``ServingEngine(...,
               rules=)`` (8 rows, 8 prompt tokens a token a step, 8
               generated: the script's time), seamless through
@@ -398,7 +410,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               tokens fed, greedy to 16);
               every rank's tokens equal, and equal to the same run's on one
               device on the card but at reported near-ties of its top two
-              logits; the dense kernel launched zamba 14 x 15 and seamless
+              logits; the dense kernel launched zamba 5 x 15 and seamless
               2 x 24 x 15 times a rank, at the rank's head count and at
               shapes phase 3 holds, and nothing else (xlstm: no kernel);
               every rank's parameter bytes its placement's; per rank the
@@ -638,6 +650,107 @@ def check_routed(name, wrapper, call, args, ref, split_ref, tensor_cores,
     return err, err_split
 
 
+@contextmanager
+def no_sync(torch):
+    """The block under ``torch.cuda.set_sync_debug_mode("error")``: an op
+    that reads the device back to the host raises."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def case_tile(n, E, bx, gated=False, capacity=None, top_k=1, groups=1):
+    """The tile width the dispatcher picks (``dropless.choice_tile_rows``)
+    for ``ffn_case``'s layout of ``groups`` groups in one launch."""
+    from repro_torch.core.dispatch.dropless import choice_tile_rows
+
+    return choice_tile_rows(n * top_k, E, bx, gated, groups,
+                            min(capacity, n) if capacity is not None else None)
+
+
+def check_ragged(torch, name, xs, be, weights, act, bx, live=None, tile=0, tensor_cores=True,
+                 both=False):
+    """``check_routed`` for the ragged FFN, with the liveness ``live`` (a
+    tag a row, >= 0 on a routed row) and ``tile`` as the dispatcher passes
+    them: the call runs under the sync-debug mode "error" (the work list is
+    built on the device), the plain versions take the same liveness, and a
+    dead block's rows must be exactly 0.  Returns (max abs err against the
+    plain version, against the split one or None)."""
+    from repro_torch.kernels.moe_dropless import ops as rffn
+    from repro_torch.kernels.moe_dropless.ref import (
+        live_blocks,
+        ragged_ffn_ref,
+        ragged_ffn_split_ref,
+    )
+
+    def call(*a):
+        with no_sync(torch):
+            return rffn.ragged_ffn(*a, act, block_x=bx, live=live, tile=tile)
+
+    label = f"ragged_ffn {name}" + ("" if live is None else f" with liveness, tile {tile}")
+    out = check_routed(label, rffn.ragged_ffn, call, (xs, be, *weights),
+                       lambda *a: ragged_ffn_ref(*a, act, live),
+                       lambda *a: ragged_ffn_split_ref(*a, act, live), tensor_cores,
+                       on_cuda_cores(rffn, call) if both else None)
+    if live is not None:
+        y = call(xs, be, *weights)
+        keep = live_blocks(live, be.numel())
+        dead = ~keep.repeat_interleave(bx)
+        if not (y[dead] == 0).all():
+            raise AssertionError(f"{label}: a dead block's row is not exactly 0")
+        log(f"    {int(keep.sum())} live blocks of {keep.numel()}; the {int(dead.sum())} rows "
+            f"of the dead ones exactly 0; no sync")
+    return out
+
+
+# the lines of the port that read the device back to the host in one dropless
+# dispatch (phase 3's ``dispatch_syncs``), for the summary line
+DISPATCH_SYNCS = []
+
+
+def dispatch_syncs(torch, weights):
+    """m6-base's decode-step routing and dropless dispatch (the ragged view,
+    the gather, the kernel with the liveness, the combine) once under the
+    sync-debug mode "warn": the lines that read the device back to the host
+    ("file:line"), reported, not gated (every kernel call above runs under
+    "error")."""
+    import warnings
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.configs.m6 import M6_BASE
+    from repro_torch.core.dispatch.dropless import dropless_dispatch
+    from repro_torch.core.routers.topk import topk_plan
+
+    g = torch.Generator(device="cuda").manual_seed(170)
+    E = weights[0].shape[0]
+    xg = torch.randn((1, 8, weights[0].shape[1]), generator=g, device="cuda").to(torch.bfloat16)
+    logits = torch.randn((1, 8, E), generator=g, device="cuda")
+    params = {"up": weights[0], "down": weights[2]}
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0), 8)
+            dropless_dispatch(params, xg, plan, M6_BASE)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    torch.cuda.synchronize()
+    where = []
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename)
+            where.append(f"{path.relative_to(ROOT) if path.is_relative_to(ROOT) else path.name}:"
+                         f"{w.lineno}")
+    where = sorted(set(where))
+    log(f"  dropless dispatch at the decode step under sync-debug \"warn\": "
+        f"{', '.join(where) if where else 'no op synced'}")
+    return where
+
+
 def ptxas_functions(report: str, pattern: str) -> dict:
     """{mangled kernel name: (registers, spill-store bytes)} from a ptxas -v
     report, for the kernels whose name holds ``pattern``."""
@@ -653,13 +766,13 @@ def ptxas_functions(report: str, pattern: str) -> dict:
 
 
 # the tensor-core kernels of each library (a pattern of their mangled names)
-TC_KERNELS = {"moe_ffn": "tc_pass_kernel", "ragged_ffn": "tc_pass_kernel",
+TC_KERNELS = {"moe_ffn": "tc_pass_kernel", "ragged_ffn": "tc_ragged_pass_kernel",
               "flash_attention": "flash_tc_kernel"}
 
 
 def check_sass(build) -> None:
     """Every tensor-core kernel (TC_KERNELS: the grouped FFN's
-    ``tc_pass_kernel`` in the two FFN libraries, ``flash_tc_kernel``) must
+    ``tc_pass_kernel`` / ``tc_ragged_pass_kernel``, ``flash_tc_kernel``) must
     hold HGMMA (wgmma) instructions in its SASS; without cuobjdump on the
     machine this is logged as not checked."""
     import shutil
@@ -827,8 +940,10 @@ def dense_bound(q, k, lengths):
 def ffn_bound(xs, be, weights, rag, bx):
     """Only what this layout's data needs: the live rows of x read and of
     the output written, and the weights of the routed experts.  Blocks
-    past ``expert_offsets[E]`` are padding clipped to expert E-1, so they
-    add neither rows nor an expert."""
+    past ``expert_offsets[E]`` hold no routed row: with the liveness the
+    kernel skips them (writing their rows as 0), without it it computes
+    them on expert E-1; either way they add neither rows nor an expert
+    here."""
     import torch
 
     M = xs.shape[1]
@@ -926,14 +1041,18 @@ def phase_check(torch):
         check_close(f"paged_decode_attention {name}", out,
                     paged_decode_attention_ref(*case))
 
-    def ragged(name, xs, be, weights, act, bx, tensor_cores=True, both=False):
-        return check_routed(
-            f"ragged_ffn {name}", rffn.ragged_ffn,
-            lambda *a: rffn.ragged_ffn(*a, act, block_x=bx), (xs, be, *weights),
-            lambda *a: ragged_ffn_ref(*a, act), lambda *a: ragged_ffn_split_ref(*a, act),
-            tensor_cores,
-            on_cuda_cores(rffn, lambda *a: rffn.ragged_ffn(*a, act, block_x=bx)) if both
-            else None)
+    def ragged(name, xs, be, weights, act, bx, tensor_cores=True, both=False, live=None,
+               tile=0):
+        """Without the liveness (and, with ``both``, on the CUDA-core route
+        too), then (``live``: the layout's tags) with it at the
+        dispatcher's tile; both into errs."""
+        for tags in (None, live) if live is not None else (None,):
+            err, split = check_ragged(torch, name, xs, be, weights, act, bx, tags,
+                                      tile if tags is not None else 0, tensor_cores,
+                                      both and tags is None)
+            errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+            if split is not None:
+                errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
 
     weights = None
     # phase 5's decode and mixed steps (8, 40 rows) and phase 10's (4, 20), bx = 8
@@ -942,23 +1061,29 @@ def phase_check(torch):
         used = int(rag.expert_offsets[0, -1]) // bx
         log(f"  ragged_ffn n={n}: R={xs.shape[0]} rows, bx={bx}, "
             f"{used} expert blocks + {be.numel() - used} trailing padding blocks")
-        err, split = ragged(f"n={n}", xs, be, weights, "gelu", bx, both=True)
-        errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
-        errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
+        ragged(f"n={n}", xs, be, weights, "gelu", bx, both=True, live=rag.token,
+               tile=case_tile(n, 32, bx))
+        if n == 8:
+            # every block dead (a step with no routed row), every block live
+            ragged("n=8, every block dead", xs, be, weights, "gelu", bx,
+                   live=torch.full_like(rag.token, -1), tile=case_tile(n, 32, bx))
+            ragged("n=8, every block live", xs, be, weights, "gelu", bx,
+                   live=torch.zeros_like(rag.token), tile=case_tile(n, 32, bx))
     # the model drafter's full forward: 2 routing groups of 8 x 128 tokens
     # in one launch, the tile width the dispatcher picks for them
     xs, be, _, rag, bx = ffn_case(1024, 32, 1024, 4096, seed=150, weights=weights, groups=2)
     log(f"  ragged_ffn model drafter: R={xs.shape[0]} rows in 2 groups, bx={bx}")
-    err, split = ragged("model drafter", xs, be, weights, "gelu", bx)
-    errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
-    errs["ragged_ffn split"] = max(errs["ragged_ffn split"], split)
+    ragged("model drafter", xs, be, weights, "gelu", bx, live=rag.token,
+           tile=case_tile(1024, 32, bx, groups=2))
     del xs, be, rag
-    xs, be, w128, _, bx = ffn_case(300, 8, 512, 1024, seed=50, bx=128)   # bx = 128
-    ragged("bx=128", xs, be, w128, "gelu", bx)
-    xs, be, wsw, _, bx = ffn_case(40, 8, 256, 512, seed=60, act="swiglu")
-    ragged("swiglu", xs, be, wsw, "swiglu", bx)
+    xs, be, w128, rag, bx = ffn_case(300, 8, 512, 1024, seed=50, bx=128)   # bx = 128
+    ragged("bx=128", xs, be, w128, "gelu", bx, live=rag.token, tile=case_tile(300, 8, bx))
+    xs, be, wsw, rag, bx = ffn_case(40, 8, 256, 512, seed=60, act="swiglu")
+    tile = case_tile(40, 8, bx, gated=True)
+    ragged("swiglu", xs, be, wsw, "swiglu", bx, live=rag.token, tile=tile)
     ragged("swiglu f32", xs.float(), be, [w.float() for w in wsw], "swiglu", bx,
-           tensor_cores=False)
+           tensor_cores=False, live=rag.token, tile=tile)
+    DISPATCH_SYNCS[:] = dispatch_syncs(torch, weights)
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
     for name, err in check_slo_step_kernels(torch).items():
@@ -1525,19 +1650,22 @@ def time_splits(torch, decode_lens, seed=120):
 def pass_ms(torch, fn, reps: int = 10, bound_ms=None) -> dict:
     """Device time of each pass of the tensor-core grouped FFN in one call
     of ``fn`` (torch.profiler, the median of the complete sessions):
-    {"up": ms, "down": ms}, from the kernels ``tc_pass_kernel<N, KIND>``
-    (KIND 0, 1: the up pass; 2: the down pass); None where no session was
-    complete."""
+    {"list": ms, "up": ms, "down": ms}, from the kernels
+    ``tc_pass_kernel<N, KIND>`` / ``tc_ragged_pass_kernel<N, KIND>`` (KIND
+    0, 1: the up pass; 2: the down pass) and the ragged FFN's prologue
+    ``work_list_kernel``; None where no session was complete."""
     per = []
     for ev in complete_sessions(fn, reps, bound_ms=bound_ms):
-        out = {"up": 0.0, "down": 0.0}
+        out = {"list": 0.0, "up": 0.0, "down": 0.0}
         for e in ev:
-            m = re.search(r"tc_pass_kernel<\d+, (\d)>", e.key)
+            m = re.search(r"tc_(?:ragged_)?pass_kernel<\d+, (\d)>", e.key)
             if m:
                 out["down" if m.group(1) == "2" else "up"] += e.self_device_time_total / 1e3 / reps
+            elif "work_list_kernel" in e.key:
+                out["list"] += e.self_device_time_total / 1e3 / reps
         per.append(out)
     return {k: sorted(p[k] for p in per)[len(per) // 2] if per else None
-            for k in ("up", "down")}
+            for k in ("list", "up", "down")}
 
 
 def time_ffn(torch, n, seed, weights, groups=1, capacity=None,
@@ -1546,7 +1674,9 @@ def time_ffn(torch, n, seed, weights, groups=1, capacity=None,
     dispatcher's layout for ``n`` routed choices over 32 experts (in each
     of ``groups`` routing groups; with ``capacity``, expert choice's
     slot-major layout over ``n`` tokens); ``shape`` = (E, M, I, activation,
-    top_k), top_k > 1 routing ``n`` tokens top_k ways."""
+    top_k), top_k > 1 routing ``n`` tokens top_k ways.  The kernel as the
+    dispatcher calls it (the liveness, its tile) and without the liveness
+    (every block computed, one block a tile)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
@@ -1555,14 +1685,19 @@ def time_ffn(torch, n, seed, weights, groups=1, capacity=None,
     E, M, I, act, top_k = shape
     xs, be, weights, rag, bx = ffn_case(n, E, M, I, seed=seed, act=act, weights=weights,
                                         groups=groups, capacity=capacity, top_k=top_k)
+    tile = case_tile(n, E, bx, act == "swiglu", capacity=capacity, top_k=top_k, groups=groups)
 
-    def kern():
+    def kern():                       # as the dispatcher calls it
+        return rffn.ragged_ffn(xs, be, *weights, act, block_x=bx, live=rag.token, tile=tile)
+
+    def kern_all():                   # without the liveness: every block computed
         return rffn.ragged_ffn(xs, be, *weights, act, block_x=bx)
 
     bound, by = ffn_bound(xs, be, weights, rag, bx)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    all_ms, all_dev = cuda_ms(kern_all), device_ms(kern_all, bound_ms=bound)
     cc_ms = cuda_ms(on_cuda_cores(rffn, kern))
-    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, act), reps=5)
+    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, act, rag.token), reps=5)
     lib_ms = lib_dev = None
     offs = rag.expert_offsets[0, 1:].contiguous()
     w_up, w_gate, w_down = weights
@@ -1589,7 +1724,8 @@ def time_ffn(torch, n, seed, weights, groups=1, capacity=None,
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=bound, bound_by=by, cuda_core_ms=cc_ms,
-                pass_ms=pass_ms(torch, kern, bound_ms=bound))
+                pass_ms=pass_ms(torch, kern, bound_ms=bound), tile=tile,
+                without_liveness_ms=all_ms, without_liveness_device_ms=all_dev)
 
 
 def time_moe_ffn(torch, X, seed, shape=(32, 1024, 4096, "gelu")):
@@ -1705,6 +1841,11 @@ def timing_line(r) -> str:
     if "pass_ms" in r:
         cc += (f", passes {fmt_ms(r['pass_ms']['up'])} + {fmt_ms(r['pass_ms']['down'])} ms "
                f"(device)")
+        if r["pass_ms"].get("list"):
+            cc += f" after the work list's {fmt_ms(r['pass_ms']['list'])}"
+    if "without_liveness_ms" in r:
+        cc += (f", tile {r['tile']}; without the liveness {r['without_liveness_ms']:.4f} ms "
+               f"(device {fmt_ms(r['without_liveness_device_ms'])})")
     if "plan" in r:
         cc += f", splits {r['plan'][0]}, stages {r['plan'][1]}"
     lib = "null" if r["library_ms"] is None else (f"{r['library_ms']:.4f} ms (device "
@@ -1783,11 +1924,10 @@ def check_static_kernels(torch, weights):
                                       capacity=capacity)
         log(f"  ragged_ffn {label}: R={xs.shape[0]} rows, bx={bx}, "
             f"{int((rag.token >= 0).sum())} routed")
-        keep("ragged_ffn", *check_routed(
-            f"ragged_ffn {label}", rffn.ragged_ffn,
-            lambda *a: rffn.ragged_ffn(*a, "gelu", block_x=bx), (xs, be, *weights),
-            lambda *a: ragged_ffn_ref(*a, "gelu"), lambda *a: ragged_ffn_split_ref(*a, "gelu"),
-            True))
+        for live in (None, rag.token):       # without the liveness, then as the dispatcher
+            keep("ragged_ffn", *check_ragged(torch, label, xs, be, weights, "gelu", bx, live,
+                                             case_tile(n, 32, bx, capacity=capacity)
+                                             if live is not None else 0))
     for label, (T, length) in static_shapes().items():
         case = dense_case(8, T, 16, 16, 64, [length] * 8, seed=150 + T)
         out = da.decode_attention(*case, max_length=length)
@@ -1826,14 +1966,15 @@ def remeasure(torch, timing, ffn_weights):
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_ffn import ops as mf
 
-    xs, be, weights, _, bx = ffn_case(8, 32, 1024, 4096, seed=80, weights=ffn_weights)
+    xs, be, weights, rag, bx = ffn_case(8, 32, 1024, 4096, seed=80, weights=ffn_weights)
     x, w_up, _, w_down = moe_case(32, 45, 1024, 4096, seed=100)
     sets = [flash_case(8, 144, 16, 16, 64, seed=102 + c) for c in range(16)]
     dense = [dense_case(8, 256, 16, 16, 64, [21, 56, 112, 9, 74, 33, 98, 47], seed=110 + c)
              for c in range(16)]
     it = iter(range(1 << 30))
     calls = {
-        "ragged_ffn": (lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx), 20),
+        "ragged_ffn": (lambda: rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx,
+                                               live=rag.token, tile=case_tile(8, 32, bx)), 20),
         "moe_ffn": (lambda: mf.moe_ffn(x, w_up, None, w_down, "gelu"), 10),
         "flash_attention": (lambda: fa.flash_attention(*sets[next(it) % 16], causal=True), 20),
         "decode_attention": (lambda: da.decode_attention(*dense[next(it) % 16],
@@ -1871,8 +2012,8 @@ def plain_versions():
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 
-    def plain_ffn(x, be, up, gate, down, activation="swiglu", block_x=128):
-        return ragged_ffn_ref(x, be, up, gate, down, activation)
+    def plain_ffn(x, be, up, gate, down, activation="swiglu", block_x=128, live=None, tile=0):
+        return ragged_ffn_ref(x, be, up, gate, down, activation, live)
 
     def plain_paged(*args, max_length=None):
         return paged_decode_attention_ref(*args)
@@ -4299,12 +4440,12 @@ def check_family_kernels(torch):
         xs, be, weights, rag, bx = ffn_case(n, E, M, I, seed=740 + j, act=act, top_k=top_k)
         log(f"  ragged_ffn {label}: {n} tokens x top-{top_k} of {E}: R={xs.shape[0]} rows, "
             f"bx={bx}, {int((rag.token >= 0).sum())} routed")
-        err, split = check_routed(
-            f"ragged_ffn {label}", rffn.ragged_ffn,
-            lambda *a: rffn.ragged_ffn(*a, act, block_x=bx), (xs, be, *weights),
-            lambda *a: ragged_ffn_ref(*a, act), lambda *a: ragged_ffn_split_ref(*a, act), True)
-        keep("ragged_ffn", err)
-        keep("ragged_ffn split", split)
+        for live in (None, rag.token):       # without the liveness, then as the dispatcher
+            err, split = check_ragged(torch, label, xs, be, weights, act, bx, live,
+                                      case_tile(n, E, bx, act == "swiglu", top_k=top_k)
+                                      if live is not None else 0)
+            keep("ragged_ffn", err)
+            keep("ragged_ffn split", split)
     return errs
 
 
@@ -5752,7 +5893,9 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
     R = 232 rows a group), each group's rows of this shard's experts at the
     front of its R-row slot, the rest zero rows of local expert 0.  Returns
     (xs, local block experts, this shard's weights, live rows, the flat
-    indices of the routed row blocks)."""
+    indices of the routed row blocks, the liveness the receiving kernel
+    reads: a slot row's local expert id, -1 on the padding, int64 as
+    shipped)."""
     import torch
 
     from repro_torch.configs.base import MoEConfig
@@ -5768,6 +5911,7 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
     x = torch.randn((G, tokens, M), generator=g, device="cuda").to(torch.bfloat16)
     xs = torch.zeros((G, R, M), dtype=torch.bfloat16, device="cuda")
     be = torch.zeros((G, R // bx), dtype=torch.int32, device="cuda")
+    tags = torch.full((G, R), -1, dtype=torch.int64, device="cuda")
     live, routed = 0, []
     for i in range(G):
         lo = int(rag.expert_offsets[i, shard * epl])
@@ -5776,6 +5920,7 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
         xs[i, :hi - lo] = torch.where((tok >= 0)[:, None], x[i][tok.clamp(min=0).long()],
                                       torch.zeros_like(x[i, 0])[None, :])
         be[i, :(hi - lo) // bx] = rag.block_expert[i, lo // bx:hi // bx] - shard * epl
+        tags[i, :hi - lo] = be[i, :(hi - lo) // bx].repeat_interleave(bx)
         live += int((tok >= 0).sum())
         routed.append(i * (R // bx) + torch.arange((hi - lo) // bx, device="cuda"))
     if weights is None:
@@ -5784,7 +5929,7 @@ def mesh_ffn_case(groups, seed, weights=None, ne=2, shard=0, E=32, M=1024, I=409
 
         weights = (w(epl, M, I), None, w(epl, I, M))
     return (xs.reshape(G * R, M), be.reshape(-1).contiguous(), weights, live,
-            torch.cat(routed))
+            torch.cat(routed), tags)
 
 
 def mesh_ffn_bound(xs, be, weights, live, routed):
@@ -5806,12 +5951,18 @@ def check_mesh_kernels(torch):
     """Phase 16's shard shapes against the plain versions at TOL: the paged
     and int8 kernels over a shard's pool slice at (b)'s decode and mixed
     rows (length-0 rows exactly 0), the ragged FFN at (b)'s received
-    buffers on the tensor cores (also within one bf16 ulp of split-h).
-    Returns each kernel's max abs err."""
+    buffers on the tensor cores (also within one bf16 ulp of split-h),
+    without the liveness and with it as the dispatcher passes it (a dead
+    block's id -1; once more with the dead rows NaN); the packing's
+    liveness on the card.  Returns each kernel's max abs err."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.moe_dropless import ops as rffn
-    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.kernels.moe_dropless.ref import (
+        live_blocks,
+        ragged_ffn_ref,
+        ragged_ffn_split_ref,
+    )
     from repro_torch.quant import get_kv_quant
 
     errs = {"paged_decode_attention": 0.0, "quantized_paged_decode_attention": 0.0,
@@ -5839,7 +5990,7 @@ def check_mesh_kernels(torch):
             raise AssertionError("quantized_paged_decode_attention: a length-0 row is not 0")
     weights = None
     for label, groups in MESH_FFN_GROUPS.items():
-        xs, be, weights, live, routed = mesh_ffn_case(groups, 1620, weights)
+        xs, be, weights, live, routed, tags = mesh_ffn_case(groups, 1620, weights)
         log(f"  ragged_ffn mesh {label}: {xs.shape[0]} received rows, {live} live, "
             f"{routed.numel()} routed blocks of {be.numel()} on "
             f"{be[routed].unique().numel()} of {weights[0].shape[0]} local experts")
@@ -5849,36 +6000,88 @@ def check_mesh_kernels(torch):
             lambda *a: ragged_ffn_ref(*a, "gelu"), lambda *a: ragged_ffn_split_ref(*a, "gelu"),
             True)
         errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+        # as the dispatcher calls it: a dead block's id -1 as shipped, its rows NaN
+        dead = ~live_blocks(tags, be.numel())
+        be_live = be.masked_fill(dead, -1)
+        x_nan = xs.masked_fill(dead.repeat_interleave(8)[:, None], float("nan"))
+        for xin, what in ((xs, ""), (x_nan, ", dead rows NaN")):
+            err, _ = check_ragged(torch, f"mesh {label}{what}", xin, be_live, weights, "gelu", 8,
+                                  tags, case_tile(1, 32, 8, groups=2 * groups))
+            errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+    check_mesh_packing(torch)
     return errs
+
+
+def check_mesh_packing(torch):
+    """``ragged_ep_dispatch``'s packing on the card under the sync-debug
+    mode "error" (the liveness it ships adds no read to the host), at
+    phase 16 (b)'s decode step: each shard's received ids, read as the
+    kernel reads them, live exactly on the slots' first ``seglen`` rows."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.dispatch import dropless
+    from repro_torch.core.routers.topk import topk_plan
+    from repro_torch.kernels.moe_dropless.ref import live_blocks
+
+    g = torch.Generator(device="cuda").manual_seed(1630)
+    E, ne, bx = 32, 2, 8
+    logits = torch.randn((2 * MESH_FFN_GROUPS["decode"], 1, E), generator=g, device="cuda")
+    plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=1, aux_loss_coef=0.0), 1)
+    rag = plan.ragged(bx)
+    G, R = rag.token.shape
+    with no_sync(torch):
+        offsets = rag.expert_offsets.long()
+        src, valid = dropless.shard_slots(offsets, E // ne, R)
+        ebuf = dropless.slot_expert_ids(rag.block_expert.long().repeat_interleave(bx, dim=1),
+                                        src, valid, E // ne)
+        got = torch.stack([live_blocks(ebuf[:, s], G * R // bx) for s in range(ne)])
+    seglen = offsets[:, ::E // ne].diff(dim=1)                     # (G, ne)
+    want = (torch.arange(R // bx, device="cuda")[None, None, :] * bx
+            < seglen.t()[:, :, None]).reshape(ne, -1)
+    if not torch.equal(got, want):
+        raise AssertionError("mesh packing: the received liveness is not the slots' prefix")
+    log(f"  mesh packing (G={G}, {ne} shards): {int(got.sum())} live received blocks of "
+        f"{got.numel()}, the slots' prefixes; no sync")
 
 
 def time_mesh_ffn(torch, groups, seed, tokens=1, bx=8):
     """Kernel, plain and grouped_mm times of the ragged FFN over a received
     buffer (phase 16 (b)'s by default; ``mesh_ffn_case``'s arguments)."""
-    xs, be, weights, live, routed = mesh_ffn_case(groups, seed, tokens=tokens, bx=bx)
-    out = time_sorted_ffn(torch, xs, be, weights, bx, *mesh_ffn_bound(xs, be, weights, live,
-                                                                       routed))
+    from repro_torch.kernels.moe_dropless.ref import live_blocks
+
+    xs, be, weights, live, routed, tags = mesh_ffn_case(groups, seed, tokens=tokens, bx=bx)
+    as_shipped = (tags, be.masked_fill(~live_blocks(tags, be.numel()), -1),
+                  case_tile(tokens, 32, bx, groups=2 * groups))
+    out = time_sorted_ffn(torch, xs, be, weights, bx,
+                          *mesh_ffn_bound(xs, be, weights, live, routed), as_shipped)
     out.update(rows=int(xs.shape[0]), live_rows=live,
                routed_experts=int(be[routed].unique().numel()))
     return out
 
 
-def time_sorted_ffn(torch, xs, be, weights, bx, bound, by):
+def time_sorted_ffn(torch, xs, be, weights, bx, bound, by, as_called):
     """Kernel, plain and grouped_mm times of the ragged FFN (gelu) over
-    ``xs``; grouped_mm over the same rows sorted by expert (its offsets
-    need each expert's rows contiguous, whatever the groups)."""
+    ``xs``: the kernel as the dispatcher calls it (``as_called`` = (the
+    liveness, the block experts it passes, the tile)) and without the
+    liveness over ``be``; grouped_mm over the same rows sorted by expert
+    (its offsets need each expert's rows contiguous, whatever the
+    groups)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
 
     w_up, _, w_down = weights
+    tags, be_live, tile = as_called
 
     def kern():
+        return rffn.ragged_ffn(xs, be_live, *weights, "gelu", block_x=bx, live=tags, tile=tile)
+
+    def kern_all():
         return rffn.ragged_ffn(xs, be, *weights, "gelu", block_x=bx)
 
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
-    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be, *weights, "gelu"), reps=5)
+    all_ms, all_dev = cuda_ms(kern_all), device_ms(kern_all, bound_ms=bound)
+    p_ms = cuda_ms(lambda: ragged_ffn_ref(xs, be_live, *weights, "gelu", tags), reps=5)
     rows_e = be.long().repeat_interleave(bx)
     order = torch.argsort(rows_e, stable=True)
     xsort = xs[order].contiguous()
@@ -5894,7 +6097,9 @@ def time_sorted_ffn(torch, xs, be, weights, bx, bound, by):
         log(f"  grouped_mm does not take these shapes ({type(exc).__name__}: "
             f"{str(exc).splitlines()[0][:160]}): library_ms null")
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev, bound_ms=bound, bound_by=by)
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by, tile=tile,
+                without_liveness_ms=all_ms, without_liveness_device_ms=all_dev,
+                pass_ms=pass_ms(torch, kern, bound_ms=bound))
 
 
 def time_mesh_attention(torch, chunk, seed, quant=None):
@@ -6323,14 +6528,20 @@ def mesh_train_shapes() -> set:
 def check_mesh_train_kernels(torch):
     """Phase 3 at (b)'s shapes (``MESH_TRAIN_MOE_X``,
     ``MESH_TRAIN_RAGGED_ROWS``): each kernel on the tensor cores and
-    against its plain version at TOL.  Its split-h plain version is
+    against its plain version at TOL; the ragged FFN also with the
+    liveness as the dispatcher passes it (a received buffer's dead blocks'
+    ids -1), dead rows exactly 0.  Its split-h plain version is
     compared too and the elements beyond SPLIT_ATOL / SPLIT_RTOL are
     reported, not gated: over these 4-8 M outputs one or two land there,
     small outputs of cancelling sums (``ffn_accuracy.py`` sets each beside
     an f64 sum).  Returns each kernel's max abs err against the plain
     version."""
     from repro_torch.kernels.moe_dropless import ops as rffn
-    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref, ragged_ffn_split_ref
+    from repro_torch.kernels.moe_dropless.ref import (
+        live_blocks,
+        ragged_ffn_ref,
+        ragged_ffn_split_ref,
+    )
     from repro_torch.kernels.moe_ffn import ops as mf
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref, moe_ffn_split_ref
 
@@ -6363,21 +6574,39 @@ def check_mesh_train_kernels(torch):
         errs["moe_ffn"] = max(errs["moe_ffn"], err)
         del case
     for i, label in enumerate(MESH_TRAIN_RAGGED_ROWS):
+        # a rank's buffer: one group from each of the 2 model ranks; one device: 4 groups
+        tile = case_tile(MESH_TRAIN_GROUP, 32, MESH_TRAIN_BX,
+                         groups=MESH_TRAIN_RAGGED_ROWS[label] // MESH_TRAIN_R)
         if label == "rank":
-            xs, be, weights, live, _ = mesh_ffn_case(1, 1710, tokens=MESH_TRAIN_GROUP,
-                                                     bx=MESH_TRAIN_BX)
+            xs, be, weights, live, _, tags = mesh_ffn_case(1, 1710, tokens=MESH_TRAIN_GROUP,
+                                                           bx=MESH_TRAIN_BX)
         else:
             xs, be, weights, rag, _ = ffn_case(MESH_TRAIN_GROUP, 32, 1024, 4096, seed=1711,
                                                groups=4, bx=MESH_TRAIN_BX)
-            live = int((rag.token >= 0).sum())
+            live, tags = int((rag.token >= 0).sum()), rag.token
         if xs.shape[0] != MESH_TRAIN_RAGGED_ROWS[label]:
             raise AssertionError(f"ragged_ffn mesh train {label}: {xs.shape[0]} rows, expected "
                                  f"{MESH_TRAIN_RAGGED_ROWS[label]}")
-        err = check(f"ragged_ffn mesh train {label} ({xs.shape[0]} rows, {live} live, bx "
-                    f"{MESH_TRAIN_BX}, {weights[0].shape[0]} experts)", rffn.ragged_ffn,
+        name = (f"ragged_ffn mesh train {label} ({xs.shape[0]} rows, {live} live, bx "
+                f"{MESH_TRAIN_BX}, {weights[0].shape[0]} experts)")
+        err = check(name, rffn.ragged_ffn,
                     lambda *a: rffn.ragged_ffn(*a, "gelu", block_x=MESH_TRAIN_BX),
                     (xs, be, *weights), lambda *a: ragged_ffn_ref(*a, "gelu"),
                     lambda *a: ragged_ffn_split_ref(*a, "gelu"))
+        errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
+        if label == "rank":      # as shipped: a received dead block's id is -1
+            be = be.masked_fill(~live_blocks(tags, be.numel()), -1)
+
+        def call(*a, tags=tags, tile=tile):
+            with no_sync(torch):
+                return rffn.ragged_ffn(*a, "gelu", block_x=MESH_TRAIN_BX, live=tags, tile=tile)
+
+        err = check(f"{name} with liveness, tile {tile}", rffn.ragged_ffn, call,
+                    (xs, be, *weights), lambda *a, tags=tags: ragged_ffn_ref(*a, "gelu", tags),
+                    lambda *a, tags=tags: ragged_ffn_split_ref(*a, "gelu", tags))
+        dead = ~live_blocks(tags, be.numel()).repeat_interleave(MESH_TRAIN_BX)
+        if not (call(xs, be, *weights)[dead] == 0).all():
+            raise AssertionError(f"{name}: a dead block's row is not exactly 0")
         errs["ragged_ffn"] = max(errs["ragged_ffn"], err)
         del xs, be, weights
     return errs
@@ -6393,7 +6622,8 @@ def phase_timing_mesh_train(torch):
     xs, be, weights, rag, bx = ffn_case(MESH_TRAIN_GROUP, 32, 1024, 4096, seed=1731, groups=4,
                                         bx=MESH_TRAIN_BX)
     out["ragged_ffn mesh train single device"] = time_sorted_ffn(
-        torch, xs, be, weights, bx, *ffn_bound(xs, be, weights, rag, bx))
+        torch, xs, be, weights, bx, *ffn_bound(xs, be, weights, rag, bx),
+        (rag.token, be, case_tile(MESH_TRAIN_GROUP, 32, bx, groups=4)))
     for name, r in out.items():
         log(f"  {name}: {timing_line(r)}")
     return out
@@ -7103,6 +7333,9 @@ MF_SERVE_MESH = (1, 4)          # (a): data x model, four processes that share t
 MF_TRAIN_MESH = (2, 2)          # (b)
 MF_ARCHS = ("zamba2-7b", ENCDEC_ARCH, "xlstm-125m")
 MF_SERVE = (8, 8, 8)            # (a) zamba, xlstm: rows, prompt tokens (a token a step), generated
+# (a)'s depth a family where it is cut (the script's time): zamba2-7b at 27 of its 81 layers,
+# 5 shared applications (14 at full depth); full width
+MF_SERVE_LAYERS = {"zamba2-7b": 27}
 MF_ENCDEC = (8, 256, 16)        # (a) encdec: rows, source frames, target tokens (ENCDEC_FEED fed)
 # (b): the train CLI's flags and the config's depth, a family (zamba at phase 14's 7 layers)
 MF_TRAIN = {"xlstm-125m": (["--batch", "4", "--seq", "128"], {"num_layers": XLSTM_TRAIN_LAYERS}),
@@ -7114,9 +7347,14 @@ MF_SPAWN_TIMEOUT = 600
 
 
 def mf_config(arch, smoke=False):
+    """(a)'s config of ``arch``: its smoke config, or the full one at
+    ``MF_SERVE_LAYERS``' depth."""
     from repro_torch.configs import registry
 
-    return registry.get_smoke_config(arch) if smoke else registry.get_config(arch)
+    if smoke:
+        return registry.get_smoke_config(arch)
+    cfg = registry.get_config(arch)
+    return cfg.replace(num_layers=MF_SERVE_LAYERS[arch]) if arch in MF_SERVE_LAYERS else cfg
 
 
 def mf_decode_launches(cfg) -> int:
@@ -7676,7 +7914,11 @@ def main() -> int:
     check_sass(build)
     dry = start_dryrun()            # phase 18's dry run, on the CPU meanwhile
 
+    t0 = time.perf_counter()
     errs, ffn_weights = phase_check(torch)
+    check_s = time.perf_counter() - t0
+    log(f"  check phase {check_s:.1f} s")
+    t0 = time.perf_counter()
     timing, timing_mixed = phase_timing(torch, ffn_weights)
     timing.update(phase_timing_training(torch))
     timing.update(phase_timing_static(torch, ffn_weights))
@@ -7687,6 +7929,8 @@ def main() -> int:
     timing.update(phase_timing_mesh_train(torch))
     timing.update(phase_timing_mesh_families(torch))
     again = remeasure(torch, timing, ffn_weights)
+    timing_s = time.perf_counter() - t0
+    log(f"  timing phase {timing_s:.1f} s")
     del ffn_weights
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7804,6 +8048,11 @@ def main() -> int:
             entry.update(device_code="tensor cores (wgmma, TMA), bf16 h hi + lo",
                          entry_point=f"{name}_tc", max_abs_err_split_h=errs[f"{name} split"],
                          cuda_core_ms=t["cuda_core_ms"])
+        if name == "ragged_ffn":          # with the liveness (the path's call) and without
+            entry.update(schedule="a device-built work list of live runs, persistent passes",
+                         tile=t["tile"], without_liveness_ms=t["without_liveness_ms"],
+                         without_liveness_device_ms=t["without_liveness_device_ms"],
+                         dispatch_syncs=DISPATCH_SYNCS)
         if src == FLASH_SM90:             # flash attention's tensor-core route
             entry.update(device_code="tensor cores (wgmma, TMA), P from registers as bf16 hi + lo",
                          entry_point="flash_attention_tc",
@@ -7924,7 +8173,8 @@ def main() -> int:
     print(json.dumps({"serve": e2e, "train": train, "kv": kv, "checkpoint": ckpt,
                       "spec": spec, "slo": slo, "static": static, "families": families,
                       "more_families": more, "zamba": zamba, "encdec": encdec, "mesh": mesh,
-                      "build_s": build_s, "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
+                      "build_s": build_s, "check_s": check_s, "timing_s": timing_s,
+                      "serve_s": serve_s, "train_s": train_s, "kv_s": kv_s,
                       "checkpoint_s": ckpt_s, "spec_s": spec_s, "slo_s": slo_s,
                       "static_s": static_s, "families_s": families_s,
                       "more_families_s": more_s, "zamba_s": zamba_s, "encdec_s": encdec_s,

@@ -4,26 +4,33 @@
 1. take the plan's :class:`~repro_torch.core.routers.base.RaggedView`;
 2. gather the sorted token rows (padding rows read token 0);
 3. run the expert FFN as one ragged grouped GEMM
-   (:func:`repro_torch.kernels.moe_dropless.ragged_ffn`);
+   (:func:`repro_torch.kernels.moe_dropless.ragged_ffn`) over the live
+   blocks only: the view's ``token`` is the kernel's liveness (a block with
+   no routed row is dead and comes out 0), and the tile width comes from
+   the plan's static sizes (:func:`plan_tile_rows`);
 4. combine by gate-weighted scatter-add back into token order.
 
 The combine is ``index_put_(accumulate=True)`` in the activation dtype,
 as the reference's ``.at[gi, tok].add``.  On the card PyTorch sorts the
 indices and sums each token's terms in its own order, not the
 reference's; at top-1 each token row gets exactly one nonzero term
-(padding rows add gate-0 products into token 0), so the result does not
-depend on that order.  Under expert choice a token gets a term from
-each expert that picked it, summed in the card's order.
+(padding rows add gate-0 products, 0 in a dead block, into token 0), so
+the result does not depend on that order.  Under expert choice a token
+gets a term from each expert that picked it, summed in the card's order.
 
 Expert parallelism: under a mesh that shards the experts and splits the
 groups (``mesh.expert_mesh_plan``; the serving mesh's joint axis or the
 training mesh's expert axis, as ``alltoall.py`` sets out),
 :func:`ragged_ep_dispatch` ships each expert shard its own experts' sorted
 row segments over ``all_to_all`` and runs the ragged FFN kernel on them
-with local expert ids.  Where the experts are sharded but the groups do not
-split over the mesh, ``moe_ffn_apply`` has gathered the layer's experts
-whole and the single-device dispatch runs, as the reference's GSPMD
-computes the unsharded one.
+with local expert ids.  A segment fills the front of its ``R``-row slot
+(:func:`shard_slots`); the expert ids shipped beside the rows are -1 on a
+slot's padding (:func:`slot_expert_ids`), and the receiving rank hands
+them to the kernel as its liveness, so the padding that fills most of a
+slot is skipped without another exchange.  Where the experts are sharded
+but the groups do not split over the mesh, ``moe_ffn_apply`` has gathered
+the layer's experts whole and the single-device dispatch runs, as the
+reference's GSPMD computes the unsharded one.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_axes, joint_r
 from repro_torch.core.routers.base import RoutingPlan
 from repro_torch.distributed import collectives
 from repro_torch.kernels.moe_dropless import ops as dropless_ops
-from repro_torch.kernels.moe_dropless.ops import pick_block_rows
+from repro_torch.kernels.moe_dropless.ops import pick_block_rows, ragged_tile_rows
 
 
 def plan_block_rows(plan: RoutingPlan, max_block: int = 128) -> int:
@@ -50,6 +57,56 @@ def plan_block_rows(plan: RoutingPlan, max_block: int = 128) -> int:
     else:
         n = plan.expert_index.shape[1] * plan.expert_index.shape[2]
     return pick_block_rows(n, plan.num_experts, max_block)
+
+
+def choice_tile_rows(choices: int, num_experts: int, block_rows: int, gated: bool,
+                     groups: int = 1, slots: Optional[int] = None) -> int:
+    """The ragged FFN's tile width for ``groups`` routing groups in one
+    launch, from static sizes: a tile covers a slot-major expert's
+    ``slots`` a group, or twice the rows an expert takes on average when a
+    group routes ``choices`` choices (so that most experts are one tile:
+    an expert's weights are read once a tile, its rows gathered from every
+    group)."""
+    rows = groups * slots if slots is not None else 2 * groups * choices / num_experts
+    return ragged_tile_rows(rows, block_rows, gated)
+
+
+def plan_tile_rows(plan: RoutingPlan, block_rows: int, gated: bool, groups: int = 0) -> int:
+    """``choice_tile_rows`` for ``groups`` of this plan's groups (default
+    all)."""
+    G, T, K = plan.expert_index.shape
+    slots = plan.token_at_slot.shape[2] if plan.token_at_slot is not None else None
+    return choice_tile_rows(T * K, plan.num_experts, block_rows, gated, groups or G, slots)
+
+
+def shard_slots(offsets: torch.Tensor, epl: int, R: int):
+    """How ``ragged_ep_dispatch`` packs a group's rows for the ``ne``
+    expert shards: shard ``s``'s segment ``[offsets[s * epl], offsets[(s +
+    1) * epl])`` fills the front of an ``R``-row slot.  offsets: (Gl, E +
+    1) block-aligned segment starts.  Returns (src, valid), each (Gl, ne,
+    R): the sorted row a slot row holds (``R``, the zero pad row, past the
+    segment) and whether it holds one (``j < seglen``, a prefix of whole
+    blocks)."""
+    offd = offsets[:, ::epl]                                    # (Gl, ne + 1)
+    start, seglen = offd[:, :-1], offd[:, 1:] - offd[:, :-1]
+    j = torch.arange(R, device=offsets.device)
+    valid = j < seglen[:, :, None]
+    src = torch.where(valid, start[:, :, None] + j, torch.full_like(valid, R, dtype=offd.dtype))
+    return src, valid
+
+
+def slot_expert_ids(e_row: torch.Tensor, src: torch.Tensor, valid: torch.Tensor,
+                    epl: int) -> torch.Tensor:
+    """The expert ids shipped beside the packed rows: a slot row's local
+    expert id (its global id less its shard's first), -1 on the padding.
+    The receiving rank's kernel reads the -1 as its liveness (a block with
+    no id >= 0 is dead) and a block's first id as its expert.  e_row:
+    (Gl, R) global expert of each sorted row."""
+    Gl, ne, R = src.shape
+    epad = torch.cat([e_row, torch.zeros((Gl, 1), dtype=e_row.dtype, device=e_row.device)], dim=1)
+    e_src = epad.gather(1, src.reshape(Gl, ne * R)).reshape(Gl, ne, R)
+    dest = torch.arange(ne, device=src.device)[None, :, None]
+    return torch.where(valid, e_src - dest * epl, torch.full_like(e_src, -1))
 
 
 def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelConfig,
@@ -90,26 +147,19 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     xl = collectives.scatter_to(xg, joint_group)
     xs = xl.gather(1, toks[..., None].expand(Gl, R, M)).to(dt)
     e_row = bexp.repeat_interleave(bx, dim=1)                   # (Gl, R) global ids
-    offd = offsets[:, ::epl]                                    # (Gl, ne + 1)
-    start, seglen = offd[:, :-1], offd[:, 1:] - offd[:, :-1]
-    j = torch.arange(R, device=dev)
-    src = start[:, :, None] + j                                 # (Gl, ne, R)
-    valid = j < seglen[:, :, None]
-    srcp = torch.where(valid, src, torch.full_like(src, R))     # park on the pad row
+    srcp, valid = shard_slots(offsets, epl, R)                  # parked on the pad row
     gi = torch.arange(Gl, device=dev)[:, None, None].expand(Gl, ne, R)
     xpad = torch.cat([xs, torch.zeros((Gl, 1, M), dtype=dt, device=dev)], dim=1)
     buf = xpad[gi, srcp]                                        # (Gl, ne, R, M)
-    epad = torch.cat([e_row, torch.zeros((Gl, 1), dtype=e_row.dtype, device=dev)], dim=1)
-    e_src = epad.gather(1, srcp.reshape(Gl, ne * R)).reshape(Gl, ne, R)
-    dest = torch.arange(ne, device=dev)[None, :, None]
-    ebuf = torch.where(valid, e_src - dest * epl, torch.zeros_like(e_src))   # local ids
+    ebuf = slot_expert_ids(e_row, srcp, valid, epl)             # local ids, -1 on padding
     # ship: the leading axis is the destination expert shard, then the source
     recv = collectives.all_to_all(buf.transpose(0, 1), group, split_axis=0, concat_axis=0)
     erecv = collectives.all_to_all(ebuf.transpose(0, 1), group, split_axis=0, concat_axis=0)
     out = dropless_ops.ragged_ffn(
         recv.reshape(ne * Gl * R, M), erecv.reshape(-1, bx)[:, 0].to(torch.int32).contiguous(),
         params["up"].to(dt), params["gate"].to(dt) if "gate" in params else None,
-        params["down"].to(dt), cfg.ffn_activation, block_x=bx)
+        params["down"].to(dt), cfg.ffn_activation, block_x=bx,
+        live=erecv.reshape(ne * Gl, R), tile=plan_tile_rows(plan, bx, "gate" in params, ne * Gl))
     back = collectives.all_to_all(out.reshape(ne, Gl, R, M), group, split_axis=0,
                                   concat_axis=0).transpose(0, 1)   # (Gl, ne, R, M)
     back = torch.where(valid[..., None], back, torch.zeros_like(back))
@@ -138,7 +188,8 @@ def dropless_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
     out = dropless_ops.ragged_ffn(
         xs.reshape(G * R, M), rag.block_expert.reshape(-1).contiguous(),
         params["up"].to(dt), params["gate"].to(dt) if "gate" in params else None,
-        params["down"].to(dt), cfg.ffn_activation, block_x=block_rows)
+        params["down"].to(dt), cfg.ffn_activation, block_x=block_rows, live=rag.token,
+        tile=plan_tile_rows(plan, block_rows, "gate" in params))
     vals = out.reshape(G, R, M) * rag.gate[..., None].to(dt)
     gi = torch.arange(G, device=xg.device)[:, None].expand(G, R)
     y = torch.zeros((G, T, M), dtype=dt, device=xg.device)

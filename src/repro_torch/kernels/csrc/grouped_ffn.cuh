@@ -8,7 +8,8 @@
 //   pass 1: h = act(A @ W_up[e] [, A @ W_gate[e]])   (f32 out)
 //   pass 2: y = h @ W_down[e]                         (rounded to T once)
 // The two callers differ only in how rows map to experts, a RowMap:
-//   RaggedRows — expert-sorted rows, expert per block of bx rows;
+//   RaggedRows — expert-sorted rows, expert per block of bx rows, and with
+//                the liveness tags a dead block's chunks written as 0;
 //   ExpertRows — (E, X, M) capacity buffers, expert e owns rows [e*X, e*X+X).
 //
 // Both passes are one kernel template: a CTA takes a chunk of 8 rows of one
@@ -78,13 +79,35 @@ __device__ __forceinline__ void load8_masked(const T* p, int n, float w[8]) {
   for (int j = 0; j < 8; ++j) w[j] = j < n ? to_f32(p[j]) : 0.0f;
 }
 
-// Expert-sorted rows: chunk c is rows [8c, 8c+8), all live; bx % 8 == 0.
+// The ragged FFN's liveness: one tag a row, int32 or int64 (bytes 4 or 8),
+// in segments of seg_rows rows that lie `stride` tags apart; a row is
+// routed iff its tag is >= 0.  p null: no liveness (every row counts).
+struct Tags {
+  const void* p;
+  int bytes, seg_rows, stride;
+  __device__ bool routed(long long r) const {
+    const long long s = r / seg_rows;
+    const long long i = s * stride + (r - s * seg_rows);
+    return bytes == 8 ? static_cast<const long long*>(p)[i] >= 0
+                      : static_cast<const int32_t*>(p)[i] >= 0;
+  }
+};
+
+// Expert-sorted rows: chunk c is rows [8c, 8c+8); bx % 8 == 0.  With tags,
+// a chunk of a block none of whose bx rows is routed is dead.
 struct RaggedRows {
   const int32_t* block_expert;
   int bx;
+  Tags tags;
   __device__ int expert(int c) const { return block_expert[c * kRows / bx]; }
   __device__ int first_row(int c) const { return c * kRows; }
   __device__ int rows(int) const { return kRows; }
+  // called by every thread of the CTA (a CTA-wide vote; bx <= blockDim.x)
+  __device__ bool live(int c) const {
+    if (tags.p == nullptr) return true;
+    const int b = c * kRows / bx;
+    return __syncthreads_or(threadIdx.x < bx && tags.routed((long long)b * bx + threadIdx.x));
+  }
 };
 
 // Capacity buffers (E, X, M): nc = ceil(X/8) chunks per expert, chunk c
@@ -94,6 +117,7 @@ struct ExpertRows {
   __device__ int expert(int c) const { return c / nc; }
   __device__ int first_row(int c) const { return (c / nc) * X + (c % nc) * kRows; }
   __device__ int rows(int c) const { return min(kRows, X - (c % nc) * kRows); }
+  __device__ bool live(int) const { return true; }
 };
 
 // out[r, c] = act(sum_k A[r, k] W[e][k, c] [, gate sum]) for the CTA's rows,
@@ -115,6 +139,12 @@ grouped_rows_kernel(const TA* __restrict__ A, const TW* __restrict__ W,
   const int chunk = blockIdx.y;
   const int r0 = map.first_row(chunk);
   const int nrows = map.rows(chunk);
+  if (!map.live(chunk)) {               // a dead block's chunk: its A unread, its rows 0
+    const int c = blockIdx.x * kCols + tid;
+    if (tid < kCols && c < C)
+      for (int r = 0; r < nrows; ++r) from_f32(0.0f, out + (size_t)(r0 + r) * C + c);
+    return;
+  }
   const int e = map.expert(chunk);
   const int c0 = blockIdx.x * kCols + tx * 8;
   const int ncols = min(8, C - c0);     // <= 0: the group is past the edge

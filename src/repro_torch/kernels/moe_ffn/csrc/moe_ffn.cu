@@ -57,6 +57,6 @@ extern "C" int moe_ffn(int dtype, const void* x, const void* w_up, const void* w
 extern "C" int moe_ffn_tc(const void* x, const void* w_up, const void* w_gate,
                           const void* w_down, void* h, void* y, int E, int X, int M, int I,
                           int act, int n, int tiles, void* stream) {
-  return (int)grouped_ffn_sm90::run_ffn(x, w_up, w_gate, w_down, nullptr, E, X, E, n, tiles, h,
-                                        y, M, I, act, (cudaStream_t)stream);
+  return (int)grouped_ffn_sm90::run_ffn(x, w_up, w_gate, w_down, E, X, E, n, tiles, h, y, M, I,
+                                        act, (cudaStream_t)stream);
 }
