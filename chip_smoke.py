@@ -36,8 +36,19 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               dead block's rows exactly 0, also with every block dead,
               every block live, and a received buffer's dead rows NaN;
               the mesh packing's liveness on the card, under "error" too;
-              one dropless dispatch under "warn", its syncing lines
-              reported.  The paged kernels also
+              one dropless dispatch under "warn": a line that syncs fails
+              the run.  The dropless combine (ragged_combine.cu) at phase
+              5's decode and mixed steps (8 and 40 tokens, R 232 and 264),
+              granite's decode (top-8 of 40, M 1536), expert choice at
+              phase 11 (f)'s router-training shape (1152 tokens, K = 32)
+              and a mesh rank's groups of phase 16 (b) (out a row slice of
+              the unpacked buffer), bf16 and f32, under "error": forward
+              bit-equal to its plain version, and to the index_put_
+              scatter-add it replaced at top-1 (at K > 1 within one bf16
+              ulp plus f32 summation slack, COMBINE_ATOL / COMBINE_RTOL,
+              of that scatter-add summed in f32; against it in bf16
+              reported), NaN in the unrouted rows kept out; backward
+              against autograd through the scatter-add.  The paged kernels also
               at every cluster split (1, 2, 4, 8) forced, with a ring of
               stages that wraps (a 1000-token row), f32 at G = 2, 4, 8 and
               D = 32, 128, and a garbage block of 1e4 past every length;
@@ -87,18 +98,27 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               trace cache, at its median and its longest attended length;
               the dense kernel at encdec's cross-attention (T = 256, 250)
               and at the static trace shape under the softcap; the dense
-              kernel at phase 19's rank shapes.
+              kernel at phase 19's rank shapes; the dropless combine at
+              phase 3's shapes beside its bound (routed rows, gates and
+              row map read, y written), its plain version, the index_put_
+              scatter-add it replaced (library_ms) and index_add_.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
               through the continuous engine with dropless MoE; every request
               must finish with its budget, the dropped fraction must be
               exactly 0.0, and each serving kernel's launch count must equal
-              layers x engine steps.  Then one mixed step's forward runs
+              layers x engine steps (the ragged FFN's and the dropless
+              combine's too).  Then one mixed step's forward runs
               twice, through the kernels and through the plain versions, and
               the logits and greedy tokens are compared.  The device busy
               share of 24 steps is taken twice, recording the CPU's activity
               beside the card's (the share phases 5 and 7 have always
-              reported) and the card's alone (as phase 12 takes it).
+              reported) and the card's alone (as phase 12 takes it), with
+              the combine's device time and calls; then once more with the
+              index_put_ scatter-add in place of the combine kernel (the
+              busy device ms a step of both).  Every gate that counts the
+              ragged FFN's launches (expect_launches and phases 5-10) wants
+              the combine's as often: one of each a dropless dispatch.
 6. train    — first, AdamW's update of m6-shaped leaves at steps 1-4 and the
               trainer's 3-way microbatch average must be bit-equal on the
               card to the CPU's (true divisions; the share a Python-number
@@ -429,7 +449,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               final parameter block bit-equal to the run without FSDP,
               the same launches (none), some leaves FSDP blocks, the peak
               GB a rank beside the run without FSDP.
-20. report  — a {"kernels": [...]} line (decode_attention's launches and
+20. report  — a {"kernels": [...]} line (ragged_combine: no TPU kernel,
+              "replaces" the reference's scatter-add, its phase 3-4 shapes
+              and phase 5's profiled device ms; decode_attention's launches and
               times from the static engine's path; static_launches and
               router_train_launches of phase 11; family_launches and
               family_shapes of phase 12; more_families_launches of phase
@@ -748,7 +770,206 @@ def dispatch_syncs(torch, weights):
     where = sorted(set(where))
     log(f"  dropless dispatch at the decode step under sync-debug \"warn\": "
         f"{', '.join(where) if where else 'no op synced'}")
+    if where:
+        raise AssertionError(f"the dropless dispatch reads the device back at {where}")
     return where
+
+
+# ---------------------------------------------------------------------------
+# The dropless combine (kernels/moe_dropless/csrc/ragged_combine.cu)
+# ---------------------------------------------------------------------------
+
+# the combine's shapes: label -> (groups, tokens a group, experts, width, top-k, expert-choice
+# capacity or None, a mesh rank's slice of the groups or None)
+COMBINE_SHAPES = {
+    "decode": (1, 8, 32, 1024, 1, None, None),           # phase 5's decode step: R 232
+    "mixed": (1, 40, 32, 1024, 1, None, None),           # phase 5's mixed step: R 264
+    "granite decode": (1, 8, 40, 1536, 8, None, None),   # phase 12 (a): top-8 of 40, R 344
+    "expert choice": (1, 1152, 32, 1024, 1, 45, None),   # phase 11 (f)'s router training
+    "mesh decode": (8, 1, 32, 1024, 1, None, (2, 4)),    # phase 16 (b): a rank's 2 of 8 groups
+    "mesh mixed": (72, 1, 32, 1024, 1, None, (18, 36)),  # and its 18 of 72
+}
+# the combine against the scatter-add it replaced with its terms summed in f32 and rounded
+# once (index_put_(accumulate=True) over the f32 terms, in row order): with K > 1 the two
+# orders of the f32 sum may round to neighbouring values, one bf16 ulp (at most 2^-7 of the
+# value) apart, plus an f32 summation slack; at top-1 a token has one term, and the combine
+# is bit-equal to the scatter-add in the activation dtype itself
+COMBINE_ATOL, COMBINE_RTOL = 1e-5, 2.0 ** -7
+
+
+def combine_case(shape, seed, dtype=None):
+    """The combine's inputs at ``shape`` (a ``COMBINE_SHAPES`` value), as
+    ``dropless.dropless_dispatch`` (or, with a rank's groups,
+    ``ragged_ep_dispatch``: out a row slice of an (R + 1)-row buffer)
+    passes them: the ragged view's gate and row map of a plan over random
+    router logits, random rows in ``dtype``.  Returns (out, gate, rows,
+    token: the view's, -1 on the rows no choice is routed to)."""
+    import torch
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.dispatch.dropless import combine_rows, plan_block_rows
+    from repro_torch.core.routers.expert_choice import expert_choice_plan
+    from repro_torch.core.routers.topk import topk_plan
+
+    G, T, E, M, k, capacity, groups = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((G, T, E), generator=g, device="cuda")
+    if capacity is None:
+        plan = topk_plan(logits, MoEConfig(num_experts=E, top_k=k, aux_loss_coef=0.0), T * k)
+    else:
+        plan = expert_choice_plan(logits, MoEConfig(num_experts=E, routing="expert_choice"),
+                                  capacity)
+    rag = plan.ragged(plan_block_rows(plan))
+    part = slice(*groups) if groups else slice(None)
+    token, gate = rag.token[part], rag.gate[part]
+    Gl, R = token.shape
+    buf = torch.randn((Gl, R + 1, M), generator=g, device="cuda").to(dtype or torch.bfloat16)
+    return buf[:, :R], gate, combine_rows(plan, rag.sort_order[part], part), token
+
+
+def scatter_add_combine(out, gate, token, T, f32=False):
+    """The combine as the dispatcher ran it before the kernel: the
+    gate-weighted rows (out's dtype) scatter-added with
+    index_put_(accumulate=True), the padding rows into token 0 (gate 0);
+    with ``f32`` the terms are added in f32 and the sum rounded once."""
+    import torch
+
+    G, R, M = out.shape
+    vals = out * gate[..., None].to(out.dtype)
+    gi = torch.arange(G, device=out.device)[:, None].expand(G, R)
+    tok = torch.clamp(token, min=0).long()
+    acc = torch.float32 if f32 else out.dtype
+    return torch.zeros((G, T, M), dtype=acc, device=out.device).index_put_(
+        (gi, tok), vals.to(acc), accumulate=True).to(out.dtype)
+
+
+def index_add_combine(out, gate, token, T):
+    """The same sum by index_add_ over the flattened (group, token) rows."""
+    import torch
+
+    G, R, M = out.shape
+    vals = (out * gate[..., None].to(out.dtype)).reshape(G * R, M)
+    tok = torch.clamp(token, min=0).long() + T * torch.arange(G, device=out.device)[:, None]
+    y = torch.zeros((G * T, M), dtype=out.dtype, device=out.device)
+    return y.index_add_(0, tok.reshape(-1), vals).reshape(G, T, M)
+
+
+def combine_bound(out, rows):
+    """The routed rows read once, their gates and the row map read, y
+    written once; two flops an element of a routed row."""
+    G, _, M = out.shape
+    routed = int((rows >= 0).sum())
+    nbytes = (routed * M * out.element_size() + routed * 4 + rows.numel() * 4
+              + G * rows.shape[1] * M * out.element_size())
+    return roofline(nbytes, 2.0 * routed * M)
+
+
+def check_combine(torch):
+    """Phase 3: the combine kernel at ``COMBINE_SHAPES`` in bf16 and f32,
+    each call under the sync-debug mode "error": forward bit-equal to its
+    plain version; bit-equal to the scatter-add it replaced at top-1, at K
+    > 1 within COMBINE_ATOL / COMBINE_RTOL of it summed in f32 (against the
+    scatter-add in the activation dtype reported); unchanged with NaN in every
+    row the map does not name; backward (the wrapper's torch ops) against
+    autograd through the scatter-add on the routed rows within the same
+    tolerance, 0 on the others.  Returns {"ragged_combine": the largest
+    error against the plain version, "mesh ragged_combine": the mesh
+    shapes'}."""
+    from repro_torch.kernels.moe_dropless import combine
+    from repro_torch.kernels.moe_dropless.ref import ragged_combine_ref
+
+    errs = {"ragged_combine": 0.0, "mesh ragged_combine": 0.0}
+    for i, (label, shape) in enumerate(COMBINE_SHAPES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            out, gate, rows, token = combine_case(shape, 1700 + i, dtype)
+            T, K = rows.shape[1:]
+            name = (f"ragged_combine {label} {str(dtype)[6:]} (G={out.shape[0]}, "
+                    f"R={out.shape[1]}, T={T}, K={K})")
+            with no_sync(torch):
+                y = combine.ragged_combine(out, gate, rows)
+            torch.cuda.synchronize()
+            plain = ragged_combine_ref(out, gate, rows)
+            if not torch.equal(y, plain):
+                check_close(f"{name} vs plain", y, plain)
+                raise AssertionError(f"{name}: not bit-equal to its plain version")
+            err = float((y.float() - plain.float()).abs().max())
+            key = "mesh ragged_combine" if label.startswith("mesh") else "ragged_combine"
+            errs[key] = max(errs[key], err)
+            parent = scatter_add_combine(out, gate, token, T)
+            if K == 1 and not torch.equal(y, parent):
+                raise AssertionError(f"{name}: not bit-equal to the index_put_ scatter-add")
+            check_close(f"{name} vs the index_put_ scatter-add summed in f32", y,
+                        scatter_add_combine(out, gate, token, T, f32=True),
+                        atol=COMBINE_ATOL, rtol=COMBINE_RTOL)
+            log(f"    bit-equal to its plain version; "
+                f"{float((y == parent).float().mean()):.4f} of the elements bit-equal to "
+                f"the scatter-add's in {str(dtype)[6:]} (max abs err "
+                f"{float((y.float() - parent.float()).abs().max()):.3g})")
+            pad = (token < 0)[..., None]
+            with no_sync(torch):
+                y_nan = combine.ragged_combine(out.masked_fill(pad, float("nan")), gate, rows)
+            if not torch.equal(y_nan, y):
+                raise AssertionError(f"{name}: a NaN in an unrouted row reached y")
+            grad = torch.randn_like(y)
+
+            def grads(fn):
+                o, g = out.detach().requires_grad_(True), gate.detach().requires_grad_(True)
+                return torch.autograd.grad(fn(o, g), (o, g), grad)
+
+            with no_sync(torch):
+                d = [grads(lambda o, g: combine.ragged_combine(o, g, rows))]
+            d.append(grads(lambda o, g: scatter_add_combine(o, g, token, T)))
+            routed = token >= 0
+            for what, a, b in (("d out", d[0][0], d[1][0]), ("d gate", d[0][1], d[1][1])):
+                check_close(f"{name} backward {what} (routed rows) vs the scatter-add's",
+                            a[routed], b[routed], atol=COMBINE_ATOL, rtol=COMBINE_RTOL)
+                if not (a[~routed] == 0).all():
+                    raise AssertionError(f"{name}: {what} not 0 on an unrouted row")
+    return errs
+
+
+def time_combine(torch, label, seed):
+    """The combine kernel at ``COMBINE_SHAPES[label]`` (bf16): its time by
+    CUDA events and by the profiler, its plain version's, the scatter-add it
+    replaced (index_put_) and index_add_ as library yardsticks (events and
+    device time), and its bound."""
+    from repro_torch.kernels.moe_dropless import combine
+    from repro_torch.kernels.moe_dropless.ref import ragged_combine_ref
+
+    out, gate, rows, token = combine_case(COMBINE_SHAPES[label], seed)
+    T = rows.shape[1]
+    bound, by = combine_bound(out, rows)
+
+    def kern():
+        return combine.ragged_combine(out, gate, rows)
+
+    def put():
+        return scatter_add_combine(out, gate, token, T)
+
+    def add():
+        return index_add_combine(out, gate, token, T)
+
+    check_close(f"index_add_ yardstick {label} (bf16 atomics) vs the kernel", add(), kern())
+    return dict(ms=cuda_ms(kern), device_ms=device_ms(kern, bound_ms=bound),
+                plain_ms=cuda_ms(lambda: ragged_combine_ref(out, gate, rows), reps=10),
+                library_ms=cuda_ms(put), library_device_ms=device_ms(put, bound_ms=bound),
+                index_add_ms=cuda_ms(add), index_add_device_ms=device_ms(add, bound_ms=bound),
+                bound_ms=bound, bound_by=by, routed_rows=int((rows >= 0).sum()),
+                shape=dict(zip(("G", "R", "T", "K", "M"), (*out.shape[:2], *rows.shape[1:],
+                                                           out.shape[2]))))
+
+
+def phase_timing_combine(torch):
+    """Phase 4: the combine at every ``COMBINE_SHAPES`` shape;
+    ``timing["ragged_combine"]`` is the decode step's (the JSON line)."""
+    out = {f"ragged_combine {label}": time_combine(torch, label, 1750 + i)
+           for i, label in enumerate(COMBINE_SHAPES)}
+    for name, r in out.items():
+        log(f"  {name} {r['shape']}: {timing_line(r)} (the index_put_ scatter-add it "
+            f"replaced); index_add_ {r['index_add_ms']:.4f} ms (device "
+            f"{fmt_ms(r['index_add_device_ms'])})")
+    out["ragged_combine"] = out["ragged_combine decode"]
+    return out
 
 
 def ptxas_functions(report: str, pattern: str) -> dict:
@@ -1084,6 +1305,7 @@ def phase_check(torch):
     ragged("swiglu f32", xs.float(), be, [w.float() for w in wsw], "swiglu", bx,
            tensor_cores=False, live=rag.token, tile=tile)
     DISPATCH_SYNCS[:] = dispatch_syncs(torch, weights)
+    errs.update(check_combine(torch))
     errs.update(check_training_kernels(torch))
     errs.update(check_decode_kernels(torch))
     for name, err in check_slo_step_kernels(torch).items():
@@ -1997,6 +2219,7 @@ def plain_versions():
     """Route the forward through the kernels' plain PyTorch versions."""
     from unittest import mock
 
+    from repro_torch.core.dispatch import dropless
     from repro_torch.kernels.decode_attention import ops as pda
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref,
@@ -2004,7 +2227,7 @@ def plain_versions():
         quantized_paged_decode_attention_ref,
     )
     from repro_torch.kernels.moe_dropless import ops as rffn
-    from repro_torch.kernels.moe_dropless.ref import ragged_ffn_ref
+    from repro_torch.kernels.moe_dropless.ref import ragged_combine_ref, ragged_ffn_ref
 
     import repro_torch.kernels.decode_attention as da_pkg
     import repro_torch.kernels.flash_attention as fa_pkg
@@ -2028,8 +2251,27 @@ def plain_versions():
             mock.patch.object(pda, "quantized_paged_decode_attention", plain_quantized), \
             mock.patch.object(da_pkg, "decode_attention", plain_dense), \
             mock.patch.object(rffn, "ragged_ffn", plain_ffn), \
+            mock.patch.object(dropless, "ragged_combine", ragged_combine_ref), \
             mock.patch.object(mf_pkg, "moe_ffn", moe_ffn_ref), \
             mock.patch.object(fa_pkg, "flash_attention", attention_ref):
+        yield
+
+
+@contextmanager
+def parent_combine():
+    """The dispatchers' combine as it ran before the kernel: the index_put_
+    scatter-add (``scatter_add_combine``; a row the map does not name adds
+    its gate-0 product into token 0), to profile beside the kernel in one
+    run."""
+    from unittest import mock
+
+    from repro_torch.core.dispatch import dropless
+    from repro_torch.kernels.moe_dropless.ref import row_tokens
+
+    def scatter(out, gate, rows):
+        return scatter_add_combine(out, gate, row_tokens(rows, out.shape[1]), rows.shape[1])
+
+    with mock.patch.object(dropless, "ragged_combine", scatter):
         yield
 
 
@@ -2037,6 +2279,7 @@ def phase_serve(torch):
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.m6 import M6_BASE
     from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import combine
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.nn import count_params, init_params
     from repro_torch.serving.continuous import ContinuousEngine
@@ -2060,6 +2303,7 @@ def phase_serve(torch):
     engine = ContinuousEngine(cfg, params, serve, device="cuda")
     pda.paged_decode_attention.launches = 0
     rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = 0
+    combine.ragged_combine.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     STEP_CLOCKS["bf16"] = []                                    # phase 16 replays them
@@ -2068,7 +2312,8 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
-                "ragged_ffn": rffn.ragged_ffn.launches}
+                "ragged_ffn": rffn.ragged_ffn.launches,
+                "ragged_combine": combine.ragged_combine.launches}
     if rffn.ragged_ffn.tc_launches != launches["ragged_ffn"]:
         raise AssertionError(f"ragged_ffn: {rffn.ragged_ffn.tc_launches} of "
                              f"{launches['ragged_ffn']} launches on the tensor-core route")
@@ -2094,6 +2339,14 @@ def phase_serve(torch):
     e2e.update(profile_steps(torch, cfg, params, serve, requests))
     e2e["device_busy_share_cuda_only"] = profile_steps(
         torch, cfg, params, serve, requests, cpu=False)["device_busy_share"]
+    log("  the same profile with the index_put_ scatter-add in place of the combine kernel:")
+    with parent_combine():
+        parent = profile_steps(torch, cfg, params, serve, requests, cpu=False)
+    e2e["scatter_add_profile"] = parent
+    if e2e.get("profiled_device_ms") and parent.get("profiled_device_ms"):
+        per = [r["profiled_device_ms"] / r["profiled_steps"] for r in (e2e, parent)]
+        log(f"  busy device ms a step: {per[0]:.4f} with the combine kernel, {per[1]:.4f} with "
+            f"the scatter-add")
     compare_mixed_step(torch, cfg, params, serve, requests)
     return launches, e2e, out
 
@@ -2146,8 +2399,15 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
         f"kernels and copies)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
+    combine = [e for e in kernels if "combine_kernel" in e.key]
+    combine_ms = sum(dev_us(e) for e in combine) / 1e3
+    if combine:
+        log(f"    the dropless combine (ragged_combine.cu): {combine_ms:.3f} ms of device time "
+            f"in {sum(e.count for e in combine)} calls (phase 5's 120 calls took 16.82 ms as "
+            f"the index_put_ scatter-add, H100 80GB HBM3 at 700 W)")
     return {"device_busy_share": busy_us / wall_us, "profiled_steps": n,
-            "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3}
+            "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3,
+            "combine_device_ms": combine_ms, "combine_calls": sum(e.count for e in combine)}
 
 
 def profile_static(torch, cfg, params, prompts, gen, cpu=True):
@@ -2723,13 +2983,16 @@ def dropless_gradient_step(torch, rffn, argv):
         loss, _ = loss_fn(state.params, batch)
         return torch.autograd.grad(loss, [flat[n] for n in names])
 
-    rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = 0
+    from repro_torch.kernels.moe_dropless import combine
+
+    rffn.ragged_ffn.launches = rffn.ragged_ffn.tc_launches = combine.ragged_combine.launches = 0
     gk = grads()
     n, n_tc = rffn.ragged_ffn.launches, rffn.ragged_ffn.tc_launches
+    n_combine = combine.ragged_combine.launches
     with plain_versions():
         gp = grads()
     on_card = sync(torch, gp[0])
-    out = {"ragged_ffn_launches": n}
+    out = {"ragged_ffn_launches": n, "ragged_combine_launches": n_combine}
     for name, a, b in zip(names, gk, gp):
         na, nb = float(a.float().norm()), float(b.float().norm())
         cos = float(torch.nn.functional.cosine_similarity(a.float().flatten(),
@@ -2739,11 +3002,12 @@ def dropless_gradient_step(torch, rffn, argv):
             f"cosine {cos:.6f}")
         if na == 0.0 or abs(na - nb) > 2e-2 * nb or cos < 0.99:
             raise AssertionError(f"dropless step: {name} gradient {na} vs {nb}, cosine {cos}")
-    if on_card and n != 2 * cfg.num_layers:
-        raise AssertionError(f"dropless step: ragged_ffn launched {n} times, expected "
-                             f"2 x {cfg.num_layers} (forward + remat recompute)")
+    if on_card and (n != 2 * cfg.num_layers or n_combine != n):
+        raise AssertionError(f"dropless step: ragged_ffn launched {n} times, ragged_combine "
+                             f"{n_combine}, expected 2 x {cfg.num_layers} each (forward + "
+                             f"remat recompute)")
     log(f"  dropless step: ragged_ffn launched {n} times (forward + remat recompute), "
-        f"{n_tc} on the tensor-core route")
+        f"{n_tc} on the tensor-core route; ragged_combine {n_combine} times")
     return out
 
 
@@ -2786,6 +3050,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
 
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import combine
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.serving.trace import latency_line
 
@@ -2793,7 +3058,7 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
     on_card = torch.device(device).type == "cuda"
     counters = {"quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
                 "paged_decode_attention": pda.paged_decode_attention,
-                "ragged_ffn": rffn.ragged_ffn}
+                "ragged_ffn": rffn.ragged_ffn, "ragged_combine": combine.ragged_combine}
     for fn in counters.values():
         fn.launches = 0
     rffn.ragged_ffn.tc_launches = 0
@@ -2808,10 +3073,11 @@ def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
         steps = eng.steps
         want = cfg.num_layers * steps
         if on_card and (got["quantized_paged_decode_attention"] != want
-                        or got["ragged_ffn"] != want or got["paged_decode_attention"]):
+                        or got["ragged_ffn"] != want or got["ragged_combine"] != want
+                        or got["paged_decode_attention"]):
             raise AssertionError(f"kv_quant {name}: launches {got}, expected the quantized "
-                                 f"kernel and ragged_ffn {want} = layers x steps, the bf16 "
-                                 f"paged kernel 0")
+                                 f"kernel, ragged_ffn and ragged_combine {want} = layers x "
+                                 f"steps, the bf16 paged kernel 0")
         if stats["moe_dropped_fraction"] != 0.0:
             raise AssertionError(f"kv_quant {name}: dropped fraction "
                                  f"{stats['moe_dropped_fraction']}")
@@ -3373,11 +3639,12 @@ def spec_run(torch, cfg, params, serve, requests, device, **kw):
     before it and read just after: (tokens, stats, engine, wall ms,
     launches, per-slot acceptances, ragged FFN shapes)."""
     from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import combine
     from repro_torch.kernels.moe_dropless import ops as rffn
 
     counters = {"paged_decode_attention": pda.paged_decode_attention,
                 "quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
-                "ragged_ffn": rffn.ragged_ffn}
+                "ragged_ffn": rffn.ragged_ffn, "ragged_combine": combine.ragged_combine}
     for fn in counters.values():
         fn.launches = 0
     rffn.ragged_ffn.tc_launches = 0
@@ -3442,6 +3709,9 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
             raise AssertionError(f"{label}: {launches['ragged_ffn tensor cores']} of "
                                  f"{launches['ragged_ffn']} ragged_ffn launches on the "
                                  f"tensor-core route")
+        if on_card and launches["ragged_combine"] != launches["ragged_ffn"]:
+            raise AssertionError(f"{label}: ragged_combine launched {launches['ragged_combine']} "
+                                 f"times, ragged_ffn {launches['ragged_ffn']}")
         if stats["moe_dropped_fraction"] != 0.0:
             raise AssertionError(f"{label}: dropped fraction {stats['moe_dropped_fraction']}")
         rep = spec_report(stats, eng, wall_ms, accepts)
@@ -3746,6 +4016,7 @@ def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
     import numpy as np
 
     from repro_torch.kernels.decode_attention import ops as pda
+    from repro_torch.kernels.moe_dropless import combine
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.request import Status
@@ -3762,7 +4033,7 @@ def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
 
     counters = {"paged_decode_attention": pda.paged_decode_attention,
                 "quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
-                "ragged_ffn": rffn.ragged_ffn}
+                "ragged_ffn": rffn.ragged_ffn, "ragged_combine": combine.ragged_combine}
     eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap,
                            check_invariants=True)
     holder.append(eng)
@@ -3796,9 +4067,9 @@ def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
                    if serve.kv_quant == "none" else
                    ("quantized_paged_decode_attention", "paged_decode_attention"))
     if on_card and (launches[attn] != want or launches["ragged_ffn"] != want
-                    or launches[other]):
-        raise AssertionError(f"{label}: launches {launches}, expected {attn} and ragged_ffn "
-                             f"{want} = layers x steps, {other} 0")
+                    or launches["ragged_combine"] != want or launches[other]):
+        raise AssertionError(f"{label}: launches {launches}, expected {attn}, ragged_ffn and "
+                             f"ragged_combine {want} = layers x steps, {other} 0")
     if on_card and launches["ragged_ffn tensor cores"] != launches["ragged_ffn"]:
         raise AssertionError(f"{label}: {launches['ragged_ffn tensor cores']} of "
                              f"{launches['ragged_ffn']} ragged_ffn launches on the tensor-core "
@@ -4052,20 +4323,21 @@ STATIC_TRAIN_RUNS = (
      ["--routing", "expert_choice", "--k", "1", "--moe-impl", "dropless"], "ragged_ffn"),
 )
 KERNEL_NAMES = ("decode_attention", "paged_decode_attention", "quantized_paged_decode_attention",
-                "ragged_ffn", "moe_ffn", "flash_attention")
+                "ragged_ffn", "ragged_combine", "moe_ffn", "flash_attention")
 
 
 def kernel_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_dropless import combine
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_ffn import ops as mf
 
     return {"decode_attention": da.decode_attention,
             "paged_decode_attention": da.paged_decode_attention,
             "quantized_paged_decode_attention": da.quantized_paged_decode_attention,
-            "ragged_ffn": rffn.ragged_ffn, "moe_ffn": mf.moe_ffn,
-            "flash_attention": fa.flash_attention}
+            "ragged_ffn": rffn.ragged_ffn, "ragged_combine": combine.ragged_combine,
+            "moe_ffn": mf.moe_ffn, "flash_attention": fa.flash_attention}
 
 
 @contextmanager
@@ -4087,7 +4359,10 @@ def counted_launches(out: dict):
 
 def expect_launches(label: str, got: dict, want: dict) -> None:
     """Each kernel launched exactly ``want[name]`` times (0 if absent), and
-    every grouped-FFN launch on the tensor cores."""
+    every grouped-FFN launch on the tensor cores.  The dropless combine is
+    expected as often as the ragged FFN (one of each a dropless dispatch)
+    unless ``want`` names it."""
+    want = {"ragged_combine": want.get("ragged_ffn", 0), **want}
     launched = {n: got[n] for n in KERNEL_NAMES if got[n]}
     if any(got[n] != want.get(n, 0) for n in KERNEL_NAMES):
         raise AssertionError(f"{label}: launches {launched}, expected {want} and no other kernel")
@@ -4868,7 +5143,8 @@ XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--seq", "1024", "--
 XLSTM_TRAIN_STEPS = 2
 XLSTM_TRAIN_LAYERS = 4           # one sLSTM block and three mLSTM (phase 19 (b) too)
 XLSTM_CPU_REQUESTS = 4           # the trace's first requests, served again on the CPU
-MORE_FAMILIES_KERNELS = ("moe_ffn", "paged_decode_attention", "ragged_ffn", "decode_attention")
+MORE_FAMILIES_KERNELS = ("moe_ffn", "paged_decode_attention", "ragged_ffn", "ragged_combine",
+                         "decode_attention")
 
 
 def moe_layers(cfg) -> int:
@@ -6172,7 +6448,8 @@ MESH_TIMING = {"paged_decode_attention": ["paged_decode_attention mesh decode",
                                           "paged_decode_attention mesh mixed"],
                "quantized_paged_decode_attention": ["quantized_paged_decode_attention mesh decode",
                                                     "quantized_paged_decode_attention mesh mixed"],
-               "ragged_ffn": ["ragged_ffn mesh decode", "ragged_ffn mesh mixed"]}
+               "ragged_ffn": ["ragged_ffn mesh decode", "ragged_ffn mesh mixed"],
+               "ragged_combine": ["ragged_combine mesh decode", "ragged_combine mesh mixed"]}
 
 
 def phase_timing_mesh(torch):
@@ -6243,7 +6520,8 @@ def mesh_trivial_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
                                      f"run's tokens")
             eng.cache.check_conservation()
             launches[attn[kv_quant]] = got[attn[kv_quant]]
-            launches["ragged_ffn"] = launches.get("ragged_ffn", 0) + got["ragged_ffn"]
+            for name in ("ragged_ffn", "ragged_combine"):
+                launches[name] = launches.get(name, 0) + got[name]
             log(f"  (a) {key} pools: {steps} steps replayed at phase "
                 f"{'5' if key == 'bf16' else '7 (a)'}'s clocks, tokens identical to that run's; "
                 f"mean step {wall_ms / steps:.3f} ms (host clock); launches "
@@ -6444,7 +6722,8 @@ def mesh_rank_runs(torch, cfg, requests, base_tokens, device="cuda", spawn_dir=N
         flips=[(u, p, g) for u, p, g in flips], tokens_equal_phase5=same5, spawn_s=spawn_s,
         run=[{k: r[k] for k in ("run_steps", "run_tokens_per_s", "run_p50_ms", "run_p95_ms")}
              for r in ranks], run_token_match_vs_replay=run_match)
-    launches = {n: r0["launches"][n] for n in ("paged_decode_attention", "ragged_ffn")}
+    launches = {n: r0["launches"][n]
+                for n in ("paged_decode_attention", "ragged_ffn", "ragged_combine")}
     return report, launches
 
 
@@ -7928,6 +8207,7 @@ def main() -> int:
     timing.update(phase_timing_mesh(torch))
     timing.update(phase_timing_mesh_train(torch))
     timing.update(phase_timing_mesh_families(torch))
+    timing.update(phase_timing_combine(torch))
     again = remeasure(torch, timing, ffn_weights)
     timing_s = time.perf_counter() - t0
     log(f"  timing phase {timing_s:.1f} s")
@@ -8012,6 +8292,9 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:143", launches),
         "ragged_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_dropless/kernel.py:80",
                        launches),
+        # no Pallas kernel: the reference's combine is XLA's scatter-add
+        "ragged_combine": ("src/repro_torch/kernels/moe_dropless/csrc/ragged_combine.cu",
+                           "src/repro/core/dispatch/dropless.py:176", launches),
         "moe_ffn": (GROUPED_FFN_SM90, "src/repro/kernels/moe_ffn/kernel.py:72", train_launches),
         "flash_attention": (FLASH_SM90, "src/repro/kernels/flash_attention/kernel.py:66",
                             {"flash_attention": train["flash"]["launches"]}),
@@ -8053,6 +8336,20 @@ def main() -> int:
                          tile=t["tile"], without_liveness_ms=t["without_liveness_ms"],
                          without_liveness_device_ms=t["without_liveness_device_ms"],
                          dispatch_syncs=DISPATCH_SYNCS)
+        if name == "ragged_combine":      # no TPU kernel; its shapes beside the decode step's
+            entry.update(note="replaces XLA's scatter-add (.at[gi, tok].add), not a Pallas "
+                              "kernel; library_ms is the index_put_(accumulate=True) scatter-add "
+                              "it replaced",
+                         index_add_ms=t["index_add_ms"],
+                         index_add_device_ms=t["index_add_device_ms"],
+                         shapes={label: {k: timing[f"ragged_combine {label}"][k]
+                                         for k in ("shape", "ms", "device_ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms",
+                                                   "library_device_ms", "index_add_ms",
+                                                   "index_add_device_ms")}
+                                 for label in COMBINE_SHAPES},
+                         phase5_profile_ms=e2e.get("combine_device_ms"),
+                         phase5_profile_calls=e2e.get("combine_calls"))
         if src == FLASH_SM90:             # flash attention's tensor-core route
             entry.update(device_code="tensor cores (wgmma, TMA), P from registers as bf16 hi + lo",
                          entry_point="flash_attention_tc",
@@ -8151,12 +8448,13 @@ def main() -> int:
             entry["mesh_train_launches"] = mesh_train_launches[name]
             if mesh_train_launches[name] <= 0:
                 raise AssertionError(f"{name}: launched no time in phase 17")
-            entry["mesh_train_max_abs_err"] = errs[f"mesh_train {name}"]
-            entry["mesh_train_shapes"] = {
-                label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                      "bound_by", "library_ms",
-                                                      "library_device_ms")}
-                for label in MESH_TRAIN_TIMING[name]}
+            if name in MESH_TRAIN_TIMING:
+                entry["mesh_train_max_abs_err"] = errs[f"mesh_train {name}"]
+                entry["mesh_train_shapes"] = {
+                    label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "library_ms",
+                                                          "library_device_ms")}
+                    for label in MESH_TRAIN_TIMING[name]}
         # phase 19 (a): the dense kernel a rank of the (1, 4) mesh, zamba's
         # shared attention and encdec's self- and cross-attention
         entry["mesh_families_launches"] = mesh_family_launches[name]

@@ -8,15 +8,18 @@
    blocks only: the view's ``token`` is the kernel's liveness (a block with
    no routed row is dead and comes out 0), and the tile width comes from
    the plan's static sizes (:func:`plan_tile_rows`);
-4. combine by gate-weighted scatter-add back into token order.
+4. combine back into token order
+   (:func:`repro_torch.kernels.moe_dropless.combine.ragged_combine`).
 
-The combine is ``index_put_(accumulate=True)`` in the activation dtype,
-as the reference's ``.at[gi, tok].add``.  On the card PyTorch sorts the
-indices and sums each token's terms in its own order, not the
-reference's; at top-1 each token row gets exactly one nonzero term
-(padding rows add gate-0 products, 0 in a dead block, into token 0), so
-the result does not depend on that order.  Under expert choice a token
-gets a term from each expert that picked it, summed in the card's order.
+The combine computes the reference's ``.at[gi, tok].add(out * gate)``
+as a gather-sum: :func:`combine_rows` inverts the view's ``sort_order``
+(its valid ids are unique) into each token's (G, T, K) map of routed
+rows, and the kernel sums each token's terms (each the activation-dtype
+product, as the reference's ``vals``) in f32 in the order of its choices,
+rounding once.  At top-1 a token has one term, so the result is the
+reference's bit for bit; with more choices only the order and precision
+of the sum differ.  Padding rows are never read: the reference adds
+their gate-0 products into token 0, which only a NaN there would show.
 
 Expert parallelism: under a mesh that shards the experts and splits the
 groups (``mesh.expert_mesh_plan``; the serving mesh's joint axis or the
@@ -46,7 +49,9 @@ from repro_torch.core.dispatch.mesh import expert_mesh_plan, joint_axes, joint_r
 from repro_torch.core.routers.base import RoutingPlan
 from repro_torch.distributed import collectives
 from repro_torch.kernels.moe_dropless import ops as dropless_ops
+from repro_torch.kernels.moe_dropless.combine import ragged_combine
 from repro_torch.kernels.moe_dropless.ops import pick_block_rows, ragged_tile_rows
+from repro_torch.kernels.moe_dropless.ref import index_row_map, slot_row_map
 
 
 def plan_block_rows(plan: RoutingPlan, max_block: int = 128) -> int:
@@ -77,6 +82,19 @@ def plan_tile_rows(plan: RoutingPlan, block_rows: int, gated: bool, groups: int 
     G, T, K = plan.expert_index.shape
     slots = plan.token_at_slot.shape[2] if plan.token_at_slot is not None else None
     return choice_tile_rows(T * K, plan.num_experts, block_rows, gated, groups or G, slots)
+
+
+def combine_rows(plan: RoutingPlan, sort_order: torch.Tensor,
+                 groups: slice = slice(None)) -> torch.Tensor:
+    """The combine's (G, T, K) int32 row map of the plan's ragged view
+    (``sort_order``, of the plan's groups ``groups``): the ragged row of
+    each token's choice, -1 where it is not routed.  A slot-major view's
+    ids are looked up through the plan's index view."""
+    _, T, K = plan.expert_index.shape
+    if plan.token_at_slot is None:
+        return index_row_map(sort_order, T, K)
+    return slot_row_map(sort_order, plan.expert_index[groups], plan.slot_index[groups],
+                        plan.valid[groups], plan.token_at_slot.shape[2], plan.num_experts)
 
 
 def shard_slots(offsets: torch.Tensor, epl: int, R: int):
@@ -123,16 +141,16 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     zero row), ships them with one ``all_to_all`` over the expert axis
     (with each block's local expert id), runs the ragged FFN on its own
     experts, sends the rows back, unpacks them to the single-device layout,
-    combines by gate-weighted scatter-add and all-gathers its groups over
-    the mesh.  Whole row blocks move, so every FFN block holds the rows it
-    holds in the single-device layout."""
+    combines them (``ragged_combine`` over this rank's groups' row map) and
+    all-gathers its groups over the mesh.  Whole row blocks move, so every
+    FFN block holds the rows it holds in the single-device layout."""
     mesh, e_ax, _ = placed
     ne = mesh.shape[e_ax]
     joint = joint_axes(placed)
     E = plan.num_experts
     epl = E // ne
     dt = cfg.activation_dtype
-    G, T, M = xg.shape
+    G, _, M = xg.shape
     bx = block_rows
     Gl = G // math.prod(mesh.shape[a] for a in joint)
     rows = slice(joint_rank(mesh, joint) * Gl, (joint_rank(mesh, joint) + 1) * Gl)
@@ -165,17 +183,14 @@ def ragged_ep_dispatch(params, xg: torch.Tensor, plan: RoutingPlan, cfg: ModelCo
     back = torch.where(valid[..., None], back, torch.zeros_like(back))
     # valid sources are distinct; the parked pad row only ever takes zeros
     res = torch.zeros((Gl, R + 1, M), dtype=dt, device=dev).index_put_((gi, srcp), back)[:, :R]
-    vals = res * gate[..., None].to(dt)
-    g2 = torch.arange(Gl, device=dev)[:, None].expand(Gl, R)
-    y = torch.zeros((Gl, T, M), dtype=dt, device=dev).index_put_((g2, toks), vals,
-                                                                  accumulate=True)
+    y = ragged_combine(res, gate, combine_rows(plan, rag.sort_order[rows], rows))
     return collectives.all_gather(y, joint_group, dim=0, grad="slice")
 
 
 def dropless_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
                       cfg: ModelConfig, block_rows: int = 0) -> torch.Tensor:
     dt = cfg.activation_dtype
-    G, T, M = xg.shape
+    G, _, M = xg.shape
     block_rows = block_rows or plan_block_rows(plan)
     placed = expert_mesh_plan(plan, G)
     if placed is not None:
@@ -190,10 +205,7 @@ def dropless_dispatch(params, xg: torch.Tensor, plan: RoutingPlan,
         params["up"].to(dt), params["gate"].to(dt) if "gate" in params else None,
         params["down"].to(dt), cfg.ffn_activation, block_x=block_rows, live=rag.token,
         tile=plan_tile_rows(plan, block_rows, "gate" in params))
-    vals = out.reshape(G, R, M) * rag.gate[..., None].to(dt)
-    gi = torch.arange(G, device=xg.device)[:, None].expand(G, R)
-    y = torch.zeros((G, T, M), dtype=dt, device=xg.device)
-    return y.index_put_((gi, tok), vals, accumulate=True)
+    return ragged_combine(out.reshape(G, R, M), rag.gate, combine_rows(plan, rag.sort_order))
 
 
 @register_dispatcher

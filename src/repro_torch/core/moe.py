@@ -66,7 +66,8 @@ def mesh_aux(plan, gathered: bool) -> dict:
     loads = plan.metrics["expert_loads"]
     routed = plan.metrics.get("routed_choices")
     if routed is None:
-        routed = torch.tensor(float(plan.expert_index.numel()), device=loads.device)
+        routed = torch.full((), float(plan.expert_index.numel()), dtype=torch.float32,
+                            device=loads.device)
     aux = {"moe_aux_loss": plan.aux_loss, "moe_z_loss": plan.z_loss,
            "moe_cv": plan.metrics["cv"],
            "moe_dropped_fraction": plan.metrics["dropped_fraction"],

@@ -187,8 +187,8 @@ def index_load_metrics(expert_index, valid, num_experts: int, total_slots: int) 
     return {"cv": cv,
             "dropped_fraction": dropped_fraction(loads, total_slots),
             "expert_loads": loads,
-            "routed_choices": torch.tensor(float(total_slots), dtype=torch.float32,
-                                           device=expert_index.device)}
+            "routed_choices": torch.full((), float(total_slots), dtype=torch.float32,
+                                         device=expert_index.device)}
 
 
 class Router:

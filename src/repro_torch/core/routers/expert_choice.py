@@ -60,7 +60,7 @@ def expert_choice_plan(logits: torch.Tensor, cfg: MoEConfig, capacity: int,
         "cv": torch.zeros((), dtype=torch.float32, device=dev),
         "dropped_fraction": base.dropped_fraction(routed, G * T),
         "expert_loads": torch.full((E,), float(G * c_eff), dtype=torch.float32, device=dev),
-        "routed_choices": torch.tensor(float(G * T), dtype=torch.float32, device=dev),
+        "routed_choices": torch.full((), float(G * T), dtype=torch.float32, device=dev),
     }
     return RoutingPlan(expert_index, slot_index.contiguous(), gate, valid.contiguous(), E,
                        capacity, torch.zeros((), dtype=torch.float32, device=dev), zl,

@@ -39,6 +39,7 @@ SOURCES = {
                                          / "quantized_paged_decode_attention.cu"),
     "decode_attention": _HERE / "decode_attention" / "csrc" / "decode_attention.cu",
     "ragged_ffn": _HERE / "moe_dropless" / "csrc" / "ragged_ffn.cu",
+    "ragged_combine": _HERE / "moe_dropless" / "csrc" / "ragged_combine.cu",
     "moe_ffn": _HERE / "moe_ffn" / "csrc" / "moe_ffn.cu",
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
 }
