@@ -104,18 +104,34 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               scatter-add it replaced (library_ms) and index_add_.
 5. serve    — m6-base at full width (5 layers, random weights from a seeded
               torch.Generator) serves synthetic_trace(16, 21128, seed=0)
-              through the continuous engine with dropless MoE; every request
+              through the continuous engine with dropless MoE, its decode
+              and mixed steps captured as CUDA graphs when the engine is
+              built and replayed; every request
               must finish with its budget, the dropped fraction must be
               exactly 0.0, and each serving kernel's launch count must equal
               layers x engine steps (the ragged FFN's and the dropless
-              combine's too).  Then one mixed step's forward runs
+              combine's too; a replay adds its graph's launches to the
+              wrappers' counters).  The census: engine_compiled_variants
+              equal to the engine's expected variants (2; 3 when
+              speculating, 1 recurrent) and engine_recompiles_total 0,
+              gated after every continuous-engine run of every serving
+              phase (on the card; off it at most the expected); the graphs'
+              pool bytes are reported.  The same trace through the eager
+              forms (graphs=False): tokens/s, mean step, p50/p95 beside the
+              graphed run's; then both in lockstep at the graphed run's step
+              clocks through logit_tap: greedy tokens identical (and to
+              the graphed run's), the largest logit difference over live
+              rows reported.  Then one mixed step's forward runs
               twice, through the kernels and through the plain versions, and
               the logits and greedy tokens are compared.  The device busy
               share of 24 steps is taken twice, recording the CPU's activity
               beside the card's (the share phases 5 and 7 have always
               reported) and the card's alone (as phase 12 takes it), with
-              the combine's device time and calls; then once more with the
-              index_put_ scatter-add in place of the combine kernel (the
+              the combine's device time and calls (graphed forms; the
+              paged kernels the profiler recorded against those launched
+              says whether it saw the replays' kernels); the card's alone
+              over the eager forms; then over the eager forms once more with
+              the index_put_ scatter-add in place of the combine kernel (the
               busy device ms a step of both).  Every gate that counts the
               ragged FFN's launches (expect_launches and phases 5-10) wants
               the combine's as often: one of each a dropless dispatch.
@@ -213,8 +229,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               swap_out, clobber, restore_slot of 7 blocks on the card over
               bf16, int8 and fp8 pools, bit-equal, with the host time of a
               swap-out and a restore per block; (d) priority_strict with
-              shedding on a trace of tight HIGH deadlines: some request shed,
-              none holding a slot, a block or a token.  Per-class p50/p95
+              shedding on a trace of tight HIGH deadlines (in arrival gaps
+              of (a)'s qps, calibrated from the graphed engine's capacity):
+              some request shed, none holding a slot, a block or a token;
+              every run on the graphed step.  Per-class p50/p95
               and goodput, tokens/s against fcfs, the HIGH p95 ratio fcfs /
               priority_strict, preemptions, swapped and restored blocks.
 11. static  — m6-base through the static lockstep engine
@@ -1643,7 +1661,7 @@ def check_slo_step_kernels(torch):
     fp8 pools at phase 10's step shapes (``slo_step_case``): 4-row decode
     steps, one with an empty slot, and 20-row mixed steps (4 slot rows and
     a 16-token chunk, one of them a partial first chunk), each with the
-    plan the engine's launch gets (``max_length``, the step's longest row),
+    plan the engine's launch gets (from static shapes: the table's width),
     against the plain version at TOL; length-0 rows exactly 0.  Returns
     each kernel's max abs err."""
     from repro_torch.kernels.decode_attention import ops as da
@@ -1661,14 +1679,14 @@ def check_slo_step_kernels(torch):
             case = slo_step_case(slot_lens, chunk, seed=500 + i, name=name)
             q, pool, tables, lengths = case[0], case[1], case[-2], case[-1]
             longest = int(lengths.max())
-            plan = da.launch_plan(q, pool, tables, max_length=longest)
+            plan = da.launch_plan(q, pool, tables)
             if name is None:
                 kernel = "paged_decode_attention"
-                out = da.paged_decode_attention(*case, max_length=longest)
+                out = da.paged_decode_attention(*case)
                 want = paged_decode_attention_ref(*case)
             else:
                 kernel, pol = "quantized_paged_decode_attention", get_kv_quant(name)
-                out = da.quantized_paged_decode_attention(*case, policy=pol, max_length=longest)
+                out = da.quantized_paged_decode_attention(*case, policy=pol)
                 want = quantized_paged_decode_attention_ref(*case, policy=pol)
             torch.cuda.synchronize()
             label = (f"{kernel} {name or 'bf16'} phase 10 {'mixed' if chunk else 'decode'} "
@@ -1677,6 +1695,19 @@ def check_slo_step_kernels(torch):
             if not (out[lengths == 0] == 0).all():
                 raise AssertionError(f"{label}: a length-0 row is not exactly 0")
     return errs
+
+
+def step_plan_splits(q, pool, tables, longest: int) -> int:
+    """The cluster split ``split_plan`` picks for a paged call when the
+    step's longest row is known on the host (the plan before the static
+    one): timed beside the static plan, launched with that split forced
+    (its stages then the static plan's for that split)."""
+    from repro_torch.kernels.decode_attention import ops as da
+
+    N, Hq, D = q.shape
+    _, Hkv, bs, _ = pool.shape
+    return da.split_plan(N, Hkv, Hq // Hkv, D, bs, tables.shape[1], pool.element_size(),
+                         da._sm_count(q.device.index), max_length=longest)[0]
 
 
 def time_quantized(torch, lens, seed, name="int8", heads=(16, 16, 64)):
@@ -1697,12 +1728,18 @@ def time_quantized(torch, lens, seed, name="int8", heads=(16, 16, 64)):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    def kern():                                   # the engine passes its longest row
-        return da.quantized_paged_decode_attention(*nxt(), policy=pol, max_length=max(lens))
+    def kern():                                   # the engine's plan: static shapes
+        return da.quantized_paged_decode_attention(*nxt(), policy=pol)
 
     q, kc, vc, ks, vs, tables, lengths = copies[0]
+    step_splits = step_plan_splits(q, kc, tables, max(lens))
+
+    def kern_step():                              # the split of the step's longest row
+        return da.quantized_paged_decode_attention(*nxt(), policy=pol, splits=step_splits)
+
     bound, by = quant_attention_bound(q, kc, tables, lengths)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    step_dev = device_ms(kern_step, bound_ms=bound)
     p_ms = cuda_ms(lambda: quantized_paged_decode_attention_ref(*nxt(), policy=pol))
     N, Hq, D = q.shape
     Hkv, bs, MB = kc.shape[1], kc.shape[2], tables.shape[1]
@@ -1720,7 +1757,8 @@ def time_quantized(torch, lens, seed, name="int8", heads=(16, 16, 64)):
     lib_ms, lib_dev = cuda_ms(dequant_sdpa), device_ms(dequant_sdpa, bound_ms=bound)
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
-                plan=da.launch_plan(q, kc, tables, max_length=max(lens)))
+                plan=da.launch_plan(q, kc, tables), step_plan_device_ms=step_dev,
+                step_plan=da.launch_plan(q, kc, tables, step_splits))
 
 
 def dense_sdpa(q, k, v, lengths):
@@ -1782,12 +1820,18 @@ def time_attention(torch, lens, seed, heads=(16, 16, 64)):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    def kern():                                   # the engine passes its longest row
-        return pda.paged_decode_attention(*nxt(), max_length=max(lens))
+    def kern():                                   # the engine's plan: static shapes
+        return pda.paged_decode_attention(*nxt())
 
     q, kp, vp, tables, lengths = copies[0]
+    step_splits = step_plan_splits(q, kp, tables, max(lens))
+
+    def kern_step():                              # the split of the step's longest row
+        return pda.paged_decode_attention(*nxt(), splits=step_splits)
+
     bound, by = attention_bound(q, kp, tables, lengths)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
+    step_dev = device_ms(kern_step, bound_ms=bound)
     p_ms = cuda_ms(lambda: paged_decode_attention_ref(*nxt()))
     N, Hq, D = q.shape
     Hkv, bs, MB = kp.shape[1], kp.shape[2], tables.shape[1]
@@ -1804,13 +1848,16 @@ def time_attention(torch, lens, seed, heads=(16, 16, 64)):
         f"{e.key[:90]} ({e.self_device_time_total / 4e3:.5f} ms)" for e in kernels))
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
                 library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
-                plan=pda.launch_plan(q, kp, tables, max_length=max(lens)))
+                plan=pda.launch_plan(q, kp, tables), step_plan_device_ms=step_dev,
+                step_plan=pda.launch_plan(q, kp, tables, step_splits))
 
 
 def time_splits(torch, decode_lens, seed=120):
     """Device time of the paged (bf16), int8 and dense kernels at 8 rows of
     256 positions and at the decode step's lengths, for the wrapper's own
-    splits (given the longest length, as the engine gives it) and for each
+    splits (the paged kernels' from static shapes, as the continuous engine
+    launches them; the dense kernel's given the longest length, as the
+    static engine gives it) and for each
     of (1, 2, 4, 8) forced, over 16 rotating copies, with the splits and
     stages of each launch, and SDPA's device time on the dense cache beside
     the dense kernel's: {label: {kernel: [(splits, stages, chosen, device
@@ -1826,16 +1873,15 @@ def time_splits(torch, decode_lens, seed=120):
         i8 = [quant_attention_case(8, 16, 16, 64, 16, 16, lens, seed=seed + c, name="int8")
               for c in range(16)]
         dn = [dense_case(8, 256, 16, 16, 64, lens, seed=seed + c) for c in range(16)]
-        longest = max(lens)                       # as the engine passes it
+        longest = max(lens)                       # as the static engine passes it
         kernels = {"paged_decode_attention": (
-                       bf, lambda c, s: da.paged_decode_attention(*c, splits=s,
-                                                                  max_length=longest),
-                       lambda c, s: da.launch_plan(c[0], c[1], c[3], s, longest),
+                       bf, lambda c, s: da.paged_decode_attention(*c, splits=s),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[3], s),
                        attention_bound(bf[0][0], bf[0][1], bf[0][3], bf[0][4])[0]),
                    "quantized_paged_decode_attention int8": (
                        i8, lambda c, s: da.quantized_paged_decode_attention(
-                           *c, policy=pol, splits=s, max_length=longest),
-                       lambda c, s: da.launch_plan(c[0], c[1], c[5], s, longest),
+                           *c, policy=pol, splits=s),
+                       lambda c, s: da.launch_plan(c[0], c[1], c[5], s),
                        quant_attention_bound(i8[0][0], i8[0][1], i8[0][5], i8[0][6])[0]),
                    "decode_attention": (
                        dn, lambda c, s: da.decode_attention(*c, splits=s, max_length=longest),
@@ -2070,6 +2116,9 @@ def timing_line(r) -> str:
                f"(device {fmt_ms(r['without_liveness_device_ms'])})")
     if "plan" in r:
         cc += f", splits {r['plan'][0]}, stages {r['plan'][1]}"
+    if "step_plan" in r:
+        cc += (f" (the step's longest row's split, splits {r['step_plan'][0]}, stages "
+               f"{r['step_plan'][1]}: device {fmt_ms(r['step_plan_device_ms'])} ms)")
     lib = "null" if r["library_ms"] is None else (f"{r['library_ms']:.4f} ms (device "
                                                   f"{fmt_ms(r['library_device_ms'])})")
     return (f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}){cc}, plain "
@@ -2238,10 +2287,10 @@ def plain_versions():
     def plain_ffn(x, be, up, gate, down, activation="swiglu", block_x=128, live=None, tile=0):
         return ragged_ffn_ref(x, be, up, gate, down, activation, live)
 
-    def plain_paged(*args, max_length=None):
+    def plain_paged(*args):
         return paged_decode_attention_ref(*args)
 
-    def plain_quantized(*args, policy, max_length=None):
+    def plain_quantized(*args, policy):
         return quantized_paged_decode_attention_ref(*args, policy=policy)
 
     def plain_dense(*args, splits=None, max_length=None, softcap=0.0):
@@ -2296,9 +2345,10 @@ def phase_serve(torch):
     requests = synthetic_trace(16, cfg.vocab_size, seed=0)
     serve = ServeConfig(max_len=max(256, max(r.total_len for r in requests)))
 
-    # warm-up on a throwaway engine (first cuBLAS/allocator calls)
-    warm = ContinuousEngine(cfg, params, serve, device="cuda")
-    warm.run([Request(uid=0, prompt=requests[0].prompt, max_new_tokens=3)])
+    # warm-up on throwaway engines, graphed and eager (first cuBLAS/allocator calls)
+    for graphs in (True, False):
+        warm = ContinuousEngine(cfg, params, serve, device="cuda", graphs=graphs)
+        warm.run([Request(uid=0, prompt=requests[0].prompt, max_new_tokens=3)])
 
     engine = ContinuousEngine(cfg, params, serve, device="cuda")
     pda.paged_decode_attention.launches = 0
@@ -2334,27 +2384,80 @@ def phase_serve(torch):
         f"{wall_ms:.1f} ms); launches {launches} = {cfg.num_layers} layers x {steps} steps; "
         f"dropped fraction {stats['moe_dropped_fraction']}")
     e2e = dict(tokens_per_s=stats["generated_tokens_per_s"], p50_ms=stats["p50_ms"],
-               p95_ms=stats["p95_ms"], mean_step_ms=wall_ms / steps, steps=steps)
+               p95_ms=stats["p95_ms"], mean_step_ms=wall_ms / steps, steps=steps,
+               census=check_census(engine, "phase 5"), graph_pool_bytes=engine.graph_pool_bytes,
+               graph_bytes={k: f.graph_bytes for k, f in engine._forms.items()})
+    log(f"  compiled step: {e2e['census']}; forms {sorted(engine._forms)} captured as CUDA "
+        f"graphs, their pool {engine.graph_pool_bytes / 2**20:.2f} MiB "
+        f"({', '.join(f'{k} {v / 2**20:.2f}' for k, v in e2e['graph_bytes'].items())} MiB)")
+
+    # the same trace through the eager forms, timed alike
+    eager = ContinuousEngine(cfg, params, serve, device="cuda", graphs=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, estats = eager.run(requests)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    e2e["eager"] = dict(tokens_per_s=estats["generated_tokens_per_s"], p50_ms=estats["p50_ms"],
+                        p95_ms=estats["p95_ms"], mean_step_ms=eager_ms / eager.steps,
+                        steps=eager.steps, census=check_census(eager, "phase 5 eager"))
+    log(f"  eager forms (graphs=False): {latency_line(estats)}; {eager.steps} steps, mean step "
+        f"{eager_ms / eager.steps:.3f} ms (host clock); graphed {wall_ms / steps:.3f} ms")
+    e2e["graphed_vs_eager"] = graphed_vs_eager(torch, cfg, params, serve, requests,
+                                               STEP_CLOCKS["bf16"], out)
 
     e2e.update(profile_steps(torch, cfg, params, serve, requests))
     e2e["device_busy_share_cuda_only"] = profile_steps(
         torch, cfg, params, serve, requests, cpu=False)["device_busy_share"]
-    log("  the same profile with the index_put_ scatter-add in place of the combine kernel:")
+    log("  the same profile over the eager forms:")
+    e2e["eager_profile"] = profile_steps(torch, cfg, params, serve, requests, cpu=False,
+                                         graphs=False)
+    log("  the eager profile with the index_put_ scatter-add in place of the combine kernel:")
     with parent_combine():
-        parent = profile_steps(torch, cfg, params, serve, requests, cpu=False)
+        parent = profile_steps(torch, cfg, params, serve, requests, cpu=False, graphs=False)
     e2e["scatter_add_profile"] = parent
-    if e2e.get("profiled_device_ms") and parent.get("profiled_device_ms"):
-        per = [r["profiled_device_ms"] / r["profiled_steps"] for r in (e2e, parent)]
-        log(f"  busy device ms a step: {per[0]:.4f} with the combine kernel, {per[1]:.4f} with "
-            f"the scatter-add")
+    if e2e["eager_profile"].get("profiled_device_ms") and parent.get("profiled_device_ms"):
+        per = [r["profiled_device_ms"] / r["profiled_steps"] for r in (e2e["eager_profile"],
+                                                                          parent)]
+        log(f"  busy device ms a step (eager forms): {per[0]:.4f} with the combine kernel, "
+            f"{per[1]:.4f} with the scatter-add")
     compare_mixed_step(torch, cfg, params, serve, requests)
     return launches, e2e, out
 
 
-def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
+# the serving kernels as CUPTI names them: (part of the kernel's name, its
+# launches a wrapper launch, the (wrapper, counter) pairs that count them)
+CUPTI_KERNELS = (
+    ("decode_kernel", 1, (("decode_attention", "launches"), ("paged_decode_attention", "launches"),
+                          ("quantized_paged_decode_attention", "launches"))),
+    ("work_list_kernel", 1, (("ragged_ffn", "tc_launches"),)),
+    ("tc_ragged_pass_kernel", 2, (("ragged_ffn", "tc_launches"),)),
+    ("combine_kernel", 1, (("ragged_combine", "launches"),)),
+)
+
+
+def recorded_vs_counted(kernels) -> dict:
+    """{kernel name part: (launches CUPTI recorded, launches the wrappers'
+    counters say)} over one profiled session, the counters set to 0 at its
+    start."""
+    wrappers = kernel_wrappers()
+    return {part: (sum(e.count for e in kernels if part in e.key),
+                   per * sum(getattr(wrappers[w], attr) for w, attr in counted))
+            for part, per, counted in CUPTI_KERNELS}
+
+
+def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True, graphs=True):
     """torch.profiler over engine steps of the trace's first 8 requests,
-    all admitted at once: device busy share (kernel time over wall time)
-    and the kernels that take the device time.  It records the CPU's
+    all admitted at once (the step forms captured as CUDA graphs unless
+    ``graphs`` is false, the graphs' kernels recorded from their replays):
+    device busy share (kernel time over wall time)
+    and the kernels that take the device time.  Every launch counter is set
+    to 0 just before the profiled steps; over the graphed forms (whose
+    counters add a capture's launches at each replay) the paged decode,
+    work-list, ragged-pass and combine kernels CUPTI recorded must equal
+    what the counters say, so that a replay's count is measured; over the
+    eager forms (counted where each wrapper launches) a difference is
+    logged as records CUPTI lost.  It records the CPU's
     activity beside the card's, as phases 5 and 7 always have (the
     recording lengthens the wall time the share divides by); with ``cpu``
     false the CUDA activity alone, all that the share reads, as phase 12
@@ -2363,10 +2466,11 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
     takes both, so that the two series can be set side by side."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import counters
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.request import Request
 
-    eng = ContinuousEngine(cfg, params, serve, device="cuda")
+    eng = ContinuousEngine(cfg, params, serve, device="cuda", graphs=graphs)
     for r in requests[:8]:
         eng.scheduler.add(Request(uid=r.uid, prompt=r.prompt,
                                   max_new_tokens=r.max_new_tokens))
@@ -2374,6 +2478,7 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
         eng.step()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    counters.write((0,) * len(counters.COUNTED))
     with profile(activities=activities) as prof:
         open_session(torch)
         t0 = time.perf_counter()
@@ -2390,11 +2495,25 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
     def dev_us(e):
         return float(e.self_device_time_total)
 
+    check_census(eng, "profiled steps")
     busy_us = sum(dev_us(e) for e in kernels)
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
         return {"device_busy_share": None}
-    log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over {n} steps: device busy "
+    want = cfg.num_layers * n          # a step's paged launches: one an attention layer
+    seen = recorded_vs_counted(kernels)
+    decode = seen["decode_kernel"][0]
+    off = {k: v for k, v in seen.items() if v[0] != v[1]}
+    if graphs and (off or not decode):
+        raise AssertionError(f"profiled graphed steps: kernels CUPTI recorded against those the "
+                             f"replays counted: {seen}")
+    if off:
+        log(f"  profiler: CUPTI lost records (recorded, counted): {off}; the busy share below "
+            f"misses their device time")
+    log(f"  profiler: kernels recorded = counted over the profiled steps (from 0): "
+        f"{ {k: v[0] for k, v in seen.items() if k not in off} }")
+    log(f"  profiler ({'CPU and ' * cpu}CUDA activity, {'graphed' if graphs else 'eager'} "
+        f"forms; {decode} of {want} paged kernels recorded) over {n} steps: device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; "
         f"kernels and copies)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
@@ -2407,7 +2526,63 @@ def profile_steps(torch, cfg, params, serve, requests, n_steps=24, cpu=True):
             f"the index_put_ scatter-add, H100 80GB HBM3 at 700 W)")
     return {"device_busy_share": busy_us / wall_us, "profiled_steps": n,
             "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3,
-            "combine_device_ms": combine_ms, "combine_calls": sum(e.count for e in combine)}
+            "combine_device_ms": combine_ms, "combine_calls": sum(e.count for e in combine),
+            "graphs": graphs, "paged_kernels_recorded": decode, "paged_kernels_launched": want,
+            "recorded_vs_counted": seen}
+
+
+def graphed_vs_eager(torch, cfg, params, serve, requests, clocks, run_tokens, device="cuda"):
+    """Phase 5: the graphed step forms and the eager ones (``graphs=False``)
+    in lockstep over the graphed run's step clocks (the same admissions, so
+    the same rows at every step), each through ``logit_tap``.  The greedy
+    tokens must be identical, to each other and to the graphed run's; the
+    largest logit difference over the live rows is reported (0 expected:
+    the same kernels on the same inputs)."""
+    import numpy as np
+
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    V = cfg.vocab_size
+    last = {}
+
+    def tap_of(graphs):
+        def tap(lg, slots, pos, lens):
+            last[graphs] = (lg, lens)
+        return tap
+
+    engines = {g: ContinuousEngine(cfg, params, serve, device=device, graphs=g,
+                                   logit_tap=tap_of(g)) for g in (True, False)}
+    out = {g: {} for g in engines}
+    for eng in engines.values():
+        for r in requests:
+            eng.scheduler.add(r)
+    diff, rows, steps = 0.0, 0, 0
+    for clock in clocks:
+        last.clear()
+        for g, eng in engines.items():
+            for st in eng.step(clock):
+                out[g][st.request.uid] = list(st.generated)
+        (a, lens), (b, _) = last[True], last[False]
+        live = lens > 0
+        diff = max(diff, float(np.abs(a[live, :V] - b[live, :V]).max(initial=0.0)))
+        rows += int(live.sum())
+        steps += 1
+    for g, eng in engines.items():
+        label = f"phase 5 lockstep, {'graphed' if g else 'eager'}"
+        if eng.scheduler.has_work() or len(out[g]) != len(requests):
+            raise AssertionError(f"{label}: {len(out[g])} of {len(requests)} requests done")
+        check_census(eng, label)
+    if device == "cuda" and not all(f.graph is not None for f in engines[True]._forms.values()):
+        raise AssertionError("phase 5 lockstep: a graphed engine's form was not captured")
+    bad = sorted(u for u in out[True] if out[True][u] != out[False][u])
+    if bad:
+        raise AssertionError(f"graphed and eager greedy tokens differ for requests {bad}")
+    if out[True] != run_tokens:
+        raise AssertionError("the lockstep graphed tokens differ from the graphed run's at the "
+                             "same clocks")
+    log(f"  graphed vs eager forms in lockstep over {steps} steps ({rows} live rows): greedy "
+        f"tokens identical (and to the graphed run's); max abs logit diff {diff:.6g}")
+    return dict(steps=steps, live_rows=rows, max_abs_logit_diff=diff, tokens_identical=True)
 
 
 def profile_static(torch, cfg, params, prompts, gen, cpu=True):
@@ -2523,8 +2698,8 @@ def recorded_routing(store: list):
 
 
 def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
-    """One mixed step's forward through the kernels, then (same pools,
-    same rows) through the plain versions.  The two differ only in f32
+    """One mixed step's forward over its step form's device rows through
+    the kernels, then (same pools, same rows) through the plain versions.  The two differ only in f32
     summation order before each bf16 rounding, but a bf16 difference can
     flip a top-1 routing decision whose router logits are nearly tied,
     and a flipped row (and the later rows of its slot, which attend to
@@ -2548,17 +2723,20 @@ def compare_mixed_step(torch, cfg, params, serve, requests, device="cuda"):
         if eng.scheduler.prefilling is not None and any(
                 st.status.name == "DECODE" for st in eng.scheduler.running.values()):
             break
+    check_census(eng, "mixed step")
     sr = eng.build_rows()
+    form = eng._form(sr.kind)                   # the step's rows, in its form's buffers
+    form.stage()
     c = eng.cache
     pools = [t for t in (c.k_pool, c.v_pool, c.k_scales, c.v_scales) if t is not None]
     saved = [t.clone() for t in pools]
     route_k, route_p = [], []
     with recorded_routing(route_k):
-        lk, _ = eng.forward_rows(sr.buffers)
+        lk, _ = eng._forward(form.rows)
     for t, t0 in zip(pools, saved):
         t.copy_(t0)
     with plain_versions(), recorded_routing(route_p):
-        lp, _ = eng.forward_rows(sr.buffers)
+        lp, _ = eng._forward(form.rows)
     if device != "cpu":
         torch.cuda.synchronize()
     if not torch.isfinite(lk).all():
@@ -3037,7 +3215,28 @@ def serve_once(torch, cfg, params, serve, requests, device="cuda", **kw):
             raise AssertionError(f"request {r.uid}: {len(out[r.uid])} tokens, budget "
                                  f"{r.max_new_tokens}")
     eng.scheduler.check_conservation()       # slots, and the KV cache where there is one
+    check_census(eng, f"{cfg.name} run")
     return out, stats, eng, wall_ms
+
+
+def check_census(eng, label: str) -> dict:
+    """The engine's compiled-variant census after it stepped: on the card
+    the ``engine_compiled_variants`` gauge at its ``_expected_variants``
+    (off the card, where a form is built at its kind's first step as the
+    reference's jit compiles, at most that) and no recompile
+    (``engine_recompiles_total`` 0); an engine that captures (on the card,
+    without a mesh) holds every step form as a CUDA graph."""
+    m = eng.obs.metrics
+    n, again = m.get("engine_compiled_variants"), m.get("engine_recompiles_total")
+    want = eng._expected_variants
+    if again != 0 or (n != want if eng.device.type == "cuda" else not 0 < n <= want):
+        raise AssertionError(f"{label}: engine_compiled_variants {n}, engine_recompiles_total "
+                             f"{again}; expected {want} and 0")
+    forms = getattr(eng, "_forms", {})
+    graphs = sum(f.graph is not None for f in forms.values())
+    if getattr(eng, "_graph_pool", None) is not None and graphs != len(forms):
+        raise AssertionError(f"{label}: {graphs} of {len(forms)} step forms captured")
+    return dict(compiled_variants=n, recompiles=again, graphs=graphs)
 
 
 def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
@@ -3233,6 +3432,7 @@ def dense_on_engine_pools(torch, cfg, params, requests, device="cuda", max_len=2
     while any(st.status is not Status.DECODE for st in eng.scheduler.running.values()) \
             or len(eng.scheduler.running) < 8:
         eng.step()
+    check_census(eng, "phase 7 (d)")
     b = eng.build_rows().buffers
     rows = [i for i in range(len(b["lengths"])) if b["lengths"][i] > 0]
     tbl = torch.from_numpy(b["row_tables"][rows]).to(device)
@@ -3525,9 +3725,10 @@ def logit_tie(margin: float, top: float) -> bool:
     return margin <= 2 * (TOL + TOL * abs(top))
 
 
-def tapped_margins(torch, cfg, params, serve, requests, device="cuda"):
+def tapped_margins(torch, cfg, params, serve, requests, device="cuda", **kw):
     """A non-speculative run with ``logit_tap``: ({uid: tokens}, {(uid,
-    position): (top-two logit gap, top logit)}) over every live row."""
+    position): (top-two logit gap, top logit)}) over every live row;
+    ``kw`` goes to the engine."""
     import numpy as np
 
     V = cfg.vocab_size
@@ -3542,9 +3743,10 @@ def tapped_margins(torch, cfg, params, serve, requests, device="cuda"):
 
     from repro_torch.serving.continuous import ContinuousEngine
 
-    eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap)
+    eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap, **kw)
     holder.append(eng)
     out, _ = eng.run(requests)
+    check_census(eng, "tapped run")
     return out, margins
 
 
@@ -3608,7 +3810,9 @@ def recorded_ffn_shapes(store: dict):
     rows, block rows) of the dropless dispatcher's kernel and ("moe_ffn",
     E, X, M) of the capacity dispatchers'.  The callers' handles are
     swapped, not the kernel modules' wrappers, whose launch counters stay
-    in place."""
+    in place.  These are Python calls: an engine that captures its step
+    forms makes a form's once a layer at its warm-up and once at its
+    capture, and none at a replay (the launch counters count replays)."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -3729,7 +3933,8 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
             f"{rep['spec_acceptance_rate']:.3f}, {rep['spec_tokens_per_step']:.3f} tokens a "
             f"verify step, at most {rep['max_accepted_in_a_step']} drafts accepted in one "
             f"step; token match {rep['token_match']:.4f}; launches {launches}; ragged FFN "
-            f"calls by shape {rep['ragged_ffn_shapes']}")
+            f"Python calls by shape (the graphed forms' warm-ups and captures, the model "
+            f"drafter's every forward) {rep['ragged_ffn_shapes']}")
         report[label] = rep
     return report
 
@@ -3892,10 +4097,9 @@ def time_verify_attention(torch, name=None, seed=130):
 
     slot_lens, drafts = [21, 56, 112, 9, 74, 33, 98, 47], [4, 4, 2, 0, 4, 1, 4, 3]
     copies = [verify_attention_case(slot_lens, drafts, seed + c, name) for c in range(16)]
-    longest = max(c + d + 1 for c, d in zip(slot_lens, drafts))
     if name is None:
-        def call(c):
-            return da.paged_decode_attention(*c, max_length=longest)
+        def call(c):                    # the engine's plan: static shapes
+            return da.paged_decode_attention(*c)
 
         def plain(c):
             return paged_decode_attention_ref(*c)
@@ -3903,7 +4107,7 @@ def time_verify_attention(torch, name=None, seed=130):
         pol = get_kv_quant(name)
 
         def call(c):
-            return da.quantized_paged_decode_attention(*c, policy=pol, max_length=longest)
+            return da.quantized_paged_decode_attention(*c, policy=pol)
 
         def plain(c):
             return quantized_paged_decode_attention_ref(*c, policy=pol)
@@ -3936,7 +4140,7 @@ def time_verify_attention(torch, name=None, seed=130):
 
     return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
                 library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
-                max_abs_err=err, plan=da.launch_plan(q, pool, tables, max_length=longest))
+                max_abs_err=err, plan=da.launch_plan(q, pool, tables))
 
 
 def phase_spec(torch, base_tokens, int8_tokens, e2e, kv):
@@ -4003,7 +4207,7 @@ def slo_trace(n, vocab, seed, qps, burst_qps=None, **kw):
     return synthetic_priority(n, vocab, seed=seed, qps=qps, burst_qps=burst_qps, **args)
 
 
-def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
+def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None, **engine_kw):
     """One run through ``ContinuousEngine.run`` with the serving kernels'
     launch counters set to 0 just before it and read just after, conservation
     checked after every step, and every live row's top-two logit gap recorded
@@ -4035,7 +4239,7 @@ def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
                 "quantized_paged_decode_attention": pda.quantized_paged_decode_attention,
                 "ragged_ffn": rffn.ragged_ffn, "ragged_combine": combine.ragged_combine}
     eng = ContinuousEngine(cfg, params, serve, device=device, logit_tap=tap,
-                           check_invariants=True)
+                           check_invariants=True, **engine_kw)
     holder.append(eng)
 
     def finished(st):
@@ -4077,6 +4281,7 @@ def slo_run(torch, cfg, params, serve, requests, device, label, on_finish=None):
     swap = eng.scheduler.swap
     if swap is not None and (swap.records or swap.used_host_blocks):
         raise AssertionError(f"{label}: swap records left: {sorted(swap.records)}")
+    check_census(eng, label)
     return out, stats, eng, wall_ms, launches, margins, done
 
 
@@ -4240,20 +4445,30 @@ def swap_roundtrips(torch, cfg, device="cuda", blocks=7, reps=5):
     return out
 
 
+# phase 10 (d)'s deadline budgets (base, a token) in units of the trace's
+# mean arrival gap, 1000 / qps ms, where qps is (a)'s, calibrated from the
+# measured capacity of the engine that serves the trace: they follow the
+# step's speed.  At the eager step's 9.088 qps they are the 20 ms + 5 ms a
+# token (HIGH) and 2000 + 120 ms (NORMAL) that the phase used before
+SHED_BUDGET_GAPS = {"HIGH": (0.18, 0.045), "NORMAL": (18.0, 1.1)}
+
+
 def shed_run(torch, cfg, params, qps, device="cuda", n_requests=24, trace_kw=None):
-    """Phase 10 (d): priority_strict with preemption and shedding on a trace
-    whose HIGH requests have a 20 ms + 5 ms-a-token deadline (half of the
-    requests HIGH): at least one request must be shed, a shed request must
+    """Phase 10 (d): priority_strict with preemption and shedding, over the
+    engine's default (graphed) step forms, on a trace whose HIGH requests
+    (half of them) have tight deadlines, ``SHED_BUDGET_GAPS`` arrival gaps
+    at ``qps``: at least one request must be shed, a shed request must
     hold no slot and no block and get no token, conservation must hold after
     every step, and every other request must finish its budget."""
     from repro_torch.configs.base import ServeConfig, SLOConfig
     from repro_torch.serving.request import Priority, Status
     from repro_torch.serving.trace import latency_line, slo_class_line
 
+    gap_ms = 1000.0 / qps
+    budgets = {Priority[k]: (base * gap_ms, per * gap_ms)
+               for k, (base, per) in SHED_BUDGET_GAPS.items()}
     requests = slo_trace(n_requests, cfg.vocab_size, seed=3, qps=qps, burst_qps=3 * qps,
-                         class_weights=(0.5, 0.25, 0.25),
-                         deadline_budgets={Priority.HIGH: (20.0, 5.0),
-                                           Priority.NORMAL: (2000.0, 120.0)},
+                         class_weights=(0.5, 0.25, 0.25), deadline_budgets=budgets,
                          **(trace_kw or {}))
     serve = ServeConfig(**SLO_SERVE, max_len=max(r.total_len for r in requests),
                         sched_policy="priority_strict",
@@ -4280,12 +4495,15 @@ def shed_run(torch, cfg, params, qps, device="cuda", n_requests=24, trace_kw=Non
     if cache.allocator.live_count or cache.reserved_total:
         raise AssertionError(f"shedding: {cache.allocator.live_count} blocks live, "
                              f"{cache.reserved_total} reserved after the run")
+    shown = ", ".join(f"{p.name} {b:.3f} + {t:.4f} ms a token" for p, (b, t) in budgets.items())
+    log(f"  shedding: deadlines {shown} (arrival gap {gap_ms:.3f} ms)")
     log(f"  shedding: {len(shed)} of {n_requests} shed (uids "
         f"{sorted(st.request.uid for st in shed)}); {latency_line(stats)}; "
         f"{eng.steps} steps; launches {launches}")
     log(f"    {slo_class_line(stats)}")
     rep = slo_report(stats, eng, wall_ms)
     rep["shed_uids"] = sorted(st.request.uid for st in shed)
+    rep["deadline_budgets_ms"] = {p.name: v for p, v in budgets.items()}
     return rep, launches
 
 
@@ -4664,9 +4882,9 @@ def check_family_kernels(torch):
             case = attention_case(8, Hq, Hkv, D, 16, 16, lens, seed=700 + i, dtype=dt)
             want = dref.paged_decode_attention_ref(*case)
             for forced in (None, *da.SPLITS):
-                out = da.paged_decode_attention(*case, splits=forced, max_length=max(lens))
+                out = da.paged_decode_attention(*case, splits=forced)
                 torch.cuda.synchronize()
-                splits, stages = da.launch_plan(case[0], case[1], case[3], forced, max(lens))
+                splits, stages = da.launch_plan(case[0], case[1], case[3], forced)
                 name = (f"paged_decode_attention {label} {str(dt)[6:]} splits={splits}"
                         f"{'' if forced else ' (plan)'} stages={stages}")
                 keep("paged_decode_attention", check_close(name, out, want))
@@ -4677,9 +4895,9 @@ def check_family_kernels(torch):
         for name in ("int8", "fp8"):
             pol = get_kv_quant(name)
             case = quant_attention_case(8, Hq, Hkv, D, 16, 16, lens, seed=710 + i, name=name)
-            out = da.quantized_paged_decode_attention(*case, policy=pol, max_length=max(lens))
+            out = da.quantized_paged_decode_attention(*case, policy=pol)
             torch.cuda.synchronize()
-            splits, _ = da.launch_plan(case[0], case[1], case[5], None, max(lens))
+            splits, _ = da.launch_plan(case[0], case[1], case[5])
             label_q = f"quantized_paged_decode_attention {name} {label} splits={splits}"
             keep("quantized_paged_decode_attention", check_close(
                 label_q, out, dref.quantized_paged_decode_attention_ref(*case, policy=pol)))
@@ -4781,8 +4999,9 @@ def family_serve(torch, cfg, params, requests, device, label, kv_quant="none",
             want["ragged_ffn"] = moe_layers(cfg) * steps
         expect_launches(label, launches, want)
     t0 = time.perf_counter()
-    with plain_versions():
-        base, margins = tapped_margins(torch, cfg, params, serve, requests, device)
+    with plain_versions():          # eager forms: the plain versions are not for capture
+        base, margins = tapped_margins(torch, cfg, params, serve, requests, device,
+                                       graphs=False)
     plain_s = time.perf_counter() - t0
     div = first_divergences(base, out, margins, requests, f"{label} kernels vs plain")
     shown = {n: launches[n] for n in KERNEL_NAMES if launches[n]}
@@ -6125,6 +6344,7 @@ def replay(torch, engine, requests, clocks):
     if engine.scheduler.has_work() or len(out) != len(requests):
         raise AssertionError(f"replay: {len(out)} of {len(requests)} requests done after "
                              f"{len(clocks)} steps")
+    check_census(engine, "replay")
     return out, wall_ms
 
 
@@ -6246,7 +6466,7 @@ def check_mesh_kernels(torch):
     for i, chunk in enumerate((False, True)):
         label = "mixed" if chunk else "decode"
         case = mesh_shard_case(1600 + i, chunk)
-        out = da.paged_decode_attention(*case, max_length=int(case[4].max()))
+        out = da.paged_decode_attention(*case)
         torch.cuda.synchronize()
         errs["paged_decode_attention"] = max(errs["paged_decode_attention"], check_close(
             f"paged_decode_attention mesh {label} N={case[0].shape[0]}", out,
@@ -6255,8 +6475,7 @@ def check_mesh_kernels(torch):
             raise AssertionError("paged_decode_attention: a length-0 row is not exactly 0")
         qcase = mesh_shard_case(1610 + i, chunk, quant="int8")
         pol = get_kv_quant("int8")
-        out = da.quantized_paged_decode_attention(*qcase, policy=pol,
-                                                  max_length=int(qcase[6].max()))
+        out = da.quantized_paged_decode_attention(*qcase, policy=pol)
         torch.cuda.synchronize()
         errs["quantized_paged_decode_attention"] = max(
             errs["quantized_paged_decode_attention"], check_close(
@@ -6396,13 +6615,12 @@ def time_mesh_attention(torch, chunk, seed, quant=None):
 
     first = copies[0]
     lengths = first[-1]
-    longest = int(lengths.max())
     if quant is None:
         q, kp, vp, tables, _ = first
         bound, by = attention_bound(q, kp, tables, lengths)
 
-        def kern():
-            return da.paged_decode_attention(*nxt(), max_length=longest)
+        def kern():                  # the engine's plan: static shapes
+            return da.paged_decode_attention(*nxt())
 
         def plain():
             return dref.paged_decode_attention_ref(*nxt())
@@ -6413,7 +6631,7 @@ def time_mesh_attention(torch, chunk, seed, quant=None):
         bound, by = quant_attention_bound(q, kc, tables, lengths)
 
         def kern():
-            return da.quantized_paged_decode_attention(*nxt(), policy=pol, max_length=longest)
+            return da.quantized_paged_decode_attention(*nxt(), policy=pol)
 
         def plain():
             return dref.quantized_paged_decode_attention_ref(*nxt(), policy=pol)
@@ -6441,7 +6659,7 @@ def time_mesh_attention(torch, chunk, seed, quant=None):
     return dict(ms=cuda_ms(kern), device_ms=device_ms(kern, bound_ms=bound),
                 plain_ms=cuda_ms(plain), library_ms=cuda_ms(sdpa),
                 library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
-                plan=da.launch_plan(q, first[1], tables, max_length=longest))
+                plan=da.launch_plan(q, first[1], tables))
 
 
 MESH_TIMING = {"paged_decode_attention": ["paged_decode_attention mesh decode",

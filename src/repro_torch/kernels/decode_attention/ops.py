@@ -9,7 +9,8 @@ Three kernels, each beside its plain version in ``ref.py``:
 wrapper runs the plain version; on CUDA tensors it launches its kernel on
 the current stream; on ``meta`` tensors (the dry run) it makes the
 kernel's output and launches nothing; on any other device it raises.  Each wrapper's ``.launches`` counts its
-kernel launches (and nothing else).
+kernel launches (and nothing else; the replays of a captured CUDA graph
+add the launches of its capture, ``kernels/counters.py``).
 
 The three kernels share one design (``kernels/csrc/decode_sm90.cuh``):
 copies of whole tiles of one kv head into a ring of ``stages`` in shared
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -103,8 +104,9 @@ def split_plan(N: int, Hkv: int, G: int, D: int, bs: int, MB: int, elem_bytes: i
                max_length: Optional[int] = None, slack: int = 0) -> Tuple[int, int]:
     """``(splits, stages)`` of one paged decode launch, from shapes and what
     the host knows: the lengths live on the card and are not read, so the
-    longest row is ``max_length`` when the caller knows it (the serving
-    engine does) and the table's width, MB blocks, otherwise.
+    longest row is ``max_length`` when the caller knows it and the
+    table's width, MB blocks, otherwise (the continuous engine's plan:
+    static, so that its step can be captured as a CUDA graph).
 
     ``splits``: 1 unless the N x Hkv CTAs leave the card short of work;
     then the largest of (2, 4, 8) that keeps N x Hkv x splits within
@@ -156,14 +158,14 @@ def dense_plan(B: int, Hkv: int, G: int, D: int, T: int, elem_bytes: int, sm_cou
 
 
 def launch_plan(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor,
-                splits: Optional[int] = None,
-                max_length: Optional[int] = None) -> Tuple[int, int]:
+                splits: Optional[int] = None) -> Tuple[int, int]:
     """:func:`split_plan` for a paged kernel's CUDA arguments (the card's
-    SM count from its properties)."""
+    SM count from its properties), from static shapes: the longest row is
+    the table's width."""
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
     return split_plan(N, Hkv, Hq // Hkv, D, bs, block_tables.shape[1], k_pool.element_size(),
-                      _sm_count(q.device.index), splits, max_length)
+                      _sm_count(q.device.index), splits)
 
 
 def _check_aligned(name: str, **tensors) -> None:
@@ -218,14 +220,12 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor, *,
-                           splits: Optional[int] = None,
-                           max_length: Optional[int] = None) -> torch.Tensor:
+                           splits: Optional[int] = None) -> torch.Tensor:
     """q: (N, Hq, D) one query per row; k_pool/v_pool: (P, Hkv, bs, D);
     block_tables: (N, MB) int32 pool block ids; lengths: (N,) int32 valid
     context per row (0 => output 0).  Returns (N, Hq, D).  ``splits``
-    forces the kernel's cluster split (default: :func:`split_plan`'s);
-    ``max_length``, the longest of ``lengths`` where the caller knows it
-    on the host, informs that plan and nothing else."""
+    forces the kernel's cluster split (default: :func:`launch_plan`'s,
+    from static shapes)."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type not in ("cuda", "meta"):
@@ -236,7 +236,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
         return out
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
-    splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
+    splits, stages = launch_plan(q, k_pool, block_tables, splits)
     fn = _lib()
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -248,11 +248,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     return out
 
 
-paged_decode_attention.launches = 0
+counters.counted(paged_decode_attention, "launches")
 
 
 def paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
-                           block_tables, lengths, max_length: Optional[int] = None):
+                           block_tables, lengths):
     """One serving step's K/V write, then paged attention over it.
 
     The write is plain PyTorch and **in place**: ``k_pool[wb, :, wo] = k``
@@ -263,14 +263,13 @@ def paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
     offset 0, which no row reads under a nonzero length, so the order in
     which those duplicate writes land does not matter.
 
-    q: (N, Hq, D); k/v: (N, Hkv, D); pools: (P, Hkv, bs, D); ``max_length``
-    as :func:`paged_decode_attention`'s.  Returns ``(out, k_pool, v_pool)``.
+    q: (N, Hq, D); k/v: (N, Hkv, D); pools: (P, Hkv, bs, D).  The kernel
+    plans its launch from these shapes.  Returns ``(out, k_pool, v_pool)``.
     """
     wb, wo = write_blocks.long(), write_offsets.long()
     k_pool[wb, :, wo] = k.to(k_pool.dtype)
     v_pool[wb, :, wo] = v.to(v_pool.dtype)
-    out = paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
-                                 max_length=max_length)
+    out = paged_decode_attention(q, k_pool, v_pool, block_tables, lengths)
     return out, k_pool, v_pool
 
 
@@ -312,14 +311,13 @@ def _check_quantized(q, k_pool, v_pool, k_scales, v_scales, block_tables, length
 
 def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
                                      block_tables, lengths, *, policy,
-                                     splits: Optional[int] = None,
-                                     max_length: Optional[int] = None) -> torch.Tensor:
+                                     splits: Optional[int] = None) -> torch.Tensor:
     """:func:`paged_decode_attention` over int8 code pools: k_pool/v_pool
     (P, Hkv, bs, D) codes, k_scales/v_scales (P, Hkv) float32 absmax scales
     keyed by the same block ids, ``value = policy.decode(code) * scale``;
     ``policy`` a quantized :class:`repro_torch.quant.KVQuantPolicy`.
     Returns (N, Hq, D) in q's dtype; length-0 rows exactly 0.  ``splits``
-    and ``max_length`` as :func:`paged_decode_attention`'s."""
+    as :func:`paged_decode_attention`'s."""
     if q.device.type == "cpu":
         return quantized_paged_decode_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
                                                     block_tables, lengths, policy=policy)
@@ -331,7 +329,7 @@ def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
         return out
     N, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
-    splits, stages = launch_plan(q, k_pool, block_tables, splits, max_length)
+    splits, stages = launch_plan(q, k_pool, block_tables, splits)
     fn = _lib("quantized_paged_decode_attention")
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODE[q.dtype], _FMT_CODE[policy.name], q.data_ptr(),
@@ -346,12 +344,12 @@ def quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
     return out
 
 
-quantized_paged_decode_attention.launches = 0
+counters.counted(quantized_paged_decode_attention, "launches")
 
 
 def quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales,
                                      write_blocks, write_offsets, block_tables, lengths,
-                                     *, policy, max_length: Optional[int] = None):
+                                     *, policy):
     """Quantized :func:`paged_update_attention`: quantize-scatter this
     step's K/V into the code pools, maintaining the per-block scales
     (``repro_torch.quant.quant_write_kv``, in place), then attend through the
@@ -360,8 +358,7 @@ def quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales
     quant_write_kv(k_pool, k_scales, k, write_blocks, write_offsets, policy=policy)
     quant_write_kv(v_pool, v_scales, v, write_blocks, write_offsets, policy=policy)
     out = quantized_paged_decode_attention(q, k_pool, v_pool, k_scales, v_scales,
-                                           block_tables, lengths, policy=policy,
-                                           max_length=max_length)
+                                           block_tables, lengths, policy=policy)
     return out, k_pool, v_pool, k_scales, v_scales
 
 
@@ -449,7 +446,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-decode_attention.launches = 0
+counters.counted(decode_attention, "launches")
 
 
 __all__ = ["decode_attention", "decode_attention_ref", "dense_plan",
@@ -471,30 +468,26 @@ def _shard_rows(mesh, axis: str, *rows):
 
 
 def sharded_paged_update_attention(q, k, v, k_pool, v_pool, write_blocks, write_offsets,
-                                   block_tables, lengths, *, mesh, axis: str = "data",
-                                   max_length: Optional[int] = None):
+                                   block_tables, lengths, *, mesh, axis: str = "data"):
     """:func:`paged_update_attention` over the mesh's ``axis``
     (``repro.kernels.decode_attention.ops.sharded_paged_update_attention``):
     this rank writes and attends its own rows (its slice of every row
     operand) through its shard's pool slice ``k_pool``/``v_pool``, by the
     shard-local block ids its rows carry, and the rows' outputs are
-    all-gathered over the axis.  ``max_length`` is the longest of this
-    rank's rows, so a shard plans its own launch.  Returns ``(out (N, Hq,
-    D), k_pool, v_pool)``."""
+    all-gathered over the axis.  Returns ``(out (N, Hq, D), k_pool,
+    v_pool)``."""
     from repro_torch.distributed.collectives import all_gather
 
     q, k, v, wb, wo, tables, lens = _shard_rows(mesh, axis, q, k, v, write_blocks,
                                                 write_offsets, block_tables, lengths)
     out, k_pool, v_pool = paged_update_attention(q.contiguous(), k, v, k_pool, v_pool, wb, wo,
-                                                 tables.contiguous(), lens.contiguous(),
-                                                 max_length)
+                                                 tables.contiguous(), lens.contiguous())
     return all_gather(out, mesh.group(axis)), k_pool, v_pool
 
 
 def sharded_quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, v_scales,
                                              write_blocks, write_offsets, block_tables, lengths,
-                                             *, policy, mesh, axis: str = "data",
-                                             max_length: Optional[int] = None):
+                                             *, policy, mesh, axis: str = "data"):
     """:func:`quantized_paged_update_attention` over the mesh's ``axis``, as
     :func:`sharded_paged_update_attention`, the scale pools this shard's
     alongside its code pools.  Returns ``(out, k_pool, v_pool, k_scales,
@@ -505,6 +498,5 @@ def sharded_quantized_paged_update_attention(q, k, v, k_pool, v_pool, k_scales, 
                                                 write_offsets, block_tables, lengths)
     out = quantized_paged_update_attention(q.contiguous(), k, v, k_pool, v_pool, k_scales,
                                            v_scales, wb, wo, tables.contiguous(),
-                                           lens.contiguous(), policy=policy,
-                                           max_length=max_length)[0]
+                                           lens.contiguous(), policy=policy)[0]
     return all_gather(out, mesh.group(axis)), k_pool, v_pool, k_scales, v_scales

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.common import flash_tensor_core_route
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -97,7 +97,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-flash_attention.launches = 0
-flash_attention.tc_launches = 0
+counters.counted(flash_attention, "launches", "tc_launches")
 
 __all__ = ["flash_attention", "attention_ref"]

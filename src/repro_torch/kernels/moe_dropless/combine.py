@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.moe_dropless.ref import ragged_combine_grads, ragged_combine_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -105,6 +105,6 @@ def ragged_combine(out: torch.Tensor, gate: torch.Tensor, rows: torch.Tensor) ->
     return _RaggedCombine.apply(out, gate, rows)
 
 
-ragged_combine.launches = 0
+counters.counted(ragged_combine, "launches")
 
 __all__ = ["ragged_combine", "ragged_combine_ref"]

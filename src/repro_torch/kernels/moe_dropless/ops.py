@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.common import (
     TC_TILE_ROWS,
     act_code,
@@ -248,7 +248,6 @@ def ragged_ffn(x: torch.Tensor, block_expert: torch.Tensor, w_up: torch.Tensor,
                             tile)
 
 
-ragged_ffn.launches = 0
-ragged_ffn.tc_launches = 0
+counters.counted(ragged_ffn, "launches", "tc_launches")
 
 __all__ = ["ragged_ffn", "ragged_ffn_ref", "pick_block_rows", "padded_rows", "ragged_tile_rows"]

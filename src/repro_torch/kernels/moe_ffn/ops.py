@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.common import act_code, ref_vjp, tensor_core_route, tile_rows
 from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 
@@ -129,7 +129,6 @@ def moe_ffn(x: torch.Tensor, w_up: torch.Tensor, w_gate: Optional[torch.Tensor],
     return _MoeFFN.apply(x, w_up, w_gate, w_down, activation)
 
 
-moe_ffn.launches = 0
-moe_ffn.tc_launches = 0
+counters.counted(moe_ffn, "launches", "tc_launches")
 
 __all__ = ["moe_ffn", "moe_ffn_ref"]

@@ -92,15 +92,40 @@ layer whose groups split over the mesh runs the ragged expert-parallel
 reference, recurrent families, speculation and SLO scheduling are refused
 on a mesh.
 
-Differences from the reference, by design of the port:
+**The compiled step** (the reference's ``jax.jit`` of the step over
+static shapes): each step kind — ``decode`` (N = ``max_slots``), ``mixed``
+(N = ``max_slots + data_shards * prefill_chunk``), ``verify`` (N =
+``max_slots * (gamma + 1)``) — is a :class:`StepForm` that owns its
+buffers for the engine's life: the rows in a pinned host staging buffer
+that :meth:`ContinuousEngine.build_rows` fills, one device buffer they
+are copied into (one ``copy_`` a step), and the step's outputs.  The body
+reads only those buffers, the params and the pools, and no host value: the
+paged kernels take their launch plan from static shapes (the table's
+``blocks_per_slot``), sampling reads slots and positions from the device
+buffer and the temperature from a 0-dim tensor.  On a CUDA device without a
+mesh every form is captured as a ``torch.cuda.CUDAGraph`` when the engine
+is built (after a warm-up on all-padding rows, which write only the
+garbage block), the forms sharing one graph memory pool, and a step is the
+copy, a replay and one device-to-host read of its tokens; a capture that
+fails raises.  The kernels' launch counters count replays
+(``repro_torch.kernels.counters``).  On the CPU, on ``meta`` and on a mesh
+(whose collectives a graph cannot hold) a form runs its body eagerly and
+is built at its first step, as the reference's jit compiles a shape at its
+first call.  ``graphs=False`` runs the eager forms on the card too.  The
+reference's census follows: :meth:`ContinuousEngine.compiled_variants`,
+the ``engine_compiled_variants`` gauge, ``engine_recompiles_total`` and the
+``recompile`` instant past ``_expected_variants`` (2, 3 when speculating, 1
+for the recurrent step, which stays eager).
 
-* the KV pools are updated in place (the reference's jit donates them
-  and adopts the returned pools);
-* PyTorch runs the step eagerly, so there is no compiled-variant census.
+Differences from the reference, by design of the port: the KV pools are
+updated in place (the reference's jit donates them and adopts the
+returned pools), and since a captured graph holds their addresses a step
+raises if a pool was rebound.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -116,6 +141,7 @@ from repro_torch.core.routers import get_router
 from repro_torch.core.routers.hashed import _M32, _mix32
 from repro_torch.distributed.collectives import agree_max
 from repro_torch.distributed.sharding import use_rules
+from repro_torch.kernels import counters
 from repro_torch.kernels.decode_attention import (
     paged_update_attention,
     quantized_paged_update_attention,
@@ -136,7 +162,8 @@ from repro_torch.serving.trace import latency_stats, slo_class_stats
 
 _PAGED_FAMILIES = ("decoder_lm", "vlm", "m6")
 _RECURRENT_FAMILIES = ("xlstm",)
-_ROW_FIELDS = ("tokens", "ctx_ids", "positions", "lengths", "wb", "wo")  # sent to the device
+# a step's rows, then its (N, blocks_per_slot) row tables, in one int32 buffer
+_ROW_FIELDS = ("tokens", "ctx_ids", "positions", "lengths", "slots", "wb", "wo")
 
 
 # ---------------------------------------------------------------------------
@@ -158,32 +185,31 @@ def _layer_telemetry(aux, num_experts: int, device) -> dict:
 
 def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths,
                  row_tables, wb, wo, kp, vp, ctx, ksc=None, vsc=None, policy=None,
-                 max_length=None, mesh=None):
+                 mesh=None):
     """One pre-norm block over the flat row batch ``x: (1, N, d)``; writes
     this step's K/V into ``kp``/``vp`` in place before attending (quantized
     into the code pools, with the scale pools ``ksc``/``vsc``, when
-    ``policy`` is set).  ``max_length``, the rows' longest context known on
-    the host, only informs the attention kernel's launch plan.  With
-    ``mesh`` the write and attention run over the ``data`` axis: this rank's
-    shard-major rows through its pool slice (``max_length`` then its own
-    rows' longest)."""
+    ``policy`` is set).  The attention kernel plans its launch from static
+    shapes (every row as long as its table), so the step reads no host
+    value.  With ``mesh`` the write and attention run over the ``data``
+    axis: this rank's shard-major rows through its pool slice."""
     N = x.shape[1]
     h = L.norm_apply(bp["ln_attn"], x, cfg)
     q, k, v = _project_qkv(bp["attn"], h, cfg, positions)        # (1, N, H*, D)
     if policy is None and mesh is None:
         out, _, _ = paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
-                                           wb, wo, row_tables, lengths, max_length)
+                                           wb, wo, row_tables, lengths)
     elif policy is None:
         out = sharded_paged_update_attention(q[0], k[0], v[0], kp, vp, wb, wo, row_tables,
-                                             lengths, mesh=mesh, max_length=max_length)[0]
+                                             lengths, mesh=mesh)[0]
     elif mesh is None:
         out = quantized_paged_update_attention(q[0].contiguous(), k[0], v[0], kp, vp,
                                                ksc, vsc, wb, wo, row_tables, lengths,
-                                               policy=policy, max_length=max_length)[0]
+                                               policy=policy)[0]
     else:
         out = sharded_quantized_paged_update_attention(
             q[0], k[0], v[0], kp, vp, ksc, vsc, wb, wo, row_tables, lengths, policy=policy,
-            mesh=mesh, max_length=max_length)[0]
+            mesh=mesh)[0]
     x = x + L.dense_apply(bp["attn"]["wo"], out.reshape(1, N, -1), cfg)
     h = L.norm_apply(bp["ln_ffn"], x, cfg)
     if moe_layer:
@@ -196,7 +222,7 @@ def _paged_block(bp, x, cfg: ModelConfig, *, moe_layer: bool, positions, lengths
 
 
 def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
-                  k_scales=None, v_scales=None, policy=None, max_length=None, mesh=None):
+                  k_scales=None, v_scales=None, policy=None, mesh=None):
     """Flat-row forward: embed -> blocks -> float32 logits (N, V_pad), plus
     the per-layer routing telemetry stacked ``(L, ...)`` ({} when dense).
     ``policy`` (a quantized ``KVQuantPolicy``) switches the K/V write and
@@ -216,8 +242,7 @@ def _paged_logits(params, layers, cfg: ModelConfig, rows, k_pools, v_pools,
             lengths=rows["lengths"], row_tables=rows["row_tables"], wb=rows["wb"],
             wo=rows["wo"], kp=k_pools[i], vp=v_pools[i], ctx=ctx,
             ksc=k_scales[i] if quantized else None,
-            vsc=v_scales[i] if quantized else None, policy=policy, max_length=max_length,
-            mesh=mesh)
+            vsc=v_scales[i] if quantized else None, policy=policy, mesh=mesh)
         telems.append(tl)
     telem = ({} if cfg.moe.num_experts == 0
              else {k: torch.stack([t[k] for t in telems]) for k in telems[0]})
@@ -244,19 +269,70 @@ def check_mesh_support(cfg: ModelConfig, serve: ServeConfig) -> None:
             "assumes a single device pool)")
 
 
-def _row_buffers(N: int, blocks_per_slot: int, garbage_block: int):
-    """Host-side rows for one step, every row masked: token 0, no identity,
-    length 0, writing into the garbage block."""
-    return dict(
-        tokens=np.zeros(N, np.int32),
-        ctx_ids=np.full(N, -1, np.int32),
-        positions=np.zeros(N, np.int32),
-        lengths=np.zeros(N, np.int32),
-        slots=np.zeros(N, np.int32),
-        wb=np.full(N, garbage_block, np.int32),
-        wo=np.zeros(N, np.int32),
-        row_tables=np.full((N, blocks_per_slot), garbage_block, np.int32),
-    )
+def _row_views(flat, N: int) -> dict:
+    """The fields of a step's flat int32 row buffer (numpy or torch): each of
+    ``_ROW_FIELDS`` over N rows, then ``row_tables`` (N, blocks_per_slot)."""
+    views = {k: flat[i * N:(i + 1) * N] for i, k in enumerate(_ROW_FIELDS)}
+    views["row_tables"] = flat[len(_ROW_FIELDS) * N:].reshape(N, -1)
+    return views
+
+
+def _addresses(tensors) -> Tuple[int, ...]:
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _copy_tree(dst: dict, src: dict) -> None:
+    """Copy a step's outputs ``src`` into the persistent ``dst`` (same tree)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+class StepForm:
+    """One static step form: the ``N``-row step of one kind (a variant of
+    the reference's jit cache), with what it owns for its engine's life.
+
+    ``host`` is the rows' staging buffer (pinned on a CUDA device), which
+    ``buffers`` views as numpy arrays for :meth:`ContinuousEngine.build_rows`
+    to fill; ``dev`` the device buffer that ``rows`` views and :meth:`stage`
+    copies the staging buffer into; ``out`` the step's outputs (a replay
+    overwrites them, an eager run copies into them); ``graph`` the captured
+    step on the card (None where the body runs eagerly), ``launches`` the
+    kernel launches one replay makes (``kernels.counters.since``) and
+    ``graph_bytes`` what its capture added to the graphs' memory pool;
+    ``pools`` the addresses of the KV pools and scales the body reads."""
+
+    def __init__(self, kind: str, N: int, blocks_per_slot: int, garbage_block: int, device,
+                 pools):
+        self.kind, self.N, self.garbage_block = kind, N, garbage_block
+        width = (len(_ROW_FIELDS) + blocks_per_slot) * N
+        self.host = torch.empty(width, dtype=torch.int32, pin_memory=device.type == "cuda")
+        self.dev = torch.empty(width, dtype=torch.int32, device=device)
+        self.buffers = _row_views(self.host.numpy(), N)
+        self.rows = _row_views(self.dev, N)
+        self.pools = _addresses(pools)
+        self.out: Optional[dict] = None
+        self.graph = None
+        self.launches: Tuple[int, ...] = ()
+        self.graph_bytes = 0
+        self.reset()
+
+    def reset(self) -> Dict[str, np.ndarray]:
+        """Mask every row of the staging buffer (token 0, no identity,
+        length 0, writing into the garbage block) and return its views."""
+        b = self.buffers
+        for k in ("tokens", "positions", "lengths", "slots", "wo"):
+            b[k].fill(0)
+        b["ctx_ids"].fill(-1)
+        b["wb"].fill(self.garbage_block)
+        b["row_tables"].fill(self.garbage_block)
+        return b
+
+    def stage(self) -> None:
+        """The step's one host-to-device copy of its rows."""
+        self.dev.copy_(self.host, non_blocking=True)
 
 
 def _fill_row(b, cache: PagedKVCache, r: int, slot: int, token: int, pos: int) -> None:
@@ -268,28 +344,38 @@ def _fill_row(b, cache: PagedKVCache, r: int, slot: int, token: int, pos: int) -
     b["row_tables"][r] = cache.row_table(slot)
 
 
+def _int64(x, device) -> torch.Tensor:
+    """``x`` (a host array or a tensor) as int64 on ``device``; a tensor on
+    the device is read where it lies, never through the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
+
+
 def _row_uniforms(seed: int, slots, positions, V: int, device) -> torch.Tensor:
     """(N, V) float64 uniforms in (0, 1), one per (seed, slot, position,
     vocab index): a counter-based hash, the same integers on any device."""
-    slots = torch.as_tensor(np.asarray(slots), dtype=torch.int64, device=device)
-    positions = torch.as_tensor(np.asarray(positions), dtype=torch.int64, device=device)
+    slots, positions = _int64(slots, device), _int64(positions, device)
     row = _mix32(_mix32(_mix32(torch.full_like(slots, int(seed) & _M32)) ^ slots) ^ positions)
     col = _mix32(torch.arange(V, dtype=torch.int64, device=device))
     bits = _mix32(_mix32(row[:, None] ^ col[None, :]))
     return (bits.double() + 0.5) * 2.0 ** -32
 
 
-def _sample_rows(logits, slots, positions, temperature: float, seed: int) -> torch.Tensor:
+def _sample_rows(logits, slots, positions, temperature: float, seed: int,
+                 temperature_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy: each row's first maximum, as ``jnp.argmax``.  ``temperature``
     > 0: one Gumbel-max draw per row over ``logits / T`` (its padded vocab
     columns, ``finfo.min``, stay unreachable), keyed by (seed, slot,
-    absolute position).  The division is by a 0-dim f32 tensor: on the card
-    a Python-number divisor goes through its reciprocal.  Returns (N,)
+    absolute position).  The division is by a 0-dim f32 tensor
+    (``temperature_t``, the engine's own, else made here): on the card a
+    Python-number divisor goes through its reciprocal.  Returns (N,)
     int32 on the logits' device."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
     u = _row_uniforms(seed, slots, positions, logits.shape[-1], logits.device)
-    t = torch.tensor(temperature, dtype=torch.float32, device=logits.device)
+    t = (temperature_t if temperature_t is not None
+         else torch.tensor(temperature, dtype=torch.float32, device=logits.device))
     scores = (logits.float() / t).double() - torch.log(-torch.log(u))
     return scores.argmax(dim=-1).to(torch.int32)
 
@@ -326,14 +412,16 @@ class ContinuousEngine:
     (``repro_torch.nn``) on ``device``.  On a mesh (``serve.mesh``) it is
     this rank's placement of the tree; ``mesh`` is the rank's
     :class:`repro_torch.launch.mesh.Mesh` (made from ``serve.mesh`` and
-    ``device`` when not given).
+    ``device`` when not given).  ``graphs`` (on a CUDA device without a mesh)
+    captures the paged step forms as CUDA graphs here, before any clock
+    starts; ``graphs=False`` runs them eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig = ServeConfig(),
                  *, temperature: float = 0.0, seed: int = 0, device="cuda",
                  draft_model: Optional[Tuple] = None, check_invariants: bool = False,
                  obs: Optional[Observability] = None,
-                 logit_tap: Optional[Callable] = None, mesh=None):
+                 logit_tap: Optional[Callable] = None, mesh=None, graphs: bool = True):
         if cfg.family in _PAGED_FAMILIES:
             self.mode = "paged"
             if cfg.attn_logit_softcap > 0:
@@ -392,6 +480,9 @@ class ContinuousEngine:
         self._logit_tap = logit_tap
         self._moe_acc = None        # device-side telemetry accumulator
         self._moe_rows = 0
+        self._seen_variants = 0     # compiled-variant census (recompile detection)
+        self._temperature = torch.tensor(self.temperature, dtype=torch.float32,
+                                         device=self.device)
         self.spec = serve.spec
         self.drafter = None
         self.mesh = self.rules = None
@@ -405,6 +496,8 @@ class ContinuousEngine:
                                               device=self.device)
             self.scheduler = Scheduler(serve.max_slots, serve.max_len, None,
                                        policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
+            self._expected_variants = 1         # one (max_slots, 1) shape
+            self._recurrent_ran = False
             return
         self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.cache = make_kv_cache(cfg, serve, device=self.device,
@@ -416,6 +509,15 @@ class ContinuousEngine:
 
             self.drafter = make_drafter(self.spec, cfg, serve, seed=seed,
                                         draft_model=draft_model, device=self.device)
+        # the documented census: {mixed, decode}, plus verify when speculating
+        kinds = ("decode", "mixed") + (("verify",) if self.spec is not None else ())
+        self._expected_variants = len(kinds)
+        self._forms: Dict[str, StepForm] = {}
+        self._graph_pool = None
+        if graphs and self.device.type == "cuda" and self.mesh is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            for kind in kinds:
+                self._form(kind)
 
     def _setup_mesh(self, mesh) -> None:
         """The rank's mesh and rules; ``params`` must be the rank's placement
@@ -446,6 +548,21 @@ class ContinuousEngine:
                 "accepted": int(m.get("spec_accepted_total")),
                 "emitted": int(m.get("spec_emitted_total"))}
 
+    def compiled_variants(self) -> int:
+        """The engine's static step forms, the reference's jit-cache census:
+        the graphs captured on the card; on the CPU, ``meta`` or a mesh the
+        forms built so far (each at its kind's first step, as jit compiles a
+        shape at its first call); the recurrent step's one once it ran."""
+        if self.mode == "recurrent":
+            return int(self._recurrent_ran)
+        return len(self._forms)
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the captured graphs' shared memory pool holds (0
+        where the forms run eagerly)."""
+        return sum(f.graph_bytes for f in self._forms.values()) if self.mode == "paged" else 0
+
     def _obs_step(self, kind: str, live_rows: int, total_rows: int) -> None:
         m = self.obs.metrics
         sched = self.scheduler
@@ -464,6 +581,15 @@ class ContinuousEngine:
         if self.serve.prefix_cache:
             for k, v in self.cache.stats.items():
                 m.counter(f"prefix_{k}_total").set_to(v)
+        n = self.compiled_variants()
+        if n != self._seen_variants:
+            m.gauge("engine_compiled_variants").set(n)
+            if n > self._expected_variants:
+                m.counter("engine_recompiles_total").inc(
+                    n - max(self._seen_variants, self._expected_variants))
+                self.obs.tracer.instant("recompile", variants=n,
+                                        expected=self._expected_variants)
+            self._seen_variants = n
         self.obs.maybe_metrics_row(self.steps)
 
     # -- MoE routing telemetry: device-side sums, one host pull per run --------
@@ -480,7 +606,8 @@ class ContinuousEngine:
                "dropped": telem["dropped"],
                "routed_choices": telem["routed_choices"]}
         if self._moe_acc is None:
-            self._moe_acc = add
+            # the step's outputs are its form's, which the next step overwrites
+            self._moe_acc = {k: v.clone() for k, v in add.items()}
         else:
             self._moe_acc = {k: self._moe_acc[k] + add[k] for k in add}
         self._moe_rows += rows
@@ -550,7 +677,8 @@ class ContinuousEngine:
         The layout is shard-major over the mesh's data axis (with D = 1 the
         S decode rows, then the chunk rows): shard d owns rows ``[d * per,
         (d + 1) * per)``, its own ``S / D`` slots' decode rows first, then,
-        on the prefilling slot's shard, the chunk rows."""
+        on the prefilling slot's shard, the chunk rows.  The buffers are the
+        step form's staging buffer, which the next step's rows overwrite."""
         serve, cache, sched = self.serve, self.cache, self.scheduler
         S = serve.max_slots
         pre = sched.prefilling
@@ -561,7 +689,8 @@ class ContinuousEngine:
         D = self.data_shards
         spd = S // D
         per = spd + (serve.prefill_chunk if pre is not None else 0)
-        b = _row_buffers(D * per, serve.blocks_per_slot, cache.garbage_block)
+        kind = "mixed" if pre is not None else "decode"
+        b = self._form(kind).reset()
         sample_rows: List[Tuple[int, RequestState]] = []
         for slot, st in sched.running.items():
             if st.status is not Status.DECODE:
@@ -583,27 +712,110 @@ class ContinuousEngine:
         live = len(sample_rows) + chunk
         if pre is not None and any(st is pre for _, st in sample_rows):
             live -= 1       # pre's sample row is one of its chunk rows
-        return StepRows(b, sample_rows, pre, chunk,
-                        "mixed" if pre is not None else "decode", live)
+        return StepRows(b, sample_rows, pre, chunk, kind, live)
 
-    def forward_rows(self, buffers: Dict[str, np.ndarray]):
-        """One forward over host row buffers (K/V written in place):
-        returns (float32 logits (N, V_pad), per-layer telemetry)."""
-        N = buffers["tokens"].shape[0]
-        flat = np.concatenate([buffers[k] for k in _ROW_FIELDS]
-                              + [buffers["row_tables"].reshape(-1)])
-        dev = torch.from_numpy(flat).to(self.device)      # one host->device copy
-        rows = {k: dev[i * N:(i + 1) * N] for i, k in enumerate(_ROW_FIELDS)}
-        rows["row_tables"] = dev[len(_ROW_FIELDS) * N:].reshape(N, -1)
+    def _forward(self, rows):
+        """The forward over a form's device ``rows`` (K/V written in place):
+        (float32 logits (N, V_pad), per-layer telemetry)."""
         cache = self.cache
-        lengths = buffers["lengths"]
-        if self.mesh is not None:       # this rank's shard's rows
-            per, d = N // self.data_shards, self.mesh.coord["data"]
-            lengths = lengths[d * per:(d + 1) * per]
-        with use_rules(self.rules):
+        with use_rules(self.rules), torch.no_grad():
             return _paged_logits(self.params, self.layers, self.cfg, rows, cache.k_pool,
                                  cache.v_pool, cache.k_scales, cache.v_scales, cache.policy,
-                                 max_length=int(lengths.max()), mesh=self.mesh)
+                                 mesh=self.mesh)
+
+    # -- the static step forms ---------------------------------------------
+
+    def _pools(self) -> Tuple[torch.Tensor, ...]:
+        c = self.cache
+        return tuple(t for t in (c.k_pool, c.v_pool, c.k_scales, c.v_scales) if t is not None)
+
+    def _form(self, kind: str) -> StepForm:
+        """The step form of ``kind``, built at its first use (on the card
+        with graphs, all of them when the engine is built)."""
+        form = self._forms.get(kind)
+        if form is None:
+            S, serve = self.serve.max_slots, self.serve
+            N = (S * (self.spec.gamma + 1) if kind == "verify"
+                 else S + self.data_shards * serve.prefill_chunk if kind == "mixed" else S)
+            form = StepForm(kind, N, serve.blocks_per_slot, self.cache.garbage_block,
+                            self.device, self._pools())
+            if self._graph_pool is not None:
+                self._capture(form)
+            self._forms[kind] = form
+        return form
+
+    def _body(self, form: StepForm) -> dict:
+        """The step over ``form``'s device rows: forward, then the sampled
+        tokens (a verify step: the argmax ids, or the logits when sampling);
+        reads no host value, so it can be captured."""
+        rows = form.rows
+        logits, telem = self._forward(rows)
+        if form.kind == "verify":
+            scores = logits.argmax(dim=-1).to(torch.int32) if self.temperature <= 0.0 else logits
+            return {"scores": scores, "telem": telem}
+        out = {"tokens": _sample_rows(logits, rows["slots"], rows["positions"],
+                                      self.temperature, self.seed, self._temperature),
+               "telem": telem}
+        if self._logit_tap is not None:
+            out["logits"] = logits
+        return out
+
+    def _capture(self, form: StepForm) -> None:
+        """Capture ``form``'s step as a CUDA graph on the engine's pool,
+        after one warm-up on a side stream (the kernels' builds, cuBLAS's
+        handles, the allocator's blocks), over all-padding rows that write
+        only the garbage block.  The launch counters count neither; the
+        capture's launches are added at each replay."""
+        dev = self.device
+        before = counters.read()
+        try:
+            form.stage()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._body(form)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            counters.write(before)
+            graph = torch.cuda.CUDAGraph()
+            # no collection inside the capture: freeing another engine's graph
+            # there (a reference cycle through a logit tap, say) is a CUDA
+            # call the capture does not permit, and it invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    out = self._body(form)
+            finally:
+                if collecting:
+                    gc.enable()
+            launches = counters.since(before)
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing the {form.kind} step ({form.N} rows) as a CUDA "
+                               f"graph failed: {e}") from e
+        finally:
+            counters.write(before)
+        form.graph, form.out, form.launches = graph, out, launches
+        form.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _run(self, form: StepForm) -> dict:
+        """One step of ``form`` over its staging buffer: the copy, then the
+        replay (or the eager body); returns the form's outputs."""
+        if _addresses(self._pools()) != form.pools:
+            raise RuntimeError(f"the KV pools were rebound: the {form.kind} step form holds "
+                               f"their addresses (pools are written in place for the engine's "
+                               f"life)")
+        form.stage()
+        if form.graph is not None:
+            form.graph.replay()
+            counters.add(form.launches)
+        elif form.out is None:
+            form.out = self._body(form)
+        else:
+            _copy_tree(form.out, self._body(form))
+        return form.out
 
     def _shard_spans(self, sr: StepRows) -> None:
         """Per-shard child spans of a mesh step: each data shard's slice of
@@ -634,17 +846,16 @@ class ContinuousEngine:
         with self.obs.tracer.span("engine_step", kind=sr.kind, step=self.steps,
                                   rows=sr.num_rows, live_rows=sr.live):
             self._shard_spans(sr)
-            logits, telem = self.forward_rows(sr.buffers)
+            out = self._run(self._forms[sr.kind])
             b = sr.buffers
             if self._logit_tap is not None:
-                self._logit_tap(logits.cpu().numpy(), b["slots"], b["positions"],
-                                b["lengths"])
-            tokens = _sample_rows(logits, b["slots"], b["positions"], self.temperature,
-                                  self.seed)
+                # copies: the form's buffers are the next step's
+                self._logit_tap(out["logits"].to("cpu", copy=True).numpy(), b["slots"].copy(),
+                                b["positions"].copy(), b["lengths"].copy())
             if self.mesh is not None and self.check_invariants:
-                self._check_ranks_agree(tokens)
-            next_tok = tokens.cpu().numpy()
-        self._moe_accum(telem, sr.num_rows)
+                self._check_ranks_agree(out["tokens"])
+            next_tok = out["tokens"].cpu().numpy()
+        self._moe_accum(out["telem"], sr.num_rows)
         pre = sr.prefilling
         if pre is not None:
             pre.prefill_pos += sr.chunk
@@ -700,7 +911,8 @@ class ContinuousEngine:
             # the rows for the same one token per slot
             return self._paged_host_step(clock_ms)
 
-        b = _row_buffers(N, serve.blocks_per_slot, cache.garbage_block)
+        form = self._form("verify")
+        b = form.reset()
         per_slot: Dict[int, Tuple[RequestState, np.ndarray, int]] = {}
         for it, d in zip(items, drafts):
             st = sched.running[it.slot]
@@ -712,12 +924,11 @@ class ContinuousEngine:
         live = sum(int(d.size) + 1 for _, d, _ in per_slot.values())
         with self.obs.tracer.span("engine_step", kind="verify", step=self.steps, rows=N,
                                   live_rows=live):
-            logits, telem = self.forward_rows(b)
-            # greedy acceptance compares ids only: ship N int32 argmaxes, not
-            # the (N, V_pad) logits
-            scores = (logits.argmax(dim=-1).to(torch.int32)
-                      if self.temperature <= 0.0 else logits).cpu().numpy()
-        self._moe_accum(telem, N)
+            # greedy acceptance compares ids only: the form ships N int32
+            # argmaxes, not the (N, V_pad) logits
+            out = self._run(form)
+            scores = out["scores"].cpu().numpy()
+        self._moe_accum(out["telem"], N)
 
         finished = []
         m = self.obs.metrics
@@ -795,8 +1006,9 @@ class ContinuousEngine:
                 for slot in self.scheduler.running:
                     lengths[slot] = positions[slot] + 1
                 self._logit_tap(logits.cpu().numpy(), slots, positions, lengths)
-            next_tok = _sample_rows(logits, slots, positions, self.temperature,
-                                    self.seed).cpu().numpy()
+            next_tok = _sample_rows(logits, slots, positions, self.temperature, self.seed,
+                                    self._temperature).cpu().numpy()
+        self._recurrent_ran = True
         for st in prefill_advanced:
             st.prefill_pos += 1
             if st.prefill_pos == st.request.prompt_len:

@@ -81,16 +81,9 @@ def test_m6_smoke_engine_greedy_parity(S, gen, serve_kw):
                    logit_tap=lambda lg, *rest: jlogits.append(np.asarray(lg)))
     jtoks, jstats = jeng.generate(prompts, gen)
 
-    teng = TEngine(tcfg, tp, tserve, device="cpu", check_invariants=True)
     tlogits = []
-    fwd = teng.forward_rows
-
-    def tap(buffers):
-        lg, telem = fwd(buffers)
-        tlogits.append(lg.numpy())
-        return lg, telem
-
-    teng.forward_rows = tap
+    teng = TEngine(tcfg, tp, tserve, device="cpu", check_invariants=True,
+                   logit_tap=lambda lg, *rest: tlogits.append(np.asarray(lg)))
     ttoks, tstats = teng.generate(prompts, gen)
 
     jax.effects_barrier()
