@@ -245,8 +245,15 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               beside phase 5's continuous run and the ratio continuous /
               static; (c) on every static run, the dense decode kernel
               launched layers x decode steps times and every FFN launch on
-              the tensor cores, nothing else, and one profiled generate
-              (device busy share, the kernels by device time); (d) the batch at
+              the tensor cores, nothing else, counted through the replays
+              of the engine's CUDA graphs (a decode form a batch size, a
+              prefill form a prompt shape, reused across generates); the
+              graphed forms against graphs=False on the batch in one call:
+              greedy tokens identical, the largest logit difference 0, the
+              same launches, each mean step; profiled generates (device
+              busy share, the kernels by device time), graphed and eager,
+              the graphed one's counters equal to the kernels CUPTI
+              records; (b) again with the eager forms beside; (d) the batch at
               --moe-impl pallas, capacity 1.25, through moe_ffn; (e) hash
               routing, static against continuous as in (a); (f) at 2
               layers, 2 training steps each of hash (pallas) and
@@ -299,9 +306,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               kernel 5 x decode steps), 2 pallas training steps (moe_ffn 3
               x steps x 2); (c) xlstm-125m at full width: its 16-request
               trace in recurrent slots (every budget met, no kernel
-              launched; tokens/s, mean step, p50/p95), the static engine's
+              launched; tokens/s, mean step, p50/p95; the recurrent step
+              and slot reset CUDA graphs, census 1; beside the eager forms,
+              greedy tokens identical), the static engine's graphed
               token-by-token generate on the 8 x 48 batch equal to the
-              continuous engine's but at near-ties, the trace's first 4
+              continuous engine's but at near-ties, against graphs=False
+              as in phase 11 (c), both profiled, the trace's first 4
               requests again on the CPU (the card's tokens equal to the
               CPU's but at near-ties), and 2 steps of the train CLI at 4 of
               its 12 layers (the script's time; so does phase 19), 4 x
@@ -315,8 +325,12 @@ Phases, in order; any failure exits nonzero and no result line is printed:
               kernel launched 14 x steps, every prompt token a step, and
               nothing else; the tokens equal to the same engine's on the
               plain versions but at near-ties of its top two logits;
-              decode tokens/s, mean step, peak memory, the busy share of
-              a profiled generate); (e) the serve CLI with --engine
+              decode tokens/s, mean step, peak memory), its decode form a
+              CUDA graph, against one eager generate as in phase 11 (c),
+              and the busy share of a profiled generate, graphed and
+              eager; phases 3 and 4 hold and time the dense kernel at the
+              static plan (from T) and at the per-length plan;
+              (e) the serve CLI with --engine
               static --requests 8 --batch 8: run_trace_static over
               synthetic_trace(8, 32000, seed=0), one FCFS group of 8
               (every budget met, launches and tokens gated as in (b);
@@ -489,6 +503,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1777,9 +1792,12 @@ def dense_sdpa(q, k, v, lengths):
 def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64), softcap=0.0):
     """Kernel, plain and SDPA (length mask) times for one dense decode call
     at the m6 shape (``heads`` = (Hq, Hkv, D)), B = len(lens), 16 rotating
-    copies; the caller knows the longest length, as a decode step's host
-    does.  ``softcap`` caps the kernel's and the plain version's scores
-    (SDPA has no cap: its time is the uncapped call's)."""
+    copies.  The kernel is timed as every path calls it since PR 33, at the
+    static plan (from T: the lengths stay on the card), and beside it at the
+    plan of the longest length the host knew before (``per_length_*``; the
+    same launch where the two plans agree).  ``softcap`` caps the kernel's
+    and the plain version's scores (SDPA has no cap: its time is the
+    uncapped call's)."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -1790,18 +1808,25 @@ def time_dense(torch, lens, seed, T=256, heads=(16, 16, 64), softcap=0.0):
     def nxt():
         return copies[next(it) % len(copies)]
 
-    def kern():
-        return da.decode_attention(*nxt(), max_length=max(lens), softcap=softcap)
+    def kern(max_length=None):
+        return da.decode_attention(*nxt(), max_length=max_length, softcap=softcap)
 
     q, k, v, lengths = copies[0]
     bound, by = dense_bound(q, k, lengths)
     k_ms, k_dev = cuda_ms(kern), device_ms(kern, bound_ms=bound)
     p_ms = cuda_ms(lambda: decode_attention_ref(*nxt(), softcap=softcap))
     sdpa = dense_sdpa(q, k, v, lengths)
-    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
-                library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
-                plan=da.dense_plan(len(lens), Hkv, Hq // Hkv, D, T, 2, da._sm_count(0),
-                                   max_length=max(lens)))
+    plan, per_length = (da.dense_plan(len(lens), Hkv, Hq // Hkv, D, T, 2, da._sm_count(0),
+                                      max_length=m) for m in (None, max(lens)))
+    out = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=cuda_ms(sdpa),
+               library_device_ms=device_ms(sdpa, bound_ms=bound), bound_ms=bound, bound_by=by,
+               plan=plan, per_length_plan=per_length, per_length_ms=k_ms,
+               per_length_device_ms=k_dev)
+    if per_length != plan:
+        longest = functools.partial(kern, max(lens))
+        out.update(per_length_ms=cuda_ms(longest),
+                   per_length_device_ms=device_ms(longest, bound_ms=bound))
+    return out
 
 
 def time_attention(torch, lens, seed, heads=(16, 16, 64)):
@@ -2096,6 +2121,13 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.5f}"
 
 
+def plan_line(r) -> str:
+    """A dense decode timing's two plans (``time_dense``)."""
+    return (f"static plan (splits, stages) {r['plan']} dev {fmt_ms(r['device_ms'])} ms against "
+            f"the per-length plan {r['per_length_plan']} dev {fmt_ms(r['per_length_device_ms'])} "
+            f"ms")
+
+
 def timing_line(r) -> str:
     """A kernel's times: CUDA events over back-to-back calls (which at a
     few microseconds a call read the host's launch rate) and the
@@ -2201,13 +2233,16 @@ def check_static_kernels(torch, weights):
                                              if live is not None else 0))
     for label, (T, length) in static_shapes().items():
         case = dense_case(8, T, 16, 16, 64, [length] * 8, seed=150 + T)
-        out = da.decode_attention(*case, max_length=length)
-        torch.cuda.synchronize()
-        splits, stages = da.dense_plan(8, 16, 1, 64, T, 2, da._sm_count(0), max_length=length)
-        name = f"decode_attention static {label} B=8 T={T} length {length} splits={splits}"
-        err = check_close(name, out, decode_attention_ref(*case))
-        check_close(f"{name} vs split plain", out, decode_attention_split_ref(*case, splits))
-        errs["decode_attention"] = max(errs.get("decode_attention", 0.0), err)
+        for max_length in (None, length):       # the engine's static plan, the per-length one
+            out = da.decode_attention(*case, max_length=max_length)
+            torch.cuda.synchronize()
+            splits, stages = da.dense_plan(8, 16, 1, 64, T, 2, da._sm_count(0),
+                                           max_length=max_length)
+            name = (f"decode_attention static {label} B=8 T={T} length {length} "
+                    f"{'static' if max_length is None else 'per-length'} plan splits={splits}")
+            err = check_close(name, out, decode_attention_ref(*case))
+            check_close(f"{name} vs split plain", out, decode_attention_split_ref(*case, splits))
+            errs["decode_attention"] = max(errs.get("decode_attention", 0.0), err)
     return errs
 
 
@@ -2224,6 +2259,7 @@ def phase_timing_static(torch, ffn_weights):
            "decode_attention static": time_dense(torch, [length] * 8, seed=164, T=T)}
     for name, r in out.items():
         log(f"  static {name}: {timing_line(r)}")
+    log(f"  static decode_attention static: {plan_line(out['decode_attention static'])}")
     return out
 
 
@@ -2585,25 +2621,47 @@ def graphed_vs_eager(torch, cfg, params, serve, requests, clocks, run_tokens, de
     return dict(steps=steps, live_rows=rows, max_abs_logit_diff=diff, tokens_identical=True)
 
 
-def profile_static(torch, cfg, params, prompts, gen, cpu=True):
-    """torch.profiler over one static ``generate`` (a prefill and gen - 1
-    decode steps): ``busy_share``."""
+def profile_static(torch, cfg, params, prompts, gen, cpu=True, graphs=True):
+    """torch.profiler over one static ``generate`` (a prefill, or the
+    prompt token by token, and gen - 1 decode steps) of an engine whose
+    forms a first ``generate`` of the same shape built (on the card,
+    captured unless ``graphs`` is false): ``busy_share``, the launch
+    counters set to 0 just before; over the graphed forms the kernels
+    CUPTI recorded must equal the counters'."""
     from repro_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
-    return busy_share(torch, lambda: eng.generate(prompts, gen),
-                      f"one static generate of {prompts.shape[0]} x {prompts.shape[1]}, "
-                      f"{gen} tokens", cpu)
+    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1, graphs=graphs)
+    eng.generate(prompts, gen)
+    steps = (prompts.shape[1] if eng.fam.prefill is None else 1) + gen - 1
+    out = busy_share(torch, lambda: eng.generate(prompts, gen),
+                     f"one static generate of {prompts.shape[0]} x {prompts.shape[1]}, {gen} "
+                     f"tokens ({'graphed' if graphs else 'eager'} forms)", cpu,
+                     counted=True, graphs=graphs)
+    out.update(graphs=graphs, steps=steps)
+    if out["device_busy_share"] is not None:
+        out["device_ms_a_step"] = out["profiled_device_ms"] / steps
+        out["wall_ms_a_step"] = out["profiled_wall_ms"] / steps
+    return out
 
 
-def busy_share(torch, run, what, cpu=True):
+def busy_share(torch, run, what, cpu=True, counted=False, graphs=False):
     """torch.profiler over ``run()``: device busy share and the kernels that
     take the device time, as ``profile_steps`` reads them for the
-    continuous engine (with ``cpu`` false from the CUDA activity alone)."""
+    continuous engine (with ``cpu`` false from the CUDA activity alone).
+    With ``counted`` the launch counters are set to 0 just before ``run``,
+    and the decode, work-list, ragged-pass and combine kernels CUPTI
+    recorded are set beside the counters' (``recorded_vs_counted``): equal
+    or the run fails over ``graphs`` (replays, whose counts add the
+    capture's launches), a difference logged as records CUPTI lost over
+    eager launches."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import counters
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    if counted:
+        counters.write((0,) * len(counters.COUNTED))
     with profile(activities=activities) as prof:
         open_session(torch)
         t0 = time.perf_counter()
@@ -2619,12 +2677,24 @@ def busy_share(torch, run, what, cpu=True):
     if busy_us <= 0.0:
         log("  profiler: no device time recorded; device busy share not measured")
         return {"device_busy_share": None}
+    out = {"device_busy_share": busy_us / wall_us, "profiled_wall_ms": wall_us / 1e3,
+           "profiled_device_ms": busy_us / 1e3}
+    if counted:
+        seen = recorded_vs_counted(kernels)
+        off = {k: v for k, v in seen.items() if v[0] != v[1]}
+        if graphs and off:
+            raise AssertionError(f"profiled graphed {what}: kernels CUPTI recorded against "
+                                 f"those the replays counted: {seen}")
+        if off:
+            log(f"  profiler: CUPTI lost records (recorded, counted): {off}")
+        log(f"  profiler: kernels recorded = counted (from 0): "
+            f"{ {k: v[0] for k, v in seen.items() if k not in off} }")
+        out["recorded_vs_counted"] = seen
     log(f"  profiler ({'CPU and ' * cpu}CUDA activity) over {what}: device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
-    return {"device_busy_share": busy_us / wall_us, "profiled_wall_ms": wall_us / 1e3,
-            "profiled_device_ms": busy_us / 1e3}
+    return out
 
 
 def expert_choice_routes(x, router_w, plan):
@@ -3225,14 +3295,15 @@ def check_census(eng, label: str) -> dict:
     (off the card, where a form is built at its kind's first step as the
     reference's jit compiles, at most that) and no recompile
     (``engine_recompiles_total`` 0); an engine that captures (on the card,
-    without a mesh) holds every step form as a CUDA graph."""
+    without a mesh) holds every step form as a CUDA graph (the recurrent
+    step's and its slot reset's too)."""
     m = eng.obs.metrics
     n, again = m.get("engine_compiled_variants"), m.get("engine_recompiles_total")
     want = eng._expected_variants
     if again != 0 or (n != want if eng.device.type == "cuda" else not 0 < n <= want):
         raise AssertionError(f"{label}: engine_compiled_variants {n}, engine_recompiles_total "
                              f"{again}; expected {want} and 0")
-    forms = getattr(eng, "_forms", {})
+    forms = {**getattr(eng, "_forms", {}), **getattr(eng, "_rec_forms", {})}
     graphs = sum(f.graph is not None for f in forms.values())
     if getattr(eng, "_graph_pool", None) is not None and graphs != len(forms):
         raise AssertionError(f"{label}: {graphs} of {len(forms)} step forms captured")
@@ -4625,12 +4696,15 @@ def without_router(params):
     return {**params, "blocks": blocks}
 
 
-def static_generate(torch, cfg, params, prompts, gen):
-    """``ServingEngine.generate`` with the kernel counters at 0 before it:
+def static_generate(torch, cfg, params, prompts, gen, graphs=True):
+    """``ServingEngine.generate`` of an engine whose forms a first,
+    shorter ``generate`` of the batch built (on the card, captured unless
+    ``graphs`` is false), with the kernel counters at 0 before it:
     (tokens, stats, launches, wall ms)."""
     from repro_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1)
+    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + gen + 1, graphs=graphs)
+    eng.generate(prompts, min(gen, 2))
     table = params["embed"]["table"]
     launches = {}
     sync(torch, table)
@@ -4640,6 +4714,78 @@ def static_generate(torch, cfg, params, prompts, gen):
         sync(torch, table)
         wall_ms = (time.perf_counter() - t0) * 1e3
     return toks, stats, launches, wall_ms
+
+
+@contextmanager
+def sampled_logits(store: list, V: int):
+    """Every ``ServingEngine._sample`` call's last-position logits (the
+    first V columns, f32, copied to the host) appended to ``store``."""
+    from unittest import mock
+
+    from repro_torch.serving.engine import ServingEngine
+
+    real = ServingEngine._sample
+
+    def tap(self, logits, position, temperature, seed):
+        store.append(logits[:, -1, :V].float().cpu())
+        return real(self, logits, position, temperature, seed)
+
+    with mock.patch.object(ServingEngine, "_sample", tap):
+        yield
+
+
+def graphed_vs_eager_generate(torch, cfg, params, prompts, gen, label, want, forms):
+    """The static engine's graphed step forms against ``graphs=False`` on
+    one batch, in one call: each engine's forms built by a first
+    ``generate`` (the graphed one's captured: ``forms`` of them, each a
+    CUDA graph), then one tapped ``generate`` each with the counters at 0.
+    The greedy tokens must be identical and the largest logit difference
+    over every sampled position 0 (the same kernels on the same inputs);
+    on the card each kernel launched ``want`` times (replays count their
+    capture's launches), eager and graphed alike.  Returns each engine's
+    mean step (host clock, synced, the tap's copy of the logits a step in
+    both) and the graphs' pool bytes."""
+    import numpy as np
+
+    from repro_torch.serving.engine import ServingEngine
+
+    B, S = prompts.shape
+    table = params["embed"]["table"]
+    runs = {}
+    for graphs in (True, False):
+        eng = ServingEngine(cfg, params, max_len=S + gen + 1, graphs=graphs)
+        steps = (S if eng.fam.prefill is None else 1) + gen - 1
+        eng.generate(prompts if graphs else prompts[:, :4], 2)
+        logits, launches = [], {}
+        sync(torch, table)
+        with counted_launches(launches), sampled_logits(logits, cfg.vocab_size):
+            t0 = time.perf_counter()
+            toks, _ = eng.generate(prompts, gen)
+            sync(torch, table)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kind = "graphed" if graphs else "eager"
+        if table.is_cuda:
+            expect_launches(f"{label} {kind}", launches, want)
+        runs[kind] = (toks, torch.stack(logits), wall_ms / steps, eng)
+    eng = runs["graphed"][3]
+    built = list(eng._decode_forms.values()) + list(eng._prefill_forms.values())
+    captured = sum(f.graph is not None for f in built)
+    if eng.compiled_variants() != forms or (table.is_cuda and captured != forms):
+        raise AssertionError(f"{label}: {eng.compiled_variants()} forms, {captured} captured; "
+                             f"expected {forms}, each a CUDA graph on the card")
+    if not np.array_equal(runs["graphed"][0], runs["eager"][0]):
+        raise AssertionError(f"{label}: graphed and eager greedy tokens differ")
+    diff = float((runs["graphed"][1] - runs["eager"][1]).abs().max())
+    if diff != 0.0:
+        raise AssertionError(f"{label}: graphed and eager logits differ by up to {diff}")
+    pool = sum(f.graph_bytes for f in built)
+    log(f"  {label}: graphed forms ({forms}, {pool / 2**20:.2f} MiB of graph pool) against "
+        f"eager on {B} x {S}, {gen} tokens, {steps} steps: greedy tokens identical, max abs "
+        f"logit diff {diff:.6g}; mean step {runs['graphed'][2]:.3f} ms graphed, "
+        f"{runs['eager'][2]:.3f} ms eager (host clock, synced, the tap's copy included)")
+    return dict(steps=steps, graphed_step_ms=runs["graphed"][2],
+                eager_step_ms=runs["eager"][2], tokens_identical=True,
+                max_abs_logit_diff=diff, forms=forms, graph_pool_bytes=pool)
 
 
 def static_parity(torch, cfg, params, prompts, gen, device, label):
@@ -4676,10 +4822,13 @@ def static_parity(torch, cfg, params, prompts, gen, device, label):
                 decode_tokens_per_s=stats["decode_tokens_per_s"], launches=shown), launches
 
 
-def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_BATCH):
-    """(b): ``run_trace_static`` over the trace at ``batch``; every budget
-    met, and on the card the dense kernel launched layers x decode steps
-    times; its tokens/s and p50/p95 beside the continuous run's
+def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_BATCH,
+                 graphs=True):
+    """(b): ``run_trace_static`` over the trace at ``batch`` by an engine
+    whose forms a first run of the trace built (on the card, captured
+    unless ``graphs`` is false: a form per group shape, reused); every
+    budget met, and on the card the dense kernel launched layers x decode
+    steps times; its tokens/s and p50/p95 beside the continuous run's
     (``continuous``: tokens_per_s, p50_ms, p95_ms) and the ratio
     continuous / static (the reference benchmark's speedup_tokens_per_s)."""
     from repro_torch.serving.engine import ServingEngine
@@ -4687,7 +4836,8 @@ def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_
 
     T, lens = static_decode_shapes(requests, batch)
     groups = -(-len(requests) // batch)
-    eng = ServingEngine(cfg, params, max_len=T)
+    eng = ServingEngine(cfg, params, max_len=T, graphs=graphs)
+    run_trace_static(eng, requests, batch)
     table = params["embed"]["table"]
     launches = {}
     sync(torch, table)
@@ -4703,7 +4853,8 @@ def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_
         expect_launches("static trace", launches, {"decode_attention": L * len(lens),
                                                    "ragged_ffn": L * (len(lens) + groups)})
     ratio = continuous["tokens_per_s"] / stats["generated_tokens_per_s"]
-    log(f"  static trace, batch {batch}: {latency_line(stats)}; cache T = {T}, {groups} groups, "
+    log(f"  static trace, batch {batch}, {'graphed' if graphs else 'eager'} forms "
+        f"({eng.compiled_variants()}): {latency_line(stats)}; cache T = {T}, {groups} groups, "
         f"{len(lens)} decode steps; continuous {continuous['tokens_per_s']:.1f} tokens/s, p50 "
         f"{continuous['p50_ms']:.0f} ms p95 {continuous['p95_ms']:.0f} ms: continuous / static "
         f"{ratio:.3f}x tokens/s")
@@ -4712,7 +4863,8 @@ def static_trace(torch, cfg, params, requests, device, continuous, batch=STATIC_
                 p95_ms=stats["p95_ms"], total_ms=stats["total_ms"], batch=batch, max_len=T,
                 decode_steps=len(lens), continuous_tokens_per_s=continuous["tokens_per_s"],
                 continuous_p50_ms=continuous["p50_ms"], continuous_p95_ms=continuous["p95_ms"],
-                speedup_tokens_per_s=ratio, launches=shown), launches
+                speedup_tokens_per_s=ratio, launches=shown, graphs=graphs,
+                compiled_variants=eng.compiled_variants()), launches
 
 
 def static_serving_runs(torch, cfg, params, requests, device, continuous,
@@ -4725,7 +4877,6 @@ def static_serving_runs(torch, cfg, params, requests, device, continuous,
     L = cfg.num_layers
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    static_generate(torch, cfg, params, prompts, 2)      # warm-up: first cuBLAS calls
     total, report = {}, {}
 
     def add(launches):
@@ -4734,9 +4885,19 @@ def static_serving_runs(torch, cfg, params, requests, device, continuous,
 
     report["greedy"], got = static_parity(torch, cfg, params, prompts, gen, device, "dropless")
     add(got)
+    report["graphed_vs_eager"] = graphed_vs_eager_generate(
+        torch, cfg, params, prompts, gen, "(c) dropless",
+        {"decode_attention": L * (gen - 1), "ragged_ffn": moe_layers(cfg) * gen}, forms=2)
     if params["embed"]["table"].is_cuda:
         report["greedy"].update(profile_static(torch, cfg, params, prompts, gen))
+        report["greedy"]["profile_cuda_only"] = {
+            "graphed" if g else "eager": profile_static(torch, cfg, params, prompts, gen,
+                                                        cpu=False, graphs=g)
+            for g in (True, False)}
     report["trace"], got = static_trace(torch, cfg, params, requests, device, continuous)
+    add(got)
+    report["eager_trace"], got = static_trace(torch, cfg, params, requests, device, continuous,
+                                              graphs=False)
     add(got)
     cap = cfg.replace_moe(impl="pallas", capacity_factor=1.25)
     toks, stats, got, _ = static_generate(torch, cap, params, prompts, gen)
@@ -5477,7 +5638,6 @@ def mixed_stack_runs(torch, cfg, device, train_argv, requests=None, max_len=None
     B, S, gen = shape
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    static_generate(torch, cfg, params, prompts, 2)      # warm-up
     report["static"], got = static_parity(torch, cfg, params, prompts, gen, device, "(b) static")
     add(got)
     del params
@@ -5521,19 +5681,32 @@ def xlstm_runs(torch, cfg, device, train_argv, n_requests=16, cpu_requests=XLSTM
                                               check_invariants=True)
     if device == "cuda":
         expect_launches("(c) continuous", launches, {})
+    eager, estats, eeng, e_wall = serve_once(torch, cfg, params, serve, requests, device,
+                                             check_invariants=True, graphs=False)
+    if eager != out:
+        raise AssertionError("(c) continuous: the graphed recurrent step's greedy tokens differ "
+                             "from the eager one's")
     report["continuous"] = dict(
         params_b=count_params(cfg) / 1e9, tokens_per_s=stats["generated_tokens_per_s"],
         p50_ms=stats["p50_ms"], p95_ms=stats["p95_ms"], steps=eng.steps,
-        mean_step_ms=wall_ms / eng.steps, max_slots=serve.max_slots)
-    log(f"  (c) xlstm continuous, recurrent slots: {latency_line(stats)}; {eng.steps} steps of "
-        f"({serve.max_slots}, 1), mean step {wall_ms / eng.steps:.2f} ms (host clock); no "
-        f"kernel launched")
+        mean_step_ms=wall_ms / eng.steps, max_slots=serve.max_slots,
+        graphs=sum(f.graph is not None for f in eng._rec_forms.values()),
+        eager_tokens_per_s=estats["generated_tokens_per_s"], eager_p50_ms=estats["p50_ms"],
+        eager_p95_ms=estats["p95_ms"], eager_mean_step_ms=e_wall / eeng.steps,
+        tokens_identical_to_eager=True)
+    log(f"  (c) xlstm continuous, recurrent slots, the step and slot reset "
+        f"{'graphed' if report['continuous']['graphs'] else 'eager'}: {latency_line(stats)}; "
+        f"{eng.steps} steps of ({serve.max_slots}, 1), mean step {wall_ms / eng.steps:.2f} ms "
+        f"(host clock); eager forms {e_wall / eeng.steps:.2f} ms a step, "
+        f"{estats['generated_tokens_per_s']:.1f} tokens/s, greedy tokens identical; no kernel "
+        f"launched")
+    del eeng
 
     B, S, gen = shape
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     static = ServingEngine(cfg, params, max_len=S + gen + 1)
-    static.generate(prompts[:, :4], 2)                                  # warm-up
+    static.generate(prompts[:, :4], 2)                                  # builds the form
     toks, sstats = static.generate(prompts, gen)
     batch = [Request(uid=i, prompt=prompts[i], max_new_tokens=gen) for i in range(B)]
     base, margins = tapped_margins(torch, cfg, params,
@@ -5547,6 +5720,11 @@ def xlstm_runs(torch, cfg, device, train_argv, n_requests=16, cpu_requests=XLSTM
                             divergences=[dict(request=u, token=p, gap=g) for u, p, g in div],
                             prompt_ms=sstats["prefill_s"] * 1e3,
                             decode_tokens_per_s=sstats["decode_tokens_per_s"])
+    report["static graphed vs eager"] = graphed_vs_eager_generate(
+        torch, cfg, params, prompts, gen, "(c) static graphed vs eager", {}, forms=1)
+    if device == "cuda":
+        for g, key in ((True, "static profile"), (False, "static eager profile")):
+            report[key] = profile_static(torch, cfg, params, prompts, gen, cpu=False, graphs=g)
 
     if device == "cuda":
         t0 = time.perf_counter()
@@ -5635,10 +5813,12 @@ def zamba_decode_lengths(requests, batch=STATIC_BATCH):
             for n in range(1, prompts.shape[1] + gen)]
 
 
-def tapped_generate(torch, cfg, params, prompts, gen, max_len=None, eng=None):
-    """``ServingEngine.generate`` (of ``eng``, or of a new engine) with its
-    sampler tapped: (tokens (B, gen), {(row, token index): (top-two logit
-    gap, top logit)}, the generate's stats)."""
+def tapped_generate(torch, cfg, params, prompts, gen, max_len=None, eng=None, graphs=True):
+    """``ServingEngine.generate`` (of ``eng``, or of a new engine, its
+    forms captured on the card unless ``graphs`` is false: under
+    ``plain_versions()`` they must not be) with its sampler tapped:
+    (tokens (B, gen), {(row, token index): (top-two logit gap, top
+    logit)}, the generate's stats)."""
     from unittest import mock
 
     from repro_torch.serving.engine import ServingEngine
@@ -5653,7 +5833,7 @@ def tapped_generate(torch, cfg, params, prompts, gen, max_len=None, eng=None):
             margins[i, position - S + 1] = (float(top2[i, 0] - top2[i, 1]), float(top2[i, 0]))
         return real(self, logits, position, temperature, seed)
 
-    eng = eng or ServingEngine(cfg, params, max_len=max_len or S + gen + 1)
+    eng = eng or ServingEngine(cfg, params, max_len=max_len or S + gen + 1, graphs=graphs)
     with mock.patch.object(ServingEngine, "_sample", tap):
         toks, stats = eng.generate(prompts, gen)
     return toks, margins, stats
@@ -5673,7 +5853,7 @@ def generate_vs_plain(torch, cfg, params, prompts, gen, device, label, want, ste
         expect_launches(label, launches, want)
     t0 = time.perf_counter()
     with plain_versions():
-        base, margins, _ = tapped_generate(torch, cfg, params, prompts, gen)
+        base, margins, _ = tapped_generate(torch, cfg, params, prompts, gen, graphs=False)
     plain_s = time.perf_counter() - t0
     div = divergences({i: base[i] for i in range(B)}, {i: toks[i] for i in range(B)},
                       lambda k, p: margins[k, p], f"{label} kernels vs plain")
@@ -5766,7 +5946,8 @@ def zamba_cli(torch, cfg, params, cli_argv, device, n_requests=16, batch=STATIC_
     base, margins = {}, {}
     with plain_versions():
         for group, prompts, gen in static_groups(requests, batch):
-            toks, marg, _ = tapped_generate(torch, cfg, params, prompts, gen, max_len=T)
+            toks, marg, _ = tapped_generate(torch, cfg, params, prompts, gen, max_len=T,
+                                            graphs=False)
             for j, r in enumerate(group):
                 base[r.uid] = toks[j, :r.max_new_tokens].tolist()
                 margins.update({(r.uid, p): m for (row, p), m in marg.items() if row == j})
@@ -5825,7 +6006,6 @@ def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
     B, S, gen = shape
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    static_generate(torch, cfg, params, prompts[:, :4], 2)          # warm-up
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     report["(b) generate"], got = generate_vs_plain(
@@ -5837,9 +6017,14 @@ def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
         report["(b) peak_memory_gb"] = peak
         log(f"  (b) peak memory of the generate {peak:.1f} GB (weights "
             f"{count_params(cfg) * 2 / 1e9:.1f} GB in bf16)")
+    report["(b) graphed vs eager"] = graphed_vs_eager_generate(
+        torch, cfg, params, prompts, gen, "(b) graphed vs eager",
+        {"decode_attention": _n_shared(cfg) * (S + gen - 1)}, forms=1)
+    if cuda:
         p_len, p_gen = ZAMBA_PROFILE_SHAPE
-        report["(b) profile"] = profile_static(torch, cfg, params, prompts[:, :p_len], p_gen,
-                                               cpu=False)
+        for g, key in ((True, "(b) profile"), (False, "(b) eager profile")):
+            report[key] = profile_static(torch, cfg, params, prompts[:, :p_len], p_gen,
+                                         cpu=False, graphs=g)
     report["params"] = count_params(cfg)
     report["(e) serve CLI trace"], got = zamba_cli(torch, cfg, params, cli_argv, device,
                                                    cli_requests)
@@ -5931,8 +6116,9 @@ def check_zamba_kernel(torch):
         run("f32", dense_case(8, T, Hq, Hkv, D, lens, seed=803, dtype=torch.float32), splits,
             max(lens))
     for label, (T, length) in zamba_shapes().items():
-        run(f"{label} at length {length}", dense_case(8, T, Hq, Hkv, D, [length] * 8,
-                                                      seed=804 + T), None, length)
+        case = dense_case(8, T, Hq, Hkv, D, [length] * 8, seed=804 + T)
+        run(f"{label} at length {length}", case, None, length)
+        run(f"{label} at length {length}, the static plan", case)
     return {"decode_attention": err}
 
 
@@ -5947,7 +6133,7 @@ def phase_timing_zamba(torch):
                                                         heads=ZAMBA_HEADS)}
     for name, r in out.items():
         log(f"  {name} (T {T}, length {length if name.endswith('zamba') else T - 1}): "
-            f"{timing_line(r)}")
+            f"{timing_line(r)}; {plan_line(r)}")
     return out
 
 
@@ -6193,7 +6379,6 @@ def encdec_runs(torch, cfg, device, train_argv, static_cfg, cli_argv=("--arch", 
     B, S, gen = static_shape
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, static_cfg.vocab_size, (B, S)).astype(np.int32)
-    static_generate(torch, static_cfg, sparams, prompts[:, :4], 2)              # warm-up
     report["(e) static softcap"], got = generate_vs_plain(
         torch, static_cfg, sparams, prompts, gen, device,
         f"(e) softcap {static_cfg.attn_logit_softcap}",
@@ -7981,7 +8166,7 @@ def mf_generate(torch, cfg, params, device, rules=None, tap=False, measured=None
     B, S, gen = MF_SERVE
     prompts = np.random.default_rng(STATIC_SEED).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    eng = ServingEngine(cfg, params, max_len=S + gen + 1, rules=rules)
+    eng = ServingEngine(cfg, params, max_len=S + gen + 1, rules=rules, graphs=False)
     eng.generate(prompts[:, :2], 2)                                            # warm-up
     margins = {}
     with measured():
@@ -8598,6 +8783,9 @@ def main() -> int:
                                                       "library_device_ms")}
                 for label in static_timing[name]}
         if name == "decode_attention":   # phase 4's 8 x 256 cache and phase 7's engine pools
+            # the static plan every path takes since PR 33, the per-length plan beside it
+            entry.update(per_length_plan=t["per_length_plan"], per_length_ms=t["per_length_ms"],
+                         per_length_device_ms=t["per_length_device_ms"])
             entry.update(t256_device_ms=timing[name]["device_ms"],
                          t256_bound_ms=timing[name]["bound_ms"],
                          engine_pool_launches=kv_launches[name])
@@ -8630,7 +8818,8 @@ def main() -> int:
             entry["zamba_shapes"] = {
                 label: {k: timing[label][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms",
-                                                      "library_device_ms", "plan")}
+                                                      "library_device_ms", "plan",
+                                                      "per_length_plan", "per_length_device_ms")}
                 for label in ("decode_attention zamba", "decode_attention zamba longest")}
         # phase 15: encdec's self- and cross-attention decode and the softcap,
         # the dense kernel's

@@ -72,6 +72,13 @@ def name_group(group, axis: str) -> None:
     _GROUP_NAMES[group] = axis
 
 
+def forget_groups() -> None:
+    """Drop every named group: the names hold the groups themselves, so
+    without this a gloo group and its threads outlive
+    ``destroy_process_group`` until the interpreter's own teardown."""
+    _GROUP_NAMES.clear()
+
+
 @contextlib.contextmanager
 def scope(name: Optional[str]):
     """Count the collectives run inside, and those of their backward, in

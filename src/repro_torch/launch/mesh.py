@@ -27,6 +27,7 @@ being more data parallelism, scaled down by ``REPRO_MESH_SINGLE`` /
 from __future__ import annotations
 
 import datetime
+import gc
 import math
 import os
 import pickle
@@ -225,8 +226,21 @@ def _entry(rank: int, fn: Callable, world: int, backend: str, init_file: str, ar
     out = fn(rank, world, *args)
     with open(f"{init_file}.{rank}.out", "wb") as fh:
         pickle.dump(out, fh)
-    dist.barrier()          # no rank tears the group down under a peer's last collective
+    teardown()
+
+
+def teardown() -> None:
+    """Leave the process group and free every group now, on this thread:
+    after a barrier (no rank tears the group down under a peer's last
+    collective), ``destroy_process_group``, then the port's own references
+    to the mesh's groups dropped and collected, so that each gloo group's
+    worker and transport threads are joined here.  Left to the
+    interpreter's teardown, a group still holding a joinable thread aborts
+    the process (``terminate called without an active exception``)."""
+    dist.barrier()
     dist.destroy_process_group()
+    collectives.forget_groups()
+    gc.collect()
 
 
 def spawn(fn: Callable, world: int, *, backend: str = "gloo", init_file: str,

@@ -8,11 +8,18 @@ memory (the encdec family's decoder), whose K/V :func:`project_kv` makes.
 The cache (:class:`KVCache`) is ``(B, T, Hkv, D)`` in the activation
 dtype, written in place (the reference's jit donates it instead), so it
 must be made and used under ``torch.inference_mode()``; its ``length`` is
-a Python int, known on the host.  A prefill (S > 1) attends over the
-cache through the reference's ``_sdpa``, as the reference computes it
-outside Pallas; a decode step (S = 1) is the dense decode attention
-kernel (``repro_torch.kernels.decode_attention.decode_attention``) over
-the cache, every row at length ``length + 1``.  Cross-attention (``kv=``)
+a 0-dim int32 tensor on the cache's device, as the reference's is.  A
+step reads no host value: it writes its K/V at the positions ``length +
+arange(S)`` (an indexed copy) and returns the cache with the length
+advanced on the device, so that an engine can capture it as a CUDA
+graph.  A write past the cache's end is refused where the length lies on
+the CPU; on the card the engines refuse a ``generate`` that would reach
+it before any step runs.  A prefill (S > 1) attends over the cache
+through the reference's ``_sdpa``, as the reference computes it outside
+Pallas; a decode step (S = 1) is the dense decode attention kernel
+(``repro_torch.kernels.decode_attention.decode_attention``) over the
+cache, every row at length ``length + 1``, planned from the cache's
+static T.  Cross-attention (``kv=``)
 takes q from ``wq`` (q-norm where set, no RoPE) and the memory's K/V as
 given: over S > 1 queries (teacher forcing) the reference's ``_sdpa``
 without a mask, and for a decode step (S = 1) the dense decode kernel
@@ -51,7 +58,7 @@ _CHUNK_THRESHOLD = 1 << 21  # S*T above this -> the reference's chunked path und
 class KVCache(NamedTuple):
     k: torch.Tensor    # (B, T, Hkv, D); the model's caches stack layers first
     v: torch.Tensor
-    length: int        # valid positions, the same for every row
+    length: torch.Tensor   # 0-dim int32: valid positions, the same for every row
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
@@ -138,7 +145,8 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
             q = head_rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
         k, v = kv
         if S == 1:
-            out = _decode_attention(q[:, 0].contiguous(), k, v, k.shape[1], cfg)[:, None]
+            lengths = torch.full((B,), k.shape[1], dtype=torch.int32, device=q.device)
+            out = _decode_attention(q[:, 0].contiguous(), k, v, lengths, cfg)[:, None]
         else:
             out = _sdpa(q, k, v, cfg, mask=None)
         out = dense_apply(params["wo"], out.reshape(B, S, -1), cfg)
@@ -146,20 +154,22 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, causal: bool = Tr
     q, k, v = _project_qkv(params, x, cfg, positions)
     new_cache = None
     if cache is not None:
-        idx = cache.length
-        if idx + S > cache.k.shape[1]:      # the reference's write clamps silently
-            raise ValueError(f"KV cache of {cache.k.shape[1]} positions cannot take "
-                             f"{S} more at length {idx}")
-        cache.k[:, idx:idx + S] = k.to(cache.k.dtype)
-        cache.v[:, idx:idx + S] = v.to(cache.v.dtype)
+        idx, T = cache.length, cache.k.shape[1]
+        # the reference's write clamps silently; a length on the CPU is read
+        # here, one on the card is guarded by the engine's host step count
+        if idx.device.type == "cpu" and int(idx) + S > T:
+            raise ValueError(f"KV cache of {T} positions cannot take {S} more at length "
+                             f"{int(idx)}")
+        rows = idx + torch.arange(S, device=x.device)
+        cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
         new_cache = KVCache(cache.k, cache.v, idx + S)
         if S == 1:
-            out = _decode_attention(q[:, 0].contiguous(), cache.k, cache.v, idx + 1, cfg)
+            lengths = (idx + 1).to(torch.int32).expand(B).contiguous()
+            out = _decode_attention(q[:, 0].contiguous(), cache.k, cache.v, lengths, cfg)
             out = out[:, None]
         else:
-            T = cache.k.shape[1]
-            rows = torch.arange(S, device=x.device)[:, None] + idx
-            mask = (torch.arange(T, device=x.device)[None, :] <= rows)[None, None, None]
+            mask = (torch.arange(T, device=x.device)[None, :] <= rows[:, None])[None, None, None]
             out = _sdpa(q, cache.k, cache.v, cfg, mask, causal_offset=idx)
     elif use_flash:
         from repro_torch.kernels.flash_attention import flash_attention
@@ -270,16 +280,15 @@ def _rank_projections(params, cfg: ModelConfig, group, kv):
     return out
 
 
-def _decode_attention(q, k_cache, v_cache, length: int, cfg: ModelConfig) -> torch.Tensor:
-    """One query per row over the first ``length`` positions of the dense
-    cache (or memory): the reference's ``_sdpa`` over mask
+def _decode_attention(q, k_cache, v_cache, lengths, cfg: ModelConfig) -> torch.Tensor:
+    """One query per row over the first ``lengths`` (B,) int32 positions of
+    the dense cache (or memory): the reference's ``_sdpa`` over mask
     ``t <= cache.length`` (or no mask), softcap included, as the dense
-    decode kernel computes it."""
+    decode kernel computes it.  The kernel plans its launch from the
+    cache's static T (no host length), so the step can be captured."""
     from repro_torch.kernels.decode_attention import decode_attention
 
-    lengths = torch.full((q.shape[0],), length, dtype=torch.int32, device=q.device)
-    return decode_attention(q, k_cache, v_cache, lengths, max_length=length,
-                            softcap=cfg.attn_logit_softcap)
+    return decode_attention(q, k_cache, v_cache, lengths, softcap=cfg.attn_logit_softcap)
 
 
 def project_kv(params, memory, cfg: ModelConfig):
@@ -300,8 +309,9 @@ def project_kv(params, memory, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, lead: Tuple[int, ...] = (),
                device=None) -> KVCache:
     """A zeroed ``lead + (B, max_len, Hkv, D)`` cache in the activation
-    dtype, length 0: one layer's, or with ``lead`` the stacked caches of
-    several that share one length."""
+    dtype, length 0 (a 0-dim int32 tensor on ``device``): one layer's, or
+    with ``lead`` the stacked caches of several that share one length."""
     shape = lead + (batch, max_len, local_kv_heads(cfg), cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.activation_dtype, device=device), 0)
+                   torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))

@@ -22,8 +22,10 @@ under ``pos_embed="learned"``.
 Decode (:func:`init_state`, :func:`decode_step`) precomputes every decoder
 layer's cross-attention K/V of the memory once and keeps one dense
 self-attention cache a layer, stacked ``(L, B, T, Hkv, D)`` with one
-host-side length (:class:`~repro_torch.models.attention.KVCache`), written
-in place, so a state is made and used under ``torch.inference_mode()``.
+length on the device (:class:`~repro_torch.models.attention.KVCache`),
+written in place, so a state is made and used under
+``torch.inference_mode()``.  The step runs eagerly: the reference compiles
+no encdec decode step.
 A decode step (S = 1) runs the dense decode attention kernel twice a
 layer: over the layer's self cache, every row at length + 1, and over its
 cross K/V, every row at S_src.  No serving engine takes this family, as
@@ -108,7 +110,8 @@ def _dec_block(bp, h, memory_kv, cfg: ModelConfig, *, positions,
     return h + ffn, aux, new_cache
 
 
-def _positions(start: int, B: int, S: int, device):
+def _positions(start, B: int, S: int, device):
+    """(B, S) positions from ``start`` (0, or a cache's device length)."""
     return (start + torch.arange(S, device=device))[None, :].expand(B, S)
 
 

@@ -15,9 +15,10 @@ m6), xLSTM, zamba and encdec:
                                                needs the encoder's memory:
                                                ``encdec.init_state``)
   decode(params, tokens, state, cfg, ctx)      one-token serve step
-  prefill(params, batch, cfg, max_len, ctx)    prompt -> (logits, state);
-                                               None for xLSTM, zamba and
-                                               encdec
+  prefill(params, batch, cfg, max_len, ctx,    prompt -> (logits, state),
+          state=None)                          filling ``state`` (empty
+                                               caches) where given; None
+                                               for xLSTM, zamba and encdec
   input_specs(cfg, shape)                      the train / prefill batch
                                                of a ShapeConfig, as meta
                                                tensors (the dry run's)
@@ -61,7 +62,7 @@ class FamilyAPI:
     forward: Callable     # (params, batch, cfg, ctx) -> (logits, aux)
     init_state: Callable  # (cfg, batch, max_len, device) -> state
     decode: Callable      # (params, tokens, state, cfg, ctx) -> (logits, state)
-    prefill: Optional[Callable]  # (params, batch, cfg, max_len, ctx) -> (logits, state)
+    prefill: Optional[Callable]  # (params, batch, cfg, max_len, ctx, state) -> (logits, state)
     input_specs: Callable        # (cfg, shape) -> the train / prefill batch on meta
     decode_input_specs: Callable  # (cfg, shape) -> {"tokens", "state"} on meta
     kv_cache: bool = True        # the state has max_len positions (a longer run is refused)
@@ -77,7 +78,9 @@ def _token_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 
 
 def _full(cache: KVCache, length: int) -> KVCache:
-    return KVCache(cache.k, cache.v, length)
+    """``cache`` at ``length`` (a 0-dim int32 tensor on its device)."""
+    return KVCache(cache.k, cache.v, torch.full((), length, dtype=torch.int32,
+                                                device=cache.k.device))
 
 
 def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
@@ -90,9 +93,9 @@ def _lm_forward(params, batch, cfg: ModelConfig, ctx=None):
     return logits, aux
 
 
-def _lm_prefill(params, batch, cfg: ModelConfig, max_len: int, ctx=None):
+def _lm_prefill(params, batch, cfg: ModelConfig, max_len: int, ctx=None, state=None):
     logits, caches, _ = TF.prefill_apply(params, batch["tokens"], cfg, max_len=max_len,
-                                         ctx=ctx)
+                                         ctx=ctx, caches=state)
     return logits, caches
 
 

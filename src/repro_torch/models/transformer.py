@@ -20,7 +20,9 @@ a call.  An MoE layer of an ``moe_attention`` config runs MoE attention
 (``repro_torch.core.moe_attention``) when it has no cache; it has no
 cached decode path, so ``prefill_apply`` and ``decode_apply`` refuse it.
 The caches are one :class:`~repro_torch.models.attention.KVCache` whose
-k/v stack the layers, ``(L, B, T, Hkv, D)``, written in place.
+k/v stack the layers, ``(L, B, T, Hkv, D)``, written in place, with one
+length on the device that a step reads there and returns advanced: a
+step reads no host value, so the static engine can capture it.
 """
 from __future__ import annotations
 
@@ -168,25 +170,27 @@ def decode_apply(params, tokens, caches: KVCache, cfg: ModelConfig,
                  ctx: Optional[MoEContext] = None):
     """tokens: (B, 1) -> (logits (B, 1, V_pad), new_caches).  The MoE
     context carries the current token ids and the *absolute* positions
-    (from the cache length), so identity and position routing agree
-    between prefill and decode; the learned positions come from the cache
-    length too."""
+    ``length + arange(S)``, read from the cache length on the device, so
+    identity and position routing agree between prefill and decode; the
+    learned positions are those rows of the table."""
     params = _outer(params)
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape
-    length = caches.length
-    positions = (length + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    pos = caches.length + torch.arange(S, device=x.device)
+    positions = pos[None, :].expand(B, S)
     ctx = (ctx or MoEContext()).with_tokens(tokens, positions)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][length:length + S].to(x.dtype)[None]
+        x = x + params["pos_embed"].index_select(0, pos).to(x.dtype)[None]
     x, _, new_caches = _run_blocks(params, x, cfg, positions=positions, caches=caches, ctx=ctx)
     return _logits(params, x, cfg), new_caches
 
 
 def prefill_apply(params, tokens, cfg: ModelConfig, *, max_len: int,
-                  ctx: Optional[MoEContext] = None):
-    """Full forward over the prompt that fills fresh ``max_len`` caches;
-    returns (logits (B, S, V_pad), caches, aux).
+                  ctx: Optional[MoEContext] = None, caches: Optional[KVCache] = None):
+    """Full forward over the prompt that fills fresh ``max_len`` caches (or
+    ``caches``, empty ones of the batch's rows that the static engine
+    keeps: their length must be 0); returns (logits (B, S, V_pad),
+    caches, aux).
 
     It adds the learned positions of the prompt, as ``lm_apply`` and
     ``decode_apply`` do.  The reference's ``prefill_apply`` omits them
@@ -195,7 +199,8 @@ def prefill_apply(params, tokens, cfg: ModelConfig, *, max_len: int,
     engine; the port's prefill computes the prompt positions that its
     decode steps continue from."""
     params = _outer(params)
-    caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+    if caches is None:
+        caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
     x = L.embedding_apply(params["embed"], tokens, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)

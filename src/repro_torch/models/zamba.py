@@ -14,11 +14,12 @@ step.
 The decode state (:class:`ZambaState`) holds every layer's Mamba2 state,
 stacked ``(L, ...)``, and the applications' caches as one
 :class:`~repro_torch.models.attention.KVCache` whose k / v stack them,
-``(n_shared, B, T, Hkv, D)``, with one host-side length (every
-application writes the same positions).  Both are written in place, as
-the port's caches are, so a state is made and used under
-``torch.inference_mode()``; decode positions come from that length, as
-the reference takes them from the first cache's.
+``(n_shared, B, T, Hkv, D)``, with one length on the device (every
+application writes the same positions, and a step advances it once).
+Both are written in place, as the port's caches are, so a state is made
+and used under ``torch.inference_mode()``; decode positions come from
+that length, as the reference takes them from the first cache's, and a
+step reads no host value.
 
 The reference's scan over segments and its unrolled loop compute the
 same thing; the port has one loop over :func:`_segments`.  ``cfg.remat``
@@ -54,7 +55,7 @@ from repro_torch.nn.spec import ParamShape, _block, _norm, padded_vocab
 
 class ZambaState(NamedTuple):
     mamba: Mamba2State   # every layer's, stacked (L, B, ...)
-    attn: KVCache        # k / v (n_shared, B, T, Hkv, D), one length
+    attn: KVCache        # k / v (n_shared, B, T, Hkv, D), one device length
 
 
 def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -110,8 +111,10 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
     x = L.embedding_apply(params["embed"], tokens, cfg)
     x0 = x
     B, S, _ = x.shape
-    start_pos = state.attn.length if decode else 0
-    positions = (start_pos + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    positions = torch.arange(S, device=x.device)
+    if decode:
+        positions = state.attn.length + positions
+    positions = positions[None, :].expand(B, S)
     remat = cfg.remat and not decode and torch.is_grad_enabled()
     layers = unstack_layers(params["mamba"], cfg.num_layers)
 

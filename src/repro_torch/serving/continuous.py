@@ -65,7 +65,12 @@ reference refuses it.
 pools: every step is one ``decode`` of shape ``(max_slots, 1)``, a
 prefilling slot feeding prompt token ``prefill_pos`` at that position and
 a decoding slot its last token at ``context_len``; a slot's state is zeroed
-when a request is admitted to it.  No kernel runs on this path (see
+when a request is admitted to it.  Both are static forms
+(:class:`repro_torch.serving.graphs.GraphForm`), as the reference jits
+``rec_step`` and ``reset_slot``: the step stages every slot's token and
+position in one pinned buffer, decodes, copies the new states into the
+persistent ones and samples, all in one form; the reset zeroes the rows
+of a slot given on the device.  No kernel runs on this path (see
 ``repro_torch.models.xlstm``).  Speculation, prefix caching, KV
 quantization and preemption need the paged cache and are refused there, with
 the reference's messages.
@@ -115,7 +120,8 @@ first call.  ``graphs=False`` runs the eager forms on the card too.  The
 reference's census follows: :meth:`ContinuousEngine.compiled_variants`,
 the ``engine_compiled_variants`` gauge, ``engine_recompiles_total`` and the
 ``recompile`` instant past ``_expected_variants`` (2, 3 when speculating, 1
-for the recurrent step, which stays eager).
+for the recurrent step, whose slot reset the census does not count, as the
+reference counts ``_step_fn`` alone).
 
 Differences from the reference, by design of the port: the KV pools are
 updated in place (the reference's jit donates them and adopts the
@@ -125,12 +131,12 @@ raises if a pool was rebound.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core.context import MoEContext
@@ -153,6 +159,7 @@ from repro_torch.models.attention import _project_qkv
 from repro_torch.models.registry import get_family
 from repro_torch.models.transformer import _is_moe_layer, unstack_layers
 from repro_torch.obs import Observability
+from repro_torch.serving.graphs import GraphForm, capture, copy_state, zero_state
 from repro_torch.serving.kv_cache import PagedKVCache, make_kv_cache
 from repro_torch.serving.request import Request, RequestState, Status
 from repro_torch.serving.scheduler import Scheduler
@@ -413,7 +420,7 @@ class ContinuousEngine:
     this rank's placement of the tree; ``mesh`` is the rank's
     :class:`repro_torch.launch.mesh.Mesh` (made from ``serve.mesh`` and
     ``device`` when not given).  ``graphs`` (on a CUDA device without a mesh)
-    captures the paged step forms as CUDA graphs here, before any clock
+    captures the step forms (paged, or recurrent) as CUDA graphs here, before any clock
     starts; ``graphs=False`` runs them eagerly.
     """
 
@@ -497,7 +504,12 @@ class ContinuousEngine:
             self.scheduler = Scheduler(serve.max_slots, serve.max_len, None,
                                        policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
             self._expected_variants = 1         # one (max_slots, 1) shape
-            self._recurrent_ran = False
+            self._rec_forms: Dict[str, GraphForm] = {}
+            self._graph_pool = None
+            if graphs and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                for kind in ("step", "reset"):
+                    self._rec_form(kind)
             return
         self.layers = unstack_layers(params["blocks"], cfg.num_layers)
         self.cache = make_kv_cache(cfg, serve, device=self.device,
@@ -554,7 +566,7 @@ class ContinuousEngine:
         forms built so far (each at its kind's first step, as jit compiles a
         shape at its first call); the recurrent step's one once it ran."""
         if self.mode == "recurrent":
-            return int(self._recurrent_ran)
+            return int("step" in self._rec_forms)
         return len(self._forms)
 
     @property
@@ -761,44 +773,13 @@ class ContinuousEngine:
         return out
 
     def _capture(self, form: StepForm) -> None:
-        """Capture ``form``'s step as a CUDA graph on the engine's pool,
-        after one warm-up on a side stream (the kernels' builds, cuBLAS's
-        handles, the allocator's blocks), over all-padding rows that write
-        only the garbage block.  The launch counters count neither; the
-        capture's launches are added at each replay."""
-        dev = self.device
-        before = counters.read()
-        try:
-            form.stage()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._body(form)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            counters.write(before)
-            graph = torch.cuda.CUDAGraph()
-            # no collection inside the capture: freeing another engine's graph
-            # there (a reference cycle through a logit tap, say) is a CUDA
-            # call the capture does not permit, and it invalidates the capture
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, pool=self._graph_pool):
-                    out = self._body(form)
-            finally:
-                if collecting:
-                    gc.enable()
-            launches = counters.since(before)
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing the {form.kind} step ({form.N} rows) as a CUDA "
-                               f"graph failed: {e}") from e
-        finally:
-            counters.write(before)
-        form.graph, form.out, form.launches = graph, out, launches
-        form.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+        """Capture ``form``'s step as a CUDA graph on the engine's pool
+        (``serving.graphs.capture``), its warm-up over all-padding rows
+        that write only the garbage block."""
+        form.stage()
+        form.graph, form.out, form.launches, form.graph_bytes = capture(
+            lambda: self._body(form), self.device, self._graph_pool,
+            f"the {form.kind} step ({form.N} rows)")
 
     def _run(self, form: StepForm) -> dict:
         """One step of ``form`` over its staging buffer: the copy, then the
@@ -968,47 +949,93 @@ class ContinuousEngine:
 
     # -- recurrent slots -----------------------------------------------------
 
+    def _rec_form(self, kind: str) -> GraphForm:
+        """The recurrent ``step`` (the reference's ``_step_fn``: one
+        ``(max_slots, 1)`` decode of every slot's state, its new states
+        copied into the persistent ones, then the sampled tokens) or the
+        slot ``reset`` (its ``_reset_fn`` over a traced slot: the slot's
+        rows of every state zeroed), built at first use (on the card with
+        graphs, when the engine is built).  The step's input is the
+        tokens, then the positions, of every slot (``_rec_host``, pinned on
+        the card, stages them); the reset's the slot, on the device."""
+        form = self._rec_forms.get(kind)
+        if form is not None:
+            return form
+        S, dev = self.serve.max_slots, self.device
+        # the bodies hold no reference to the engine (a dropped engine frees
+        # its graphs without a collection)
+        fam, cfg, params, state = self.fam, self.cfg, self.params, self._state
+        if kind == "step":
+            self._rec_host = torch.zeros(2 * S, dtype=torch.int64, pin_memory=dev.type == "cuda")
+            rows = torch.zeros(2 * S, dtype=torch.int64, device=dev)
+            slots = torch.arange(S, device=dev)
+            temperature, seed, temperature_t = self.temperature, self.seed, self._temperature
+            tap = self._logit_tap is not None
+
+            def body():
+                with torch.no_grad():
+                    logits, new = fam.decode(params, rows[:S, None], state, cfg,
+                                             ctx=MoEContext())
+                    copy_state(state, new)
+                    lg = logits[:, -1, :].float()
+                    out = {"tokens": _sample_rows(lg, slots, rows[S:], temperature, seed,
+                                                  temperature_t)}
+                    if tap:
+                        out["logits"] = lg
+                    return out
+
+            form = GraphForm(body, f"the recurrent step ({S} slots)", inputs=rows)
+        else:
+            slot = torch.zeros(1, dtype=torch.int64, device=dev)
+
+            def body():
+                for t in tree_leaves(state):
+                    t.index_fill_(0, slot, 0)
+
+            form = GraphForm(body, "the recurrent slot reset", inputs=slot)
+        if self._graph_pool is not None:
+            form.capture(dev, self._graph_pool)
+            zero_state(self._state)         # the warm-up stepped every slot
+        self._rec_forms[kind] = form
+        return form
+
     def _reset_slot(self, slot: int) -> None:
-        for state in self._state:
-            for t in state:
-                t[slot].zero_()
+        self._rec_form("reset").run(torch.tensor([slot]))
 
     def _recurrent_host_step(self, clock_ms: float) -> List[RequestState]:
-        """One ``(max_slots, 1)`` decode over every slot's state: a
+        """One ``(max_slots, 1)`` step over every slot's state: a
         prefilling slot feeds its next prompt token, a decoding slot its
         last token; idle slots feed token 0 into a state nobody reads."""
         S = self.serve.max_slots
-        tokens = np.zeros((S, 1), np.int64)
-        positions = np.zeros(S, np.int64)
+        form = self._rec_form("step")
+        host = self._rec_host.numpy()
+        host.fill(0)
+        tokens, positions = host[:S], host[S:]
         sample_rows: List[Tuple[int, RequestState]] = []
         prefill_advanced: List[RequestState] = []
         for slot, st in self.scheduler.running.items():
             positions[slot] = st.context_len
             if st.status is Status.PREFILL:
-                tokens[slot, 0] = st.request.prompt[st.prefill_pos]
+                tokens[slot] = st.request.prompt[st.prefill_pos]
                 positions[slot] = st.prefill_pos
                 prefill_advanced.append(st)
                 if st.prefill_pos + 1 == st.request.prompt_len:
                     sample_rows.append((slot, st))
             else:
-                tokens[slot, 0] = st.last_token
+                tokens[slot] = st.last_token
                 sample_rows.append((slot, st))
         live = len(self.scheduler.running)
         with self.obs.tracer.span("engine_step", kind="decode", step=self.steps, rows=S,
-                                  live_rows=live), torch.no_grad():
-            logits, self._state = self.fam.decode(
-                self.params, torch.from_numpy(tokens).to(self.device), self._state, self.cfg,
-                ctx=MoEContext())
-            logits = logits[:, -1, :].float()
-            slots = np.arange(S)
+                                  live_rows=live):
+            out = form.run(self._rec_host)
             if self._logit_tap is not None:
+                # copies: the form's buffers are the next step's
                 lengths = np.zeros(S, np.int64)
                 for slot in self.scheduler.running:
                     lengths[slot] = positions[slot] + 1
-                self._logit_tap(logits.cpu().numpy(), slots, positions, lengths)
-            next_tok = _sample_rows(logits, slots, positions, self.temperature, self.seed,
-                                    self._temperature).cpu().numpy()
-        self._recurrent_ran = True
+                self._logit_tap(out["logits"].to("cpu", copy=True).numpy(), np.arange(S),
+                                positions.copy(), lengths)
+            next_tok = out["tokens"].cpu().numpy()
         for st in prefill_advanced:
             st.prefill_pos += 1
             if st.prefill_pos == st.request.prompt_len:

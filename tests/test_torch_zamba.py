@@ -300,7 +300,8 @@ def test_refusals():
     with pytest.raises(ValueError, match="exceed max_len"):
         TStatic(tcfg, tp, max_len=10).generate(_toks(tcfg, (2, 6), 0), 6)
     TStatic(tcfg, tp, max_len=11).generate(_toks(tcfg, (2, 6), 0), 6)      # 6 + 6 - 1 fits
-    cache = KVCache(torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1, 8), 3)
+    cache = KVCache(torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1, 8),
+                    torch.tensor(3, dtype=torch.int32))
     small = TModelConfig(d_model=8, num_heads=1, num_kv_heads=1, dtype="float32")
     attn = {n: {"kernel": torch.zeros(8, 8)} for n in ("wq", "wk", "wv", "wo")}
     with pytest.raises(ValueError, match="cannot take 2 more at length 3"):
