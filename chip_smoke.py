@@ -2898,60 +2898,97 @@ def phase_train(torch):
     from repro_torch.kernels.moe_dropless import ops as rffn
     from repro_torch.kernels.moe_ffn import ops as mf
 
-    log("phase 6: m6-base training, 8 top-1 steps then 4 steps of 4 top-1 prototyping")
+    log("phase 6: m6-base training, 8 top-1 steps then 4 steps of 4 top-1 prototyping, each "
+        "with the step captured as a CUDA graph (the default) and with --no-graphs")
     adamw_report = check_adamw(torch)
     counters = {"moe_ffn": mf.moe_ffn, "flash_attention": fa.flash_attention,
                 "ragged_ffn": rffn.ragged_ffn, "paged_decode_attention": pda.paged_decode_attention}
     e2e, launches = {}, {}
     runs = (("top-1", [], 8), ("4 top-1", ["--routing", "prototype", "--k", "4"], 4))
     for label, extra, steps in runs:
-        for fn in counters.values():
-            fn.launches = 0
-        mf.moe_ffn.tc_launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        keep = PHASE6_TOP1 if label == "top-1" else None
-        logs = train_run(torch, extra, steps, keep)
-        if keep is not None:
-            keep["losses"] = [m["loss"] for m in logs]
-        got = {name: fn.launches for name, fn in counters.items()}
-        want = 5 * steps * 2        # layers x steps x (forward + remat recompute)
-        if got["moe_ffn"] != want or any(got[n] for n in got if n != "moe_ffn"):
-            raise AssertionError(f"{label}: launches {got}, expected moe_ffn = 5 layers x "
-                                 f"{steps} steps x 2 = {want} and no other kernel")
-        if mf.moe_ffn.tc_launches != want:
-            raise AssertionError(f"{label}: {mf.moe_ffn.tc_launches} of {want} moe_ffn launches "
-                                 f"on the tensor-core route")
-        for name, n in got.items():
-            launches[name] = launches.get(name, 0) + n
-        steady = logs[1:]                           # step 0 carries first-call set-up
-        step_ms = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
-        e2e[label] = dict(
-            mean_step_ms=step_ms, tokens_per_s=8 * 144 / (step_ms / 1e3),
-            first_step_ms=logs[0]["step_time_s"] * 1e3,
-            losses=[m["loss"] for m in logs], grad_norms=[m["grad_norm"] for m in logs],
-            dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
-            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-        log(f"  {label}: {steps} steps, moe_ffn launches {got['moe_ffn']} = 5 layers x {steps} "
-            f"steps x 2 (forward + remat recompute), all on the tensor-core route; mean step "
-            f"{step_ms:.1f} ms over steps 1-{steps - 1} (host clock, synced), "
-            f"{e2e[label]['tokens_per_s']:.0f} tokens/s, first step "
-            f"{e2e[label]['first_step_ms']:.0f} ms, peak memory "
-            f"{e2e[label]['peak_memory_gb']:.1f} GB")
-        log(f"    losses {[round(x, 4) for x in e2e[label]['losses']]}, dropped fraction "
-            f"{[round(x, 4) for x in e2e[label]['dropped_fraction']]}")
+        final = {}
+        for graphs in (True, False):
+            form = "graphed" if graphs else "eager"
+            for fn in counters.values():
+                fn.launches = 0
+            mf.moe_ffn.tc_launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            keep = {}
+            t0 = time.perf_counter()
+            logs = train_run(torch, extra + ([] if graphs else ["--no-graphs"]), steps, keep)
+            run_s = time.perf_counter() - t0
+            final[graphs] = (logs, keep)
+            got = {name: fn.launches for name, fn in counters.items()}
+            want = 5 * steps * 2        # layers x steps x (forward + remat recompute)
+            if got["moe_ffn"] != want or any(got[n] for n in got if n != "moe_ffn"):
+                raise AssertionError(f"{label} {form}: launches {got}, expected moe_ffn = 5 "
+                                     f"layers x {steps} steps x 2 = {want} and no other kernel")
+            if mf.moe_ffn.tc_launches != want:
+                raise AssertionError(f"{label} {form}: {mf.moe_ffn.tc_launches} of {want} "
+                                     f"moe_ffn launches on the tensor-core route")
+            if graphs:                  # the path's launches: the graphed run's
+                for name, n in got.items():
+                    launches[name] = launches.get(name, 0) + n
+            steady = logs[1:]                       # step 0 carries first-call set-up
+            step_ms = sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+            rep = dict(
+                mean_step_ms=step_ms, tokens_per_s=8 * 144 / (step_ms / 1e3),
+                first_step_ms=logs[0]["step_time_s"] * 1e3,
+                losses=[m["loss"] for m in logs], grad_norms=[m["grad_norm"] for m in logs],
+                dropped_fraction=[m["moe_dropped_fraction"] for m in logs],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, run_s=run_s)
+            if graphs:
+                e2e[label] = rep
+            else:
+                e2e[label]["eager"] = rep
+            counted = ", counted through the replays" if graphs else ""
+            first = " (the capture's warm-up, then the capture)" if graphs else ""
+            log(f"  {label} {form}: {steps} steps, moe_ffn launches {got['moe_ffn']} = 5 layers "
+                f"x {steps} steps x 2 (forward + remat recompute{counted}), all on the "
+                f"tensor-core route; mean step {step_ms:.1f} ms over steps 1-{steps - 1} (host "
+                f"clock, synced), {rep['tokens_per_s']:.0f} tokens/s, first step "
+                f"{rep['first_step_ms']:.0f} ms{first}, peak memory "
+                f"{rep['peak_memory_gb']:.1f} GB; the run {run_s:.1f} s")
+            log(f"    losses {[round(x, 4) for x in rep['losses']]}, dropped fraction "
+                f"{[round(x, 4) for x in rep['dropped_fraction']]}")
+        (glogs, gkeep), (elogs, ekeep) = final[True], final[False]
+        if [m["loss"] for m in glogs] != [m["loss"] for m in elogs]:
+            raise AssertionError(f"{label}: graphed losses {[m['loss'] for m in glogs]} differ "
+                                 f"from the eager run's {[m['loss'] for m in elogs]}")
+        differ = [k for k in gkeep if not torch.equal(gkeep[k].view(torch.int32),
+                                                      ekeep[k].view(torch.int32))]
+        if differ:
+            raise AssertionError(f"{label}: graphed final params differ from the eager run's: "
+                                 f"{differ[:5]}")
+        log(f"  {label}: graphed and eager losses and all {len(gkeep)} final param leaves "
+            f"bit-equal")
+        e2e[label]["graphed_vs_eager_bit_equal"] = True
+        if label == "top-1":
+            PHASE6_TOP1.update(gkeep)
+            PHASE6_TOP1["losses"] = [m["loss"] for m in glogs]
+        del final, gkeep, ekeep
 
     e2e["cuda_core_route"] = train_on_cuda_cores(torch, mf, runs)
 
     from repro_torch.launch.train import device_batch
 
+    for graphs in (True, False):
+        e2e["top-1"]["profile" if graphs else "eager_profile"] = profile_train_form(
+            torch, TRAIN_ARGS + ["--steps", "8"], graphs)
     cfg, state, step_fn, pipeline = train_setup(TRAIN_ARGS + ["--steps", "8"])
     batch = device_batch(pipeline.batch_at(0), "cuda")
-    e2e["top-1"].update(profile_train_steps(torch, state, step_fn, batch))
     e2e["kernels_vs_plain"] = compare_train_step(torch, cfg, state.params, batch)
     e2e["flash"] = compare_flash_forward(torch, cfg, state.params, batch, fa)
     del state, step_fn
     torch.cuda.empty_cache()
     e2e["dropless"] = dropless_gradient_step(torch, rffn, TRAIN_ARGS + DROPLESS_ARGS)
+    e2e["dropless_graphed_vs_eager"] = train_pair(
+        torch, TRAIN_ARGS + DROPLESS_ARGS[2:] + ["--steps", "2"], "dropless",
+        {"ragged_ffn": 5 * 2 * 2})
+    # the one-device --moe-impls without a kernel (alltoall trains as gather)
+    for impl in ("einsum", "gather", "alltoall"):
+        e2e[f"{impl}_graphed_vs_eager"] = train_pair(
+            torch, TRAIN_ARGS + ["--moe-impl", impl, "--batch", "2", "--steps", "2"], impl, {})
     e2e["adamw_on_card"] = adamw_report
     return launches, e2e
 
@@ -3040,31 +3077,98 @@ def train_on_cuda_cores(torch, mf, runs) -> dict:
     return out
 
 
-def profile_train_steps(torch, state, step_fn, batch, n_steps=2):
-    """torch.profiler over ``n_steps`` train steps after one warm step:
-    device busy share and the kernels that take the device time."""
+def profile_train_form(torch, argv, graphs, n_steps=2):
+    """The train CLI's one-device step (``train.trainer.TrainForm`` over its
+    state and batches) with its step captured (``graphs``) or eager: step
+    0 (with graphs, the capture's warm-up, then the capture), then
+    torch.profiler over ``n_steps`` steps: the device busy share, the
+    kernels that take the device time and the graph's pool bytes."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = step_fn(state, batch)
+    from repro_torch.launch.train import build_parser, fresh_state, parts
+    from repro_torch.train.trainer import TrainForm
+
+    args = build_parser().parse_args(argv)
+    cfg, tc, opt, _, pipeline = parts(args)
+    state = fresh_state(cfg, tc, opt, args)
+    form = TrainForm(cfg, tc, opt, state, graphs=graphs)
+    t0 = time.perf_counter()
+    state, _ = form(state, pipeline.batch_at(0))
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    batches = [pipeline.batch_at(1 + i) for i in range(n_steps)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         open_session(torch)
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            state, _ = step_fn(state, batch)
+        for b in batches:
+            state, _ = form(state, b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    pool = form.graph_bytes
+    del form, state
+    torch.cuda.empty_cache()
+    what = "graphed" if graphs else "eager"
     kernels = device_events(prof)
     busy_us = sum(float(e.self_device_time_total) for e in kernels)
+    out = {"graph_pool_bytes": pool, "first_step_s": first_s, "profiled_steps": n_steps,
+           "profiled_wall_ms": wall_us / 1e3}
     if busy_us <= 0.0:
-        log("  profiler: no device time recorded; device busy share not measured")
-        return {"device_busy_share": None}
-    log(f"  profiler over {n_steps} train steps: device busy {busy_us / 1e3:.2f} ms of "
-        f"{wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; kernels and copies)")
+        log(f"  profiler ({what}): no device time recorded; device busy share not measured")
+        return dict(out, device_busy_share=None)
+    log(f"  profiler over {n_steps} {what} train steps: device busy {busy_us / 1e3:.2f} ms of "
+        f"{wall_us / 1e3:.2f} ms wall ({busy_us / wall_us:.1%} busy; kernels and copies); step 0 "
+        f"{first_s:.2f} s; the graph's pool {pool / 2**20:.2f} MiB")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  {e.key[:110]}")
-    return {"device_busy_share": busy_us / wall_us, "profiled_steps": n_steps,
-            "profiled_wall_ms": wall_us / 1e3, "profiled_device_ms": busy_us / 1e3}
+    return dict(out, device_busy_share=busy_us / wall_us, profiled_device_ms=busy_us / 1e3)
+
+
+def eager_against(torch, args, label, graphed_logs, graphed_launches, edit=lambda cfg: cfg):
+    """The train CLI's run of ``args`` under ``edit`` of its config again
+    with --no-graphs: every step's loss bit-equal (as Python floats of the
+    same f32) to the graphed run's ``graphed_logs`` and the same kernel
+    launches as its ``graphed_launches`` (counted through the replays).
+    Returns both runs' mean step ms over steps 1 on and the eager losses."""
+    from repro_torch.launch import train as train_mod
+
+    got = {}
+    t0 = time.perf_counter()
+    with built_config(edit), counted_launches(got):
+        logs = train_mod.main(args + ["--no-graphs"])
+    wall_s = time.perf_counter() - t0
+    losses, want = [m["loss"] for m in logs], [m["loss"] for m in graphed_logs]
+    if losses != want:
+        raise AssertionError(f"{label}: eager losses {losses} differ from the graphed run's {want}")
+    if {k: v for k, v in got.items() if v} != {k: v for k, v in graphed_launches.items() if v}:
+        raise AssertionError(f"{label}: eager launches {got} differ from the graphed run's "
+                             f"{graphed_launches}")
+
+    def mean_ms(ls):
+        steady = ls[1:] or ls
+        return sum(m["step_time_s"] for m in steady) / len(steady) * 1e3
+
+    out = dict(graphed_mean_step_ms=mean_ms(graphed_logs), eager_mean_step_ms=mean_ms(logs),
+               graphed_first_step_ms=graphed_logs[0]["step_time_s"] * 1e3,
+               eager_losses=losses, losses_bit_equal=True, eager_run_s=wall_s)
+    log(f"  {label}: graphed against --no-graphs, losses bit-equal over {len(logs)} steps, the "
+        f"same launches; step 1 on {out['graphed_mean_step_ms']:.1f} ms graphed against "
+        f"{out['eager_mean_step_ms']:.1f} ms eager (host clock, synced; graphed step 0, the "
+        f"capture's warm-up and the capture, {out['graphed_first_step_ms']:.0f} ms); the eager "
+        f"run {wall_s:.1f} s")
+    return out
+
+
+def train_pair(torch, args, label, want):
+    """The train CLI's run of ``args`` graphed (on the card its kernels
+    launched as ``want`` says, counted through the replays) and then with
+    --no-graphs (``eager_against``)."""
+    from repro_torch.launch import train as train_mod
+
+    got = {}
+    with counted_launches(got):
+        logs = train_mod.main(args)
+    expect_launches(label, got, want)
+    return eager_against(torch, args, label, logs, got)
 
 
 def _flip_report(routes_k, routes_p, layers, seq_len, label):
@@ -3290,24 +3394,30 @@ def serve_once(torch, cfg, params, serve, requests, device="cuda", **kw):
 
 
 def check_census(eng, label: str) -> dict:
-    """The engine's compiled-variant census after it stepped: on the card
-    the ``engine_compiled_variants`` gauge at its ``_expected_variants``
-    (off the card, where a form is built at its kind's first step as the
-    reference's jit compiles, at most that) and no recompile
-    (``engine_recompiles_total`` 0); an engine that captures (on the card,
-    without a mesh) holds every step form as a CUDA graph (the recurrent
-    step's and its slot reset's too)."""
+    """The engine's compiled-variant census after it stepped: for an
+    engine that captures (on the card, without a mesh, with graphs) the
+    ``engine_compiled_variants`` gauge at its ``_expected_variants`` (else,
+    where a form is built at its kind's first step as the reference's jit
+    compiles, at most that) and no recompile (``engine_recompiles_total``
+    0); an engine that captures holds every step form as a CUDA graph (the
+    recurrent step's and its slot reset's too)."""
     m = eng.obs.metrics
     n, again = m.get("engine_compiled_variants"), m.get("engine_recompiles_total")
     want = eng._expected_variants
-    if again != 0 or (n != want if eng.device.type == "cuda" else not 0 < n <= want):
+    captures = getattr(eng, "_graph_pool", None) is not None
+    if again != 0 or (n != want if captures else not 0 < n <= want):
         raise AssertionError(f"{label}: engine_compiled_variants {n}, engine_recompiles_total "
                              f"{again}; expected {want} and 0")
     forms = {**getattr(eng, "_forms", {}), **getattr(eng, "_rec_forms", {})}
     graphs = sum(f.graph is not None for f in forms.values())
-    if getattr(eng, "_graph_pool", None) is not None and graphs != len(forms):
+    if captures and graphs != len(forms):
         raise AssertionError(f"{label}: {graphs} of {len(forms)} step forms captured")
-    return dict(compiled_variants=n, recompiles=again, graphs=graphs)
+    # the model drafter's forwards: a graph on the engine's pool, not in the census
+    drafter = getattr(getattr(eng, "drafter", None), "form", None)
+    if drafter is not None and captures and drafter.graph is None:
+        raise AssertionError(f"{label}: the model drafter's forwards not captured")
+    return dict(compiled_variants=n, recompiles=again, graphs=graphs,
+                drafter_graph=drafter is not None and drafter.graph is not None)
 
 
 def quant_serving_runs(torch, cfg, params, requests, base_tokens, device="cuda",
@@ -3618,7 +3728,11 @@ def checkpoint_phase(torch, argv, device="cuda", layers=CKPT_LAYERS, requests=No
     ``layers`` layers): 4 steps straight, twice (is the card's step
     bit-reproducible?); then 4 steps with ``--ckpt-every 2`` and a failure
     injected before step 3, so that ``run_with_restarts`` resumes from the
-    checkpoint of step 2.  Gates: the step-2 checkpoint restores bit-equal
+    checkpoint of step 2.  On the card every attempt's step is a CUDA graph
+    from its second step on (its first the capture's warm-up): a straight
+    run replays steps 1-3, the resumed attempt captures again over the
+    restored leaves and replays step 3, so the resume is held under graphs.
+    Gates: the step-2 checkpoint restores bit-equal
     to the state the loop held when it was taken; the resumed final params
     differ from a straight run's by no more than the two straight runs
     differ from each other; ``requests`` (default the 16-request trace)
@@ -3666,7 +3780,8 @@ def checkpoint_phase(torch, argv, device="cuda", layers=CKPT_LAYERS, requests=No
                 _, st = train_mod.run(parse(base))
                 sync(torch, st.params["embed"]["table"])
                 straight.append(st.params)
-                log(f"  straight run {i + 1}: 4 steps, {time.perf_counter() - t0:.1f} s")
+                log(f"  straight run {i + 1}: 4 steps (on the card steps 1-3 replay the step's "
+                    f"CUDA graph), {time.perf_counter() - t0:.1f} s")
                 del st
             d_straight = max_param_diff(torch, straight[0], straight[1])
             del straight[1]
@@ -3704,7 +3819,8 @@ def checkpoint_phase(torch, argv, device="cuda", layers=CKPT_LAYERS, requests=No
         del back, snapshot
         d_resume = max_param_diff(torch, straight[0], resumed.params)
         log(f"  resumed run ({run_s:.1f} s; a failure before step 3, restarted from the "
-            f"step-2 checkpoint, which restores bit-equal): largest parameter difference "
+            f"step-2 checkpoint, which restores bit-equal; the new attempt captured over the "
+            f"restored leaves, step 2 its warm-up, step 3 a replay): largest parameter difference "
             f"from a straight run {d_resume:g} (two straight runs: {d_straight:g})")
         if d_resume > d_straight:
             raise AssertionError(f"resumed params differ by {d_resume:g} from a straight run's, "
@@ -3972,8 +4088,10 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
         sv = dataclasses.replace(serve, kv_quant=kv,
                                  spec=SpecConfig(drafter=drafter, gamma=gamma))
         dm = (cfg, params) if drafter == "model" else None
-        out, stats, eng, wall_ms, launches, accepts, shapes = spec_run(
-            torch, cfg, params, sv, requests, device, draft_model=dm)
+        clocks = []
+        with recorded_clocks(clocks):
+            out, stats, eng, wall_ms, launches, accepts, shapes = spec_run(
+                torch, cfg, params, sv, requests, device, draft_model=dm)
         want = cfg.num_layers * eng.steps
         attn = "paged_decode_attention" if kv == "none" else "quantized_paged_decode_attention"
         other = "quantized_paged_decode_attention" if kv == "none" else "paged_decode_attention"
@@ -3997,6 +4115,10 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
         rep["divergences"] = first_divergences(ref[kv], out, margins[kv], requests, label)
         rep["token_match"] = token_match(ref[kv], out)
         rep["launches"] = launches
+        rep["graph_pool_bytes"] = eng.graph_pool_bytes
+        if drafter == "model":
+            rep["eager"] = model_drafter_eager(torch, cfg, params, sv, requests, device, out,
+                                               launches, clocks, rep, label)
         rep["ragged_ffn_shapes"] = {f"{n} rows, bx {bx}": c for (kind, n, bx), c in shapes.items()
                                     if kind == "ragged_ffn"}
         log(f"  {label}: {latency_line(stats)}; {eng.steps} steps ({rep['verify_steps']} "
@@ -4005,9 +4127,97 @@ def spec_serving_runs(torch, cfg, params, requests, base_tokens, int8_tokens, de
             f"verify step, at most {rep['max_accepted_in_a_step']} drafts accepted in one "
             f"step; token match {rep['token_match']:.4f}; launches {launches}; ragged FFN "
             f"Python calls by shape (the graphed forms' warm-ups and captures, the model "
-            f"drafter's every forward) {rep['ragged_ffn_shapes']}")
+            f"drafter's among them) {rep['ragged_ffn_shapes']}; graphs' pool "
+            f"{rep['graph_pool_bytes'] / 2**20:.2f} MiB")
         report[label] = rep
     return report
+
+
+def model_drafter_eager(torch, cfg, params, serve, requests, device, tokens, launches, clocks,
+                        rep, label):
+    """The model-drafter run again with ``graphs=False`` (the engine's steps
+    and the drafter's forwards eager), stepped at the graphed run's
+    ``clocks`` (``replay``: the same admissions, so the same rows and
+    drafts at every step): greedy tokens identical to the graphed run's
+    ``tokens`` and the same ``launches``; returns its step ms and tokens/s
+    beside the graphed run's ``rep``."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, params, serve, device=device, draft_model=(cfg, params),
+                           graphs=False, check_invariants=True)
+    got = {}
+    with counted_launches(got):
+        out, wall_ms = replay(torch, eng, requests, clocks)
+    got = {k: got[k] for k in ("paged_decode_attention", "quantized_paged_decode_attention",
+                               "ragged_ffn", "ragged_combine")} | {
+        "ragged_ffn tensor cores": got["ragged_ffn tc"]}
+    if out != tokens:
+        bad = [u for u in tokens if out[u] != tokens[u]]
+        raise AssertionError(f"{label}: graphs=False gave other greedy tokens for requests {bad}")
+    if got != launches:
+        raise AssertionError(f"{label}: graphs=False launched {got}, graphed {launches}")
+    if eng.drafter.form.graph is not None:
+        raise AssertionError(f"{label}: graphs=False captured the drafter")
+    n = sum(len(t) for t in out.values())
+    eager = dict(steps=len(clocks), mean_step_ms=wall_ms / len(clocks),
+                 tokens_per_s=n / (wall_ms / 1e3), run_s=wall_ms / 1e3,
+                 verify_steps=eng.spec_stats["verify_steps"])
+    log(f"  {label}, graphs=False at the graphed run's {len(clocks)} step clocks "
+        f"({wall_ms / 1e3:.1f} s): mean step {eager['mean_step_ms']:.3f} ms against "
+        f"{rep['mean_step_ms']:.3f} graphed, {eager['tokens_per_s']:.1f} tokens/s against "
+        f"{n / (rep['mean_step_ms'] * rep['steps'] / 1e3):.1f} over the same steps "
+        f"({eager['verify_steps']} verify); greedy tokens and launches identical")
+    return eager
+
+
+DRAFT_CONTEXTS = ((10, 4), (300, 4), (57, 2), (1, 1), (200, 3))   # (length, budget)
+
+
+def drafter_proposals(torch, cfg, params, serve, device, gamma, seed=160):
+    """The model drafter captured on a pool of its own against one that
+    runs its forwards eagerly, on one fixed set of contexts (mixed lengths,
+    one past ``max_len``, budgets under ``gamma``, idle rows): proposals
+    identical and the same launches, counted through the replay; then a
+    proposal's host ms each way."""
+    import numpy as np
+
+    from repro_torch.configs.base import SpecConfig
+    from repro_torch.kernels import counters
+    from repro_torch.serving.speculative.base import DraftItem
+    from repro_torch.serving.speculative.model import ModelDrafter
+
+    t_start = time.perf_counter()
+    spec = SpecConfig(drafter="model", gamma=gamma)
+    rng = np.random.default_rng(seed)
+    items = [DraftItem(slot=i, context=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       max_tokens=m) for i, (n, m) in enumerate(DRAFT_CONTEXTS)]
+    out = {}
+    for graphs in (True, False):
+        d = ModelDrafter(spec, cfg, serve, draft_model=(cfg, params), device=device)
+        if graphs and torch.device(device).type == "cuda":
+            d.capture(torch.cuda.graph_pool_handle())
+        before = counters.read()
+        got = d.propose(items)
+        n = counters.since(before)
+        sync(torch, params["embed"]["table"])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            d.propose(items)
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        out[graphs] = ([g.tolist() for g in got], n, ms, d.graph_bytes)
+        del d
+    (g, gn, gms, pool), (e, en, ems, _) = out[True], out[False]
+    if g != e or gn != en:
+        raise AssertionError(f"model drafter proposals: graphed {g} (launches {gn}), eager {e} "
+                             f"(launches {en})")
+    if [len(p) for p in g] != [m for _, m in DRAFT_CONTEXTS]:
+        raise AssertionError(f"model drafter proposals of lengths {[len(p) for p in g]}")
+    log(f"  model drafter on {len(DRAFT_CONTEXTS)} fixed contexts of {serve.max_slots} rows: "
+        f"proposals and launches identical graphed and eager; a proposal {gms:.2f} ms graphed "
+        f"against {ems:.2f} ms eager (host clock, with the read); its graph's pool "
+        f"{pool / 2**20:.2f} MiB; {time.perf_counter() - t_start:.1f} s")
+    return dict(contexts=len(DRAFT_CONTEXTS), identical=True, graphed_ms=gms, eager_ms=ems,
+                graph_pool_bytes=pool)
 
 
 def sampler_checks(torch, device="cuda", T=SAMPLE_T, seed=5):
@@ -4217,6 +4427,7 @@ def time_verify_attention(torch, name=None, seed=130):
 def phase_spec(torch, base_tokens, int8_tokens, e2e, kv):
     """Phase 9: m6-base speculative and sampled serving, phase 5's weights
     and trace."""
+    from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.m6 import M6_BASE
     from repro_torch.nn import init_params
     from repro_torch.serving.trace import synthetic_trace
@@ -4227,6 +4438,8 @@ def phase_spec(torch, base_tokens, int8_tokens, e2e, kv):
     requests = synthetic_trace(16, cfg.vocab_size, seed=0)
     report = {"greedy": spec_serving_runs(torch, cfg, params, requests, base_tokens,
                                           int8_tokens)}
+    report["drafter_proposals"] = drafter_proposals(torch, cfg, params,
+                                                    ServeConfig(max_len=256), "cuda", SPEC_GAMMA)
     report["sampler"] = sampler_checks(torch)
     report["sampled"] = sampled_serving_runs(torch, cfg, params, requests)
     log(f"  phase 5 (no speculation, bf16 pools): {e2e['tokens_per_s']:.1f} tokens/s, mean "
@@ -5270,19 +5483,22 @@ def built_config(edit):
 @contextmanager
 def recorded_compression(store: list):
     """Every ``compress_grads`` call of the trainer: (grads, error feedback
-    in, mode, outputs), the tensors copied to the host before and after."""
+    in, mode, outputs), the tensors copied to the host before and after
+    (copies on the CPU too: the train form writes the residual in place)."""
     from unittest import mock
 
     from repro_torch.train import trainer
 
     real = trainer.compress_grads
 
+    def host(tensors):
+        return None if tensors is None else {k: t.detach().to("cpu", copy=True)
+                                             for k, t in tensors.items()}
+
     def spy(grads, mode, ef=None, global_max=None):
-        host = ({k: g.detach().cpu() for k, g in grads.items()},
-                None if ef is None else {k: e.cpu() for k, e in ef.items()})
+        before = (host(grads), host(ef))
         out, new_ef = real(grads, mode, ef, global_max)
-        store.append((*host, mode, {k: g.cpu() for k, g in out.items()},
-                      None if new_ef is None else {k: e.cpu() for k, e in new_ef.items()}))
+        store.append((*before, mode, host(out), host(new_ef)))
         return out, new_ef
 
     with mock.patch.object(trainer, "compress_grads", spy):
@@ -5375,9 +5591,11 @@ def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_T
     every loss finite and within LOSS_SLACK of ln(vocab), the attention on
     the chunked path (S*T > 2^21) in every layer's forward and remat
     recompute, moe_ffn launched layers x steps x 2 times on the tensor
-    cores and nothing else; Adafactor on the device against the CPU
-    (``adafactor_vs_cpu``); the same run under AdamW for its step time;
-    two steps at --grad-compression int8 whose codes
+    cores and nothing else (the step a CUDA graph from step 1 on; the same
+    run with --no-graphs gives bit-equal losses, ``eager_against``);
+    Adafactor on the device against the CPU (``adafactor_vs_cpu``); the
+    same run under AdamW for its step time; two eager steps at
+    --grad-compression int8 whose codes
     and scales equal the CPU's (``check_int8_codes``); and, with
     ``profile_dir``, a --profile-dir step whose trace names moe_ffn's
     tensor-core kernel.  Returns (report, launches)."""
@@ -5401,6 +5619,8 @@ def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_T
             t0 = time.perf_counter()
             logs = train_mod.main(args)
             wall_s = time.perf_counter() - t0
+        report["graphed_vs_eager"] = eager_against(torch, args, "(d) granite train", logs,
+                                                   launches)
         cfg, state, _, pipeline = train_setup(args)
     ln_v = math.log(cfg.vocab_size)
     for m in logs:
@@ -5409,10 +5629,12 @@ def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_T
             raise AssertionError(f"granite train step {m['step']}: loss {m['loss']}, grad norm "
                                  f"{m['grad_norm']} (ln vocab {ln_v:.3f})")
     S = pipeline.batch_at(0)["tokens"].shape[1]
-    if len(calls) != layers * steps * 2 or any(c != (S, S) for c in calls):
+    # a Python spy sees a captured step's body at its warm-up and capture only
+    bodies = 2 if device == "cuda" else steps
+    if len(calls) != layers * bodies * 2 or any(c != (S, S) for c in calls):
         raise AssertionError(f"chunked attention calls {len(calls)} (shapes "
-                             f"{sorted(set(calls))}), expected {layers} layers x {steps} steps "
-                             f"x 2 (forward + remat recompute) at S = T = {S}")
+                             f"{sorted(set(calls))}), expected {layers} layers x {bodies} step "
+                             f"bodies x 2 (forward + remat recompute) at S = T = {S}")
     if device == "cuda":
         expect_launches("granite train", launches, {"moe_ffn": layers * steps * 2})
     steady = logs[1:]
@@ -5431,8 +5653,8 @@ def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_T
                                mean_step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
                                first_step_ms=logs[0]["step_time_s"] * 1e3,
                                chunked_calls=len(calls), moe_ffn_launches=launches["moe_ffn"])
+    lap("adafactor runs, graphed and with --no-graphs")
     batches = [device_batch(pipeline.batch_at(i), device) for i in range(2)]
-    lap("adafactor run")
     report["adafactor_vs_cpu"] = adafactor_vs_cpu(torch, cfg, state.params, batches, device)
     lap("adafactor against the CPU")
     del state, batches
@@ -5455,9 +5677,10 @@ def family_train(torch, argv, device, layers=FAMILY_TRAIN_LAYERS, steps=FAMILY_T
     report["adamw"] = dict(losses=[m["loss"] for m in logs], mean_step_ms=adamw_ms)
     lap("adamw run")
     store = []
+    # eager: the spy reads every step's compression, which a replay skips
     with cut_depth(layers), recorded_compression(store), counted_launches(got):
         logs = train_mod.main(argv + ["--steps", "2", "--device", device, "--grad-compression",
-                                      "int8"])
+                                      "int8", "--no-graphs"])
     if not all(math.isfinite(m["loss"]) for m in logs) or len(store) != 2:
         raise AssertionError(f"int8 run: losses {[m['loss'] for m in logs]}, {len(store)} "
                              f"compressions")
@@ -5554,12 +5777,14 @@ def check_losses(label, logs, vocab) -> None:
                                  f"fraction {m.get('moe_dropped_fraction')}")
 
 
-def edited_train(torch, argv, edit, steps, device, label, compare=True):
+def edited_train(torch, argv, edit, steps, device, label, compare=True, against_eager=False):
     """``steps`` steps through the train CLI on ``edit`` of its config
     (losses finite and within LOSS_SLACK of ln V, dropped fraction in [0,
     1); on the card moe_ffn launched MoE layers x steps x 2 (forward and
     remat recompute), all on the tensor cores, and nothing else), then,
-    with ``compare``, one step's loss and gradients through the kernels
+    with ``against_eager``, the run again with --no-graphs
+    (``eager_against``: losses bit-equal, the same launches), then, with
+    ``compare``, one step's loss and gradients through the kernels
     against the plain versions (``compare_train_step``: the MoE attention's
     routing flips reported beside the FFN's).  Returns (report, launches)."""
     from repro_torch.launch import train as train_mod
@@ -5597,6 +5822,10 @@ def edited_train(torch, argv, edit, steps, device, label, compare=True):
             f"{[round(x, 4) for x in report['dropped_fraction']]}; mean step {step_ms:.1f} ms "
             f"(host clock, synced; first {report['first_step_ms']:.0f} ms){peak_text}; "
             f"launches {report['launches']}")
+        if against_eager:
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            report["graphed_vs_eager"] = eager_against(torch, args, label, logs, launches)
         if compare:
             cfg, state, _, pipeline = train_setup(args)
             batch = device_batch(pipeline.batch_at(0), device)
@@ -5746,7 +5975,8 @@ def xlstm_runs(torch, cfg, device, train_argv, n_requests=16, cpu_requests=XLSTM
         torch.cuda.empty_cache()
     report["train"], _ = edited_train(torch, train_argv,
                                       lambda c: c.replace(num_layers=XLSTM_TRAIN_LAYERS),
-                                      train_steps, device, "(c) xlstm train", compare=False)
+                                      train_steps, device, "(c) xlstm train", compare=False,
+                                      against_eager=True)
     return report
 
 
@@ -6039,7 +6269,7 @@ def zamba_runs(torch, cfg, device, train_argv, cli_argv=("--arch", "zamba2-7b"),
     with counted_chunked(calls):
         report["(d) train"], got = edited_train(
             torch, train_argv, lambda c: c.replace(num_layers=cut_layers), train_steps, device,
-            "(d) zamba train", compare=False)
+            "(d) zamba train", compare=False, against_eager=True)
     if calls:
         raise AssertionError(f"(d): the chunked attention path ran {calls}; S x T = 2^20 takes "
                              f"the materialised scores")
@@ -6370,7 +6600,8 @@ def encdec_runs(torch, cfg, device, train_argv, static_cfg, cli_argv=("--arch", 
         torch.cuda.empty_cache()
         report["(b) card vs CPU"] = encdec_card_vs_cpu(torch, cfg, cpu_shape, feed, cut_layers)
     report["(c) train"], got = edited_train(torch, train_argv, lambda c: c, train_steps, device,
-                                            "(c) encdec train", compare=False)
+                                            "(c) encdec train", compare=False,
+                                            against_eager=True)
     add(got)
     report["(d) serve CLI refusals"] = encdec_cli_refusals(torch, cli_argv, device)
     # (e): the static engine under a softcap (dense kernel layers x decode

@@ -4,7 +4,7 @@ valid "know nothing" context."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -14,7 +14,7 @@ class MoEContext:
     token_ids: Optional[torch.Tensor] = None   # (B, S) int32; -1 = no identity
     positions: Optional[torch.Tensor] = None   # (B, S) absolute positions
     rng: Optional[torch.Generator] = None
-    step: Optional[int] = None
+    step: Optional[Union[int, torch.Tensor]] = None  # a captured train step's: 0-dim, on the device
     is_training: bool = False
 
     def replace(self, **kw) -> "MoEContext":

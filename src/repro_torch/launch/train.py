@@ -75,7 +75,12 @@ as ``gather``.
 (topk, prototype, expert_choice, hash); ``--optimizer`` adamw or
 adafactor (m6-1t's default); ``--grad-compression`` none, bf16 or int8
 (with error feedback); ``--profile-dir`` writes a ``torch.profiler``
-Chrome trace of the train loop there (``trace.json``).  Weights are random,
+Chrome trace of the train loop there (``trace.json``).  On one device the
+step is ``train.trainer.TrainForm``: on the card it is captured as a CUDA
+graph at the loop's first step, which runs eagerly as the capture's
+warm-up, and replayed from the next step on (``--no-graphs``: every step
+eager); a restarted loop captures again on its new state.  A mesh rank's
+step runs eagerly.  Weights are random,
 drawn from a ``torch.Generator`` seeded by ``--seed``; the data is the
 reference's synthetic pipeline, so both packages read the same batches.
 
@@ -111,7 +116,7 @@ from repro_torch.obs import Observability
 from repro_torch.obs.profile import device_trace
 from repro_torch.optim import make_optimizer, warmup_constant
 from repro_torch.train.state import TrainState, init_train_state
-from repro_torch.train.trainer import make_train_step
+from repro_torch.train.trainer import TrainForm, make_train_step
 
 
 def build(args):
@@ -196,6 +201,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the kernels' "
                          "plain PyTorch versions)")
+    ap.add_argument("--graphs", default=True, action=argparse.BooleanOptionalAction,
+                    help="on one card, capture the train step as a CUDA graph at step 0 "
+                         "(which runs eagerly as the capture's warm-up) and replay it "
+                         "from step 1 on (default); --no-graphs runs every step eagerly")
     ap.add_argument("--mesh-backend", default=None, choices=[None, "nccl", "gloo"],
                     help="the training mesh's torch.distributed backend (default: NCCL on "
                          "CUDA, gloo on the CPU; ranks that share a card need gloo)")
@@ -243,6 +252,8 @@ def fresh_state(cfg, tc, opt, args, layout=None):
 
 
 def device_batch(batch, device):
+    """A host batch as new tensors on ``device`` (the mesh step's input;
+    one device stages its batches in the train form's buffers)."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -289,14 +300,19 @@ def run(args, on_step: Optional[Callable[[int, TrainState], None]] = None):
         placed = None if layout is None else layout.checkpoint_view(st)
         if ckpt is not None and start > 0:
             st = ckpt.restore(start, st, placed)
+        # one device: the step as a form over the attempt's state (captured
+        # at its first step on the card, with --graphs); a mesh rank: eager
+        form = None if layout is not None else TrainForm(cfg, tc, opt, st, graphs=args.graphs)
         reg = obs.metrics
         for step in range(st.step, args.steps):
             if on_step is not None:
                 on_step(step, st)
             t0 = time.time()
-            batch = device_batch(pipeline.batch_at(step), device)
             with obs.tracer.span("train_step", cat="train", step=step, tokens=t_tokens):
-                st, metrics = step_fn(st, batch)
+                if form is not None:
+                    st, metrics = form(st, pipeline.batch_at(step))
+                else:
+                    st, metrics = step_fn(st, device_batch(pipeline.batch_at(step), device))
             reg.counter("train_steps_total").inc()
             reg.counter("train_tokens_total").inc(t_tokens)
             if step % args.log_every == 0 or step == args.steps - 1:

@@ -87,7 +87,8 @@ def encode(params, frames, cfg: ModelConfig):
         return h + L.ffn_apply(bp["ffn"], f, cfg)
 
     for bp in unstack_layers(params["encoder"], cfg.num_encoder_layers or cfg.num_layers):
-        x = checkpoint(body, x, bp, use_reentrant=False) if _remat(cfg) else body(x, bp)
+        x = (checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+             if _remat(cfg) else body(x, bp))
     return L.norm_apply(params["enc_norm"], x, cfg)
 
 
@@ -132,7 +133,8 @@ def decode_train(params, tokens, memory, cfg: ModelConfig, ctx: Optional[MoECont
 
     auxes = []
     for bp in unstack_layers(params["decoder"], cfg.num_layers):
-        x, aux = checkpoint(body, x, bp, use_reentrant=False) if _remat(cfg) else body(x, bp)
+        x, aux = (checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+                  if _remat(cfg) else body(x, bp))
         auxes.append(aux)
     x = L.norm_apply(params["final_norm"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), sum_layer_aux(auxes)

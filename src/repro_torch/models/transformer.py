@@ -102,7 +102,9 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, caches: Optional[KVCa
         if caches is not None:
             x, aux, _ = body(x, bp, i, caches_index(caches, i))
         elif cfg.remat and torch.is_grad_enabled():
-            x, aux, _ = checkpoint(body, x, bp, i, use_reentrant=False)
+            # no RNG state stashed: the block draws no random number, and a
+            # captured train step may not read the generator's state
+            x, aux, _ = checkpoint(body, x, bp, i, use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux, _ = body(x, bp, i)
         auxes.append(aux)

@@ -152,7 +152,7 @@ def _mlstm_parallel(q, k, v, igate, fgate):
     Dmat = Fc[..., :, None] - Fc[..., None, :] + igate[..., None, :]
     causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     Dmat = torch.where(causal, Dmat, torch.full_like(Dmat, float("-inf")))
-    m = torch.maximum(Dmat.amax(dim=-1, keepdim=True), Dmat.new_tensor(-1e30))  # all -inf rows
+    m = torch.maximum(Dmat.amax(dim=-1, keepdim=True), Dmat.new_full((), -1e30))  # all -inf rows
     Dexp = torch.exp(Dmat - m)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bhsd,bhtd->bhst", q, k) * scale * Dexp
@@ -171,7 +171,7 @@ def _mlstm_chunk(carry, qb, kb, vb, ib, fb, scale):
     Dmat = torch.where(causal, Dmat, torch.full_like(Dmat, float("-inf")))
     m_intra = Dmat.amax(dim=-1)
     m_inter = lF + m[..., None]
-    m_t = torch.maximum(torch.maximum(m_intra, m_inter), m_intra.new_tensor(-1e30))
+    m_t = torch.maximum(torch.maximum(m_intra, m_inter), m_intra.new_full((), -1e30))
     Dexp = torch.exp(Dmat - m_t[..., None])
     scores = torch.einsum("bhsd,bhtd->bhst", qb, kb) * scale * Dexp
     inter_w = torch.exp(m_inter - m_t)[..., None]
@@ -362,7 +362,7 @@ def xlstm_apply(params, tokens, cfg: ModelConfig, *, states: Optional[List] = No
             return f(fsdp_gather(p, f"blocks/{i}/"), h, cfg, state=st)
 
         if cfg.remat and states is None and torch.is_grad_enabled():
-            x, ns = checkpoint(block, bp, x, use_reentrant=False)
+            x, ns = checkpoint(block, bp, x, use_reentrant=False, preserve_rng_state=False)
         else:
             x, ns = block(bp, x, st)
         new_states.append(ns)

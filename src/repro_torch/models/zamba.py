@@ -129,7 +129,8 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
             x, _ = _shared_block(params["shared"], x, x0, cfg, positions=positions,
                                  cache=caches_index(state.attn, si))
         elif remat:
-            x = checkpoint(shared, params["shared"], x, x0, use_reentrant=False)
+            x = checkpoint(shared, params["shared"], x, x0, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = shared(params["shared"], x, x0)
         for li in range(start, stop):
@@ -139,7 +140,8 @@ def zamba_apply(params, tokens, cfg: ModelConfig, *, state: Optional[ZambaState]
                 st.h.copy_(new.h)
                 st.conv.copy_(new.conv)
             elif remat:
-                x = checkpoint(mamba, layers[li], x, use_reentrant=False)[0]
+                x = checkpoint(mamba, layers[li], x, use_reentrant=False,
+                               preserve_rng_state=False)[0]
             else:
                 x = mamba(layers[li], x)[0]
     x = L.norm_apply(params["final_norm"], x, cfg)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.adamw import _sqrt
-from repro_torch.optim.api import Optimizer
+from repro_torch.optim.api import Optimizer, device_scalars
 
 
 def _factored(shape) -> bool:
@@ -52,14 +52,19 @@ def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
 
         return {"v": {k: one(p) for k, p in params.items()}}
 
-    @torch.no_grad()
-    def update(grads, state, params, step: int, shards=None):
-        # beta2 and 1 - beta2 in f32, as the reference computes them
+    def scalars(step: int) -> np.ndarray:
+        """The update's per-step numbers in f32, as the reference computes
+        them: beta2, 1 - beta2 and the learning rate."""
         t = np.float32(step + 1)
         beta2 = np.float32(1) - t ** np.float32(-decay_pow)
-        one_m = float(np.float32(1) - beta2)
-        beta2 = float(beta2)
-        lr = float(np.float32(schedule(step + 1)))
+        return np.array([beta2, np.float32(1) - beta2, np.float32(schedule(step + 1))],
+                        np.float32)
+
+    @torch.no_grad()
+    def update(grads, state, params, step, shards=None):
+        # ``step``: the step's number, or its ``scalars`` on the leaves'
+        # device (a captured step's buffer); each a 0-dim tensor there
+        per_device = {}
         consts: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
         def const(device, name, value):
@@ -81,6 +86,9 @@ def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
             v, p = state["v"][k], params[k]
             blk = None if shards is None else shards[k]
             dev = p.device
+            if dev not in per_device:
+                per_device[dev] = device_scalars(scalars, step, dev).unbind()
+            beta2, one_m, lr = per_device[dev]
             g32 = g.float()
             g2 = g32.square().add_(eps1)
             if _factored(p.shape):
@@ -97,11 +105,11 @@ def adafactor(schedule, eps1: float = 1e-30, eps2: float = 1e-3,
             u = g32 / _sqrt(vhat + eps1)
             rms_u = _sqrt(mean(u.square(), blocks=blk).add_(eps1))
             u = u / (rms_u / const(dev, "clip", clip_threshold)).clamp_min_(1.0)
-            scale = const(dev, "lr", lr)
+            scale = lr
             if multiply_by_parameter_scale:
                 p_rms = _sqrt(mean(p.float().square(), blocks=blk))
                 scale = scale * p_rms.clamp_min_(eps2)
             updates[k] = ((-scale) * u).to(p.dtype)
         return updates, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, scalars)

@@ -10,7 +10,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.optim.api import Optimizer
+from repro_torch.optim.api import Optimizer, device_scalars
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -32,33 +32,36 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"mu": {k: zeros(p) for k, p in params.items()},
                 "nu": {k: zeros(p) for k, p in params.items()}}
 
-    @torch.no_grad()
-    def update(grads, state, params, step: int, shards=None):
-        # elementwise: a mesh rank's blocks update as the whole leaves
-        # would, so ``shards`` (see ``optim.api``) is not read
+    def scalars(step: int) -> np.ndarray:
+        """The update's per-step numbers, on the host in f32 as the
+        reference computes them: -lr and the two bias corrections."""
         step1 = np.float32(step + 1)
         lr = float(schedule(step + 1))
-        # the bias corrections in f32, as the reference computes them
-        c1 = float(np.float32(1) - np.float32(b1) ** step1)
-        c2 = float(np.float32(1) - np.float32(b2) ** step1)
-        # ... and divided by truly, as the reference's mu / c1: PyTorch on the
-        # card multiplies by the reciprocal when the divisor is a Python
-        # number, so the divisors are 0-dim tensors on the leaves' device,
-        # made once an update
-        divisors = {}
+        return np.array([-lr, np.float32(1) - np.float32(b1) ** step1,
+                         np.float32(1) - np.float32(b2) ** step1], np.float32)
+
+    @torch.no_grad()
+    def update(grads, state, params, step, shards=None):
+        # elementwise: a mesh rank's blocks update as the whole leaves
+        # would, so ``shards`` (see ``optim.api``) is not read.  ``step``:
+        # the step's number, or its ``scalars`` on the leaves' device (a
+        # captured step's buffer).  The bias corrections are divided by
+        # truly, as the reference's mu / c1: PyTorch on the card multiplies
+        # by the reciprocal when the divisor is a Python number, so every
+        # per-step number is a 0-dim tensor on the leaves' device
+        per_device = {}
         updates = {}
         for k, g in grads.items():
             mu, nu, p = state["mu"][k], state["nu"][k], params[k]
-            if mu.device not in divisors:
-                divisors[mu.device] = [torch.full((), c, dtype=torch.float32, device=mu.device)
-                                       for c in (c1, c2)]
-            c1_t, c2_t = divisors[mu.device]
+            if mu.device not in per_device:
+                per_device[mu.device] = device_scalars(scalars, step, mu.device).unbind()
+            neg_lr, c1_t, c2_t = per_device[mu.device]
             g32 = g.float()
             mu.mul_(b1).add_(g32 * (1 - b1))
             nu.mul_(b2).add_(g32.square() * (1 - b2))
             denom = _sqrt(nu / c2_t).add_(eps)
-            u = (mu / c1_t).div_(denom).add_(p.float() * weight_decay).mul_(-lr)
+            u = (mu / c1_t).div_(denom).add_(p.float() * weight_decay).mul_(neg_lr)
             updates[k] = u.to(p.dtype)
         return updates, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, scalars)

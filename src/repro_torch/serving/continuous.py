@@ -117,6 +117,8 @@ fails raises.  The kernels' launch counters count replays
 (whose collectives a graph cannot hold) a form runs its body eagerly and
 is built at its first step, as the reference's jit compiles a shape at its
 first call.  ``graphs=False`` runs the eager forms on the card too.  The
+model drafter's forwards are a form of the drafter's own, captured on the
+engine's pool beside the steps (``speculative.model``).  The
 reference's census follows: :meth:`ContinuousEngine.compiled_variants`,
 the ``engine_compiled_variants`` gauge, ``engine_recompiles_total`` and the
 ``recompile`` instant past ``_expected_variants`` (2, 3 when speculating, 1
@@ -421,7 +423,8 @@ class ContinuousEngine:
     :class:`repro_torch.launch.mesh.Mesh` (made from ``serve.mesh`` and
     ``device`` when not given).  ``graphs`` (on a CUDA device without a mesh)
     captures the step forms (paged, or recurrent) as CUDA graphs here, before any clock
-    starts; ``graphs=False`` runs them eagerly.
+    starts, and the model drafter's forwards beside them; ``graphs=False`` runs them
+    eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig = ServeConfig(),
@@ -516,11 +519,6 @@ class ContinuousEngine:
                                    shard=self.mesh.coord["data"] if self.mesh else 0)
         self.scheduler = Scheduler(serve.max_slots, serve.max_len, self.cache,
                                    policy=serve.sched_policy, slo=serve.slo, obs=self.obs)
-        if self.spec is not None:
-            from repro_torch.serving.speculative import make_drafter
-
-            self.drafter = make_drafter(self.spec, cfg, serve, seed=seed,
-                                        draft_model=draft_model, device=self.device)
         # the documented census: {mixed, decode}, plus verify when speculating
         kinds = ("decode", "mixed") + (("verify",) if self.spec is not None else ())
         self._expected_variants = len(kinds)
@@ -528,6 +526,16 @@ class ContinuousEngine:
         self._graph_pool = None
         if graphs and self.device.type == "cuda" and self.mesh is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
+        if self.spec is not None:
+            from repro_torch.serving.speculative import make_drafter
+
+            self.drafter = make_drafter(self.spec, cfg, serve, seed=seed,
+                                        draft_model=draft_model, device=self.device)
+            # a drafter with a form of its own (the model drafter's forwards)
+            # is captured on the engine's pool; the census does not count it
+            if self._graph_pool is not None and hasattr(self.drafter, "capture"):
+                self.drafter.capture(self._graph_pool)
+        if self._graph_pool is not None:
             for kind in kinds:
                 self._form(kind)
 
@@ -571,9 +579,12 @@ class ContinuousEngine:
 
     @property
     def graph_pool_bytes(self) -> int:
-        """Device bytes the captured graphs' shared memory pool holds (0
-        where the forms run eagerly)."""
-        return sum(f.graph_bytes for f in self._forms.values()) if self.mode == "paged" else 0
+        """Device bytes the captured graphs' shared memory pool holds, the
+        model drafter's included (0 where the forms run eagerly)."""
+        if self.mode != "paged":
+            return 0
+        return (sum(f.graph_bytes for f in self._forms.values())
+                + getattr(self.drafter, "graph_bytes", 0))
 
     def _obs_step(self, kind: str, live_rows: int, total_rows: int) -> None:
         m = self.obs.metrics
@@ -779,7 +790,7 @@ class ContinuousEngine:
         form.stage()
         form.graph, form.out, form.launches, form.graph_bytes = capture(
             lambda: self._body(form), self.device, self._graph_pool,
-            f"the {form.kind} step ({form.N} rows)")
+            f"the {form.kind} step ({form.N} rows)")[:4]
 
     def _run(self, form: StepForm) -> dict:
         """One step of ``form`` over its staging buffer: the copy, then the

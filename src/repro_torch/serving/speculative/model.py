@@ -12,6 +12,17 @@ state.  The forwards run under ``torch.inference_mode`` with the plain
 attention path (the reference's drafter never sets ``use_flash``); in an
 MoE layer the dispatcher's expert FFN kernel runs over all
 ``max_slots * max_len`` rows.
+
+The reference jits the ``gamma`` forwards as one function; the port's are
+one static form (``serving.graphs.GraphForm``) over an input buffer of
+``(max_slots, max_len + 1)`` (each row's tokens, then its length), which
+``propose`` fills from a host staging buffer (pinned on the card) with one
+copy, and whose ``(max_slots, gamma)`` int32 proposals it reads once.
+:meth:`ModelDrafter.capture` captures the form as a CUDA graph (the
+continuous engine calls it on its graph pool when it captures its own
+steps); uncaptured, a proposal runs the forwards eagerly.  The engine's
+census of compiled variants counts its steps only, as the reference's
+counts its ``_step_fn`` and ``_verify_fn``.
 """
 from __future__ import annotations
 
@@ -22,8 +33,32 @@ import torch
 
 from repro_torch.core.context import MoEContext
 from repro_torch.models.registry import get_family
+from repro_torch.serving.graphs import GraphForm
 from repro_torch.serving.speculative import register_drafter
 from repro_torch.serving.speculative.base import DraftItem
+
+def _draft_fn(fam, cfg, params, gamma: int, W: int):
+    """The ``gamma`` greedy forwards (the reference's ``draft_fn``):
+    tokens (S, W) right-padded contexts, ctx_len (S,) valid lengths (0: an
+    idle row) -> (S, gamma) int32 greedy continuations."""
+    @torch.inference_mode()
+    def draft(tokens: torch.Tensor, ctx_len: torch.Tensor) -> torch.Tensor:
+        cols = torch.arange(W, device=tokens.device)[None, :]
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        outs = []
+        for i in range(gamma):
+            logits, _ = fam.forward(params, {"tokens": tokens}, cfg, ctx=MoEContext())
+            idx = (ctx_len + i - 1).clamp(0, W - 1)
+            nxt = logits[rows, idx].float().argmax(dim=-1)  # the first maximum
+            outs.append(nxt)
+            # append at the frontier; a column >= W matches nothing (budgets
+            # are clamped so accepted tokens always fit; the host slices off
+            # an over-long draft's tail)
+            tokens = torch.where(cols == (ctx_len + i)[:, None], nxt[:, None], tokens)
+        return torch.stack(outs, dim=1).to(torch.int32)
+
+    return draft
+
 
 @register_drafter
 class ModelDrafter:
@@ -67,35 +102,34 @@ class ModelDrafter:
         self.params = dparams
         self.device = dparams["embed"]["table"].device
         self.gamma = spec.gamma
-        self._S, self._W = serve.max_slots, W
+        S, self._W = serve.max_slots, W
+        self._host = torch.zeros((S, W + 1), dtype=torch.int64,
+                                 pin_memory=self.device.type == "cuda")
+        inputs = torch.zeros((S, W + 1), dtype=torch.int64, device=self.device)
+        # the body holds no reference to the drafter (a dropped engine frees
+        # its graphs without a collection)
+        self._draft = draft = _draft_fn(self.fam, dcfg, dparams, self.gamma, W)
+        self.form = GraphForm(lambda: draft(inputs[:, :W], inputs[:, W]),
+                              f"the model drafter's {self.gamma} forwards ({S} x {W})", inputs)
 
-    @torch.inference_mode()
-    def _draft(self, tokens: torch.Tensor, ctx_len: torch.Tensor) -> torch.Tensor:
-        """tokens (S, W) right-padded contexts, ctx_len (S,) valid lengths (0:
-        an idle row) -> (S, gamma) greedy continuations."""
-        W = self._W
-        cols = torch.arange(W, device=tokens.device)[None, :]
-        outs = []
-        for i in range(self.gamma):
-            logits, _ = self.fam.forward(self.params, {"tokens": tokens}, self.cfg,
-                                         ctx=MoEContext())
-            idx = (ctx_len + i - 1).clamp(0, W - 1)
-            lg = logits[torch.arange(tokens.shape[0], device=tokens.device), idx].float()
-            nxt = lg.argmax(dim=-1)                         # the first maximum
-            outs.append(nxt)
-            # append at the frontier; a column >= W matches nothing (budgets
-            # are clamped so accepted tokens always fit; the host slices off
-            # an over-long draft's tail)
-            tokens = torch.where(cols == (ctx_len + i)[:, None], nxt[:, None], tokens)
-        return torch.stack(outs, dim=1).to(torch.int32)
+    def capture(self, pool) -> None:
+        """Capture the drafter's form as a CUDA graph on ``pool`` (its
+        warm-up drafts from empty contexts)."""
+        self.form.capture(self.device, pool)
+
+    @property
+    def graph_bytes(self) -> int:
+        return self.form.graph_bytes
 
     def propose(self, items: List[DraftItem]) -> List[np.ndarray]:
-        S, W = self._S, self._W
-        host = np.zeros((S, W + 1), np.int64)       # the tokens, then the length
+        W = self._W
+        host = self._host.numpy()                   # the tokens, then the length
+        host.fill(0)
         for i, it in enumerate(items):
             c = np.asarray(it.context, np.int64).reshape(-1)[-W:]
             host[i, :c.size] = c
             host[i, W] = c.size
-        dev = torch.from_numpy(host).to(self.device)
-        out = self._draft(dev[:, :W], dev[:, W]).cpu().numpy()
+        # the read synchronizes: the next proposal's host writes come after
+        # this one's copy
+        out = self.form.run(self._host).cpu().numpy()
         return [out[i, :it.max_tokens].astype(np.int32) for i, it in enumerate(items)]
